@@ -1,0 +1,34 @@
+"""Device resolution shared by the port's entry points."""
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """``torch.device`` for ``device``; raises when CUDA is asked for and
+    no card is present (the port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path")
+    return dev
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device`` without a device sync: a CUDA
+    copy goes from pinned memory with ``non_blocking=True``."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
