@@ -6,13 +6,25 @@
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
 1. device   nvidia-smi name and power limit, torch and nvcc versions;
-2. build    nvcc build of every kernel source (sm_90a), with ptxas's
-            register / shared-memory / spill lines and the build seconds;
-3. kernel   fused_gate against its plain PyTorch version at B=8, C=128,
-            D=1152, bf16, blend on and off, half the samples gating: gate
-            bits exact, diff/prevsq within rtol 1e-4, out within 2e-2;
-            CUDA-event times of the kernel, the plain version and
-            torch.addmm of (B*C, D)x(D, D) in f32, beside the bound;
+2. build    nvcc build of every kernel source (sm_90a), one nvcc per source
+            all started together, with ptxas's register / shared-memory /
+            spill lines and the build seconds;
+3. kernel   each kernel against its plain PyTorch version, with the times
+            of the kernel, the plain version and one library call beside
+            the bound: ``*_ms`` CUDA events around back-to-back calls from
+            Python (the host's launch overhead included), ``*_device_ms``
+            the device time per call (torch.profiler's kernel durations),
+            L2-warm:
+            - fused_gate at B=8, C=128 (merge off) and C=64 (merge on),
+              D=1152, bf16, blend on and off, half the samples gating: gate
+              bits exact, diff/prevsq within rtol 1e-4, out within 2e-2;
+              library: torch.addmm of (B*C, D)x(D, D) in f32;
+            - knn_density, merge_assign and unmerge_scatter at the merged
+              slice's shapes (W=128 windows of w=16, D=1152, K=5, M=8, bf16
+              h, f32 scores): knn_density within rtol/atol 1e-4, centers and
+              assign exact, merged within 5e-2, unmerge bitwise; library:
+              torch.gather for unmerge_scatter, and torch.bmm of the f32
+              (W,w,D)x(W,D,w) Gram as a yardstick for the other two;
 4. syncs    an untimed warm-up serve (Workload.warm_up: two short requests
             on a fresh engine) under torch.cuda's sync-debug mode: the
             synchronizations it flags beside the code's own host_syncs count;
@@ -24,16 +36,26 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             timed with sync debug off; the kernels' launch counts are zeroed
             just before and read just after, and fused_gate must have
             launched 28 times per model step with a warm slot;
-6. static   the same input for 6 steps through CachedDiT.step: cache ratio
+6. syncs_merge / serve_merge   the same Workload with token merging on
+            (merge_ratio 0.5, window 16), warmed up under sync debug and
+            then timed with it off: the syncs per model step must equal the
+            merge-off warm-up's; knn_density and merge_assign must have
+            launched once per model step, unmerge_scatter once more per
+            mixed step, fused_gate 28 times per warm or mixed step, and the
+            kept-token share must be exactly 0.5;
+7. static   the same input for 6 steps through CachedDiT.step: cache ratio
             must exceed 0.4 (the gated branch firing at full width);
-7. quality  relative L2 of fastcache eps against nocache eps on the same
-            inputs for 6 DDIM steps.
+8. quality  relative L2 of fastcache eps, and of fastcache + merge eps,
+            against nocache eps (merge off) on the same inputs for 6 DDIM
+            steps.
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no CUDA card is present or any phase fails.
 """
 import collections
+import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,7 +70,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
-KERNEL_SOURCES = ("fused_gate",)      # csrc/<name>.cu
+BF16_TC_FLOPS_PER_S = 989e12       # H100 SXM, dense bf16 tensor cores
+KERNEL_SOURCES = ("fused_gate", "knn_density", "token_merge")  # csrc/*.cu
+MERGE_RATIO = 0.5                  # the merged serve's kept-token share
+# the merged slice's window shapes: DiT-XL/2 with 4 slots has 8 CFG rows of
+# 256 tokens of width 1152, in windows of 16 with K=5 and M=8 kept
+MERGE_W, MERGE_WIN, MERGE_D, MERGE_K, MERGE_M = 128, 16, 1152, 5, 8
 
 
 def emit(obj) -> None:
@@ -81,17 +108,56 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call: the summed durations of the kernels and copies
+    that ``iters`` calls ran, from torch.profiler, over ``iters``.  Unlike
+    ``cuda_ms`` it leaves out the host's launch overhead, which the eager
+    timing measures instead wherever it exceeds the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / iters / 1e3
+
+
+def timed(torch, prefix: str, fn) -> dict:
+    """``{prefix}_ms``: CUDA events around back-to-back calls from Python,
+    host overhead included; ``{prefix}_device_ms``: device time per call."""
+    return {f"{prefix}_ms": cuda_ms(torch, fn),
+            f"{prefix}_device_ms": device_ms(torch, fn)}
+
+
+def bound(nbytes: float, t_ops_s: float):
+    """(bound_ms, bound_by) from the bytes moved and the operations' time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops_s) * 1e3,
+            "operations" if t_ops_s >= t_bytes else "bytes")
+
+
 def phase_build(build):
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = dict(zip(KERNEL_SOURCES,
+                        pool.map(build.load_library, KERNEL_SOURCES)))
+    wall = time.perf_counter() - t0
     for name in KERNEL_SOURCES:
-        lib = build.load_library(name)
         emit({"phase": "build", "source": f"src/repro_torch/csrc/{name}.cu",
-              "seconds": round(lib.seconds, 3),
-              "ptxas": build.ptxas_lines(lib.log)})
+              "seconds": round(libs[name].seconds, 3),
+              "ptxas": build.ptxas_lines(libs[name].log)})
+    emit({"phase": "build_all", "sources": len(KERNEL_SOURCES),
+          "wall_s": round(wall, 3)})
 
 
-def phase_kernel(torch, dev, fused_gate, ref, statcache):
+def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c):
     gen = torch.Generator(dev).manual_seed(0)
-    b, c, d = 8, 128, 1152
+    b, d = 8, 1152
     bf16, f32 = torch.bfloat16, torch.float32
 
     def randn(*shape, scale=1.0):
@@ -128,16 +194,16 @@ def phase_kernel(torch, dev, fused_gate, ref, statcache):
                                    rtol=2e-2, atol=2e-2)
         err = float((got[0].float() - want[0].float()).abs().max())
         worst = max(worst, err)
-        kernel_ms = cuda_ms(torch, lambda: fused_gate(*args, **kw))
-        plain_ms = cuda_ms(torch, lambda: ref.fused_gate(*args, **kw))
-        out[use_blend] = (kernel_ms, plain_ms)
+        out[use_blend] = {
+            **timed(torch, "kernel", lambda: fused_gate(*args, **kw)),
+            **timed(torch, "plain", lambda: ref.fused_gate(*args, **kw))}
         emit({"phase": "kernel", "name": "fused_gate", "shape": [b, c, d],
               "dtype": "bfloat16", "use_blend": use_blend,
               "gated": int(got[1].sum()), "max_abs_err": err,
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms})
+              **out[use_blend]})
 
     xm = x.reshape(b * c, d).float()
-    addmm_ms = cuda_ms(torch, lambda: torch.addmm(bias, xm, w))
+    lib = timed(torch, "library", lambda: torch.addmm(bias, xm, w))
     # bytes: x, prev_in, prev_out read and out written once each in bf16,
     # W and bias in f32, the (B,) vectors; operations: the two norms over
     # x/prev (5 per element) and, for the samples gated in this run, the
@@ -145,27 +211,119 @@ def phase_kernel(torch, dev, fused_gate, ref, statcache):
     n_gated = b // 2
     nbytes = 4 * b * c * d * 2 + d * d * 4 + d * 4 + b * (4 + 1 + 1 + 4 + 4)
     ops = 5 * b * c * d + n_gated * (2 * c * d * d + 4 * c * d)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    kernel_ms, plain_ms = out[True]
-    emit({"phase": "kernel_summary", "name": "fused_gate",
-          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "addmm_f32_ms": addmm_ms, "bound_ms": bound_ms,
-          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-          "bytes": nbytes, "operations": ops})
-    return {"name": "fused_gate", "route": "cuda",
-            "source": "src/repro_torch/csrc/fused_gate.cu",
-            "replaces": "src/repro/kernels/fused_gate.py:80",
-            "max_abs_err": worst, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": addmm_ms,
-            "library_call": "torch.addmm (B*C,D)x(D,D) f32: the GEMM alone"}
+    bound_ms, bound_by = bound(nbytes, ops / F32_FLOPS_PER_S)
+    row = {"name": "fused_gate", "route": "cuda",
+           "source": "src/repro_torch/csrc/fused_gate.cu",
+           "replaces": "src/repro/kernels/fused_gate.py:80",
+           "shape": [b, c, d], "dtype": "bfloat16", "max_abs_err": worst,
+           "ms": out[True]["kernel_ms"], **out[True], **lib,
+           "library_call": "torch.addmm (B*C,D)x(D,D) f32: the GEMM alone",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "operations": ops}
+    emit({"phase": "kernel_summary", **row})
+    return row
 
 
-def phase_syncs(torch, wl, model):
+def phase_token_merge(torch, dev, k):
+    """knn_density, merge_assign and unmerge_scatter against their plain
+    versions at the merged slice's shapes; one kernels-line row each."""
+    nw, w, d, kk, m = MERGE_W, MERGE_WIN, MERGE_D, MERGE_K, MERGE_M
+    gen = torch.Generator(dev).manual_seed(3)
+    h = torch.randn((nw, w, d), generator=gen, device=dev).to(torch.bfloat16)
+    s = torch.rand((nw, w), generator=gen, device=dev)
+    s = s / s.amax(dim=-1, keepdim=True)
+    esize = h.element_size()
+    hf = h.float()
+    hft = hf.transpose(1, 2).contiguous()
+    bmm = timed(torch, "library", lambda: torch.bmm(hf, hft))
+    yardstick = "torch.bmm (W,w,D)x(W,D,w) f32: the Gram alone, a yardstick"
+    common = {"route": "cuda", "shape": [nw, w, d], "dtype": "bfloat16"}
+    rows = []
+
+    # ---- B2 knn_density
+    got = k.knn_density(h, k=kk)
+    torch.cuda.synchronize()
+    want = k.ref.knn_density(h, kk)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    gram_ops = 2 * nw * w * w * d
+    nbytes = nw * w * d * esize + nw * w * 4
+    ops_s = (gram_ops / BF16_TC_FLOPS_PER_S
+             + nw * w * w * (4 + 2 * kk) / F32_FLOPS_PER_S)
+    rows.append(dict(
+        common, name="knn_density",
+        source="src/repro_torch/csrc/knn_density.cu",
+        replaces="src/repro/kernels/knn_density.py:41", k=kk,
+        max_abs_err=float((got - want).abs().max()),
+        **timed(torch, "kernel", lambda: k.knn_density(h, k=kk)),
+        **timed(torch, "plain", lambda: k.ref.knn_density(h, kk)),
+        **bmm, library_call=yardstick, bytes=nbytes,
+        operations=gram_ops + nw * w * w * (4 + 2 * kk)))
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(nbytes, ops_s)
+
+    # ---- B3 merge_assign
+    merged, assign, centers = k.merge_assign(h, s, m=m)
+    torch.cuda.synchronize()
+    w_merged, w_assign, w_centers = k.ref.merge_assign(h, s, m)
+    if not torch.equal(centers, w_centers):
+        raise AssertionError("merge_assign: centers differ in "
+                             f"{int((centers != w_centers).sum())} places")
+    if not torch.equal(assign, w_assign):
+        d2 = torch.cdist(hf, torch.gather(
+            hf, 1, w_centers.long()[..., None].expand(-1, -1, d))).square()
+        top2 = d2.topk(2, dim=-1, largest=False).values
+        gap = (top2[..., 1] - top2[..., 0])[assign != w_assign]
+        raise AssertionError(f"merge_assign: assign differs at "
+                             f"{int((assign != w_assign).sum())} tokens; "
+                             f"their two smallest d2 differ by {gap.tolist()}")
+    torch.testing.assert_close(merged.float(), w_merged.float(), rtol=5e-2,
+                               atol=5e-2)
+    dist_ops = 2 * nw * w * m * d + 2 * nw * w * d      # h.c and |h|^2
+    mean_ops = 2 * nw * w * d + nw * m * d              # sums and division
+    nbytes = (nw * w * d * esize + nw * w * 4 + nw * m * d * esize
+              + nw * w * 4 + nw * m * 4)
+    ops_s = (dist_ops / BF16_TC_FLOPS_PER_S + mean_ops / F32_FLOPS_PER_S
+             + nw * (m * w + w * m * 4) / F32_FLOPS_PER_S)
+    rows.append(dict(
+        common, name="merge_assign",
+        source="src/repro_torch/csrc/token_merge.cu",
+        replaces="src/repro/kernels/token_merge.py:80", m=m,
+        max_abs_err=float((merged.float() - w_merged.float()).abs().max()),
+        **timed(torch, "kernel", lambda: k.merge_assign(h, s, m=m)),
+        **timed(torch, "plain", lambda: k.ref.merge_assign(h, s, m)),
+        **bmm, library_call=yardstick, bytes=nbytes,
+        operations=dist_ops + mean_ops + nw * (m * w + w * m * 4)))
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(nbytes, ops_s)
+
+    # ---- B4 unmerge_scatter, on merge_assign's own outputs
+    got = k.unmerge_scatter(merged, assign)
+    torch.cuda.synchronize()
+    want = k.ref.unmerge_scatter(merged, assign)
+    if not torch.equal(got, want):
+        raise AssertionError("unmerge_scatter is not bitwise")
+    idx = assign.long()[..., None].expand(-1, -1, d)
+    nbytes = nw * m * d * esize + nw * w * 4 + nw * w * d * esize
+    rows.append(dict(
+        common, name="unmerge_scatter",
+        source="src/repro_torch/csrc/token_merge.cu",
+        replaces="src/repro/kernels/token_merge.py:116", m=m,
+        max_abs_err=0.0,
+        **timed(torch, "kernel", lambda: k.unmerge_scatter(merged, assign)),
+        **timed(torch, "plain", lambda: k.ref.unmerge_scatter(merged,
+                                                             assign)),
+        **timed(torch, "library", lambda: torch.gather(merged, 1, idx)),
+        library_call="torch.gather along the window axis", bytes=nbytes,
+        operations=0))
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(nbytes, 0.0)
+    for row in rows:
+        row["ms"] = row["kernel_ms"]
+        emit({"phase": "kernel", **row})
+    return rows
+
+
+def phase_syncs(torch, wl, model, label="syncs"):
     """Warm-up serve under sync debug: every synchronization it flags, by
-    source line, beside the syncs the code counts."""
+    source line, beside the syncs the code counts.  Returns both per model
+    step."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -174,27 +332,40 @@ def phase_syncs(torch, wl, model):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    flags = [w for w in caught if "synchroniz" in str(w.message)]
     sources = collections.Counter(
-        f"{Path(w.filename).name}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
-    emit({"phase": "syncs", "model_steps": eng.model_steps,
+        f"{Path(w.filename).name}:{w.lineno}" for w in flags)
+    # syncs flagged in the port's own code (torch's lazy first-use
+    # initialisation can flag one more in the process's first serve)
+    in_port = sum(1 for w in flags
+                  if Path(w.filename).resolve().is_relative_to(ROOT / "src"))
+    counted = runner.impl.host_syncs + eng.host_syncs
+    steps = eng.model_steps
+    emit({"phase": label, "model_steps": steps,
           "step_kinds": dict(runner.impl.step_kinds),
-          "counted": runner.impl.host_syncs + eng.host_syncs,
-          "flagged": sum(sources.values()),
+          "counted": counted, "flagged": len(flags),
+          "flagged_in_port": in_port,
+          "counted_per_model_step": counted / steps,
+          "flagged_in_port_per_model_step": in_port / steps,
           "sources": dict(sources.most_common())})
+    return counted / steps, in_port / steps
 
 
-def phase_serve(torch, dev, wl, model, m):
+def phase_serve(torch, dev, wl, model, m, label="serve"):
+    """Serve ``wl`` on a fresh engine, timed; every kernel's launch count is
+    zeroed just before and read just after.  Returns the counts by name."""
     runner, eng = wl.build_engine(model)
     trace = wl.build_trace(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    m.fused_gate.launches = 0                      # the main path starts here
+    for fn in m.kernels.values():                  # the path starts here
+        fn.launches = 0
     t0 = time.perf_counter()
     done = eng.run(trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = m.fused_gate.launches               # ... and ends here
+    launches = {name: fn.launches                  # ... and ends here
+                for name, fn in m.kernels.items()}
     kinds = dict(runner.impl.step_kinds)
     warm_steps = kinds["warm"] + kinds["mixed"]
     if len(done) != len(trace):
@@ -203,19 +374,42 @@ def phase_serve(torch, dev, wl, model, m):
         if r.latents.shape != latent_shape(model) or not np.isfinite(r.latents).all():
             raise AssertionError(f"rid={r.rid}: latents {r.latents.shape} "
                                  "not finite")
-    if launches <= 0 or launches != runner.L * warm_steps:
-        raise AssertionError(f"fused_gate launches {launches} != "
+    gate = launches["fused_gate"]
+    if gate <= 0 or gate != runner.L * warm_steps:
+        raise AssertionError(f"fused_gate launches {gate} != "
                              f"{runner.L} x {warm_steps} warm model steps")
     stats = eng.cache_stats()
+    merge = {}
+    if runner.reducer is None:
+        if any(launches[n] for n in launches if n != "fused_gate"):
+            raise AssertionError(f"merge kernels ran with merge off: "
+                                 f"{launches}")
+    else:
+        want = {"knn_density": eng.model_steps,
+                "merge_assign": eng.model_steps,
+                "unmerge_scatter": eng.model_steps + kinds["mixed"]}
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{name} launches {launches[name]} != "
+                                     f"{n} ({kinds}, {eng.model_steps} "
+                                     "model steps)")
+        kept = stats["tokens_kept"] / (stats["tokens_kept"]
+                                       + stats["tokens_merged"])
+        if kept != wl.merge_ratio:
+            raise AssertionError(f"kept-token share {kept} != "
+                                 f"{wl.merge_ratio}")
+        merge = {"kept_token_share": kept,
+                 "reduced_tokens": runner.reducer.reduced_tokens}
     lats = [r.latency_steps for r in done]
-    emit({"phase": "serve", "arch": model.cfg.name, "slots": wl.slots,
+    emit({"phase": label, "arch": model.cfg.name, "slots": wl.slots,
+          "merge_ratio": wl.merge_ratio, "merge_window": wl.merge_window,
           "requests": len(done), "engine_steps": eng.clock,
           "model_steps": eng.model_steps, "step_kinds": kinds,
           "wall_s": wall, "engine_steps_per_s": eng.clock / wall,
           "latency_steps_p50": m.percentile(lats, 50),
           "latency_steps_p95": m.percentile(lats, 95),
           "block_cache_ratio": stats["block_cache_ratio"],
-          "fused_gate_launches": launches,
+          "launches": launches, **merge,
           "policy_host_syncs": runner.impl.host_syncs,
           "engine_host_syncs": eng.host_syncs,
           "host_syncs_per_model_step": (runner.impl.host_syncs
@@ -245,28 +439,40 @@ def phase_static(torch, dev, model, m):
 
 
 def phase_quality(torch, dev, model, m):
+    fc_merge = m.FastCacheConfig(merge_enabled=True, merge_ratio=MERGE_RATIO)
     nc = m.CachedDiT(model, m.FastCacheConfig(), policy="nocache")
     fc = m.CachedDiT(model, m.FastCacheConfig(), policy="fastcache")
+    fm = m.CachedDiT(model, fc_merge, policy="fastcache")
     b = 8
     gen = torch.Generator(dev).manual_seed(2)
     x = torch.randn((b,) + latent_shape(model), generator=gen, device=dev)
     labels = torch.arange(b, device=dev) * 7
     sched = m.linear_schedule(1000, device=dev)
     ts = m.ddim_timesteps(1000, 50, device=dev)
-    s_nc, s_fc = nc.init_state(b), fc.init_state(b)
-    rel = []
+    s_nc, s_fc, s_fm = nc.init_state(b), fc.init_state(b), fm.init_state(b)
+    rel, rel_merge = [], []
+
+    def rel_l2(a, ref_eps):
+        return float((a.float() - ref_eps.float()).norm()
+                     / ref_eps.float().norm())
+
     for i in range(6):
         t = ts[i].expand(b)
         eps_nc, s_nc = nc.step(s_nc, x, t, labels)
         eps_fc, s_fc = fc.step(s_fc, x, t, labels)
-        rel.append(float((eps_fc.float() - eps_nc.float()).norm()
-                         / eps_nc.float().norm()))
+        eps_fm, s_fm = fm.step(s_fm, x, t, labels)
+        rel.append(rel_l2(eps_fc, eps_nc))
+        rel_merge.append(rel_l2(eps_fm, eps_nc))
         x = m.ddim_step(sched, x, eps_nc, t, ts[i + 1].expand(b))
-    if not all(r == r for r in rel):
-        raise AssertionError(f"quality: NaN relative error {rel}")
+    if not all(r == r for r in rel + rel_merge):
+        raise AssertionError(f"quality: NaN relative error {rel} "
+                             f"{rel_merge}")
     emit({"phase": "quality", "steps": 6, "rel_l2_eps_fastcache_vs_nocache":
           rel, "block_cache_ratio":
-          m.summarize_stats(s_fc)["block_cache_ratio"]})
+          m.summarize_stats(s_fc)["block_cache_ratio"],
+          "rel_l2_eps_fastcache_merge_vs_nocache": rel_merge,
+          "block_cache_ratio_merge":
+          m.summarize_stats(s_fm)["block_cache_ratio"]})
 
 
 def main() -> int:
@@ -284,6 +490,9 @@ def main() -> int:
                                                 linear_schedule)
     from repro_torch.cuda_kernels import build, ref
     from repro_torch.cuda_kernels.fused_gate import fused_gate
+    from repro_torch.cuda_kernels.knn_density import knn_density
+    from repro_torch.cuda_kernels.token_merge import (merge_assign,
+                                                      unmerge_scatter)
     from repro_torch.launch.serve_diffusion import Workload
     from repro_torch.serving.scheduler import percentile
 
@@ -307,14 +516,23 @@ def main() -> int:
 
     phase_build(build)
     dev = torch.device("cuda")
-    kernel_row = phase_kernel(torch, dev, fused_gate, ref, statcache)
+    gate_row = phase_fused_gate(torch, dev, fused_gate, ref, statcache, 128)
+    phase_fused_gate(torch, dev, fused_gate, ref, statcache, 64)
+    k = SimpleNamespace(ref=ref, knn_density=knn_density,
+                        merge_assign=merge_assign,
+                        unmerge_scatter=unmerge_scatter)
+    merge_rows = phase_token_merge(torch, dev, k)
 
     m = SimpleNamespace(
         CachedDiT=CachedDiT, FastCacheConfig=FastCacheConfig,
-        percentile=percentile, fused_gate=fused_gate,
-        summarize_stats=summarize_stats, linear_schedule=linear_schedule,
-        ddim_timesteps=ddim_timesteps, ddim_step=ddim_step)
+        percentile=percentile, summarize_stats=summarize_stats,
+        linear_schedule=linear_schedule, ddim_timesteps=ddim_timesteps,
+        ddim_step=ddim_step,
+        kernels={"fused_gate": fused_gate, "knn_density": knn_density,
+                 "merge_assign": merge_assign,
+                 "unmerge_scatter": unmerge_scatter})
     wl = Workload()
+    wl_merge = dataclasses.replace(wl, merge_ratio=MERGE_RATIO)
     t0 = time.perf_counter()
     model = wl.build_model(dev)
     torch.cuda.synchronize()
@@ -322,12 +540,28 @@ def main() -> int:
           "params": sum(p.numel() for p in model.parameters()),
           "dtype": str(model.dtype), "init_s": time.perf_counter() - t0})
 
-    phase_syncs(torch, wl, model)
-    kernel_row["launches"] = phase_serve(torch, dev, wl, model, m)
+    syncs_off = phase_syncs(torch, wl, model)
+    launches = phase_serve(torch, dev, wl, model, m)
+    syncs_on = phase_syncs(torch, wl_merge, model, label="syncs_merge")
+    if syncs_on != syncs_off:
+        raise AssertionError(f"syncs per model step (counted, flagged in "
+                             f"the port): "
+                             f"{syncs_on} with merge on, {syncs_off} off")
+    launches_merge = phase_serve(torch, dev, wl_merge, model, m,
+                                 label="serve_merge")
     phase_static(torch, dev, model, m)
     phase_quality(torch, dev, model, m)
 
-    emit({"kernels": [kernel_row]})
+    # launches: each kernel on its own main path (fused_gate: the merge-off
+    # serve; the merge kernels: the merged serve); both serves' counts too
+    gate_row["launches"] = launches["fused_gate"]
+    for row in merge_rows:
+        row["launches"] = launches_merge[row["name"]]
+    rows = [gate_row] + merge_rows
+    for row in rows:
+        row["serve_launches"] = {"serve": launches[row["name"]],
+                                 "serve_merge": launches_merge[row["name"]]}
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

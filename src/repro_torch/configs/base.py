@@ -51,6 +51,12 @@ class FastCacheConfig:
     # MB — motion-aware blending
     blend_gamma: float = 0.5
     background_momentum: float = 0.7
+    # CTM — token merging
+    merge_enabled: bool = False
+    merge_window: int = 16
+    merge_ratio: float = 0.5         # kept-token fraction per window
+    knn_k: int = 5
+    merge_lambda: float = 1.0        # lambda in Eq. 12
     # module toggles for ablations
     use_str: bool = True
     use_sc: bool = True

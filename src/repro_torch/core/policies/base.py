@@ -11,15 +11,21 @@ full contract).  The port's protocol:
   stats(state)                  host-side summary (``summarize_stats``)
 
 ``state["stats"]`` holds per-sample (B,) f32 counters ``blocks_computed /
-blocks_skipped / steps_reused / motion_frac_sum`` plus the scalar ``steps``.
+blocks_skipped / steps_reused / motion_frac_sum`` plus the scalar ``steps``;
+with token compression on (a ``token_reducer`` handed in), also the (B,)
+``tokens_kept / tokens_merged``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple, Type
+from typing import (TYPE_CHECKING, Callable, Dict, Optional, Sequence,
+                    Tuple, Type)
 
 import torch
 
 from repro_torch.models.dit import DiTModel
+
+if TYPE_CHECKING:
+    from repro_torch.core.token_reduce import TokenReducer
 
 F32 = torch.float32
 
@@ -58,12 +64,19 @@ class CachePolicy:
 
     name: str = ""
 
-    def __init__(self, model: DiTModel, fc, fc_params):
+    def __init__(self, model: DiTModel, fc, fc_params, *,
+                 token_reducer: Optional["TokenReducer"] = None):
         self.model = model
         self.fc = fc
         self.fc_params = fc_params
         self.L = model.cfg.num_layers
-        self.n_tokens = model.num_tokens
+        # token-compression stage (core/token_reduce.py): with a reducer the
+        # policy's whole transformer path runs on the statically reduced
+        # grid — token-axis buffers are sized by ``self.n_tokens`` — and
+        # ``_eps`` unmerges back to full resolution
+        self.reducer = token_reducer
+        self.n_tokens = (token_reducer.reduced_tokens
+                         if token_reducer is not None else model.num_tokens)
         self.device = model.device
         # host syncs this policy forced (one per `.item()`-like read)
         self.host_syncs = 0
@@ -83,10 +96,17 @@ class CachePolicy:
         return summarize_stats(state)
 
     def init_stats(self, batch: int) -> Dict[str, torch.Tensor]:
+        """The per-sample (B,) counters every policy carries (the engine
+        accumulates every (B,) key per request), plus the token counters
+        when a reducer is on."""
         z = lambda: torch.zeros((batch,), dtype=F32, device=self.device)
-        return {"blocks_computed": z(), "blocks_skipped": z(),
-                "steps_reused": z(), "motion_frac_sum": z(),
-                "steps": torch.zeros((), dtype=F32, device=self.device)}
+        out = {"blocks_computed": z(), "blocks_skipped": z(),
+               "steps_reused": z(), "motion_frac_sum": z(),
+               "steps": torch.zeros((), dtype=F32, device=self.device)}
+        if self.reducer is not None:
+            out["tokens_kept"] = z()
+            out["tokens_merged"] = z()
+        return out
 
     def _full_forward(self, x: torch.Tensor, c: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,6 +120,12 @@ class CachePolicy:
 
     def _eps(self, hidden_final: torch.Tensor, c: torch.Tensor
              ) -> torch.Tensor:
+        # a reduced-grid hidden is unmerged through this step's assignment
+        # before the final layer; a full-resolution one passes through —
+        # the dispatch is on the static token count
+        if (self.reducer is not None
+                and hidden_final.shape[-2] != self.model.num_tokens):
+            hidden_final = self.reducer.unmerge(hidden_final)
         return self.model.eps_from_hidden(hidden_final, c)
 
 

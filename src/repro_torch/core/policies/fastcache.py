@@ -30,6 +30,7 @@ from repro_torch.cuda_kernels.fused_gate import fused_gate
 class FastCache(CachePolicy):
     def __init__(self, model, fc, fc_params, **kw):
         super().__init__(model, fc, fc_params, **kw)
+        # n_tokens is the reduced grid when token compression is on
         self.capacity = max(1, int(round(fc.motion_capacity * self.n_tokens)))
         # model steps by branch taken
         self.step_kinds = {"cold": 0, "mixed": 0, "warm": 0}
@@ -173,7 +174,9 @@ class FastCache(CachePolicy):
     def _mixed_step(self, state, x_in, c):
         """Mixed warm/cold batch (a request admitted mid-flight): cold
         samples take a full forward, warm samples the gated path; results
-        and state are selected per sample."""
+        and state are selected per sample.  With token compression on both
+        run on the reduced grid and both ``_eps`` calls unmerge with this
+        step's assignment."""
         warm = state["have_cache"]
         x_out, inputs = self._full_forward(x_in, c)
         hidden = torch.cat([inputs, x_out[None]], dim=0)

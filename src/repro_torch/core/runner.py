@@ -9,8 +9,11 @@
   stats(state)                -> policy.stats
 
 Gating is per sample: one moving sample never invalidates its batchmates'
-caches, which the serving engine's solo-replay contract rests on.  Token
-merging and the audit plane are not ported yet.
+caches, which the serving engine's solo-replay contract rests on.
+
+Token compression (``core/token_reduce.py``) runs between ``tokens_in`` and
+the policy when ``fc.merge_enabled`` asks for it: the policy sees the reduced grid and unmerges inside ``_eps``.  The
+audit plane is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core import linear_approx
 from repro_torch.core import policies as _policies  # noqa: F401 (registers)
 from repro_torch.core.policies.base import get_policy_class
+from repro_torch.core.token_reduce import STATE_KEY as TOKRED_KEY
+from repro_torch.core.token_reduce import TokenReducer
 from repro_torch.models.dit import DiTModel
 
 
@@ -43,15 +48,30 @@ class CachedDiT:
         self.L = model.cfg.num_layers
         self.fc_params = fc_params or linear_approx.init_linear_params(
             self.L, model.cfg.d_model, model.device)
-        self.impl = cls(model, fc, self.fc_params)
+        # a ratio whose static M fills the window leaves the reducer inert
+        # and it is dropped, so r=1.0 runs exactly the merge-off step
+        self.reducer: Optional[TokenReducer] = None
+        if fc.merge_enabled:
+            red = TokenReducer(model, fc)
+            if red.active:
+                self.reducer = red
+        self.impl = cls(model, fc, self.fc_params, token_reducer=self.reducer)
 
     def init_state(self, batch: int) -> Dict:
-        return self.impl.init_state(batch)
+        """The policy's state for ``batch`` samples; with token compression
+        on, the reducer's per-sample rows ride it under ``tokred``."""
+        state = self.impl.init_state(batch)
+        if self.reducer is not None:
+            state[TOKRED_KEY] = self.reducer.init_rows(batch)
+        return state
 
     def reset_slot(self, state: Dict, rows: Sequence[int]) -> Dict:
         """Re-arm the given sample rows (e.g. a slot's CFG cond/uncond pair)
         for a new request, in place, without disturbing batchmates."""
-        return self.impl.reset_rows(state, rows)
+        state = self.impl.reset_rows(state, rows)
+        if self.reducer is not None:
+            self.reducer.reset_rows(state[TOKRED_KEY], rows)
+        return state
 
     @torch.no_grad()
     def step(self, state: Dict, latents: torch.Tensor, t: torch.Tensor,
@@ -60,9 +80,21 @@ class CachedDiT:
         ``labels`` are (B,).  Returns (eps, new_state)."""
         x_in = self.model.tokens_in(latents)
         c = self.model.conditioning(t, labels)
-        eps, state = self.impl.step(state, x_in, c)
+        if self.reducer is not None:
+            x_in, tokred = self.reducer.reduce(x_in, state[TOKRED_KEY])
+            state = {**state, TOKRED_KEY: tokred}
+        try:
+            eps, state = self.impl.step(state, x_in, c)
+        finally:
+            if self.reducer is not None:
+                self.reducer._mm = None      # the MergeMap is per step only
         stats = dict(state["stats"])
         stats["steps"] = stats["steps"] + 1.0
+        if self.reducer is not None:
+            kept = float(self.reducer.reduced_tokens)
+            stats["tokens_kept"] = stats["tokens_kept"] + kept
+            stats["tokens_merged"] = (stats["tokens_merged"]
+                                      + (self.model.num_tokens - kept))
         return eps, {**state, "stats": stats}
 
     def stats(self, state: Dict) -> Dict[str, float]:

@@ -4,8 +4,9 @@ use, and load them with ``ctypes``.
 Each ``csrc/<name>.cu`` exports ``extern "C"`` launchers and includes no
 PyTorch header, so ``nvcc`` builds it in seconds.  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing here runs at import.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  Nothing here
+runs at import.
 """
 from __future__ import annotations
 
@@ -50,7 +51,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 

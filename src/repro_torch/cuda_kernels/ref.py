@@ -33,3 +33,66 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
         approx = gamma * approx + (1.0 - gamma) * prev_out.to(F32)
     out = torch.where(gate[:, None, None], approx, xf)
     return out.to(x.dtype), gate, diff, prevsq
+
+
+def check_knn_k(k: int, w: int) -> None:
+    """A window of ``w`` tokens has ``w - 1`` neighbours: every knn-density
+    path raises this same error for ``k`` outside [1, w-1]."""
+    if not 1 <= k <= w - 1:
+        raise ValueError(f"knn_density k={k} out of range for window "
+                         f"w={w}; need 1 <= k <= w-1 = {w - 1}")
+
+
+def check_merge_m(m: int, w: int) -> None:
+    if not 1 <= m <= w:
+        raise ValueError(f"merge_assign m={m} out of range for window "
+                         f"w={w}; need 1 <= m <= w")
+
+
+def knn_density(h: torch.Tensor, k: int) -> torch.Tensor:
+    """h: (W, w, D) windowed tokens -> rho_sp (W, w) (Eq. 10)."""
+    w = h.shape[-2]
+    check_knn_k(k, w)
+    hf = h.to(F32)
+    sq = (hf * hf).sum(dim=-1)
+    dist = (sq[..., :, None] + sq[..., None, :]
+            - 2.0 * torch.einsum("wid,wjd->wij", hf, hf))
+    dist = dist.clamp(min=0.0)
+    eye = torch.eye(w, dtype=torch.bool, device=h.device)
+    dist = torch.where(eye, torch.inf, dist)
+    smallest = torch.sort(dist, dim=-1).values[..., :k]      # k smallest
+    return torch.exp(-smallest.mean(dim=-1) / h.shape[-1])
+
+
+def merge_assign(h: torch.Tensor, s: torch.Tensor, m: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ground truth of the merge kernel (Eqs. 12-13, Alg. 2; one window per
+    leading row).  h: (W, w, D) tokens, s: (W, w) per-window-normalized
+    importance -> (merged (W, M, D) importance-weighted cluster means,
+    assign (W, w) int32 nearest-center ids, centers (W, M) int32
+    window-local center indices in ``lax.top_k`` order)."""
+    check_merge_m(m, h.shape[1])
+    # lax.top_k order: descending, ties to the lower index
+    centers = torch.sort(s, dim=-1, descending=True, stable=True
+                         ).indices[:, :m]                    # (W, M)
+    d = h.shape[-1]
+    ch = torch.gather(h, 1, centers[..., None].expand(-1, -1, d))
+    hf, cf = h.to(F32), ch.to(F32)
+    d2 = ((hf * hf).sum(dim=-1)[..., :, None]
+          + (cf * cf).sum(dim=-1)[..., None, :]
+          - 2.0 * torch.einsum("wid,wjd->wij", hf, cf))      # (W, w, M)
+    assign = torch.argmin(d2, dim=-1)                        # first minimum
+    onehot = torch.nn.functional.one_hot(assign, m).to(F32)  # (W, w, M)
+    wgt = onehot * s.to(F32)[..., None]
+    num = torch.einsum("wim,wid->wmd", wgt, hf)
+    den = wgt.sum(dim=1).clamp(min=1e-9)                     # (W, M)
+    merged = (num / den[..., None]).to(h.dtype)
+    return merged, assign.to(torch.int32), centers.to(torch.int32)
+
+
+def unmerge_scatter(merged: torch.Tensor, assign: torch.Tensor
+                    ) -> torch.Tensor:
+    """merged: (W, M, D), assign: (W, w) int32 -> (W, w, D): exact gather of
+    each token's cluster representative."""
+    idx = assign.to(torch.int64)[..., None].expand(-1, -1, merged.shape[-1])
+    return torch.gather(merged, 1, idx)

@@ -4,12 +4,12 @@
         --arch dit-xl2 --warmup 20 --window 10 --out build/profile_serve.json
 
 Serves ``launch.serve_diffusion.Workload`` (the serve ``chip_smoke.py``
-measures) for ``--arch`` and ``--policy``, lets ``--warmup`` engine steps
-pass, then records ``--window`` engine steps with ``torch.profiler`` (CPU
-and CUDA).  Reports the wall time per step, the device busy share (union
-of kernel intervals over the window's wall time), the host syncs in the
-window, and the kernels by total device time, with the card's
-``nvidia-smi`` name and power limit.
+measures) for ``--arch``, ``--policy`` and the token-merge flags, lets
+``--warmup`` engine steps pass, then records ``--window`` engine steps with
+``torch.profiler`` (CPU and CUDA).  Reports the wall time per step, the
+device busy share (union of kernel intervals over the window's wall time),
+the host syncs in the window, and the kernels by total device time, with
+the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import DIT_IDS
 from repro_torch.core.policies.base import registered_policies
-from repro_torch.launch.serve_diffusion import Workload
+from repro_torch.launch.serve_diffusion import (Workload, add_merge_args,
+                                                check_merge_args)
 from repro_torch.serving.scheduler import RequestQueue
 
 
@@ -52,12 +53,15 @@ def main(argv=None) -> None:
     ap.add_argument("--policy", default=Workload.policy,
                     choices=registered_policies())
     ap.add_argument("--out", default="build/profile_serve.json")
-    args = ap.parse_args(argv)
+    add_merge_args(ap)
+    args = check_merge_args(ap.parse_args(argv))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    wl = Workload(arch=args.arch, policy=args.policy)
+    wl = Workload(arch=args.arch, policy=args.policy,
+                  merge_ratio=args.merge_ratio,
+                  merge_window=args.merge_window)
     model = wl.build_model("cuda")
     dev = model.device
     runner, eng = wl.build_engine(model)
@@ -90,12 +94,18 @@ def main(argv=None) -> None:
     total_kernel_us = sum(v[0] for v in by_name.values())
     gate_us = sum(v[0] for k, v in by_name.items()
                   if "gate_gemm" in k or "gate_partials" in k)
+    merge_us = sum(v[0] for k, v in by_name.items()
+                   if any(n in k for n in ("knn_density_kernel",
+                                           "merge_assign_kernel",
+                                           "unmerge_scatter_kernel")))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     report = {
         "card": card, "arch": model.cfg.name, "policy": args.policy,
+        "token_merge": {"ratio": wl.merge_ratio, "window": wl.merge_window,
+                        "active": runner.reducer is not None},
         "window_engine_steps": window,
         "step_kinds": kinds, "wall_s": wall_s,
         "ms_per_engine_step": wall_s / window * 1e3,
@@ -103,6 +113,7 @@ def main(argv=None) -> None:
         "kernel_launches": len(kernels),
         "kernel_ms_total": total_kernel_us / 1e3,
         "fused_gate_ms": gate_us / 1e3,
+        "token_merge_kernels_ms": merge_us / 1e3,
         "host_syncs": syncs,
         "top_kernels": [{"name": k[:120], "ms": v[0] / 1e3, "calls": v[1]}
                         for k, v in top],

@@ -7,8 +7,10 @@ sampling with per-slot FastCache state on one CUDA card.
 Weights are random (``torch.Generator`` seeded from ``--seed``, un-zeroed
 as in ``DiTModel.init``).  After an untimed warm-up on a fresh engine,
 prints p50/p95 request latency in engine steps, engine steps per second of
-wall time, and the block cache ratio.  ``--device cpu --reduced`` runs the
-plain PyTorch path on a toy model.
+wall time, and the block cache ratio.  ``--token-merge-ratio 0.5`` turns on
+token compression (windows of ``--token-merge-window`` tokens merged to
+half); 1.0, the default, leaves it off.  ``--device cpu --reduced`` runs
+the plain PyTorch path on a toy model.
 
 ``Workload`` is the one definition of the served configuration: its
 defaults are the flags' defaults, and ``chip_smoke.py`` and
@@ -48,6 +50,8 @@ class Workload:
     requests: int = 8
     rate: float = 0.5               # Poisson arrivals per engine step
     seed: int = 0                   # weights and arrivals
+    merge_ratio: float = 1.0        # token compression: kept share, 1 = off
+    merge_window: int = 16          # token compression window w
 
     def build_model(self, device) -> DiTModel:
         cfg = get_reduced(self.arch) if self.reduced else get_config(self.arch)
@@ -57,7 +61,10 @@ class Workload:
 
     def build_engine(self, model: DiTModel
                      ) -> Tuple[CachedDiT, DiffusionServingEngine]:
-        runner = CachedDiT(model, FastCacheConfig(), policy=self.policy)
+        fc = FastCacheConfig(merge_enabled=self.merge_ratio < 1.0,
+                             merge_ratio=self.merge_ratio,
+                             merge_window=self.merge_window)
+        runner = CachedDiT(model, fc, policy=self.policy)
         return runner, DiffusionServingEngine(
             runner, max_slots=self.slots, num_steps=self.steps,
             guidance_scale=self.guidance)
@@ -109,6 +116,8 @@ def serve(args: argparse.Namespace) -> Dict:
         "block_cache_ratio": stats["block_cache_ratio"],
         "blocks_skipped": stats["blocks_skipped"],
         "blocks_computed": stats["blocks_computed"],
+        "token_merge": {"ratio": wl.merge_ratio, "window": wl.merge_window,
+                        "active": runner.reducer is not None},
     }
 
 
@@ -125,9 +134,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rate", type=float, default=Workload.rate,
                     help="Poisson arrival rate, requests per engine step")
     ap.add_argument("--seed", type=int, default=Workload.seed)
+    add_merge_args(ap)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true")
-    return ap.parse_args(argv)
+    return check_merge_args(ap.parse_args(argv))
+
+
+def add_merge_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--token-merge-ratio", dest="merge_ratio", type=float,
+                    default=Workload.merge_ratio,
+                    help="serving-path token compression: keep "
+                         "ceil(ratio * window) cluster centers per window "
+                         "of tokens before the cache policy runs "
+                         "(core/token_reduce.py); 1.0 disables the stage "
+                         "(bitwise-identical to merge-off)")
+    ap.add_argument("--token-merge-window", dest="merge_window", type=int,
+                    default=Workload.merge_window,
+                    help="token-compression window size w; the DiT token "
+                         "count must be divisible by it")
+
+
+def check_merge_args(args: argparse.Namespace) -> argparse.Namespace:
+    if not 0.0 < args.merge_ratio <= 1.0:
+        raise SystemExit(f"--token-merge-ratio must be in (0, 1], got "
+                         f"{args.merge_ratio}")
+    return args
 
 
 def main(argv=None) -> None:

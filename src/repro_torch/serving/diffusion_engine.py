@@ -248,7 +248,8 @@ class DiffusionServingEngine:
 
     def cache_stats(self) -> Dict:
         """Engine-lifetime cache counters, active slots only; raw per-row
-        counters (idle padding steps included) under per_slot_*."""
+        counters (idle padding steps included) under per_slot_*; the token
+        counters when token compression is on."""
         def acc(k):
             v = self.acc.get(k)
             return 0.0 if v is None else float(v)
@@ -258,7 +259,7 @@ class DiffusionServingEngine:
 
         skipped, computed = acc("blocks_skipped"), acc("blocks_computed")
         tot = computed + skipped
-        return {
+        out = {
             "policy": self.runner.policy,
             "engine_steps": self.clock,
             "model_steps": self.model_steps,
@@ -269,3 +270,8 @@ class DiffusionServingEngine:
             "per_slot_blocks_skipped": per_slot("blocks_skipped"),
             "per_slot_blocks_computed": per_slot("blocks_computed"),
         }
+        # token compression on: kept / merged tokens of active slots' rows
+        for k in ("tokens_kept", "tokens_merged"):
+            if k in self.acc:
+                out[k] = acc(k)
+        return out

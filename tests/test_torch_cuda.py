@@ -9,6 +9,9 @@ Tolerances: gate bits exact (the kernel rebuilds the gate in the plain
 version's operation order and the decisions sit a factor 2 from the
 threshold); diff/prevsq rtol 1e-4 (f32 sums in another order); out rtol and
 atol 1e-4 in f32, 2e-2 in bf16 (one bf16 rounding of a value near 4).
+Token merge: knn_density rtol/atol 1e-4 (f32 arithmetic on the same
+inputs); merge_assign's centers and assign exact, merged 1e-4 in f32 and
+5e-2 in bf16 (one bf16 rounding); unmerge_scatter bitwise.
 """
 import pytest
 import torch
@@ -16,6 +19,8 @@ import torch
 from repro_torch.core.statcache import make_threshold
 from repro_torch.cuda_kernels import ref
 from repro_torch.cuda_kernels.fused_gate import fused_gate
+from repro_torch.cuda_kernels.knn_density import knn_density
+from repro_torch.cuda_kernels.token_merge import merge_assign, unmerge_scatter
 
 
 @pytest.fixture
@@ -119,3 +124,186 @@ def test_cached_step_kernel_matches_plain_path(cuda_device, monkeypatch):
         x = x - 0.02 * outs[1][0]
     assert fused_gate.launches - before == cfg.num_layers * 5
     assert float(states[0]["stats"]["blocks_skipped"].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# token merge: knn_density, merge_assign, unmerge_scatter
+# ---------------------------------------------------------------------------
+
+# (W, w, D, K, M): the DiT-XL/2 slice's shapes, then odd ones
+MERGE_SHAPES = [(128, 16, 1152, 5, 8), (5, 8, 100, 7, 3), (3, 32, 200, 3, 1),
+                (2, 2, 33, 1, 2)]
+
+
+def _windows(dev, dtype, nw, w, d, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    h = torch.randn((nw, w, d), generator=gen, device=dev).to(dtype)
+    s = torch.rand((nw, w), generator=gen, device=dev)
+    return h, s / s.amax(dim=-1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MERGE_SHAPES)
+def test_knn_density_kernel_matches_plain(cuda_device, dtype, shape):
+    nw, w, d, k, _ = shape
+    h, _ = _windows(cuda_device, dtype, nw, w, d)
+    before = knn_density.launches
+    got = knn_density(h, k=k)
+    torch.cuda.synchronize(cuda_device)
+    assert knn_density.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (nw, w)
+    torch.testing.assert_close(got, ref.knn_density(h, k), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MERGE_SHAPES)
+def test_merge_assign_kernel_matches_plain(cuda_device, dtype, shape):
+    nw, w, d, _, m = shape
+    h, s = _windows(cuda_device, dtype, nw, w, d)
+    before = merge_assign.launches
+    merged, assign, centers = merge_assign(h, s, m=m)
+    torch.cuda.synchronize(cuda_device)
+    assert merge_assign.launches == before + 1
+    want = ref.merge_assign(h, s, m)
+    assert merged.dtype == dtype
+    assert torch.equal(centers, want[2])
+    assert torch.equal(assign, want[1])
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(merged.float(), want[0].float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1152, 100, 7, 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_unmerge_scatter_kernel_is_bitwise(cuda_device, dtype, d, offset):
+    """Every copy unit (16, 4 and 2 bytes, picked from the row width and
+    the pointers' alignment) reproduces the gather bitwise."""
+    nw, w, m = 16, 16, 8
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    flat = torch.randn((nw * m * d + offset,), generator=gen,
+                       device=cuda_device).to(dtype)
+    merged = flat[offset:].view(nw, m, d)
+    assign = torch.randint(0, m, (nw, w), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+    before = unmerge_scatter.launches
+    got = unmerge_scatter(merged, assign)
+    torch.cuda.synchronize(cuda_device)
+    assert unmerge_scatter.launches == before + 1
+    assert torch.equal(got, ref.unmerge_scatter(merged, assign))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad_id", [-1, 8, 1 << 30])
+def test_unmerge_scatter_out_of_range_id_gives_zero_row(cuda_device, bad_id):
+    """An id outside [0, M) matches no cluster: its token gets a zero row,
+    as the TPU kernel's one-hot product gives, never a remapped cluster."""
+    nw, w, m, d = 4, 16, 8, 1152
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    merged = torch.randn((nw, m, d), generator=gen,
+                         device=cuda_device).to(torch.bfloat16) + 3.0
+    assign = torch.randint(0, m, (nw, w), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+    assign[1, 5] = bad_id
+    got = unmerge_scatter(merged, assign)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got[1, 5], torch.zeros_like(got[1, 5]))
+    good = assign.clone()
+    good[1, 5] = 0
+    want = ref.unmerge_scatter(merged, good)
+    want[1, 5] = 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_token_merge_kernels_are_deterministic(cuda_device):
+    h, s = _windows(cuda_device, torch.bfloat16, 128, 16, 1152)
+    first = (knn_density(h, k=5), *merge_assign(h, s, m=8))
+    first += (unmerge_scatter(first[1], first[2]),)
+    for _ in range(3):
+        again = (knn_density(h, k=5), *merge_assign(h, s, m=8))
+        again += (unmerge_scatter(again[1], again[2]),)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_token_merge_kernels_raise_on_bad_cuda_input(cuda_device):
+    h, s = _windows(cuda_device, torch.float16, 2, 8, 16)
+    with pytest.raises(TypeError):
+        knn_density(h, k=3)
+    with pytest.raises(TypeError):
+        merge_assign(h, s, m=4)
+    wide, ws = _windows(cuda_device, torch.float32, 2, 64, 16)
+    with pytest.raises(ValueError, match="at most 32"):
+        knn_density(wide, k=5)
+    with pytest.raises(ValueError, match="at most 32"):
+        merge_assign(wide, ws, m=8)
+    with pytest.raises(ValueError, match="share one device"):
+        merge_assign(wide, ws.cpu(), m=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fastcache", "nocache"])
+def test_merged_cached_step_kernels_match_plain_path(cuda_device,
+                                                     monkeypatch, policy):
+    """The merged step on the card through the kernels and, with the plain
+    versions patched in, without them: the same assignment, centers and
+    counters at every step, eps within f32 rounding."""
+    from repro_torch.configs.base import FastCacheConfig
+    from repro_torch.configs.dit import reduced
+    from repro_torch.core import token_merge
+    from repro_torch.core.policies import fastcache
+    from repro_torch.core.runner import CachedDiT
+    from repro_torch.models.dit import DiTModel
+
+    cfg = reduced().replace(dtype="float32")
+    model = DiTModel(cfg, device=cuda_device)
+    model.init(torch.Generator(cuda_device).manual_seed(0))
+    fc = FastCacheConfig(merge_enabled=True, merge_ratio=0.5, merge_window=8)
+    kernel, plain = (CachedDiT(model, fc, policy=policy) for _ in range(2))
+    maps = ([], [])
+    for runner, sink in zip((kernel, plain), maps):
+        orig = runner.reducer.reduce
+
+        def reduce(x, tr, orig=orig, runner=runner, sink=sink):
+            out = orig(x, tr)
+            sink.append(runner.reducer._mm)
+            return out
+
+        runner.reducer.reduce = reduce
+    states = [kernel.init_state(4), plain.init_state(4)]
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    x = torch.randn((4, 8, 8, 4), generator=gen, device=cuda_device)
+    labels = torch.arange(4, device=cuda_device)
+    counts = (knn_density.launches, merge_assign.launches,
+              unmerge_scatter.launches)
+    for i in range(6):
+        t = torch.full((4,), 50 - i, device=cuda_device)
+        outs = [kernel.step(states[0], x, t, labels)]
+        with monkeypatch.context() as m:
+            m.setattr(fastcache, "fused_gate", ref.fused_gate)
+            m.setattr(token_merge, "_knn_kernel",
+                      lambda h, k: ref.knn_density(h, k))
+            m.setattr(token_merge, "merge_assign",
+                      lambda h, s, m: ref.merge_assign(h, s, m))
+            m.setattr(token_merge, "unmerge_scatter", ref.unmerge_scatter)
+            outs.append(plain.step(states[1], x, t, labels))
+        states = [o[1] for o in outs]
+        assert torch.equal(maps[0][i].centers, maps[1][i].centers)
+        assert torch.equal(maps[0][i].assign, maps[1][i].assign)
+        for k in ("blocks_computed", "blocks_skipped", "tokens_kept",
+                  "tokens_merged"):
+            assert torch.equal(states[0]["stats"][k], states[1]["stats"][k])
+        torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4,
+                                   atol=1e-4)
+        x = x - 0.02 * outs[1][0]
+    launched = (knn_density.launches - counts[0],
+                merge_assign.launches - counts[1],
+                unmerge_scatter.launches - counts[2])
+    mixed = getattr(kernel.impl, "step_kinds", {}).get("mixed", 0)
+    assert launched == (6, 6, 6 + mixed)
