@@ -13,7 +13,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             of the kernel, the plain version and one library call beside
             the bound: ``*_ms`` CUDA events around back-to-back calls from
             Python (the host's launch overhead included), ``*_device_ms``
-            the device time per call (torch.profiler's kernel durations),
+            the device time per call (CUDA events around calls queued
+            behind a spin kernel, so no host gap falls between them),
             L2-warm:
             - fused_gate at B=8, C=128 (merge off) and C=64 (merge on),
               D=1152, bf16, blend on and off, half the samples gating: gate
@@ -47,7 +48,32 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             must exceed 0.4 (the gated branch firing at full width);
 8. quality  relative L2 of fastcache eps, and of fastcache + merge eps,
             against nocache eps (merge off) on the same inputs for 6 DDIM
-            steps.
+            steps;
+9. kernel   flash_attention against its plain version at four shapes: (a)
+            the LLM serve's prefill, B=1, H=16, KVH=8, S=512, dh=128,
+            causal, window 1024, bf16; (b) S=2048, window 512 (tiles
+            skipped on both sides); (c) Sq=64, Skv=576, causal (end
+            alignment); (d) (a) in f32; within 2e-2 (bf16) and 2e-5 (f32);
+            library: F.scaled_dot_product_attention (is_causal at (a) and
+            (d), an explicit boolean mask at (b) and (c)), a yardstick only;
+10. llm_model  qwen3-0.6b at full width (launch.serve.LLMWorkload: 28
+            layers, d 1024, 16/8 heads of 128, vocab 151,936, bf16, random
+            weights from torch.Generator seed 0): parameters, init seconds;
+11. llm_syncs  a warm-up fastcache serve (LLMWorkload.warm_up) under sync
+            debug: the syncs it flags in the port's code must be the ones
+            the code counts, 29 per decode step (28 gate decisions and the
+            greedy tokens) and one per admission;
+12. llm_serve  the LLM main path, LLMWorkload's defaults (8 requests of
+            512 random tokens, 64 new tokens, max_batch 4, window 1024)
+            through ServingEngine.run, exact and with the FastCache decode
+            gate, each on a fresh engine after a warm-up, timed with sync
+            debug off; every count zeroed just before each serve and read
+            just after; flash_attention must have launched 28 times per
+            prefill and no other kernel at all; greedy-token agreement of
+            fastcache against exact;
+13. llm_prefill_parity  the last-position logits of one full-width
+            512-token prefill through the kernel against the same prefill
+            with the plain version patched in: relative L2 below 2e-2.
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
@@ -71,11 +97,21 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12       # H100 SXM, dense bf16 tensor cores
-KERNEL_SOURCES = ("fused_gate", "knn_density", "token_merge")  # csrc/*.cu
+KERNEL_SOURCES = ("fused_gate", "knn_density", "token_merge",
+                  "flash_attention")                        # csrc/*.cu
 MERGE_RATIO = 0.5                  # the merged serve's kept-token share
 # the merged slice's window shapes: DiT-XL/2 with 4 slots has 8 CFG rows of
 # 256 tokens of width 1152, in windows of 16 with K=5 and M=8 kept
 MERGE_W, MERGE_WIN, MERGE_D, MERGE_K, MERGE_M = 128, 16, 1152, 5, 8
+# flash_attention shapes (B, H, KVH, Sq, Skv, dh, causal, window, dtype);
+# the first is the LLM serve's prefill (qwen3-0.6b, 512-token prompts)
+FLASH_SHAPES = {"a": (1, 16, 8, 512, 512, 128, True, 1024, "bfloat16"),
+                "b": (1, 16, 8, 2048, 2048, 128, True, 512, "bfloat16"),
+                "c": (1, 16, 8, 64, 576, 128, True, 0, "bfloat16"),
+                "d": (1, 16, 8, 512, 512, 128, True, 1024, "float32")}
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+PREFILL_REL_L2 = 2e-2      # kernel vs plain full-width prefill logits
+SPIN_CYCLES = 4_000_000    # ~2 ms spin opening each device_ms window
 
 
 def emit(obj) -> None:
@@ -108,23 +144,34 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
-    """Device time per call: the summed durations of the kernels and copies
-    that ``iters`` calls ran, from torch.profiler, over ``iters``.  Unlike
-    ``cuda_ms`` it leaves out the host's launch overhead, which the eager
-    timing measures instead wherever it exceeds the device time."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, fn, iters: int = 20, attempts: int = 4) -> float:
+    """Device time per call, the host's launch overhead left out: a spin
+    kernel (``torch.cuda._sleep``) holds the stream while the host enqueues
+    ``iters`` calls between two CUDA events, so the card then runs them back
+    to back.  A window counts only if its start event was still pending once
+    the last call was enqueued, that is, the host stayed ahead of the card
+    all the way; else the spin is made four times longer, half as many calls
+    are taken, and the window is measured again.  A function that waits for
+    the card inside never passes, and fails the run."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles = SPIN_CYCLES
+    for _ in range(attempts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        ahead = not start.query()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+        iters = max(1, iters // 2)
+    raise AssertionError(f"the host fell behind the card in {attempts} "
+                         f"windows; the timed function waits for the card")
 
 
 def timed(torch, prefix: str, fn) -> dict:
@@ -320,34 +367,42 @@ def phase_token_merge(torch, dev, k):
     return rows
 
 
-def phase_syncs(torch, wl, model, label="syncs"):
-    """Warm-up serve under sync debug: every synchronization it flags, by
-    source line, beside the syncs the code counts.  Returns both per model
-    step."""
+def sync_flags(torch, fn):
+    """Run ``fn`` under torch.cuda's sync-debug mode.  Returns its result,
+    every synchronization flagged, by source line, and those flagged in the
+    port's own code (torch's lazy first-use initialisation can flag one
+    more in the process's first serve)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            runner, eng = wl.warm_up(model)
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     flags = [w for w in caught if "synchroniz" in str(w.message)]
     sources = collections.Counter(
         f"{Path(w.filename).name}:{w.lineno}" for w in flags)
-    # syncs flagged in the port's own code (torch's lazy first-use
-    # initialisation can flag one more in the process's first serve)
     in_port = sum(1 for w in flags
                   if Path(w.filename).resolve().is_relative_to(ROOT / "src"))
+    return out, len(flags), dict(sources.most_common()), in_port
+
+
+def phase_syncs(torch, wl, model, label="syncs"):
+    """Warm-up serve under sync debug: every synchronization it flags, by
+    source line, beside the syncs the code counts.  Returns both per model
+    step."""
+    (runner, eng), flagged, sources, in_port = sync_flags(
+        torch, lambda: wl.warm_up(model))
     counted = runner.impl.host_syncs + eng.host_syncs
     steps = eng.model_steps
     emit({"phase": label, "model_steps": steps,
           "step_kinds": dict(runner.impl.step_kinds),
-          "counted": counted, "flagged": len(flags),
+          "counted": counted, "flagged": flagged,
           "flagged_in_port": in_port,
           "counted_per_model_step": counted / steps,
           "flagged_in_port_per_model_step": in_port / steps,
-          "sources": dict(sources.most_common())})
+          "sources": sources})
     return counted / steps, in_port / steps
 
 
@@ -475,6 +530,161 @@ def phase_quality(torch, dev, model, m):
           m.summarize_stats(s_fm)["block_cache_ratio"]})
 
 
+def flash_live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep: the work this input needs."""
+    qpos = np.arange(sq)[:, None] + (skv - sq)
+    kpos = np.arange(skv)[None, :]
+    live = np.ones((sq, skv), bool)
+    if causal:
+        live &= kpos <= qpos
+    if window > 0:
+        live &= kpos > qpos - window
+    return int(live.sum())
+
+
+def phase_flash_attention(torch, dev, ref, flash_attention):
+    """flash_attention against its plain version at FLASH_SHAPES; returns
+    the row of shape (a), the serve's prefill."""
+    import torch.nn.functional as F
+    rows = {}
+    for key, (b, h, kvh, sq, skv, dh, causal, window, dt) in \
+            FLASH_SHAPES.items():
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(dev).manual_seed(4)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, h, sq, dh), (b, kvh, skv, dh),
+                                 (b, kvh, skv, dh)))
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, **kw)
+        tol = FLASH_TOL[dt]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if key in ("a", "d"):        # window >= S: plain causal attention
+            sdpa = dict(is_causal=True)
+            call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+        else:
+            qpos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+            kpos = torch.arange(skv, device=dev)[None, :]
+            mask = (kpos <= qpos) if causal else torch.ones_like(kpos > qpos)
+            if window > 0:
+                mask = mask & (kpos > qpos - window)
+            sdpa = dict(attn_mask=mask)
+            call = ("F.scaled_dot_product_attention(attn_mask=bool mask, "
+                    "enable_gqa=True)")
+        lib_out = F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                 **sdpa)
+        torch.testing.assert_close(lib_out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        esize = q.element_size()
+        pairs = flash_live_pairs(sq, skv, causal, window)
+        nbytes = esize * dh * (2 * b * h * sq + 2 * b * kvh * skv)
+        ops = 4 * dh * b * h * pairs                 # QK^T and PV, live only
+        peak = BF16_TC_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
+        bound_ms, bound_by = bound(nbytes, ops / peak)
+        row = {"name": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:74",
+               "case": key, "shape": [b, h, kvh, sq, skv, dh],
+               "causal": causal, "window": window, "dtype": dt,
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               **timed(torch, "kernel", lambda: flash_attention(q, k, v, **kw)),
+               **timed(torch, "plain",
+                       lambda: ref.flash_attention(q, k, v, **kw)),
+               **timed(torch, "library", lambda: F.scaled_dot_product_attention(
+                   q, k, v, enable_gqa=True, **sdpa)),
+               "library_call": call, "live_pairs": pairs, "bytes": nbytes,
+               "operations": ops, "bound_ms": bound_ms, "bound_by": bound_by}
+        row["ms"] = row["kernel_ms"]
+        emit({"phase": "kernel", **row})
+        rows[key] = row
+    return rows["a"]
+
+
+def phase_llm_syncs(torch, wl, model):
+    """Warm-up fastcache serve under sync debug: the synchronizations it
+    flags in the port's code must be the ones the code counts, and those
+    L + 1 per decode step (admissions' syncs left out)."""
+    eng, flagged, sources, in_port = sync_flags(
+        torch, lambda: wl.warm_up(model))
+    counted = eng.host_syncs + eng.decoder.host_syncs
+    per_step = (counted - eng.prefills) / eng.decode_steps
+    emit({"phase": "llm_syncs", "decode_steps": eng.decode_steps,
+          "prefills": eng.prefills, "counted": counted,
+          "flagged": flagged, "flagged_in_port": in_port,
+          "counted_per_decode_step": per_step,
+          "flagged_in_port_per_decode_step":
+              (in_port - eng.prefills) / eng.decode_steps,
+          "sources": sources})
+    want = model.cfg.num_layers + 1
+    if per_step != want:
+        raise AssertionError(f"{per_step} counted syncs per decode step, "
+                             f"expected {want} (one per layer + tokens)")
+    if in_port != counted:
+        raise AssertionError(f"sync debug flagged {in_port} syncs in the "
+                             f"port's code, the code counts {counted}: "
+                             f"{sources}")
+    return per_step
+
+
+def phase_llm_serve(torch, dev, wl, model, m, serve):
+    """Serve ``wl`` on a fresh engine, timed; every kernel's launch count is
+    zeroed just before and read just after.  Returns (launches, done)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in m.kernels.values():                  # the path starts here
+        fn.launches = 0
+    summary, eng, done = serve(wl, model)
+    launches = {name: fn.launches                  # ... and ends here
+                for name, fn in m.kernels.items()}
+    if len(done) != wl.requests or any(
+            len(r.generated) != wl.new_tokens for r in done):
+        raise AssertionError(f"{len(done)} of {wl.requests} requests, "
+                             f"lengths {[len(r.generated) for r in done]}")
+    vocab = model.cfg.vocab_size
+    if any(not 0 <= t < vocab for r in done for t in r.generated):
+        raise AssertionError("a generated token lies outside the vocab")
+    want = model.cfg.num_layers * eng.prefills
+    if eng.prefills != wl.requests or launches["flash_attention"] != want:
+        raise AssertionError(f"flash_attention launches "
+                             f"{launches['flash_attention']} != "
+                             f"{model.cfg.num_layers} x {eng.prefills} "
+                             "prefills")
+    if any(n for name, n in launches.items() if name != "flash_attention"):
+        raise AssertionError(f"other kernels ran on the LLM path: {launches}")
+    emit({"phase": "llm_serve", **summary, "launches": launches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)})
+    return launches, done
+
+
+def phase_llm_prefill_parity(torch, dev, wl, model, attention, ref):
+    """One full-width prefill through the kernel and through the plain
+    version: relative L2 of the last-position logits, positions exact."""
+    tokens = torch.from_numpy(
+        wl.build_requests(model)[0].prompt).long()[None].to(dev)
+    logits, cache = model.prefill(tokens, wl.window)
+    kernel_fn = attention.flash_attention
+    attention.flash_attention = ref.flash_attention
+    try:
+        plain_logits, plain_cache = model.prefill(tokens, wl.window)
+    finally:
+        attention.flash_attention = kernel_fn
+    a, b = logits.float(), plain_logits.float()
+    rel = float((a - b).norm() / b.norm())
+    same_argmax = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    emit({"phase": "llm_prefill_parity", "prompt_len": tokens.shape[1],
+          "rel_l2_logits": rel, "bound": PREFILL_REL_L2,
+          "same_argmax": same_argmax,
+          "rel_l2_k_cache": float((cache["k"].float() - plain_cache["k"].float()
+                                   ).norm() / plain_cache["k"].float().norm())})
+    if not torch.isfinite(a).all() or not rel < PREFILL_REL_L2:
+        raise AssertionError(f"prefill logits: rel L2 {rel} (bound "
+                             f"{PREFILL_REL_L2})")
+    if not torch.equal(cache["pos"], plain_cache["pos"]):
+        raise AssertionError("prefill cache positions differ")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -493,7 +703,10 @@ def main() -> int:
     from repro_torch.cuda_kernels.knn_density import knn_density
     from repro_torch.cuda_kernels.token_merge import (merge_assign,
                                                       unmerge_scatter)
+    from repro_torch.cuda_kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
     from repro_torch.launch.serve_diffusion import Workload
+    from repro_torch.models import attention
     from repro_torch.serving.scheduler import percentile
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -530,7 +743,8 @@ def main() -> int:
         ddim_step=ddim_step,
         kernels={"fused_gate": fused_gate, "knn_density": knn_density,
                  "merge_assign": merge_assign,
-                 "unmerge_scatter": unmerge_scatter})
+                 "unmerge_scatter": unmerge_scatter,
+                 "flash_attention": flash_attention})
     wl = Workload()
     wl_merge = dataclasses.replace(wl, merge_ratio=MERGE_RATIO)
     t0 = time.perf_counter()
@@ -552,15 +766,46 @@ def main() -> int:
     phase_static(torch, dev, model, m)
     phase_quality(torch, dev, model, m)
 
+    # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate
+    flash_row = phase_flash_attention(torch, dev, ref, flash_attention)
+    llm = LLMWorkload()
+    t0 = time.perf_counter()
+    llm_model = llm.build_model(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "llm_model", "arch": llm_model.cfg.name,
+          "params": sum(p.numel() for p in llm_model.parameters()),
+          "dtype": str(llm_model.dtype), "init_s": time.perf_counter() - t0})
+    llm_fc = dataclasses.replace(llm, fastcache=True)
+    phase_llm_syncs(torch, llm_fc, llm_model)
+    llm.warm_up(llm_model)
+    launches_exact, done_exact = phase_llm_serve(torch, dev, llm, llm_model,
+                                                 m, llm_serve)
+    launches_llm, done_fc = phase_llm_serve(torch, dev, llm_fc, llm_model, m,
+                                            llm_serve)
+    pairs = list(zip(sorted(done_exact, key=lambda r: r.rid),
+                     sorted(done_fc, key=lambda r: r.rid)))
+    emit({"phase": "llm_agreement",
+          "greedy_token_agreement_fastcache_vs_exact": float(np.mean(
+              [np.mean(np.array(a.generated) == np.array(b.generated))
+               for a, b in pairs])),
+          "first_token_agreement": float(np.mean(
+              [a.generated[0] == b.generated[0] for a, b in pairs]))})
+    phase_llm_prefill_parity(torch, dev, llm, llm_model, attention, ref)
+
     # launches: each kernel on its own main path (fused_gate: the merge-off
-    # serve; the merge kernels: the merged serve); both serves' counts too
+    # serve; the merge kernels: the merged serve; flash_attention: the LLM
+    # serve with the decode gate); every serve's counts too
     gate_row["launches"] = launches["fused_gate"]
     for row in merge_rows:
         row["launches"] = launches_merge[row["name"]]
-    rows = [gate_row] + merge_rows
+    flash_row["launches"] = launches_llm["flash_attention"]
+    rows = [gate_row] + merge_rows + [flash_row]
     for row in rows:
-        row["serve_launches"] = {"serve": launches[row["name"]],
-                                 "serve_merge": launches_merge[row["name"]]}
+        row["serve_launches"] = {
+            "serve": launches[row["name"]],
+            "serve_merge": launches_merge[row["name"]],
+            "llm_serve_exact": launches_exact[row["name"]],
+            "llm_serve_fastcache": launches_llm[row["name"]]}
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

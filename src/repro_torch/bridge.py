@@ -3,7 +3,8 @@ the port's modules.
 
 Callers hand over ``jax.tree.map(np.asarray, params)``; this module never
 imports JAX.  The reference stacks block parameters on a leading L axis;
-the port keeps one ``DiTBlock`` per layer, so the stack is split here.
+the port keeps one block module per layer (``DiTBlock``,
+``TransformerBlock``), so the stack is split here.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.dit import DiTModel
+from repro_torch.models.transformer import TransformerModel
 
 
 def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -23,6 +25,25 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.uint16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def _copy(dst: torch.Tensor, a: np.ndarray, dev: torch.device,
+          name: str) -> None:
+    src = tensor_from_numpy(a, dev)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+def _copy_stack(stack, dsts, dev: torch.device, name: str) -> None:
+    """Split a layer-stacked (L, ...) array into L per-layer tensors."""
+    stack = np.asarray(stack)
+    if stack.shape[0] != len(dsts):
+        raise ValueError(f"{name}: {stack.shape[0]} layers, model has "
+                         f"{len(dsts)}")
+    for l, dst in enumerate(dsts):
+        _copy(dst, stack[l], dev, f"{name}[{l}]")
 
 
 @torch.no_grad()
@@ -35,25 +56,44 @@ def params_from_jax(np_tree: Mapping, model: DiTModel,
     if dev != model.device:
         raise ValueError(f"model lives on {model.device}, not {dev}")
     for name in model._top_specs():
-        dst = getattr(model, name)
-        src = tensor_from_numpy(np_tree[name], dev)
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {tuple(src.shape)} != "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(src)
-    blocks = np_tree["blocks"]
+        _copy(getattr(model, name), np_tree[name], dev, name)
     for name in model.blocks[0].specs:
-        stack = np.asarray(blocks[name])
-        if stack.shape[0] != len(model.blocks):
-            raise ValueError(f"blocks/{name}: {stack.shape[0]} layers, model "
-                             f"has {len(model.blocks)}")
-        for l, blk in enumerate(model.blocks):
-            dst = getattr(blk, name)
-            src = tensor_from_numpy(stack[l], dev)
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"blocks/{name}[{l}]: shape "
-                                 f"{tuple(src.shape)} != {tuple(dst.shape)}")
-            dst.copy_(src)
+        _copy_stack(np_tree["blocks"][name],
+                    [getattr(blk, name) for blk in model.blocks], dev,
+                    f"blocks/{name}")
+    return model
+
+
+@torch.no_grad()
+def transformer_params_from_jax(np_tree: Mapping, model: TransformerModel
+                                ) -> TransformerModel:
+    """Copy a reference ``TransformerModel`` parameter tree (dense, period
+    1: ``embed``, ``final_norm``, optional ``lm_head`` and the layer-stacked
+    ``blocks/pos0/{attn,ffn}/*``) into ``model`` (in place) and return it.
+    Shapes and key sets must match exactly; values are cast to the
+    parameters' dtypes (bf16 bit-copied)."""
+    dev = model.device
+    if set(np_tree) - {"blocks"} != set(model.top.defs):
+        raise ValueError(f"top-level keys {sorted(np_tree)} do not match "
+                         f"{sorted(model.top.defs)} + blocks")
+    for name in model.top.defs:
+        _copy(getattr(model.top, name), np_tree[name], dev, name)
+    blocks = np_tree["blocks"]
+    if set(blocks) != {"pos0"}:
+        raise ValueError(f"blocks {sorted(blocks)}: only a period-1 stack "
+                         "(pos0) is ported")
+    pos0 = blocks["pos0"]
+    if set(pos0) != {"attn", "ffn"}:
+        raise ValueError(f"blocks/pos0 holds {sorted(pos0)}; the port's "
+                         "block is attn + ffn")
+    for sub in ("attn", "ffn"):
+        groups = [getattr(blk, sub) for blk in model.blocks]
+        if set(pos0[sub]) != set(groups[0].defs):
+            raise ValueError(f"blocks/pos0/{sub}: keys {sorted(pos0[sub])} "
+                             f"!= {sorted(groups[0].defs)}")
+        for name in groups[0].defs:
+            _copy_stack(pos0[sub][name], [getattr(g, name) for g in groups],
+                        dev, f"blocks/pos0/{sub}/{name}")
     return model
 
 

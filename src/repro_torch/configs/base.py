@@ -1,14 +1,17 @@
-"""Config dataclasses for the DiT serving path.
+"""Config dataclasses for the DiT and the dense LLM serving paths.
 
-The port keeps its own copy of the JAX package's config types (it imports
-nothing of ``repro``).  Only the fields the ported DiT path reads are kept;
-their names, defaults and meanings are the reference's.
+The port keeps its own copy of the JAX package's config types
+(``repro/configs/base.py``; it imports nothing of ``repro``).  Only the
+fields the ported paths read are kept; their names, defaults and meanings
+are the reference's, except that ``num_kv_heads`` and ``vocab_size`` default
+to 0 here (the reference requires them), so a DiT config can be built
+without them, as before the LLM slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -23,12 +26,23 @@ class DiTConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # "dit" is the only family ported so far
+    family: str                      # ported: "dit" and "dense"
     num_layers: int
     d_model: int
     num_heads: int
     d_ff: int
+    num_kv_heads: int = 0
+    vocab_size: int = 0
     head_dim: int = 0                # 0 -> d_model // num_heads
+    qk_norm: bool = False
+    rope_theta: float = 1_000_000.0
+    rope_kind: str = "default"       # ported: default | none
+    is_encoder: bool = False         # bidirectional attention, no decode step
+    tie_embeddings: bool = False
+    sliding_window: int = 0          # 0 = full attention; >0 enables SWA variant
+    norm_eps: float = 1e-6
+    # hybrid layouts are not ported: a non-empty pattern raises
+    block_pattern: Tuple[str, ...] = ()
     dit: Optional[DiTConfig] = None
     dtype: str = "bfloat16"
 
@@ -43,6 +57,7 @@ class ModelConfig:
 @dataclass(frozen=True)
 class FastCacheConfig:
     """Paper defaults (§5.2 / Appendix E.1), as in the reference."""
+    enabled: bool = True
     # STR — spatial token reduction
     motion_threshold: float = 0.05   # tau_s / tau_m
     motion_capacity: float = 0.5     # static top-C fraction

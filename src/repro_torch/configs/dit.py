@@ -21,7 +21,11 @@ def _dit(name: str, layers: int, d: int, heads: int) -> ModelConfig:
         num_layers=layers,
         d_model=d,
         num_heads=heads,
+        num_kv_heads=heads,
         d_ff=4 * d,
+        vocab_size=0,
+        rope_kind="none",
+        is_encoder=True,
         dit=DiTConfig(patch_size=2, in_channels=4, num_classes=1000,
                       image_size=32),
     )

@@ -1,0 +1,158 @@
+"""CachedDecoder — FastCache's statistical block gate applied to
+autoregressive LLM decode steps, after the reference's
+``core/decode_runner.py:CachedDecoder``.
+
+The iterative axis is the decode step: the chi^2 gate (Eq. 7) on each
+layer's block input decides, per sample, whether to replace the block with
+its learnable linear approximation (Eq. 6).  ``reset_slot`` re-arms one
+slot's trackers when the serving engine gives it a new request.
+
+KV-cache consistency: on a skipped block the position's K/V are still
+computed from the (normalized) block input and written (``_kv_write``), so
+later tokens attend to an approximated-but-present entry; when any sample
+recomputes, the block writes the same K/V for every sample.
+
+The reference's ``lax.cond(jnp.all(do_cache), all_skip, mixed)`` is a real
+skip here, decided on the host: one host sync per layer per decode step
+(``bool(do_cache.all())``), counted in ``host_syncs``; ``skipped_layers``
+counts the layers where every sample skipped.  Both branches give
+the same per-row results, so either way is exact.  Only per-sample gates are
+ported: ``gate_mode="global"`` raises.  The cache is updated in place; the
+state comes back as a new dict.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import FastCacheConfig
+from repro_torch.core import linear_approx, statcache
+from repro_torch.models import common, layers
+from repro_torch.models.transformer import Cache, TransformerModel
+
+F32 = torch.float32
+
+
+class CachedDecoder:
+    def __init__(self, model: TransformerModel, fc: FastCacheConfig,
+                 fc_params: Optional[Dict[str, torch.Tensor]] = None):
+        if model.period != 1 or model.kinds != ("attn",):
+            raise ValueError("CachedDecoder supports period-1 attention "
+                             f"stacks; got {model.kinds}")
+        if fc.gate_mode != "per_sample":
+            raise ValueError("the port implements gate_mode='per_sample' "
+                             f"only, got {fc.gate_mode!r}")
+        self.model = model
+        self.fc = fc
+        self.L = model.cfg.num_layers
+        self.fc_params = fc_params or linear_approx.init_linear_params(
+            self.L, model.cfg.d_model, device=model.device)
+        self.host_syncs = 0
+        self.skipped_layers = 0
+
+    def init_state(self, batch: int) -> Dict:
+        m = self.model
+        dev = m.device
+        return {
+            "prev_hidden": torch.zeros((self.L + 1, batch, m.cfg.d_model),
+                                       dtype=m.dtype, device=dev),
+            "gate": statcache.init_gate_state(self.L, batch, dev),
+            "have_cache": torch.zeros((batch,), dtype=torch.bool, device=dev),
+            "stats": {"blocks_computed": torch.zeros((batch,), dtype=F32,
+                                                     device=dev),
+                      "blocks_skipped": torch.zeros((batch,), dtype=F32,
+                                                    device=dev),
+                      "steps": torch.zeros((), dtype=F32, device=dev)},
+        }
+
+    def reset_slot(self, state: Dict, slot: int) -> Dict:
+        """Re-arm one slot for a new request, in place: drop its hidden
+        cache and variance trackers without disturbing its batchmates.
+        Stats stay cumulative (engine-lifetime counters)."""
+        state["have_cache"][slot].fill_(False)   # fill_: no host sync
+        statcache.reset_gate_slot(state["gate"], [slot])
+        state["prev_hidden"][:, slot].fill_(0.0)
+        return state
+
+    def _kv_write(self, p_attn, x: torch.Tensor, cache: Cache,
+                  decode_pos: torch.Tensor) -> None:
+        """Write this position's K/V from block input x (B,1,D) on skip."""
+        cfg = self.model.cfg
+        h_in = common.rms_norm(x, p_attn.norm, cfg.norm_eps)
+        k = common.feinsum("bsd,dhk->bshk", h_in, p_attn.wk)
+        v = common.feinsum("bsd,dhk->bshk", h_in, p_attn.wv)
+        if cfg.qk_norm:
+            k = common.rms_norm(k, p_attn.k_norm, cfg.norm_eps)
+        k = common.rope_dispatch(k, decode_pos[:, None], cfg.rope_kind,
+                                 cfg.rope_theta)
+        layers.write_kv(cache, k, v, decode_pos)
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache: Cache, state: Dict
+                    ) -> Tuple[torch.Tensor, Cache, Dict]:
+        """tokens (B,). Returns (logits, cache, state)."""
+        m = self.model
+        cfg = m.cfg
+        fc = self.fc
+        fcp = self.fc_params
+        step = cache["step"]
+        x = m.embed(tokens[:, None])                       # (B,1,D)
+        b = x.shape[0]
+        positions = step[:, None]
+        nd = int(x.shape[-1])                # per-sample elements (one token)
+        threshold = statcache.make_threshold(fc.alpha, nd)
+        gate = state["gate"]
+        have = state["have_cache"]
+        sig = gate.sigma2.clone()
+        ini = gate.initialized.clone()
+        comp = torch.zeros((b,), dtype=F32, device=x.device)
+        skip = torch.zeros((b,), dtype=F32, device=x.device)
+        inputs = []
+        for l, bp in enumerate(m.blocks):
+            diff, prevsq = statcache.delta_stats_per_sample(
+                x[:, 0], state["prev_hidden"][l])
+            eligible = ini[l] & have
+            if not fc.use_sc:
+                eligible = torch.zeros_like(eligible)
+            do_cache = statcache.gate_decision(diff, prevsq, sig[l], nd,
+                                               threshold) & eligible
+            approx = linear_approx.apply_linear(fcp["W_l"][l], fcp["b_l"][l],
+                                                x)
+            lc = m.layer_cache(cache, l)
+            self.host_syncs += 1
+            if bool(do_cache.all()):                       # every sample skips
+                self.skipped_layers += 1
+                self._kv_write(bp.attn, x, lc, step)
+                x_new = approx
+            else:
+                x_blk, _ = m.block_apply(bp, x, positions=positions, cache=lc,
+                                         decode_pos=step)
+                x_new = torch.where(do_cache[:, None, None], approx, x_blk)
+            # only observe deltas taken against a REAL previous hidden: after
+            # a slot reset prev_hidden is zeroed and ||h - 0||^2 would poison
+            # the no-change variance into an always-skip gate
+            observe = ~do_cache & have
+            new_sig, _ = statcache.update_sigma(sig[l], ini[l], diff, nd,
+                                                fc.background_momentum)
+            sig[l] = torch.where(observe, new_sig, sig[l])
+            ini[l] = ini[l] | observe
+            dc = do_cache.to(F32)
+            comp = comp + (1.0 - dc)
+            skip = skip + dc
+            inputs.append(x[:, 0])
+            x = x_new
+        x = common.rms_norm(x, m.top.final_norm, cfg.norm_eps)
+        logits = m.unembed(x[:, 0])
+        step.add_(1)
+
+        st = dict(state)
+        st["prev_hidden"] = torch.stack(inputs + [x[:, 0]], dim=0)
+        st["gate"] = statcache.GateState(sigma2=sig, initialized=ini)
+        st["have_cache"] = torch.ones_like(have)
+        stats = dict(st["stats"])
+        stats["blocks_computed"] = stats["blocks_computed"] + comp
+        stats["blocks_skipped"] = stats["blocks_skipped"] + skip
+        stats["steps"] = stats["steps"] + 1.0
+        st["stats"] = stats
+        return logits, cache, st

@@ -47,6 +47,17 @@ def delta_stats_per_sample(h: torch.Tensor, h_prev: torch.Tensor
     return (d * d).sum(dim=dims), (pf * pf).sum(dim=dims)
 
 
+def gate_decision(diff_sq: torch.Tensor, prev_sq: torch.Tensor,
+                  sigma2: torch.Tensor, n_elements: int, threshold: float,
+                  mode: str = "normalized") -> torch.Tensor:
+    """True => cache (skip the block).  `threshold` is chi2_{ND,1-a}/ND.
+    ``mode="raw"`` is the literal Eq. 7 (delta against ||H_prev||^2)."""
+    if mode == "raw":
+        return diff_sq / prev_sq.clamp(min=1e-12) <= threshold
+    stat = diff_sq / (sigma2.clamp(min=1e-30) * n_elements)
+    return stat <= threshold
+
+
 def update_sigma(state_sigma2: torch.Tensor, state_init: torch.Tensor,
                  diff_sq: torch.Tensor, n_elements: int,
                  momentum: float = 0.7) -> Tuple[torch.Tensor, torch.Tensor]:

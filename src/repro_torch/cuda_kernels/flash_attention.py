@@ -1,0 +1,109 @@
+"""Wrapper of the ``flash_attention`` CUDA kernel
+(``csrc/flash_attention.cu``).
+
+Replaces the reference's Pallas kernel ``repro/kernels/flash_attention.py:
+flash_attention``.  CPU tensors go to the plain version
+(``ref.flash_attention``); CUDA tensors launch the kernel or raise — there
+is no fallback.  Each kernel launch adds one to
+``flash_attention.launches``.
+
+The kernel reads any strides with a unit stride along dh, so a caller
+holding (B, S, H, dh) activations passes ``x.transpose(1, 2)`` views and
+gets the output back in the same layout, with no copy.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.cuda_kernels import build, ref
+
+HEAD_DIMS = (64, 128)          # the kernel's template instances
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_vp, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _kernel():
+    fn = build.load_library("flash_attention").lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_vp] * 4 + [_int] * 6 + [_i64] * 12
+                       + [_int, _int, ctypes.c_float, _int, _vp])
+        fn.restype = _int
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got shape {tuple(t.shape)}")
+        if t.numel() == 0:
+            raise ValueError(f"{name} must be non-empty")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must share one device")
+    b, h, sq, dh = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    kb, kvh, skv, kdh = k.shape
+    if kb != b or kdh != dh:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} in batch or head_dim")
+    if h % kvh:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} KV "
+                         "heads")
+    if sq > skv:
+        raise ValueError(f"Sq={sq} > Skv={skv}: query positions are aligned "
+                         "to the end of the KV sequence")
+
+
+def _check_layout(t: torch.Tensor, name: str) -> None:
+    """The kernel loads 16-byte vectors along dh."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} needs a unit stride along head_dim, got "
+                         f"strides {t.stride()}")
+    unit = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % unit for s in t.stride()[:3]):
+        raise ValueError(f"{name} needs 16-byte aligned rows, got data_ptr "
+                         f"{t.data_ptr()} and strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, dh); k, v: (B, KVH, Skv, dh), float32 or bfloat16, one
+    dtype -> (B, H, Sq, dh) in q.dtype (on the card: in q's memory layout),
+    as ``ref.flash_attention``.  Query positions are aligned to the end of
+    the KV sequence; ``window > 0`` keeps keys with kpos > qpos - window."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CPU or CUDA, not "
+                         f"{q.device}")
+    b, h, sq, dh = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {dh}")
+    out = torch.empty_like(q)            # q's strides when q is dense
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _check_layout(t, name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, kvh, sq, skv, dh, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
+            int(window), dh ** -0.5, _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

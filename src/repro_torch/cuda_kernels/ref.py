@@ -35,6 +35,31 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
     return out.to(x.dtype), gate, diff, prevsq
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, dh); k, v: (B, KVH, Skv, dh); GQA by head grouping.
+    Query positions are aligned to the end of the KV sequence (prefill:
+    Sq == Skv); any Sq <= Skv.  Scores and p in f32, masked scores -1e30,
+    output in q.dtype."""
+    b, h, sq, dh = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, sq, dh)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg.to(F32), k.to(F32))
+    s = s * dh ** -0.5
+    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)
+    m = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        m &= kpos[None, :] > qpos[:, None] - window
+    s = s.masked_fill(~m, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(F32))
+    return o.reshape(b, h, sq, dh).to(q.dtype)
+
+
 def check_knn_k(k: int, w: int) -> None:
     """A window of ``w`` tokens has ``w - 1`` neighbours: every knn-density
     path raises this same error for ``k`` outside [1, w-1]."""

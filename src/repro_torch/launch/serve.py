@@ -1,0 +1,161 @@
+"""LLM serving launcher for the port: batched prefill + decode with
+optional FastCache decode gating, on one CUDA card (the reference's
+``launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --fastcache --json
+
+Weights are random (``torch.Generator`` seeded from ``--seed``); prompts
+are drawn by ``numpy.random.default_rng(seed)``.  After an untimed warm-up
+on a fresh engine, prints decode steps and tokens per second of wall time,
+prefill ms per request and, with ``--fastcache``, the block cache ratio.
+``--device cpu --reduced`` runs the plain PyTorch path on the reduced model
+in f32.
+
+``LLMWorkload`` is the one definition of the served configuration: its
+defaults are the flags' defaults, and ``chip_smoke.py`` builds its LLM
+serve from it.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import LLM_IDS, get_config, get_reduced
+from repro_torch.configs.base import FastCacheConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import TransformerModel
+from repro_torch.serving.engine import Request, ServingEngine
+
+
+@dataclass(frozen=True)
+class LLMWorkload:
+    """An LLM serve: the model, the decode gate, the engine and the
+    requests."""
+    arch: str = "qwen3-0.6b"
+    reduced: bool = False           # the reduced config, in f32
+    requests: int = 8
+    prompt_len: int = 512
+    new_tokens: int = 64
+    max_batch: int = 4
+    window: int = 1024              # KV ring slots, and the prefill's window
+    fastcache: bool = False         # the FastCache decode gate
+    seed: int = 0                   # weights and prompts
+
+    def build_model(self, device) -> TransformerModel:
+        cfg = get_reduced(self.arch) if self.reduced else get_config(self.arch)
+        if self.reduced:
+            cfg = cfg.replace(dtype="float32")
+        dev = resolve_device(device)
+        return build_model(cfg, device=dev).init(
+            torch.Generator(dev).manual_seed(self.seed))
+
+    def build_engine(self, model: TransformerModel) -> ServingEngine:
+        return ServingEngine(
+            model, max_batch=self.max_batch, window=self.window,
+            fastcache=FastCacheConfig() if self.fastcache else None)
+
+    def build_requests(self, model: TransformerModel) -> List[Request]:
+        rng = np.random.default_rng(self.seed)
+        return [Request(rid=i,
+                        prompt=rng.integers(0, model.cfg.vocab_size,
+                                            self.prompt_len).astype(np.int32),
+                        max_new_tokens=self.new_tokens)
+                for i in range(self.requests)]
+
+    def warm_up(self, model: TransformerModel) -> ServingEngine:
+        """Serve two short requests on a fresh engine, so that the first
+        calls of the math libraries and of the kernel (its build included)
+        land here and not in a timed run.  Returns the engine it used."""
+        short = dataclasses.replace(self, requests=2,
+                                    prompt_len=min(self.prompt_len, 32),
+                                    new_tokens=4)
+        eng = short.build_engine(model)
+        eng.run(short.build_requests(model))
+        return eng
+
+
+def serve(wl: LLMWorkload, model: TransformerModel
+          ) -> Tuple[Dict, ServingEngine, List[Request]]:
+    """Serve ``wl`` on a fresh engine, timed.  Returns the summary, the
+    engine and the finished requests."""
+    dev = model.device
+    eng = wl.build_engine(model)
+    reqs = wl.build_requests(model)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.generated) for r in done)
+    decode_s = wall - eng.prefill_s
+    syncs = eng.host_syncs + (eng.decoder.host_syncs if eng.decoder else 0)
+    out = {
+        "arch": model.cfg.name, "device": str(dev),
+        "device_name": (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"),
+        "fastcache": wl.fastcache, "max_batch": wl.max_batch,
+        "window": wl.window, "prompt_len": wl.prompt_len,
+        "requests": len(reqs), "finished": len(done), "tokens": tokens,
+        "decode_steps": eng.decode_steps, "prefills": eng.prefills,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "decode_steps_per_s": eng.decode_steps / decode_s,
+        "prefill_ms_per_request": 1e3 * eng.prefill_s / eng.prefills,
+        "host_syncs": syncs,
+        "host_syncs_per_decode_step": ((syncs - eng.prefills)
+                                       / eng.decode_steps),
+    }
+    stats = eng.cache_stats()
+    if stats:
+        out["block_cache_ratio"] = stats["block_cache_ratio"]
+        out["blocks_skipped"] = stats["blocks_skipped"]
+        out["layers_all_skipped_per_decode_step"] = (
+            eng.decoder.skipped_layers / eng.decode_steps)
+    return out, eng, done
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=LLMWorkload.arch, choices=LLM_IDS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=LLMWorkload.requests)
+    ap.add_argument("--prompt-len", type=int, default=LLMWorkload.prompt_len)
+    ap.add_argument("--new-tokens", type=int, default=LLMWorkload.new_tokens)
+    ap.add_argument("--max-batch", type=int, default=LLMWorkload.max_batch)
+    ap.add_argument("--window", type=int, default=LLMWorkload.window)
+    ap.add_argument("--fastcache", action="store_true")
+    ap.add_argument("--seed", type=int, default=LLMWorkload.seed)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--json", action="store_true")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    args = parse_args(argv)
+    wl = LLMWorkload(**{f.name: getattr(args, f.name)
+                        for f in dataclasses.fields(LLMWorkload)})
+    model = wl.build_model(args.device)
+    wl.warm_up(model)
+    summary = serve(wl, model)[0]
+    if args.json:
+        print(json.dumps(summary))
+    else:
+        for k, v in summary.items():
+            print(f"{k:>28}: {v}")
+
+
+if __name__ == "__main__":
+    main()

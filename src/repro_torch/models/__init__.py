@@ -1,4 +1,6 @@
-"""DiT model for the PyTorch port."""
+"""Models of the PyTorch port: the DiT and the dense transformer."""
 from repro_torch.models.dit import DiTModel
+from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import TransformerModel
 
-__all__ = ["DiTModel"]
+__all__ = ["DiTModel", "TransformerModel", "build_model"]

@@ -1,5 +1,6 @@
-"""Shared DiT building blocks: matmuls with f32 accumulation, adaLN
-modulation, the tanh-GELU MLP, timestep embedding and (un)patchify.
+"""Shared model building blocks (the reference's ``models/common.py``):
+matmuls with f32 accumulation, RMSNorm, RoPE, SwiGLU, and for the DiT
+adaLN modulation, the tanh-GELU MLP, timestep embedding and (un)patchify.
 
 ``fdot``/``feinsum`` mirror the reference's ``preferred_element_type=f32``
 followed by a cast back: PyTorch's matmul on bf16 operands accumulates in
@@ -25,6 +26,57 @@ def fdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def feinsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, *(x.to(xs[0].dtype) for x in xs))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(F32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.to(F32)).to(x.dtype)
+
+
+def _rope_angles(positions: torch.Tensor, half_dim: int,
+                 theta: float) -> torch.Tensor:
+    """positions (...,) -> angles (..., half_dim), f32.  ``theta`` stays a
+    Python scalar: a tensor made from it on the card would be a host copy
+    that synchronizes."""
+    exps = torch.arange(half_dim, dtype=F32, device=positions.device) / half_dim
+    inv_freq = 1.0 / theta ** exps
+    return positions.to(F32)[..., None] * inv_freq
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) or (S,).  Split-half rotation,
+    in f32."""
+    dh = x.shape[-1]
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = _rope_angles(positions, dh // 2, theta)          # (B, S, dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_dispatch(x: torch.Tensor, positions, kind: str,
+                  theta: float) -> torch.Tensor:
+    """``kind`` "none" (or no positions) leaves x as it is; "default" is
+    ``apply_rope``.  M-RoPE is not ported and raises."""
+    if kind == "none" or positions is None:
+        return x
+    if kind != "default":
+        raise NotImplementedError(f"rope_kind {kind!r} is not ported; only "
+                                  "'default' and 'none'")
+    return apply_rope(x, positions, theta)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = fdot(x, w_gate)
+    u = fdot(x, w_up)
+    return fdot(F.silu(g.to(F32)).to(x.dtype) * u, w_down)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor,

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import common
-from repro_torch.models.attention import attend_direct
+from repro_torch.models.attention import attend_bidirectional
 
 F32 = torch.float32
 
@@ -162,7 +162,7 @@ class DiTModel(nn.Module):
         q = common.feinsum("bnd,dhk->bnhk", h, bp.wq)
         k = common.feinsum("bnd,dhk->bnhk", h, bp.wk)
         v = common.feinsum("bnd,dhk->bnhk", h, bp.wv)
-        o = attend_direct(q, k, v)
+        o = attend_bidirectional(q, k, v)
         o = common.feinsum("bnhk,hkd->bnd", o, bp.wo)
         x = x + g1[:, None, :] * o
         h = common.modulate(_ln(x), sh2, sc2)

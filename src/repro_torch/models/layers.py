@@ -1,0 +1,206 @@
+"""Attention and SwiGLU FFN layer bodies and their parameter definitions,
+after the reference's ``models/layers.py`` (``attn_defs``, ``_qkv``,
+``attn_apply``, ``attn_cache_defs``, ``ffn_defs``, ``ffn_apply``).
+
+Each ``*_defs`` returns a dict of ``ParamDef`` (shape, init kind, scale,
+dtype override), the reference's ParamDefs without the sharding axes;
+``ParamGroup`` materializes one dict as the parameters of a module, so a
+layer's parameters are attributes (``p.wq``) where the reference reads
+``p["wq"]``.  MoE and the GELU FFN are not ported.
+
+KV caches are updated in place: the decode step writes one slot per sample
+into the cache it is given and the prefill fills the (empty) cache it is
+given, where the reference returns new arrays.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.attention import attention, decode_attend
+
+F32 = torch.float32
+
+
+class ParamDef(NamedTuple):
+    shape: Tuple[int, ...]
+    init: str = "normal"        # normal | zeros | ones | fan_in
+    scale: float = 1.0
+    dtype: Optional[str] = None  # override the model dtype (f32 norms)
+
+
+class ParamGroup(nn.Module):
+    """One dict of ParamDefs as (frozen) parameters of a module."""
+
+    def __init__(self, defs: Dict[str, ParamDef], dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.defs = defs
+        for name, d in defs.items():
+            dt = torch.float32 if d.dtype == "float32" else dtype
+            self.register_parameter(name, nn.Parameter(
+                torch.zeros(d.shape, dtype=dt, device=device),
+                requires_grad=False))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The reference's initializers (``models/params.py:init_params``):
+        zeros, ones, normal with std 0.02 * scale, fan_in with std
+        scale / sqrt(shape[-2]); drawn in f32, then cast."""
+        for name, d in self.defs.items():
+            p = getattr(self, name)
+            if d.init in ("zeros", "ones"):
+                p.fill_(1.0 if d.init == "ones" else 0.0)
+                continue
+            if d.init == "fan_in":
+                fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+                std = d.scale / fan_in ** 0.5
+            else:
+                std = 0.02 * d.scale
+            p.copy_(torch.randn(d.shape, generator=generator, device=p.device,
+                                dtype=F32) * std)
+
+
+# --------------------------------------------------------------------------
+# Attention layer
+# --------------------------------------------------------------------------
+
+def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, h, kvh, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    out = {
+        "norm": ParamDef((d,), "ones", dtype="float32"),
+        "wq": ParamDef((d, h, dh), "fan_in"),
+        "wk": ParamDef((d, kvh, dh), "fan_in"),
+        "wv": ParamDef((d, kvh, dh), "fan_in"),
+        "wo": ParamDef((h, dh, d), "fan_in",
+                       scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = ParamDef((dh,), "ones", dtype="float32")
+        out["k_norm"] = ParamDef((dh,), "ones", dtype="float32")
+    return out
+
+
+def _qkv(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig, positions):
+    q = common.feinsum("bsd,dhk->bshk", x, p.wq)
+    k = common.feinsum("bsd,dhk->bshk", x, p.wk)
+    v = common.feinsum("bsd,dhk->bshk", x, p.wv)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = common.rms_norm(k, p.k_norm, cfg.norm_eps)
+    q = common.rope_dispatch(q, positions, cfg.rope_kind, cfg.rope_theta)
+    k = common.rope_dispatch(k, positions, cfg.rope_kind, cfg.rope_theta)
+    return q, k, v
+
+
+def _prefill_fill(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                  v: torch.Tensor, pos: torch.Tensor) -> None:
+    """Fill an empty (B, w, ...) layer cache from a prompt of S positions,
+    as the reference's prefill does (``layers.py:116-130``): S < w pads
+    with pos = -1; S >= w keeps the last w entries in the reference's
+    rotation, slot j holding entry (j + shift) % w of them, shift =
+    (S - w) % w (the reference's ``argsort`` of ``(arange(w) - shift) %
+    w``).  That gives slot == pos % w only when 2 * shift % w == 0; the port
+    keeps the reference's order."""
+    s, w = k.shape[1], cache["k"].shape[1]
+    kd, vd = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
+    if s >= w:
+        shift = (s - w) % w
+        inv = (torch.arange(w, device=k.device) + shift) % w
+        cache["k"].copy_(kd[:, s - w:][:, inv])
+        cache["v"].copy_(vd[:, s - w:][:, inv])
+        cache["pos"].copy_(pos[:, s - w:][:, inv])
+    else:
+        cache["k"][:, :s] = kd
+        cache["v"][:, :s] = vd
+        cache["pos"][:, :s] = pos
+        cache["k"][:, s:].zero_()
+        cache["v"][:, s:].zero_()
+        cache["pos"][:, s:].fill_(-1)
+
+
+def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
+               positions: Optional[torch.Tensor] = None,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               decode_pos: Optional[torch.Tensor] = None,
+               window: int = 0
+               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Pre-norm attention sublayer with residual.
+
+    * train/encode: ``cache=None, decode_pos=None`` — full self-attention.
+    * prefill:      ``cache`` is an empty layer cache to fill, decode_pos
+      None.
+    * decode:       ``cache`` holds K/V; ``decode_pos`` (B,) current
+      positions; this position's K/V are written at slot decode_pos % w.
+    """
+    h_in = common.rms_norm(x, p.norm, cfg.norm_eps)
+    causal = not cfg.is_encoder
+    if decode_pos is not None:                       # ---- decode (Sq == 1)
+        if cache is None:
+            raise ValueError("attention decode step (decode_pos set) "
+                             "requires a KV cache; got cache=None")
+        q, k, v = _qkv(p, h_in, cfg, positions)
+        write_kv(cache, k, v, decode_pos)
+        out = decode_attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                            decode_pos, cache["pos"])
+    else:                                            # ---- full sequence
+        s = x.shape[1]
+        rope_pos = positions
+        if rope_pos is None:
+            rope_pos = torch.arange(s, device=x.device)[None]    # (1, S)
+        q, k, v = _qkv(p, h_in, cfg, rope_pos)
+        out = attention(q, k, v, positions, causal=causal, window=window)
+        if cache is not None:                        # prefill: fill the cache
+            pc = rope_pos.to(torch.int32).expand(x.shape[0], s)
+            _prefill_fill(cache, k, v, pc)
+    proj = common.feinsum("bshk,hkd->bsd", out, p.wo)
+    return x + proj, cache
+
+
+def write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+             v: torch.Tensor, decode_pos: torch.Tensor) -> None:
+    """Write one position's K/V (B, 1, KVH, dh) per sample at slot
+    decode_pos % w of the (B, w, ...) layer cache, in place."""
+    w = cache["k"].shape[1]
+    slot = decode_pos.long() % w                     # (B,)
+    bidx = torch.arange(k.shape[0], device=k.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = decode_pos.to(cache["pos"].dtype)
+
+
+def attn_cache_defs(cfg: ModelConfig, batch: int,
+                    window: int) -> Dict[str, ParamDef]:
+    """One layer's cache: K/V in the model dtype, pos int32 (the empty
+    cache has pos = -1, set by ``TransformerModel.init_cache``)."""
+    kvh, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": ParamDef((batch, window, kvh, dh), "zeros"),
+            "v": ParamDef((batch, window, kvh, dh), "zeros"),
+            "pos": ParamDef((batch, window), "zeros", dtype="int32")}
+
+
+# --------------------------------------------------------------------------
+# Dense FFN (SwiGLU)
+# --------------------------------------------------------------------------
+
+def ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """SwiGLU only (the reference's ``kind="gelu"`` is the audio family's)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "norm": ParamDef((d,), "ones", dtype="float32"),
+        "w_gate": ParamDef((d, f), "fan_in"),
+        "w_up": ParamDef((d, f), "fan_in"),
+        "w_down": ParamDef((f, d), "fan_in",
+                           scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+    }
+
+
+def ffn_apply(p: ParamGroup, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    h = common.rms_norm(x, p.norm, cfg.norm_eps)
+    return x + common.swiglu(h, p.w_gate, p.w_up, p.w_down)

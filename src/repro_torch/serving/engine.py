@@ -1,0 +1,173 @@
+"""Batched LLM serving engine: slot-based continuous batching over a
+fixed-size decode batch, with optional FastCache decode gating, after the
+reference's ``serving/engine.py:ServingEngine``.
+
+The engine owns a KV cache sized (max_batch, window) and a slot table; a
+new request is prefilled alone (batch 1) and spliced into a free slot, and
+each decode step runs the whole batch.  Finished sequences free their
+slots.  Greedy decoding only: ``greedy=False`` (sampling with
+``jax.random``, which the port cannot reproduce) and ``collector=`` (the
+metrics plane) raise.
+
+Host syncs: one per admission and one per decode step (the greedy tokens),
+counted in ``host_syncs``; the FastCache gate adds the decoder's own
+(``decoder.host_syncs``).  The active-slot cache counters accumulate on the
+device and are read only by ``cache_stats``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FastCacheConfig
+from repro_torch.core.decode_runner import CachedDecoder
+from repro_torch.device import to_device
+from repro_torch.models.transformer import TransformerModel
+
+F64 = torch.float64
+
+
+@dataclasses.dataclass(eq=False)
+class Request:
+    rid: int
+    prompt: np.ndarray              # (S,) int32
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServingEngine:
+    def __init__(self, model: TransformerModel, *, max_batch: int,
+                 window: int, eos_id: Optional[int] = None,
+                 fastcache: Optional[FastCacheConfig] = None,
+                 greedy: bool = True, collector=None):
+        if not greedy:
+            raise NotImplementedError(
+                "only greedy decoding is ported: the reference samples with "
+                "jax.random, which the port cannot reproduce")
+        if collector is not None:
+            raise NotImplementedError("the metrics plane (collector=) is not "
+                                      "ported")
+        self.model = model
+        self.device = model.device
+        self.max_batch = max_batch
+        self.window = window
+        self.eos_id = eos_id
+        self.cache = model.init_cache(max_batch, window)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.slot_tokens = np.zeros((max_batch,), np.int64)
+        self.decoder = None
+        if fastcache is not None and fastcache.enabled:
+            self.decoder = CachedDecoder(model, fastcache)
+            self.fc_state = self.decoder.init_state(max_batch)
+            # headline counters accumulate only ACTIVE slots' decisions —
+            # idle slots re-feed their stale token, trivially skip every
+            # block, and would otherwise inflate the cache ratio
+            self.active_blocks_skipped = torch.zeros((), dtype=F64,
+                                                     device=self.device)
+            self.active_blocks_computed = torch.zeros((), dtype=F64,
+                                                      device=self.device)
+        self.host_syncs = 0
+        self.decode_steps = 0
+        self.prefills = 0
+        self.prefill_s = 0.0        # host wall time of admissions (prefills)
+
+    # -- device work ----------------------------------------------------
+
+    def _prefill(self, prompt: np.ndarray, slot: int) -> torch.Tensor:
+        """Prefill ONE request (batch 1) and splice its cache into `slot`."""
+        tokens = to_device(np.asarray(prompt, np.int64)[None], self.device)
+        logits, one = self.model.prefill(tokens, self.window)
+        for key in ("k", "v", "pos"):                # (L, B, W, ...)
+            self.cache[key][:, slot].copy_(one[key][:, 0])
+        self.cache["step"][slot].copy_(one["step"][0])
+        return logits[0]
+
+    # -- host orchestration --------------------------------------------
+
+    def add_request(self, req: Request) -> bool:
+        for s in range(self.max_batch):
+            if self.slots[s] is None:
+                t0 = time.perf_counter()
+                logits = self._prefill(req.prompt, s)
+                if self.decoder is not None:
+                    # per-slot gating: re-arm only this slot's trackers — the
+                    # other slots' caches stay valid across the admission
+                    self.decoder.reset_slot(self.fc_state, s)
+                nxt = int(torch.argmax(logits))      # host sync
+                self.host_syncs += 1
+                self.prefill_s += time.perf_counter() - t0
+                self.prefills += 1
+                req.generated.append(nxt)
+                self.slots[s] = req
+                self.slot_tokens[s] = nxt
+                return True
+        return False
+
+    def step(self) -> None:
+        """One batched decode step for all active slots."""
+        tokens = to_device(self.slot_tokens, self.device)
+        if self.decoder is None:
+            logits, self.cache = self.model.decode_step(tokens, self.cache)
+        else:
+            active = to_device(np.array(
+                [r is not None and not r.done for r in self.slots]),
+                self.device)
+            before = self.fc_state["stats"]
+            logits, self.cache, self.fc_state = self.decoder.decode_step(
+                tokens, self.cache, self.fc_state)
+            after = self.fc_state["stats"]
+            for key, acc in (("blocks_skipped", self.active_blocks_skipped),
+                             ("blocks_computed",
+                              self.active_blocks_computed)):
+                acc.add_(((after[key] - before[key]) * active).sum(dtype=F64))
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()     # host sync
+        self.host_syncs += 1
+        self.decode_steps += 1
+        for s, req in enumerate(self.slots):
+            if req is None or req.done:
+                continue
+            tok = int(nxt[s])
+            req.generated.append(tok)
+            self.slot_tokens[s] = tok
+            if ((self.eos_id is not None and tok == self.eos_id)
+                    or len(req.generated) >= req.max_new_tokens):
+                req.done = True
+                self.slots[s] = None
+
+    def run(self, requests: List[Request], max_steps: int = 1024
+            ) -> List[Request]:
+        pending = list(requests)
+        finished: List[Request] = []
+        active: List[Request] = []
+        steps = 0
+        while (pending or any(self.slots)) and steps < max_steps:
+            while pending and self.add_request(pending[0]):
+                active.append(pending.pop(0))
+            self.step()
+            steps += 1
+            for r in active:
+                if r.done and r not in finished:
+                    finished.append(r)
+        return finished + [r for r in active if r not in finished]
+
+    def cache_stats(self) -> Dict:
+        """Engine-lifetime cache counters.  The headline numbers count only
+        decisions made while a slot had a live request (idle slots skip
+        trivially); the raw per-slot (batch,) accumulators — which do
+        include idle periods — are reported under per_slot_*."""
+        if self.decoder is None:
+            return {}
+        s = self.fc_state["stats"]
+        skipped = float(self.active_blocks_skipped)
+        tot = float(self.active_blocks_computed) + skipped
+        return {"blocks_skipped": skipped,
+                "block_cache_ratio": skipped / tot if tot else 0.0,
+                "per_slot_blocks_skipped": [
+                    float(v) for v in s["blocks_skipped"].cpu()],
+                "per_slot_blocks_computed": [
+                    float(v) for v in s["blocks_computed"].cpu()]}

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.statcache import make_threshold
 from repro_torch.cuda_kernels import ref
+from repro_torch.cuda_kernels.flash_attention import flash_attention
 from repro_torch.cuda_kernels.fused_gate import fused_gate
 from repro_torch.cuda_kernels.knn_density import knn_density
 from repro_torch.cuda_kernels.token_merge import merge_assign, unmerge_scatter
@@ -307,3 +308,141 @@ def test_merged_cached_step_kernels_match_plain_path(cuda_device,
                 unmerge_scatter.launches - counts[2])
     mixed = getattr(kernel.impl, "step_kinds", {}).get("mixed", 0)
     assert launched == (6, 6, 6 + mixed)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+# (B, H, KVH, Sq, Skv, causal, window): the serve's prefill, ragged
+# lengths, end alignment (Sq < Skv), a window that skips tiles on both
+# sides, and bidirectional with and without a window
+FLASH_SHAPES = [(1, 16, 8, 512, 512, True, 1024), (2, 4, 2, 100, 100, True, 0),
+                (1, 4, 1, 64, 576, True, 0), (1, 4, 2, 700, 700, True, 128),
+                (2, 4, 4, 37, 141, False, 50), (1, 8, 8, 130, 130, False, 0)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(dev, dtype, b, h, kvh, sq, skv, dh, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, h, sq, dh), (b, kvh, skv, dh),
+                          (b, kvh, skv, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, dh, shape):
+    """Tolerances: the reference's (tests/test_kernels.py:106), 2e-5 in
+    f32 (online softmax against a full softmax, both f32) and 2e-2 in bf16
+    (the output is rounded to bf16)."""
+    b, h, kvh, sq, skv, causal, window = shape
+    q, k, v = _qkv(cuda_device, dtype, b, h, kvh, sq, skv, dh)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize(cuda_device)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_strided_views(cuda_device):
+    """(B, S, H, dh) activations passed as transposed views give the
+    contiguous inputs' result bitwise, in the views' layout."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 16, 8, 96, 96, 128)
+    want = flash_attention(q, k, v, causal=True, window=40)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    got = flash_attention(*views, causal=True, window=40)
+    torch.cuda.synchronize(cuda_device)
+    assert got.stride() == views[0].stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_is_deterministic(cuda_device):
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 16, 8, 512, 512, 128)
+    before = flash_attention.launches
+    first = flash_attention(q, k, v, causal=True, window=1024)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v, causal=True,
+                                           window=1024), first)
+    assert flash_attention.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_bad_cuda_input(cuda_device):
+    q, k, v = _qkv(cuda_device, torch.float16, 1, 4, 2, 16, 16, 64)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v, causal=True)
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 2, 16, 16, 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, v, causal=True)
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 2, 16, 16, 64)
+    padded = torch.zeros((1, 2, 16, 65), device=cuda_device)[..., :64]
+    with pytest.raises(ValueError, match="aligned"):      # rows of 260 B
+        flash_attention(q, padded, v, causal=True)
+    with pytest.raises(ValueError, match="share one device"):
+        flash_attention(q, k.cpu(), v, causal=True)
+
+
+@pytest.mark.cuda
+def test_full_width_prefill_kernel_matches_plain_path(cuda_device,
+                                                      monkeypatch):
+    """qwen3-0.6b at full width (28 layers, bf16, random weights), one
+    512-token prefill through the kernel and, with the plain twin patched
+    into models/attention.py, without it: the cache positions exact, the
+    last-position logits within a relative L2 of 2e-2 (bf16 activations
+    through 28 layers; a bf16 rounding is 4e-3 relative), 28 launches."""
+    from repro_torch.launch.serve import LLMWorkload
+    from repro_torch.models import attention
+
+    wl = LLMWorkload()
+    model = wl.build_model(cuda_device)
+    prompt = torch.from_numpy(wl.build_requests(model)[0].prompt).long()
+    tokens = prompt[None].to(cuda_device)
+    before = flash_attention.launches
+    logits, cache = model.prefill(tokens, wl.window)
+    torch.cuda.synchronize(cuda_device)
+    assert flash_attention.launches - before == model.cfg.num_layers
+    with monkeypatch.context() as m:
+        m.setattr(attention, "flash_attention", ref.flash_attention)
+        plain_logits, plain_cache = model.prefill(tokens, wl.window)
+    assert flash_attention.launches - before == model.cfg.num_layers
+    assert torch.equal(cache["pos"], plain_cache["pos"])
+    a, b = logits.float(), plain_logits.float()
+    assert torch.isfinite(a).all()
+    rel = float((a - b).norm() / b.norm())
+    assert rel < 2e-2, rel
+
+
+@pytest.mark.cuda
+def test_llm_prefill_and_decode_make_no_host_sync(cuda_device):
+    """The model's prefill and exact decode step queue device work only:
+    under sync debug "error" any host synchronization raises (the engine's
+    greedy-token read and the decode gate's per-layer test are the path's
+    only syncs, and they lie outside these calls)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import TransformerModel
+
+    model = TransformerModel(get_reduced("qwen3-0.6b"), device=cuda_device)
+    model.init(torch.Generator(cuda_device).manual_seed(0))
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 40), generator=gen,
+                           device=cuda_device)
+    _, warm = model.prefill(tokens[:, :8], 16)     # first calls of each op
+    model.decode_step(tokens[:, 8], warm)
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, cache = model.prefill(tokens, 16)
+        for i in range(3):
+            model.decode_step(tokens[:, i], cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(cuda_device)
+    assert cache["step"].tolist() == [43, 43]

@@ -33,7 +33,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_engine_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serving.diffusion_engine, "
-            "repro_torch.launch.serve_diffusion; "
+            "repro_torch.launch.serve_diffusion, "
+            "repro_torch.serving.engine, repro_torch.launch.serve; "
             "assert 'jax' not in sys.modules, 'jax was imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro was imported'")
