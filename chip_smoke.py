@@ -26,6 +26,15 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               assign exact, merged within 5e-2, unmerge bitwise; library:
               torch.gather for unmerge_scatter, and torch.bmm of the f32
               (W,w,D)x(W,D,w) Gram as a yardstick for the other two;
+            - saliency_delta at (8, 256, 1152) in bf16 and f32 and at
+              (8, 128, 1152) in bf16: per-token output and totals within
+              rtol 1e-5, repeated calls bitwise; library: torch.sum(d*d, -1)
+              on the f32 difference, a yardstick;
+            - linear_blend at M=2048, D=F=1152, bf16 X/prev, f32 W/b, gamma
+              1 and 0.5, at M=1024, and ragged at M=D=F=1000 in f32: within
+              2e-2 in bf16 and 1e-4 in f32, repeated calls bitwise; library:
+              torch.addmm in f32 with alpha=gamma, bias and blend folded
+              into its input;
 4. syncs    an untimed warm-up serve (Workload.warm_up: two short requests
             on a fresh engine) under torch.cuda's sync-debug mode: the
             synchronizations it flags beside the code's own host_syncs count;
@@ -35,35 +44,47 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             FastCacheConfig, 4 slots, 8 Poisson requests (rate 0.5, seed 0),
             50 DDIM steps, guidance 4.0, through DiffusionServingEngine.run,
             timed with sync debug off; the kernels' launch counts are zeroed
-            just before and read just after, and fused_gate must have
-            launched 28 times per model step with a warm slot;
+            just before and read just after: fused_gate must have
+            launched 28 times, saliency_delta and linear_blend once, per
+            model step with a warm slot, and no other kernel;
 6. syncs_merge / serve_merge   the same Workload with token merging on
             (merge_ratio 0.5, window 16), warmed up under sync debug and
             then timed with it off: the syncs per model step must equal the
             merge-off warm-up's; knn_density and merge_assign must have
             launched once per model step, unmerge_scatter once more per
-            mixed step, fused_gate 28 times per warm or mixed step, and the
-            kept-token share must be exactly 0.5;
+            mixed step, fused_gate 28 times and saliency_delta and
+            linear_blend once per warm or mixed step, and the kept-token
+            share must be exactly 0.5;
 7. static   the same input for 6 steps through CachedDiT.step: cache ratio
             must exceed 0.4 (the gated branch firing at full width);
-8. quality  relative L2 of fastcache eps, and of fastcache + merge eps,
-            against nocache eps (merge off) on the same inputs for 6 DDIM
-            steps;
-9. kernel   flash_attention against its plain version at four shapes: (a)
+8. policies the same Workload under each of fora, teacache, adacache,
+            fbcache, l2c and smoothcache (l2c's mask: the 14 layers of least
+            relative change in one nocache forward, by _rel_change; the
+            default smoothcache schedule): a warm-up under sync debug whose
+            flagged syncs in the port must equal the counted ones, one per
+            model step for each step-level policy and none for l2c; then a
+            timed serve, launches exact: saliency_delta once per model step
+            for teacache, adacache and fbcache, linear_blend 14 times per
+            model step for l2c, no other kernel; nocache's serve first, as
+            the yardstick of the engine steps/s (no kernel, no policy sync);
+9. quality  relative L2 of fastcache eps, of fastcache + merge eps, and of
+            each baseline policy's eps against nocache eps (merge off) on
+            the same inputs for 6 DDIM steps;
+10. kernel  flash_attention against its plain version at four shapes: (a)
             the LLM serve's prefill, B=1, H=16, KVH=8, S=512, dh=128,
             causal, window 1024, bf16; (b) S=2048, window 512 (tiles
             skipped on both sides); (c) Sq=64, Skv=576, causal (end
             alignment); (d) (a) in f32; within 2e-2 (bf16) and 2e-5 (f32);
             library: F.scaled_dot_product_attention (is_causal at (a) and
             (d), an explicit boolean mask at (b) and (c)), a yardstick only;
-10. llm_model  qwen3-0.6b at full width (launch.serve.LLMWorkload: 28
+11. llm_model  qwen3-0.6b at full width (launch.serve.LLMWorkload: 28
             layers, d 1024, 16/8 heads of 128, vocab 151,936, bf16, random
             weights from torch.Generator seed 0): parameters, init seconds;
-11. llm_syncs  a warm-up fastcache serve (LLMWorkload.warm_up) under sync
+12. llm_syncs  a warm-up fastcache serve (LLMWorkload.warm_up) under sync
             debug: the syncs it flags in the port's code must be the ones
             the code counts, 29 per decode step (28 gate decisions and the
             greedy tokens) and one per admission;
-12. llm_serve  the LLM main path, LLMWorkload's defaults (8 requests of
+13. llm_serve  the LLM main path, LLMWorkload's defaults (8 requests of
             512 random tokens, 64 new tokens, max_batch 4, window 1024)
             through ServingEngine.run, exact and with the FastCache decode
             gate, each on a fresh engine after a warm-up, timed with sync
@@ -71,11 +92,12 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             just after; flash_attention must have launched 28 times per
             prefill and no other kernel at all; greedy-token agreement of
             fastcache against exact;
-13. llm_prefill_parity  the last-position logits of one full-width
+14. llm_prefill_parity  the last-position logits of one full-width
             512-token prefill through the kernel against the same prefill
             with the plain version patched in: relative L2 below 2e-2.
 
-Then the kernels line, the card's name and power limit, and as the last
+Then the total seconds, the kernels line (seven rows), the card's name and
+power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no CUDA card is present or any phase fails.
 """
@@ -98,7 +120,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12       # H100 SXM, dense bf16 tensor cores
 KERNEL_SOURCES = ("fused_gate", "knn_density", "token_merge",
-                  "flash_attention")                        # csrc/*.cu
+                  "flash_attention", "saliency_delta",
+                  "linear_blend")                           # csrc/*.cu
 MERGE_RATIO = 0.5                  # the merged serve's kept-token share
 # the merged slice's window shapes: DiT-XL/2 with 4 slots has 8 CFG rows of
 # 256 tokens of width 1152, in windows of 16 with K=5 and M=8 kept
@@ -111,6 +134,20 @@ FLASH_SHAPES = {"a": (1, 16, 8, 512, 512, 128, True, 1024, "bfloat16"),
                 "d": (1, 16, 8, 512, 512, 128, True, 1024, "float32")}
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 PREFILL_REL_L2 = 2e-2      # kernel vs plain full-width prefill logits
+# saliency_delta shapes (B, N, D, dtype): fastcache/teacache at 4 slots (the
+# CFG batch of 8 rows of 256 tokens), in bf16 and f32, and merged (128 kept)
+SAL_SHAPES = ((8, 256, 1152, "bfloat16"), (8, 256, 1152, "float32"),
+              (8, 128, 1152, "bfloat16"))
+# linear_blend shapes (M, D, F, dtype, gamma): 4 slots x CFG x 256 tokens at
+# the callers' gamma 1 and the reference's default 0.5, merged, and ragged
+BLEND_SHAPES = ((2048, 1152, 1152, "bfloat16", 1.0),
+                (2048, 1152, 1152, "bfloat16", 0.5),
+                (1024, 1152, 1152, "bfloat16", 1.0),
+                (1000, 1000, 1000, "float32", 0.5))
+BLEND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the six baseline policies served at full width, and l2c's layer count
+BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
+L2C_SKIP = 14
 SPIN_CYCLES = 4_000_000    # ~2 ms spin opening each device_ms window
 
 
@@ -367,6 +404,101 @@ def phase_token_merge(torch, dev, k):
     return rows
 
 
+def phase_saliency_delta(torch, dev, ref, saliency_delta):
+    """saliency_delta against its plain version at SAL_SHAPES; returns the
+    row of the first shape, the merge-off serve's."""
+    rows = []
+    for i, (b, n, d, dt) in enumerate(SAL_SHAPES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(dev).manual_seed(6 + i)
+        x = torch.randn((b, n, d), generator=gen, device=dev)
+        prev = (x + 0.1 * torch.randn((b, n, d), generator=gen,
+                                      device=dev)).to(dtype)
+        x = x.to(dtype)
+        got = saliency_delta(x, prev)
+        torch.cuda.synchronize()
+        want = ref.saliency_delta(x, prev)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+        for _ in range(2):
+            if not all(torch.equal(a, c) for a, c in
+                       zip(got, saliency_delta(x, prev))):
+                raise AssertionError("saliency_delta does not repeat bitwise")
+        dd = x.float() - prev.float()
+        esize = x.element_size()
+        nbytes = 2 * b * n * d * esize + b * n * 4 + 2 * b * 4
+        ops = 5 * b * n * d + 2 * b * n           # sub, 2 FMAs; the sums
+        bound_ms, bound_by = bound(nbytes, ops / F32_FLOPS_PER_S)
+        row = {"name": "saliency_delta", "route": "cuda",
+               "source": "src/repro_torch/csrc/saliency_delta.cu",
+               "replaces": "src/repro/kernels/saliency_delta.py:47",
+               "shape": [b, n, d], "dtype": dt,
+               "max_abs_err": max(float((g - w).abs().max())
+                                  for g, w in zip(got, want)),
+               **timed(torch, "kernel", lambda: saliency_delta(x, prev)),
+               **timed(torch, "plain",
+                       lambda: ref.saliency_delta(x, prev)),
+               **timed(torch, "library", lambda: torch.sum(dd * dd, -1)),
+               "library_call": ("torch.sum(d*d, -1) on the f32 difference: "
+                                "the per-token output alone, a yardstick"),
+               "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        row["ms"] = row["kernel_ms"]
+        emit({"phase": "kernel", **row})
+        rows.append(row)
+    return rows[0]
+
+
+def phase_linear_blend(torch, dev, ref, linear_blend):
+    """linear_blend against its plain version at BLEND_SHAPES; returns the
+    row of the first shape, the callers' (gamma 1 at 4 slots)."""
+    rows = []
+    for i, (m, d, f, dt, gamma) in enumerate(BLEND_SHAPES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(dev).manual_seed(10 + i)
+        x = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+        w = torch.eye(d, f, device=dev) + 0.01 * torch.randn(
+            (d, f), generator=gen, device=dev)
+        b = 0.1 * torch.randn((f,), generator=gen, device=dev)
+        prev = torch.randn((m, f), generator=gen, device=dev).to(dtype)
+        got = linear_blend(x, w, b, prev, gamma=gamma)
+        torch.cuda.synchronize()
+        want = ref.linear_blend(x, w, b, prev, gamma)
+        tol = BLEND_TOL[dt]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if not torch.equal(got, linear_blend(x, w, b, prev, gamma=gamma)):
+            raise AssertionError("linear_blend does not repeat bitwise")
+        # the library call: x @ w in f32 with alpha = gamma, the bias and
+        # the blend folded into addmm's input outside the timed call
+        xf = x.float()
+        folded = gamma * b + (1.0 - gamma) * prev.float()
+        esize = x.element_size()
+        nbytes = (m * d * esize + d * f * 4 + f * 4 + m * f * esize
+                  + (m * f * esize if gamma != 1.0 else 0))
+        ops = 2 * m * d * f + m * f * (1 if gamma == 1.0 else 4)
+        bound_ms, bound_by = bound(nbytes, ops / F32_FLOPS_PER_S)
+        row = {"name": "linear_blend", "route": "cuda",
+               "source": "src/repro_torch/csrc/linear_blend.cu",
+               "replaces": "src/repro/kernels/linear_blend.py:41",
+               "shape": [m, d, f], "dtype": dt, "gamma": gamma,
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               **timed(torch, "kernel",
+                       lambda: linear_blend(x, w, b, prev, gamma=gamma)),
+               **timed(torch, "plain",
+                       lambda: ref.linear_blend(x, w, b, prev, gamma)),
+               **timed(torch, "library",
+                       lambda: torch.addmm(folded, xf, w, alpha=gamma)),
+               "library_call": ("torch.addmm f32, alpha=gamma, bias and "
+                                "blend folded into its input"),
+               "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        row["ms"] = row["kernel_ms"]
+        emit({"phase": "kernel", **row})
+        rows.append(row)
+    return rows[0]
+
+
 def sync_flags(torch, fn):
     """Run ``fn`` under torch.cuda's sync-debug mode.  Returns its result,
     every synchronization flagged, by source line, and those flagged in the
@@ -396,14 +528,50 @@ def phase_syncs(torch, wl, model, label="syncs"):
         torch, lambda: wl.warm_up(model))
     counted = runner.impl.host_syncs + eng.host_syncs
     steps = eng.model_steps
-    emit({"phase": label, "model_steps": steps,
-          "step_kinds": dict(runner.impl.step_kinds),
+    emit({"phase": label, "policy": wl.policy, "model_steps": steps,
+          "step_kinds": dict(getattr(runner.impl, "step_kinds", {})),
           "counted": counted, "flagged": flagged,
           "flagged_in_port": in_port,
+          "policy_host_syncs_per_model_step": runner.impl.host_syncs / steps,
           "counted_per_model_step": counted / steps,
           "flagged_in_port_per_model_step": in_port / steps,
           "sources": sources})
+    if wl.policy in BASELINES:
+        want = 0 if wl.policy == "l2c" else 1
+        if runner.impl.host_syncs != want * steps:
+            raise AssertionError(f"{wl.policy}: {runner.impl.host_syncs} "
+                                 f"policy syncs in {steps} model steps, "
+                                 f"expected {want} per step")
+        if in_port != counted:
+            raise AssertionError(f"{wl.policy}: sync debug flagged {in_port} "
+                                 f"syncs in the port's code, the code counts "
+                                 f"{counted}: {sources}")
     return counted / steps, in_port / steps
+
+
+def expected_launches(wl, runner, eng, names):
+    """Each kernel's launch count on a serve of ``wl``, from what the serve
+    did: fastcache runs fused_gate in every layer and saliency_delta and
+    linear_blend once per gated (warm or mixed) model step, the merge
+    kernels once per model step (unmerge_scatter once more per mixed step);
+    teacache, adacache and fbcache run saliency_delta once per model step,
+    l2c linear_blend once per masked layer and model step; fora and
+    smoothcache, and nocache, run none."""
+    want = dict.fromkeys(names, 0)
+    steps = eng.model_steps
+    if wl.policy == "fastcache":
+        kinds = runner.impl.step_kinds
+        gated = kinds["warm"] + kinds["mixed"]
+        want.update(fused_gate=runner.L * gated, saliency_delta=gated,
+                    linear_blend=gated)
+        if runner.reducer is not None:
+            want.update(knn_density=steps, merge_assign=steps,
+                        unmerge_scatter=steps + kinds["mixed"])
+    elif wl.policy in ("teacache", "adacache", "fbcache"):
+        want["saliency_delta"] = steps
+    elif wl.policy == "l2c":
+        want["linear_blend"] = sum(runner.impl.mask) * steps
+    return want
 
 
 def phase_serve(torch, dev, wl, model, m, label="serve"):
@@ -421,33 +589,23 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
     wall = time.perf_counter() - t0
     launches = {name: fn.launches                  # ... and ends here
                 for name, fn in m.kernels.items()}
-    kinds = dict(runner.impl.step_kinds)
-    warm_steps = kinds["warm"] + kinds["mixed"]
+    kinds = dict(getattr(runner.impl, "step_kinds", {}))
     if len(done) != len(trace):
         raise AssertionError(f"{len(done)} of {len(trace)} requests finished")
     for r in done:
         if r.latents.shape != latent_shape(model) or not np.isfinite(r.latents).all():
             raise AssertionError(f"rid={r.rid}: latents {r.latents.shape} "
                                  "not finite")
-    gate = launches["fused_gate"]
-    if gate <= 0 or gate != runner.L * warm_steps:
-        raise AssertionError(f"fused_gate launches {gate} != "
-                             f"{runner.L} x {warm_steps} warm model steps")
+    want = expected_launches(wl, runner, eng, launches)
+    if launches != want:
+        raise AssertionError(f"{wl.policy}: launches {launches} != "
+                             f"{want} ({kinds}, {eng.model_steps} model "
+                             "steps)")
+    if wl.policy == "fastcache" and launches["fused_gate"] <= 0:
+        raise AssertionError("fused_gate never launched: no gated step")
     stats = eng.cache_stats()
     merge = {}
-    if runner.reducer is None:
-        if any(launches[n] for n in launches if n != "fused_gate"):
-            raise AssertionError(f"merge kernels ran with merge off: "
-                                 f"{launches}")
-    else:
-        want = {"knn_density": eng.model_steps,
-                "merge_assign": eng.model_steps,
-                "unmerge_scatter": eng.model_steps + kinds["mixed"]}
-        for name, n in want.items():
-            if launches[name] != n:
-                raise AssertionError(f"{name} launches {launches[name]} != "
-                                     f"{n} ({kinds}, {eng.model_steps} "
-                                     "model steps)")
+    if runner.reducer is not None:
         kept = stats["tokens_kept"] / (stats["tokens_kept"]
                                        + stats["tokens_merged"])
         if kept != wl.merge_ratio:
@@ -456,7 +614,8 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
         merge = {"kept_token_share": kept,
                  "reduced_tokens": runner.reducer.reduced_tokens}
     lats = [r.latency_steps for r in done]
-    emit({"phase": label, "arch": model.cfg.name, "slots": wl.slots,
+    emit({"phase": label, "policy": wl.policy, "arch": model.cfg.name,
+          "slots": wl.slots, "steps": wl.steps,
           "merge_ratio": wl.merge_ratio, "merge_window": wl.merge_window,
           "requests": len(done), "engine_steps": eng.clock,
           "model_steps": eng.model_steps, "step_kinds": kinds,
@@ -464,6 +623,7 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
           "latency_steps_p50": m.percentile(lats, 50),
           "latency_steps_p95": m.percentile(lats, 95),
           "block_cache_ratio": stats["block_cache_ratio"],
+          "steps_reused": stats["steps_reused"],
           "launches": launches, **merge,
           "policy_host_syncs": runner.impl.host_syncs,
           "engine_host_syncs": eng.host_syncs,
@@ -493,19 +653,27 @@ def phase_static(torch, dev, model, m):
         raise AssertionError(f"static drive cache ratio {s}")
 
 
-def phase_quality(torch, dev, model, m):
+def phase_quality(torch, dev, model, m, policy_kwargs):
+    """Relative L2 of each policy's eps against nocache's on the same
+    inputs for 6 DDIM steps (fastcache also with merging on)."""
     fc_merge = m.FastCacheConfig(merge_enabled=True, merge_ratio=MERGE_RATIO)
     nc = m.CachedDiT(model, m.FastCacheConfig(), policy="nocache")
-    fc = m.CachedDiT(model, m.FastCacheConfig(), policy="fastcache")
-    fm = m.CachedDiT(model, fc_merge, policy="fastcache")
+    runners = {"fastcache": m.CachedDiT(model, m.FastCacheConfig(),
+                                        policy="fastcache"),
+               "fastcache_merge": m.CachedDiT(model, fc_merge,
+                                              policy="fastcache")}
+    for p in BASELINES:
+        runners[p] = m.CachedDiT(model, m.FastCacheConfig(), policy=p,
+                                 **policy_kwargs.get(p, {}))
     b = 8
     gen = torch.Generator(dev).manual_seed(2)
     x = torch.randn((b,) + latent_shape(model), generator=gen, device=dev)
     labels = torch.arange(b, device=dev) * 7
     sched = m.linear_schedule(1000, device=dev)
     ts = m.ddim_timesteps(1000, 50, device=dev)
-    s_nc, s_fc, s_fm = nc.init_state(b), fc.init_state(b), fm.init_state(b)
-    rel, rel_merge = [], []
+    s_nc = nc.init_state(b)
+    states = {k: r.init_state(b) for k, r in runners.items()}
+    rel = {k: [] for k in runners}
 
     def rel_l2(a, ref_eps):
         return float((a.float() - ref_eps.float()).norm()
@@ -514,20 +682,47 @@ def phase_quality(torch, dev, model, m):
     for i in range(6):
         t = ts[i].expand(b)
         eps_nc, s_nc = nc.step(s_nc, x, t, labels)
-        eps_fc, s_fc = fc.step(s_fc, x, t, labels)
-        eps_fm, s_fm = fm.step(s_fm, x, t, labels)
-        rel.append(rel_l2(eps_fc, eps_nc))
-        rel_merge.append(rel_l2(eps_fm, eps_nc))
+        for k, r in runners.items():
+            eps, states[k] = r.step(states[k], x, t, labels)
+            rel[k].append(rel_l2(eps, eps_nc))
         x = m.ddim_step(sched, x, eps_nc, t, ts[i + 1].expand(b))
-    if not all(r == r for r in rel + rel_merge):
-        raise AssertionError(f"quality: NaN relative error {rel} "
-                             f"{rel_merge}")
-    emit({"phase": "quality", "steps": 6, "rel_l2_eps_fastcache_vs_nocache":
-          rel, "block_cache_ratio":
-          m.summarize_stats(s_fc)["block_cache_ratio"],
-          "rel_l2_eps_fastcache_merge_vs_nocache": rel_merge,
+    if not all(v == v for vals in rel.values() for v in vals):
+        raise AssertionError(f"quality: NaN relative error {rel}")
+    emit({"phase": "quality", "steps": 6,
+          "rel_l2_eps_fastcache_vs_nocache": rel["fastcache"],
+          "block_cache_ratio":
+          m.summarize_stats(states["fastcache"])["block_cache_ratio"],
+          "rel_l2_eps_fastcache_merge_vs_nocache": rel["fastcache_merge"],
           "block_cache_ratio_merge":
-          m.summarize_stats(s_fm)["block_cache_ratio"]})
+          m.summarize_stats(states["fastcache_merge"])["block_cache_ratio"],
+          "rel_l2_eps_vs_nocache": {p: rel[p] for p in BASELINES},
+          "block_cache_ratio_by_policy": {
+              p: m.summarize_stats(states[p])["block_cache_ratio"]
+              for p in BASELINES}})
+
+
+def l2c_calibration(torch, dev, model, m):
+    """l2c's mask: the L2C_SKIP layers whose block moves the residual stream
+    least, by the per-layer relative change of one nocache full forward,
+    taken by ``_rel_change`` (so through saliency_delta).  Returned on the
+    host, so building a runner from it syncs nothing."""
+    runner = m.CachedDiT(model, m.FastCacheConfig(), policy="nocache")
+    b = 8
+    gen = torch.Generator(dev).manual_seed(5)
+    x = torch.randn((b,) + latent_shape(model), generator=gen, device=dev)
+    x_in = model.tokens_in(x)
+    c = model.conditioning(torch.full((b,), 500, device=dev),
+                           torch.arange(b, device=dev))
+    with torch.no_grad():
+        x_out, inputs = runner.impl._full_forward(x_in, c)
+        hidden = torch.cat([inputs, x_out[None]])
+        deltas = torch.stack([runner.impl._rel_change(hidden[i + 1],
+                                                      hidden[i]).mean()
+                              for i in range(runner.L)])
+    mask = m.l2c_mask_from_deltas(deltas, L2C_SKIP).cpu()
+    emit({"phase": "l2c_calibration", "deltas": deltas.tolist(),
+          "skipped_layers": mask.nonzero().flatten().tolist()})
+    return mask
 
 
 def flash_live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -704,6 +899,9 @@ def main() -> int:
     from repro_torch.cuda_kernels.token_merge import (merge_assign,
                                                       unmerge_scatter)
     from repro_torch.cuda_kernels.flash_attention import flash_attention
+    from repro_torch.cuda_kernels.linear_blend import linear_blend
+    from repro_torch.cuda_kernels.saliency_delta import saliency_delta
+    from repro_torch.core.runner import l2c_mask_from_deltas
     from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
     from repro_torch.launch.serve_diffusion import Workload
     from repro_torch.models import attention
@@ -727,6 +925,7 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
+    t_start = time.perf_counter()
     phase_build(build)
     dev = torch.device("cuda")
     gate_row = phase_fused_gate(torch, dev, fused_gate, ref, statcache, 128)
@@ -735,16 +934,20 @@ def main() -> int:
                         merge_assign=merge_assign,
                         unmerge_scatter=unmerge_scatter)
     merge_rows = phase_token_merge(torch, dev, k)
+    sal_row = phase_saliency_delta(torch, dev, ref, saliency_delta)
+    blend_row = phase_linear_blend(torch, dev, ref, linear_blend)
 
     m = SimpleNamespace(
         CachedDiT=CachedDiT, FastCacheConfig=FastCacheConfig,
         percentile=percentile, summarize_stats=summarize_stats,
         linear_schedule=linear_schedule, ddim_timesteps=ddim_timesteps,
-        ddim_step=ddim_step,
+        ddim_step=ddim_step, l2c_mask_from_deltas=l2c_mask_from_deltas,
         kernels={"fused_gate": fused_gate, "knn_density": knn_density,
                  "merge_assign": merge_assign,
                  "unmerge_scatter": unmerge_scatter,
-                 "flash_attention": flash_attention})
+                 "flash_attention": flash_attention,
+                 "saliency_delta": saliency_delta,
+                 "linear_blend": linear_blend})
     wl = Workload()
     wl_merge = dataclasses.replace(wl, merge_ratio=MERGE_RATIO)
     t0 = time.perf_counter()
@@ -764,7 +967,20 @@ def main() -> int:
     launches_merge = phase_serve(torch, dev, wl_merge, model, m,
                                  label="serve_merge")
     phase_static(torch, dev, model, m)
-    phase_quality(torch, dev, model, m)
+
+    # ---- the six baseline policies on the same serve
+    t0 = time.perf_counter()
+    policy_kwargs = {"l2c": {"l2c_mask": l2c_calibration(torch, dev, model,
+                                                         m)}}
+    launches_policy = {}
+    for p in ("nocache",) + BASELINES:           # nocache: the yardstick
+        wl_p = dataclasses.replace(wl, policy=p,
+                                   policy_kwargs=policy_kwargs.get(p, {}))
+        phase_syncs(torch, wl_p, model, label=f"syncs_{p}")
+        launches_policy[p] = phase_serve(torch, dev, wl_p, model, m,
+                                         label=f"serve_{p}")
+    emit({"phase": "policies", "seconds": time.perf_counter() - t0})
+    phase_quality(torch, dev, model, m, policy_kwargs)
 
     # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate
     flash_row = phase_flash_attention(torch, dev, ref, flash_attention)
@@ -792,20 +1008,26 @@ def main() -> int:
               [a.generated[0] == b.generated[0] for a, b in pairs]))})
     phase_llm_prefill_parity(torch, dev, llm, llm_model, attention, ref)
 
-    # launches: each kernel on its own main path (fused_gate: the merge-off
-    # serve; the merge kernels: the merged serve; flash_attention: the LLM
-    # serve with the decode gate); every serve's counts too
+    # launches: each kernel on its own main path (fused_gate, saliency_delta
+    # and linear_blend: the merge-off fastcache serve; the merge kernels:
+    # the merged serve; flash_attention: the LLM serve with the decode
+    # gate); every serve's counts too
     gate_row["launches"] = launches["fused_gate"]
     for row in merge_rows:
         row["launches"] = launches_merge[row["name"]]
     flash_row["launches"] = launches_llm["flash_attention"]
-    rows = [gate_row] + merge_rows + [flash_row]
+    sal_row["launches"] = launches["saliency_delta"]
+    blend_row["launches"] = launches["linear_blend"]
+    rows = [gate_row] + merge_rows + [sal_row, blend_row, flash_row]
     for row in rows:
         row["serve_launches"] = {
             "serve": launches[row["name"]],
             "serve_merge": launches_merge[row["name"]],
+            **{f"serve_{p}": n[row["name"]]
+               for p, n in launches_policy.items()},
             "llm_serve_exact": launches_exact[row["name"]],
             "llm_serve_fastcache": launches_llm[row["name"]]}
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,14 @@ full contract).  The port's protocol:
 blocks_skipped / steps_reused / motion_frac_sum`` plus the scalar ``steps``;
 with token compression on (a ``token_reducer`` handed in), also the (B,)
 ``tokens_kept / tokens_merged``.
+
+Constructor knobs arrive through ``CachedDiT(..., **policy_kwargs)``: every
+policy receives the whole set and keeps the ones it knows.
+
+The step-level policies (fora, teacache, adacache, fbcache) share
+``masked_step``; the reference's ``lax.cond(all(skip))`` there is a real
+skip that reads the (B,) skip mask once per step, one host sync, counted in
+``host_syncs``.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import (TYPE_CHECKING, Callable, Dict, Optional, Sequence,
 
 import torch
 
+from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.models.dit import DiTModel
 
 if TYPE_CHECKING:
@@ -65,7 +74,7 @@ class CachePolicy:
     name: str = ""
 
     def __init__(self, model: DiTModel, fc, fc_params, *,
-                 token_reducer: Optional["TokenReducer"] = None):
+                 token_reducer: Optional["TokenReducer"] = None, **_unused):
         self.model = model
         self.fc = fc
         self.fc_params = fc_params
@@ -108,6 +117,10 @@ class CachePolicy:
             out["tokens_merged"] = z()
         return out
 
+    def _eps_shape(self, batch: int) -> Tuple[int, ...]:
+        dit = self.model.cfg.dit
+        return (batch, dit.image_size, dit.image_size, dit.in_channels)
+
     def _full_forward(self, x: torch.Tensor, c: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full block-stack forward.  Returns ``(x_out, inputs)`` where
@@ -127,6 +140,52 @@ class CachePolicy:
                 and hidden_final.shape[-2] != self.model.num_tokens):
             hidden_final = self.reducer.unmerge(hidden_final)
         return self.model.eps_from_hidden(hidden_final, c)
+
+    def _rel_change(self, x: torch.Tensor, prev: torch.Tensor
+                    ) -> torch.Tensor:
+        """Per-sample relative Frobenius change, (B,), from the two totals
+        of the ``saliency_delta`` kernel (per-sample gates only)."""
+        _, diff, prevsq = saliency_delta(x, prev)
+        return torch.sqrt(diff / prevsq.clamp(min=1e-12))
+
+    def masked_step(self, state: Dict, x_in: torch.Tensor, c: torch.Tensor,
+                    skip: torch.Tensor, *, computed_on_skip: float = 0.0,
+                    store: Optional[Callable] = None
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """One step under a per-sample step-level gate, for policies that
+        reuse the previous step's model output (``state["prev_eps"]``).
+        ``skip`` (B,) bool: True reuses that sample's cached eps and leaves
+        its cache payload untouched; False recomputes and refreshes it.  The
+        block stack runs only when at least one sample recomputes (one host
+        sync reads that).  ``computed_on_skip`` counts probe blocks
+        (fbcache's block 0) charged to skipped samples.  ``store(out, st,
+        inputs, x_out)`` writes the policy's own payloads into ``out`` on
+        the recompute path (masking with ``skip`` itself)."""
+        self.host_syncs += 1
+        if bool(skip.all()):                       # one host sync per step
+            eps = state["prev_eps"].to(F32).to(x_in.dtype)
+            st = dict(state)
+        else:
+            x_out, inputs = self._full_forward(x_in, c)
+            eps = self._eps(x_out, c)
+            st = dict(state)
+            if store is not None:
+                store(st, state, inputs, x_out)
+            eps = torch.where(skip[:, None, None, None],
+                              state["prev_eps"].to(eps.dtype), eps)
+            st["prev_eps"] = eps.to(state["prev_eps"].dtype)
+        st["have_cache"] = torch.ones_like(state["have_cache"])
+        skf = skip.to(F32)
+        stats = dict(st["stats"])
+        stats["blocks_computed"] = (stats["blocks_computed"]
+                                    + (1.0 - skf) * self.L
+                                    + skf * computed_on_skip)
+        stats["blocks_skipped"] = (stats["blocks_skipped"]
+                                   + skf * (self.L - computed_on_skip))
+        stats["steps_reused"] = stats["steps_reused"] + skf
+        stats["motion_frac_sum"] = stats["motion_frac_sum"] + (1.0 - skf)
+        st["stats"] = stats
+        return eps, st
 
 
 def summarize_stats(state: Dict) -> Dict[str, float]:

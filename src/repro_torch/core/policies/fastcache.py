@@ -14,6 +14,10 @@ host sync per decision: one per step (``have_cache`` read once, serving
 both the all- and the any-test) plus one per layer on an all-warm step.  A
 mixed step skips the per-layer test: its cold rows are never eligible, so
 the block always runs.  ``host_syncs`` counts them.
+
+Kernels per gated (warm or mixed) step: ``saliency_delta`` once (the STR
+saliency), ``linear_blend`` once (the static bypass) and ``fused_gate`` in
+every layer.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from repro_torch.core import linear_approx, saliency, statcache
 from repro_torch.core.policies.base import F32, CachePolicy, register
 from repro_torch.cuda_kernels.fused_gate import fused_gate
+from repro_torch.cuda_kernels.linear_blend import linear_blend
 
 
 @register("fastcache")
@@ -105,8 +110,12 @@ class FastCache(CachePolicy):
             part = saliency.partition_tokens(sal, -1.0, n)
         mfrac = saliency.motion_fraction(part)               # (B,)
 
-        # ---- static bypass (Eq. 3) + MB blend with previous final hidden
-        h_static = linear_approx.apply_linear(fcp["W_c"], fcp["b_c"], x_in)
+        # ---- static bypass (Eq. 3) + MB blend with previous final hidden;
+        # the bypass is the linear_blend kernel at gamma = 1 (apply_linear's
+        # result), the blend stays a second bf16 rounding as in the reference
+        flat = x_in.reshape(b * n, d)
+        h_static = linear_blend(flat, fcp["W_c"], fcp["b_c"], flat,
+                                gamma=1.0).reshape(b, n, d)
         if fc.use_mb:
             h_static = linear_approx.blend(h_static, state["prev_hidden"][-1],
                                            fc.blend_gamma)

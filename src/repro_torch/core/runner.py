@@ -12,8 +12,9 @@ Gating is per sample: one moving sample never invalidates its batchmates'
 caches, which the serving engine's solo-replay contract rests on.
 
 Token compression (``core/token_reduce.py``) runs between ``tokens_in`` and
-the policy when ``fc.merge_enabled`` asks for it: the policy sees the reduced grid and unmerges inside ``_eps``.  The
-audit plane is not ported yet.
+the policy when ``fc.merge_enabled`` asks for it: the policy sees the
+reduced grid and unmerges inside ``_eps``.  Every registered policy composes
+with it.  The audit plane is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core import linear_approx
 from repro_torch.core import policies as _policies  # noqa: F401 (registers)
 from repro_torch.core.policies.base import get_policy_class
+from repro_torch.core.policies.l2c import l2c_mask_from_deltas  # noqa: F401
 from repro_torch.core.token_reduce import STATE_KEY as TOKRED_KEY
 from repro_torch.core.token_reduce import TokenReducer
 from repro_torch.models.dit import DiTModel
@@ -35,7 +37,17 @@ class CachedDiT:
 
     def __init__(self, model: DiTModel, fc: FastCacheConfig,
                  policy: str = "fastcache",
-                 fc_params: Optional[Dict[str, torch.Tensor]] = None):
+                 fc_params: Optional[Dict[str, torch.Tensor]] = None,
+                 fora_interval: int = 3,
+                 tea_threshold: float = 0.15,
+                 ada_thresholds: Tuple[float, float] = (0.05, 0.15),
+                 fb_rdt: float = 0.08,
+                 l2c_mask=None,
+                 **policy_kwargs):
+        """The per-policy knobs are the reference's front-door keywords;
+        with ``**policy_kwargs`` (e.g. smoothcache's ``smooth_schedule``)
+        the whole set goes to the resolved policy, which keeps the ones it
+        knows.  Masks and schedules may be numpy or torch bool arrays."""
         cls = get_policy_class(policy)     # ValueError on unknown names
         if fc.gate_mode != "per_sample":
             raise ValueError("the port implements gate_mode='per_sample' "
@@ -55,7 +67,11 @@ class CachedDiT:
             red = TokenReducer(model, fc)
             if red.active:
                 self.reducer = red
-        self.impl = cls(model, fc, self.fc_params, token_reducer=self.reducer)
+        self.impl = cls(model, fc, self.fc_params, token_reducer=self.reducer,
+                        fora_interval=fora_interval,
+                        tea_threshold=tea_threshold,
+                        ada_thresholds=ada_thresholds, fb_rdt=fb_rdt,
+                        l2c_mask=l2c_mask, **policy_kwargs)
 
     def init_state(self, batch: int) -> Dict:
         """The policy's state for ``batch`` samples; with token compression

@@ -15,13 +15,15 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.cuda_kernels.saliency_delta import saliency_delta
+
 F32 = torch.float32
 
 
 def token_saliency(x_t: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
-    """Eq. 1: per-token squared L2 temporal difference. (B,N,D) -> (B,N)."""
-    d = x_t.to(F32) - x_prev.to(F32)
-    return (d * d).sum(dim=-1)
+    """Eq. 1: per-token squared L2 temporal difference. (B,N,D) -> (B,N),
+    the per-token output of the ``saliency_delta`` kernel."""
+    return saliency_delta(x_t, x_prev)[0]
 
 
 class Partition(NamedTuple):

@@ -1,0 +1,180 @@
+// linear_blend: the learnable linear approximation with its motion-aware
+// blend, out = gamma * (X W + b) + (1 - gamma) * prev, on Hopper.
+//
+// Replaces the TPU kernel `linear_blend` in src/repro/kernels/
+// linear_blend.py (Pallas, pl.pallas_call at :51).  Its plain twins are
+// kernels/ref.py:linear_blend in the reference and cuda_kernels/ref.py:
+// linear_blend here.  X (M, D) and prev (M, F) are f32 or bf16, W (D, F) and
+// b (F,) f32; the product is accumulated in f32 and the result is written in
+// X's dtype.
+//
+// Design.  The Pallas grid (M/BM, F/BF, D/BK) keeps an f32 accumulator block
+// resident in VMEM across the K steps and fuses the bias and the blend into
+// the last one.  Here one block of 256 threads owns a 128x128 output tile and
+// walks K in steps of 8: the A tile (transposed, padded against bank
+// conflicts) and the W tile sit in shared memory, each thread keeps an 8x8
+// f32 accumulator in registers (two 4-row by two 4-column groups, 64 apart,
+// so a quarter-warp's 16-byte shared loads cover contiguous words), and the
+// next K step's tile is loaded into registers while the current one is
+// multiplied.  Plain f32 FMAs, no TF32: the reference multiplies f32 operands
+// with f32 results, and f32 parity at K=1152 would not survive TF32's 10-bit
+// mantissa.  Every output adds its K products in ascending order, so results
+// repeat bitwise.  The epilogue adds the bias, blends with prev (skipped at
+// gamma = 1, where (1-gamma)*prev is exactly 0 for a finite prev) and rounds
+// to bf16 with __float2bfloat16_rn.  Any M, D and F: loads and stores are
+// guarded at the ragged edges.
+//
+// Bound at M=2048, D=F=1152 (4 serving slots x CFG x 256 tokens): the GEMM is
+// 2*2048*1152*1152 = 5.44 GFLOP, ~81 us at 67 TFLOP/s of f32 outside the
+// tensor cores; X and prev in bf16, W in f32 and out in bf16 are ~19.5 MB,
+// ~5.8 us at 3.35 TB/s.  So the kernel is bound by operations.  Later work:
+// a wgmma GEMM fed by TMA, on bf16 or TF32 operands where the callers'
+// tolerance allows it.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 8;
+constexpr int kThreads = 256;            // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kLoads = BM * BK / kThreads;  // 4 elements of A and of W each
+constexpr int kPadA = 4;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+linear_blend_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, const T* __restrict__ prev,
+                    T* __restrict__ out, int M, int D, int F, float gamma,
+                    float one_minus_gamma, int use_prev) {
+  __shared__ __align__(16) float As[BK][BM + kPadA];  // As[k][m]
+  __shared__ __align__(16) float Bs[BK][BN];          // Bs[k][n]
+  const int t = threadIdx.x;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int tx = t % 16;
+  const int ty = t / 16;
+
+  // global -> register staging: A element i = t + s*256 of the 128x8 tile is
+  // row i / 8, column i % 8 (a row's 8 K values are contiguous in X); W
+  // element i is row i / 128, column i % 128 (contiguous along F).
+  float ra[kLoads], rb[kLoads];
+  auto load_tiles = [&](int k0) {
+#pragma unroll
+    for (int s = 0; s < kLoads; ++s) {
+      const int i = t + s * kThreads;
+      const int gr = m0 + i / BK, gk = k0 + i % BK;
+      ra[s] = (gr < M && gk < D) ? to_f32(x[(long long)gr * D + gk]) : 0.f;
+      const int wk = k0 + i / BN, wc = n0 + i % BN;
+      rb[s] = (wk < D && wc < F) ? w[(long long)wk * F + wc] : 0.f;
+    }
+  };
+  auto store_tiles = [&]() {
+#pragma unroll
+    for (int s = 0; s < kLoads; ++s) {
+      const int i = t + s * kThreads;
+      As[i % BK][i / BK] = ra[s];
+      Bs[i / BN][i % BN] = rb[s];
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load_tiles(0);
+  store_tiles();
+  __syncthreads();
+  for (int k0 = 0; k0 < D; k0 += BK) {
+    const bool more = k0 + BK < D;
+    if (more) load_tiles(k0 + BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[8], b[8];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+    if (more) {
+      store_tiles();
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (c >= F) continue;
+      const long long o = (long long)r * F + c;
+      float v = __fadd_rn(acc[i][j], bias[c]);
+      if (use_prev)
+        v = __fadd_rn(__fmul_rn(gamma, v),
+                      __fmul_rn(one_minus_gamma, to_f32(prev[o])));
+      out[o] = from_f32<T>(v);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* bias, const void* prev,
+           void* out, int M, int D, int F, float gamma, float one_minus_gamma,
+           int use_prev, cudaStream_t stream) {
+  const dim3 grid((F + BN - 1) / BN, (M + BM - 1) / BM);
+  linear_blend_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const T*>(prev),
+      static_cast<T*>(out), M, D, F, gamma, one_minus_gamma, use_prev);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype_code: 0 = float32, 1 = bfloat16 (x, prev and out).  use_prev = 0
+// leaves prev unread (gamma = 1).  Returns cudaGetLastError() after the
+// launch (0 = success).
+extern "C" int linear_blend_launch(const void* x, const void* w,
+                                   const void* bias, const void* prev,
+                                   void* out, int M, int D, int F,
+                                   int dtype_code, float gamma,
+                                   float one_minus_gamma, int use_prev,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype_code == 1)
+    return launch<__nv_bfloat16>(x, w, bias, prev, out, M, D, F, gamma,
+                                 one_minus_gamma, use_prev, s);
+  if (dtype_code == 0)
+    return launch<float>(x, w, bias, prev, out, M, D, F, gamma,
+                         one_minus_gamma, use_prev, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -10,6 +10,25 @@ import torch
 F32 = torch.float32
 
 
+def saliency_delta(x: torch.Tensor, x_prev: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x, x_prev: (N, D). Returns (per-token saliency (N,), ||dX||_F^2,
+    ||X_prev||_F^2) — the fused quantities of Eqs. 1 and 4.  A (B, N, D)
+    batch gives (B, N), (B,), (B,): the totals per sample, the first
+    summed over that sample's per-token sums."""
+    d = x.to(F32) - x_prev.to(F32)
+    sal = (d * d).sum(dim=-1)
+    pf = x_prev.to(F32)
+    return sal, sal.sum(dim=-1), (pf * pf).sum(dim=(-2, -1))
+
+
+def linear_blend(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: torch.Tensor, gamma: float) -> torch.Tensor:
+    """out = gamma * (x @ w + b) + (1-gamma) * prev.  x: (M, D); w: (D, F)."""
+    y = torch.matmul(x.to(F32), w.to(F32)) + b.to(F32)
+    return (gamma * y + (1.0 - gamma) * prev.to(F32)).to(x.dtype)
+
+
 def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
                prev_out: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                sigma2: torch.Tensor, eligible: torch.Tensor, *,

@@ -8,8 +8,9 @@ measures) for ``--arch``, ``--policy`` and the token-merge flags, lets
 ``--warmup`` engine steps pass, then records ``--window`` engine steps with
 ``torch.profiler`` (CPU and CUDA).  Reports the wall time per step, the
 device busy share (union of kernel intervals over the window's wall time),
-the host syncs in the window, and the kernels by total device time, with
-the card's ``nvidia-smi`` name and power limit.
+the host syncs in the window, the device time of each of the port's DiT
+kernels, and the kernels by total device time, with the card's
+``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -98,6 +99,10 @@ def main(argv=None) -> None:
                    if any(n in k for n in ("knn_density_kernel",
                                            "merge_assign_kernel",
                                            "unmerge_scatter_kernel")))
+    saliency_us = sum(v[0] for k, v in by_name.items()
+                      if "row_sums" in k or "sample_totals" in k)
+    blend_us = sum(v[0] for k, v in by_name.items()
+                   if "linear_blend_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -114,6 +119,8 @@ def main(argv=None) -> None:
         "kernel_ms_total": total_kernel_us / 1e3,
         "fused_gate_ms": gate_us / 1e3,
         "token_merge_kernels_ms": merge_us / 1e3,
+        "saliency_delta_ms": saliency_us / 1e3,
+        "linear_blend_ms": blend_us / 1e3,
         "host_syncs": syncs,
         "top_kernels": [{"name": k[:120], "ms": v[0] / 1e3, "calls": v[1]}
                         for k, v in top],

@@ -7,7 +7,10 @@ sampling with per-slot FastCache state on one CUDA card.
 Weights are random (``torch.Generator`` seeded from ``--seed``, un-zeroed
 as in ``DiTModel.init``).  After an untimed warm-up on a fresh engine,
 prints p50/p95 request latency in engine steps, engine steps per second of
-wall time, and the block cache ratio.  ``--token-merge-ratio 0.5`` turns on
+wall time, the block cache ratio, the steps reused and the host syncs per
+model step.  ``--policy`` takes every registered cache policy (nocache,
+fora, teacache, adacache, fbcache, l2c, fastcache, smoothcache; l2c with
+its default empty mask).  ``--token-merge-ratio 0.5`` turns on
 token compression (windows of ``--token-merge-window`` tokens merged to
 half); 1.0, the default, leaves it off.  ``--device cpu --reduced`` runs
 the plain PyTorch path on a toy model.
@@ -23,7 +26,7 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import torch
 
@@ -52,6 +55,10 @@ class Workload:
     seed: int = 0                   # weights and arrivals
     merge_ratio: float = 1.0        # token compression: kept share, 1 = off
     merge_window: int = 16          # token compression window w
+    # the policy's own constructor knobs (e.g. l2c_mask, smooth_schedule),
+    # passed through CachedDiT; no flag sets them
+    policy_kwargs: Mapping[str, Any] = dataclasses.field(
+        default_factory=dict)
 
     def build_model(self, device) -> DiTModel:
         cfg = get_reduced(self.arch) if self.reduced else get_config(self.arch)
@@ -64,7 +71,8 @@ class Workload:
         fc = FastCacheConfig(merge_enabled=self.merge_ratio < 1.0,
                              merge_ratio=self.merge_ratio,
                              merge_window=self.merge_window)
-        runner = CachedDiT(model, fc, policy=self.policy)
+        runner = CachedDiT(model, fc, policy=self.policy,
+                           **self.policy_kwargs)
         return runner, DiffusionServingEngine(
             runner, max_slots=self.slots, num_steps=self.steps,
             guidance_scale=self.guidance)
@@ -88,7 +96,8 @@ class Workload:
 
 def serve(args: argparse.Namespace) -> Dict:
     wl = Workload(**{f.name: getattr(args, f.name)
-                     for f in dataclasses.fields(Workload)})
+                     for f in dataclasses.fields(Workload)
+                     if hasattr(args, f.name)})
     model = wl.build_model(args.device)
     dev = model.device
     wl.warm_up(model)
@@ -114,6 +123,9 @@ def serve(args: argparse.Namespace) -> Dict:
         "latency_steps_p50": percentile(lats, 50),
         "latency_steps_p95": percentile(lats, 95),
         "block_cache_ratio": stats["block_cache_ratio"],
+        "steps_reused": stats["steps_reused"],
+        "host_syncs_per_model_step": ((runner.impl.host_syncs
+                                       + eng.host_syncs) / eng.model_steps),
         "blocks_skipped": stats["blocks_skipped"],
         "blocks_computed": stats["blocks_computed"],
         "token_merge": {"ratio": wl.merge_ratio, "window": wl.merge_window,

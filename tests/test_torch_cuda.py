@@ -12,6 +12,10 @@ atol 1e-4 in f32, 2e-2 in bf16 (one bf16 rounding of a value near 4).
 Token merge: knn_density rtol/atol 1e-4 (f32 arithmetic on the same
 inputs); merge_assign's centers and assign exact, merged 1e-4 in f32 and
 5e-2 in bf16 (one bf16 rounding); unmerge_scatter bitwise.
+saliency_delta: rtol 1e-5 (f32 sums in another order), repeats bitwise.
+linear_blend: rtol/atol 1e-4 in f32 (the same products summed in another
+order over K up to 1152), 2e-2 in bf16 (one bf16 rounding of values up to
+~4); repeats bitwise.
 """
 import pytest
 import torch
@@ -21,6 +25,8 @@ from repro_torch.cuda_kernels import ref
 from repro_torch.cuda_kernels.flash_attention import flash_attention
 from repro_torch.cuda_kernels.fused_gate import fused_gate
 from repro_torch.cuda_kernels.knn_density import knn_density
+from repro_torch.cuda_kernels.linear_blend import linear_blend
+from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.cuda_kernels.token_merge import merge_assign, unmerge_scatter
 
 
@@ -446,3 +452,186 @@ def test_llm_prefill_and_decode_make_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize(cuda_device)
     assert cache["step"].tolist() == [43, 43]
+
+
+# ---------------------------------------------------------------------------
+# saliency_delta and linear_blend, and the baseline policies that run them
+# ---------------------------------------------------------------------------
+
+# (B, N, D): fastcache/teacache at 4 slots, merged, then ragged ones; a
+# None batch is the reference's (N, D) pair
+SAL_SHAPES = [(8, 256, 1152), (8, 128, 1152), (3, 37, 100), (2, 5, 7),
+              (None, 1001, 24), (1, 1, 1)]
+
+
+def _sal_pair(dev, dtype, shape, seed=0):
+    shape = shape[1:] if shape[0] is None else shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev)
+    prev = x + 0.1 * torch.randn(shape, generator=gen, device=dev)
+    return x.to(dtype), prev.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SAL_SHAPES)
+def test_saliency_delta_kernel_matches_plain(cuda_device, dtype, shape):
+    x, prev = _sal_pair(cuda_device, dtype, shape)
+    before = saliency_delta.launches
+    got = saliency_delta(x, prev)
+    torch.cuda.synchronize(cuda_device)
+    assert saliency_delta.launches == before + 1
+    want = ref.saliency_delta(x, prev)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_saliency_delta_kernel_reads_unaligned_rows(cuda_device):
+    """Rows that are not 16-byte aligned take the one-element loads: the
+    same result as the plain version."""
+    n, d = 256, 1152
+    flat = torch.randn((2, 2 * n * d + 1), device=cuda_device).to(
+        torch.bfloat16)
+    x, prev = (flat[i, 1:].view(2, n, d) for i in range(2))
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    got = saliency_delta(x, prev)
+    torch.cuda.synchronize(cuda_device)
+    for g, w in zip(got, ref.saliency_delta(x, prev)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_saliency_delta_kernel_is_deterministic(cuda_device):
+    x, prev = _sal_pair(cuda_device, torch.bfloat16, (8, 256, 1152))
+    first = saliency_delta(x, prev)
+    for _ in range(3):
+        for a, b in zip(first, saliency_delta(x, prev)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_saliency_delta_raises_on_bad_cuda_input(cuda_device):
+    x, prev = _sal_pair(cuda_device, torch.float16, (2, 8, 16))
+    with pytest.raises(TypeError):
+        saliency_delta(x, prev)
+    x, prev = _sal_pair(cuda_device, torch.float32, (2, 8, 16))
+    with pytest.raises(ValueError, match="share one device"):
+        saliency_delta(x, prev.cpu())
+    with pytest.raises(ValueError, match="x_prev must match"):
+        saliency_delta(x, prev[:, :4].contiguous())
+
+
+# (M, D, F): 4 slots x CFG x 256 tokens, merged, then ragged edges
+BLEND_SHAPES = [(2048, 1152, 1152), (1024, 1152, 1152), (1000, 1000, 1000),
+                (130, 257, 129), (37, 13, 5), (1, 1, 1)]
+BLEND_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _blend_args(dev, dtype, m, d, f, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+    w = torch.eye(d, f, device=dev) + 0.01 * torch.randn(
+        (d, f), generator=gen, device=dev)
+    b = 0.1 * torch.randn((f,), generator=gen, device=dev)
+    prev = torch.randn((m, f), generator=gen, device=dev).to(dtype)
+    return x, w, b, prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gamma", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("shape", BLEND_SHAPES)
+def test_linear_blend_kernel_matches_plain(cuda_device, dtype, gamma, shape):
+    args = _blend_args(cuda_device, dtype, *shape)
+    before = linear_blend.launches
+    got = linear_blend(*args, gamma=gamma)
+    torch.cuda.synchronize(cuda_device)
+    assert linear_blend.launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], shape[2])
+    want = ref.linear_blend(*args, gamma)
+    tol = BLEND_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_linear_blend_kernel_is_deterministic(cuda_device):
+    args = _blend_args(cuda_device, torch.bfloat16, 2048, 1152, 1152)
+    for gamma in (1.0, 0.5):
+        first = linear_blend(*args, gamma=gamma)
+        for _ in range(2):
+            assert torch.equal(linear_blend(*args, gamma=gamma), first)
+
+
+@pytest.mark.cuda
+def test_linear_blend_raises_on_bad_cuda_input(cuda_device):
+    x, w, b, prev = _blend_args(cuda_device, torch.float16, 8, 16, 16)
+    with pytest.raises(TypeError):
+        linear_blend(x, w, b, prev, gamma=0.5)
+    x, w, b, prev = _blend_args(cuda_device, torch.float32, 8, 16, 16)
+    with pytest.raises(ValueError, match="share one device"):
+        linear_blend(x, w.cpu(), b, prev, gamma=0.5)
+    with pytest.raises(ValueError, match="w must be"):
+        linear_blend(x, w.to(torch.bfloat16), b, prev, gamma=0.5)
+
+
+BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", BASELINES)
+def test_policy_step_kernels_match_plain_path(cuda_device, monkeypatch,
+                                              policy):
+    """Six steps of each baseline policy on the card through the kernels
+    and, with the plain versions patched in, without them: every counter
+    and every integer or bool state leaf exact at every step (the step-level
+    gates take the same decisions), eps within f32 rounding; saliency_delta
+    launched once per step for teacache, adacache and fbcache, linear_blend
+    once per masked layer and step for l2c, neither for fora and
+    smoothcache."""
+    from repro_torch.configs.base import FastCacheConfig
+    from repro_torch.configs.dit import reduced
+    from repro_torch.core import saliency
+    from repro_torch.core.policies import base, l2c
+    from repro_torch.core.runner import CachedDiT
+    from repro_torch.models.dit import DiTModel
+
+    cfg = reduced().replace(dtype="float32")
+    model = DiTModel(cfg, device=cuda_device)
+    model.init(torch.Generator(cuda_device).manual_seed(0))
+    mask = torch.zeros(cfg.num_layers, dtype=torch.bool)
+    mask[0] = True
+    kw = {"l2c_mask": mask} if policy == "l2c" else {}
+    kernel, plain = (CachedDiT(model, FastCacheConfig(), policy=policy, **kw)
+                     for _ in range(2))
+    states = [kernel.init_state(4), plain.init_state(4)]
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    x = torch.randn((4, 8, 8, 4), generator=gen, device=cuda_device)
+    labels = torch.arange(4, device=cuda_device)
+    counts = (saliency_delta.launches, linear_blend.launches)
+    for i in range(6):
+        t = torch.full((4,), 50 - i, device=cuda_device)
+        outs = [kernel.step(states[0], x, t, labels)]
+        with monkeypatch.context() as m:
+            m.setattr(base, "saliency_delta", ref.saliency_delta)
+            m.setattr(saliency, "saliency_delta", ref.saliency_delta)
+            m.setattr(l2c, "linear_blend",
+                      lambda x, w, b, prev, *, gamma:
+                      ref.linear_blend(x, w, b, prev, gamma))
+            outs.append(plain.step(states[1], x, t, labels))
+        states = [o[1] for o in outs]
+        for k in ("blocks_computed", "blocks_skipped", "steps_reused",
+                  "motion_frac_sum"):
+            assert torch.equal(states[0]["stats"][k], states[1]["stats"][k])
+        for k, v in states[0].items():
+            if k != "stats" and not v.is_floating_point():
+                assert torch.equal(v, states[1][k]), (k, i)
+        torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4,
+                                   atol=1e-4)
+        x = x - 0.02 * outs[1][0]
+    launched = (saliency_delta.launches - counts[0],
+                linear_blend.launches - counts[1])
+    want = {"teacache": (6, 0), "adacache": (6, 0), "fbcache": (6, 0),
+            "l2c": (0, 6), "fora": (0, 0), "smoothcache": (0, 0)}[policy]
+    assert launched == want
