@@ -77,6 +77,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             alignment); (d) (a) in f32; within 2e-2 (bf16) and 2e-5 (f32);
             library: F.scaled_dot_product_attention (is_causal at (a) and
             (d), an explicit boolean mask at (b) and (c)), a yardstick only;
+            each row adds ``vs_library`` (kernel device ms over the
+            library's) and the ptxas lines of the instance that ran it
+            (``ptxas``: bf16 the wgmma kernel, f32 the SIMT one);
 11. llm_model  qwen3-0.6b at full width (launch.serve.LLMWorkload: 28
             layers, d 1024, 16/8 heads of 128, vocab 151,936, bf16, random
             weights from torch.Generator seed 0): parameters, init seconds;
@@ -737,10 +740,24 @@ def flash_live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(live.sum())
 
 
-def phase_flash_attention(torch, dev, ref, flash_attention):
+def instance_ptxas(lines, kernel: str, dh: int):
+    """The ptxas lines of one template instance (``kernel<dh>``) in a
+    ``build.ptxas_lines`` list: its entry line and the lines up to the
+    next entry."""
+    out, mine = [], False
+    for ln in lines:
+        if "Compiling entry" in ln:
+            mine = f"{kernel}ILi{dh}E" in ln
+        if mine:
+            out.append(ln)
+    return out
+
+
+def phase_flash_attention(torch, dev, ref, flash_attention, build):
     """flash_attention against its plain version at FLASH_SHAPES; returns
     the row of shape (a), the serve's prefill."""
     import torch.nn.functional as F
+    ptxas = build.ptxas_lines(build.load_library("flash_attention").log)
     rows = {}
     for key, (b, h, kvh, sq, skv, dh, causal, window, dt) in \
             FLASH_SHAPES.items():
@@ -792,6 +809,11 @@ def phase_flash_attention(torch, dev, ref, flash_attention):
                "library_call": call, "live_pairs": pairs, "bytes": nbytes,
                "operations": ops, "bound_ms": bound_ms, "bound_by": bound_by}
         row["ms"] = row["kernel_ms"]
+        row["vs_library"] = (row["kernel_device_ms"]
+                             / row["library_device_ms"])
+        row["ptxas"] = instance_ptxas(
+            ptxas, "flash_attention_kernel_"
+            + ("wgmma" if dt == "bfloat16" else "simt"), dh)
         emit({"phase": "kernel", **row})
         rows[key] = row
     return rows["a"]
@@ -983,7 +1005,8 @@ def main() -> int:
     phase_quality(torch, dev, model, m, policy_kwargs)
 
     # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate
-    flash_row = phase_flash_attention(torch, dev, ref, flash_attention)
+    flash_row = phase_flash_attention(torch, dev, ref, flash_attention,
+                                      build)
     llm = LLMWorkload()
     t0 = time.perf_counter()
     llm_model = llm.build_model(dev)

@@ -13,79 +13,131 @@
 //   o_i        = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp(s_ij - max_j s_ij)
 //                over the live j, s_ij = (q_i . k_j) * dh^-1/2
 //
-// with scores, p, the running max, the denominator and the accumulator in
-// f32, as in the TPU kernel, and o in q's dtype.
+// with the running max, the denominator and the accumulator in f32, as in
+// the TPU kernel, and o in q's dtype.  Both routes below give one block to
+// each (b, h, tile of 64 queries), heaviest causal tiles first, and loop over
+// tiles of 64 keys from the first to the last tile that holds a live key of
+// the block's queries, so tiles that are wholly masked are never read.
+// Masked entries get p = 0 explicitly, so a row whose first live tile is
+// partly masked, or a tile wholly masked for some rows, adds nothing.  Rows
+// past Sq and keys past Skv are zero-filled and masked, so any Sq and Skv
+// work.  No float atomics and no split of the key range across blocks (the
+// bf16 route's two warpgroups merge their halves in a fixed order): results
+// repeat bitwise.
 //
-// Design.  One block of 128 threads per (b, h, tile of 64 queries); the
-// heaviest causal tiles are scheduled first.  The block loops over tiles of
-// 64 keys from the first to the last tile that holds a live key of its
-// queries, so tiles that are wholly masked are never read.  Q, K and V tiles
-// are staged in shared memory in f32 (dynamic shared memory: 113 KB at
-// dh = 128, 65 KB at dh = 64, over the 48 KB static limit).  Thread (ty, tx)
-// owns rows 4ty..4ty+3 and columns tx + 8j of the 64 x 64 score tile, and the
-// same rows and columns tx + 8c of the output; the score and PV products are
-// f32 FMAs (no tensor cores), so p is never rounded to bf16, as in the TPU
-// kernel.  A row's max is reduced over its 8 lanes by warp shuffles; masked
-// entries get p = 0 explicitly, so a row whose first live tile is partly
-// masked, or a tile wholly masked for some rows, adds nothing.  Rows past Sq
-// and keys past Skv are zero-filled and masked, so any Sq and Skv work.
+// bf16 route (the serving path): wgmma on bf16 tiles fed by TMA.  Two
+// consumer warpgroups per block (256 threads) split the block's key tiles,
+// warpgroup w taking tiles w, w + 2, ..., so the causal diagonal's longest
+// blocks run half as many tiles in sequence and one warpgroup's softmax
+// overlaps the other's products.  Loads are TMA copies
+// (cp.async.bulk.tensor) over 4-d tensor maps (dh, S, heads, B) built from
+// the caller's strides: boxes of 64 rows x 64 elements with 128-byte
+// swizzle, rows past S zero-filled by the copy.  One elected thread per
+// warpgroup issues them (no producer warp, so no setmaxnreg: 256 threads
+// take ~170 registers each) into the warpgroup's own ring of two K/V stages,
+// each completing an mbarrier; while a warpgroup works on one tile the next
+// is in flight, and a stage is refilled as soon as both products have read
+// it.  S = Q K^T is wgmma m64n64k16 with Q (A) and K (B) read from shared
+// memory, both K-major (dh contiguous); the f32 scores stay in the
+// accumulator registers, where a row is spread over the four threads of a
+// quad (max and sum: two xor shuffles).  The softmax runs in the log2
+// domain, p = 2^(s dh^-1/2 log2(e) - m), one FFMA and one ex2.approx per
+// score; the causal and window masks are evaluated only on tiles that
+// straddle a boundary.  P is rounded to bf16 in registers and used as the
+// register A operand of O += P V (wgmma m64nDHk16): the accumulator
+// fragment of S lands, pair by pair, on the A fragment of the k16 slices,
+// as in FlashAttention-3; V is the B operand in MN-major order (the
+// descriptor's transpose bit).  Rounding P to bf16 departs from the TPU
+// kernel, which keeps p in f32; the reference's own model attention rounds
+// it the same way (src/repro/models/attention.py:69 and :114,
+// p.astype(v.dtype)), and the result stays within the 2e-2 that bf16 is
+// held to.  At the end warpgroup 1 hands its (max, denominator,
+// accumulator) to warpgroup 0 through shared memory, which merges the two
+// in that fixed order, so results still repeat bitwise.  The output tile
+// is staged in Q's place in the swizzled layout and written by a TMA store,
+// which drops rows past Sq.  Shared memory: Q, two rings of two K/V stages
+// and the hand-over, 179 KB at dh = 128 and 91 KB at dh = 64, one block
+// per SM.
+//
+// f32 route: the products cannot go to the tensor cores, since TF32 or bf16
+// would miss the 2e-5 that f32 is held to (the reference's tolerance), and
+// nothing on the serving path runs f32.  It keeps the SIMT kernel: Q, K and
+// V tiles staged in f32 shared memory (113 KB at dh = 128, 65 KB at dh = 64),
+// thread (ty, tx) owning rows 4ty..4ty+3 and columns tx + 8j of the score
+// tile, f32 FMAs, p kept in f32 as in the TPU kernel.
 //
 // Bound at the serve's prefill (B=1, H=16, KVH=8, S=512, dh=128, causal,
 // bf16): q, k, v read and o written once is 6.29 MB, 1.88 us at 3.35 TB/s;
 // the causal work is 4 * dh * 16 * 512 * 513 / 2 = 1.08 GFLOP, 1.09 us on
 // the bf16 tensor cores (989 TFLOP/s) or 16.1 us at 67 TFLOP/s of f32 SIMT.
-// So the bound is 1.88 us, set by bytes.  This kernel is far above it: it
-// runs the products on the f32 SIMT units from shared memory (about 1.4
-// shared loads per FMA), with no copy/compute overlap and 128 blocks on 132
-// SMs.  Later work: mma.sync / wgmma on bf16 tiles fed by TMA, with the
-// tile loads pipelined.
+// So the bound is 1.88 us, set by bytes.  What keeps the wgmma route above
+// it there is latency, not throughput: 128 blocks on 132 SMs, the longest
+// running 4 key tiles per warpgroup, each tile a chain of S product, wait,
+// softmax, P V product and wait, plus ~1 us of prologue (parameters, tensor
+// maps, the first copies) and ~1 us of epilogue.
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
+                   // fetched through the runtime, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile (kBK == kBQ: one tile loader)
-constexpr int kThreads = 128;  // 16 row groups of 4 rows x 8 column lanes
+constexpr int kBK = 64;        // keys per tile
+constexpr int kThreads = 128;  // f32 route: 16 row groups x 8 column lanes
 constexpr float kNegInf = -1e30f;
 
-struct Params {
+// What the masks and the tile range read; both routes' parameters extend it.
+struct Shape {
   int Sq, Skv, group, causal, window;
+};
+
+struct Params : Shape {
   float scale;
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+// The block's query tile and its live key range [k_lo, k_hi).
+struct Tile {
+  int q0, nq, qlo, k_lo, k_hi;
+  __device__ explicit Tile(const Shape& p) {
+    q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest causal tiles first
+    nq = min(kBQ, p.Sq - q0);
+    qlo = p.Skv - p.Sq + q0;                  // position of query row 0
+    k_lo = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
+    k_hi = p.causal ? min(p.Skv, qlo + nq) : p.Skv;
+  }
+};
+
+__device__ __forceinline__ bool live(const Shape& p, int qpos, int kpos) {
+  return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
+         (p.window <= 0 || kpos > qpos - p.window);
 }
 
-// A 64 x DH tile of `src` (row stride `rs` elements, 16-byte aligned rows)
-// into f32 shared memory with row pitch `pitch`; rows at or past `nvalid`
+// ---------------------------------------------------------------------------
+// f32 route: SIMT products from shared memory
+// ---------------------------------------------------------------------------
+
+// A 64 x DH f32 tile of `src` (row stride `rs` elements, 16-byte aligned
+// rows) into shared memory with row pitch `pitch`; rows at or past `nvalid`
 // are zero.
-template <typename T, int DH>
+template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, int pitch,
-                                          const T* src, long long rs,
+                                          const float* src, long long rs,
                                           int nvalid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = DH / kVec;
+  constexpr int kPerRow = DH / 4;
   for (int idx = threadIdx.x; idx < kBQ * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * kVec;
+    const int r = idx / kPerRow, c = (idx % kPerRow) * 4;
+    const float4 x = r < nvalid
+                         ? *reinterpret_cast<const float4*>(src + r * rs + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
     float* d = dst + r * pitch + c;
-    if (r < nvalid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * rs + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int t = 0; t < kVec; ++t) d[t] = to_f32(e[t]);
-    } else {
-#pragma unroll
-      for (int t = 0; t < kVec; ++t) d[t] = 0.f;
-    }
+    d[0] = x.x;
+    d[1] = x.y;
+    d[2] = x.z;
+    d[3] = x.w;
   }
 }
 
@@ -102,16 +154,18 @@ __device__ __forceinline__ float lane8_sum(float x) {
 }
 
 template <int DH>
-constexpr size_t smem_bytes() {
-  // Q and K at pitch DH + 1, V at DH, P at kBK + 1 (f32)
+constexpr size_t simt_smem_bytes() {
+  // Q and K at pitch DH + 1, V at DH, P at kBK + 1
   return sizeof(float) *
          (size_t)(kBQ * (DH + 1) + kBK * (DH + 1) + kBK * DH + kBQ * (kBK + 1));
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Params p) {
+flash_attention_kernel_simt(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, Params p) {
   constexpr int kQP = DH + 1;  // row-varying reads of Q and K: distinct banks
   constexpr int kPP = kBK + 1;
   constexpr int kCols = DH / 8;
@@ -123,20 +177,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x & 7;
   const int ty = threadIdx.x >> 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kBQ;
-  const int nq = min(kBQ, p.Sq - q0);
+  const Tile t(p);
   const int kvh = h / p.group;
-  const T* kp = k + b * p.kb + kvh * p.kh;
-  const T* vp = v + b * p.vb + kvh * p.vh;
+  const float* kp = k + b * p.kb + kvh * p.kh;
+  const float* vp = v + b * p.vb + kvh * p.vh;
 
-  // the live keys of this block's queries lie in [k_lo, k_hi)
-  const int qlo = p.Skv - p.Sq + q0, qhi = qlo + nq - 1;
-  const int k_lo = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
-  const int k_hi = p.causal ? min(p.Skv, qhi + 1) : p.Skv;
-
-  load_tile<T, DH>(Qs, kQP, q + b * p.qb + h * p.qh + q0 * p.qs, p.qs, nq);
+  load_tile<DH>(Qs, kQP, q + b * p.qb + h * p.qh + t.q0 * p.qs, p.qs, t.nq);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -147,11 +194,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
+  for (int k0 = (t.k_lo / kBK) * kBK; k0 < t.k_hi; k0 += kBK) {
     const int nk = min(kBK, p.Skv - k0);
     __syncthreads();  // Q is staged; the last tile's P and V are consumed
-    load_tile<T, DH>(Ks, kQP, kp + k0 * p.ks, p.ks, nk);
-    load_tile<T, DH>(Vs, DH, vp + k0 * p.vs, p.vs, nk);
+    load_tile<DH>(Ks, kQP, kp + k0 * p.ks, p.ks, nk);
+    load_tile<DH>(Vs, DH, vp + k0 * p.vs, p.vs, nk);
     __syncthreads();
 
     float s[4][8];
@@ -174,16 +221,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = qlo + 4 * ty + i;
-      unsigned live = 0;
+      const int qpos = t.qlo + 4 * ty + i;
+      unsigned ok = 0;
       float mx = m[i];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        const bool ok = kpos < p.Skv && (!p.causal || kpos <= qpos) &&
-                        (p.window <= 0 || kpos > qpos - p.window);
-        s[i][j] = ok ? s[i][j] * p.scale : kNegInf;
-        live |= (unsigned)ok << j;
+        const bool lj = live(p, qpos, k0 + tx + 8 * j);
+        s[i][j] = lj ? s[i][j] * p.scale : kNegInf;
+        ok |= (unsigned)lj << j;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = lane8_max(mx);
@@ -192,7 +237,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float ls = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float pj = (live >> j) & 1u ? expf(s[i][j] - mx) : 0.f;
+        const float pj = (ok >> j) & 1u ? expf(s[i][j] - mx) : 0.f;
         Ps[(4 * ty + i) * kPP + tx + 8 * j] = pj;
         ls += pj;
       }
@@ -221,50 +266,581 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const float den = fmaxf(lane8_sum(l[i]), 1e-30f);
     const int r = 4 * ty + i;
-    if (r < nq) {
-      T* orow = o + b * p.ob + h * p.oh + (q0 + r) * p.os;
+    if (r < t.nq) {
+      float* orow = o + b * p.ob + h * p.oh + (t.q0 + r) * p.os;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) store(orow + tx + 8 * c, acc[i][c] / den);
+      for (int c = 0; c < kCols; ++c) orow[tx + 8 * c] = acc[i][c] / den;
     }
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
+template <int DH>
+int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
+                int H, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = simt_smem_bytes<DH>();
   static bool opted_in = false;  // per instance; a repeated call is harmless
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DH>,
+        flash_attention_kernel_simt<DH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const dim3 grid((p.Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), p);
+  flash_attention_kernel_simt<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int dh, const Params& p, cudaStream_t stream) {
-  if (dh == 128) return launch<T, 128>(q, k, v, o, B, H, p, stream);
-  if (dh == 64) return launch<T, 64>(q, k, v, o, B, H, p, stream);
-  return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 route: TMA, mbarriers and wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 2;  // warpgroups, each on half the key tiles
+constexpr int kWgThreads = 128 * kConsumers;
+constexpr int kStages = 2;              // K/V ring of each warpgroup
+constexpr int kBox = 64;                // TMA box: 64 rows x 64 bf16 (128 B)
+constexpr uint32_t kBoxBytes = kBox * kBox * 2;
+constexpr uint32_t kSwizzleAtom = 8 * 128;  // 8 rows of 128 B
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return (DH / kBox) * kBoxBytes;
+}
+
+template <int DH>
+constexpr size_t wgmma_smem_bytes() {
+  // 1 KB of slack to align the swizzled tiles, Q, two K/V rings, the
+  // hand-over of warpgroup 1's state, an mbarrier per stage plus Q's
+  return 1024 + (size_t)tile_bytes<DH>() * (1 + 2 * kConsumers * kStages) +
+         4 * (DH / 2 + 4) * 128 +
+         8 * (kConsumers * kStages + 1);
+}
+
+struct WgmmaParams : Shape {
+  float scale_log2;  // dh^-1/2 * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed.  A copy that
+// never lands (it cannot, short of a fault) traps after ~2^32 cycles rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 32)) __trap();
+  } while (!done);
+}
+
+// One box of a 4-d tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Named barriers (0 is __syncthreads): 1 and 2 for each warpgroup's ring,
+// 3 for the hand-over.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers that an in-flight wgmma writes: keep the compiler from moving
+// their reads or writes across the asm statements that fence it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (64 x 64, f32) {+}= A (64 x 16, smem) * B (64 x 16, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (64 x 16, smem,
+// MN-major: the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// MN-major: the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+// 2^x on the SFU (ex2.approx.ftz: 2 ulp, flushes denormals); 2^(-1e29) is 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's online-softmax step on the scores in `sc` (an m64n64 f32
+// accumulator), in the log2 domain: the running max m (already scaled by
+// dh^-1/2 log2 e) and this thread's share of the denominator l per row, the
+// accumulator o rescaled, and sc overwritten with p.  kMasked: the tile
+// straddles a mask boundary, so every entry is tested and masked ones get
+// p = 0 explicitly.
+template <int DH, bool kMasked>
+__device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&o)[DH / 2],
+                                             const WgmmaParams& wp, int qpos0,
+                                             int kpos0) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = qpos0 + 8 * half;
+    unsigned ok = 0xffffu;
+    float mx = kNegInf;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      float& x = sc[4 * (e / 2) + 2 * half + (e % 2)];
+      if (kMasked && !live(wp, qpos, kpos0 + 8 * (e / 2) + (e % 2))) {
+        x = kNegInf;
+        ok &= ~(1u << e);
+      }
+      mx = fmaxf(mx, x);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[half], mx * wp.scale_log2);
+    const float corr = ex2(m[half] - m_new);
+    m[half] = m_new;
+    float ls = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      float& x = sc[4 * (e / 2) + 2 * half + (e % 2)];
+      x = ex2(fmaf(x, wp.scale_log2, -m_new));
+      if (kMasked && !((ok >> e) & 1u)) x = 0.f;
+      ls += x;
+    }
+    l[half] = l[half] * corr + ls;  // this thread's share; summed at the end
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      o[4 * c + 2 * half] *= corr;
+      o[4 * c + 2 * half + 1] *= corr;
+    }
+  }
+}
+
+// Thread t of a warpgroup holds, in an m64nN f32 accumulator, rows
+// r0 = 16 (t / 32) + (t % 32) / 4 and r0 + 8, columns 8 j + 2 (t % 4) + e:
+// element 4 j + 2 half + e, half 0 for r0 and 1 for r0 + 8.  Consumer
+// warpgroup w takes the block's key tiles w, w + 2, ... through its own
+// ring; at the end warpgroup 1 hands its (max, denominator,
+// accumulator) to warpgroup 0 through shared memory, thread t to thread t,
+// and warpgroup 0 merges the two in that fixed order.  The output tile is
+// staged in Q's place in the swizzled box layout and written by TMA, which
+// drops the rows past Sq.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap omap,
+                             const WgmmaParams wp) {
+  constexpr int kChunks = DH / kBox;
+  constexpr uint32_t kTile = tile_bytes<DH>();
+  constexpr int kX = DH / 2 + 4;  // values handed over per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t rings = kTile * (1 + 2 * kConsumers * kStages);
+  float* xch = reinterpret_cast<float*>(smem_raw + (base - raw) + rings);
+  const uint32_t bars = base + rings + 4 * kX * 128;
+  const uint32_t q_bar = bars + 8 * kConsumers * kStages;
+
+  const Tile t(wp);
+  const int tid = threadIdx.x % 128;  // thread within its warpgroup
+  const int wg = threadIdx.x / 128;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / wp.group;
+  const int kt0 = t.k_lo / kBK;
+  const int ntiles = (t.k_hi - kt0 * kBK + kBK - 1) / kBK;
+  const int mine = (ntiles - wg + kConsumers - 1) / kConsumers;
+  const uint32_t my_bars = bars + 8 * kStages * wg;
+  // stage s of this warpgroup's ring: K at k_s(s), V at k_s(s) + kTile
+  auto k_s = [&](int s) {
+    return base + kTile * (1 + 2 * (wg * kStages + s));
+  };
+  auto load_kv = [&](int s, int i) {  // this warpgroup's i-th tile
+    const uint32_t bar = my_bars + 8 * s;
+    const int row = (kt0 + wg + kConsumers * i) * kBK;
+    mbar_expect_tx(bar, 2 * kTile);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      tma_load(k_s(s) + c * kBoxBytes, &kmap, bar, c * kBox, row, kvh, b);
+      tma_load(k_s(s) + kTile + c * kBoxBytes, &vmap, bar, c * kBox, row,
+               kvh, b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kConsumers * kStages + 1; ++i)
+      mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_bar, kTile);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(base + c * kBoxBytes, &qmap, q_bar, c * kBox, t.q0, h, b);
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kStages && s < mine; ++s) load_kv(s, s);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  const int qhi = t.qlo + kBQ - 1;  // last row's position, padding included
+  float o[DH / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) o[e] = 0.f;
+  mbar_wait(q_bar, 0);
+
+  for (int i = 0; i < mine; ++i) {
+    const int s = i % kStages;
+    const int k0 = (kt0 + wg + kConsumers * i) * kBK;
+    mbar_wait(my_bars + 8 * s, (i / kStages) & 1);
+
+    // S = Q K^T: dh in k16 slices, 32 bytes apart inside a swizzled row
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    pin(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(sc, sw128_desc(base + off, 16, kSwizzleAtom),
+                   sw128_desc(k_s(s) + off, 16, kSwizzleAtom), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sc);
+
+    // masks only on tiles that straddle a boundary
+    const bool whole = k0 + kBK <= wp.Skv &&
+                       (!wp.causal || k0 + kBK - 1 <= t.qlo) &&
+                       (wp.window <= 0 || k0 > qhi - wp.window);
+    if (whole)
+      softmax_step<DH, false>(sc, m, l, o, wp, t.qlo + r0, k0 + c0);
+    else
+      softmax_step<DH, true>(sc, m, l, o, wp, t.qlo + r0, k0 + c0);
+
+    // O += P V: P's accumulator pairs are the A fragments of the k16 slices
+    // (keys 16 kk .. 16 kk + 15); V MN-major, k16 slices 16 rows apart,
+    // 64-column chunks a box apart
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<DH>(o, pa[kk],
+                   sw128_desc(k_s(s) + kTile + kk * 16 * 128, kBoxBytes,
+                              kSwizzleAtom));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
+
+    bar_sync(1 + wg, 128);  // the warpgroup's products have read stage s
+    if (tid == 0 && i + kStages < mine) load_kv(s, i + kStages);
+  }
+
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) xch[e * 128 + tid] = o[e];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      xch[(DH / 2 + half) * 128 + tid] = m[half];
+      xch[(DH / 2 + 2 + half) * 128 + tid] = l[half];
+    }
+    bar_arrive(3, kWgThreads);
+    return;
+  }
+  bar_sync(3, kWgThreads);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float m1 = xch[(DH / 2 + half) * 128 + tid];
+    const float mx = fmaxf(m[half], m1);
+    const float c_own = ex2(m[half] - mx), c_other = ex2(m1 - mx);
+    const float l1 = xch[(DH / 2 + 2 + half) * 128 + tid];
+    l[half] = l[half] * c_own + l1 * c_other;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * c + 2 * half + e;
+        o[idx] = o[idx] * c_own + xch[idx * 128 + tid] * c_other;
+      }
+  }
+
+  // o / l in bf16 into Q's place (the swizzled box layout: 16-byte group g
+  // of row r at g ^ (r % 8)), then one TMA store per 64-column chunk
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float den = l[half];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+    const int r = r0 + 8 * half;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      const uint32_t addr = base + (c / 8) * kBoxBytes + r * 128 +
+                            (((c % 8) ^ (r % 8)) << 4) + 2 * c0;
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr),
+                   "r"(pack_bf16(o[4 * c + 2 * half] * inv,
+                                 o[4 * c + 2 * half + 1] * inv))
+                   : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  bar_sync(1, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      asm volatile(
+          "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+          "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+              reinterpret_cast<uint64_t>(&omap)),
+          "r"(base + c * kBoxBytes), "r"(c * kBox), "r"(t.q0), "r"(h),
+          "r"(b)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor (B, heads, S, dh) with element strides (bs, hs, ss, 1) as a
+// 4-d tensor map (dh, S, heads, B) of 64 x 64 boxes, 128-byte swizzle.  A
+// dimension of extent 1 gets a nominal stride (TMA wants nonzero multiples
+// of 16 bytes, and never uses it).
+bool encode_map(CUtensorMap* map, const void* ptr, int dh, int S, int heads,
+                int B, long long ss, long long hs, long long bs) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = 2ull * dh;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {S > 1 ? 2ull * ss : row,
+                                 heads > 1 ? 2ull * hs : row,
+                                 B > 1 ? 2ull * bs : row};
+  const cuuint32_t box[4] = {kBox, kBox, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int H, int KVH, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = wgmma_smem_bytes<DH>();
+  static bool opted_in = false;  // per instance; a repeated call is harmless
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel_wgmma<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  CUtensorMap qmap, kmap, vmap, omap;
+  if (!encode_map(&qmap, q, DH, p.Sq, H, B, p.qs, p.qh, p.qb) ||
+      !encode_map(&kmap, k, DH, p.Skv, KVH, B, p.ks, p.kh, p.kb) ||
+      !encode_map(&vmap, v, DH, p.Skv, KVH, B, p.vs, p.vh, p.vb) ||
+      !encode_map(&omap, o, DH, p.Sq, H, B, p.os, p.oh, p.ob))
+    return (int)cudaErrorInvalidValue;
+  WgmmaParams wp;
+  static_cast<Shape&>(wp) = p;
+  wp.scale_log2 = p.scale * kLog2e;
+  const dim3 grid((p.Sq + kBQ - 1) / kBQ, H, B);
+  flash_attention_kernel_wgmma<DH>
+      <<<grid, kWgThreads, smem, stream>>>(qmap, kmap, vmap, omap, wp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, H, Sq, dh), k and v (B, KVH, Skv, dh), o (B, H, Sq, dh), all of one
-// dtype (dtype_code 0 = float32, 1 = bfloat16), with the given element
-// strides along (batch, head, sequence), unit stride along dh, and 16-byte
-// aligned rows.  Needs H % KVH == 0, 1 <= Sq <= Skv and dh in {64, 128}.
-// `scale` is dh^-1/2 rounded to f32 by the caller, as the plain version's
-// f32 product with the Python float rounds it.  Returns cudaGetLastError()
-// after the launch (0 = success).
+// dtype (dtype_code 0 = float32: the SIMT kernel; 1 = bfloat16: the wgmma
+// kernel), with the given element strides along (batch, head, sequence),
+// unit stride along dh, and 16-byte aligned rows (bf16: nonzero strides
+// along every dimension of extent > 1, for the tensor maps).  Needs
+// H % KVH == 0, 1 <= Sq <= Skv and dh in {64, 128}.  `scale` is dh^-1/2
+// rounded to f32 by the caller, as the plain version's f32 product with the
+// Python float rounds it.  Returns cudaGetLastError() after the launch
+// (0 = success), or cudaErrorInvalidValue for arguments it refuses.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KVH, int Sq, int Skv, int dh, long long qb, long long qh,
@@ -286,8 +862,13 @@ extern "C" int flash_attention_launch(
   p.vb = vb; p.vh = vh; p.vs = vs;
   p.ob = ob; p.oh = oh; p.os = os;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, B, H, dh, p, s);
-  if (dtype_code == 0) return launch_dh<float>(q, k, v, o, B, H, dh, p, s);
+  if (dtype_code == 1 && dh == 128)
+    return launch_wgmma<128>(q, k, v, o, B, H, KVH, p, s);
+  if (dtype_code == 1 && dh == 64)
+    return launch_wgmma<64>(q, k, v, o, B, H, KVH, p, s);
+  if (dtype_code == 0 && dh == 128)
+    return launch_simt<128>(q, k, v, o, B, H, p, s);
+  if (dtype_code == 0 && dh == 64)
+    return launch_simt<64>(q, k, v, o, B, H, p, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` exports ``extern "C"`` launchers and includes no
 PyTorch header, so ``nvcc`` builds it in seconds.  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of its
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing here
-runs at import.
+source is rebuilt and an unchanged one is loaded as it is; the build's
+nvcc/ptxas output is kept beside it.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ class BuiltLibrary:
     name: str
     path: Path
     lib: ctypes.CDLL
-    log: str          # nvcc/ptxas output ("" when loaded from an earlier build)
+    log: str          # nvcc/ptxas output of the build (also an earlier one)
     seconds: float    # compile time (0.0 when loaded from an earlier build)
 
 
@@ -75,7 +75,10 @@ def load_library(name: str) -> BuiltLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+    elif out.with_suffix(".log").exists():
+        log = out.with_suffix(".log").read_text()
     built = BuiltLibrary(name, out, ctypes.CDLL(str(out)), log, seconds)
     _LOADED[name] = built
     return built

@@ -10,6 +10,21 @@ is no fallback.  Each kernel launch adds one to
 The kernel reads any strides with a unit stride along dh, so a caller
 holding (B, S, H, dh) activations passes ``x.transpose(1, 2)`` views and
 gets the output back in the same layout, with no copy.
+
+Two instances behind one launch.  bf16 (the serving path) runs a Hopper
+kernel: TMA copies of 64 x 64 tiles into rings of K/V stages, S = QK^T and
+O += PV on wgmma with f32 accumulation, P rounded to bf16 in registers as
+the register operand of the second product, two warpgroups per 64-query
+tile splitting its key tiles and merging in a fixed order.  Rounding P to
+bf16 departs from the TPU kernel, which keeps p in f32; the reference's
+model attention does the same (``src/repro/models/attention.py:69`` and
+``:114``, ``p.astype(v.dtype)``), within the 2e-2 that bf16 is held to.
+float32 keeps the SIMT kernel (f32 FMAs, p in f32): TF32 or bf16 tensor
+cores would miss the reference's 2e-5, and nothing on the serving path runs
+f32.  At the serve's prefill (B=1, H=16, KVH=8, S=512, dh=128, causal) the
+bound is 1.88 us, set by the 6.29 MB that q, k, v and o move.  The bf16
+tensor maps take no zero stride, so a broadcast (expanded) bf16 input is
+refused; materialize it first.
 """
 from __future__ import annotations
 
@@ -62,7 +77,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _check_layout(t: torch.Tensor, name: str) -> None:
-    """The kernel loads 16-byte vectors along dh."""
+    """The kernel loads 16-byte vectors along dh (f32) or 64 x 64 tiles
+    through tensor maps (bf16), which take no zero stride."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name} needs a unit stride along head_dim, got "
                          f"strides {t.stride()}")
@@ -70,6 +86,11 @@ def _check_layout(t: torch.Tensor, name: str) -> None:
     if t.data_ptr() % 16 or any(s % unit for s in t.stride()[:3]):
         raise ValueError(f"{name} needs 16-byte aligned rows, got data_ptr "
                          f"{t.data_ptr()} and strides {t.stride()}")
+    if t.dtype == torch.bfloat16 and any(
+            s == 0 and n > 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
+        raise ValueError(f"{name} is broadcast (a zero stride, strides "
+                         f"{t.stride()}); the bf16 kernel's tensor maps need "
+                         "a materialized tensor")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -322,10 +322,15 @@ def test_merged_cached_step_kernels_match_plain_path(cuda_device,
 
 # (B, H, KVH, Sq, Skv, causal, window): the serve's prefill, ragged
 # lengths, end alignment (Sq < Skv), a window that skips tiles on both
-# sides, and bidirectional with and without a window
+# sides, bidirectional with and without a window, a single query against a
+# long cache, the diagonal alone (window 1), a batch of 4 at the serve's
+# width, and a long sliding window
 FLASH_SHAPES = [(1, 16, 8, 512, 512, True, 1024), (2, 4, 2, 100, 100, True, 0),
                 (1, 4, 1, 64, 576, True, 0), (1, 4, 2, 700, 700, True, 128),
-                (2, 4, 4, 37, 141, False, 50), (1, 8, 8, 130, 130, False, 0)]
+                (2, 4, 4, 37, 141, False, 50), (1, 8, 8, 130, 130, False, 0),
+                (1, 4, 2, 1, 300, True, 0), (1, 4, 2, 130, 130, True, 1),
+                (4, 16, 8, 512, 512, True, 1024),
+                (1, 8, 4, 4096, 4096, True, 512)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -354,6 +359,23 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, dh, shape):
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_bf16_and_f32_instances_each_launch(cuda_device, dh):
+    """bf16 runs the wgmma instance and f32 the SIMT one: one launch each,
+    each within its dtype's tolerance of the plain version."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(cuda_device, dtype, 1, 4, 2, 200, 200, dh, seed=5)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=True, window=96)
+        torch.cuda.synchronize(cuda_device)
+        assert flash_attention.launches == before + 1
+        want = ref.flash_attention(q, k, v, causal=True, window=96)
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.cuda
@@ -394,6 +416,10 @@ def test_flash_attention_raises_on_bad_cuda_input(cuda_device):
         flash_attention(q, padded, v, causal=True)
     with pytest.raises(ValueError, match="share one device"):
         flash_attention(q, k.cpu(), v, causal=True)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 4, 1, 16, 16, 64)
+    with pytest.raises(ValueError, match="broadcast"):
+        flash_attention(q, k.expand(1, 2, 16, 64), v.expand(1, 2, 16, 64),
+                        causal=True)
 
 
 @pytest.mark.cuda

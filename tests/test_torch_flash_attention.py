@@ -19,6 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.cuda_kernels import ref as tref
+from repro_torch.cuda_kernels import flash_attention as fa_mod
 from repro_torch.cuda_kernels.flash_attention import flash_attention
 
 GRID = [(1, 4, 4, 128, 128, 64),     # MHA square
@@ -110,3 +111,19 @@ def test_wrapper_rejects_bad_inputs(case, exc):
     with pytest.raises(exc):
         flash_attention(q, k, v, causal=True)
     assert flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("dtype,shape,raises", [
+    (torch.bfloat16, (2, 2, 16, 64), True),    # zero batch and head strides
+    (torch.bfloat16, (1, 2, 16, 64), True),    # zero head stride
+    (torch.bfloat16, (1, 1, 16, 64), False),   # zero strides on extent 1 only
+    (torch.float32, (2, 2, 16, 64), False)])   # the SIMT route reads them
+def test_layout_check_refuses_broadcast_bf16(dtype, shape, raises):
+    """The bf16 kernel's tensor maps take no zero stride along a dimension
+    of extent > 1; the check runs on the host, before any launch."""
+    t = torch.zeros(16 * 64, dtype=dtype).as_strided(shape, (0, 0, 64, 1))
+    if raises:
+        with pytest.raises(ValueError, match="broadcast"):
+            fa_mod._check_layout(t, "k")
+    else:
+        fa_mod._check_layout(t, "k")
