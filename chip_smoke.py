@@ -17,9 +17,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             behind a spin kernel, so no host gap falls between them),
             L2-warm:
             - fused_gate at B=8, C=128 (merge off) and C=64 (merge on),
-              D=1152, bf16, blend on and off, half the samples gating: gate
-              bits exact, diff/prevsq within rtol 1e-4, out within 2e-2;
-              library: torch.addmm of (B*C, D)x(D, D) in f32;
+              D=1152, bf16, blend on and off, half the samples gating, on
+              the wgmma route (bf16 X against the bf16 copy of W): gate
+              bits exact, diff/prevsq within rtol 1e-4, out within 2e-2,
+              repeated calls bitwise; library: torch.addmm of (B*C, D)x(D,
+              D) in f32, the same in bf16 (X and the bf16 W: the kernel's
+              operand precision), and in bf16 over the gated samples' rows
+              only (the rows the kernel multiplies);
             - knn_density, merge_assign and unmerge_scatter at the merged
               slice's shapes (W=128 windows of w=16, D=1152, K=5, M=8, bf16
               h, f32 scores): knn_density within rtol/atol 1e-4, centers and
@@ -31,10 +35,15 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               rtol 1e-5, repeated calls bitwise; library: torch.sum(d*d, -1)
               on the f32 difference, a yardstick;
             - linear_blend at M=2048, D=F=1152, bf16 X/prev, f32 W/b, gamma
-              1 and 0.5, at M=1024, and ragged at M=D=F=1000 in f32: within
-              2e-2 in bf16 and 1e-4 in f32, repeated calls bitwise; library:
+              1 and 0.5, at M=1024 (these three on the wgmma route), and
+              ragged at M=D=F=1000 in f32 (the SIMT route): within 2e-2 in
+              bf16 and 1e-4 in f32, repeated calls bitwise; library:
               torch.addmm in f32 with alpha=gamma, bias and blend folded
-              into its input;
+              into its input, and the same in bf16 with the bf16 W;
+            each fused_gate / linear_blend row names its GEMM route
+            (``gemm_route``) and that kernel's ptxas lines, and its bound
+            is the route's: bf16 W bytes and the bf16 tensor-core rate for
+            wgmma;
 4. syncs    an untimed warm-up serve (Workload.warm_up: two short requests
             on a fresh engine) under torch.cuda's sync-debug mode: the
             synchronizations it flags beside the code's own host_syncs count;
@@ -46,7 +55,11 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             timed with sync debug off; the kernels' launch counts are zeroed
             just before and read just after: fused_gate must have
             launched 28 times, saliency_delta and linear_blend once, per
-            model step with a warm slot, and no other kernel;
+            model step with a warm slot, and no other kernel; every
+            fused_gate and linear_blend launch on the wgmma route (the
+            per-route counts); the block cache ratio exactly
+            PARENT_BLOCK_CACHE_RATIO, the SIMT route's (identity
+            approximators are exact in bf16, so the routes agree bitwise);
 6. syncs_merge / serve_merge   the same Workload with token merging on
             (merge_ratio 0.5, window 16), warmed up under sync debug and
             then timed with it off: the syncs per model step must equal the
@@ -65,7 +78,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             model step for each step-level policy and none for l2c; then a
             timed serve, launches exact: saliency_delta once per model step
             for teacache, adacache and fbcache, linear_blend 14 times per
-            model step for l2c, no other kernel; nocache's serve first, as
+            model step for l2c (all on the wgmma route), no other kernel;
+            nocache's serve first, as
             the yardstick of the engine steps/s (no kernel, no policy sync);
 9. quality  relative L2 of fastcache eps, of fastcache + merge eps, and of
             each baseline policy's eps against nocache eps (merge off) on
@@ -148,6 +162,11 @@ BLEND_SHAPES = ((2048, 1152, 1152, "bfloat16", 1.0),
                 (1024, 1152, 1152, "bfloat16", 1.0),
                 (1000, 1000, 1000, "float32", 0.5))
 BLEND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the merge-off fastcache serve's block cache ratio with fused_gate and
+# linear_blend on the SIMT route (parent commit, NVIDIA H100 80GB HBM3): the
+# wgmma route must give it exactly
+PARENT_BLOCK_CACHE_RATIO = 0.8427678571428572
+GEMM_KERNELS = ("fused_gate", "linear_blend")      # the two-route wrappers
 # the six baseline policies served at full width, and l2c's layer count
 BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
 L2C_SKIP = 14
@@ -242,7 +261,7 @@ def phase_build(build):
           "wall_s": round(wall, 3)})
 
 
-def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c):
+def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
     gen = torch.Generator(dev).manual_seed(0)
     b, d = 8, 1152
     bf16, f32 = torch.bfloat16, torch.float32
@@ -254,6 +273,7 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c):
     prev = (x.float() + randn(b, c, d, scale=0.01)).to(bf16)
     po = randn(b, c, d).to(bf16)
     w = torch.eye(d, device=dev) + randn(d, d, scale=0.01)
+    w_bf16 = w.to(bf16)                  # the copy a policy makes once
     bias = randn(d, scale=0.1)
     nd = c * d
     thr = statcache.make_threshold(0.05, nd)
@@ -264,11 +284,15 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c):
     eligible = torch.ones(b, dtype=torch.bool, device=dev)
     args = (x, prev, po, w, bias, sigma2, eligible)
 
-    worst, out = 0.0, {}
+    worst, out, gates = 0.0, {}, {}
     for use_blend in (True, False):
         kw = dict(threshold=thr, gamma=0.5, use_blend=use_blend)
-        got = fused_gate(*args, **kw)
+        wgmma_before = fused_gate.launches_by_route["wgmma"]
+        got = fused_gate(*args, **kw, w_bf16=w_bf16)
         torch.cuda.synchronize()
+        if fused_gate.launches_by_route["wgmma"] != wgmma_before + 1:
+            raise AssertionError("fused_gate at the serve's shape did not "
+                                 "take the wgmma route")
         want = ref.fused_gate(*args, **kw)
         if not torch.equal(got[1], want[1]):
             raise AssertionError(f"gate bits differ: {got[1]} vs {want[1]}")
@@ -279,34 +303,62 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c):
         torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=0)
         torch.testing.assert_close(got[0].float(), want[0].float(),
                                    rtol=2e-2, atol=2e-2)
+        if not all(torch.equal(g, a) for g, a in
+                   zip(got, fused_gate(*args, **kw, w_bf16=w_bf16))):
+            raise AssertionError("fused_gate does not repeat bitwise")
         err = float((got[0].float() - want[0].float()).abs().max())
         worst = max(worst, err)
+        gates[use_blend] = got[1]
         out[use_blend] = {
-            **timed(torch, "kernel", lambda: fused_gate(*args, **kw)),
+            **timed(torch, "kernel",
+                    lambda: fused_gate(*args, **kw, w_bf16=w_bf16)),
             **timed(torch, "plain", lambda: ref.fused_gate(*args, **kw))}
         emit({"phase": "kernel", "name": "fused_gate", "shape": [b, c, d],
               "dtype": "bfloat16", "use_blend": use_blend,
-              "gated": int(got[1].sum()), "max_abs_err": err,
-              **out[use_blend]})
+              "gemm_route": "wgmma", "gated": int(got[1].sum()),
+              "max_abs_err": err, **out[use_blend]})
 
-    xm = x.reshape(b * c, d).float()
-    lib = timed(torch, "library", lambda: torch.addmm(bias, xm, w))
-    # bytes: x, prev_in, prev_out read and out written once each in bf16,
-    # W and bias in f32, the (B,) vectors; operations: the two norms over
-    # x/prev (5 per element) and, for the samples gated in this run, the
-    # GEMM (2*C*D*D) and its bias + blend epilogue (4 per element)
-    n_gated = b // 2
-    nbytes = 4 * b * c * d * 2 + d * d * 4 + d * 4 + b * (4 + 1 + 1 + 4 + 4)
-    ops = 5 * b * c * d + n_gated * (2 * c * d * d + 4 * c * d)
-    bound_ms, bound_by = bound(nbytes, ops / F32_FLOPS_PER_S)
-    row = {"name": "fused_gate", "route": "cuda",
+    # the library calls: the GEMM alone in f32 over every row, in bf16 (X
+    # and the bf16 W) over every row, and in bf16 over the gated rows only
+    xm = x.reshape(b * c, d)
+    xmf = xm.float()
+    bias_bf16 = bias.to(bf16)
+    xg = x[want[1]].reshape(-1, d)
+    lib = {**timed(torch, "library", lambda: torch.addmm(bias, xmf, w)),
+           **timed(torch, "library_bf16",
+                   lambda: torch.addmm(bias_bf16, xm, w_bf16)),
+           **timed(torch, "library_gated",
+                   lambda: torch.addmm(bias_bf16, xg, w_bf16))}
+    # the row is the use_blend run's.  bytes: x and prev_in read and out
+    # written once each in bf16 for every sample, prev_out read in bf16 for
+    # the samples this run gated only (a sample that does not gate returns
+    # x, and its prev_out is never read), the bf16 W and the f32 bias, the
+    # (B,) vectors; operations: the two norms over x/prev (5 per element)
+    # and the bias + blend epilogue (4 per element) on the f32 units, and
+    # the GEMM (2*C*D*D) of the gated samples on the bf16 tensor cores
+    n_gated = int(gates[True].sum())
+    nbytes = (3 * b * c * d * 2 + n_gated * c * d * 2 + d * d * 2 + d * 4
+              + b * (4 + 1 + 1 + 4 + 4))
+    gemm = n_gated * 2 * c * d * d
+    simd = 5 * b * c * d + n_gated * 4 * c * d
+    bound_ms, bound_by = bound(nbytes, gemm / BF16_TC_FLOPS_PER_S
+                               + simd / F32_FLOPS_PER_S)
+    ptxas = build.ptxas_lines(build.load_library("fused_gate").log)
+    row = {"name": "fused_gate", "route": "cuda", "gemm_route": "wgmma",
            "source": "src/repro_torch/csrc/fused_gate.cu",
            "replaces": "src/repro/kernels/fused_gate.py:80",
            "shape": [b, c, d], "dtype": "bfloat16", "max_abs_err": worst,
            "ms": out[True]["kernel_ms"], **out[True], **lib,
            "library_call": "torch.addmm (B*C,D)x(D,D) f32: the GEMM alone",
+           "library_bf16_call": ("torch.addmm (B*C,D)x(D,D) bf16 X and the "
+                                 "bf16 W: the GEMM alone"),
+           "library_gated_call": ("torch.addmm bf16 over the gated "
+                                  "samples' rows only"),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "operations": ops}
+           "operations": gemm + simd,
+           "ptxas": (instance_ptxas(ptxas, "15gate_gemm_wgmmaE")
+                     + instance_ptxas(ptxas,
+                                      "13gate_partialsI13__nv_bfloat16E"))}
     emit({"phase": "kernel_summary", **row})
     return row
 
@@ -452,9 +504,10 @@ def phase_saliency_delta(torch, dev, ref, saliency_delta):
     return rows[0]
 
 
-def phase_linear_blend(torch, dev, ref, linear_blend):
+def phase_linear_blend(torch, dev, ref, linear_blend, build):
     """linear_blend against its plain version at BLEND_SHAPES; returns the
     row of the first shape, the callers' (gamma 1 at 4 slots)."""
+    ptxas = build.ptxas_lines(build.load_library("linear_blend").log)
     rows = []
     for i, (m, d, f, dt, gamma) in enumerate(BLEND_SHAPES):
         dtype = getattr(torch, dt)
@@ -462,40 +515,63 @@ def phase_linear_blend(torch, dev, ref, linear_blend):
         x = torch.randn((m, d), generator=gen, device=dev).to(dtype)
         w = torch.eye(d, f, device=dev) + 0.01 * torch.randn(
             (d, f), generator=gen, device=dev)
+        w_bf16 = w.to(torch.bfloat16)     # the copy a policy makes once
         b = 0.1 * torch.randn((f,), generator=gen, device=dev)
         prev = torch.randn((m, f), generator=gen, device=dev).to(dtype)
-        got = linear_blend(x, w, b, prev, gamma=gamma)
+        before = dict(linear_blend.launches_by_route)
+        got = linear_blend(x, w, b, prev, gamma=gamma, w_bf16=w_bf16)
         torch.cuda.synchronize()
+        which = "wgmma" if dt == "bfloat16" else "simt"
+        if linear_blend.launches_by_route[which] != before[which] + 1:
+            raise AssertionError(f"linear_blend {dt} ({m}, {d}, {f}) did not "
+                                 f"take the {which} route")
         want = ref.linear_blend(x, w, b, prev, gamma)
         tol = BLEND_TOL[dt]
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-        if not torch.equal(got, linear_blend(x, w, b, prev, gamma=gamma)):
+        if not torch.equal(got, linear_blend(x, w, b, prev, gamma=gamma,
+                                             w_bf16=w_bf16)):
             raise AssertionError("linear_blend does not repeat bitwise")
-        # the library call: x @ w in f32 with alpha = gamma, the bias and
-        # the blend folded into addmm's input outside the timed call
+        # the library calls: x @ w with alpha = gamma, the bias and the
+        # blend folded into addmm's input outside the timed call, in f32
+        # and in bf16 with the bf16 W (the wgmma route's operands)
         xf = x.float()
         folded = gamma * b + (1.0 - gamma) * prev.float()
+        folded_bf16 = folded.to(torch.bfloat16)
+        x_bf16 = x.to(torch.bfloat16)
         esize = x.element_size()
-        nbytes = (m * d * esize + d * f * 4 + f * 4 + m * f * esize
+        wsize = 2 if which == "wgmma" else 4
+        nbytes = (m * d * esize + d * f * wsize + f * 4 + m * f * esize
                   + (m * f * esize if gamma != 1.0 else 0))
-        ops = 2 * m * d * f + m * f * (1 if gamma == 1.0 else 4)
-        bound_ms, bound_by = bound(nbytes, ops / F32_FLOPS_PER_S)
-        row = {"name": "linear_blend", "route": "cuda",
+        gemm = 2 * m * d * f
+        simd = m * f * (1 if gamma == 1.0 else 4)
+        peak = BF16_TC_FLOPS_PER_S if which == "wgmma" else F32_FLOPS_PER_S
+        bound_ms, bound_by = bound(nbytes, gemm / peak
+                                   + simd / F32_FLOPS_PER_S)
+        row = {"name": "linear_blend", "route": "cuda", "gemm_route": which,
                "source": "src/repro_torch/csrc/linear_blend.cu",
                "replaces": "src/repro/kernels/linear_blend.py:41",
                "shape": [m, d, f], "dtype": dt, "gamma": gamma,
                "max_abs_err": float((got.float() - want.float()).abs().max()),
                **timed(torch, "kernel",
-                       lambda: linear_blend(x, w, b, prev, gamma=gamma)),
+                       lambda: linear_blend(x, w, b, prev, gamma=gamma,
+                                            w_bf16=w_bf16)),
                **timed(torch, "plain",
                        lambda: ref.linear_blend(x, w, b, prev, gamma)),
                **timed(torch, "library",
                        lambda: torch.addmm(folded, xf, w, alpha=gamma)),
+               **timed(torch, "library_bf16",
+                       lambda: torch.addmm(folded_bf16, x_bf16, w_bf16,
+                                           alpha=gamma)),
                "library_call": ("torch.addmm f32, alpha=gamma, bias and "
                                 "blend folded into its input"),
-               "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "library_bf16_call": ("torch.addmm bf16 X and the bf16 W, "
+                                     "alpha=gamma, bias and blend folded"),
+               "bytes": nbytes, "operations": gemm + simd,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ptxas": instance_ptxas(
+                   ptxas, "25linear_blend_kernel_wgmmaE" if which == "wgmma"
+                   else "19linear_blend_kernelIfE")}
         row["ms"] = row["kernel_ms"]
         emit({"phase": "kernel", **row})
         rows.append(row)
@@ -577,6 +653,14 @@ def expected_launches(wl, runner, eng, names):
     return want
 
 
+def zero_counts(kernels) -> None:
+    """Every wrapper's launch count, and the per-route ones, to 0."""
+    for fn in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+
 def phase_serve(torch, dev, wl, model, m, label="serve"):
     """Serve ``wl`` on a fresh engine, timed; every kernel's launch count is
     zeroed just before and read just after.  Returns the counts by name."""
@@ -584,14 +668,15 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
     trace = wl.build_trace(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in m.kernels.values():                  # the path starts here
-        fn.launches = 0
+    zero_counts(m.kernels)                         # the path starts here
     t0 = time.perf_counter()
     done = eng.run(trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches                  # ... and ends here
                 for name, fn in m.kernels.items()}
+    by_route = {name: dict(m.kernels[name].launches_by_route)
+                for name in GEMM_KERNELS}
     kinds = dict(getattr(runner.impl, "step_kinds", {}))
     if len(done) != len(trace):
         raise AssertionError(f"{len(done)} of {len(trace)} requests finished")
@@ -606,7 +691,17 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
                              "steps)")
     if wl.policy == "fastcache" and launches["fused_gate"] <= 0:
         raise AssertionError("fused_gate never launched: no gated step")
+    for name in GEMM_KERNELS:          # bf16 at D=1152: the wgmma route only
+        if by_route[name] != {"wgmma": launches[name], "simt": 0}:
+            raise AssertionError(f"{wl.policy}: {name} launches by route "
+                                 f"{by_route[name]}, expected all "
+                                 f"{launches[name]} on wgmma")
     stats = eng.cache_stats()
+    if (wl.policy == "fastcache" and runner.reducer is None
+            and stats["block_cache_ratio"] != PARENT_BLOCK_CACHE_RATIO):
+        raise AssertionError(f"block cache ratio {stats['block_cache_ratio']}"
+                             f" != {PARENT_BLOCK_CACHE_RATIO}, the SIMT "
+                             "route's")
     merge = {}
     if runner.reducer is not None:
         kept = stats["tokens_kept"] / (stats["tokens_kept"]
@@ -627,7 +722,7 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
           "latency_steps_p95": m.percentile(lats, 95),
           "block_cache_ratio": stats["block_cache_ratio"],
           "steps_reused": stats["steps_reused"],
-          "launches": launches, **merge,
+          "launches": launches, "launches_by_route": by_route, **merge,
           "policy_host_syncs": runner.impl.host_syncs,
           "engine_host_syncs": eng.host_syncs,
           "host_syncs_per_model_step": (runner.impl.host_syncs
@@ -740,14 +835,15 @@ def flash_live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(live.sum())
 
 
-def instance_ptxas(lines, kernel: str, dh: int):
-    """The ptxas lines of one template instance (``kernel<dh>``) in a
-    ``build.ptxas_lines`` list: its entry line and the lines up to the
-    next entry."""
+def instance_ptxas(lines, fragment: str):
+    """The ptxas lines of one kernel in a ``build.ptxas_lines`` list, the
+    one whose mangled name holds ``fragment`` (e.g. ``15gate_gemm_wgmmaE``
+    or ``flash_attention_kernel_simtILi64E``): its entry line and the lines
+    up to the next entry."""
     out, mine = [], False
     for ln in lines:
         if "Compiling entry" in ln:
-            mine = f"{kernel}ILi{dh}E" in ln
+            mine = fragment in ln
         if mine:
             out.append(ln)
     return out
@@ -813,7 +909,7 @@ def phase_flash_attention(torch, dev, ref, flash_attention, build):
                              / row["library_device_ms"])
         row["ptxas"] = instance_ptxas(
             ptxas, "flash_attention_kernel_"
-            + ("wgmma" if dt == "bfloat16" else "simt"), dh)
+            + ("wgmma" if dt == "bfloat16" else "simt") + f"ILi{dh}E")
         emit({"phase": "kernel", **row})
         rows[key] = row
     return rows["a"]
@@ -850,8 +946,7 @@ def phase_llm_serve(torch, dev, wl, model, m, serve):
     zeroed just before and read just after.  Returns (launches, done)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in m.kernels.values():                  # the path starts here
-        fn.launches = 0
+    zero_counts(m.kernels)                         # the path starts here
     summary, eng, done = serve(wl, model)
     launches = {name: fn.launches                  # ... and ends here
                 for name, fn in m.kernels.items()}
@@ -950,14 +1045,15 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build(build)
     dev = torch.device("cuda")
-    gate_row = phase_fused_gate(torch, dev, fused_gate, ref, statcache, 128)
-    phase_fused_gate(torch, dev, fused_gate, ref, statcache, 64)
+    gate_row = phase_fused_gate(torch, dev, fused_gate, ref, statcache, 128,
+                                build)
+    phase_fused_gate(torch, dev, fused_gate, ref, statcache, 64, build)
     k = SimpleNamespace(ref=ref, knn_density=knn_density,
                         merge_assign=merge_assign,
                         unmerge_scatter=unmerge_scatter)
     merge_rows = phase_token_merge(torch, dev, k)
     sal_row = phase_saliency_delta(torch, dev, ref, saliency_delta)
-    blend_row = phase_linear_blend(torch, dev, ref, linear_blend)
+    blend_row = phase_linear_blend(torch, dev, ref, linear_blend, build)
 
     m = SimpleNamespace(
         CachedDiT=CachedDiT, FastCacheConfig=FastCacheConfig,

@@ -8,7 +8,7 @@ Initialization is the identity map in f32.  Calibration
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -40,3 +40,16 @@ def blend(approx: torch.Tensor, prev_out: torch.Tensor,
     previous-step output of the same block."""
     return (gamma * approx.to(F32)
             + (1.0 - gamma) * prev_out.to(F32)).to(approx.dtype)
+
+
+def bf16_copies(w: torch.Tensor, dtype: torch.dtype,
+                device: torch.device) -> List[Optional[torch.Tensor]]:
+    """The matrices of ``w`` ((D, F), or a stack (L, D, F)) rounded to bf16
+    once, as the wgmma route of ``linear_blend`` / ``fused_gate`` multiplies
+    them (``cuda_kernels/route.py``): one contiguous (D, F) tensor per
+    matrix for a bf16 model on CUDA, else None per matrix (the CPU's plain
+    versions and the SIMT route read the f32 ``w``)."""
+    stack = w.reshape(-1, *w.shape[-2:])
+    if dtype != torch.bfloat16 or torch.device(device).type != "cuda":
+        return [None] * stack.shape[0]
+    return list(stack.to(torch.bfloat16).contiguous().unbind(0))

@@ -35,6 +35,12 @@ from repro_torch.cuda_kernels.linear_blend import linear_blend
 class FastCache(CachePolicy):
     def __init__(self, model, fc, fc_params, **kw):
         super().__init__(model, fc, fc_params, **kw)
+        # the bf16 copies of W_c and each W_l[l] that the wgmma route
+        # multiplies, made once (None each off a bf16 model on CUDA)
+        (self.w_c_bf16,) = linear_approx.bf16_copies(
+            fc_params["W_c"], model.dtype, model.device)
+        self.w_l_bf16 = linear_approx.bf16_copies(
+            fc_params["W_l"], model.dtype, model.device)
         # n_tokens is the reduced grid when token compression is on
         self.capacity = max(1, int(round(fc.motion_capacity * self.n_tokens)))
         # model steps by branch taken
@@ -115,7 +121,8 @@ class FastCache(CachePolicy):
         # result), the blend stays a second bf16 rounding as in the reference
         flat = x_in.reshape(b * n, d)
         h_static = linear_blend(flat, fcp["W_c"], fcp["b_c"], flat,
-                                gamma=1.0).reshape(b, n, d)
+                                gamma=1.0, w_bf16=self.w_c_bf16
+                                ).reshape(b, n, d)
         if fc.use_mb:
             h_static = linear_approx.blend(h_static, state["prev_hidden"][-1],
                                            fc.blend_gamma)
@@ -139,7 +146,8 @@ class FastCache(CachePolicy):
             out, do_cache, diff, _ = fused_gate(
                 xm, prev_m, prev_om, fcp["W_l"][lidx], fcp["b_l"][lidx],
                 sig[lidx], eligible, threshold=threshold,
-                gamma=fc.blend_gamma, use_blend=fc.use_mb)
+                gamma=fc.blend_gamma, use_blend=fc.use_mb,
+                w_bf16=self.w_l_bf16[lidx])
 
             # skip the block entirely when every sample caches; otherwise
             # compute it once for the batch and keep cached samples' approx

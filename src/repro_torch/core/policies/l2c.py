@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core import linear_approx
 from repro_torch.core.policies.base import CachePolicy, register
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 
@@ -38,6 +39,10 @@ class LearnedLayerCache(CachePolicy):
         if len(self.mask) != self.L:
             raise ValueError(f"l2c_mask has {len(self.mask)} entries; model "
                              f"has {self.L} layers")
+        # the bf16 copy of each W_l[l] that the wgmma route multiplies, made
+        # once (None each off a bf16 model on CUDA)
+        self.w_l_bf16 = linear_approx.bf16_copies(
+            fc_params["W_l"], model.dtype, model.device)
 
     def init_state(self, batch: int) -> Dict:
         return {"stats": self.init_stats(batch)}
@@ -50,7 +55,9 @@ class LearnedLayerCache(CachePolicy):
                 b, n, d = x.shape
                 flat = x.reshape(b * n, d)
                 x = linear_blend(flat, fcp["W_l"][lidx], fcp["b_l"][lidx],
-                                 flat, gamma=1.0).reshape(b, n, d)
+                                 flat, gamma=1.0,
+                                 w_bf16=self.w_l_bf16[lidx]
+                                 ).reshape(b, n, d)
             else:
                 x = self.model.block_apply(bp, x, c)
         eps = self._eps(x, c)

@@ -19,25 +19,44 @@
 //      chunk of one sample in a fixed order (per-thread strided sums, then a
 //      shared-memory tree) into scratch[b][part].  No float atomics: the sums,
 //      and so the gate bits, are the same on every run.
-//   2. gate_gemm: grid (D/64, C/64, B).  Every block re-sums its sample's
-//      partials in part order and rebuilds the gate in f32 with the
-//      reference's operation order (thr and C*D come in as f32, as JAX
-//      compares against a weak-typed Python float).  A block whose sample does
-//      not gate copies its tile of X and exits; the others run a 64x64x16
-//      shared-memory-tiled f32 FMA GEMM (4x4 outputs per thread) with the
-//      bias and blend epilogue, rounding to bf16 with __float2bfloat16_rn.
+//   2. the GEMM, one of two routes chosen on the host by a pure rule of
+//      dtype, shape and alignment (cuda_kernels/route.py).  Either way every
+//      block re-sums its sample's partials in part order and rebuilds the
+//      gate in f32 with the reference's operation order (thr and C*D come in
+//      as f32, as JAX compares against a weak-typed Python float), and a
+//      block whose sample does not gate copies its tile of X and exits.
+//      - gate_gemm_wgmma (bf16 X with D % 8 == 0 and 16-byte aligned bases:
+//        the serving path).  The GEMM core of tc_gemm.cuh: bf16 X against a
+//        bf16 copy of W made once by the caller, wgmma m64n64k16 with f32
+//        accumulation, fed by TMA through a 4-stage ring; tiles of 64 rows
+//        (one consumer warpgroup and one producer warp, 160 threads, 65 KB of
+//        shared memory, three blocks per SM) by 64 columns, grid (D/64, C/64,
+//        B).  The number of gated samples is known only on the card, so the
+//        tiles are small enough that the gated samples alone fill it: at
+//        B=8, C=128, D=1152 with half the samples gating, 144 of the 288
+//        blocks multiply, one per SM and a few over; at C=64 (merged), 72.
+//        The other blocks copy 8 KB and exit.  Rounding W to bf16 departs
+//        from the TPU kernel's f32 product (see linear_blend.cu); the served
+//        W is the identity, exact in bf16, so there both routes agree bitwise.
+//      - gate_gemm (f32, held to 1e-4, and the bf16 shapes the wgmma route
+//        does not take): a 64x64x16 shared-memory-tiled f32 FMA GEMM (4x4
+//        outputs per thread).
+//      Both add the bias and blend in the same operation order and round to
+//      bf16 with __float2bfloat16_rn.
 //
-// Bound at B=8, C=128, D=1152 (the DiT-XL/2 slice with 4 serving slots):
-// X, P, PO and out are 2.36 MB each in bf16 and W is 5.3 MB in f32, about
-// 14.7 MB, i.e. ~4.4 us at the H100 SXM's 3.35 TB/s; a GEMM over every row
-// is 2*8*128*1152*1152 = 2.7 GFLOP, ~41 us at 67 TFLOP/s of f32 outside the
-// tensor cores.  The kernel is bound by operations whenever a sample gates.
-// Later work: a wgmma GEMM fed by TMA (bf16 X against a bf16 copy of W, or
-// TF32 if the tolerance allows it), one block per SM walking the tiles.
+// Bound at B=8, C=128, D=1152 with 4 samples gating (the DiT-XL/2 slice with
+// 4 serving slots): X, P and out are 2.36 MB each in bf16, PO is read for
+// the 4 gated samples only (1.18 MB) and the bf16 W is 2.65 MB, about
+// 10.9 MB, i.e. 3.26 us at the H100 SXM's 3.35 TB/s; the gated GEMM is
+// 2*4*128*1152*1152 = 1.36 GFLOP, 1.37 us at 989 TFLOP/s of bf16 tensor
+// cores.  The wgmma route is bound by bytes (2.03 us at C=64); the SIMT
+// route, at 67 TFLOP/s of f32 outside the tensor cores, by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_gemm.cuh"  // the wgmma GEMM core (and sm90.cuh's helpers)
 
 namespace {
 
@@ -96,6 +115,29 @@ gate_partials(const T* __restrict__ x, const T* __restrict__ prev,
   }
 }
 
+// Sample b's diff and prevsq re-summed from the partials in part order, and
+// its gate rebuilt in f32 in the reference's operation order; the blocks of
+// tile (0, 0) write them out.  By one thread of each block.
+__device__ __forceinline__ int sample_gate(
+    const float* __restrict__ sigma2, const uint8_t* __restrict__ eligible,
+    const float* __restrict__ partials, int n_parts,
+    uint8_t* __restrict__ gate_out, float* __restrict__ diff_out,
+    float* __restrict__ prevsq_out, int b, float thr, float nd) {
+  float diff = 0.f, prevsq = 0.f;
+  for (int p = 0; p < n_parts; ++p) {
+    diff = __fadd_rn(diff, partials[((long long)b * n_parts + p) * 2]);
+    prevsq = __fadd_rn(prevsq, partials[((long long)b * n_parts + p) * 2 + 1]);
+  }
+  const float stat = __fdiv_rn(diff, __fmul_rn(fmaxf(sigma2[b], 1e-30f), nd));
+  const int g = (stat <= thr) && (eligible[b] != 0);
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    gate_out[b] = (uint8_t)g;
+    diff_out[b] = diff;
+    prevsq_out[b] = prevsq;
+  }
+  return g;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
 gate_gemm(const T* __restrict__ x, const T* __restrict__ prev_out,
@@ -110,21 +152,9 @@ gate_gemm(const T* __restrict__ x, const T* __restrict__ prev_out,
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   __shared__ int s_gate;
-  if (threadIdx.x == 0) {
-    float diff = 0.f, prevsq = 0.f;
-    for (int p = 0; p < n_parts; ++p) {
-      diff = __fadd_rn(diff, partials[((long long)b * n_parts + p) * 2]);
-      prevsq = __fadd_rn(prevsq, partials[((long long)b * n_parts + p) * 2 + 1]);
-    }
-    const float stat = __fdiv_rn(diff, __fmul_rn(fmaxf(sigma2[b], 1e-30f), nd));
-    const int g = (stat <= thr) && (eligible[b] != 0);
-    s_gate = g;
-    if (blockIdx.x == 0 && blockIdx.y == 0) {
-      gate_out[b] = (uint8_t)g;
-      diff_out[b] = diff;
-      prevsq_out[b] = prevsq;
-    }
-  }
+  if (threadIdx.x == 0)
+    s_gate = sample_gate(sigma2, eligible, partials, n_parts, gate_out,
+                         diff_out, prevsq_out, b, thr, nd);
   __syncthreads();
   const long long base = (long long)b * C * D;
 
@@ -217,6 +247,95 @@ int launch(const void* x, const void* prev_in, const void* prev_out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// wgmma route (bf16)
+// ---------------------------------------------------------------------------
+
+using GateGemm = TcGemm<1, 64, 4>;
+
+__global__ void __launch_bounds__(GateGemm::kThreads)
+gate_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap,
+                const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ prev_out,
+                const float* __restrict__ bias,
+                const float* __restrict__ sigma2,
+                const uint8_t* __restrict__ eligible,
+                const float* __restrict__ partials, int n_parts,
+                __nv_bfloat16* __restrict__ out, uint8_t* __restrict__ gate_out,
+                float* __restrict__ diff_out, float* __restrict__ prevsq_out,
+                int C, int D, float thr, float nd, float gamma,
+                float one_minus_gamma, int use_blend) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_gate;
+  const TcRing ring = tc_ring<1, 64, 4>(smem_raw);
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.y * 64;
+  const int n0 = blockIdx.x * 64;
+  if (threadIdx.x == 0) {
+    s_gate = sample_gate(sigma2, eligible, partials, n_parts, gate_out,
+                         diff_out, prevsq_out, b, thr, nd);
+    if (s_gate) tc_init<1, 4>(ring);
+  }
+  __syncthreads();
+  const long long base = (long long)b * C * D;
+
+  if (!s_gate) {  // pass-through in 16-byte pieces (D % 8 == 0, aligned)
+    for (int i = threadIdx.x; i < 64 * 8; i += GateGemm::kThreads) {
+      const int r = m0 + i / 8, c = n0 + 8 * (i % 8);
+      if (r < C && c < D) {
+        const long long o = base + (long long)r * D + c;
+        *reinterpret_cast<uint4*>(out + o) =
+            *reinterpret_cast<const uint4*>(x + o);
+      }
+    }
+    return;
+  }
+
+  const int nk = (D + kTcChunk - 1) / kTcChunk;
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (threadIdx.x == 128)
+      tc_produce<1, 64, 4>(ring, &xmap, &wmap, m0, b, n0, D, nk);
+    return;
+  }
+  float acc[GateGemm::kAcc];
+  tc_consume<1, 64, 4>(ring, acc, 0, threadIdx.x, nk);
+  tc_store<64>(acc, out + base, prev_out + base, bias, m0, C, n0, D, gamma,
+               one_minus_gamma, use_blend, threadIdx.x);
+}
+
+int launch_wgmma(const void* x, const void* prev_in, const void* prev_out,
+                 const void* w_bf16, const void* bias, const void* sigma2,
+                 const void* eligible, void* out, void* gate, void* diff,
+                 void* prevsq, void* partials, int n_parts, int B, int C,
+                 int D, float thr, float nd, float gamma,
+                 float one_minus_gamma, int use_blend, cudaStream_t stream) {
+  static bool opted_in = false;
+  int err = tc_opt_in(gate_gemm_wgmma, GateGemm::kSmem, opted_in);
+  if (err != 0) return err;
+  CUtensorMap xmap, wmap;
+  if (!tc_map_3d(&xmap, x, D, C, B, 64) || !tc_map_2d(&wmap, w_bf16, D, D))
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)C * D;
+  gate_partials<__nv_bfloat16><<<dim3(n_parts, B), kRedThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(prev_in),
+      static_cast<float*>(partials), n);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const dim3 grid((D + 63) / 64, (C + 63) / 64, B);
+  gate_gemm_wgmma<<<grid, GateGemm::kThreads, GateGemm::kSmem, stream>>>(
+      xmap, wmap, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(prev_out),
+      static_cast<const float*>(bias), static_cast<const float*>(sigma2),
+      static_cast<const uint8_t*>(eligible),
+      static_cast<const float*>(partials), n_parts,
+      static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(gate),
+      static_cast<float*>(diff), static_cast<float*>(prevsq), C, D, thr, nd,
+      gamma, one_minus_gamma, use_blend);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16 (x, prev_in, prev_out and out).
@@ -241,4 +360,28 @@ extern "C" int fused_gate_launch(const void* x, const void* prev_in,
                          out, gate, diff, prevsq, partials, n_parts, B, C, D,
                          thr, nd, gamma, one_minus_gamma, use_blend, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The wgmma route: x, prev_in, prev_out and out (B, C, D) bf16, w_bf16 (D, D)
+// bf16, bias (D,) f32; D % 8 == 0 and x, prev_out, w_bf16, bias and out
+// 16-byte aligned (the wrapper's route rule).  Returns cudaGetLastError()
+// after the launches (0 = success), or cudaErrorInvalidValue when a tensor
+// map is refused.
+extern "C" int fused_gate_wgmma_launch(const void* x, const void* prev_in,
+                                       const void* prev_out,
+                                       const void* w_bf16, const void* bias,
+                                       const void* sigma2,
+                                       const void* eligible, void* out,
+                                       void* gate, void* diff, void* prevsq,
+                                       void* partials, int n_parts, int B,
+                                       int C, int D, float thr, float nd,
+                                       float gamma, float one_minus_gamma,
+                                       int use_blend, void* stream) {
+  if (B < 1 || C < 1 || D < 8 || D % 8 != 0 || B > 65535 ||
+      (C + 63) / 64 > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma(x, prev_in, prev_out, w_bf16, bias, sigma2, eligible,
+                      out, gate, diff, prevsq, partials, n_parts, B, C, D,
+                      thr, nd, gamma, one_minus_gamma, use_blend,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -6,34 +6,53 @@
 // kernels/ref.py:linear_blend in the reference and cuda_kernels/ref.py:
 // linear_blend here.  X (M, D) and prev (M, F) are f32 or bf16, W (D, F) and
 // b (F,) f32; the product is accumulated in f32 and the result is written in
-// X's dtype.
+// X's dtype.  The Pallas grid (M/BM, F/BF, D/BK) keeps an f32 accumulator
+// block resident in VMEM across the K steps and fuses the bias and the blend
+// into the last one.  Two routes here, chosen on the host by a pure rule of
+// dtype, shape and alignment (cuda_kernels/route.py):
 //
-// Design.  The Pallas grid (M/BM, F/BF, D/BK) keeps an f32 accumulator block
-// resident in VMEM across the K steps and fuses the bias and the blend into
-// the last one.  Here one block of 256 threads owns a 128x128 output tile and
-// walks K in steps of 8: the A tile (transposed, padded against bank
-// conflicts) and the W tile sit in shared memory, each thread keeps an 8x8
-// f32 accumulator in registers (two 4-row by two 4-column groups, 64 apart,
-// so a quarter-warp's 16-byte shared loads cover contiguous words), and the
-// next K step's tile is loaded into registers while the current one is
-// multiplied.  Plain f32 FMAs, no TF32: the reference multiplies f32 operands
-// with f32 results, and f32 parity at K=1152 would not survive TF32's 10-bit
-// mantissa.  Every output adds its K products in ascending order, so results
-// repeat bitwise.  The epilogue adds the bias, blends with prev (skipped at
-// gamma = 1, where (1-gamma)*prev is exactly 0 for a finite prev) and rounds
-// to bf16 with __float2bfloat16_rn.  Any M, D and F: loads and stores are
-// guarded at the ragged edges.
+// wgmma route (bf16 X with D % 8 == 0, F % 8 == 0 and 16-byte aligned
+// bases: every caller on the serving path).  The GEMM core of tc_gemm.cuh:
+// bf16 X against a bf16 copy of W that the caller made once (the policies
+// derive it from their f32 weights at construction), wgmma m64n192k16 with f32
+// accumulation, fed by TMA through a 4-stage ring.  Rounding W to bf16 is a
+// departure from the TPU kernel, which multiplies f32 operands: one relative
+// error of at most 2^-9 per weight, ~1e-3 in the outputs at K = 1152 with W
+// near the identity, inside the 2e-2 that bf16 outputs are held to; the
+// served approximators are the identity, which bf16 holds exactly, so there
+// the two routes agree bitwise.  TF32 would round W by only 2^-11 but needs a
+// K-major W and X widened to 32 bits; the error does not call for it.  Tile
+// 128 x 192 (two consumer warpgroups of 64 rows and one producer warp, 288
+// threads): at M = 2048, F = 1152 that is 16 x 6 = 96 blocks, one wave on 132
+// SMs (128 x 128 tiles would be 144 blocks, two waves, the second 9% full);
+// 4 stages of 40 KB, 161 KB of shared memory, one block per SM.  The bias,
+// the blend (prev unread at gamma = 1) and the bf16 rounding are the
+// epilogue, in the SIMT kernel's operation order.
 //
-// Bound at M=2048, D=F=1152 (4 serving slots x CFG x 256 tokens): the GEMM is
-// 2*2048*1152*1152 = 5.44 GFLOP, ~81 us at 67 TFLOP/s of f32 outside the
-// tensor cores; X and prev in bf16, W in f32 and out in bf16 are ~19.5 MB,
-// ~5.8 us at 3.35 TB/s.  So the kernel is bound by operations.  Later work:
-// a wgmma GEMM fed by TMA, on bf16 or TF32 operands where the callers'
-// tolerance allows it.
+// SIMT route (f32, and bf16 shapes the wgmma route does not take): f32 is
+// held to 1e-4, which neither bf16 nor TF32 operands meet at K = 1152.  One
+// block of 256 threads owns a 128x128 output tile and walks K in steps of 8:
+// the A tile (transposed, padded against bank conflicts) and the W tile sit
+// in shared memory, each thread keeps an 8x8 f32 accumulator in registers
+// (two 4-row by two 4-column groups, 64 apart, so a quarter-warp's 16-byte
+// shared loads cover contiguous words), and the next K step's tile is loaded
+// into registers while the current one is multiplied.  Plain f32 FMAs in
+// ascending K, so results repeat bitwise.  Any M, D and F: loads and stores
+// are guarded at the ragged edges.  Both routes add the bias, blend with prev
+// (skipped at gamma = 1, where (1-gamma)*prev is exactly 0 for a finite
+// prev) and round to bf16 with __float2bfloat16_rn.
+//
+// Bound at M=2048, D=F=1152, gamma = 1 (4 serving slots x CFG x 256 tokens):
+// the GEMM is 2*2048*1152*1152 = 5.44 GFLOP, 5.50 us at 989 TFLOP/s of bf16
+// tensor cores (81 us at 67 TFLOP/s of f32 outside them, the SIMT route's
+// bound); X, the bf16 W and out are 12.1 MB, 3.61 us at 3.35 TB/s.  So the
+// wgmma route is bound by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_gemm.cuh"  // the wgmma GEMM core (and sm90.cuh's helpers)
 
 namespace {
 
@@ -158,6 +177,60 @@ int launch(const void* x, const void* w, const void* bias, const void* prev,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// wgmma route
+// ---------------------------------------------------------------------------
+
+using LbGemm = TcGemm<2, 192, 4>;
+
+__global__ void __launch_bounds__(LbGemm::kThreads, 1)
+linear_blend_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const float* __restrict__ bias,
+                          const __nv_bfloat16* __restrict__ prev,
+                          __nv_bfloat16* __restrict__ out, int M, int D,
+                          int F, float gamma, float one_minus_gamma,
+                          int use_prev) {
+  extern __shared__ uint8_t smem_raw[];
+  const TcRing ring = tc_ring<2, 192, 4>(smem_raw);
+  const int m0 = blockIdx.y * LbGemm::BM;
+  const int n0 = blockIdx.x * 192;
+  const int nk = (D + kTcChunk - 1) / kTcChunk;
+  if (threadIdx.x == 0) tc_init<2, 4>(ring);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == 256)
+      tc_produce<2, 192, 4>(ring, &xmap, &wmap, m0, 0, n0, F, nk);
+    return;
+  }
+  float acc[LbGemm::kAcc];
+  tc_consume<2, 192, 4>(ring, acc, wg, threadIdx.x % 128, nk);
+  tc_store<192>(acc, out, prev, bias, m0 + 64 * wg, M, n0, F, gamma,
+                one_minus_gamma, use_prev, threadIdx.x % 128);
+}
+
+int launch_wgmma(const void* x, const void* w_bf16, const void* bias,
+                 const void* prev, void* out, int M, int D, int F, float gamma,
+                 float one_minus_gamma, int use_prev, cudaStream_t stream) {
+  static bool opted_in = false;
+  const int err = tc_opt_in(linear_blend_kernel_wgmma, LbGemm::kSmem,
+                            opted_in);
+  if (err != 0) return err;
+  CUtensorMap xmap, wmap;
+  if (!tc_map_3d(&xmap, x, D, M, 1, LbGemm::BM) ||
+      !tc_map_2d(&wmap, w_bf16, F, D))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + 191) / 192, (M + LbGemm::BM - 1) / LbGemm::BM);
+  linear_blend_kernel_wgmma<<<grid, LbGemm::kThreads, LbGemm::kSmem,
+                              stream>>>(
+      xmap, wmap, static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(prev),
+      static_cast<__nv_bfloat16*>(out), M, D, F, gamma, one_minus_gamma,
+      use_prev);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16 (x, prev and out).  use_prev = 0
@@ -177,4 +250,21 @@ extern "C" int linear_blend_launch(const void* x, const void* w,
     return launch<float>(x, w, bias, prev, out, M, D, F, gamma,
                          one_minus_gamma, use_prev, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The wgmma route: x (M, D), prev and out (M, F) bf16, w_bf16 (D, F) bf16,
+// bias (F,) f32; D % 8 == 0, F % 8 == 0 and every base 16-byte aligned (the
+// wrapper's route rule).  use_prev = 0 leaves prev unread.  Returns
+// cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue when a tensor map is refused.
+extern "C" int linear_blend_wgmma_launch(const void* x, const void* w_bf16,
+                                         const void* bias, const void* prev,
+                                         void* out, int M, int D, int F,
+                                         float gamma, float one_minus_gamma,
+                                         int use_prev, void* stream) {
+  if (M < 1 || D < 8 || F < 8 || D % 8 != 0 || F % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma(x, w_bf16, bias, prev, out, M, D, F, gamma,
+                      one_minus_gamma, use_prev,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -1,18 +1,22 @@
-"""Wrapper of the ``fused_gate`` CUDA kernel (``csrc/fused_gate.cu``).
+"""Wrapper of the ``fused_gate`` CUDA kernels (``csrc/fused_gate.cu``).
 
 Replaces the reference's Pallas kernel ``repro/kernels/fused_gate.py:
-fused_gate``.  CPU tensors go to the plain version (``ref.fused_gate``);
-CUDA tensors launch the kernel or raise — there is no fallback.  Each
-kernel launch adds one to ``fused_gate.launches``.
+fused_gate``.  CPU tensors go to the plain version (``ref.fused_gate``),
+which ignores ``w_bf16``; CUDA tensors launch a kernel or raise — there is
+no fallback.  The GEMM is the one of the route ``route.gemm_route`` picks:
+``"wgmma"`` (bf16 X against the caller's bf16 copy of W, ``w_bf16=``,
+required there) or ``"simt"`` (f32 W).  Each call (the partial sums and
+the GEMM, two kernels on the stream) adds one to ``fused_gate.launches``
+and to ``fused_gate.launches_by_route[route]``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.cuda_kernels import build, ref
+from repro_torch.cuda_kernels import build, ref, route
 
 F32 = torch.float32
 REDUCTION_PARTS = 16          # partial sums per sample in the first launch
@@ -20,11 +24,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _kernel():
-    built = build.load_library("fused_gate")
-    fn = built.lib.fused_gate_launch
+def _kernel(name: str):
+    fn = getattr(build.load_library("fused_gate").lib, name)
     if fn.argtypes is None:
-        fn.argtypes = ([_vp] * 12 + [_int] * 5 + [_flt] * 4 + [_int, _vp])
+        # the SIMT launcher takes a dtype code after D, the wgmma one not
+        n_int = 5 if name == "fused_gate_launch" else 4
+        fn.argtypes = [_vp] * 12 + [_int] * n_int + [_flt] * 4 + [_int, _vp]
         fn.restype = _int
     return fn
 
@@ -63,11 +68,14 @@ def _check(x, prev_in, prev_out, w, b, sigma2, eligible) -> None:
 def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
                prev_out: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                sigma2: torch.Tensor, eligible: torch.Tensor, *,
-               threshold: float, gamma: float = 0.5, use_blend: bool = True
+               threshold: float, gamma: float = 0.5, use_blend: bool = True,
+               w_bf16: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """x, prev_in, prev_out: (B, C, D) float32 or bfloat16; w: (D, D) and
-    b: (D,) float32; sigma2: (B,) float32; eligible: (B,) bool.  Returns
+    b: (D,) float32; sigma2: (B,) float32; eligible: (B,) bool; w_bf16: w
+    rounded to bfloat16, made once by the caller, which the wgmma route
+    multiplies (on the CPU and on the SIMT route it is not read).  Returns
     (out (B,C,D) in x.dtype, gate (B,) bool, diff_sq (B,) f32,
     prev_sq (B,) f32), as ``ref.fused_gate``."""
     _check(x, prev_in, prev_out, w, b, sigma2, eligible)
@@ -77,27 +85,58 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
                               use_blend=use_blend)
     if x.device.type != "cuda":
         raise ValueError(f"fused_gate runs on CPU or CUDA, not {x.device}")
+    d = x.shape[2]
+    which = route.gemm_route(x.dtype, d, d, _aligned(x, prev_out, b))
+    return _launch(which, x, prev_in, prev_out, w, b, sigma2, eligible,
+                   float(threshold), float(gamma), bool(use_blend), w_bf16)
+
+
+def _aligned(x, prev_out, b):
+    """The addresses the wgmma route needs 16-byte aligned (prev_in is read
+    element by element)."""
+    return (t.data_ptr() for t in (x, prev_out, b))
+
+
+def _launch(which: str, x, prev_in, prev_out, w, b, sigma2, eligible,
+            threshold: float, gamma: float, use_blend: bool,
+            w_bf16: Optional[torch.Tensor]):
+    """Launch route ``which`` on CUDA tensors that passed ``_check``; raises
+    if the route does not take them."""
     bsz, c, d = x.shape
+    if which not in route.ROUTES:
+        raise ValueError(f"unknown route {which!r}")
+    if which == route.WGMMA:
+        if route.gemm_route(x.dtype, d, d,
+                            _aligned(x, prev_out, b)) != route.WGMMA:
+            raise ValueError(f"the wgmma route does not take {x.dtype} "
+                             f"{tuple(x.shape)} at these addresses")
+        route.check_w_bf16(w_bf16, w)
     dev = x.device
     out = torch.empty_like(x)
     gate = torch.empty((bsz,), dtype=torch.bool, device=dev)
     diff = torch.empty((bsz,), dtype=F32, device=dev)
     prevsq = torch.empty((bsz,), dtype=F32, device=dev)
     partials = torch.empty((bsz, REDUCTION_PARTS, 2), dtype=F32, device=dev)
+    ptrs = [x.data_ptr(), prev_in.data_ptr(), prev_out.data_ptr(),
+            (w_bf16 if which == route.WGMMA else w).data_ptr(),
+            b.data_ptr(), sigma2.data_ptr(), eligible.data_ptr(),
+            out.data_ptr(), gate.data_ptr(), diff.data_ptr(),
+            prevsq.data_ptr(), partials.data_ptr()]
+    dtype_code = [] if which == route.WGMMA else [_DTYPE_CODE[x.dtype]]
+    name = ("fused_gate_wgmma_launch" if which == route.WGMMA
+            else "fused_gate_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(
-            x.data_ptr(), prev_in.data_ptr(), prev_out.data_ptr(),
-            w.data_ptr(), b.data_ptr(), sigma2.data_ptr(),
-            eligible.data_ptr(), out.data_ptr(), gate.data_ptr(),
-            diff.data_ptr(), prevsq.data_ptr(), partials.data_ptr(),
-            REDUCTION_PARTS, bsz, c, d, _DTYPE_CODE[x.dtype],
-            float(threshold), float(c * d), float(gamma), float(1.0 - gamma),
-            int(bool(use_blend)), stream)
+        err = _kernel(name)(
+            *ptrs, REDUCTION_PARTS, bsz, c, d, *dtype_code, threshold,
+            float(c * d), gamma, 1.0 - gamma, int(use_blend), stream)
     if err != 0:
-        raise RuntimeError(f"fused_gate kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_gate kernel ({which}) launch failed: "
+                           f"CUDA error {err}")
     fused_gate.launches += 1
+    fused_gate.launches_by_route[which] += 1
     return out, gate, diff, prevsq
 
 
 fused_gate.launches = 0
+fused_gate.launches_by_route = dict.fromkeys(route.ROUTES, 0)

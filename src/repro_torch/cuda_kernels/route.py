@@ -1,0 +1,56 @@
+"""Which kernel of ``linear_blend`` / ``fused_gate`` a CUDA call launches.
+
+Both have two routes on the card (``csrc/linear_blend.cu``,
+``csrc/fused_gate.cu``):
+
+- ``"wgmma"``: bf16 X against a bf16 copy of W on the tensor cores (wgmma
+  fed by TMA, ``csrc/tc_gemm.cuh``).  TMA needs 16-byte row strides and
+  16-byte aligned bases, and the epilogue stores column pairs, so it takes
+  bf16 inputs with D % 8 == 0 and F % 8 == 0 whose every base is 16-byte
+  aligned.
+- ``"simt"``: the f32 FMA kernels, for everything else (f32 inputs are held
+  to 1e-4, which bf16 operands do not meet; ragged bf16 shapes).
+
+The rule is a pure function of dtype, shape and alignment, so a call's
+route is known before it launches and the tests can check it on the CPU.
+A route that fails to build or launch raises; nothing falls back to the
+other route or to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import torch
+
+WGMMA = "wgmma"
+SIMT = "simt"
+ROUTES = (WGMMA, SIMT)
+ALIGN = 16                    # bytes: TMA's base and stride alignment
+
+
+def gemm_route(dtype: torch.dtype, d: int, f: int,
+               addresses: Iterable[int]) -> str:
+    """The route of a (M, D) x (D, F) call with inputs of ``dtype`` whose
+    base addresses are ``addresses``."""
+    if (dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+            and all(a % ALIGN == 0 for a in addresses)):
+        return WGMMA
+    return SIMT
+
+
+def check_w_bf16(w_bf16: Optional[torch.Tensor], w: torch.Tensor) -> None:
+    """The bf16 copy of ``w`` that the wgmma route multiplies: given, same
+    shape and device, contiguous, 16-byte aligned.  That it holds ``w``
+    rounded to bf16 is the caller's contract (fastcache and l2c make it
+    once, at construction, ``linear_approx.bf16_copies``); no call converts
+    ``w`` itself."""
+    if w_bf16 is None:
+        raise ValueError("the wgmma route needs w_bf16= (w in bfloat16, "
+                         "made once by the caller)")
+    if (w_bf16.dtype != torch.bfloat16 or w_bf16.shape != w.shape
+            or w_bf16.device != w.device):
+        raise ValueError(f"w_bf16 must be {tuple(w.shape)} bfloat16 on "
+                         f"{w.device}, got {tuple(w_bf16.shape)} "
+                         f"{w_bf16.dtype} on {w_bf16.device}")
+    if not w_bf16.is_contiguous() or w_bf16.data_ptr() % ALIGN:
+        raise ValueError("w_bf16 must be contiguous and 16-byte aligned")

@@ -10,7 +10,11 @@ measures) for ``--arch``, ``--policy`` and the token-merge flags, lets
 device busy share (union of kernel intervals over the window's wall time),
 the host syncs in the window, the device time of each of the port's DiT
 kernels, and the kernels by total device time, with the card's
-``nvidia-smi`` name and power limit.
+``nvidia-smi`` name and power limit.  A wrapper's device time is the sum
+over the CUDA kernels whose names hold one of its fragments
+(``KERNEL_NAMES``: both routes of ``fused_gate`` and ``linear_blend``); a
+wrapper whose launch count moved in the window while no device time was
+attributed to it raises, so a renamed kernel never reads as 0 ms.
 """
 from __future__ import annotations
 
@@ -26,9 +30,54 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import DIT_IDS
 from repro_torch.core.policies.base import registered_policies
+from repro_torch.cuda_kernels.fused_gate import fused_gate
+from repro_torch.cuda_kernels.knn_density import knn_density
+from repro_torch.cuda_kernels.linear_blend import linear_blend
+from repro_torch.cuda_kernels.saliency_delta import saliency_delta
+from repro_torch.cuda_kernels.token_merge import (merge_assign,
+                                                  unmerge_scatter)
 from repro_torch.launch.serve_diffusion import (Workload, add_merge_args,
                                                 check_merge_args)
 from repro_torch.serving.scheduler import RequestQueue
+
+
+# each DiT wrapper and the name fragments of the CUDA kernels it launches
+# (csrc/*.cu); "gate_gemm" and "linear_blend_kernel" match both routes'
+# kernels (gate_gemm / gate_gemm_wgmma, linear_blend_kernel{,_wgmma})
+KERNEL_NAMES = {
+    "fused_gate": (fused_gate, ("gate_partials", "gate_gemm")),
+    "linear_blend": (linear_blend, ("linear_blend_kernel",)),
+    "saliency_delta": (saliency_delta, ("row_sums", "sample_totals")),
+    "knn_density": (knn_density, ("knn_density_kernel",)),
+    "merge_assign": (merge_assign, ("merge_assign_kernel",)),
+    "unmerge_scatter": (unmerge_scatter, ("unmerge_scatter_kernel",)),
+}
+
+
+def attribute(by_name, moved):
+    """Device ms and calls per wrapper from ``by_name`` (kernel name ->
+    [us, calls]); raises for a wrapper in ``moved`` (its launch count rose
+    in the window) that no kernel's time was attributed to."""
+    out = {}
+    for key, (_, frags) in KERNEL_NAMES.items():
+        hits = [v for k, v in by_name.items() if any(f in k for f in frags)]
+        us = sum(v[0] for v in hits)
+        if moved.get(key, 0) and not us > 0:
+            raise RuntimeError(
+                f"{key} launched {moved[key]} times in the window but no "
+                f"device time was attributed to it: no CUDA kernel name "
+                f"holds any of {frags}")
+        out[key] = {"ms": us / 1e3, "kernel_calls": sum(v[1] for v in hits),
+                    "launches": moved.get(key, 0)}
+    return out
+
+
+def _counts():
+    counts = {k: fn.launches for k, (fn, _) in KERNEL_NAMES.items()}
+    for k in ("fused_gate", "linear_blend"):
+        for r, n in KERNEL_NAMES[k][0].launches_by_route.items():
+            counts[f"{k}:{r}"] = n
+    return counts
 
 
 def _busy_us(intervals) -> float:
@@ -73,6 +122,7 @@ def main(argv=None) -> None:
     torch.cuda.synchronize(dev)
     syncs0 = runner.impl.host_syncs + eng.host_syncs
     kinds0 = dict(getattr(runner.impl, "step_kinds", {}))
+    counts0 = _counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -81,6 +131,7 @@ def main(argv=None) -> None:
         wall_s = time.perf_counter() - t0
     window = eng.clock - args.warmup        # fewer if the trace ran out
     syncs = runner.impl.host_syncs + eng.host_syncs - syncs0
+    moved = {k: n - counts0[k] for k, n in _counts().items()}
     kinds = {k: v - kinds0[k]
              for k, v in getattr(runner.impl, "step_kinds", {}).items()}
 
@@ -93,16 +144,7 @@ def main(argv=None) -> None:
     busy_us = _busy_us((e.time_range.start, e.time_range.end)
                        for e in kernels)
     total_kernel_us = sum(v[0] for v in by_name.values())
-    gate_us = sum(v[0] for k, v in by_name.items()
-                  if "gate_gemm" in k or "gate_partials" in k)
-    merge_us = sum(v[0] for k, v in by_name.items()
-                   if any(n in k for n in ("knn_density_kernel",
-                                           "merge_assign_kernel",
-                                           "unmerge_scatter_kernel")))
-    saliency_us = sum(v[0] for k, v in by_name.items()
-                      if "row_sums" in k or "sample_totals" in k)
-    blend_us = sum(v[0] for k, v in by_name.items()
-                   if "linear_blend_kernel" in k)
+    ours = attribute(by_name, moved)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -117,10 +159,15 @@ def main(argv=None) -> None:
         "device_busy_share": busy_us / (wall_s * 1e6),
         "kernel_launches": len(kernels),
         "kernel_ms_total": total_kernel_us / 1e3,
-        "fused_gate_ms": gate_us / 1e3,
-        "token_merge_kernels_ms": merge_us / 1e3,
-        "saliency_delta_ms": saliency_us / 1e3,
-        "linear_blend_ms": blend_us / 1e3,
+        "fused_gate_ms": ours["fused_gate"]["ms"],
+        "token_merge_kernels_ms": sum(ours[k]["ms"] for k in (
+            "knn_density", "merge_assign", "unmerge_scatter")),
+        "saliency_delta_ms": ours["saliency_delta"]["ms"],
+        "linear_blend_ms": ours["linear_blend"]["ms"],
+        "fused_gate_share_of_kernel_time": (ours["fused_gate"]["ms"] * 1e3
+                                            / total_kernel_us),
+        "port_kernels": ours,
+        "window_launches": moved,
         "host_syncs": syncs,
         "top_kernels": [{"name": k[:120], "ms": v[0] / 1e3, "calls": v[1]}
                         for k, v in top],

@@ -16,7 +16,15 @@ saliency_delta: rtol 1e-5 (f32 sums in another order), repeats bitwise.
 linear_blend: rtol/atol 1e-4 in f32 (the same products summed in another
 order over K up to 1152), 2e-2 in bf16 (one bf16 rounding of values up to
 ~4); repeats bitwise.
+fused_gate and linear_blend have two routes (cuda_kernels/route.py): bf16
+inputs of eligible shape take the wgmma route, which multiplies a bf16 copy
+of W (``w_bf16=``, W = I + 0.01 noise rounded by at most 2^-9 relative:
+~1e-3 in the outputs, inside 2e-2); the rest the SIMT route.  Each route is
+also reached through the module's launcher for a named route (``_launch``),
+and at W = I (exact in bf16) the two agree bitwise.
 """
+import importlib
+
 import pytest
 import torch
 
@@ -28,6 +36,15 @@ from repro_torch.cuda_kernels.knn_density import knn_density
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.cuda_kernels.token_merge import merge_assign, unmerge_scatter
+
+fg_mod = importlib.import_module("repro_torch.cuda_kernels.fused_gate")
+lb_mod = importlib.import_module("repro_torch.cuda_kernels.linear_blend")
+BF16 = torch.bfloat16
+
+
+def _plain_gate(*args, w_bf16=None, **kw):
+    """ref.fused_gate in the wrapper's signature (w_bf16 is not read)."""
+    return ref.fused_gate(*args, **kw)
 
 
 @pytest.fixture
@@ -66,7 +83,7 @@ def test_fused_gate_kernel_matches_plain(cuda_device, dtype, use_blend,
     args, thr = _gate_inputs(cuda_device, dtype, *shape)
     kw = dict(threshold=thr, gamma=0.5, use_blend=use_blend)
     before = fused_gate.launches
-    got = fused_gate(*args, **kw)
+    got = fused_gate(*args, **kw, w_bf16=args[3].to(BF16))
     torch.cuda.synchronize(cuda_device)
     assert fused_gate.launches == before + 1
     want = ref.fused_gate(*args, **kw)
@@ -83,9 +100,10 @@ def test_fused_gate_kernel_matches_plain(cuda_device, dtype, use_blend,
 @pytest.mark.cuda
 def test_fused_gate_kernel_is_deterministic(cuda_device):
     args, thr = _gate_inputs(cuda_device, torch.bfloat16, 8, 128, 1152)
-    first = fused_gate(*args, threshold=thr)
+    w_bf16 = args[3].to(BF16)
+    first = fused_gate(*args, threshold=thr, w_bf16=w_bf16)
     for _ in range(3):
-        again = fused_gate(*args, threshold=thr)
+        again = fused_gate(*args, threshold=thr, w_bf16=w_bf16)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
 
@@ -121,7 +139,7 @@ def test_cached_step_kernel_matches_plain_path(cuda_device, monkeypatch):
         t = torch.full((4,), 50 - i, device=cuda_device)
         outs = [kernel.step(states[0], x, t, labels)]
         with monkeypatch.context() as m:
-            m.setattr(fastcache, "fused_gate", ref.fused_gate)
+            m.setattr(fastcache, "fused_gate", _plain_gate)
             outs.append(plain.step(states[1], x, t, labels))
         states = [o[1] for o in outs]
         for k in ("blocks_computed", "blocks_skipped", "motion_frac_sum"):
@@ -293,7 +311,7 @@ def test_merged_cached_step_kernels_match_plain_path(cuda_device,
         t = torch.full((4,), 50 - i, device=cuda_device)
         outs = [kernel.step(states[0], x, t, labels)]
         with monkeypatch.context() as m:
-            m.setattr(fastcache, "fused_gate", ref.fused_gate)
+            m.setattr(fastcache, "fused_gate", _plain_gate)
             m.setattr(token_merge, "_knn_kernel",
                       lambda h, k: ref.knn_density(h, k))
             m.setattr(token_merge, "merge_assign",
@@ -572,7 +590,7 @@ def _blend_args(dev, dtype, m, d, f, seed=0):
 def test_linear_blend_kernel_matches_plain(cuda_device, dtype, gamma, shape):
     args = _blend_args(cuda_device, dtype, *shape)
     before = linear_blend.launches
-    got = linear_blend(*args, gamma=gamma)
+    got = linear_blend(*args, gamma=gamma, w_bf16=args[1].to(BF16))
     torch.cuda.synchronize(cuda_device)
     assert linear_blend.launches == before + 1
     assert got.dtype == dtype and got.shape == (shape[0], shape[2])
@@ -584,10 +602,12 @@ def test_linear_blend_kernel_matches_plain(cuda_device, dtype, gamma, shape):
 @pytest.mark.cuda
 def test_linear_blend_kernel_is_deterministic(cuda_device):
     args = _blend_args(cuda_device, torch.bfloat16, 2048, 1152, 1152)
+    w_bf16 = args[1].to(BF16)
     for gamma in (1.0, 0.5):
-        first = linear_blend(*args, gamma=gamma)
+        first = linear_blend(*args, gamma=gamma, w_bf16=w_bf16)
         for _ in range(2):
-            assert torch.equal(linear_blend(*args, gamma=gamma), first)
+            assert torch.equal(linear_blend(*args, gamma=gamma,
+                                            w_bf16=w_bf16), first)
 
 
 @pytest.mark.cuda
@@ -643,7 +663,7 @@ def test_policy_step_kernels_match_plain_path(cuda_device, monkeypatch,
             m.setattr(base, "saliency_delta", ref.saliency_delta)
             m.setattr(saliency, "saliency_delta", ref.saliency_delta)
             m.setattr(l2c, "linear_blend",
-                      lambda x, w, b, prev, *, gamma:
+                      lambda x, w, b, prev, *, gamma, w_bf16=None:
                       ref.linear_blend(x, w, b, prev, gamma))
             outs.append(plain.step(states[1], x, t, labels))
         states = [o[1] for o in outs]
@@ -661,3 +681,154 @@ def test_policy_step_kernels_match_plain_path(cuda_device, monkeypatch,
     want = {"teacache": (6, 0), "adacache": (6, 0), "fbcache": (6, 0),
             "l2c": (0, 6), "fora": (0, 0), "smoothcache": (0, 0)}[policy]
     assert launched == want
+
+
+# ---------------------------------------------------------------------------
+# the two routes of linear_blend and fused_gate
+# ---------------------------------------------------------------------------
+
+# (M, D, F): ragged but eligible for the wgmma route (rows past a 128-row
+# tile, K past a 64 chunk, one row)
+WGMMA_BLEND_SHAPES = [(130, 1152, 1152), (2048, 1000, 1152), (1, 1152, 1152)]
+
+
+def _counts(fn):
+    return fn.launches, dict(fn.launches_by_route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wgmma", "simt"])
+@pytest.mark.parametrize("gamma", [1.0, 0.5])
+@pytest.mark.parametrize("shape", WGMMA_BLEND_SHAPES)
+def test_linear_blend_route_matches_plain(cuda_device, which, gamma, shape):
+    x, w, b, prev = _blend_args(cuda_device, BF16, *shape)
+    launches, by_route = _counts(linear_blend)
+    got = lb_mod._launch(which, x, w, b, prev, gamma, w.to(BF16))
+    torch.cuda.synchronize(cuda_device)
+    assert linear_blend.launches == launches + 1
+    by_route[which] += 1
+    assert linear_blend.launches_by_route == by_route
+    want = ref.linear_blend(x, w, b, prev, gamma)
+    assert got.dtype == BF16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    again = lb_mod._launch(which, x, w, b, prev, gamma, w.to(BF16))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 1152, 1152), (130, 1152, 1152),
+                                   (1000, 1000, 1000)])
+@pytest.mark.parametrize("gamma", [1.0, 0.5])
+def test_linear_blend_routes_agree_bitwise_at_identity(cuda_device, shape,
+                                                       gamma):
+    """The served approximators are the identity, exact in bf16: both routes
+    give the same bits, so the serve's outputs do not move."""
+    m, d, f = shape
+    x, _, b, prev = _blend_args(cuda_device, BF16, m, d, f)
+    w = torch.eye(d, f, device=cuda_device)
+    tc = lb_mod._launch("wgmma", x, w, b, prev, gamma, w.to(BF16))
+    simt = lb_mod._launch("simt", x, w, b, prev, gamma, None)
+    assert torch.equal(tc, simt)
+
+
+@pytest.mark.cuda
+def test_linear_blend_wrapper_picks_the_route(cuda_device):
+    """The served shape goes to wgmma, and without w_bf16 it raises; f32 and
+    ragged bf16 go to SIMT and need no copy."""
+    x, w, b, prev = _blend_args(cuda_device, BF16, 2048, 1152, 1152)
+    _, by_route = _counts(linear_blend)
+    linear_blend(x, w, b, prev, gamma=1.0, w_bf16=w.to(BF16))
+    by_route["wgmma"] += 1
+    with pytest.raises(ValueError, match="w_bf16"):
+        linear_blend(x, w, b, prev, gamma=1.0)
+    linear_blend(x.float(), w, b, prev.float(), gamma=1.0)
+    linear_blend(*_blend_args(cuda_device, BF16, 130, 257, 129), gamma=1.0)
+    by_route["simt"] += 2
+    torch.cuda.synchronize(cuda_device)
+    assert linear_blend.launches_by_route == by_route
+    with pytest.raises(ValueError, match="w_bf16"):
+        linear_blend(x, w, b, prev, gamma=1.0, w_bf16=w.to(BF16)[:, :8])
+    with pytest.raises(ValueError, match="wgmma route does not take"):
+        lb_mod._launch("wgmma", *_blend_args(cuda_device, BF16, 130, 257,
+                                             129), 1.0, None)
+
+
+def _gate_pattern(dev, c, pattern, seed=0):
+    """_gate_inputs at (8, c, 1152) with every sample eligible and the
+    gated samples chosen: "all", "none" or "one" (sample 3)."""
+    (x, prev, po, w, bias, sigma2, _), thr = _gate_inputs(
+        dev, BF16, 8, c, 1152, seed)
+    diff = (x.double() - prev.double()).square().sum(dim=(1, 2))
+    gates = {"all": [True] * 8, "none": [False] * 8,
+             "one": [i == 3 for i in range(8)]}[pattern]
+    factor = torch.tensor([2.0 if g else 0.5 for g in gates], device=dev,
+                          dtype=torch.float64)
+    sigma2 = (diff / (c * 1152 * thr) * factor).float()
+    eligible = torch.ones(8, dtype=torch.bool, device=dev)
+    return (x, prev, po, w, bias, sigma2, eligible), thr, gates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wgmma", "simt"])
+@pytest.mark.parametrize("pattern", ["all", "none", "one"])
+@pytest.mark.parametrize("c", [128, 64])
+@pytest.mark.parametrize("use_blend", [True, False])
+def test_fused_gate_route_matches_plain(cuda_device, which, pattern, c,
+                                        use_blend):
+    args, thr, gates = _gate_pattern(cuda_device, c, pattern)
+    launches, by_route = _counts(fused_gate)
+    got = fg_mod._launch(which, *args, thr, 0.5, use_blend,
+                         args[3].to(BF16))
+    torch.cuda.synchronize(cuda_device)
+    assert fused_gate.launches == launches + 1
+    by_route[which] += 1
+    assert fused_gate.launches_by_route == by_route
+    want = ref.fused_gate(*args, threshold=thr, gamma=0.5,
+                          use_blend=use_blend)
+    assert got[1].tolist() == gates
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=0)
+    x = args[0]
+    for i, g in enumerate(gates):
+        if not g:                          # pass-through is exact
+            assert torch.equal(got[0][i], x[i])
+    again = fg_mod._launch(which, *args, thr, 0.5, use_blend,
+                           args[3].to(BF16))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 64])
+@pytest.mark.parametrize("use_blend", [True, False])
+def test_fused_gate_routes_agree_bitwise_at_identity(cuda_device, c,
+                                                     use_blend):
+    (x, prev, po, _, bias, sigma2, eligible), thr, _ = _gate_pattern(
+        cuda_device, c, "one")
+    w = torch.eye(1152, device=cuda_device)
+    args = (x, prev, po, w, bias, sigma2, eligible)
+    tc = fg_mod._launch("wgmma", *args, thr, 0.5, use_blend, w.to(BF16))
+    simt = fg_mod._launch("simt", *args, thr, 0.5, use_blend, None)
+    for a, b in zip(tc, simt):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_gate_wrapper_picks_the_route(cuda_device):
+    args, thr = _gate_inputs(cuda_device, BF16, 8, 128, 1152)
+    _, by_route = _counts(fused_gate)
+    fused_gate(*args, threshold=thr, w_bf16=args[3].to(BF16))
+    by_route["wgmma"] += 1
+    with pytest.raises(ValueError, match="w_bf16"):
+        fused_gate(*args, threshold=thr)
+    small, thr_small = _gate_inputs(cuda_device, BF16, 3, 40, 100)
+    fused_gate(*small, threshold=thr_small)
+    f32, thr_f32 = _gate_inputs(cuda_device, torch.float32, 8, 128, 1152)
+    fused_gate(*f32, threshold=thr_f32)
+    by_route["simt"] += 2
+    torch.cuda.synchronize(cuda_device)
+    assert fused_gate.launches_by_route == by_route
