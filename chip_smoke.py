@@ -25,11 +25,17 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               operand precision), and in bf16 over the gated samples' rows
               only (the rows the kernel multiplies);
             - knn_density, merge_assign and unmerge_scatter at the merged
-              slice's shapes (W=128 windows of w=16, D=1152, K=5, M=8, bf16
-              h, f32 scores): knn_density within rtol/atol 1e-4, centers and
-              assign exact, merged within 5e-2, unmerge bitwise; library:
-              torch.gather for unmerge_scatter, and torch.bmm of the f32
-              (W,w,D)x(W,D,w) Gram as a yardstick for the other two;
+              slice's shapes (W=128 windows of w=16, D=1152, K=5, M=8, f32
+              scores): knn_density and merge_assign in bf16 on the mma route
+              (the Gram on the tensor cores) and on the same values in f32
+              on the SIMT route, each row naming its ``window_route`` with
+              that kernel's ptxas lines (no spills); knn_density within
+              rtol/atol 1e-4, centers and assign exact, merged within 5e-2
+              in bf16 and 1e-4 in f32, unmerge bitwise (bf16); library:
+              torch.gather for unmerge_scatter, and torch.bmm of the
+              (W,w,D)x(W,D,w) Gram in f32 (``library_ms``) and in bf16
+              (``library_bf16_ms``, the mma route's operands) as yardsticks
+              for the other two;
             - saliency_delta at (8, 256, 1152) in bf16 and f32 and at
               (8, 128, 1152) in bf16: per-token output and totals within
               rtol 1e-5, repeated calls bitwise; library: torch.sum(d*d, -1)
@@ -67,7 +73,12 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             launched once per model step, unmerge_scatter once more per
             mixed step, fused_gate 28 times and saliency_delta and
             linear_blend once per warm or mixed step, and the kept-token
-            share must be exactly 0.5;
+            share must be exactly 0.5; every knn_density and merge_assign
+            launch on the mma route (the per-route counts); the inputs of
+            the serve's first PARITY_CALLS calls of the two are copied as
+            they reach the wrappers, and after the serve both routes run on
+            them (window_parity): rho within 1e-4, centers and assign
+            exact, merged tokens bitwise;
 7. static   the same input for 6 steps through CachedDiT.step: cache ratio
             must exceed 0.4 (the gated branch firing at full width);
 8. policies the same Workload under each of fora, teacache, adacache,
@@ -120,7 +131,9 @@ when no CUDA card is present or any phase fails.
 """
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -167,6 +180,8 @@ BLEND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # wgmma route must give it exactly
 PARENT_BLOCK_CACHE_RATIO = 0.8427678571428572
 GEMM_KERNELS = ("fused_gate", "linear_blend")      # the two-route wrappers
+WINDOW_KERNELS = ("knn_density", "merge_assign")   # ... of the window Gram
+PARITY_CALLS = 4           # served calls whose windows both routes re-run
 # the six baseline policies served at full width, and l2c's layer count
 BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
 L2C_SKIP = 14
@@ -363,86 +378,155 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
     return row
 
 
-def phase_token_merge(torch, dev, k):
+def assign_gaps(hf, centers, assign, want):
+    """The two smallest d2 (in f64, to the window's centers) of each token
+    whose assignment differs from ``want``'s."""
+    h64 = hf.double()
+    ch = h64.gather(1, centers.long()[..., None].expand(-1, -1,
+                                                        h64.shape[-1]))
+    d2 = (h64[..., :, None, :] - ch[..., None, :, :]).square().sum(-1)
+    top = d2.topk(min(2, d2.shape[-1]), dim=-1, largest=False).values
+    return top[assign != want].tolist()
+
+
+def check_merge(tag, hf, got, want, tol) -> None:
+    """merge_assign's outputs ``got`` against ``want``: centers and assign
+    exact (else the differing tokens' two smallest d2 are printed), merged
+    bitwise when ``tol`` is None, else within rtol/atol ``tol``."""
+    import torch
+    merged, assign, centers = got
+    if not centers.equal(want[2]):
+        raise AssertionError(f"{tag}: centers differ in "
+                             f"{int((centers != want[2]).sum())} places")
+    if not assign.equal(want[1]):
+        raise AssertionError(
+            f"{tag}: assign differs at {int((assign != want[1]).sum())} "
+            f"tokens; their two smallest d2: "
+            f"{assign_gaps(hf, want[2], assign, want[1])}")
+    if tol is None:
+        if not merged.equal(want[0]):
+            raise AssertionError(f"{tag}: merged tokens are not bitwise")
+    else:
+        torch.testing.assert_close(merged.float(), want[0].float(),
+                                   rtol=tol, atol=tol)
+
+
+def no_spills(lines, what: str) -> None:
+    if not lines:
+        raise AssertionError(f"{what}: no ptxas lines")
+    for ln in lines:
+        if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" \
+                not in ln:
+            raise AssertionError(f"{what} spills: {ln}")
+
+
+def phase_token_merge(torch, dev, k, build):
     """knn_density, merge_assign and unmerge_scatter against their plain
-    versions at the merged slice's shapes; one kernels-line row each."""
+    versions at the merged slice's shapes: knn_density and merge_assign in
+    bf16 (the mma route) and in f32 (the SIMT route), each row with its
+    route's ptxas lines; returns the kernels-line rows (bf16, the serve's)."""
     nw, w, d, kk, m = MERGE_W, MERGE_WIN, MERGE_D, MERGE_K, MERGE_M
     gen = torch.Generator(dev).manual_seed(3)
-    h = torch.randn((nw, w, d), generator=gen, device=dev).to(torch.bfloat16)
+    h16 = torch.randn((nw, w, d), generator=gen, device=dev).to(torch.bfloat16)
     s = torch.rand((nw, w), generator=gen, device=dev)
     s = s / s.amax(dim=-1, keepdim=True)
-    esize = h.element_size()
-    hf = h.float()
-    hft = hf.transpose(1, 2).contiguous()
-    bmm = timed(torch, "library", lambda: torch.bmm(hf, hft))
-    yardstick = "torch.bmm (W,w,D)x(W,D,w) f32: the Gram alone, a yardstick"
-    common = {"route": "cuda", "shape": [nw, w, d], "dtype": "bfloat16"}
-    rows = []
+    hf = h16.float()                       # the same values in f32
+    hft, h16t = (t.transpose(1, 2).contiguous() for t in (hf, h16))
+    lib = {**timed(torch, "library", lambda: torch.bmm(hf, hft)),
+           **timed(torch, "library_bf16", lambda: torch.bmm(h16, h16t)),
+           "library_call": ("torch.bmm (W,w,D)x(W,D,w) f32: the Gram alone, "
+                            "a yardstick"),
+           "library_bf16_call": ("torch.bmm (W,w,D)x(W,D,w) bf16, the mma "
+                                 "route's operands: the Gram alone, a "
+                                 "yardstick")}
+    ptxas = {name: build.ptxas_lines(build.load_library(name).log)
+             for name in ("knn_density", "token_merge")}
+    # the kernel instance of each (wrapper, route) at w = 16
+    fragment = {("knn_density", "mma"): "22knn_density_kernel_mmaILi1E",
+                ("knn_density", "simt"): "18knn_density_kernelIfE",
+                ("merge_assign", "mma"): "23merge_assign_kernel_mmaILi1E",
+                ("merge_assign", "simt"): "19merge_assign_kernelIfE"}
+    rows, kernel_rows = [], []
+    for dt, which, h in (("bfloat16", "mma", h16), ("float32", "simt", hf)):
+        common = {"route": "cuda", "window_route": which,
+                  "shape": [nw, w, d], "dtype": dt}
+        esize = h.element_size()
+        gram_peak = BF16_TC_FLOPS_PER_S if which == "mma" else F32_FLOPS_PER_S
 
-    # ---- B2 knn_density
-    got = k.knn_density(h, k=kk)
-    torch.cuda.synchronize()
-    want = k.ref.knn_density(h, kk)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    gram_ops = 2 * nw * w * w * d
-    nbytes = nw * w * d * esize + nw * w * 4
-    ops_s = (gram_ops / BF16_TC_FLOPS_PER_S
-             + nw * w * w * (4 + 2 * kk) / F32_FLOPS_PER_S)
-    rows.append(dict(
-        common, name="knn_density",
-        source="src/repro_torch/csrc/knn_density.cu",
-        replaces="src/repro/kernels/knn_density.py:41", k=kk,
-        max_abs_err=float((got - want).abs().max()),
-        **timed(torch, "kernel", lambda: k.knn_density(h, k=kk)),
-        **timed(torch, "plain", lambda: k.ref.knn_density(h, kk)),
-        **bmm, library_call=yardstick, bytes=nbytes,
-        operations=gram_ops + nw * w * w * (4 + 2 * kk)))
-    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(nbytes, ops_s)
+        # ---- B2 knn_density
+        before = k.knn_density.launches_by_route[which]
+        got = k.knn_density(h, k=kk)
+        torch.cuda.synchronize()
+        if k.knn_density.launches_by_route[which] != before + 1:
+            raise AssertionError(f"knn_density {dt} did not take the "
+                                 f"{which} route")
+        want = k.ref.knn_density(h, kk)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        gram_ops = 2 * nw * w * w * d
+        row_ops = nw * w * w * (4 + 2 * kk)
+        nbytes = nw * w * d * esize + nw * w * 4
+        ops_s = gram_ops / gram_peak + row_ops / F32_FLOPS_PER_S
+        lines = instance_ptxas(ptxas["knn_density"],
+                               fragment[("knn_density", which)])
+        no_spills(lines, f"knn_density {which}")
+        row = dict(
+            common, name="knn_density",
+            source="src/repro_torch/csrc/knn_density.cu",
+            replaces="src/repro/kernels/knn_density.py:41", k=kk,
+            max_abs_err=float((got - want).abs().max()),
+            **timed(torch, "kernel", lambda: k.knn_density(h, k=kk)),
+            **timed(torch, "plain", lambda: k.ref.knn_density(h, kk)),
+            **lib, bytes=nbytes, operations=gram_ops + row_ops, ptxas=lines)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops_s)
+        rows.append(row)
 
-    # ---- B3 merge_assign
-    merged, assign, centers = k.merge_assign(h, s, m=m)
-    torch.cuda.synchronize()
-    w_merged, w_assign, w_centers = k.ref.merge_assign(h, s, m)
-    if not torch.equal(centers, w_centers):
-        raise AssertionError("merge_assign: centers differ in "
-                             f"{int((centers != w_centers).sum())} places")
-    if not torch.equal(assign, w_assign):
-        d2 = torch.cdist(hf, torch.gather(
-            hf, 1, w_centers.long()[..., None].expand(-1, -1, d))).square()
-        top2 = d2.topk(2, dim=-1, largest=False).values
-        gap = (top2[..., 1] - top2[..., 0])[assign != w_assign]
-        raise AssertionError(f"merge_assign: assign differs at "
-                             f"{int((assign != w_assign).sum())} tokens; "
-                             f"their two smallest d2 differ by {gap.tolist()}")
-    torch.testing.assert_close(merged.float(), w_merged.float(), rtol=5e-2,
-                               atol=5e-2)
-    dist_ops = 2 * nw * w * m * d + 2 * nw * w * d      # h.c and |h|^2
-    mean_ops = 2 * nw * w * d + nw * m * d              # sums and division
-    nbytes = (nw * w * d * esize + nw * w * 4 + nw * m * d * esize
-              + nw * w * 4 + nw * m * 4)
-    ops_s = (dist_ops / BF16_TC_FLOPS_PER_S + mean_ops / F32_FLOPS_PER_S
-             + nw * (m * w + w * m * 4) / F32_FLOPS_PER_S)
-    rows.append(dict(
-        common, name="merge_assign",
-        source="src/repro_torch/csrc/token_merge.cu",
-        replaces="src/repro/kernels/token_merge.py:80", m=m,
-        max_abs_err=float((merged.float() - w_merged.float()).abs().max()),
-        **timed(torch, "kernel", lambda: k.merge_assign(h, s, m=m)),
-        **timed(torch, "plain", lambda: k.ref.merge_assign(h, s, m)),
-        **bmm, library_call=yardstick, bytes=nbytes,
-        operations=dist_ops + mean_ops + nw * (m * w + w * m * 4)))
-    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(nbytes, ops_s)
+        # ---- B3 merge_assign
+        before = k.merge_assign.launches_by_route[which]
+        got = k.merge_assign(h, s, m=m)
+        torch.cuda.synchronize()
+        if k.merge_assign.launches_by_route[which] != before + 1:
+            raise AssertionError(f"merge_assign {dt} did not take the "
+                                 f"{which} route")
+        want = k.ref.merge_assign(h, s, m)
+        check_merge(f"merge_assign {which}", hf, got, want,
+                    5e-2 if dt == "bfloat16" else 1e-4)
+        dist_ops = 2 * nw * w * m * d + 2 * nw * w * d   # h.c and |h|^2
+        mean_ops = 2 * nw * w * d + nw * m * d           # sums and division
+        pick_ops = nw * (m * w + w * m * 4)
+        nbytes = (nw * w * d * esize + nw * w * 4 + nw * m * d * esize
+                  + nw * w * 4 + nw * m * 4)
+        ops_s = (dist_ops / gram_peak
+                 + (mean_ops + pick_ops) / F32_FLOPS_PER_S)
+        lines = instance_ptxas(ptxas["token_merge"],
+                               fragment[("merge_assign", which)])
+        no_spills(lines, f"merge_assign {which}")
+        row = dict(
+            common, name="merge_assign",
+            source="src/repro_torch/csrc/token_merge.cu",
+            replaces="src/repro/kernels/token_merge.py:80", m=m,
+            max_abs_err=float((got[0].float() - want[0].float()).abs().max()),
+            **timed(torch, "kernel", lambda: k.merge_assign(h, s, m=m)),
+            **timed(torch, "plain", lambda: k.ref.merge_assign(h, s, m)),
+            **lib, bytes=nbytes, operations=dist_ops + mean_ops + pick_ops,
+            ptxas=lines)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops_s)
+        rows.append(row)
+        if dt == "bfloat16":
+            kernel_rows += rows[-2:]
+            merged, assign = got[0], got[1]
 
-    # ---- B4 unmerge_scatter, on merge_assign's own outputs
+    # ---- B4 unmerge_scatter, on the bf16 merge_assign's own outputs
     got = k.unmerge_scatter(merged, assign)
     torch.cuda.synchronize()
     want = k.ref.unmerge_scatter(merged, assign)
     if not torch.equal(got, want):
         raise AssertionError("unmerge_scatter is not bitwise")
     idx = assign.long()[..., None].expand(-1, -1, d)
+    esize = merged.element_size()
     nbytes = nw * m * d * esize + nw * w * 4 + nw * w * d * esize
-    rows.append(dict(
-        common, name="unmerge_scatter",
+    row = dict(
+        route="cuda", shape=[nw, w, d], dtype="bfloat16",
+        name="unmerge_scatter",
         source="src/repro_torch/csrc/token_merge.cu",
         replaces="src/repro/kernels/token_merge.py:116", m=m,
         max_abs_err=0.0,
@@ -451,12 +535,68 @@ def phase_token_merge(torch, dev, k):
                                                              assign)),
         **timed(torch, "library", lambda: torch.gather(merged, 1, idx)),
         library_call="torch.gather along the window axis", bytes=nbytes,
-        operations=0))
-    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(nbytes, 0.0)
+        operations=0)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 0.0)
+    rows.append(row)
+    kernel_rows.append(row)
     for row in rows:
         row["ms"] = row["kernel_ms"]
         emit({"phase": "kernel", **row})
-    return rows
+    return kernel_rows
+
+
+@contextlib.contextmanager
+def capture_windows(core_tm, sink):
+    """Record the inputs of the first PARITY_CALLS calls that reach the
+    knn_density and merge_assign wrappers from core/token_merge.py (copies
+    on the card), into ``sink[name]`` as (args, kwargs)."""
+    orig = {"knn_density": core_tm._knn_kernel,
+            "merge_assign": core_tm.merge_assign}
+
+    def recorder(name):
+        def rec(*args, **kw):
+            if len(sink[name]) < PARITY_CALLS:
+                sink[name].append(([a.clone() for a in args], dict(kw)))
+            return orig[name](*args, **kw)
+        return rec
+
+    core_tm._knn_kernel = recorder("knn_density")
+    core_tm.merge_assign = recorder("merge_assign")
+    try:
+        yield
+    finally:
+        core_tm._knn_kernel = orig["knn_density"]
+        core_tm.merge_assign = orig["merge_assign"]
+
+
+def phase_window_parity(torch, captured, knn_mod, tm_mod):
+    """Both routes of knn_density and merge_assign on the windows the merged
+    serve handed the wrappers: rho within 1e-4, centers and assign exact,
+    merged bitwise (the routes share the means' arithmetic)."""
+    if any(len(v) != PARITY_CALLS for v in captured.values()):
+        raise AssertionError(f"captured {[len(v) for v in captured.values()]}"
+                             f" calls, expected {PARITY_CALLS} of each")
+    worst, rho_bitwise, windows = 0.0, 0, 0
+    for (h,), kw in captured["knn_density"]:
+        mma = knn_mod._launch("mma", h, kw["k"])
+        simt = knn_mod._launch("simt", h, kw["k"])
+        torch.testing.assert_close(mma, simt, rtol=1e-4, atol=1e-4)
+        worst = max(worst, float((mma - simt).abs().max()))
+        rho_bitwise += int((mma == simt).all(dim=-1).sum())
+        windows += h.shape[0]
+    for (h, s), kw in captured["merge_assign"]:
+        mma = tm_mod._launch("mma", h, s, kw["m"])
+        simt = tm_mod._launch("simt", h, s, kw["m"])
+        check_merge("served windows, mma against simt", h.float(), mma,
+                    simt, None)
+    torch.cuda.synchronize()
+    emit({"phase": "window_parity", "calls": PARITY_CALLS,
+          "windows": windows, "dtype": str(captured["knn_density"][0][0][0]
+                                           .dtype),
+          "shape": list(captured["merge_assign"][0][0][0].shape),
+          "max_abs_rho_diff": worst,
+          "windows_with_bitwise_rho": rho_bitwise,
+          "centers_assign_equal": True, "merged_bitwise": True})
 
 
 def phase_saliency_delta(torch, dev, ref, saliency_delta):
@@ -676,7 +816,7 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
     launches = {name: fn.launches                  # ... and ends here
                 for name, fn in m.kernels.items()}
     by_route = {name: dict(m.kernels[name].launches_by_route)
-                for name in GEMM_KERNELS}
+                for name in GEMM_KERNELS + WINDOW_KERNELS}
     kinds = dict(getattr(runner.impl, "step_kinds", {}))
     if len(done) != len(trace):
         raise AssertionError(f"{len(done)} of {len(trace)} requests finished")
@@ -696,6 +836,11 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
             raise AssertionError(f"{wl.policy}: {name} launches by route "
                                  f"{by_route[name]}, expected all "
                                  f"{launches[name]} on wgmma")
+    for name in WINDOW_KERNELS:        # bf16 windows at D=1152: mma only
+        if by_route[name] != {"mma": launches[name], "simt": 0}:
+            raise AssertionError(f"{wl.policy}: {name} launches by route "
+                                 f"{by_route[name]}, expected all "
+                                 f"{launches[name]} on mma")
     stats = eng.cache_stats()
     if (wl.policy == "fastcache" and runner.reducer is None
             and stats["block_cache_ratio"] != PARENT_BLOCK_CACHE_RATIO):
@@ -1019,6 +1164,9 @@ def main() -> int:
     from repro_torch.cuda_kernels.linear_blend import linear_blend
     from repro_torch.cuda_kernels.saliency_delta import saliency_delta
     from repro_torch.core.runner import l2c_mask_from_deltas
+    from repro_torch.core import token_merge as core_token_merge
+    knn_mod = importlib.import_module("repro_torch.cuda_kernels.knn_density")
+    tm_mod = importlib.import_module("repro_torch.cuda_kernels.token_merge")
     from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
     from repro_torch.launch.serve_diffusion import Workload
     from repro_torch.models import attention
@@ -1051,7 +1199,7 @@ def main() -> int:
     k = SimpleNamespace(ref=ref, knn_density=knn_density,
                         merge_assign=merge_assign,
                         unmerge_scatter=unmerge_scatter)
-    merge_rows = phase_token_merge(torch, dev, k)
+    merge_rows = phase_token_merge(torch, dev, k, build)
     sal_row = phase_saliency_delta(torch, dev, ref, saliency_delta)
     blend_row = phase_linear_blend(torch, dev, ref, linear_blend, build)
 
@@ -1082,8 +1230,12 @@ def main() -> int:
         raise AssertionError(f"syncs per model step (counted, flagged in "
                              f"the port): "
                              f"{syncs_on} with merge on, {syncs_off} off")
-    launches_merge = phase_serve(torch, dev, wl_merge, model, m,
-                                 label="serve_merge")
+    captured = {name: [] for name in WINDOW_KERNELS}
+    with capture_windows(core_token_merge, captured):
+        launches_merge = phase_serve(torch, dev, wl_merge, model, m,
+                                     label="serve_merge")
+    phase_window_parity(torch, captured, knn_mod, tm_mod)
+    del captured
     phase_static(torch, dev, model, m)
 
     # ---- the six baseline policies on the same serve

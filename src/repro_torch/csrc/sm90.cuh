@@ -1,6 +1,7 @@
 // sm90.cuh: Hopper (sm_90a) device helpers shared by the port's
-// tensor-core kernels (flash_attention.cu, linear_blend.cu, fused_gate.cu):
-// shared-memory addresses, mbarriers, TMA copies, wgmma descriptors,
+// tensor-core kernels (flash_attention.cu, linear_blend.cu, fused_gate.cu,
+// and through window_mma.cuh knn_density.cu and token_merge.cu):
+// shared-memory addresses, mbarriers, TMA and bulk copies, wgmma descriptors,
 // fences and waits, and the tensor-map encoder.  Raw PTX, no
 // CUTLASS.  Everything sits in an anonymous namespace: each source that
 // includes it is built into a library of its own (cuda_kernels/build.py,
@@ -86,6 +87,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// A 1-d bulk copy of `bytes` from global memory into shared memory,
+// completing on `bar`.  Both addresses 16-byte aligned, `bytes` a multiple
+// of 16 (cp.async.bulk's rules).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -1,7 +1,7 @@
-"""Which kernel of ``linear_blend`` / ``fused_gate`` a CUDA call launches.
+"""Which kernel a CUDA call of a two-route wrapper launches.
 
-Both have two routes on the card (``csrc/linear_blend.cu``,
-``csrc/fused_gate.cu``):
+``linear_blend`` and ``fused_gate`` have two routes on the card
+(``csrc/linear_blend.cu``, ``csrc/fused_gate.cu``), by ``gemm_route``:
 
 - ``"wgmma"``: bf16 X against a bf16 copy of W on the tensor cores (wgmma
   fed by TMA, ``csrc/tc_gemm.cuh``).  TMA needs 16-byte row strides and
@@ -11,7 +11,19 @@ Both have two routes on the card (``csrc/linear_blend.cu``,
 - ``"simt"``: the f32 FMA kernels, for everything else (f32 inputs are held
   to 1e-4, which bf16 operands do not meet; ragged bf16 shapes).
 
-The rule is a pure function of dtype, shape and alignment, so a call's
+``knn_density`` and ``merge_assign`` have two routes too
+(``csrc/knn_density.cu``, ``csrc/token_merge.cu``), by ``window_route``:
+
+- ``"mma"``: bf16 windows on the tensor cores (``mma.sync``), each window
+  bulk-copied into shared memory once and left there
+  (``csrc/window_mma.cuh``).  The bulk copy needs 16-byte aligned bases and
+  row lengths, and the window, its rows padded, has to fit in shared
+  memory, so it takes bf16 ``h`` with w <= 32, D % 8 == 0 and every base
+  16-byte aligned, whose ``window_smem_bytes`` fit.
+- ``"simt"``: the f32 FMA kernels, for everything else (f32 ``h``, ragged
+  D, unaligned bases).
+
+Each rule is a pure function of dtype, shape and alignment, so a call's
 route is known before it launches and the tests can check it on the CPU.
 A route that fails to build or launch raises; nothing falls back to the
 other route or to the plain version.
@@ -24,8 +36,14 @@ import torch
 
 WGMMA = "wgmma"
 SIMT = "simt"
-ROUTES = (WGMMA, SIMT)
-ALIGN = 16                    # bytes: TMA's base and stride alignment
+MMA = "mma"
+ROUTES = (WGMMA, SIMT)        # linear_blend, fused_gate
+WINDOW_ROUTES = (MMA, SIMT)   # knn_density, merge_assign
+ALIGN = 16                    # bytes: TMA's and bulk copies' alignment
+MAX_WINDOW = 32               # tokens: the window kernels' kMaxW
+SMEM_LIMIT = 232_448          # bytes of shared memory a block may opt into
+WINDOW_EXTRA_BYTES = 34_320   # window_mma.cuh kExtraBytes: Gram partials,
+                              # scratch, the mbarrier
 
 
 def gemm_route(dtype: torch.dtype, d: int, f: int,
@@ -35,6 +53,30 @@ def gemm_route(dtype: torch.dtype, d: int, f: int,
     if (dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
             and all(a % ALIGN == 0 for a in addresses)):
         return WGMMA
+    return SIMT
+
+
+def window_pitch(d: int) -> int:
+    """Bytes between two rows of a window in shared memory on the mma route:
+    an odd number of 16-byte units, one or two of them padding
+    (``window_mma.cuh:pitch_bytes``)."""
+    return ((d // 8 + 1) | 1) * 16
+
+
+def window_smem_bytes(w: int, d: int) -> int:
+    """Shared memory of one window's block on the mma route."""
+    return w * window_pitch(d) + WINDOW_EXTRA_BYTES
+
+
+def window_route(dtype: torch.dtype, w: int, d: int,
+                 addresses: Iterable[int]) -> str:
+    """The route of a call on (W, w, d) windows of ``dtype`` whose base
+    addresses are ``addresses`` (``h``'s: the outputs are fresh, so
+    aligned)."""
+    if (dtype == torch.bfloat16 and 1 <= w <= MAX_WINDOW and d > 0
+            and d % 8 == 0 and all(a % ALIGN == 0 for a in addresses)
+            and window_smem_bytes(w, d) <= SMEM_LIMIT):
+        return MMA
     return SIMT
 
 

@@ -4,8 +4,11 @@
 Replace the reference's Pallas kernels ``repro/kernels/token_merge.py:
 merge_assign`` and ``:unmerge_scatter``.  CPU tensors go to the plain
 versions (``ref.merge_assign`` / ``ref.unmerge_scatter``); CUDA tensors
-launch the kernel or raise — there is no fallback.  Each kernel launch adds
-one to the wrapper's ``launches``.
+launch a kernel or raise — there is no fallback.  ``merge_assign`` launches
+the kernel of the route ``route.window_route`` picks: ``"mma"`` (bf16
+windows, the Gram on the tensor cores) or ``"simt"`` (the rest).  Each
+kernel launch adds one to the wrapper's ``launches``, and for
+``merge_assign`` to ``merge_assign.launches_by_route[route]``.
 """
 from __future__ import annotations
 
@@ -14,11 +17,10 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.cuda_kernels import build, ref
+from repro_torch.cuda_kernels import build, ref, route
 
 F32 = torch.float32
 I32 = torch.int32
-MAX_WINDOW = 32               # the kernel's window_gram.cuh kMaxW
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 
@@ -28,6 +30,8 @@ def _lib():
     if lib.merge_assign_launch.argtypes is None:
         lib.merge_assign_launch.argtypes = [_vp] * 5 + [_int] * 5 + [_vp]
         lib.merge_assign_launch.restype = _int
+        lib.merge_assign_mma_launch.argtypes = [_vp] * 5 + [_int] * 4 + [_vp]
+        lib.merge_assign_mma_launch.restype = _int
         lib.unmerge_scatter_launch.argtypes = [_vp] * 3 + [_int] * 5 + [_vp]
         lib.unmerge_scatter_launch.restype = _int
     return lib
@@ -62,23 +66,43 @@ def merge_assign(h: torch.Tensor, s: torch.Tensor, *, m: int
         return ref.merge_assign(h, s, m)
     if h.device.type != "cuda":
         raise ValueError(f"merge_assign runs on CPU or CUDA, not {h.device}")
-    if w > MAX_WINDOW:
-        raise ValueError(f"the merge_assign kernel takes windows of at most "
-                         f"{MAX_WINDOW} tokens, got w={w}")
+    return _launch(route.window_route(h.dtype, w, d, [h.data_ptr()]), h, s,
+                   m)
+
+
+def _launch(which: str, h: torch.Tensor, s: torch.Tensor, m: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the kernel of route ``which`` on CUDA inputs that passed
+    ``merge_assign``'s checks; raises if the route does not take them.  The
+    outputs are fresh allocations, so 16-byte aligned."""
+    nw, w, d = h.shape
     dev = h.device
+    if which not in route.WINDOW_ROUTES:
+        raise ValueError(f"unknown route {which!r}")
+    if w > route.MAX_WINDOW:
+        raise ValueError(f"the merge_assign kernel takes windows of at most "
+                         f"{route.MAX_WINDOW} tokens, got w={w}")
+    if (which == route.MMA and route.window_route(
+            h.dtype, w, d, [h.data_ptr()]) != route.MMA):
+        raise ValueError(f"the mma route does not take {h.dtype} windows "
+                         f"of ({w}, {d}) at this address")
     merged = torch.empty((nw, m, d), dtype=h.dtype, device=dev)
     assign = torch.empty((nw, w), dtype=I32, device=dev)
     centers = torch.empty((nw, m), dtype=I32, device=dev)
+    args = (h.data_ptr(), s.data_ptr(), merged.data_ptr(), assign.data_ptr(),
+            centers.data_ptr(), nw, w, int(m), d)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().merge_assign_launch(
-            h.data_ptr(), s.data_ptr(), merged.data_ptr(), assign.data_ptr(),
-            centers.data_ptr(), nw, w, int(m), d, _DTYPE_CODE[h.dtype],
-            stream)
+        if which == route.MMA:
+            err = _lib().merge_assign_mma_launch(*args, stream)
+        else:
+            err = _lib().merge_assign_launch(*args, _DTYPE_CODE[h.dtype],
+                                             stream)
     if err != 0:
-        raise RuntimeError(f"merge_assign kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"merge_assign kernel ({which}) launch failed: "
+                           f"CUDA error {err}")
     merge_assign.launches += 1
+    merge_assign.launches_by_route[which] += 1
     return merged, assign, centers
 
 
@@ -117,4 +141,5 @@ def unmerge_scatter(merged: torch.Tensor, assign: torch.Tensor
 
 
 merge_assign.launches = 0
+merge_assign.launches_by_route = dict.fromkeys(route.WINDOW_ROUTES, 0)
 unmerge_scatter.launches = 0

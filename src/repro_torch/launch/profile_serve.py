@@ -12,7 +12,8 @@ the host syncs in the window, the device time of each of the port's DiT
 kernels, and the kernels by total device time, with the card's
 ``nvidia-smi`` name and power limit.  A wrapper's device time is the sum
 over the CUDA kernels whose names hold one of its fragments
-(``KERNEL_NAMES``: both routes of ``fused_gate`` and ``linear_blend``); a
+(``KERNEL_NAMES``: both routes of ``fused_gate``, ``linear_blend``,
+``knn_density`` and ``merge_assign``); a
 wrapper whose launch count moved in the window while no device time was
 attributed to it raises, so a renamed kernel never reads as 0 ms.
 """
@@ -42,8 +43,9 @@ from repro_torch.serving.scheduler import RequestQueue
 
 
 # each DiT wrapper and the name fragments of the CUDA kernels it launches
-# (csrc/*.cu); "gate_gemm" and "linear_blend_kernel" match both routes'
-# kernels (gate_gemm / gate_gemm_wgmma, linear_blend_kernel{,_wgmma})
+# (csrc/*.cu); each fragment matches both routes' kernels: gate_gemm /
+# gate_gemm_wgmma, linear_blend_kernel{,_wgmma}, knn_density_kernel{,_mma},
+# merge_assign_kernel{,_mma}
 KERNEL_NAMES = {
     "fused_gate": (fused_gate, ("gate_partials", "gate_gemm")),
     "linear_blend": (linear_blend, ("linear_blend_kernel",)),
@@ -74,8 +76,8 @@ def attribute(by_name, moved):
 
 def _counts():
     counts = {k: fn.launches for k, (fn, _) in KERNEL_NAMES.items()}
-    for k in ("fused_gate", "linear_blend"):
-        for r, n in KERNEL_NAMES[k][0].launches_by_route.items():
+    for k, (fn, _) in KERNEL_NAMES.items():
+        for r, n in getattr(fn, "launches_by_route", {}).items():
             counts[f"{k}:{r}"] = n
     return counts
 
@@ -166,6 +168,8 @@ def main(argv=None) -> None:
         "linear_blend_ms": ours["linear_blend"]["ms"],
         "fused_gate_share_of_kernel_time": (ours["fused_gate"]["ms"] * 1e3
                                             / total_kernel_us),
+        "share_of_kernel_time": {k: v["ms"] * 1e3 / total_kernel_us
+                                 for k, v in ours.items()},
         "port_kernels": ours,
         "window_launches": moved,
         "host_syncs": syncs,

@@ -22,6 +22,12 @@ of W (``w_bf16=``, W = I + 0.01 noise rounded by at most 2^-9 relative:
 ~1e-3 in the outputs, inside 2e-2); the rest the SIMT route.  Each route is
 also reached through the module's launcher for a named route (``_launch``),
 and at W = I (exact in bf16) the two agree bitwise.
+knn_density and merge_assign have two routes too (``route.window_route``):
+bf16 windows of eligible shape take the mma route (the Gram on the tensor
+cores), the rest the SIMT route; the two differ only in the Gram's summation
+order, so on the same bf16 windows they give the same centers and
+assignments, bitwise merged tokens, and rho within 1e-4 (bitwise on
+integer-valued windows, whose Gram is exact in any order).
 """
 import importlib
 
@@ -39,6 +45,8 @@ from repro_torch.cuda_kernels.token_merge import merge_assign, unmerge_scatter
 
 fg_mod = importlib.import_module("repro_torch.cuda_kernels.fused_gate")
 lb_mod = importlib.import_module("repro_torch.cuda_kernels.linear_blend")
+knn_mod = importlib.import_module("repro_torch.cuda_kernels.knn_density")
+tm_mod = importlib.import_module("repro_torch.cuda_kernels.token_merge")
 BF16 = torch.bfloat16
 
 
@@ -273,12 +281,17 @@ def test_token_merge_kernels_raise_on_bad_cuda_input(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("policy", ["fastcache", "nocache"])
 def test_merged_cached_step_kernels_match_plain_path(cuda_device,
-                                                     monkeypatch, policy):
+                                                     monkeypatch, policy,
+                                                     dtype):
     """The merged step on the card through the kernels and, with the plain
     versions patched in, without them: the same assignment, centers and
-    counters at every step, eps within f32 rounding."""
+    counters at every step, eps within f32 rounding (f32; in bf16 within
+    5e-2, one bf16 rounding of the merged tokens carried through the
+    blocks).  The window kernels run the SIMT route in f32 and the mma
+    route in bf16."""
     from repro_torch.configs.base import FastCacheConfig
     from repro_torch.configs.dit import reduced
     from repro_torch.core import token_merge
@@ -286,7 +299,7 @@ def test_merged_cached_step_kernels_match_plain_path(cuda_device,
     from repro_torch.core.runner import CachedDiT
     from repro_torch.models.dit import DiTModel
 
-    cfg = reduced().replace(dtype="float32")
+    cfg = reduced().replace(dtype=dtype)
     model = DiTModel(cfg, device=cuda_device)
     model.init(torch.Generator(cuda_device).manual_seed(0))
     fc = FastCacheConfig(merge_enabled=True, merge_ratio=0.5, merge_window=8)
@@ -307,6 +320,9 @@ def test_merged_cached_step_kernels_match_plain_path(cuda_device,
     labels = torch.arange(4, device=cuda_device)
     counts = (knn_density.launches, merge_assign.launches,
               unmerge_scatter.launches)
+    by_route = (dict(knn_density.launches_by_route),
+                dict(merge_assign.launches_by_route))
+    tol = 1e-4 if dtype == "float32" else 5e-2
     for i in range(6):
         t = torch.full((4,), 50 - i, device=cuda_device)
         outs = [kernel.step(states[0], x, t, labels)]
@@ -324,14 +340,163 @@ def test_merged_cached_step_kernels_match_plain_path(cuda_device,
         for k in ("blocks_computed", "blocks_skipped", "tokens_kept",
                   "tokens_merged"):
             assert torch.equal(states[0]["stats"][k], states[1]["stats"][k])
-        torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-4,
-                                   atol=1e-4)
+        torch.testing.assert_close(outs[0][0], outs[1][0], rtol=tol,
+                                   atol=tol)
         x = x - 0.02 * outs[1][0]
     launched = (knn_density.launches - counts[0],
                 merge_assign.launches - counts[1],
                 unmerge_scatter.launches - counts[2])
     mixed = getattr(kernel.impl, "step_kinds", {}).get("mixed", 0)
     assert launched == (6, 6, 6 + mixed)
+    which = "simt" if dtype == "float32" else "mma"
+    for fn, before in zip((knn_density, merge_assign), by_route):
+        assert fn.launches_by_route[which] - before[which] == 6
+
+
+# ---------------------------------------------------------------------------
+# the two routes of knn_density and merge_assign
+# ---------------------------------------------------------------------------
+
+# MERGE_SHAPES and two more: w = 32 at the served width (two m-tiles), and
+# D % 16 == 8 (the last k-step reads the zeroed row padding)
+WINDOW_SHAPES = MERGE_SHAPES + [(4, 32, 1152, 5, 8), (6, 16, 1000, 5, 8)]
+
+
+def _int_windows(dev, nw, w, d, seed=0):
+    """bf16 windows of small integers with every second token a copy of the
+    one before, and scores in {1/3, 2/3, 1}: every Gram entry is an exact
+    integer in f32 whatever the summation order, so distances tie exactly
+    (duplicated tokens, and by chance) and scores tie often."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    h = torch.randint(-3, 4, (nw, w, d), generator=gen, device=dev)
+    h[:, 1::2] = h[:, 0:w - w % 2:2]
+    s = torch.randint(1, 4, (nw, w), generator=gen, device=dev) / 3.0
+    return h.to(BF16), s
+
+
+def _route_counts():
+    return (dict(knn_density.launches_by_route),
+            dict(merge_assign.launches_by_route))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mma", "simt"])
+@pytest.mark.parametrize("shape", WINDOW_SHAPES)
+def test_window_route_matches_plain(cuda_device, which, shape):
+    """Each route against the plain versions on bf16 windows; the mma route
+    raises on a shape it does not take (ragged D)."""
+    nw, w, d, k, m = shape
+    h, s = _windows(cuda_device, BF16, nw, w, d)
+    if which == "mma" and d % 8:
+        with pytest.raises(ValueError, match="mma route does not take"):
+            knn_mod._launch(which, h, k)
+        with pytest.raises(ValueError, match="mma route does not take"):
+            tm_mod._launch(which, h, s, m)
+        return
+    before = _route_counts()
+    rho = knn_mod._launch(which, h, k)
+    merged, assign, centers = tm_mod._launch(which, h, s, m)
+    torch.cuda.synchronize(cuda_device)
+    assert knn_density.launches_by_route[which] == before[0][which] + 1
+    assert merge_assign.launches_by_route[which] == before[1][which] + 1
+    torch.testing.assert_close(rho, ref.knn_density(h, k), rtol=1e-4,
+                               atol=1e-4)
+    want = ref.merge_assign(h, s, m)
+    assert merged.dtype == BF16 and merged.shape == want[0].shape
+    assert torch.equal(centers, want[2])
+    assert torch.equal(assign, want[1])
+    torch.testing.assert_close(merged.float(), want[0].float(), rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 16, 1152, 5, 8),
+                                   (4, 32, 1152, 5, 8), (3, 32, 200, 3, 1),
+                                   (6, 16, 1000, 5, 8), (9, 5, 64, 4, 2)])
+def test_window_routes_agree_on_bf16_windows(cuda_device, shape):
+    """Same bf16 windows, both routes: centers and assign exact, merged
+    bitwise (the weighted means' arithmetic is shared), rho within 1e-4
+    (only the Gram's summation order differs)."""
+    nw, w, d, k, m = shape
+    h, s = _windows(cuda_device, BF16, nw, w, d, seed=7)
+    mma = tm_mod._launch("mma", h, s, m)
+    simt = tm_mod._launch("simt", h, s, m)
+    assert torch.equal(mma[2], simt[2])
+    assert torch.equal(mma[1], simt[1])
+    assert torch.equal(mma[0], simt[0])
+    torch.testing.assert_close(knn_mod._launch("mma", h, k),
+                               knn_mod._launch("simt", h, k), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 16, 1152, 5, 8),
+                                   (4, 32, 1152, 5, 8), (5, 15, 1000, 6, 7)])
+def test_window_routes_break_exact_ties_by_first_occurrence(cuda_device,
+                                                           shape):
+    """Duplicated tokens and integer values give exact distance and score
+    ties: both routes pick the plain version's centers (lax.top_k order)
+    and first-occurrence argmins, and their rho and merged tokens are
+    bitwise equal."""
+    nw, w, d, k, m = shape
+    h, s = _int_windows(cuda_device, nw, w, d)
+    want = ref.merge_assign(h, s, m)
+    got = {r: tm_mod._launch(r, h, s, m) for r in ("mma", "simt")}
+    rho = {r: knn_mod._launch(r, h, k) for r in ("mma", "simt")}
+    for r in ("mma", "simt"):
+        assert torch.equal(got[r][2], want[2])
+        assert torch.equal(got[r][1], want[1])
+        torch.testing.assert_close(got[r][0].float(), want[0].float(),
+                                   rtol=5e-2, atol=5e-2)
+        torch.testing.assert_close(rho[r], ref.knn_density(h, k), rtol=1e-4,
+                                   atol=1e-4)
+    assert torch.equal(got["mma"][0], got["simt"][0])
+    assert torch.equal(rho["mma"], rho["simt"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [16, 32])
+def test_window_mma_route_is_deterministic(cuda_device, w):
+    h, s = _windows(cuda_device, BF16, 128, w, 1152)
+    first = (knn_mod._launch("mma", h, 5), *tm_mod._launch("mma", h, s, 8))
+    for _ in range(3):
+        again = (knn_mod._launch("mma", h, 5),
+                 *tm_mod._launch("mma", h, s, 8))
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_window_wrappers_pick_the_route(cuda_device):
+    """The served windows go to mma; f32, ragged D and an unaligned base to
+    SIMT; a named mma launch on an unaligned base raises."""
+    before = _route_counts()
+    h, s = _windows(cuda_device, BF16, 128, 16, 1152)
+    knn_density(h, k=5)
+    merge_assign(h, s, m=8)
+    knn_density(h.float(), k=5)
+    merge_assign(h.float(), s, m=8)
+    ragged, rs = _windows(cuda_device, BF16, 5, 8, 100)
+    knn_density(ragged, k=7)
+    merge_assign(ragged, rs, m=3)
+    flat = torch.zeros(4 * 16 * 1152 + 1, dtype=BF16, device=cuda_device)
+    off = flat[1:].view(4, 16, 1152)
+    off.copy_(h[:4])
+    assert off.data_ptr() % 16 != 0
+    knn_density(off, k=5)
+    merge_assign(off, s[:4].contiguous(), m=8)
+    torch.cuda.synchronize(cuda_device)
+    for fn, b in zip((knn_density, merge_assign), before):
+        assert fn.launches_by_route == {"mma": b["mma"] + 1,
+                                        "simt": b["simt"] + 3}
+    with pytest.raises(ValueError, match="mma route does not take"):
+        knn_mod._launch("mma", off, 5)
+    with pytest.raises(ValueError, match="mma route does not take"):
+        tm_mod._launch("mma", off, s[:4].contiguous(), 8)
+    with pytest.raises(ValueError, match="mma route does not take"):
+        knn_mod._launch("mma", h.float(), 5)
+    with pytest.raises(ValueError, match="unknown route"):
+        knn_mod._launch("wgmma", h, 5)
 
 
 # ---------------------------------------------------------------------------
