@@ -37,8 +37,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               (``library_bf16_ms``, the mma route's operands) as yardsticks
               for the other two;
             - saliency_delta at (8, 256, 1152) in bf16 and f32 and at
-              (8, 128, 1152) in bf16: per-token output and totals within
-              rtol 1e-5, repeated calls bitwise; library: torch.sum(d*d, -1)
+              (8, 128, 1152) in bf16, each on the onepass route (one
+              launch) and the SIMT route (two): per-token output and
+              totals within rtol 1e-5, the two routes bitwise equal,
+              repeated calls bitwise; both routes also timed L2-cold
+              (``*_cold_device_ms``: a 64 MiB write before each call); the
+              onepass kernel's ptxas lines (no spills) and whether its
+              blocks fit on the card at once; library: torch.sum(d*d, -1)
               on the f32 difference, a yardstick;
             - linear_blend at M=2048, D=F=1152, bf16 X/prev, f32 W/b, gamma
               1 and 0.5, at M=1024 (these three on the wgmma route), and
@@ -66,6 +71,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             per-route counts); the block cache ratio exactly
             PARENT_BLOCK_CACHE_RATIO, the SIMT route's (identity
             approximators are exact in bf16, so the routes agree bitwise);
+            every saliency_delta launch on the onepass route; the inputs
+            of the serve's first PARITY_CALLS saliency_delta calls are
+            copied as they reach the wrapper, and after the serve both
+            routes run on them (saliency_parity): bitwise equal;
 6. syncs_merge / serve_merge   the same Workload with token merging on
             (merge_ratio 0.5, window 16), warmed up under sync debug and
             then timed with it off: the syncs per model step must equal the
@@ -88,8 +97,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             flagged syncs in the port must equal the counted ones, one per
             model step for each step-level policy and none for l2c; then a
             timed serve, launches exact: saliency_delta once per model step
-            for teacache, adacache and fbcache, linear_blend 14 times per
-            model step for l2c (all on the wgmma route), no other kernel;
+            for teacache, adacache and fbcache (all on the onepass route;
+            teacache's first calls re-run on both routes, saliency_parity),
+            linear_blend 14 times per model step for l2c (all on the
+            wgmma route), no other kernel; teacache's, adacache's and
+            fbcache's block cache ratio and steps reused, and l2c's
+            layers, exactly the parent's (PARENT_POLICY_STATS,
+            PARENT_L2C_SKIPPED);
             nocache's serve first, as
             the yardstick of the engine steps/s (no kernel, no policy sync);
 9. quality  relative L2 of fastcache eps, of fastcache + merge eps, and of
@@ -179,9 +193,19 @@ BLEND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # linear_blend on the SIMT route (parent commit, NVIDIA H100 80GB HBM3): the
 # wgmma route must give it exactly
 PARENT_BLOCK_CACHE_RATIO = 0.8427678571428572
-GEMM_KERNELS = ("fused_gate", "linear_blend")      # the two-route wrappers
-WINDOW_KERNELS = ("knn_density", "merge_assign")   # ... of the window Gram
-PARITY_CALLS = 4           # served calls whose windows both routes re-run
+# the step-level baselines' (block cache ratio, steps reused) and l2c's
+# calibrated layers with saliency_delta on the SIMT route (parent commit,
+# NVIDIA H100 80GB HBM3): the onepass route gives the same bits, so the
+# same numbers exactly
+PARENT_POLICY_STATS = {"teacache": (0.38, 304.0), "adacache": (0.3, 240.0),
+                       "fbcache": (0.03616071428571429, 30.0)}
+PARENT_L2C_SKIPPED = list(range(14, 28))
+WINDOW_KERNELS = ("knn_density", "merge_assign")   # the window Gram's
+ROUTE_OF_SERVE = {"fused_gate": "wgmma", "linear_blend": "wgmma",
+                  "knn_density": "mma", "merge_assign": "mma",
+                  "saliency_delta": "onepass"}     # every served launch's
+PARITY_CALLS = 4           # served calls whose inputs both routes re-run
+FLUSH_BYTES = 64 << 20     # the buffer written to push inputs out of L2
 # the six baseline policies served at full width, and l2c's layer count
 BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
 L2C_SKIP = 14
@@ -599,9 +623,55 @@ def phase_window_parity(torch, captured, knn_mod, tm_mod):
           "centers_assign_equal": True, "merged_bitwise": True})
 
 
-def phase_saliency_delta(torch, dev, ref, saliency_delta):
-    """saliency_delta against its plain version at SAL_SHAPES; returns the
-    row of the first shape, the merge-off serve's."""
+def cold_device_ms(torch, fn, flush, iters: int = 20,
+                   attempts: int = 4) -> float:
+    """Device time per call with the L2 cold: ``iters`` calls, each after a
+    write of ``flush`` (at least 64 MB, more than the 50 MB L2) that evicts
+    its inputs, queued behind a spin kernel as in ``device_ms``; less the
+    same window of flushes alone.  The median of three such pairs."""
+    fn()
+    torch.cuda.synchronize()
+
+    def window(with_fn: bool, cycles: int, n: int):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            flush.fill_(1.0)
+            if with_fn:
+                fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) if ahead else None
+
+    cycles = SPIN_CYCLES
+    for _ in range(attempts):
+        per_call = []
+        for _ in range(3):
+            both, alone = window(True, cycles, iters), window(False, cycles,
+                                                             iters)
+            if both is None or alone is None:
+                break
+            per_call.append((both - alone) / iters)
+        if len(per_call) == 3:
+            return sorted(per_call)[1]
+        cycles *= 4
+        iters = max(1, iters // 2)
+    raise AssertionError(f"the host fell behind the card in {attempts} "
+                         f"windows; the timed function waits for the card")
+
+
+def phase_saliency_delta(torch, dev, ref, sal_mod, build):
+    """saliency_delta at SAL_SHAPES: the wrapper on the onepass route
+    against the plain version and against the SIMT route (bitwise), both
+    routes timed warm and L2-cold, the onepass kernel's ptxas lines and
+    whether its blocks fit on the card in one wave.  Returns the row of the
+    first shape, the merge-off serve's."""
+    saliency_delta = sal_mod.saliency_delta
+    ptxas = build.ptxas_lines(build.load_library("saliency_delta").log)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     rows = []
     for i, (b, n, d, dt) in enumerate(SAL_SHAPES):
         dtype = getattr(torch, dt)
@@ -610,11 +680,19 @@ def phase_saliency_delta(torch, dev, ref, saliency_delta):
         prev = (x + 0.1 * torch.randn((b, n, d), generator=gen,
                                       device=dev)).to(dtype)
         x = x.to(dtype)
+        before = dict(saliency_delta.launches_by_route)
         got = saliency_delta(x, prev)
         torch.cuda.synchronize()
+        if saliency_delta.launches_by_route["onepass"] != before["onepass"] + 1:
+            raise AssertionError(f"saliency_delta {dt} {(b, n, d)} did not "
+                                 f"take the onepass route")
         want = ref.saliency_delta(x, prev)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+        simt = sal_mod._launch("simt", x, prev)
+        if not all(torch.equal(g, c) for g, c in zip(got, simt)):
+            raise AssertionError(f"saliency_delta {dt} {(b, n, d)}: the "
+                                 f"onepass and SIMT routes differ")
         for _ in range(2):
             if not all(torch.equal(a, c) for a, c in
                        zip(got, saliency_delta(x, prev))):
@@ -624,24 +702,86 @@ def phase_saliency_delta(torch, dev, ref, saliency_delta):
         nbytes = 2 * b * n * d * esize + b * n * 4 + 2 * b * 4
         ops = 5 * b * n * d + 2 * b * n           # sub, 2 FMAs; the sums
         bound_ms, bound_by = bound(nbytes, ops / F32_FLOPS_PER_S)
+        lines = instance_ptxas(ptxas, "22saliency_delta_onepassI"
+                               + ("13__nv_bfloat16E" if dt == "bfloat16"
+                                  else "fE"))
+        no_spills(lines, f"saliency_delta onepass {dt}")
+        plan = sal_mod.route.saliency_plan(n)
         row = {"name": "saliency_delta", "route": "cuda",
+               "sal_route": "onepass",
                "source": "src/repro_torch/csrc/saliency_delta.cu",
                "replaces": "src/repro/kernels/saliency_delta.py:47",
                "shape": [b, n, d], "dtype": dt,
                "max_abs_err": max(float((g - w).abs().max())
                                   for g, w in zip(got, want)),
+               "routes_bitwise_equal": True,
                **timed(torch, "kernel", lambda: saliency_delta(x, prev)),
+               "kernel_cold_device_ms": cold_device_ms(
+                   torch, lambda: saliency_delta(x, prev), flush),
+               **timed(torch, "simt",
+                       lambda: sal_mod._launch("simt", x, prev)),
+               "simt_cold_device_ms": cold_device_ms(
+                   torch, lambda: sal_mod._launch("simt", x, prev), flush),
                **timed(torch, "plain",
                        lambda: ref.saliency_delta(x, prev)),
                **timed(torch, "library", lambda: torch.sum(dd * dd, -1)),
                "library_call": ("torch.sum(d*d, -1) on the f32 difference: "
                                 "the per-token output alone, a yardstick"),
                "bytes": nbytes, "operations": ops, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "plan": plan._asdict(),
+               "blocks_per_sm": sal_mod.onepass_blocks_per_sm(dtype),
+               "sms": torch.cuda.get_device_properties(dev)
+               .multi_processor_count, "ptxas": lines}
+        row["one_wave"] = (row["blocks_per_sm"] * row["sms"]
+                           >= plan.groups * b)
+        row["bound_share_warm"] = bound_ms / row["kernel_device_ms"]
+        row["bound_share_cold"] = bound_ms / row["kernel_cold_device_ms"]
         row["ms"] = row["kernel_ms"]
         emit({"phase": "kernel", **row})
         rows.append(row)
     return rows[0]
+
+
+@contextlib.contextmanager
+def capture_saliency(modules, sink):
+    """Record the inputs of the first PARITY_CALLS calls that reach the
+    saliency_delta wrapper from each module in ``modules`` (core/saliency.py
+    and core/policies/base.py; copies on the card), into ``sink``."""
+    orig = [m.saliency_delta for m in modules]
+
+    def recorder(fn):
+        def rec(x, x_prev):
+            if len(sink) < PARITY_CALLS:
+                sink.append(tuple(t.clone() if t.dim() == 3 else t[None].clone()
+                                  for t in (x, x_prev)))
+            return fn(x, x_prev)
+        return rec
+
+    for m, fn in zip(modules, orig):
+        m.saliency_delta = recorder(fn)
+    try:
+        yield
+    finally:
+        for m, fn in zip(modules, orig):
+            m.saliency_delta = fn
+
+
+def phase_saliency_parity(torch, policy, captured, sal_mod):
+    """Both routes of saliency_delta on the inputs the ``policy`` serve
+    handed the wrapper: sal, diff and prevsq bitwise equal."""
+    if len(captured) != PARITY_CALLS:
+        raise AssertionError(f"captured {len(captured)} saliency_delta "
+                             f"calls of {policy}, expected {PARITY_CALLS}")
+    for x, prev in captured:
+        onepass = sal_mod._launch("onepass", x, prev)
+        simt = sal_mod._launch("simt", x, prev)
+        if not all(torch.equal(a, c) for a, c in zip(onepass, simt)):
+            raise AssertionError(f"{policy}: the saliency_delta routes "
+                                 f"differ on a served input")
+    torch.cuda.synchronize()
+    emit({"phase": "saliency_parity", "policy": policy,
+          "calls": PARITY_CALLS, "shape": list(captured[0][0].shape),
+          "dtype": str(captured[0][0].dtype), "bitwise": True})
 
 
 def phase_linear_blend(torch, dev, ref, linear_blend, build):
@@ -816,7 +956,7 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
     launches = {name: fn.launches                  # ... and ends here
                 for name, fn in m.kernels.items()}
     by_route = {name: dict(m.kernels[name].launches_by_route)
-                for name in GEMM_KERNELS + WINDOW_KERNELS}
+                for name in ROUTE_OF_SERVE}
     kinds = dict(getattr(runner.impl, "step_kinds", {}))
     if len(done) != len(trace):
         raise AssertionError(f"{len(done)} of {len(trace)} requests finished")
@@ -831,22 +971,24 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
                              "steps)")
     if wl.policy == "fastcache" and launches["fused_gate"] <= 0:
         raise AssertionError("fused_gate never launched: no gated step")
-    for name in GEMM_KERNELS:          # bf16 at D=1152: the wgmma route only
-        if by_route[name] != {"wgmma": launches[name], "simt": 0}:
+    for name, which in ROUTE_OF_SERVE.items():  # bf16 at D=1152: one route
+        if by_route[name] != {which: launches[name], "simt": 0}:
             raise AssertionError(f"{wl.policy}: {name} launches by route "
                                  f"{by_route[name]}, expected all "
-                                 f"{launches[name]} on wgmma")
-    for name in WINDOW_KERNELS:        # bf16 windows at D=1152: mma only
-        if by_route[name] != {"mma": launches[name], "simt": 0}:
-            raise AssertionError(f"{wl.policy}: {name} launches by route "
-                                 f"{by_route[name]}, expected all "
-                                 f"{launches[name]} on mma")
+                                 f"{launches[name]} on {which}")
     stats = eng.cache_stats()
     if (wl.policy == "fastcache" and runner.reducer is None
             and stats["block_cache_ratio"] != PARENT_BLOCK_CACHE_RATIO):
         raise AssertionError(f"block cache ratio {stats['block_cache_ratio']}"
                              f" != {PARENT_BLOCK_CACHE_RATIO}, the SIMT "
                              "route's")
+    if (wl.policy in PARENT_POLICY_STATS and
+            (stats["block_cache_ratio"], stats["steps_reused"])
+            != PARENT_POLICY_STATS[wl.policy]):
+        raise AssertionError(f"{wl.policy}: block cache ratio and steps "
+                             f"reused {stats['block_cache_ratio']}, "
+                             f"{stats['steps_reused']} != the parent's "
+                             f"{PARENT_POLICY_STATS[wl.policy]}")
     merge = {}
     if runner.reducer is not None:
         kept = stats["tokens_kept"] / (stats["tokens_kept"]
@@ -963,8 +1105,12 @@ def l2c_calibration(torch, dev, model, m):
                                                       hidden[i]).mean()
                               for i in range(runner.L)])
     mask = m.l2c_mask_from_deltas(deltas, L2C_SKIP).cpu()
+    skipped = mask.nonzero().flatten().tolist()
     emit({"phase": "l2c_calibration", "deltas": deltas.tolist(),
-          "skipped_layers": mask.nonzero().flatten().tolist()})
+          "skipped_layers": skipped})
+    if skipped != PARENT_L2C_SKIPPED:
+        raise AssertionError(f"l2c skips layers {skipped}, the parent "
+                             f"{PARENT_L2C_SKIPPED}")
     return mask
 
 
@@ -1164,7 +1310,10 @@ def main() -> int:
     from repro_torch.cuda_kernels.linear_blend import linear_blend
     from repro_torch.cuda_kernels.saliency_delta import saliency_delta
     from repro_torch.core.runner import l2c_mask_from_deltas
+    from repro_torch.core import saliency as core_saliency
     from repro_torch.core import token_merge as core_token_merge
+    from repro_torch.core.policies import base as core_policy_base
+    sal_mod = importlib.import_module("repro_torch.cuda_kernels.saliency_delta")
     knn_mod = importlib.import_module("repro_torch.cuda_kernels.knn_density")
     tm_mod = importlib.import_module("repro_torch.cuda_kernels.token_merge")
     from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
@@ -1200,7 +1349,7 @@ def main() -> int:
                         merge_assign=merge_assign,
                         unmerge_scatter=unmerge_scatter)
     merge_rows = phase_token_merge(torch, dev, k, build)
-    sal_row = phase_saliency_delta(torch, dev, ref, saliency_delta)
+    sal_row = phase_saliency_delta(torch, dev, ref, sal_mod, build)
     blend_row = phase_linear_blend(torch, dev, ref, linear_blend, build)
 
     m = SimpleNamespace(
@@ -1223,8 +1372,12 @@ def main() -> int:
           "params": sum(p.numel() for p in model.parameters()),
           "dtype": str(model.dtype), "init_s": time.perf_counter() - t0})
 
+    sal_modules = (core_saliency, core_policy_base)
     syncs_off = phase_syncs(torch, wl, model)
-    launches = phase_serve(torch, dev, wl, model, m)
+    sal_captured = []
+    with capture_saliency(sal_modules, sal_captured):
+        launches = phase_serve(torch, dev, wl, model, m)
+    phase_saliency_parity(torch, wl.policy, sal_captured, sal_mod)
     syncs_on = phase_syncs(torch, wl_merge, model, label="syncs_merge")
     if syncs_on != syncs_off:
         raise AssertionError(f"syncs per model step (counted, flagged in "
@@ -1247,8 +1400,13 @@ def main() -> int:
         wl_p = dataclasses.replace(wl, policy=p,
                                    policy_kwargs=policy_kwargs.get(p, {}))
         phase_syncs(torch, wl_p, model, label=f"syncs_{p}")
-        launches_policy[p] = phase_serve(torch, dev, wl_p, model, m,
-                                         label=f"serve_{p}")
+        sal_captured = []
+        with (capture_saliency(sal_modules, sal_captured)
+              if p == "teacache" else contextlib.nullcontext()):
+            launches_policy[p] = phase_serve(torch, dev, wl_p, model, m,
+                                             label=f"serve_{p}")
+        if p == "teacache":
+            phase_saliency_parity(torch, p, sal_captured, sal_mod)
     emit({"phase": "policies", "seconds": time.perf_counter() - t0})
     phase_quality(torch, dev, model, m, policy_kwargs)
 

@@ -12,23 +12,54 @@
 //
 // The reference's kernel takes one (N, D) pair; the port batches the samples.
 //
-// Design.  The Pallas grid (N/BN, D/BD) carries the two scalars across grid
-// steps in a resident output block, which relies on the TPU running the grid
-// in order.  CUDA blocks run in no order, so this is two launches on the
-// caller's stream, with no host sync between them and no float atomics (the
-// totals feed step-level cache gates, which must be the same on every run):
-//   1. row_sums: grid (ceil(N/8), B), one warp per token row.  Each lane sums
-//      a strided share of the row (16-byte loads where D and the pointers
-//      allow, else one element at a time), then a butterfly shuffle adds the
-//      lanes in a fixed order.  Writes sal and the row's sum of prev^2.
-//   2. sample_totals: grid B, one block per sample adds its N row values in a
-//      fixed order (strided per-thread sums, then a shared-memory tree).
+// Two routes (cuda_kernels/route.py:saliency_route), the same bits:
+//
+// - "onepass", f32 or bf16 rows of a multiple of 16 bytes at 16-byte aligned
+//   bases (every served call): one launch, grid (kGroups = 32, B), 256
+//   threads.  The totals' order is sample_totals' below: 256 strided
+//   per-thread sums ("slots": slot t adds rows t, t + 256, ... in order),
+//   then a tree over the slots whose levels add slot t and t + st for st =
+//   128, 64, ..., 1.  Block j takes the slots j, j + 32, ..., j + 224, so it
+//   owns the rows r = j (mod 32), and warp w of it the rows of slot j + 32 w,
+//   in order.  Each warp reduces its rows in row_sums' order (the lanes'
+//   strided 16-byte loads straight from global memory, the fmaf chain, the
+//   butterfly), writes sal and adds the row into its slot's sum; the tree's
+//   levels 128, 64 and 32 pair slots of one block, so the block ends them
+//   itself and publishes one partial per total.  Then an integer ticket per
+//   sample (an acq_rel atomic: the partial is released with it): the
+//   block that takes the last ticket adds the 32 partials in the tree's
+//   levels 16 ... 1 (one warp, shuffles) and resets the ticket.  No float
+//   atomics, one launch, no scratch beyond the 32 partials.  The kernel is
+//   launched with programmatic stream serialization: it starts while the
+//   kernel before it drains and waits (griddepcontrol.wait) before its
+//   first access to global memory.
+// - "simt", everything else (ragged rows, unaligned bases): two launches on
+//   the caller's stream, with no host sync between them:
+//   1. row_sums: grid (ceil(N/8), B), one warp per token row.  Each lane
+//      sums a strided share of the row (16-byte loads where D and the
+//      pointers allow, else one element at a time), then a butterfly
+//      shuffle adds the lanes in a fixed order.  Writes sal and the row's
+//      sum of prev^2 to a scratch tensor.
+//   2. sample_totals: grid B, one block per sample adds its N row values in
+//      a fixed order (strided per-thread sums, then a shared-memory tree).
+//
+// Neither uses float atomics: the totals feed step-level cache gates, which
+// must be the same on every run, and the two routes must agree bitwise (a
+// route is a function of alignment, so the same input could take either).
 // Any N and D: the ragged edges need no padding.
+//
+// The tickets are one array per device (kMaxBatch words, zero at load, each
+// left zero by the call that used it), so two onepass calls must not run on
+// one device at the same time on different streams; the port launches on
+// the current stream only.
 //
 // Bound at B=8, N=256, D=1152 in bf16 (fastcache at 4 serving slots): x and
 // prev are read once, 9.44 MB, ~2.8 us at the H100 SXM's 3.35 TB/s; the
 // outputs are 8 KB.  Three f32 operations per element pair, 7 MFLOP, is far
-// below the bytes.  So the kernel is bound by bytes.
+// below the bytes.  So the kernel is bound by bytes.  What the SIMT route
+// loses beyond its row pass is the second launch; the onepass route pays
+// instead for the ticket and the last block's read of 32 partials, and
+// hides part of its own launch behind the kernel before it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +69,11 @@ namespace {
 
 constexpr int kRowWarps = 8;
 constexpr int kTotalThreads = 256;
+constexpr int kGroups = 32;         // onepass blocks per sample
+constexpr int kSlotWarps = kTotalThreads / kGroups;  // slots (warps) a block
+constexpr int kMaxBatch = 65535;    // grid.y
+
+__device__ unsigned int g_tickets[kMaxBatch];
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -74,6 +110,33 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+// A row's two sums by one warp, 16-byte loads: lane l takes elements
+// l V + k 32 V + j, the fmaf chain over j inside k, then a butterfly.  Both
+// routes call it, so their sal and row sums are the same bits.
+template <typename T>
+__device__ __forceinline__ void row_sums_vec(const T* xr, const T* pr, int D,
+                                             int lane, float& d2, float& p2) {
+  constexpr int V = Vec16<T>::n;
+  d2 = 0.f;
+  p2 = 0.f;
+  for (int i = lane * V; i < D; i += 32 * V) {
+    float xv[V], pv[V];
+    Vec16<T>::load(xr + i, xv);
+    Vec16<T>::load(pr + i, pv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = __fsub_rn(xv[j], pv[j]);
+      d2 = fmaf(d, d, d2);
+      p2 = fmaf(pv[j], pv[j], p2);
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    d2 = __fadd_rn(d2, __shfl_xor_sync(0xffffffffu, d2, s));
+    p2 = __fadd_rn(p2, __shfl_xor_sync(0xffffffffu, p2, s));
+  }
+}
+
 template <typename T, bool kVector>
 __global__ void __launch_bounds__(kRowWarps * 32)
 row_sums(const T* __restrict__ x, const T* __restrict__ prev,
@@ -87,18 +150,7 @@ row_sums(const T* __restrict__ x, const T* __restrict__ prev,
   const T* pr = prev + row * D;
   float d2 = 0.f, p2 = 0.f;
   if constexpr (kVector) {
-    constexpr int V = Vec16<T>::n;
-    for (int i = lane * V; i < D; i += 32 * V) {
-      float xv[V], pv[V];
-      Vec16<T>::load(xr + i, xv);
-      Vec16<T>::load(pr + i, pv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float d = __fsub_rn(xv[j], pv[j]);
-        d2 = fmaf(d, d, d2);
-        p2 = fmaf(pv[j], pv[j], p2);
-      }
-    }
+    row_sums_vec(xr, pr, D, lane, d2, p2);
   } else {
     for (int i = lane; i < D; i += 32) {
       const float pv = to_f32(pr[i]);
@@ -106,11 +158,11 @@ row_sums(const T* __restrict__ x, const T* __restrict__ prev,
       d2 = fmaf(d, d, d2);
       p2 = fmaf(pv, pv, p2);
     }
-  }
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    d2 = __fadd_rn(d2, __shfl_xor_sync(0xffffffffu, d2, s));
-    p2 = __fadd_rn(p2, __shfl_xor_sync(0xffffffffu, p2, s));
+    for (int s = 16; s > 0; s >>= 1) {
+      d2 = __fadd_rn(d2, __shfl_xor_sync(0xffffffffu, d2, s));
+      p2 = __fadd_rn(p2, __shfl_xor_sync(0xffffffffu, p2, s));
+    }
   }
   if (lane == 0) {
     sal[row] = d2;
@@ -148,6 +200,76 @@ sample_totals(const float* __restrict__ sal, const float* __restrict__ row_prev,
   }
 }
 
+// The onepass route: grid (kGroups, B), kTotalThreads threads.  part
+// holds 2 * kGroups floats per sample: each block's partial of the two
+// totals.
+template <typename T>
+__global__ void __launch_bounds__(kTotalThreads)
+saliency_delta_onepass(const T* __restrict__ x, const T* __restrict__ prev,
+                       float* __restrict__ sal, float* __restrict__ diff,
+                       float* __restrict__ prevsq, float2* __restrict__ part,
+                       int N, int D) {
+  __shared__ float sa[kSlotWarps], sc[kSlotWarps];
+  __shared__ int last;
+  // the next kernel may launch now; this one reads and writes global memory
+  // only once the one before it has finished
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int j = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long sample = (long long)b * N;
+  // slot j + 32 warp: rows j + 32 (warp + 8 p), p = 0, 1, ... in order
+  float a = 0.f, c = 0.f;
+  for (long long r = j + kGroups * warp; r < N;
+       r += (long long)kGroups * kSlotWarps) {
+    float d2, p2;
+    row_sums_vec(x + (sample + r) * D, prev + (sample + r) * D, D, lane, d2,
+                 p2);
+    a = __fadd_rn(a, d2);
+    c = __fadd_rn(c, p2);
+    if (lane == 0) sal[sample + r] = d2;
+  }
+  if (lane == 0) {
+    sa[warp] = a;
+    sc[warp] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // the tree's levels 128, 64, 32: slot j + 32 k takes slot j + 32 (k + st
+    // / 32), both this block's
+#pragma unroll
+    for (int st = kSlotWarps / 2; st > 0; st >>= 1)
+#pragma unroll
+      for (int k = 0; k < st; ++k) {
+        sa[k] = __fadd_rn(sa[k], sa[k + st]);
+        sc[k] = __fadd_rn(sc[k], sc[k + st]);
+      }
+    part[(long long)b * kGroups + j] = make_float2(sa[0], sc[0]);
+    unsigned int old;  // releases the partial, acquires the others'
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(g_tickets + b)
+                 : "memory");
+    last = old == kGroups - 1;
+  }
+  __syncthreads();
+  if (last && warp == 0) {
+    // the tree's levels 16 ... 1 over the blocks' partials, slot order
+    const float2 v = __ldcg(part + (long long)b * kGroups + lane);
+    float d = v.x, p = v.y;
+#pragma unroll
+    for (int st = kGroups / 2; st > 0; st >>= 1) {
+      d = __fadd_rn(d, __shfl_down_sync(0xffffffffu, d, st));
+      p = __fadd_rn(p, __shfl_down_sync(0xffffffffu, p, st));
+    }
+    if (lane == 0) {
+      diff[b] = d;
+      prevsq[b] = p;
+      g_tickets[b] = 0;  // for the next call on this device
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* prev, void* sal, void* row_prev,
            void* diff, void* prevsq, int B, int N, int D,
@@ -171,11 +293,41 @@ int launch(const void* x, const void* prev, void* sal, void* row_prev,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_onepass(const void* x, const void* prev, void* sal, void* diff,
+                   void* prevsq, void* part, int B, int N, int D,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kGroups, B, 1);
+  cfg.blockDim = dim3(kTotalThreads, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, saliency_delta_onepass<T>, static_cast<const T*>(x),
+      static_cast<const T*>(prev), static_cast<float*>(sal),
+      static_cast<float*>(diff), static_cast<float*>(prevsq),
+      static_cast<float2*>(part), N, D);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+bool onepass_takes(const void* x, const void* prev, int B, int N, int D,
+                   int esize) {
+  return B >= 1 && B <= kMaxBatch && N >= 1 && D >= 1 &&
+         (long long)D * esize % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(prev) % 16 == 0;
+}
+
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16 (x and prev).  sal and row_prev are
-// (B, N) f32, diff and prevsq (B,) f32.  Returns cudaGetLastError() after the
-// launches (0 = success).
+// The SIMT route.  dtype_code: 0 = float32, 1 = bfloat16 (x and prev).  sal
+// and row_prev are (B, N) f32, diff and prevsq (B,) f32.  Returns
+// cudaGetLastError() after the launches (0 = success).
 extern "C" int saliency_delta_launch(const void* x, const void* prev,
                                      void* sal, void* row_prev, void* diff,
                                      void* prevsq, int B, int N, int D,
@@ -186,5 +338,38 @@ extern "C" int saliency_delta_launch(const void* x, const void* prev,
                                  D, s);
   if (dtype_code == 0)
     return launch<float>(x, prev, sal, row_prev, diff, prevsq, B, N, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The onepass route.  x, prev (B, N, D) at 16-byte aligned bases with D *
+// esize % 16 == 0, dtype_code 0 = float32, 1 = bfloat16; sal (B, N), diff
+// and prevsq (B,), part (B, 32, 2) f32 scratch.  Returns cudaGetLastError()
+// after the launch (0 = success).
+extern "C" int saliency_delta_onepass_launch(const void* x, const void* prev,
+                                             void* sal, void* diff,
+                                             void* prevsq, void* part, int B,
+                                             int N, int D, int dtype_code,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype_code == 1 && onepass_takes(x, prev, B, N, D, 2))
+    return launch_onepass<__nv_bfloat16>(x, prev, sal, diff, prevsq, part, B,
+                                         N, D, s);
+  if (dtype_code == 0 && onepass_takes(x, prev, B, N, D, 4))
+    return launch_onepass<float>(x, prev, sal, diff, prevsq, part, B, N, D,
+                                 s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many onepass blocks of dtype_code's instance one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *out.  Returns the
+// CUDA error (0 = success).
+extern "C" int saliency_delta_onepass_blocks_per_sm(int dtype_code,
+                                                    int* out) {
+  if (dtype_code == 1)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, saliency_delta_onepass<__nv_bfloat16>, kTotalThreads, 0);
+  if (dtype_code == 0)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, saliency_delta_onepass<float>, kTotalThreads, 0);
   return (int)cudaErrorInvalidValue;
 }

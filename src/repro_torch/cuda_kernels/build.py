@@ -4,8 +4,9 @@ use, and load them with ``ctypes``.
 Each ``csrc/<name>.cu`` exports ``extern "C"`` launchers and includes no
 PyTorch header, so ``nvcc`` builds it in seconds.  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of its
-source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is; the build's
+source, every other ``csrc/`` source (the shared headers, and a source
+another includes) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is; the build's
 nvcc/ptxas output is kept beside it.  Nothing here runs at import.
 """
 from __future__ import annotations
@@ -51,8 +52,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers
+    # every other source too: the headers, and any .cu a source includes
+    others = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cu*")))
+    digest = hashlib.sha256(src + others
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 

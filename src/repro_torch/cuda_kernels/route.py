@@ -23,6 +23,22 @@
 - ``"simt"``: the f32 FMA kernels, for everything else (f32 ``h``, ragged
   D, unaligned bases).
 
+``saliency_delta`` has two routes (``csrc/saliency_delta.cu``), by
+``saliency_route``:
+
+- ``"onepass"``: one launch of SAL_GROUPS blocks per sample, each reducing
+  its rows with 16-byte loads and a share of the totals' tree, the last
+  block of a sample (an integer ticket) adding the sample's partials.  The
+  16-byte loads need 16-byte aligned bases and rows of a multiple of 16
+  bytes (``onepass_takes``: f32 or bf16 with D * esize % 16 == 0 at
+  16-byte aligned bases).  Its warps walk ceil(N / 256) rows each, one
+  after another, so it is picked up to N = SAL_MAX_ONEPASS_ROWS (a row a
+  warp, the served calls); at N = 1024 the SIMT route's grid of a warp
+  per row was faster on the card (PERF.md §6).
+- ``"simt"``: the two-launch kernel, for everything else (longer N, ragged
+  rows, unaligned bases).  On every input the onepass kernel takes, the
+  two give the same bits.
+
 Each rule is a pure function of dtype, shape and alignment, so a call's
 route is known before it launches and the tests can check it on the CPU.
 A route that fails to build or launch raises; nothing falls back to the
@@ -30,20 +46,25 @@ other route or to the plain version.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, NamedTuple, Optional
 
 import torch
 
 WGMMA = "wgmma"
 SIMT = "simt"
 MMA = "mma"
+ONEPASS = "onepass"
 ROUTES = (WGMMA, SIMT)        # linear_blend, fused_gate
 WINDOW_ROUTES = (MMA, SIMT)   # knn_density, merge_assign
+SAL_ROUTES = (ONEPASS, SIMT)  # saliency_delta
 ALIGN = 16                    # bytes: TMA's and bulk copies' alignment
 MAX_WINDOW = 32               # tokens: the window kernels' kMaxW
 SMEM_LIMIT = 232_448          # bytes of shared memory a block may opt into
 WINDOW_EXTRA_BYTES = 34_320   # window_mma.cuh kExtraBytes: Gram partials,
                               # scratch, the mbarrier
+SAL_GROUPS = 32               # saliency_delta.cu kGroups: blocks per sample
+SAL_TOTAL_THREADS = 256       # ... kTotalThreads: the totals' slots
+SAL_MAX_ONEPASS_ROWS = 256    # the longest N the onepass route is picked for
 
 
 def gemm_route(dtype: torch.dtype, d: int, f: int,
@@ -77,6 +98,40 @@ def window_route(dtype: torch.dtype, w: int, d: int,
             and d % 8 == 0 and all(a % ALIGN == 0 for a in addresses)
             and window_smem_bytes(w, d) <= SMEM_LIMIT):
         return MMA
+    return SIMT
+
+
+class SaliencyPlan(NamedTuple):
+    """The onepass route's split of a sample's N rows: ``groups`` blocks,
+    block j owning the rows r = j (mod groups), at most ``block_rows`` of
+    them; each of its SAL_TOTAL_THREADS / groups warps takes the rows of
+    one slot of the totals (r = t (mod SAL_TOTAL_THREADS)), at most
+    ``warp_rows``, one after another."""
+    groups: int
+    block_rows: int
+    warp_rows: int
+
+
+def saliency_plan(n: int) -> SaliencyPlan:
+    return SaliencyPlan(SAL_GROUPS, -(-n // SAL_GROUPS),
+                        -(-n // SAL_TOTAL_THREADS))
+
+
+def onepass_takes(dtype: torch.dtype, n: int, d: int,
+                  addresses: Iterable[int]) -> bool:
+    """Whether the onepass kernel can run (B, N, D) inputs of ``dtype``
+    whose base addresses are ``addresses`` (x's and x_prev's)."""
+    esize = {torch.float32: 4, torch.bfloat16: 2}.get(dtype)
+    return (esize is not None and n > 0 and d > 0
+            and d * esize % ALIGN == 0
+            and all(a % ALIGN == 0 for a in addresses))
+
+
+def saliency_route(dtype: torch.dtype, n: int, d: int,
+                   addresses: Iterable[int]) -> str:
+    """The route of a call on such inputs."""
+    if n <= SAL_MAX_ONEPASS_ROWS and onepass_takes(dtype, n, d, addresses):
+        return ONEPASS
     return SIMT
 
 

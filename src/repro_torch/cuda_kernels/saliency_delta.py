@@ -1,30 +1,42 @@
-"""Wrapper of the ``saliency_delta`` CUDA kernel (``csrc/saliency_delta.cu``).
+"""Wrapper of the ``saliency_delta`` CUDA kernels (``csrc/saliency_delta.cu``).
 
 Replaces the reference's Pallas kernel ``repro/kernels/saliency_delta.py:
 saliency_delta``.  CPU tensors go to the plain version
-(``ref.saliency_delta``); CUDA tensors launch the kernel or raise — there is
-no fallback.  Each kernel launch adds one to ``saliency_delta.launches``.
+(``ref.saliency_delta``); CUDA tensors launch a kernel or raise — there is
+no fallback.  The kernel is the one of the route ``route.saliency_route``
+picks: ``"onepass"`` (one launch: the rows and each sample's totals, the
+last block of a sample adding the others' partials) or ``"simt"`` (two
+launches).  The two give the same bits.  Each call adds one to
+``saliency_delta.launches`` and to ``saliency_delta.launches_by_route[route]``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Tuple
 
 import torch
 
-from repro_torch.cuda_kernels import build, ref
+from repro_torch.cuda_kernels import build, ref, route
 
 F32 = torch.float32
-MAX_BATCH = 65535             # the row kernel's grid.y
+MAX_BATCH = 65535             # both kernels' grid.y
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "saliency_delta_launch": [_vp] * 6 + [_int] * 4 + [_vp],
+    "saliency_delta_onepass_launch": [_vp] * 6 + [_int] * 4 + [_vp],
+    "saliency_delta_onepass_blocks_per_sm": [_int, ctypes.POINTER(_int)]}
+_FNS = {}
 
 
-def _kernel():
-    fn = build.load_library("saliency_delta").lib.saliency_delta_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_vp] * 6 + [_int] * 4 + [_vp]
+def _kernel(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load_library("saliency_delta").lib, name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = _int
+        _FNS[name] = fn
     return fn
 
 
@@ -57,30 +69,95 @@ def saliency_delta(x: torch.Tensor, x_prev: torch.Tensor
     if x.device.type != "cuda":
         raise ValueError(f"saliency_delta runs on CPU or CUDA, not "
                          f"{x.device}")
-    batched = x.dim() == 3
-    xb, pb = (x, x_prev) if batched else (x[None], x_prev[None])
-    bsz, n, d = xb.shape
+    if x.dim() == 2:
+        x, x_prev = x[None], x_prev[None]
+        sal, diff, prevsq = _run(_route(x, x_prev), x, x_prev)
+        return sal[0], diff[0], prevsq[0]
+    return _run(_route(x, x_prev), x, x_prev)
+
+
+def _addresses(x: torch.Tensor, x_prev: torch.Tensor):
+    return x.data_ptr(), x_prev.data_ptr()
+
+
+def _route(x: torch.Tensor, x_prev: torch.Tensor) -> str:
+    _, n, d = x.shape
+    return route.saliency_route(x.dtype, n, d, _addresses(x, x_prev))
+
+
+def _launch(which: str, x: torch.Tensor, x_prev: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch route ``which`` on CUDA (B, N, D) tensors that passed
+    ``_check``, whichever route ``saliency_route`` would pick; raises if
+    the route's kernel does not take them."""
+    if which not in route.SAL_ROUTES:
+        raise ValueError(f"unknown route {which!r}")
+    _, n, d = x.shape
+    if which == route.ONEPASS and not route.onepass_takes(
+            x.dtype, n, d, _addresses(x, x_prev)):
+        raise ValueError(f"the onepass route does not take {x.dtype} "
+                         f"{tuple(x.shape)} at these addresses")
+    return _run(which, x, x_prev)
+
+
+def _run(which: str, x: torch.Tensor, x_prev: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    bsz, n, d = x.shape
     if bsz > MAX_BATCH:
-        raise ValueError(f"the saliency_delta kernel takes at most "
+        raise ValueError(f"the saliency_delta kernels take at most "
                          f"{MAX_BATCH} samples, got {bsz}")
+    onepass = which == route.ONEPASS
     dev = x.device
-    sal = torch.empty((bsz, n), dtype=F32, device=dev)
-    row_prev = torch.empty((bsz, n), dtype=F32, device=dev)
-    diff = torch.empty((bsz,), dtype=F32, device=dev)
-    prevsq = torch.empty((bsz,), dtype=F32, device=dev)
-    with torch.cuda.device(dev):
+    # one allocation: sal (B, N), diff (B,), prevsq (B,), then the scratch
+    # at an 8-byte aligned offset: the onepass route's (B, 32) float2 block
+    # partials or the SIMT route's (B, N) per-row sums of prev^2
+    rows = bsz * n
+    start = rows + 2 * bsz + (rows % 2)
+    buf = torch.empty(start + (2 * route.SAL_GROUPS * bsz if onepass
+                               else rows), dtype=F32, device=dev)
+    sal = buf[:rows].view(bsz, n)
+    diff = buf[rows:rows + bsz]
+    prevsq = buf[rows + bsz:rows + 2 * bsz]
+    out = [sal.data_ptr(), diff.data_ptr(), prevsq.data_ptr()]
+    scratch = buf[start:].data_ptr()
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(xb.data_ptr(), pb.data_ptr(), sal.data_ptr(),
-                        row_prev.data_ptr(), diff.data_ptr(),
-                        prevsq.data_ptr(), bsz, n, d, _DTYPE_CODE[x.dtype],
-                        stream)
+        if onepass:
+            err = _kernel("saliency_delta_onepass_launch")(
+                x.data_ptr(), x_prev.data_ptr(), *out, scratch, bsz, n, d,
+                _DTYPE_CODE[x.dtype], stream)
+        else:
+            err = _kernel("saliency_delta_launch")(
+                x.data_ptr(), x_prev.data_ptr(), out[0], scratch, *out[1:],
+                bsz, n, d, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"saliency_delta kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"saliency_delta kernel ({which}) launch failed: "
+                           f"CUDA error {err}")
     saliency_delta.launches += 1
-    if batched:
-        return sal, diff, prevsq
-    return sal[0], diff[0], prevsq[0]
+    saliency_delta.launches_by_route[which] += 1
+    return sal, diff, prevsq
+
+
+def _on(dev: torch.device):
+    """``torch.cuda.device(dev)``, or nothing when ``dev`` is already the
+    current device (the usual case: entering it costs host time)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def onepass_blocks_per_sm(dtype: torch.dtype) -> int:
+    """How many onepass blocks one SM of the current card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): a call of B
+    samples runs in one wave when SAL_GROUPS * B fits on the card's SMs."""
+    out = _int(0)
+    err = _kernel("saliency_delta_onepass_blocks_per_sm")(
+        _DTYPE_CODE[dtype], ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor "
+                           f"failed: CUDA error {err}")
+    return out.value
 
 
 saliency_delta.launches = 0
+saliency_delta.launches_by_route = dict.fromkeys(route.SAL_ROUTES, 0)

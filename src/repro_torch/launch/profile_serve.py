@@ -45,11 +45,13 @@ from repro_torch.serving.scheduler import RequestQueue
 # each DiT wrapper and the name fragments of the CUDA kernels it launches
 # (csrc/*.cu); each fragment matches both routes' kernels: gate_gemm /
 # gate_gemm_wgmma, linear_blend_kernel{,_wgmma}, knn_density_kernel{,_mma},
-# merge_assign_kernel{,_mma}
+# merge_assign_kernel{,_mma}; saliency_delta's SIMT route launches row_sums
+# and sample_totals, its onepass route saliency_delta_onepass
 KERNEL_NAMES = {
     "fused_gate": (fused_gate, ("gate_partials", "gate_gemm")),
     "linear_blend": (linear_blend, ("linear_blend_kernel",)),
-    "saliency_delta": (saliency_delta, ("row_sums", "sample_totals")),
+    "saliency_delta": (saliency_delta, ("row_sums", "sample_totals",
+                                        "saliency_delta_onepass")),
     "knn_density": (knn_density, ("knn_density_kernel",)),
     "merge_assign": (merge_assign, ("merge_assign_kernel",)),
     "unmerge_scatter": (unmerge_scatter, ("unmerge_scatter_kernel",)),

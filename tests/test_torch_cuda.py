@@ -13,6 +13,10 @@ Token merge: knn_density rtol/atol 1e-4 (f32 arithmetic on the same
 inputs); merge_assign's centers and assign exact, merged 1e-4 in f32 and
 5e-2 in bf16 (one bf16 rounding); unmerge_scatter bitwise.
 saliency_delta: rtol 1e-5 (f32 sums in another order), repeats bitwise.
+It has two routes (``route.saliency_route``): rows of a multiple of 16 bytes
+at 16-byte aligned bases take the onepass route (one launch), the rest the
+SIMT route (two); the onepass route reduces each row and each sample in the
+SIMT route's order, so wherever it takes an input the two agree bitwise.
 linear_blend: rtol/atol 1e-4 in f32 (the same products summed in another
 order over K up to 1152), 2e-2 in bf16 (one bf16 rounding of values up to
 ~4); repeats bitwise.
@@ -47,6 +51,7 @@ fg_mod = importlib.import_module("repro_torch.cuda_kernels.fused_gate")
 lb_mod = importlib.import_module("repro_torch.cuda_kernels.linear_blend")
 knn_mod = importlib.import_module("repro_torch.cuda_kernels.knn_density")
 tm_mod = importlib.import_module("repro_torch.cuda_kernels.token_merge")
+sal_mod = importlib.import_module("repro_torch.cuda_kernels.saliency_delta")
 BF16 = torch.bfloat16
 
 
@@ -730,6 +735,105 @@ def test_saliency_delta_raises_on_bad_cuda_input(cuda_device):
         saliency_delta(x, prev.cpu())
     with pytest.raises(ValueError, match="x_prev must match"):
         saliency_delta(x, prev[:, :4].contiguous())
+
+
+# the onepass route against the SIMT route: N below, at and above the 32
+# blocks of a sample and the 256 slots of its totals (N = 1000: four rows a
+# warp)
+SAL_ROUTE_NS = [1, 7, 128, 255, 256, 257, 1000]
+
+
+def _sal_route_counts():
+    return dict(saliency_delta.launches_by_route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 1152, 1160])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_saliency_routes_are_bitwise_equal(cuda_device, dtype, d, b):
+    """At every N (N = 1 and 7 leave blocks of a sample with no row; N >
+    256 gives a warp several rows), the onepass kernel's sal, diff and
+    prevsq are the SIMT route's bits and within rtol 1e-5 of the plain
+    version; the wrapper picks onepass up to N = 256 and SIMT beyond."""
+    for n in SAL_ROUTE_NS:
+        x, prev = _sal_pair(cuda_device, dtype, (b, n, d), seed=n)
+        before = _sal_route_counts()
+        got = saliency_delta(x, prev)
+        torch.cuda.synchronize(cuda_device)
+        which = "onepass" if n <= 256 else "simt"
+        after = dict(before, **{which: before[which] + 1})
+        assert saliency_delta.launches_by_route == after
+        onepass = sal_mod._launch("onepass", x, prev)
+        simt = sal_mod._launch("simt", x, prev)
+        for g, o, s in zip(got, onepass, simt):
+            assert torch.equal(o, s), (n, d, b)
+            assert torch.equal(g, s), (n, d, b)
+        for g, w in zip(onepass, ref.saliency_delta(x, prev)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_saliency_onepass_route_is_deterministic(cuda_device, dtype):
+    """Repeated calls, queued back to back (each may start while the one
+    before drains), give the same bits: the tickets are left at zero."""
+    x, prev = _sal_pair(cuda_device, dtype, (8, 1000, 1160))
+    first = sal_mod._launch("onepass", x, prev)
+    again = [sal_mod._launch("onepass", x, prev) for _ in range(20)]
+    for outs in again:
+        for a, b in zip(first, outs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_saliency_onepass_route_reads_what_the_kernel_before_wrote(
+        cuda_device):
+    """The kernel may start while the one before it drains: it must still
+    read that kernel's output and leave that kernel's inputs alone.  Each
+    call's x is written by a PyTorch kernel just before it, and each call's
+    outputs land in memory the caching allocator just freed."""
+    x, prev = _sal_pair(cuda_device, BF16, (8, 256, 1152))
+    want = sal_mod._launch("simt", x, prev)
+    for scale in (2.0, 3.0, 1.0):
+        xs = x * scale          # written by the kernel before the call
+        got = sal_mod._launch("onepass", xs, prev)
+        del xs
+        wanted = sal_mod._launch("simt", x * scale, prev)
+        for g, w in zip(got, wanted):
+            assert torch.equal(g, w)
+    for g, w in zip(sal_mod._launch("onepass", x, prev), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_saliency_wrapper_picks_the_route(cuda_device):
+    """Ragged rows (bf16 D = 100: 200 bytes) and unaligned bases go to
+    SIMT, f32 D = 100 (400 bytes) to onepass; a named onepass launch on
+    either SIMT input raises, as does an unknown route."""
+    before = _sal_route_counts()
+    x, prev = _sal_pair(cuda_device, BF16, (2, 5, 100))
+    saliency_delta(x, prev)
+    saliency_delta(x.float(), prev.float())
+    n, d = 256, 1152
+    flat = torch.randn((2, 2 * n * d + 1), device=cuda_device).to(BF16)
+    ux, up = (flat[i, 1:].view(2, n, d) for i in range(2))
+    saliency_delta(ux, up)
+    torch.cuda.synchronize(cuda_device)
+    assert saliency_delta.launches_by_route == {
+        "onepass": before["onepass"] + 1, "simt": before["simt"] + 2}
+    for a, b in ((x, prev), (ux, up)):
+        with pytest.raises(ValueError, match="onepass route does not take"):
+            sal_mod._launch("onepass", a, b)
+    with pytest.raises(ValueError, match="unknown route"):
+        sal_mod._launch("mma", x, prev)
+
+
+@pytest.mark.cuda
+def test_saliency_onepass_route_holds_the_serve_in_one_wave(cuda_device):
+    """The serve's 8 samples, 256 blocks, fit on the card at once."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert sal_mod.onepass_blocks_per_sm(BF16) * sms >= 8 * 32
 
 
 # (M, D, F): 4 slots x CFG x 256 tokens, merged, then ragged edges

@@ -318,6 +318,19 @@ def test_profile_serve_attributes_both_routes_and_raises_on_a_lost_kernel():
     assert got["saliency_delta"]["ms"] == 0.0
     with pytest.raises(RuntimeError, match="saliency_delta launched 1"):
         profile_serve.attribute(by_name, {"saliency_delta": 1})
+    # saliency_delta: the onepass route's one kernel and the SIMT route's two
+    by_name.update({
+        "void (anonymous namespace)::saliency_delta_onepass<__nv_bfloat16>"
+        "(...)": [3.5, 2],
+        "void (anonymous namespace)::row_sums<float, true>(...)": [5.0, 1],
+        "void (anonymous namespace)::sample_totals(...)": [1.5, 1]})
+    got = profile_serve.attribute(by_name, {"saliency_delta": 3})
+    assert got["saliency_delta"] == {"ms": 0.01, "kernel_calls": 4,
+                                     "launches": 3}
+    onepass_only = {k: v for k, v in by_name.items()
+                    if "row_sums" not in k and "sample_totals" not in k}
+    assert profile_serve.attribute(onepass_only, {"saliency_delta": 2})[
+        "saliency_delta"]["ms"] == 0.0035
     renamed = {k.replace("gate_", "g_"): v for k, v in by_name.items()}
     with pytest.raises(RuntimeError, match="fused_gate"):
         profile_serve.attribute(renamed, {"fused_gate": 2})
