@@ -20,7 +20,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               D=1152, bf16, blend on and off, half the samples gating, on
               the wgmma route (bf16 X against the bf16 copy of W): gate
               bits exact, diff/prevsq within rtol 1e-4, out within 2e-2,
-              repeated calls bitwise; library: torch.addmm of (B*C, D)x(D,
+              repeated calls bitwise; the same inputs on the SIMT route
+              (``gemm="simt"``, bf16 X against the f32 W, as fitted maps
+              are served) within 2e-2, gate bits exact, timed
+              (``simt_bf16_*``); library: torch.addmm of (B*C, D)x(D,
               D) in f32, the same in bf16 (X and the bf16 W: the kernel's
               operand precision), and in bf16 over the gated samples' rows
               only (the rows the kernel multiplies);
@@ -36,17 +39,22 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               (W,w,D)x(W,D,w) Gram in f32 (``library_ms``) and in bf16
               (``library_bf16_ms``, the mma route's operands) as yardsticks
               for the other two;
-            - saliency_delta at (8, 256, 1152) in bf16 and f32 and at
-              (8, 128, 1152) in bf16, each on the onepass route (one
-              launch) and the SIMT route (two): per-token output and
-              totals within rtol 1e-5, the two routes bitwise equal,
-              repeated calls bitwise; both routes also timed L2-cold
+            - saliency_delta at (8, 256, 1152) in bf16 and f32, at
+              (8, 128, 1152) in bf16, and at the observability slice's
+              call sites in bf16: the decode gate's (4, 1, 1024), the
+              audit's (232, 256, 1152) and the calibration recorder's
+              (112, 256, 1152), each on the onepass route (one launch,
+              the tickets read back at zero) and the SIMT route (two):
+              per-token output and totals within rtol 1e-5, the two routes
+              bitwise equal, repeated calls bitwise; both routes also
+              timed L2-cold
               (``*_cold_device_ms``: a 64 MiB write before each call); the
               onepass kernel's ptxas lines (no spills) and whether its
               blocks fit on the card at once; library: torch.sum(d*d, -1)
               on the f32 difference, a yardstick;
             - linear_blend at M=2048, D=F=1152, bf16 X/prev, f32 W/b, gamma
-              1 and 0.5, at M=1024 (these three on the wgmma route), and
+              1 and 0.5, at M=1024, and at the decode gate's M=4 and 1,
+              D=F=1024, gamma 1 (these five on the wgmma route), and
               ragged at M=D=F=1000 in f32 (the SIMT route): within 2e-2 in
               bf16 and 1e-4 in f32, repeated calls bitwise; library:
               torch.addmm in f32 with alpha=gamma, bias and blend folded
@@ -109,6 +117,38 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 9. quality  relative L2 of fastcache eps, of fastcache + merge eps, and of
             each baseline policy's eps against nocache eps (merge off) on
             the same inputs for 6 DDIM steps;
+9a. audit   syncs_audit: a warm-up with the audit plane at 1.0 (metrics
+            on, no collector) flags and counts the merge-off warm-up's
+            syncs per model step; the fastcache serve with a collector at
+            audit_fraction 1/32 and at 1.0: latents bitwise the main
+            serve's, ratio PARENT_BLOCK_CACHE_RATIO, saliency_delta once
+            more per audited step (all onepass); prints the eps error's
+            p50 / p95 (histogram and exact) and max, Eq. 9's bound, bound
+            violations, the per-layer mean error and the audited steps'
+            extra wall time; audit_nocache: nocache audited at 1.0 sums
+            exactly zero error;
+9b. metrics the same serve with a collector (windows every 25 engine
+            steps) and with the metrics plane off: ratio the parent's,
+            latents bitwise; the Prometheus text's lines, the JSONL
+            windows, the on / off wall times and the kernels and copies of
+            the per-step update (torch.profiler around it alone);
+9c. calibrate  record_calibration over 50 steps at batch 2 (50
+            saliency_delta launches, all onepass, no other kernel);
+            calibrate_dit on 4 batches of 8 latents (seed 0); the
+            fastcache serve with the fitted maps, maps handed in, whose
+            every fused_gate and linear_blend call names the SIMT route
+            (the f32 W; ratio printed), then the identity maps' serve for
+            the pair's wall times (calibrated_cost);
+            calibrated_parity: its first 4 calls of each held against the
+            plain version in f32 with the fitted W (gate bits exact,
+            totals at 1e-4, outputs within 2e-2 elementwise and in
+            rel-L2) and re-run on the wgmma route with a bf16 copy of the
+            map (its rel-L2 printed: why fitted maps are not copied);
+9d. serve_g1 / serve_nocfg  guidance 1.0 served with CFG rows and by the
+            cfg_rows=False engine: latents bitwise equal, fused_gate
+            launches exact;
+9e. trace   a traced 2-request serve whose document passes
+            validate_trace;
 10. kernel  flash_attention against its plain version at four shapes: (a)
             the LLM serve's prefill, B=1, H=16, KVH=8, S=512, dh=128,
             causal, window 1024, bf16; (b) S=2048, window 512 (tiles
@@ -132,11 +172,15 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             gate, each on a fresh engine after a warm-up, timed with sync
             debug off; every count zeroed just before each serve and read
             just after; flash_attention must have launched 28 times per
-            prefill and no other kernel at all; greedy-token agreement of
+            prefill, exact decoding no other kernel, the decode gate
+            exactly 28 saliency_delta (onepass) and 28 linear_blend
+            (wgmma) launches per decode step; greedy-token agreement of
             fastcache against exact;
 14. llm_prefill_parity  the last-position logits of one full-width
             512-token prefill through the kernel against the same prefill
-            with the plain version patched in: relative L2 below 2e-2.
+            with the plain version patched in: relative L2 below 2e-2;
+15. llm_sampled  the fastcache LLM serve with greedy=False: every request
+            finishes with in-vocabulary tokens.
 
 Then the total seconds, the kernels line (seven rows), the card's name and
 power limit, and as the last
@@ -148,12 +192,14 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import importlib
+import inspect
 import json
 import subprocess
 import sys
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -179,15 +225,20 @@ FLASH_SHAPES = {"a": (1, 16, 8, 512, 512, 128, True, 1024, "bfloat16"),
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 PREFILL_REL_L2 = 2e-2      # kernel vs plain full-width prefill logits
 # saliency_delta shapes (B, N, D, dtype): fastcache/teacache at 4 slots (the
-# CFG batch of 8 rows of 256 tokens), in bf16 and f32, and merged (128 kept)
+# CFG batch of 8 rows of 256 tokens), in bf16 and f32, and merged (128
+# kept); the decode gate's (batch 4 of one 1024-wide token), the audit's
+# per-layer stacks ((L+1) x 8 rows) and the calibration recorder's (L x 4)
 SAL_SHAPES = ((8, 256, 1152, "bfloat16"), (8, 256, 1152, "float32"),
-              (8, 128, 1152, "bfloat16"))
+              (8, 128, 1152, "bfloat16"), (4, 1, 1024, "bfloat16"),
+              (232, 256, 1152, "bfloat16"), (112, 256, 1152, "bfloat16"))
 # linear_blend shapes (M, D, F, dtype, gamma): 4 slots x CFG x 256 tokens at
 # the callers' gamma 1 and the reference's default 0.5, merged, and ragged
 BLEND_SHAPES = ((2048, 1152, 1152, "bfloat16", 1.0),
                 (2048, 1152, 1152, "bfloat16", 0.5),
                 (1024, 1152, 1152, "bfloat16", 1.0),
-                (1000, 1000, 1000, "float32", 0.5))
+                (1000, 1000, 1000, "float32", 0.5),
+                (4, 1024, 1024, "bfloat16", 1.0),     # the decode gate's
+                (1, 1024, 1024, "bfloat16", 1.0))
 BLEND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the merge-off fastcache serve's block cache ratio with fused_gate and
 # linear_blend on the SIMT route (parent commit, NVIDIA H100 80GB HBM3): the
@@ -205,6 +256,10 @@ ROUTE_OF_SERVE = {"fused_gate": "wgmma", "linear_blend": "wgmma",
                   "knn_density": "mma", "merge_assign": "mma",
                   "saliency_delta": "onepass"}     # every served launch's
 PARITY_CALLS = 4           # served calls whose inputs both routes re-run
+# the fitted serve's outputs against the plain version in f32, rel-L2: bf16
+# outputs' tolerance (a bf16 copy of the fitted maps missed it, so they are
+# served without one, on the SIMT route)
+CALIBRATED_REL_L2 = 2e-2
 FLUSH_BYTES = 64 << 20     # the buffer written to push inputs out of L2
 # the six baseline policies served at full width, and l2c's layer count
 BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
@@ -348,10 +403,25 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
         err = float((got[0].float() - want[0].float()).abs().max())
         worst = max(worst, err)
         gates[use_blend] = got[1]
+        # the SIMT route on the same bf16 inputs with the f32 W, named as
+        # the runners name it for fitted maps
+        simt_before = fused_gate.launches_by_route["simt"]
+        simt = fused_gate(*args, **kw, gemm="simt")
+        torch.cuda.synchronize()
+        if fused_gate.launches_by_route["simt"] != simt_before + 1:
+            raise AssertionError("gemm='simt' did not take the SIMT route")
+        if not torch.equal(simt[1], want[1]):
+            raise AssertionError("SIMT route, bf16 X: gate bits differ")
+        torch.testing.assert_close(simt[0].float(), want[0].float(),
+                                   rtol=2e-2, atol=2e-2)
         out[use_blend] = {
             **timed(torch, "kernel",
                     lambda: fused_gate(*args, **kw, w_bf16=w_bf16)),
-            **timed(torch, "plain", lambda: ref.fused_gate(*args, **kw))}
+            **timed(torch, "plain", lambda: ref.fused_gate(*args, **kw)),
+            **timed(torch, "simt_bf16",
+                    lambda: fused_gate(*args, **kw, gemm="simt")),
+            "simt_bf16_max_abs_err": float(
+                (simt[0].float() - want[0].float()).abs().max())}
         emit({"phase": "kernel", "name": "fused_gate", "shape": [b, c, d],
               "dtype": "bfloat16", "use_blend": use_blend,
               "gemm_route": "wgmma", "gated": int(got[1].sum()),
@@ -686,6 +756,9 @@ def phase_saliency_delta(torch, dev, ref, sal_mod, build):
         if saliency_delta.launches_by_route["onepass"] != before["onepass"] + 1:
             raise AssertionError(f"saliency_delta {dt} {(b, n, d)} did not "
                                  f"take the onepass route")
+        if sal_mod.tickets(b) != [0] * b:
+            raise AssertionError(f"saliency_delta {(b, n, d)}: tickets not "
+                                 f"left at zero")
         want = ref.saliency_delta(x, prev)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
@@ -921,7 +994,9 @@ def expected_launches(wl, runner, eng, names):
     if wl.policy == "fastcache":
         kinds = runner.impl.step_kinds
         gated = kinds["warm"] + kinds["mixed"]
-        want.update(fused_gate=runner.L * gated, saliency_delta=gated,
+        want.update(fused_gate=runner.L * gated,
+                    saliency_delta=gated + audited_layer_steps(wl, runner,
+                                                              eng),
                     linear_blend=gated)
         if runner.reducer is not None:
             want.update(knn_density=steps, merge_assign=steps,
@@ -933,6 +1008,15 @@ def expected_launches(wl, runner, eng, names):
     return want
 
 
+def audited_layer_steps(wl, runner, eng) -> int:
+    """Model steps on which the audit plane measured per-layer error (one
+    saliency_delta launch each): the audited steps of a policy that keeps
+    its hidden stack (fastcache without token merging)."""
+    if wl.policy != "fastcache" or runner.reducer is not None:
+        return 0
+    return eng.audited_steps
+
+
 def zero_counts(kernels) -> None:
     """Every wrapper's launch count, and the per-route ones, to 0."""
     for fn in kernels.values():
@@ -941,10 +1025,16 @@ def zero_counts(kernels) -> None:
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
-def phase_serve(torch, dev, wl, model, m, label="serve"):
-    """Serve ``wl`` on a fresh engine, timed; every kernel's launch count is
-    zeroed just before and read just after.  Returns the counts by name."""
-    runner, eng = wl.build_engine(model)
+def phase_serve(torch, dev, wl, model, m, label="serve", engine_kwargs=None,
+                parent_ratio=True, extra=None, routes=None):
+    """Serve ``wl`` on a fresh engine (built with ``engine_kwargs``: a
+    collector, a tracer, ``fc_params``, the metrics plane off), timed;
+    every kernel's launch count is zeroed just before and read just after.
+    ``parent_ratio``: hold a merge-off fastcache serve's ratio to
+    PARENT_BLOCK_CACHE_RATIO; ``routes`` overrides ROUTE_OF_SERVE's routes
+    by name.  Returns the counts by name, the finished requests, the wall
+    seconds, the runner and the engine."""
+    runner, eng = wl.build_engine(model, **(engine_kwargs or {}))
     trace = wl.build_trace(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -971,13 +1061,15 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
                              "steps)")
     if wl.policy == "fastcache" and launches["fused_gate"] <= 0:
         raise AssertionError("fused_gate never launched: no gated step")
-    for name, which in ROUTE_OF_SERVE.items():  # bf16 at D=1152: one route
-        if by_route[name] != {which: launches[name], "simt": 0}:
+    for name, which in {**ROUTE_OF_SERVE, **(routes or {})}.items():
+        # bf16 at D=1152: one route per kernel
+        if by_route[name] != {**dict.fromkeys(by_route[name], 0),
+                              which: launches[name]}:
             raise AssertionError(f"{wl.policy}: {name} launches by route "
                                  f"{by_route[name]}, expected all "
                                  f"{launches[name]} on {which}")
     stats = eng.cache_stats()
-    if (wl.policy == "fastcache" and runner.reducer is None
+    if (parent_ratio and wl.policy == "fastcache" and runner.reducer is None
             and stats["block_cache_ratio"] != PARENT_BLOCK_CACHE_RATIO):
         raise AssertionError(f"block cache ratio {stats['block_cache_ratio']}"
                              f" != {PARENT_BLOCK_CACHE_RATIO}, the SIMT "
@@ -1014,8 +1106,11 @@ def phase_serve(torch, dev, wl, model, m, label="serve"):
           "engine_host_syncs": eng.host_syncs,
           "host_syncs_per_model_step": (runner.impl.host_syncs
                                         + eng.host_syncs) / eng.model_steps,
+          "audit_fraction": wl.audit_fraction, "cfg_rows": wl.cfg_rows,
+          "metrics_plane": bool(eng.metrics), **(extra or {}),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)})
-    return launches
+    return SimpleNamespace(launches=launches, done=done, wall=wall,
+                           runner=runner, eng=eng, stats=stats)
 
 
 def phase_static(torch, dev, model, m):
@@ -1248,15 +1343,31 @@ def phase_llm_serve(torch, dev, wl, model, m, serve):
     vocab = model.cfg.vocab_size
     if any(not 0 <= t < vocab for r in done for t in r.generated):
         raise AssertionError("a generated token lies outside the vocab")
-    want = model.cfg.num_layers * eng.prefills
-    if eng.prefills != wl.requests or launches["flash_attention"] != want:
-        raise AssertionError(f"flash_attention launches "
-                             f"{launches['flash_attention']} != "
-                             f"{model.cfg.num_layers} x {eng.prefills} "
-                             "prefills")
-    if any(n for name, n in launches.items() if name != "flash_attention"):
-        raise AssertionError(f"other kernels ran on the LLM path: {launches}")
+    n_layers = model.cfg.num_layers
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = n_layers * eng.prefills
+    by_route = {}
+    if wl.fastcache:
+        # the decode gate: saliency_delta on the (B, 1, D) rows and
+        # linear_blend at gamma 1, once per layer per decode step
+        want["saliency_delta"] = want["linear_blend"] = (
+            n_layers * eng.decode_steps)
+        by_route = {name: dict(m.kernels[name].launches_by_route)
+                    for name in ("saliency_delta", "linear_blend")}
+        if by_route != {
+                "saliency_delta": {"onepass": want["saliency_delta"],
+                                   "simt": 0},
+                "linear_blend": {"wgmma": want["linear_blend"], "simt": 0}}:
+            raise AssertionError(f"decode gate launches by route {by_route}")
+    if eng.prefills != wl.requests or launches != want:
+        raise AssertionError(f"LLM launches {launches} != {want} "
+                             f"({eng.prefills} prefills, "
+                             f"{eng.decode_steps} decode steps)")
     emit({"phase": "llm_serve", **summary, "launches": launches,
+          "launches_by_route": by_route,
+          "launches_per_decode_step": {
+              k: v / eng.decode_steps for k, v in launches.items()
+              if k != "flash_attention"},
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)})
     return launches, done
 
@@ -1288,13 +1399,404 @@ def phase_llm_prefill_parity(torch, dev, wl, model, attention, ref):
         raise AssertionError("prefill cache positions differ")
 
 
+@contextlib.contextmanager
+def capture_audit(obs_audit, sink):
+    """Record, on the card, each audited step's end-to-end error rows and
+    its active mask as the audit plane computes them (``rel_err_rows`` is
+    called once per audited step), into ``sink`` as (err, active) pairs."""
+    orig_apply, orig_rel = obs_audit.apply_audit, obs_audit.rel_err_rows
+    signature = inspect.signature(orig_apply)
+    active_box = []
+
+    def apply(*args, **kw):
+        bound = signature.bind(*args, **kw).arguments
+        if bound["audit_flag"]:
+            active_box.append(bound["active"].clone())
+        return orig_apply(*args, **kw)
+
+    def rel(a, b, *args, **kw):
+        out = orig_rel(a, b, *args, **kw)
+        sink.append((out.clone(), active_box[-1]))
+        return out
+
+    obs_audit.apply_audit, obs_audit.rel_err_rows = apply, rel
+    try:
+        yield
+    finally:
+        obs_audit.apply_audit, obs_audit.rel_err_rows = orig_apply, orig_rel
+
+
+def same_latents(done, base) -> bool:
+    by_rid = {r.rid: r.latents for r in base}
+    return all(np.array_equal(r.latents, by_rid[r.rid]) for r in done)
+
+
+def phase_audit(torch, dev, wl, model, m, base, syncs_off):
+    """The fastcache serve with a collector and the audit plane at 1/32
+    (the reference's default) and at 1.0: latents bitwise the audit-off
+    serve's (``base``), one saliency_delta launch more per audited step
+    (all on onepass, checked by phase_serve), the served ratio the
+    parent's; syncs per model step of an audited warm-up (audit 1.0, no
+    collector: nothing harvested) those of the audit-off warm-up; nocache
+    audited exactly zero.  Prints the error's p50 / p95 (histogram) and
+    max (exact), Eq. 9's bound, the per-layer mean error and the audited
+    steps' extra wall time.  Returns the audited serves' launches."""
+    wl_full = dataclasses.replace(wl, audit_fraction=1.0)
+    syncs = phase_syncs(torch, wl_full, model, label="syncs_audit")
+    if syncs != syncs_off:
+        raise AssertionError(f"syncs per model step (counted, flagged in "
+                             f"the port) {syncs} with the audit plane on, "
+                             f"{syncs_off} off")
+    out = {}
+    for frac in (m.DEFAULT_AUDIT_FRACTION, 1.0):
+        wl_a = dataclasses.replace(wl, audit_fraction=frac)
+        col = m.MetricsCollector(labels={"policy": wl.policy})
+        errs = []
+        with capture_audit(m.obs_audit, errs):
+            res = phase_serve(torch, dev, wl_a, model, m,
+                              label=f"serve_audit_{frac:g}",
+                              engine_kwargs={"collector": col})
+        eng, runner = res.eng, res.runner
+        w = col.windows[-1]
+        c = w["counters"]
+        if not same_latents(res.done, base.done):
+            raise AssertionError(f"audit {frac}: latents differ from the "
+                                 "audit-off serve's")
+        if c[m.obs_metrics.AUDIT_STEPS] != eng.audited_steps or not (
+                eng.audited_steps > 0):
+            raise AssertionError(f"audit {frac}: {c} against "
+                                 f"{eng.audited_steps} audited steps")
+        rows = torch.cat([e[a] for e, a in errs]).float().cpu().numpy()
+        if len(rows) != c[m.obs_metrics.AUDIT_SLOT_STEPS] or not \
+                np.isfinite(rows).all():
+            raise AssertionError(f"audit {frac}: {len(rows)} error rows, "
+                                 f"counter {c}")
+        bound = runner.audit_bound()
+        extra_s = res.wall - base.wall
+        emit({"phase": "audit", "audit_fraction": frac,
+              "model_steps": eng.model_steps,
+              "audited_steps": eng.audited_steps,
+              "audited_slot_steps": c[m.obs_metrics.AUDIT_SLOT_STEPS],
+              "bound_violations": c[m.obs_metrics.BOUND_VIOLATIONS],
+              "eq9_bound": bound,
+              "audit_rel_err_p50_hist": col.quantile(
+                  m.obs_metrics.AUDIT_REL_ERR, 0.5),
+              "audit_rel_err_p95_hist": col.quantile(
+                  m.obs_metrics.AUDIT_REL_ERR, 0.95),
+              "audit_rel_err_p50": float(np.percentile(rows, 50)),
+              "audit_rel_err_p95": float(np.percentile(rows, 95)),
+              "audit_rel_err_max": float(rows.max()),
+              "layer_err_mean": w["audit"]["layer_err_mean"],
+              "burn_rate_window": w["audit"].get("burn_rate_window"),
+              "wall_s": res.wall, "audit_off_wall_s": base.wall,
+              "extra_wall_s_per_audited_step":
+                  extra_s / eng.audited_steps,
+              "latents_bitwise_audit_off": True})
+        out[frac] = res.launches
+    # nocache computes the true forward: its audit measures exactly zero
+    wl_nc = dataclasses.replace(wl, policy="nocache", audit_fraction=1.0,
+                                requests=2, steps=10)
+    col = m.MetricsCollector()
+    res = phase_serve(torch, dev, wl_nc, model, m, label="serve_audit_nocache",
+                      engine_kwargs={"collector": col})
+    h = col.windows[-1]["histograms"][m.obs_metrics.AUDIT_REL_ERR]
+    emit({"phase": "audit_nocache", "audited_slot_steps": h["count"],
+          "audit_rel_err_sum": h["sum"]})
+    if not (h["count"] > 0 and h["sum"] == 0.0):
+        raise AssertionError(f"nocache audit: {h}")
+    return out
+
+
+def phase_metrics(torch, dev, wl, model, m, base):
+    """The merge-off fastcache serve with a collector (windows every 25
+    engine steps) and with the metrics plane off: both ratios the
+    parent's, latents bitwise the plane-on serve's; the Prometheus text's
+    lines, the JSONL windows, one on / off pair of wall times, and the
+    launches of the per-step update alone (torch.profiler around it)."""
+    col = m.MetricsCollector(labels={"policy": wl.policy}, window_steps=25)
+    res = phase_serve(torch, dev, wl, model, m, label="serve_metrics",
+                      engine_kwargs={"collector": col})
+    off = phase_serve(torch, dev, wl, model, m, label="serve_metrics_off",
+                      engine_kwargs={"enable_metrics": False})
+    if not (same_latents(res.done, base.done)
+            and same_latents(off.done, base.done)):
+        raise AssertionError("metrics plane on / off: latents differ")
+    text = col.to_prometheus()
+    parsed = m.parse_prometheus(text)
+    totals = col.totals()
+    if totals[m.obs_metrics.SERVE_STEPS] != res.eng.model_steps:
+        raise AssertionError(f"serve_steps_total {totals} against "
+                             f"{res.eng.model_steps} model steps")
+    # the per-step update alone, with a step's real inputs
+    eng = res.eng
+    active = np.ones((eng.S,), bool)
+    k = len(eng._acc_keys)
+    dsum = torch.ones((k,), device=dev)
+    dfold = torch.ones((k, eng.S), device=dev)
+    eng._update_metrics(active, dsum, dfold)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    calls = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            eng._update_metrics(active, dsum, dfold)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(1 for e in events if "emcpy" not in e.name)
+    copies = len(events) - kernels
+    emit({"phase": "metrics", "block_cache_ratio_plane_on":
+              res.stats["block_cache_ratio"],
+          "block_cache_ratio_plane_off": off.stats["block_cache_ratio"],
+          "prometheus_lines": len(text.splitlines()),
+          "prometheus_metrics": len(parsed),
+          "jsonl_windows": len(col.to_jsonl().splitlines()),
+          "serve_steps_total": totals[m.obs_metrics.SERVE_STEPS],
+          "wall_s_plane_on": res.wall, "wall_s_plane_off": off.wall,
+          "update_kernels_per_step": kernels / calls,
+          "update_copies_per_step": copies / calls,
+          "update_kernel_names": sorted({e.name[:60] for e in events})})
+    return res.launches
+
+
+@contextlib.contextmanager
+def capture_gemms(fc_mod, sink, skip: int):
+    """Record the inputs and outputs of the fused_gate and linear_blend
+    calls fastcache makes, after the first ``skip`` fused_gate calls (the
+    first gated step's, where no tracker is initialized yet), the first
+    PARITY_CALLS of each (copies on the card), into ``sink``."""
+    orig = {"fused_gate": fc_mod.fused_gate,
+            "linear_blend": fc_mod.linear_blend}
+    seen = {"fused_gate": 0, "linear_blend": 0}
+
+    def recorder(name, fn):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            seen[name] += 1
+            first = skip if name == "fused_gate" else 1
+            if first <= seen[name] < first + PARITY_CALLS:
+                outs = out if isinstance(out, tuple) else (out,)
+                sink[name].append((
+                    [a.clone() if hasattr(a, "clone") else a for a in args],
+                    dict(kw), [o.clone() for o in outs]))
+            return out
+        return rec
+
+    for name, fn in orig.items():
+        setattr(fc_mod, name, recorder(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(fc_mod, name, fn)
+
+
+def rel_l2(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def phase_calibrated_parity(torch, captured, fg_mod, lb_mod, ref):
+    """The fitted serve's first fused_gate and linear_blend calls (bf16 X,
+    the fitted f32 maps, served on the SIMT route the runner names for maps
+    handed in) held against the plain version computed in f32 with the
+    same maps: gate bits exact, the totals at 1e-4, the outputs at the
+    kernel phase's bf16 tolerance elementwise (BLEND_TOL) and within
+    CALIBRATED_REL_L2 rel-L2.  Beside it, a finding: what the wgmma route
+    gives with a bf16 copy of each map (rel-L2 against the plain version),
+    as served and with every sample forced to gate (eligible all,
+    threshold infinite: the approximation alone), the reason the runners
+    serve fitted maps on SIMT."""
+    tol = BLEND_TOL["bfloat16"]
+    served, worst = [], 0.0
+    bf16_gate, bf16_forced, bf16_blend = [], [], []
+
+    def hold(got, want):
+        nonlocal worst
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        served.append(rel_l2(torch, got, want))
+
+    for args, kw, outs in captured["fused_gate"]:
+        x, prev_in, prev_out, w, b, sigma2, eligible = args
+        if kw.get("gemm") != "simt" or kw.get("w_bf16") is not None:
+            raise AssertionError("a fitted map was not served on the named "
+                                 "SIMT route")
+        gkw = dict(threshold=kw["threshold"], gamma=kw["gamma"],
+                   use_blend=kw["use_blend"])
+        want = ref.fused_gate(*args, **gkw)
+        if not torch.equal(outs[1], want[1]):
+            raise AssertionError("calibrated fused_gate: gate bits differ "
+                                 "from the plain version's")
+        torch.testing.assert_close(outs[2], want[2], rtol=1e-4, atol=0)
+        torch.testing.assert_close(outs[3], want[3], rtol=1e-4, atol=0)
+        hold(outs[0], want[0])
+        copy = w.to(torch.bfloat16)
+        tc = fg_mod._launch("wgmma", *args, gkw["threshold"], gkw["gamma"],
+                            gkw["use_blend"], copy)
+        bf16_gate.append(rel_l2(torch, tc[0], want[0]))
+        forced = (x, prev_in, prev_out, w, b, sigma2,
+                  torch.ones_like(eligible))
+        fkw = dict(gkw, threshold=float("inf"))
+        tc = fg_mod._launch("wgmma", *forced, fkw["threshold"], fkw["gamma"],
+                            fkw["use_blend"], copy)
+        if not bool(tc[1].all()):
+            raise AssertionError("forced gate did not gate every sample")
+        bf16_forced.append(rel_l2(torch, tc[0],
+                                  ref.fused_gate(*forced, **fkw)[0]))
+    for args, kw, outs in captured["linear_blend"]:
+        x, w, b, prev = args
+        if kw.get("gemm") != "simt" or kw.get("w_bf16") is not None:
+            raise AssertionError("a fitted map was not served on the named "
+                                 "SIMT route")
+        want = ref.linear_blend(x, w, b, prev, kw["gamma"])
+        hold(outs[0], want)
+        tc = lb_mod._launch("wgmma", x, w, b, prev, kw["gamma"],
+                            w.to(torch.bfloat16))
+        bf16_blend.append(rel_l2(torch, tc, want))
+    emit({"phase": "calibrated_parity", "calls": PARITY_CALLS,
+          "against": "ref.fused_gate / ref.linear_blend in f32, fitted W",
+          "served_rel_l2": served, "served_max_abs_err": worst,
+          "tol": tol, "bound": CALIBRATED_REL_L2, "gate_bits_exact": True,
+          "bf16_copy_fused_gate_rel_l2": bf16_gate,
+          "bf16_copy_fused_gate_rel_l2_forced_gating": bf16_forced,
+          "bf16_copy_linear_blend_rel_l2": bf16_blend})
+    if not max(served) <= CALIBRATED_REL_L2:
+        raise AssertionError(f"calibrated serve: rel-L2 {max(served)} > "
+                             f"{CALIBRATED_REL_L2}")
+
+
+def phase_calibrate(torch, dev, wl, model, m, fg_mod, lb_mod, ref):
+    """record_calibration over 50 steps at batch 2 (one saliency_delta
+    launch per step, all on onepass, no other kernel); calibrate_dit on 4
+    batches of 8 latents (seed 0); a fastcache serve with the fitted maps
+    (its cache ratio printed, not held to the parent's), whose first
+    served fused_gate / linear_blend calls phase_calibrated_parity re-runs.
+    Returns (recorder launches, calibrated serve launches)."""
+    runner = m.CachedDiT(model, m.FastCacheConfig(), policy="nocache")
+    torch.cuda.synchronize()
+    zero_counts(m.kernels)
+    t0 = time.perf_counter()
+    rec = m.record_calibration(runner, batch=2, num_steps=50,
+                               guidance_scale=wl.guidance, seed=0)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    rec_launches = {name: fn.launches for name, fn in m.kernels.items()}
+    by_route = dict(m.kernels["saliency_delta"].launches_by_route)
+    want = dict.fromkeys(rec_launches, 0)
+    want["saliency_delta"] = 50
+    if rec_launches != want or by_route != {"onepass": 50, "simt": 0}:
+        raise AssertionError(f"recorder launches {rec_launches}, "
+                             f"{by_route}")
+    em = rec["errors_mean"]
+    if em.shape != (runner.L, 50) or not np.isfinite(em).all():
+        raise AssertionError(f"errors_mean {em.shape}")
+    emit({"phase": "calibrate_record", "steps": 50, "batch": 2,
+          "rows": int(rec["batch"]), "seconds": rec_s,
+          "launches": rec_launches, "launches_by_route": by_route,
+          "errors_mean_per_step": [float(v) for v in em.mean(axis=0)]})
+    batches = m.fit_batches(model, n=4, batch=8, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fitted = m.calibrate_dit(model, batches)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(v).all()) for v in fitted.values()):
+        raise AssertionError("calibrate_dit: non-finite maps")
+    rows = 4 * 8 * model.num_tokens
+    d = model.cfg.d_model
+    eye = torch.eye(d, device=dev)
+    emit({"phase": "calibrate_fit", "batches": 4, "batch": 8,
+          "pair_rows_per_map": rows,
+          "pair_bytes_f32": 2 * (model.cfg.num_layers + 1) * rows * d * 4,
+          "seconds": fit_s,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+          "w_l_rel_dist_from_identity": [
+              float((w - eye).norm() / eye.norm()) for w in fitted["W_l"]],
+          "w_c_rel_dist_from_identity":
+              float((fitted["W_c"] - eye).norm() / eye.norm())})
+    captured = {"fused_gate": [], "linear_blend": []}
+    # maps handed in: no bf16 copy, every call names the SIMT route
+    with capture_gemms(m.fastcache_mod, captured, skip=model.cfg.num_layers):
+        res = phase_serve(torch, dev, wl, model, m, label="serve_calibrated",
+                          engine_kwargs={"fc_params": fitted},
+                          parent_ratio=False,
+                          routes={"fused_gate": "simt",
+                                  "linear_blend": "simt"})
+    phase_calibrated_parity(torch, captured, fg_mod, lb_mod, ref)
+    # the identity maps' serve right after, for the pair's wall times
+    ident = phase_serve(torch, dev, wl, model, m, label="serve_identity")
+    emit({"phase": "calibrated_cost", "calibrated_wall_s": res.wall,
+          "identity_wall_s": ident.wall,
+          "calibrated_fused_gate_route": "simt",
+          "identity_fused_gate_route": "wgmma"})
+    return rec_launches, res.launches
+
+
+def phase_serve_nocfg(torch, dev, wl, model, m):
+    """guidance 1.0 served by the default engine (CFG rows, per-sample
+    1.0) and by the cfg_rows=False engine (half the model batch): latents
+    bitwise equal, fused_gate launches exact on both (phase_serve).
+    Returns the fast path's launches."""
+    wl_g1 = dataclasses.replace(wl, guidance=1.0)
+    full = phase_serve(torch, dev, wl_g1, model, m, label="serve_g1",
+                       parent_ratio=False)
+    fast = phase_serve(torch, dev, dataclasses.replace(wl_g1, cfg_rows=False),
+                       model, m, label="serve_nocfg", parent_ratio=False)
+    bitwise = same_latents(fast.done, full.done)
+    emit({"phase": "nocfg_parity", "latents_bitwise": bitwise,
+          "max_abs_diff": max(float(np.abs(a.latents - b.latents).max())
+                              for a, b in zip(
+                                  sorted(fast.done, key=lambda r: r.rid),
+                                  sorted(full.done, key=lambda r: r.rid))),
+          "fused_gate_launches": [fast.launches["fused_gate"],
+                                  full.launches["fused_gate"]],
+          "wall_s": [fast.wall, full.wall]})
+    if not bitwise:
+        raise AssertionError("cfg_rows=False latents differ from the "
+                             "default engine's at guidance 1.0")
+    return fast.launches
+
+
+def phase_trace(torch, dev, wl, model, m):
+    """A short traced serve (2 requests, 10 steps): the Chrome trace
+    document passes validate_trace and carries every request's spans."""
+    wl_t = dataclasses.replace(wl, requests=2, steps=10)
+    tracer = m.TraceRecorder()
+    runner, eng = wl_t.build_engine(model, tracer=tracer)
+    done = eng.run(wl_t.build_trace(model))
+    doc = tracer.to_json()
+    m.validate_trace(doc)
+    names = [e["name"] for e in doc["traceEvents"]]
+    emit({"phase": "trace", "events": len(names),
+          "requests": len(done), "serve_steps": names.count("serve_step"),
+          "denoise_slices": sum(n.startswith("denoise") for n in names),
+          "counter_events": sum(e["ph"] == "C" for e in doc["traceEvents"])})
+    if names.count("admit") != len(done) or names.count("finish") != len(done):
+        raise AssertionError("trace: admit / finish events missing")
+
+
+def phase_llm_sampled(torch, dev, wl, model, serve):
+    """greedy=False: each request's first token drawn from its prefill's
+    logits (torch.Generator seeded by rid); every request finishes."""
+    summary, eng, done = serve(dataclasses.replace(wl, greedy=False), model)
+    vocab = model.cfg.vocab_size
+    if len(done) != wl.requests or any(
+            len(r.generated) != wl.new_tokens
+            or not all(0 <= t < vocab for t in r.generated) for r in done):
+        raise AssertionError("sampled serve: unfinished or bad tokens")
+    emit({"phase": "llm_sampled", **summary})
+    return done
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     # every module of the port is imported before anything is printed
-    from types import SimpleNamespace
     from repro_torch.configs.base import FastCacheConfig
     from repro_torch.core import statcache
     from repro_torch.core.policies.base import summarize_stats
@@ -1313,7 +1815,18 @@ def main() -> int:
     from repro_torch.core import saliency as core_saliency
     from repro_torch.core import token_merge as core_token_merge
     from repro_torch.core.policies import base as core_policy_base
+    from repro_torch.core.linear_approx import calibrate_dit
+    from repro_torch.launch.calibrate import fit_batches
+    from repro_torch.obs import (DEFAULT_AUDIT_FRACTION, MetricsCollector,
+                                 TraceRecorder, parse_prometheus,
+                                 record_calibration, validate_trace)
+    from repro_torch.obs import audit as obs_audit
+    from repro_torch.obs import metrics as obs_metrics
     sal_mod = importlib.import_module("repro_torch.cuda_kernels.saliency_delta")
+    fg_mod = importlib.import_module("repro_torch.cuda_kernels.fused_gate")
+    lb_mod = importlib.import_module("repro_torch.cuda_kernels.linear_blend")
+    fastcache_mod = importlib.import_module(
+        "repro_torch.core.policies.fastcache")
     knn_mod = importlib.import_module("repro_torch.cuda_kernels.knn_density")
     tm_mod = importlib.import_module("repro_torch.cuda_kernels.token_merge")
     from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
@@ -1357,6 +1870,13 @@ def main() -> int:
         percentile=percentile, summarize_stats=summarize_stats,
         linear_schedule=linear_schedule, ddim_timesteps=ddim_timesteps,
         ddim_step=ddim_step, l2c_mask_from_deltas=l2c_mask_from_deltas,
+        DEFAULT_AUDIT_FRACTION=DEFAULT_AUDIT_FRACTION,
+        MetricsCollector=MetricsCollector, TraceRecorder=TraceRecorder,
+        parse_prometheus=parse_prometheus, validate_trace=validate_trace,
+        record_calibration=record_calibration, calibrate_dit=calibrate_dit,
+        fit_batches=fit_batches,
+        obs_audit=obs_audit, obs_metrics=obs_metrics,
+        fastcache_mod=fastcache_mod,
         kernels={"fused_gate": fused_gate, "knn_density": knn_density,
                  "merge_assign": merge_assign,
                  "unmerge_scatter": unmerge_scatter,
@@ -1376,7 +1896,8 @@ def main() -> int:
     syncs_off = phase_syncs(torch, wl, model)
     sal_captured = []
     with capture_saliency(sal_modules, sal_captured):
-        launches = phase_serve(torch, dev, wl, model, m)
+        base = phase_serve(torch, dev, wl, model, m)
+    launches = base.launches
     phase_saliency_parity(torch, wl.policy, sal_captured, sal_mod)
     syncs_on = phase_syncs(torch, wl_merge, model, label="syncs_merge")
     if syncs_on != syncs_off:
@@ -1386,7 +1907,7 @@ def main() -> int:
     captured = {name: [] for name in WINDOW_KERNELS}
     with capture_windows(core_token_merge, captured):
         launches_merge = phase_serve(torch, dev, wl_merge, model, m,
-                                     label="serve_merge")
+                                     label="serve_merge").launches
     phase_window_parity(torch, captured, knn_mod, tm_mod)
     del captured
     phase_static(torch, dev, model, m)
@@ -1404,11 +1925,21 @@ def main() -> int:
         with (capture_saliency(sal_modules, sal_captured)
               if p == "teacache" else contextlib.nullcontext()):
             launches_policy[p] = phase_serve(torch, dev, wl_p, model, m,
-                                             label=f"serve_{p}")
+                                             label=f"serve_{p}").launches
         if p == "teacache":
             phase_saliency_parity(torch, p, sal_captured, sal_mod)
     emit({"phase": "policies", "seconds": time.perf_counter() - t0})
     phase_quality(torch, dev, model, m, policy_kwargs)
+
+    # ---- the observability plane and the calibration on the DiT path
+    t0 = time.perf_counter()
+    launches_audit = phase_audit(torch, dev, wl, model, m, base, syncs_off)
+    launches_metrics = phase_metrics(torch, dev, wl, model, m, base)
+    launches_record, launches_calibrated = phase_calibrate(
+        torch, dev, wl, model, m, fg_mod, lb_mod, ref)
+    launches_nocfg = phase_serve_nocfg(torch, dev, wl, model, m)
+    phase_trace(torch, dev, wl, model, m)
+    emit({"phase": "observability", "seconds": time.perf_counter() - t0})
 
     # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate
     flash_row = phase_flash_attention(torch, dev, ref, flash_attention,
@@ -1436,6 +1967,7 @@ def main() -> int:
           "first_token_agreement": float(np.mean(
               [a.generated[0] == b.generated[0] for a, b in pairs]))})
     phase_llm_prefill_parity(torch, dev, llm, llm_model, attention, ref)
+    phase_llm_sampled(torch, dev, llm_fc, llm_model, llm_serve)
 
     # launches: each kernel on its own main path (fused_gate, saliency_delta
     # and linear_blend: the merge-off fastcache serve; the merge kernels:
@@ -1454,6 +1986,13 @@ def main() -> int:
             "serve_merge": launches_merge[row["name"]],
             **{f"serve_{p}": n[row["name"]]
                for p, n in launches_policy.items()},
+            "serve_audit_1_32": launches_audit[DEFAULT_AUDIT_FRACTION][
+                row["name"]],
+            "serve_audit_1": launches_audit[1.0][row["name"]],
+            "serve_metrics": launches_metrics[row["name"]],
+            "calibrate_record": launches_record[row["name"]],
+            "serve_calibrated": launches_calibrated[row["name"]],
+            "serve_nocfg": launches_nocfg[row["name"]],
             "llm_serve_exact": launches_exact[row["name"]],
             "llm_serve_fastcache": launches_llm[row["name"]]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

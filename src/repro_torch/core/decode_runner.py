@@ -16,9 +16,15 @@ The reference's ``lax.cond(jnp.all(do_cache), all_skip, mixed)`` is a real
 skip here, decided on the host: one host sync per layer per decode step
 (``bool(do_cache.all())``), counted in ``host_syncs``; ``skipped_layers``
 counts the layers where every sample skipped.  Both branches give
-the same per-row results, so either way is exact.  Only per-sample gates are
-ported: ``gate_mode="global"`` raises.  The cache is updated in place; the
-state comes back as a new dict.
+the same per-row results, so either way is exact.  ``gate_mode="global"``
+reduces the statistic over the batch into one decision per layer.  The
+cache is updated in place; the state comes back as a new dict.
+
+Kernels per decode step, in every layer: ``saliency_delta`` on the (B, 1, D)
+block input against the previous step's (its per-sample totals are the
+gate's ||dH||^2 and ||H_prev||^2) and ``linear_blend`` at gamma 1 for the
+approximation W_l x + b_l (on the wgmma route it multiplies the bf16 copies
+of W_l, made once in the constructor).
 """
 from __future__ import annotations
 
@@ -28,6 +34,10 @@ import torch
 
 from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core import linear_approx, statcache
+from repro_torch.core.statcache import GATE_MODES
+from repro_torch.cuda_kernels import route
+from repro_torch.cuda_kernels.linear_blend import linear_blend
+from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.models import common, layers
 from repro_torch.models.transformer import Cache, TransformerModel
 
@@ -40,14 +50,22 @@ class CachedDecoder:
         if model.period != 1 or model.kinds != ("attn",):
             raise ValueError("CachedDecoder supports period-1 attention "
                              f"stacks; got {model.kinds}")
-        if fc.gate_mode != "per_sample":
-            raise ValueError("the port implements gate_mode='per_sample' "
-                             f"only, got {fc.gate_mode!r}")
+        if fc.gate_mode not in GATE_MODES:
+            raise ValueError(f"unknown gate_mode {fc.gate_mode!r}; "
+                             f"expected one of {GATE_MODES}")
         self.model = model
         self.fc = fc
+        self.gate_mode = fc.gate_mode
         self.L = model.cfg.num_layers
+        # as CachedDiT's: the identity maps get the bf16 copies of W_l[l]
+        # the wgmma route multiplies, made once (None each off a bf16 model
+        # on CUDA); maps handed in name the SIMT route and the f32 W
+        self.gemm = None if fc_params is None else route.SIMT
         self.fc_params = fc_params or linear_approx.init_linear_params(
             self.L, model.cfg.d_model, device=model.device)
+        self.w_l_bf16 = (linear_approx.bf16_copies(
+            self.fc_params["W_l"], model.dtype, model.device)
+            if self.gemm is None else [None] * self.L)
         self.host_syncs = 0
         self.skipped_layers = 0
 
@@ -102,6 +120,8 @@ class CachedDecoder:
         positions = step[:, None]
         nd = int(x.shape[-1])                # per-sample elements (one token)
         threshold = statcache.make_threshold(fc.alpha, nd)
+        if self.gate_mode == "global":
+            threshold_g = statcache.make_threshold(fc.alpha, nd * b)
         gate = state["gate"]
         have = state["have_cache"]
         sig = gate.sigma2.clone()
@@ -110,15 +130,24 @@ class CachedDecoder:
         skip = torch.zeros((b,), dtype=F32, device=x.device)
         inputs = []
         for l, bp in enumerate(m.blocks):
-            diff, prevsq = statcache.delta_stats_per_sample(
-                x[:, 0], state["prev_hidden"][l])
+            # (B, 1, D) rows: the kernel's per-sample totals are the
+            # reference's delta_stats_per_sample(x[:, 0], prev_in)
+            _, diff, prevsq = saliency_delta(
+                x, state["prev_hidden"][l][:, None])
             eligible = ini[l] & have
             if not fc.use_sc:
                 eligible = torch.zeros_like(eligible)
-            do_cache = statcache.gate_decision(diff, prevsq, sig[l], nd,
-                                               threshold) & eligible
-            approx = linear_approx.apply_linear(fcp["W_l"][l], fcp["b_l"][l],
-                                                x)
+            if self.gate_mode == "global":
+                do_cache = (statcache.gate_decision_global(
+                    diff, sig[l], nd * b, threshold_g)
+                    & eligible.all()).expand(b)
+            else:
+                do_cache = statcache.gate_decision(diff, prevsq, sig[l], nd,
+                                                   threshold) & eligible
+            flat = x[:, 0]
+            approx = linear_blend(flat, fcp["W_l"][l], fcp["b_l"][l], flat,
+                                  gamma=1.0, w_bf16=self.w_l_bf16[l],
+                                  gemm=self.gemm)[:, None]
             lc = m.layer_cache(cache, l)
             self.host_syncs += 1
             if bool(do_cache.all()):                       # every sample skips

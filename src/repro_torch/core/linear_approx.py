@@ -3,12 +3,15 @@
   * token bypass:  H^s = W_c X^s + b_c           (one global map, Eq. 3)
   * block cache:   H_l = W_l H_{l-1} + b_l       (one map per block, Eq. 6)
 
-Initialization is the identity map in f32.  Calibration
-(``fit_linear``/``calibrate_dit``) is not ported yet.
+Initialization is the identity map in f32.  Calibration (``fit_linear`` /
+``calibrate_dit``) learns the first-order correction by ridge least squares
+over (block input, block output) pairs, in f32 with ``torch.matmul`` and
+``torch.linalg.solve`` as the reference does in XLA (no Pallas kernel there
+either).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -53,3 +56,57 @@ def bf16_copies(w: torch.Tensor, dtype: torch.dtype,
     if dtype != torch.bfloat16 or torch.device(device).type != "cuda":
         return [None] * stack.shape[0]
     return list(stack.to(torch.bfloat16).contiguous().unbind(0))
+
+
+def fit_linear(x: torch.Tensor, y: torch.Tensor, ridge: float = 1e-4
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ridge least-squares fit of y ~ x W + b in f32, centred, with the
+    ridge scaled by the sample count (the reference's).  x, y:
+    (samples, D).  Returns (W (D, F), b (F,))."""
+    x = x.to(F32)
+    y = y.to(F32)
+    mu_x = x.mean(0)
+    mu_y = y.mean(0)
+    xc = x - mu_x
+    yc = y - mu_y
+    d = x.shape[1]
+    g = xc.T @ xc + ridge * x.shape[0] * torch.eye(d, dtype=F32,
+                                                   device=x.device)
+    # LAPACK hands the solution back column-major: the kernels take W
+    # row-major
+    w = torch.linalg.solve(g, xc.T @ yc).contiguous()       # (D, F)
+    b = mu_y - mu_x @ w
+    return w, b
+
+
+@torch.no_grad()
+def calibrate_dit(model, sample_batches: Iterable[Mapping[str, torch.Tensor]],
+                  ridge: float = 1e-4) -> Dict[str, torch.Tensor]:
+    """Fit per-block linear maps from (block input, block output) pairs
+    collected over calibration batches (each: ``latents``, ``t``,
+    ``labels``), and the token-bypass map W_c from (token embedding, final
+    hidden) pairs: the bypass approximates the whole stack for static
+    tokens (Eq. 3).  Returns a new fastcache parameter dict (f32) for
+    ``CachedDiT(fc_params=...)``, which serves maps handed in with the f32
+    W on the SIMT route (no bf16 copy, ``core/runner.py``).
+
+    Block l's output is block l+1's input, so each layer's activations are
+    kept once (the reference stores both sides of every pair)."""
+    n_blocks = model.cfg.num_layers
+    acts: List[List[torch.Tensor]] = [[] for _ in range(n_blocks + 1)]
+    for batch in sample_batches:
+        x = model.tokens_in(batch["latents"])
+        c = model.conditioning(batch["t"], batch["labels"])
+        acts[0].append(x.reshape(-1, x.shape[-1]))
+        for l, bp in enumerate(model.blocks):
+            x = model.block_apply(bp, x, c)
+            acts[l + 1].append(x.reshape(-1, x.shape[-1]))
+    stacked = [torch.cat(a) for a in acts]
+    w_l, b_l = [], []
+    for l in range(n_blocks):
+        w, b = fit_linear(stacked[l], stacked[l + 1], ridge)
+        w_l.append(w)
+        b_l.append(b)
+    w_c, b_c = fit_linear(stacked[0], stacked[-1], ridge)
+    return {"W_c": w_c, "b_c": b_c, "W_l": torch.stack(w_l),
+            "b_l": torch.stack(b_l)}

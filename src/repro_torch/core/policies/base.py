@@ -10,6 +10,12 @@ full contract).  The port's protocol:
                                 input state's tensors are not modified
   stats(state)                  host-side summary (``summarize_stats``)
 
+and for the audit plane (``obs/audit.py``): ``audit_forward`` (the uncached
+full forward of the same inputs, with its hidden stack), ``audit_hidden``
+(the cached path's stack, or None) and ``predicted_error_bound`` (the
+claimed per-step error, or None).  ``gate_mode="global"`` reduces
+``_rel_change``'s statistic over the batch (one decision for all rows).
+
 ``state["stats"]`` holds per-sample (B,) f32 counters ``blocks_computed /
 blocks_skipped / steps_reused / motion_frac_sum`` plus the scalar ``steps``;
 with token compression on (a ``token_reducer`` handed in), also the (B,)
@@ -25,11 +31,12 @@ skip that reads the (B,) skip mask once per step, one host sync, counted in
 """
 from __future__ import annotations
 
-from typing import (TYPE_CHECKING, Callable, Dict, Optional, Sequence,
-                    Tuple, Type)
+from typing import (TYPE_CHECKING, Callable, Dict, List, Optional,
+                    Sequence, Tuple, Type)
 
 import torch
 
+from repro_torch.core import linear_approx
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.models.dit import DiTModel
 
@@ -74,10 +81,17 @@ class CachePolicy:
     name: str = ""
 
     def __init__(self, model: DiTModel, fc, fc_params, *,
+                 gate_mode: str = "per_sample", gemm: Optional[str] = None,
                  token_reducer: Optional["TokenReducer"] = None, **_unused):
         self.model = model
         self.fc = fc
         self.fc_params = fc_params
+        self.gate_mode = gate_mode
+        # the GEMM route every linear_blend / fused_gate call on the maps
+        # names: None for the wrappers' rule (wgmma on a bf16 model on CUDA,
+        # with the copies of ``map_copies``), route.SIMT for the f32 maps
+        # (the runner's choice for maps handed in)
+        self.gemm = gemm
         self.L = model.cfg.num_layers
         # token-compression stage (core/token_reduce.py): with a reducer the
         # policy's whole transformer path runs on the statically reduced
@@ -89,6 +103,14 @@ class CachePolicy:
         self.device = model.device
         # host syncs this policy forced (one per `.item()`-like read)
         self.host_syncs = 0
+
+    def map_copies(self, w: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        """The bf16 copies of the maps ``w`` ((D, F) or (L, D, F)) that the
+        wgmma route multiplies, made once (``linear_approx.bf16_copies``);
+        None each where the calls name a route."""
+        if self.gemm is not None:
+            return [None] * w.reshape(-1, *w.shape[-2:]).shape[0]
+        return linear_approx.bf16_copies(w, self.model.dtype, self.device)
 
     def init_state(self, batch: int) -> Dict:
         raise NotImplementedError
@@ -141,11 +163,42 @@ class CachePolicy:
             hidden_final = self.reducer.unmerge(hidden_final)
         return self.model.eps_from_hidden(hidden_final, c)
 
+    # -- audit plane (obs/audit.py) -------------------------------------
+
+    def audit_forward(self, x_in: torch.Tensor, c: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full-forward twin the shadow-compute audit plane runs beside
+        the cached path: an uncached evaluation of the same inputs,
+        returning ``(eps_true, hidden)`` where ``hidden`` (L+1, B, N, D)
+        stacks each block's input plus the final hidden, the layout
+        ``audit_hidden`` mirrors.  It never touches the policy's state."""
+        x_out, inputs = self._full_forward(x_in, c)
+        hidden = torch.cat([inputs, x_out[None]], dim=0)
+        return self._eps(x_out, c), hidden
+
+    def audit_hidden(self, state: Dict) -> Optional[torch.Tensor]:
+        """The per-layer hidden stack the cached path produced this step,
+        (L+1, B, N, D) in ``audit_forward``'s layout, or None when the
+        policy keeps no such payload (the step-level policies cache eps);
+        None leaves out the per-layer error, the end-to-end eps error is
+        always audited."""
+        return None
+
+    def predicted_error_bound(self) -> Optional[float]:
+        """The per-step relative approximation error this policy claims for
+        its cached outputs, or None for no claim (None never trips
+        ``bound_violations_total``).  FastCache's is Eq. 9."""
+        return None
+
     def _rel_change(self, x: torch.Tensor, prev: torch.Tensor
                     ) -> torch.Tensor:
         """Per-sample relative Frobenius change, (B,), from the two totals
-        of the ``saliency_delta`` kernel (per-sample gates only)."""
+        of the ``saliency_delta`` kernel.  In global mode the totals are
+        summed over the batch and the one statistic broadcast."""
         _, diff, prevsq = saliency_delta(x, prev)
+        if self.gate_mode == "global":
+            rel = torch.sqrt(diff.sum() / prevsq.sum().clamp(min=1e-12))
+            return rel.expand(diff.shape)
         return torch.sqrt(diff / prevsq.clamp(min=1e-12))
 
     def masked_step(self, state: Dict, x_in: torch.Tensor, c: torch.Tensor,

@@ -17,7 +17,10 @@ the block always runs.  ``host_syncs`` counts them.
 
 Kernels per gated (warm or mixed) step: ``saliency_delta`` once (the STR
 saliency), ``linear_blend`` once (the static bypass) and ``fused_gate`` in
-every layer.
+every layer.  With ``gate_mode="global"`` (the whole batch makes one
+decision per layer, an ablation) each layer runs ``saliency_delta`` and
+``linear_blend`` in place of ``fused_gate``, as the reference computes that
+mode in plain jnp outside its fused kernel.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ from typing import Dict, Sequence
 
 import torch
 
-from repro_torch.core import linear_approx, saliency, statcache
+from repro_torch.core import chi2, linear_approx, saliency, statcache
 from repro_torch.core.policies.base import F32, CachePolicy, register
 from repro_torch.cuda_kernels.fused_gate import fused_gate
 from repro_torch.cuda_kernels.linear_blend import linear_blend
+from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 
 
 @register("fastcache")
@@ -37,10 +41,8 @@ class FastCache(CachePolicy):
         super().__init__(model, fc, fc_params, **kw)
         # the bf16 copies of W_c and each W_l[l] that the wgmma route
         # multiplies, made once (None each off a bf16 model on CUDA)
-        (self.w_c_bf16,) = linear_approx.bf16_copies(
-            fc_params["W_c"], model.dtype, model.device)
-        self.w_l_bf16 = linear_approx.bf16_copies(
-            fc_params["W_l"], model.dtype, model.device)
+        (self.w_c_bf16,) = self.map_copies(fc_params["W_c"])
+        self.w_l_bf16 = self.map_copies(fc_params["W_l"])
         # n_tokens is the reduced grid when token compression is on
         self.capacity = max(1, int(round(fc.motion_capacity * self.n_tokens)))
         # model steps by branch taken
@@ -57,6 +59,20 @@ class FastCache(CachePolicy):
             "have_cache": torch.zeros((batch,), dtype=torch.bool, device=dev),
             "stats": self.init_stats(batch),
         }
+
+    # -- audit plane -----------------------------------------------------
+
+    def audit_hidden(self, state):
+        """After ``step``, ``prev_hidden`` is this step's hidden stack —
+        block inputs plus the reassembled final hidden, in
+        ``audit_forward``'s (L+1, B, N, D) layout."""
+        return state["prev_hidden"]
+
+    def predicted_error_bound(self):
+        """Eq. 9 bound from the chi^2 gate, with the df the gate uses
+        (motion capacity x d_model: one sample's observed elements)."""
+        nd = self.capacity * self.model.cfg.d_model
+        return chi2.error_bound(self.fc.alpha, nd)
 
     def reset_rows(self, state: Dict, rows: Sequence[int]) -> Dict:
         # fill_ on views: assigning a Python scalar to a 0-dim CUDA view
@@ -121,7 +137,8 @@ class FastCache(CachePolicy):
         # result), the blend stays a second bf16 rounding as in the reference
         flat = x_in.reshape(b * n, d)
         h_static = linear_blend(flat, fcp["W_c"], fcp["b_c"], flat,
-                                gamma=1.0, w_bf16=self.w_c_bf16
+                                gamma=1.0, w_bf16=self.w_c_bf16,
+                                gemm=self.gemm
                                 ).reshape(b, n, d)
         if fc.use_mb:
             h_static = linear_approx.blend(h_static, state["prev_hidden"][-1],
@@ -132,6 +149,8 @@ class FastCache(CachePolicy):
         gate = state["gate"]
         nd = int(xm.shape[1] * xm.shape[2])
         threshold = statcache.make_threshold(fc.alpha, nd)
+        if self.gate_mode == "global":
+            threshold_g = statcache.make_threshold(fc.alpha, nd * b)
         sig = gate.sigma2.clone()
         ini = gate.initialized.clone()
         comp = torch.zeros((b,), dtype=F32, device=x_in.device)
@@ -143,11 +162,16 @@ class FastCache(CachePolicy):
             prev_m = saliency.gather_motion(prev_in, part)
             prev_om = saliency.gather_motion(prev_out, part)
             eligible = ini[lidx] & bool(fc.use_sc)
-            out, do_cache, diff, _ = fused_gate(
-                xm, prev_m, prev_om, fcp["W_l"][lidx], fcp["b_l"][lidx],
-                sig[lidx], eligible, threshold=threshold,
-                gamma=fc.blend_gamma, use_blend=fc.use_mb,
-                w_bf16=self.w_l_bf16[lidx])
+            if self.gate_mode == "global":
+                out, do_cache, diff = self._global_gate(
+                    lidx, xm, prev_m, prev_om, sig[lidx], eligible, nd * b,
+                    threshold_g)
+            else:
+                out, do_cache, diff, _ = fused_gate(
+                    xm, prev_m, prev_om, fcp["W_l"][lidx], fcp["b_l"][lidx],
+                    sig[lidx], eligible, threshold=threshold,
+                    gamma=fc.blend_gamma, use_blend=fc.use_mb,
+                    w_bf16=self.w_l_bf16[lidx], gemm=self.gemm)
 
             # skip the block entirely when every sample caches; otherwise
             # compute it once for the batch and keep cached samples' approx
@@ -187,6 +211,30 @@ class FastCache(CachePolicy):
         stats["motion_frac_sum"] = stats["motion_frac_sum"] + mfrac
         st["stats"] = stats
         return eps, st
+
+    def _global_gate(self, lidx, xm, prev_m, prev_om, sig, eligible,
+                     n_total, threshold_g):
+        """The whole batch's decision (``gate_mode="global"``): the
+        per-sample totals of ``saliency_delta`` reduced to one chi^2
+        statistic, and the approximation through ``linear_blend`` at gamma
+        1 with the motion-aware blend after it, as the reference computes
+        ``apply_linear`` then ``blend``.  Returns (out, do_cache (B,),
+        per-sample diff)."""
+        fc, fcp = self.fc, self.fc_params
+        b, cap, d = xm.shape
+        _, diff, _ = saliency_delta(xm, prev_m)
+        do_cache = (statcache.gate_decision_global(diff, sig, n_total,
+                                                   threshold_g)
+                    & eligible.all()).expand(b)
+        flat = xm.reshape(b * cap, d)
+        approx = linear_blend(flat, fcp["W_l"][lidx], fcp["b_l"][lidx],
+                              flat, gamma=1.0, w_bf16=self.w_l_bf16[lidx],
+                              gemm=self.gemm
+                              ).reshape(b, cap, d)
+        if fc.use_mb:
+            approx = linear_approx.blend(approx, prev_om, fc.blend_gamma)
+        out = torch.where(do_cache[:, None, None], approx, xm)
+        return out, do_cache, diff
 
     def _mixed_step(self, state, x_in, c):
         """Mixed warm/cold batch (a request admitted mid-flight): cold

@@ -16,7 +16,6 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import linear_approx
 from repro_torch.core.policies.base import CachePolicy, register
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 
@@ -41,8 +40,7 @@ class LearnedLayerCache(CachePolicy):
                              f"has {self.L} layers")
         # the bf16 copy of each W_l[l] that the wgmma route multiplies, made
         # once (None each off a bf16 model on CUDA)
-        self.w_l_bf16 = linear_approx.bf16_copies(
-            fc_params["W_l"], model.dtype, model.device)
+        self.w_l_bf16 = self.map_copies(fc_params["W_l"])
 
     def init_state(self, batch: int) -> Dict:
         return {"stats": self.init_stats(batch)}
@@ -56,7 +54,7 @@ class LearnedLayerCache(CachePolicy):
                 flat = x.reshape(b * n, d)
                 x = linear_blend(flat, fcp["W_l"][lidx], fcp["b_l"][lidx],
                                  flat, gamma=1.0,
-                                 w_bf16=self.w_l_bf16[lidx]
+                                 w_bf16=self.w_l_bf16[lidx], gemm=self.gemm
                                  ).reshape(b, n, d)
             else:
                 x = self.model.block_apply(bp, x, c)

@@ -10,11 +10,17 @@
 
 Gating is per sample: one moving sample never invalidates its batchmates'
 caches, which the serving engine's solo-replay contract rests on.
+``FastCacheConfig.gate_mode="global"`` restores the whole-batch decision
+(the statistic reduced over the batch) for ablations.
 
 Token compression (``core/token_reduce.py``) runs between ``tokens_in`` and
 the policy when ``fc.merge_enabled`` asks for it: the policy sees the
 reduced grid and unmerges inside ``_eps``.  Every registered policy composes
-with it.  The audit plane is not ported yet.
+with it.
+
+The audit plane (``obs/audit.py``) reads three more: ``audit_eval`` (the
+uncached full forward of the same inputs), ``audit_hidden`` (the cached
+path's hidden stack) and ``audit_bound`` (the policy's claimed bound).
 """
 from __future__ import annotations
 
@@ -27,8 +33,10 @@ from repro_torch.core import linear_approx
 from repro_torch.core import policies as _policies  # noqa: F401 (registers)
 from repro_torch.core.policies.base import get_policy_class
 from repro_torch.core.policies.l2c import l2c_mask_from_deltas  # noqa: F401
+from repro_torch.core.statcache import GATE_MODES
 from repro_torch.core.token_reduce import STATE_KEY as TOKRED_KEY
 from repro_torch.core.token_reduce import TokenReducer
+from repro_torch.cuda_kernels import route
 from repro_torch.models.dit import DiTModel
 
 
@@ -49,15 +57,21 @@ class CachedDiT:
         the whole set goes to the resolved policy, which keeps the ones it
         knows.  Masks and schedules may be numpy or torch bool arrays."""
         cls = get_policy_class(policy)     # ValueError on unknown names
-        if fc.gate_mode != "per_sample":
-            raise ValueError("the port implements gate_mode='per_sample' "
-                             f"only, got {fc.gate_mode!r}")
+        if fc.gate_mode not in GATE_MODES:
+            raise ValueError(f"unknown gate_mode {fc.gate_mode!r}; "
+                             f"expected one of {GATE_MODES}")
         self.model = model
         self.fc = fc
         self.policy = policy
         self.device = model.device
         self.gate_mode = fc.gate_mode
         self.L = model.cfg.num_layers
+        # the identity maps of init_linear_params, which bf16 holds exactly,
+        # get bf16 copies for the wgmma route; maps handed in (fitted by
+        # calibrate_dit) get none, and every call on them names the SIMT
+        # route, which multiplies the f32 W: a bf16 copy of fitted maps
+        # moved the static bypass by up to 8% rel-L2 on the card (PERF.md)
+        gemm = None if fc_params is None else route.SIMT
         self.fc_params = fc_params or linear_approx.init_linear_params(
             self.L, model.cfg.d_model, model.device)
         # a ratio whose static M fills the window leaves the reducer inert
@@ -67,7 +81,8 @@ class CachedDiT:
             red = TokenReducer(model, fc)
             if red.active:
                 self.reducer = red
-        self.impl = cls(model, fc, self.fc_params, token_reducer=self.reducer,
+        self.impl = cls(model, fc, self.fc_params, gate_mode=self.gate_mode,
+                        gemm=gemm, token_reducer=self.reducer,
                         fora_interval=fora_interval,
                         tea_threshold=tea_threshold,
                         ada_thresholds=ada_thresholds, fb_rdt=fb_rdt,
@@ -115,3 +130,32 @@ class CachedDiT:
 
     def stats(self, state: Dict) -> Dict[str, float]:
         return self.impl.stats(state)
+
+    # -- audit plane (obs/audit.py) ------------------------------------
+
+    @torch.no_grad()
+    def audit_eval(self, latents: torch.Tensor, t: torch.Tensor,
+                   labels: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The shadow-compute twin of ``step``: the same tokens-in /
+        conditioning feeding the policy's uncached full forward.  Returns
+        ``(eps_true, hidden)``, hidden the (L+1, B, N, D) stack of
+        ``CachePolicy.audit_forward``.  Touches no cache state or stats."""
+        x_in = self.model.tokens_in(latents)
+        c = self.model.conditioning(t, labels)
+        return self.impl.audit_forward(x_in, c)
+
+    def audit_hidden(self, state: Dict) -> Optional[torch.Tensor]:
+        """The cached path's per-layer hidden stack for this step, or None
+        when the policy keeps none.  With token compression on the stack
+        lives on the reduced grid and cannot be compared layer by layer
+        with the full-resolution shadow forward, so only the end-to-end eps
+        error is audited."""
+        if self.reducer is not None:
+            return None
+        return self.impl.audit_hidden(state)
+
+    def audit_bound(self) -> Optional[float]:
+        """The policy's claimed per-step relative error bound (None = no
+        claim; see ``CachePolicy.predicted_error_bound``)."""
+        return self.impl.predicted_error_bound()

@@ -2,7 +2,9 @@
 
 A running (EMA) estimate sigma2 of the per-element no-change variance
 turns the statistic into ||dH||_F^2 / sigma2 ~ chi^2_ND (the paper's
-sliding-window tracker; see the reference's ``core/statcache.py``).
+sliding-window tracker; see the reference's ``core/statcache.py``).  The
+per-sample ||dH||_F^2 and ||H_prev||_F^2 the gates read are the totals of
+the ``saliency_delta`` kernel.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from repro_torch.core.chi2 import cache_threshold
 
 F32 = torch.float32
+GATE_MODES = ("per_sample", "global")
 
 
 class GateState(NamedTuple):
@@ -37,16 +40,6 @@ def reset_gate_slot(gate: GateState, rows: Sequence[int]) -> GateState:
     return gate
 
 
-def delta_stats_per_sample(h: torch.Tensor, h_prev: torch.Tensor
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-sample Frobenius stats: sums over every axis but the leading
-    batch axis.  h: (B, ...) -> ((B,), (B,)) in f32."""
-    dims = tuple(range(1, h.ndim))
-    d = h.to(F32) - h_prev.to(F32)
-    pf = h_prev.to(F32)
-    return (d * d).sum(dim=dims), (pf * pf).sum(dim=dims)
-
-
 def gate_decision(diff_sq: torch.Tensor, prev_sq: torch.Tensor,
                   sigma2: torch.Tensor, n_elements: int, threshold: float,
                   mode: str = "normalized") -> torch.Tensor:
@@ -55,6 +48,15 @@ def gate_decision(diff_sq: torch.Tensor, prev_sq: torch.Tensor,
     if mode == "raw":
         return diff_sq / prev_sq.clamp(min=1e-12) <= threshold
     stat = diff_sq / (sigma2.clamp(min=1e-30) * n_elements)
+    return stat <= threshold
+
+
+def gate_decision_global(diff_sq: torch.Tensor, sigma2: torch.Tensor,
+                         n_total: int, threshold: float) -> torch.Tensor:
+    """Whole-batch decision from per-sample stats: the (B,) Frobenius
+    deltas and trackers reduced to ONE statistic ~ chi^2_{B*ND}.
+    ``threshold`` is chi2_{B*ND,1-a}/(B*ND).  Returns a 0-dim bool."""
+    stat = diff_sq.sum() / (sigma2.mean().clamp(min=1e-30) * n_total)
     return stat <= threshold
 
 

@@ -373,3 +373,13 @@ extern "C" int saliency_delta_onepass_blocks_per_sm(int dtype_code,
         out, saliency_delta_onepass<float>, kTotalThreads, 0);
   return (int)cudaErrorInvalidValue;
 }
+
+// The first `count` tickets of the current device (at most kMaxBatch),
+// copied into host memory `out`: every onepass call leaves them at zero.
+// A synchronizing read, for tests.  Returns the CUDA error (0 = success).
+extern "C" int saliency_delta_tickets(unsigned int* out, int count) {
+  if (count < 0 || count > kMaxBatch) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, g_tickets,
+                                   sizeof(unsigned int) * (size_t)count, 0,
+                                   cudaMemcpyDeviceToHost);
+}

@@ -5,7 +5,9 @@ fused_gate``.  CPU tensors go to the plain version (``ref.fused_gate``),
 which ignores ``w_bf16``; CUDA tensors launch a kernel or raise — there is
 no fallback.  The GEMM is the one of the route ``route.gemm_route`` picks:
 ``"wgmma"`` (bf16 X against the caller's bf16 copy of W, ``w_bf16=``,
-required there) or ``"simt"`` (f32 W).  Each call (the partial sums and
+required there) or ``"simt"`` (f32 W), unless the call names one
+(``gemm=``: the runners name ``"simt"`` for maps handed in, which have no
+bf16 copy).  Each call (the partial sums and
 the GEMM, two kernels on the stream) adds one to ``fused_gate.launches``
 and to ``fused_gate.launches_by_route[route]``.
 """
@@ -69,13 +71,16 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
                prev_out: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                sigma2: torch.Tensor, eligible: torch.Tensor, *,
                threshold: float, gamma: float = 0.5, use_blend: bool = True,
-               w_bf16: Optional[torch.Tensor] = None
+               w_bf16: Optional[torch.Tensor] = None,
+               gemm: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """x, prev_in, prev_out: (B, C, D) float32 or bfloat16; w: (D, D) and
     b: (D,) float32; sigma2: (B,) float32; eligible: (B,) bool; w_bf16: w
     rounded to bfloat16, made once by the caller, which the wgmma route
-    multiplies (on the CPU and on the SIMT route it is not read).  Returns
+    multiplies (on the CPU and on the SIMT route it is not read); gemm: the
+    route to launch on CUDA (``route.ROUTES``), None for the rule's pick
+    (ignored on the CPU).  Returns
     (out (B,C,D) in x.dtype, gate (B,) bool, diff_sq (B,) f32,
     prev_sq (B,) f32), as ``ref.fused_gate``."""
     _check(x, prev_in, prev_out, w, b, sigma2, eligible)
@@ -86,7 +91,7 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_gate runs on CPU or CUDA, not {x.device}")
     d = x.shape[2]
-    which = route.gemm_route(x.dtype, d, d, _aligned(x, prev_out, b))
+    which = gemm or route.gemm_route(x.dtype, d, d, _aligned(x, prev_out, b))
     return _launch(which, x, prev_in, prev_out, w, b, sigma2, eligible,
                    float(threshold), float(gamma), bool(use_blend), w_bf16)
 

@@ -5,7 +5,9 @@ linear_blend``.  CPU tensors go to the plain version
 (``ref.linear_blend``), which ignores ``w_bf16``; CUDA tensors launch a
 kernel or raise — there is no fallback.  The kernel is the one of the route
 ``route.gemm_route`` picks: ``"wgmma"`` (bf16 X against the caller's bf16
-copy of W, ``w_bf16=``, required there) or ``"simt"`` (f32 W).  Each launch
+copy of W, ``w_bf16=``, required there) or ``"simt"`` (f32 W), unless the
+call names one (``gemm=``: the runners name ``"simt"`` for maps handed in,
+which have no bf16 copy).  Each launch
 adds one to ``linear_blend.launches`` and to
 ``linear_blend.launches_by_route[route]``.
 """
@@ -63,11 +65,14 @@ def _check(x, w, b, prev) -> None:
 
 def linear_blend(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  prev: torch.Tensor, *, gamma: float,
-                 w_bf16: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 w_bf16: Optional[torch.Tensor] = None,
+                 gemm: Optional[str] = None) -> torch.Tensor:
     """x: (M, D) and prev: (M, F) float32 or bfloat16 (one dtype); w: (D, F)
     and b: (F,) float32; w_bf16: w rounded to bfloat16, made once by the
     caller, which the wgmma route multiplies (on the CPU and on the SIMT
-    route it is not read).  Returns gamma * (x @ w + b) + (1-gamma) * prev,
+    route it is not read); gemm: the route to launch on CUDA
+    (``route.ROUTES``), None for the rule's pick (ignored on the CPU).
+    Returns gamma * (x @ w + b) + (1-gamma) * prev,
     (M, F) in x.dtype, as ``ref.linear_blend``; at gamma = 1 the kernel
     does not read prev."""
     _check(x, w, b, prev)
@@ -76,8 +81,8 @@ def linear_blend(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return ref.linear_blend(x, w, b, prev, gamma)
     if x.device.type != "cuda":
         raise ValueError(f"linear_blend runs on CPU or CUDA, not {x.device}")
-    which = route.gemm_route(x.dtype, x.shape[1], w.shape[1],
-                             (t.data_ptr() for t in (x, b, prev)))
+    which = gemm or route.gemm_route(x.dtype, x.shape[1], w.shape[1],
+                                     (t.data_ptr() for t in (x, b, prev)))
     return _launch(which, x, w, b, prev, gamma, w_bf16)
 
 

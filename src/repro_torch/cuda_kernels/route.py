@@ -7,9 +7,13 @@
   fed by TMA, ``csrc/tc_gemm.cuh``).  TMA needs 16-byte row strides and
   16-byte aligned bases, and the epilogue stores column pairs, so it takes
   bf16 inputs with D % 8 == 0 and F % 8 == 0 whose every base is 16-byte
-  aligned.
+  aligned.  It multiplies the caller's bf16 copy of W (``check_w_bf16``
+  raises without one).
 - ``"simt"``: the f32 FMA kernels, for everything else (f32 inputs are held
-  to 1e-4, which bf16 operands do not meet; ragged bf16 shapes).
+  to 1e-4, which bf16 operands do not meet; ragged bf16 shapes), and for a
+  call that names it (``gemm="simt"``): the runners name it for maps handed
+  in, such as fitted ones, whose bf16 copy would move the outputs
+  (``core/runner.py``), and multiply the f32 W there.
 
 ``knn_density`` and ``merge_assign`` have two routes too
 (``csrc/knn_density.cu``, ``csrc/token_merge.cu``), by ``window_route``:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -26,7 +26,8 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "saliency_delta_launch": [_vp] * 6 + [_int] * 4 + [_vp],
     "saliency_delta_onepass_launch": [_vp] * 6 + [_int] * 4 + [_vp],
-    "saliency_delta_onepass_blocks_per_sm": [_int, ctypes.POINTER(_int)]}
+    "saliency_delta_onepass_blocks_per_sm": [_int, ctypes.POINTER(_int)],
+    "saliency_delta_tickets": [ctypes.POINTER(ctypes.c_uint), _int]}
 _FNS = {}
 
 
@@ -157,6 +158,19 @@ def onepass_blocks_per_sm(dtype: torch.dtype) -> int:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor "
                            f"failed: CUDA error {err}")
     return out.value
+
+
+def tickets(count: int) -> List[int]:
+    """The onepass route's first ``count`` per-sample tickets on the
+    current device, read back (a synchronizing copy, for tests): each call
+    leaves every ticket at zero."""
+    if not 0 <= count <= MAX_BATCH:
+        raise ValueError(f"count must be in [0, {MAX_BATCH}], got {count}")
+    out = (ctypes.c_uint * max(count, 1))()
+    err = _kernel("saliency_delta_tickets")(out, count)
+    if err != 0:
+        raise RuntimeError(f"reading the tickets failed: CUDA error {err}")
+    return list(out)[:count]
 
 
 saliency_delta.launches = 0

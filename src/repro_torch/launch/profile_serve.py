@@ -16,6 +16,11 @@ over the CUDA kernels whose names hold one of its fragments
 ``knn_density`` and ``merge_assign``); a
 wrapper whose launch count moved in the window while no device time was
 attributed to it raises, so a renamed kernel never reads as 0 ms.
+``--no-metrics`` serves with the device metrics plane off (on by default,
+as in the engine), and ``--audit-fraction`` turns the audit plane on, so
+two runs give the planes' launches and time per step.  ``--fit-maps``
+serves fitted maps (``calibrate_dit``), whose calls run on the SIMT route,
+in place of the identity maps, whose calls run on wgmma.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import DIT_IDS
+from repro_torch.core.linear_approx import calibrate_dit
 from repro_torch.core.policies.base import registered_policies
 from repro_torch.cuda_kernels.fused_gate import fused_gate
 from repro_torch.cuda_kernels.knn_density import knn_density
@@ -37,6 +43,7 @@ from repro_torch.cuda_kernels.linear_blend import linear_blend
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.cuda_kernels.token_merge import (merge_assign,
                                                   unmerge_scatter)
+from repro_torch.launch.calibrate import fit_batches
 from repro_torch.launch.serve_diffusion import (Workload, add_merge_args,
                                                 check_merge_args)
 from repro_torch.serving.scheduler import RequestQueue
@@ -107,6 +114,14 @@ def main(argv=None) -> None:
     ap.add_argument("--policy", default=Workload.policy,
                     choices=registered_policies())
     ap.add_argument("--out", default="build/profile_serve.json")
+    ap.add_argument("--no-metrics", dest="metrics", action="store_false",
+                    help="serve with the device metrics plane off")
+    ap.add_argument("--audit-fraction", type=float, default=0.0,
+                    help="shadow-audit this fraction of serve steps")
+    ap.add_argument("--fit-maps", action="store_true",
+                    help="serve the maps calibrate_dit fits on 4 batches "
+                         "of 8 random latents (seed 0) in place of the "
+                         "identity maps (their calls name the SIMT route)")
     add_merge_args(ap)
     args = check_merge_args(ap.parse_args(argv))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -115,16 +130,21 @@ def main(argv=None) -> None:
 
     wl = Workload(arch=args.arch, policy=args.policy,
                   merge_ratio=args.merge_ratio,
-                  merge_window=args.merge_window)
+                  merge_window=args.merge_window,
+                  audit_fraction=args.audit_fraction)
     model = wl.build_model("cuda")
     dev = model.device
-    runner, eng = wl.build_engine(model)
+    fitted = ({"fc_params": calibrate_dit(model, fit_batches(model))}
+              if args.fit_maps else {})
+    runner, eng = wl.build_engine(model, enable_metrics=args.metrics,
+                                  **fitted)
     queue = RequestQueue(wl.build_trace(model))
 
     # eng.run stops at the clock given and resumes from the queue's rest
     eng.run(queue, max_engine_steps=args.warmup)
     torch.cuda.synchronize(dev)
     syncs0 = runner.impl.host_syncs + eng.host_syncs
+    audited0 = eng.audited_steps
     kinds0 = dict(getattr(runner.impl, "step_kinds", {}))
     counts0 = _counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -157,7 +177,11 @@ def main(argv=None) -> None:
         "card": card, "arch": model.cfg.name, "policy": args.policy,
         "token_merge": {"ratio": wl.merge_ratio, "window": wl.merge_window,
                         "active": runner.reducer is not None},
+        "metrics_plane": args.metrics,
+        "audit_fraction": args.audit_fraction, "fit_maps": args.fit_maps,
+        "audited_steps": eng.audited_steps - audited0,
         "window_engine_steps": window,
+        "kernel_launches_per_engine_step": len(kernels) / window,
         "step_kinds": kinds, "wall_s": wall_s,
         "ms_per_engine_step": wall_s / window * 1e3,
         "device_busy_share": busy_us / (wall_s * 1e6),

@@ -48,6 +48,7 @@ class LLMWorkload:
     max_batch: int = 4
     window: int = 1024              # KV ring slots, and the prefill's window
     fastcache: bool = False         # the FastCache decode gate
+    greedy: bool = True             # False: sample each first token
     seed: int = 0                   # weights and prompts
 
     def build_model(self, device) -> TransformerModel:
@@ -61,7 +62,8 @@ class LLMWorkload:
     def build_engine(self, model: TransformerModel) -> ServingEngine:
         return ServingEngine(
             model, max_batch=self.max_batch, window=self.window,
-            fastcache=FastCacheConfig() if self.fastcache else None)
+            fastcache=FastCacheConfig() if self.fastcache else None,
+            greedy=self.greedy)
 
     def build_requests(self, model: TransformerModel) -> List[Request]:
         rng = np.random.default_rng(self.seed)
@@ -104,7 +106,8 @@ def serve(wl: LLMWorkload, model: TransformerModel
         "arch": model.cfg.name, "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
-        "fastcache": wl.fastcache, "max_batch": wl.max_batch,
+        "fastcache": wl.fastcache, "greedy": wl.greedy,
+        "max_batch": wl.max_batch,
         "window": wl.window, "prompt_len": wl.prompt_len,
         "requests": len(reqs), "finished": len(done), "tokens": tokens,
         "decode_steps": eng.decode_steps, "prefills": eng.prefills,
@@ -134,6 +137,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-batch", type=int, default=LLMWorkload.max_batch)
     ap.add_argument("--window", type=int, default=LLMWorkload.window)
     ap.add_argument("--fastcache", action="store_true")
+    ap.add_argument("--sampled", dest="greedy", action="store_false",
+                    help="sample each request's first token (seeded by its "
+                         "rid) instead of taking the argmax")
     ap.add_argument("--seed", type=int, default=LLMWorkload.seed)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true")

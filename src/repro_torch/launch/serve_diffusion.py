@@ -12,8 +12,16 @@ model step.  ``--policy`` takes every registered cache policy (nocache,
 fora, teacache, adacache, fbcache, l2c, fastcache, smoothcache; l2c with
 its default empty mask).  ``--token-merge-ratio 0.5`` turns on
 token compression (windows of ``--token-merge-window`` tokens merged to
-half); 1.0, the default, leaves it off.  ``--device cpu --reduced`` runs
+half); 1.0, the default, leaves it off.  ``--no-cfg`` serves on the static
+no-CFG fast path (guidance 1.0 only).  ``--device cpu --reduced`` runs
 the plain PyTorch path on a toy model.
+
+Observability, the reference's flags: ``--metrics-out`` (Prometheus text)
+and ``--metrics-jsonl`` (JSONL windows, one every ``--metrics-window``
+engine steps and one at the end), ``--trace-out`` (Chrome/Perfetto trace
+JSON), ``--audit-fraction`` / ``--audit-seed`` (the shadow-compute audit
+plane's schedule), ``--audit-baseline`` (a calibration ``.npz`` arming the
+drift gauge) and ``--audit-out`` (the per-request error budgets).
 
 ``Workload`` is the one definition of the served configuration: its
 defaults are the flags' defaults, and ``chip_smoke.py`` and
@@ -26,7 +34,7 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -36,6 +44,10 @@ from repro_torch.core.policies.base import registered_policies
 from repro_torch.core.runner import CachedDiT
 from repro_torch.device import resolve_device
 from repro_torch.models.dit import DiTModel
+from repro_torch.obs import audit as obs_audit
+from repro_torch.obs.calibration import load_calibration
+from repro_torch.obs.metrics import MetricsCollector
+from repro_torch.obs.tracing import TraceRecorder, validate_trace
 from repro_torch.serving.diffusion_engine import DiffusionServingEngine
 from repro_torch.serving.scheduler import (DiffusionRequest, percentile,
                                            poisson_trace)
@@ -55,6 +67,9 @@ class Workload:
     seed: int = 0                   # weights and arrivals
     merge_ratio: float = 1.0        # token compression: kept share, 1 = off
     merge_window: int = 16          # token compression window w
+    cfg_rows: bool = True           # False: the no-CFG fast path (g = 1)
+    audit_fraction: float = 0.0     # shadow-audited share of serve steps
+    audit_seed: int = 0
     # the policy's own constructor knobs (e.g. l2c_mask, smooth_schedule),
     # passed through CachedDiT; no flag sets them
     policy_kwargs: Mapping[str, Any] = dataclasses.field(
@@ -66,16 +81,24 @@ class Workload:
         return DiTModel(cfg, device=dev).init(
             torch.Generator(dev).manual_seed(self.seed))
 
-    def build_engine(self, model: DiTModel
+    def build_engine(self, model: DiTModel, *,
+                     collector: Optional[MetricsCollector] = None,
+                     tracer: Optional[TraceRecorder] = None,
+                     enable_metrics: bool = True, **runner_kwargs
                      ) -> Tuple[CachedDiT, DiffusionServingEngine]:
+        """The runner and a fresh engine; ``runner_kwargs`` go to
+        ``CachedDiT`` (e.g. ``fc_params`` of ``calibrate_dit``)."""
         fc = FastCacheConfig(merge_enabled=self.merge_ratio < 1.0,
                              merge_ratio=self.merge_ratio,
                              merge_window=self.merge_window)
         runner = CachedDiT(model, fc, policy=self.policy,
-                           **self.policy_kwargs)
+                           **self.policy_kwargs, **runner_kwargs)
         return runner, DiffusionServingEngine(
             runner, max_slots=self.slots, num_steps=self.steps,
-            guidance_scale=self.guidance)
+            guidance_scale=self.guidance, cfg_rows=self.cfg_rows,
+            collector=collector, tracer=tracer,
+            enable_metrics=enable_metrics,
+            audit_fraction=self.audit_fraction, audit_seed=self.audit_seed)
 
     def build_trace(self, model: DiTModel) -> List[DiffusionRequest]:
         return poisson_trace(self.requests, self.rate, seed=self.seed,
@@ -101,7 +124,18 @@ def serve(args: argparse.Namespace) -> Dict:
     model = wl.build_model(args.device)
     dev = model.device
     wl.warm_up(model)
-    runner, eng = wl.build_engine(model)
+    # the audit plane folds into the device metrics, so auditing implies
+    # the metrics plane and a collector to harvest drift / burn
+    want_metrics = bool(args.metrics_out or args.metrics_jsonl
+                        or wl.audit_fraction > 0.0)
+    collector = MetricsCollector(
+        labels={"policy": wl.policy, "arch": wl.arch},
+        window_steps=args.metrics_window or None) if want_metrics else None
+    if collector is not None and args.audit_baseline:
+        calib = load_calibration(args.audit_baseline)
+        collector.set_audit_context(baseline=calib["errors_mean"])
+    tracer = TraceRecorder() if args.trace_out else None
+    runner, eng = wl.build_engine(model, collector=collector, tracer=tracer)
     trace = wl.build_trace(model)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -112,7 +146,7 @@ def serve(args: argparse.Namespace) -> Dict:
     wall = time.perf_counter() - t0
     lats = [r.latency_steps for r in done]
     stats = eng.cache_stats()
-    return {
+    summary = {
         "arch": model.cfg.name, "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
@@ -130,7 +164,32 @@ def serve(args: argparse.Namespace) -> Dict:
         "blocks_computed": stats["blocks_computed"],
         "token_merge": {"ratio": wl.merge_ratio, "window": wl.merge_window,
                         "active": runner.reducer is not None},
+        "cfg_rows": wl.cfg_rows,
     }
+    if collector is not None:
+        collector.set_gauge("run_wall_seconds", wall)
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                f.write(collector.to_prometheus())
+        if args.metrics_jsonl:
+            with open(args.metrics_jsonl, "w") as f:
+                f.write(collector.to_jsonl())
+    if wl.audit_fraction > 0.0:
+        report = obs_audit.audit_report(done, fraction=wl.audit_fraction,
+                                        bound=runner.audit_bound(),
+                                        collector=collector)
+        summary["audit"] = {k: report[k] for k in
+                            ("audit_fraction", "predicted_bound",
+                             "violations_total")}
+        if args.audit_out:
+            with open(args.audit_out, "w") as f:
+                json.dump(report, f, indent=2)
+    if tracer is not None:
+        doc = tracer.to_json()
+        validate_trace(doc)
+        with open(args.trace_out, "w") as f:
+            json.dump(doc, f)
+    return summary
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -147,9 +206,50 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="Poisson arrival rate, requests per engine step")
     ap.add_argument("--seed", type=int, default=Workload.seed)
     add_merge_args(ap)
+    ap.add_argument("--no-cfg", dest="cfg_rows", action="store_false",
+                    help="static no-CFG fast path for guidance==1.0-only "
+                         "deployments: single-row slots, no materialized "
+                         "uncond half (model batch S instead of 2S); "
+                         "requires --guidance 1.0")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the Prometheus text exposition here at "
+                         "run end")
+    ap.add_argument("--metrics-jsonl", default="",
+                    help="write the per-window JSONL metrics trajectory "
+                         "here at run end")
+    ap.add_argument("--metrics-window", type=int, default=0,
+                    help="harvest a metrics window every N engine steps "
+                         "(each window close is one device read); 0 = one "
+                         "window at run end only")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome/Perfetto trace JSON of the run "
+                         "here (per-request spans, per-slot denoise "
+                         "slices with cache decisions)")
+    ap.add_argument("--audit-fraction", type=float,
+                    default=Workload.audit_fraction,
+                    help="shadow-audit this fraction of serve steps "
+                         "(deterministic seeded schedule; 0 disables the "
+                         "audit plane)")
+    ap.add_argument("--audit-seed", type=int, default=Workload.audit_seed,
+                    help="seed for the audit sampling schedule")
+    ap.add_argument("--audit-baseline", default="",
+                    help="calibration .npz (launch.calibrate) to arm the "
+                         "audit_drift_ratio gauge: measured per-layer "
+                         "cache error vs the nocache run's natural "
+                         "inter-step deltas")
+    ap.add_argument("--audit-out", default="",
+                    help="write the audit report JSON (per-request error "
+                         "budgets, windowed drift/burn summary) here at "
+                         "run end")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true")
-    return check_merge_args(ap.parse_args(argv))
+    args = check_merge_args(ap.parse_args(argv))
+    if args.audit_out and args.audit_fraction <= 0.0:
+        raise SystemExit("--audit-out needs --audit-fraction > 0")
+    if not args.cfg_rows and args.guidance != 1.0:
+        raise SystemExit("--no-cfg serves guidance==1.0 only; pass "
+                         "--guidance 1.0")
+    return args
 
 
 def add_merge_args(ap: argparse.ArgumentParser) -> None:

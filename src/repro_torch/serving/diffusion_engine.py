@@ -15,12 +15,34 @@ with the slot's reset, its initial latents and its request-scoped counters.
 Admission and free reset the slot's rows, so a request admitted at engine
 step k reproduces its solo ``sample()`` run, and residents are untouched.
 
+**Static no-CFG fast path.**  ``cfg_rows=False`` opts a guidance==1.0-only
+deployment out of the uncond half: slots are single state rows, the model
+batch is S instead of 2S, and a request asking for any other guidance is
+rejected at admission.  Its latents equal the default engine's at
+guidance 1.0 (the scalar 1.0 skips CFG in ``denoise_step``, and a
+per-sample 1.0 row selects the conditional eps outright), bitwise wherever
+the model's GEMMs give a row the same bits at batch S and 2S.
+
 Headline counters (``acc``) accumulate only active slots' decisions; the
 request-scoped ``slot_acc`` is zeroed at admission and harvested into
-``req.cache`` at completion.  Both stay on the device: the host reads them
-at completion and in ``cache_stats``.  The engine updates its state
-tensors in place where that saves a copy (admission, reset), since it owns
-them.
+``req.cache`` at completion.  Both stay on the device as one (K,) vector
+and one (K, S) matrix (the dicts hold views of their rows), updated with a
+few batched ops per step; the host reads them at completion and in
+``cache_stats``.
+
+**Observability** (``obs/``).  With ``enable_metrics`` (the default) the
+device metrics (``obs.metrics.init_device_metrics``) take one batched
+update per step (``DeviceUpdate``: one copy of the host-known increments,
+one ``index_add_`` of the device ones) and cross to the host only in
+``harvest_metrics``, at run end and at the close of a collector's window.
+``audit_fraction > 0`` turns on the shadow-compute audit plane
+(``obs/audit.py``): on the steps its seeded schedule picks, the uncached
+forward runs beside the cached one and the error lands in the metrics and
+in each slot's ``slot_acc`` (``audit_err_sum`` ...); it needs the metrics
+plane.  A ``tracer`` (``obs.tracing.TraceRecorder``) records per-request
+spans and per-step slot snapshots, and opens ``torch.profiler`` ranges
+around each step and the sampler's phases.  None of the three reads a
+device value on the host during a step.
 """
 from __future__ import annotations
 
@@ -33,6 +55,10 @@ from repro_torch.core.runner import CachedDiT
 from repro_torch.device import to_device
 from repro_torch.diffusion import sampler
 from repro_torch.diffusion import schedule as sch
+from repro_torch.obs import audit as obs_audit
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.metrics import MetricsCollector
+from repro_torch.obs.tracing import TraceRecorder
 from repro_torch.serving.scheduler import (DiffusionRequest, RequestQueue,
                                            SamplingPlan)
 
@@ -40,20 +66,46 @@ F32 = torch.float32
 
 NoiseFn = Callable[[DiffusionRequest], torch.Tensor]
 
+# the stat keys the device metrics count, by metric
+_COUNTED = ((obs_metrics.BLOCKS_COMPUTED, "blocks_computed"),
+            (obs_metrics.BLOCKS_SKIPPED, "blocks_skipped"),
+            (obs_metrics.STEP_REUSES, "steps_reused"))
+
 
 class DiffusionServingEngine:
     def __init__(self, runner: CachedDiT, *, max_slots: int,
                  num_steps: int = 50, guidance_scale: float = 4.0,
                  num_train_steps: int = 1000,
                  max_steps: Optional[int] = None,
-                 noise_fn: Optional[NoiseFn] = None):
+                 noise_fn: Optional[NoiseFn] = None,
+                 cfg_rows: bool = True,
+                 collector: Optional[MetricsCollector] = None,
+                 tracer: Optional[TraceRecorder] = None,
+                 enable_metrics: bool = True,
+                 audit_fraction: float = 0.0,
+                 audit_seed: int = 0):
+        # admission invariance needs per-sample gates: a global decision
+        # would let an admission move the residents' gates
         if runner.gate_mode != "per_sample":
             raise ValueError(
                 "DiffusionServingEngine requires FastCacheConfig("
                 f"gate_mode='per_sample'); got {runner.gate_mode!r}")
+        if not cfg_rows and guidance_scale != 1.0:
+            raise ValueError(
+                "cfg_rows=False is the guidance==1.0-only fast path; got "
+                f"default guidance_scale={guidance_scale}")
+        if not 0.0 <= audit_fraction <= 1.0:
+            raise ValueError(f"audit_fraction must be in [0, 1], got "
+                             f"{audit_fraction}")
+        if audit_fraction > 0.0 and not enable_metrics:
+            raise ValueError("audit_fraction > 0 needs the metrics plane; "
+                             "enable_metrics=False has nowhere to "
+                             "accumulate audit error")
         self.runner = runner
         self.device = runner.device
         self.S = max_slots
+        self.cfg_rows = cfg_rows
+        self.rows_per_slot = 2 if cfg_rows else 1
         self.num_steps = num_steps
         self.guidance_scale = guidance_scale
         self.default_plan = SamplingPlan(num_steps, guidance_scale)
@@ -78,10 +130,13 @@ class DiffusionServingEngine:
             "guidance": torch.full((max_slots,), guidance_scale, dtype=F32,
                                    device=dev),
         }
-        # CFG rows are always materialized: the state batch is 2S
-        self.state = runner.init_state(2 * max_slots)
+        self.state = runner.init_state(self.rows_per_slot * max_slots)
         self._acc_keys = tuple(k for k, v in self.state["stats"].items()
                                if v.dim() == 1)
+        self.audit_fraction = float(audit_fraction)
+        self.audit_seed = int(audit_seed)
+        self._audit_on = audit_fraction > 0.0
+        self._audit_bound = runner.audit_bound() if self._audit_on else None
         self.x = torch.zeros((max_slots, self.img, self.img, self.ch),
                              dtype=F32, device=dev)
         self.slots: List[Optional[DiffusionRequest]] = [None] * max_slots
@@ -90,42 +145,117 @@ class DiffusionServingEngine:
         self.slot_label = np.zeros((max_slots,), np.int64)
         self.clock = 0                      # engine steps taken
         self.model_steps = 0                # steps that actually ran the DiT
+        self.audited_steps = 0              # of them, shadow-audited
         self.host_syncs = 0                 # completion reads (policy's apart)
-        self.acc = self._zero_acc()
-        self.slot_acc = {k: torch.zeros((max_slots,), dtype=F32, device=dev)
-                         for k in self._acc_keys}
-
-    def _zero_acc(self) -> Dict[str, torch.Tensor]:
-        return {k: torch.zeros((), dtype=F32, device=self.device)
-                for k in self._acc_keys}
+        # the active-slot counters (K,) and the request-scoped (K', S) ones,
+        # the audit plane's error budget riding the latter; the dicts hold
+        # views of their rows
+        k = len(self._acc_keys)
+        slot_keys = self._acc_keys + (obs_audit.AUDIT_ACC_KEYS
+                                      if self._audit_on else ())
+        self._acc_vec = torch.zeros((k,), dtype=F32, device=dev)
+        self.acc = {key: self._acc_vec[i]
+                    for i, key in enumerate(self._acc_keys)}
+        self._slot_mat = torch.zeros((len(slot_keys), max_slots), dtype=F32,
+                                     device=dev)
+        self.slot_acc = {key: self._slot_mat[i]
+                         for i, key in enumerate(slot_keys)}
+        self.collector = collector
+        self.tracer = tracer
+        self._metrics_on = enable_metrics
+        self.metrics = (obs_metrics.init_device_metrics(
+            max_slots,
+            audit_layers=(runner.L + 1) if self._audit_on else None,
+            token_metrics=runner.reducer is not None, device=dev)
+            if enable_metrics else {})
+        if collector is not None and self._audit_on:
+            collector.set_audit_context(bound=self._audit_bound,
+                                        fraction=self.audit_fraction)
 
     def _slot_rows(self, s: int) -> List[int]:
-        """State rows owned by slot s: its CFG cond/uncond pair."""
-        return [s, self.S + s]
+        """State rows owned by slot s: its CFG cond/uncond pair, or its one
+        row on the cfg_rows=False fast path."""
+        return [s, self.S + s] if self.cfg_rows else [s]
+
+    def _fold(self, rows: torch.Tensor) -> torch.Tensor:
+        """(..., rows) per-row values summed into (..., S) per slot."""
+        return rows[..., :self.S] + rows[..., self.S:] if self.cfg_rows \
+            else rows
 
     # -- device step ----------------------------------------------------
 
     @torch.no_grad()
     def _serve_step(self, step_idx: torch.Tensor, labels: torch.Tensor,
-                    active: torch.Tensor) -> None:
+                    active: torch.Tensor, active_host: np.ndarray,
+                    audit_now: bool) -> None:
         """Advance all slots one denoising step.  ``step_idx`` (S,) is each
         slot's position in its own plan row; idle slots run through the
         model as padding but their latents are frozen and their cache
-        decisions are left out of the counters."""
+        decisions are left out of the counters.  ``active_host`` is
+        ``active`` as the host holds it, ``audit_now`` the host's audit
+        schedule bit for this step."""
         idx = step_idx.clamp(0, self.max_steps - 1)[:, None]
         t = torch.gather(self.plan["ts"], 1, idx)[:, 0]
         t_prev = torch.gather(self.plan["ts_prev"], 1, idx)[:, 0]
         before = self.state["stats"]
-        x_new, self.state = sampler.denoise_step(
+        guidance = self.plan["guidance"] if self.cfg_rows else 1.0
+        ranges = self.tracer is not None
+        out = sampler.denoise_step(
             self.runner, self.sched, self.state, self.x, t, t_prev, labels,
-            guidance_scale=self.plan["guidance"])
+            guidance_scale=guidance, return_eps=self._audit_on,
+            ranges=ranges)
+        x_pre = self.x
+        x_new, self.state = out[0], out[1]
         self.x = torch.where(active[:, None, None, None], x_new, self.x)
-        act_rows = torch.cat([active, active]).to(F32)
-        for k in self._acc_keys:
-            delta = (self.state["stats"][k] - before[k]) * act_rows
-            self.acc[k] = self.acc[k] + delta.sum()
-            self.slot_acc[k] = self.slot_acc[k] + (delta[:self.S]
-                                                   + delta[self.S:])
+        act_rows = (torch.cat([active, active]) if self.cfg_rows
+                    else active).to(F32)
+        after = self.state["stats"]
+        keys = self._acc_keys
+        delta = (torch.stack([after[k] for k in keys])
+                 - torch.stack([before[k] for k in keys])) * act_rows
+        dsum = delta.sum(dim=1)                     # (K,) active rows
+        dfold = self._fold(delta)                   # (K, S)
+        self._acc_vec.add_(dsum)
+        self._slot_mat[:len(keys)].add_(dfold)
+        if self._metrics_on:
+            self._update_metrics(active_host, dsum, dfold)
+        if self._audit_on:
+            obs_audit.apply_audit(
+                self.runner, self.sched, self.state, x_pre, t, t_prev,
+                labels, guidance, active, out[2], self.cfg_rows,
+                self._audit_bound, self.metrics, self.slot_acc, audit_now,
+                ranges=ranges)
+
+    def _update_metrics(self, active: np.ndarray, dsum: torch.Tensor,
+                        dfold: torch.Tensor) -> None:
+        """The step's device-metrics update, batched (``DeviceUpdate``):
+        the host's increments (steps, active slots) in one copy, the stat
+        deltas' in one ``index_add_``.  Keys the policy's stats do not carry
+        are not counted."""
+        pos = {k: i for i, k in enumerate(self._acc_keys)}
+        n_act = float(active.sum())
+        up = obs_metrics.DeviceUpdate(self.metrics)
+        up.inc(obs_metrics.SERVE_STEPS, 1.0)
+        up.inc(obs_metrics.ACTIVE_SLOT_STEPS, n_act)
+        for name, key in _COUNTED:
+            if key in pos:
+                up.inc(name, dsum[pos[key]])
+        up.observe(obs_metrics.ACTIVE_SLOTS, n_act)
+        if "steps_reused" in pos:
+            up.observe(obs_metrics.SKIP_FRACTION,
+                       dsum[pos["steps_reused"]]
+                       / max(n_act * self.rows_per_slot, 1.0))
+        if "tokens_merged" in pos:
+            # token compression on: per slot, the realized kept/(kept +
+            # merged) ratio (idle slots add 0)
+            kept = dfold[pos["tokens_kept"]]
+            merged = dfold[pos["tokens_merged"]]
+            up.inc(obs_metrics.TOKENS_KEPT, dsum[pos["tokens_kept"]])
+            up.inc(obs_metrics.TOKENS_MERGED, dsum[pos["tokens_merged"]])
+            up.slot_add(obs_metrics.SLOT_MERGE_RATIO,
+                        kept / (kept + merged).clamp(min=1.0))
+        up.slot_add(obs_metrics.SLOT_ACTIVE_STEPS, active.astype(np.float32))
+        up.apply()
 
     # -- host orchestration ---------------------------------------------
 
@@ -141,7 +271,8 @@ class DiffusionServingEngine:
 
     def resolve_plan(self, req: DiffusionRequest) -> SamplingPlan:
         """The request's own plan where set, the engine defaults otherwise;
-        the resolved values are written back onto the request."""
+        the resolved values are written back onto the request.  The
+        cfg_rows=False engine rejects any guidance but 1.0."""
         n = req.num_steps if req.num_steps is not None else self.num_steps
         g = (req.guidance_scale if req.guidance_scale is not None
              else self.guidance_scale)
@@ -150,6 +281,11 @@ class DiffusionServingEngine:
                 f"request rid={req.rid} wants num_steps={n} but this "
                 f"engine's plan tables are max_steps={self.max_steps} "
                 f"wide; construct the engine with max_steps>={n}")
+        if not self.cfg_rows and g != 1.0:
+            raise ValueError(
+                f"request rid={req.rid} wants guidance_scale={g} but this "
+                f"engine runs the cfg_rows=False no-CFG fast path "
+                f"(guidance==1.0 only; no uncond rows are materialized)")
         req.num_steps, req.guidance_scale = n, float(g)
         return SamplingPlan(n, float(g))
 
@@ -171,13 +307,20 @@ class DiffusionServingEngine:
         # fill_, not item assignment: a Python scalar assigned to a 0-dim
         # CUDA view goes through a synchronizing host copy
         self.plan["guidance"][s].fill_(plan.guidance_scale)
-        for v in self.slot_acc.values():
-            v[s].fill_(0.0)
+        self._slot_mat[:, s].fill_(0.0)
         self.slots[s] = req
         self.slot_step[s] = 0
         self.slot_budget[s] = plan.num_steps
         self.slot_label[s] = req.label
         req.admit_step = self.clock
+        if self.collector is not None:
+            self.collector.inc(obs_metrics.ADMISSIONS)
+            self.collector.observe(obs_metrics.QUEUE_WAIT,
+                                   max(self.clock - req.arrival_step, 0))
+        if self.tracer is not None:
+            self.tracer.admit(req.rid, s, label=req.label,
+                              num_steps=plan.num_steps,
+                              engine_step=self.clock)
         return True
 
     def step(self) -> List[DiffusionRequest]:
@@ -188,9 +331,21 @@ class DiffusionServingEngine:
         if not active.any():            # idle tick: time passes, no compute
             return []
         dev = self.device
-        self._serve_step(
-            to_device(np.where(active, self.slot_step, 0).astype(np.int64), dev),
-            to_device(self.slot_label, dev), to_device(active, dev))
+        # the audit schedule: a host-side hash of the model-step counter
+        audit_now = self._audit_on and obs_audit.audit_mask(
+            self.model_steps, self.audit_fraction, self.audit_seed)
+        self.audited_steps += int(audit_now)
+        args = (to_device(np.where(active, self.slot_step, 0).astype(np.int64),
+                          dev),
+                to_device(self.slot_label, dev), to_device(active, dev),
+                active, audit_now)
+        if self.tracer is not None:
+            with self.tracer.step_begin(self.clock,
+                                        active=int(active.sum())):
+                self._serve_step(*args)
+            self.tracer.snapshot_slots(self.clock, active, self.slot_acc)
+        else:
+            self._serve_step(*args)
         self.model_steps += 1
 
         done_slots = []
@@ -205,6 +360,12 @@ class DiffusionServingEngine:
                 req = self.slots[s]
                 req.finish_step = self.clock
                 req.done = True
+                if self.collector is not None:
+                    self.collector.inc(obs_metrics.REQUESTS_FINISHED)
+                    self.collector.observe(obs_metrics.REQUEST_LATENCY,
+                                           req.finish_step - req.arrival_step)
+                if self.tracer is not None:
+                    self.tracer.finish(req.rid, engine_step=self.clock)
                 finished.append(req)
                 # reset on free as well as on admission, so a freed slot
                 # never carries stale gate/cache state
@@ -219,8 +380,8 @@ class DiffusionServingEngine:
         device->host read per completion step."""
         self.host_syncs += 1
         keys = list(self.slot_acc)
-        flat = torch.cat([self.x.reshape(-1)]
-                         + [self.slot_acc[k] for k in keys]).cpu().numpy()
+        flat = torch.cat([self.x.reshape(-1),
+                          self._slot_mat.reshape(-1)]).cpu().numpy()
         x_host = flat[:self.x.numel()].reshape(self.x.shape)
         acc_host = flat[self.x.numel():].reshape(len(keys), self.S)
         for s in done_slots:
@@ -233,10 +394,14 @@ class DiffusionServingEngine:
             max_engine_steps: int = 100_000) -> List[DiffusionRequest]:
         """Drive a whole trace.  ``lockstep=False`` (continuous batching)
         admits arrived requests into free slots every step;
-        ``lockstep=True`` admits a new wave only once every slot is free."""
+        ``lockstep=True`` admits a new wave only once every slot is free.
+        With a collector, its windows close every ``window_steps`` engine
+        steps and at the end."""
         queue = (requests if isinstance(requests, RequestQueue)
                  else RequestQueue(list(requests), policy=sched_policy))
         finished: List[DiffusionRequest] = []
+        window = (self.collector.window_steps
+                  if self.collector is not None else None)
         while queue or any(r is not None for r in self.slots):
             if self.clock >= max_engine_steps:
                 break
@@ -244,7 +409,19 @@ class DiffusionServingEngine:
                 while self.free_slots() and queue.peek_arrived(self.clock):
                     self.add_request(queue.pop_arrived(self.clock))
             finished.extend(self.step())
+            if window and self.clock % window == 0:
+                self.harvest_metrics()      # a window's close: one read
+        if self.collector is not None:
+            self.harvest_metrics()          # run end
         return finished
+
+    def harvest_metrics(self) -> Optional[Dict]:
+        """Fetch the device metrics into the collector: the metrics plane's
+        one device->host read, at run end and at a window's close."""
+        if self.collector is None:
+            return None
+        return self.collector.harvest(self.metrics or None,
+                                      at_step=self.clock)
 
     def cache_stats(self) -> Dict:
         """Engine-lifetime cache counters, active slots only; raw per-row

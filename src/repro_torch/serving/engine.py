@@ -5,20 +5,28 @@ reference's ``serving/engine.py:ServingEngine``.
 The engine owns a KV cache sized (max_batch, window) and a slot table; a
 new request is prefilled alone (batch 1) and spliced into a free slot, and
 each decode step runs the whole batch.  Finished sequences free their
-slots.  Greedy decoding only: ``greedy=False`` (sampling with
-``jax.random``, which the port cannot reproduce) and ``collector=`` (the
-metrics plane) raise.
+slots.  With ``greedy=False`` a request's first token (the one drawn from
+its prefill's logits) is sampled, as in the reference, through the
+``sample_fn(logits, rid) -> int`` hook; the default draws from a
+``torch.Generator`` seeded with ``rid`` on the engine's device (the
+reference draws ``jax.random.categorical(PRNGKey(rid), logits)``, which
+the port cannot reproduce; a parity test hands JAX's draw in).  Decode
+steps stay greedy, as the reference's do.
 
 Host syncs: one per admission and one per decode step (the greedy tokens),
 counted in ``host_syncs``; the FastCache gate adds the decoder's own
 (``decoder.host_syncs``).  The active-slot cache counters accumulate on the
-device and are read only by ``cache_stats``.
+device and are read only by ``cache_stats`` and, with a ``collector``, at
+``run``'s end, where they join the collector's harvest as its device
+counters.  Every other metric of this engine is a host value the loop
+already holds (admissions, tokens, active slots, latencies), so the
+metrics plane adds no device work and no sync.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,8 +35,12 @@ from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core.decode_runner import CachedDecoder
 from repro_torch.device import to_device
 from repro_torch.models.transformer import TransformerModel
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.metrics import MetricsCollector
 
 F64 = torch.float64
+
+SampleFn = Callable[[torch.Tensor, int], int]
 
 
 @dataclasses.dataclass(eq=False)
@@ -44,16 +56,14 @@ class ServingEngine:
     def __init__(self, model: TransformerModel, *, max_batch: int,
                  window: int, eos_id: Optional[int] = None,
                  fastcache: Optional[FastCacheConfig] = None,
-                 greedy: bool = True, collector=None):
-        if not greedy:
-            raise NotImplementedError(
-                "only greedy decoding is ported: the reference samples with "
-                "jax.random, which the port cannot reproduce")
-        if collector is not None:
-            raise NotImplementedError("the metrics plane (collector=) is not "
-                                      "ported")
+                 greedy: bool = True,
+                 collector: Optional[MetricsCollector] = None,
+                 sample_fn: Optional[SampleFn] = None):
         self.model = model
         self.device = model.device
+        self.greedy = greedy
+        self.sample_fn = None if greedy else (sample_fn or self.sample_token)
+        self.collector = collector
         self.max_batch = max_batch
         self.window = window
         self.eos_id = eos_id
@@ -98,19 +108,34 @@ class ServingEngine:
                     # per-slot gating: re-arm only this slot's trackers — the
                     # other slots' caches stay valid across the admission
                     self.decoder.reset_slot(self.fc_state, s)
-                nxt = int(torch.argmax(logits))      # host sync
+                if self.greedy:
+                    nxt = int(torch.argmax(logits))  # host sync
+                else:
+                    nxt = int(self.sample_fn(logits, req.rid))
                 self.host_syncs += 1
                 self.prefill_s += time.perf_counter() - t0
                 self.prefills += 1
                 req.generated.append(nxt)
                 self.slots[s] = req
                 self.slot_tokens[s] = nxt
+                if self.collector is not None:
+                    self.collector.inc(obs_metrics.ADMISSIONS)
+                    self.collector.inc(obs_metrics.PREFILLS)
                 return True
         return False
+
+    def sample_token(self, logits: torch.Tensor, rid: int) -> int:
+        """The default ``sample_fn``: one categorical draw from
+        ``softmax(logits)`` with a ``torch.Generator`` seeded by ``rid`` on
+        the engine's device (one host read, the admission's)."""
+        gen = torch.Generator(self.device).manual_seed(int(rid))
+        probs = torch.softmax(logits.float(), dim=-1)
+        return int(torch.multinomial(probs, 1, generator=gen))
 
     def step(self) -> None:
         """One batched decode step for all active slots."""
         tokens = to_device(self.slot_tokens, self.device)
+        n_active = sum(1 for r in self.slots if r is not None and not r.done)
         if self.decoder is None:
             logits, self.cache = self.model.decode_step(tokens, self.cache)
         else:
@@ -125,6 +150,11 @@ class ServingEngine:
                              ("blocks_computed",
                               self.active_blocks_computed)):
                 acc.add_(((after[key] - before[key]) * active).sum(dtype=F64))
+        if self.collector is not None:
+            self.collector.inc(obs_metrics.SERVE_STEPS)
+            self.collector.inc(obs_metrics.ACTIVE_SLOT_STEPS, n_active)
+            self.collector.inc(obs_metrics.DECODE_TOKENS, n_active)
+            self.collector.observe(obs_metrics.ACTIVE_SLOTS, n_active)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()     # host sync
         self.host_syncs += 1
         self.decode_steps += 1
@@ -138,6 +168,10 @@ class ServingEngine:
                     or len(req.generated) >= req.max_new_tokens):
                 req.done = True
                 self.slots[s] = None
+                if self.collector is not None:
+                    self.collector.inc(obs_metrics.REQUESTS_FINISHED)
+                    self.collector.observe(obs_metrics.REQUEST_LATENCY,
+                                           len(req.generated))
 
     def run(self, requests: List[Request], max_steps: int = 1024
             ) -> List[Request]:
@@ -153,7 +187,23 @@ class ServingEngine:
             for r in active:
                 if r.done and r not in finished:
                     finished.append(r)
+        if self.collector is not None:
+            self.harvest_metrics(at_step=steps)
         return finished + [r for r in active if r not in finished]
+
+    def harvest_metrics(self, at_step: Optional[int] = None
+                        ) -> Optional[Dict]:
+        """Hand the collector a window: the host counters it holds, and the
+        decode gate's active-slot block counters from the device (the one
+        device read of the metrics plane, at run end)."""
+        if self.collector is None:
+            return None
+        device = None
+        if self.decoder is not None:
+            device = {"counters": {
+                obs_metrics.BLOCKS_SKIPPED: self.active_blocks_skipped,
+                obs_metrics.BLOCKS_COMPUTED: self.active_blocks_computed}}
+        return self.collector.harvest(device, at_step=at_step)
 
     def cache_stats(self) -> Dict:
         """Engine-lifetime cache counters.  The headline numbers count only

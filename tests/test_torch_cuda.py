@@ -23,7 +23,8 @@ order over K up to 1152), 2e-2 in bf16 (one bf16 rounding of values up to
 fused_gate and linear_blend have two routes (cuda_kernels/route.py): bf16
 inputs of eligible shape take the wgmma route, which multiplies a bf16 copy
 of W (``w_bf16=``, W = I + 0.01 noise rounded by at most 2^-9 relative:
-~1e-3 in the outputs, inside 2e-2); the rest the SIMT route.  Each route is
+~1e-3 in the outputs, inside 2e-2); the rest, and calls that name it
+(``gemm="simt"``), the SIMT route.  Each route is
 also reached through the module's launcher for a named route (``_launch``),
 and at W = I (exact in bf16) the two agree bitwise.
 knn_density and merge_assign have two routes too (``route.window_route``):
@@ -55,8 +56,9 @@ sal_mod = importlib.import_module("repro_torch.cuda_kernels.saliency_delta")
 BF16 = torch.bfloat16
 
 
-def _plain_gate(*args, w_bf16=None, **kw):
-    """ref.fused_gate in the wrapper's signature (w_bf16 is not read)."""
+def _plain_gate(*args, w_bf16=None, gemm=None, **kw):
+    """ref.fused_gate in the wrapper's signature (w_bf16 and gemm are not
+    read)."""
     return ref.fused_gate(*args, **kw)
 
 
@@ -932,7 +934,7 @@ def test_policy_step_kernels_match_plain_path(cuda_device, monkeypatch,
             m.setattr(base, "saliency_delta", ref.saliency_delta)
             m.setattr(saliency, "saliency_delta", ref.saliency_delta)
             m.setattr(l2c, "linear_blend",
-                      lambda x, w, b, prev, *, gamma, w_bf16=None:
+                      lambda x, w, b, prev, *, gamma, w_bf16=None, gemm=None:
                       ref.linear_blend(x, w, b, prev, gamma))
             outs.append(plain.step(states[1], x, t, labels))
         states = [o[1] for o in outs]
@@ -1003,17 +1005,22 @@ def test_linear_blend_routes_agree_bitwise_at_identity(cuda_device, shape,
 
 @pytest.mark.cuda
 def test_linear_blend_wrapper_picks_the_route(cuda_device):
-    """The served shape goes to wgmma, and without w_bf16 it raises; f32 and
-    ragged bf16 go to SIMT and need no copy."""
+    """The served shape goes to wgmma, and without w_bf16 it raises; named
+    (``gemm="simt"``, as the runners name it for fitted maps) it takes the
+    SIMT route with the f32 W; f32 and ragged bf16 go to SIMT and need no
+    copy; a malformed copy raises."""
     x, w, b, prev = _blend_args(cuda_device, BF16, 2048, 1152, 1152)
     _, by_route = _counts(linear_blend)
     linear_blend(x, w, b, prev, gamma=1.0, w_bf16=w.to(BF16))
     by_route["wgmma"] += 1
     with pytest.raises(ValueError, match="w_bf16"):
         linear_blend(x, w, b, prev, gamma=1.0)
+    named = linear_blend(x, w, b, prev, gamma=1.0, gemm="simt")
+    torch.testing.assert_close(named.float(), ref.linear_blend(
+        x, w, b, prev, 1.0).float(), rtol=2e-2, atol=2e-2)
     linear_blend(x.float(), w, b, prev.float(), gamma=1.0)
     linear_blend(*_blend_args(cuda_device, BF16, 130, 257, 129), gamma=1.0)
-    by_route["simt"] += 2
+    by_route["simt"] += 3
     torch.cuda.synchronize(cuda_device)
     assert linear_blend.launches_by_route == by_route
     with pytest.raises(ValueError, match="w_bf16"):
@@ -1094,10 +1101,96 @@ def test_fused_gate_wrapper_picks_the_route(cuda_device):
     by_route["wgmma"] += 1
     with pytest.raises(ValueError, match="w_bf16"):
         fused_gate(*args, threshold=thr)
+    fused_gate(*args, threshold=thr, gemm="simt")       # named: the f32 W
     small, thr_small = _gate_inputs(cuda_device, BF16, 3, 40, 100)
     fused_gate(*small, threshold=thr_small)
     f32, thr_f32 = _gate_inputs(cuda_device, torch.float32, 8, 128, 1152)
     fused_gate(*f32, threshold=thr_f32)
-    by_route["simt"] += 2
+    by_route["simt"] += 3
+    with pytest.raises(ValueError, match="w_bf16"):
+        fused_gate(*args, threshold=thr, w_bf16=args[3][:, :8].to(BF16))
     torch.cuda.synchronize(cuda_device)
     assert fused_gate.launches_by_route == by_route
+
+
+# ---------------------------------------------------------------------------
+# saliency_delta and linear_blend at the observability slice's call sites
+# ---------------------------------------------------------------------------
+
+# (B, N, D) bf16: the decode gate's rows (batch <= 4 of one 1024-wide
+# token), the audit's per-layer stacks at full width ((L+1) x 8 CFG rows
+# of DiT-XL/2) and the calibration recorder's (L x 4 rows at batch 2)
+OBS_SAL_SHAPES = [(1, 1, 1024), (4, 1, 1024), (232, 256, 1152),
+                  (112, 256, 1152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OBS_SAL_SHAPES)
+def test_saliency_new_call_sites_onepass_bitwise(cuda_device, shape):
+    """At each new call site's shape the wrapper takes the onepass route,
+    whose outputs are the SIMT route's bits and within rtol 1e-5 of the
+    plain version; the tickets of every sample are back at zero after the
+    call."""
+    x, prev = _sal_pair(cuda_device, BF16, shape, seed=shape[0])
+    before = _sal_route_counts()
+    got = saliency_delta(x, prev)
+    torch.cuda.synchronize(cuda_device)
+    assert saliency_delta.launches_by_route == dict(
+        before, onepass=before["onepass"] + 1)
+    assert sal_mod.tickets(shape[0]) == [0] * shape[0]
+    simt = sal_mod._launch("simt", x, prev)
+    for g, s in zip(got, simt):
+        assert torch.equal(g, s), shape
+    for g, w in zip(got, ref.saliency_delta(x, prev)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+def test_linear_blend_decode_gate_shape_matches_plain(cuda_device, m):
+    """The decode gate's approximation: M = batch <= 4 rows, D = F = 1024,
+    bf16, gamma 1, on the route the rule gives (wgmma: one tile row, the
+    rest padding), against the plain version; bitwise at W = I against the
+    SIMT route."""
+    args = _blend_args(cuda_device, BF16, m, 1024, 1024, seed=m)
+    _, by_route = _counts(linear_blend)
+    got = linear_blend(*args, gamma=1.0, w_bf16=args[1].to(BF16))
+    torch.cuda.synchronize(cuda_device)
+    by_route["wgmma"] += 1
+    assert linear_blend.launches_by_route == by_route
+    assert got.shape == (m, 1024) and got.dtype == BF16
+    want = ref.linear_blend(*args, 1.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    x, _, b, prev = args
+    eye = torch.eye(1024, device=cuda_device)
+    tc = lb_mod._launch("wgmma", x, eye, b, prev, 1.0, eye.to(BF16))
+    simt = lb_mod._launch("simt", x, eye, b, prev, 1.0, None)
+    assert torch.equal(tc, simt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_gate", "linear_blend"])
+def test_simt_route_bf16_x_far_from_identity(cuda_device, kernel):
+    """Named SIMT with bf16 X at the served shape and a W far from the
+    identity (entries of a fitted map's size: ||W - I|| / ||I|| ~ 10), as
+    the runners serve fitted maps: within 2e-2 rel-L2 of the plain
+    version, gate bits exact."""
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    d = 1152
+    w = torch.eye(d, device=cuda_device) + 10.0 * torch.randn(
+        (d, d), generator=gen, device=cuda_device)
+    if kernel == "fused_gate":
+        args, thr = _gate_inputs(cuda_device, BF16, 8, 128, d)
+        args = args[:3] + (w,) + args[4:]
+        got = fused_gate(*args, threshold=thr, gemm="simt")
+        want = ref.fused_gate(*args, threshold=thr)
+        assert torch.equal(got[1], want[1]) and bool(got[1].any())
+        got, want = got[0], want[0]
+    else:
+        x, _, b, prev = _blend_args(cuda_device, BF16, 2048, d, d)
+        got = linear_blend(x, w, b, prev, gamma=1.0, gemm="simt")
+        want = ref.linear_blend(x, w, b, prev, 1.0)
+    torch.cuda.synchronize(cuda_device)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel <= 2e-2, rel

@@ -20,6 +20,7 @@ from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core import saliency, statcache
 from repro_torch.core.policies.base import summarize_stats
 from repro_torch.core.runner import CachedDiT
+from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from tests.test_torch_model import (BLOCK_TOL, SMALL_CONFIGS, jax_dit, np32,
                                     port_dit, t32)
 
@@ -159,16 +160,27 @@ def test_partition_ties_match_top_k():
 
 
 def test_global_gate_mode_raises(pair):
+    """The global gate is ported now (its parity is in
+    test_torch_leftovers.py); the serving engine still refuses it, as the
+    reference's does (admissions would move residents' decisions), and an
+    unknown mode raises in CachedDiT."""
+    from repro_torch.serving.diffusion_engine import DiffusionServingEngine
     _, _, _, model = pair
+    runner = CachedDiT(model, FastCacheConfig(gate_mode="global"))
     with pytest.raises(ValueError, match="per_sample"):
-        CachedDiT(model, FastCacheConfig(gate_mode="global"))
+        DiffusionServingEngine(runner, max_slots=2)
+    with pytest.raises(ValueError, match="per_sample"):
+        CachedDiT(model, FastCacheConfig(gate_mode="batch"))
 
 
 def test_delta_stats_and_sigma_update_match_reference():
+    """The per-sample delta stats the port's gates read (the totals of the
+    saliency_delta wrapper, on the CPU its plain version) and the sigma
+    update against the reference's."""
     rng = np.random.default_rng(2)
     h = rng.standard_normal((3, 16, 8)).astype(np.float32)
     prev = (h + 0.1 * rng.standard_normal(h.shape)).astype(np.float32)
-    diff, prevsq = statcache.delta_stats_per_sample(t32(h), t32(prev))
+    _, diff, prevsq = saliency_delta(t32(h), t32(prev))
     jdiff, jprevsq = jstatcache.delta_stats_per_sample(jnp.asarray(h),
                                                        jnp.asarray(prev))
     np.testing.assert_allclose(diff.numpy(), np.asarray(jdiff), rtol=1e-5)

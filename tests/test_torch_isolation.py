@@ -34,7 +34,9 @@ def test_no_jax_or_reference_imports(path):
 def test_engine_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serving.diffusion_engine, "
             "repro_torch.launch.serve_diffusion, "
-            "repro_torch.serving.engine, repro_torch.launch.serve; "
+            "repro_torch.serving.engine, repro_torch.launch.serve, "
+            "repro_torch.obs, repro_torch.obs.metrics_doc, "
+            "repro_torch.launch.calibrate; "
             "assert 'jax' not in sys.modules, 'jax was imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro was imported'")
@@ -42,3 +44,17 @@ def test_engine_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["obs/__init__.py", "obs/metrics.py",
+                                    "obs/metrics_doc.py", "obs/tracing.py",
+                                    "obs/audit.py", "obs/calibration.py",
+                                    "launch/calibrate.py"])
+def test_observability_modules_are_scanned(module):
+    """The observability plane and the calibration launcher keep their own
+    copies of what they need from the reference (the registry, the
+    Prometheus parser, the trace event model, ``_splitmix64``): each is a
+    port file the import scan above covers."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)

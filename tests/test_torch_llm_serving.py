@@ -86,9 +86,14 @@ def test_cached_decoder_steps_with_a_slot_reset(llm):
 
 
 def test_cached_decoder_rejects_global_gate(llm):
+    """The global gate is ported now (its parity is in
+    test_torch_leftovers.py): the decoder takes the reference's two gate
+    modes and rejects any other, as the reference's CachedDiT does."""
     _, _, tm = llm
+    assert CachedDecoder(tm, FastCacheConfig(gate_mode="global")
+                         ).gate_mode == "global"
     with pytest.raises(ValueError, match="per_sample"):
-        CachedDecoder(tm, FastCacheConfig(gate_mode="global"))
+        CachedDecoder(tm, FastCacheConfig(gate_mode="batch"))
 
 
 # (requests, prompt, new tokens, max_batch, window): the serve_llm.py-style
@@ -129,11 +134,14 @@ def test_engine_trace_matches_reference(llm, trace, fastcache):
 
 
 def test_engine_raises_on_unported_options(llm):
+    """``greedy=False`` and ``collector=`` are ported now (their parity is
+    in test_torch_leftovers.py): the engine takes both, and the sampled
+    engine draws through its ``sample_fn`` hook."""
+    from repro_torch.obs.metrics import MetricsCollector
     _, _, tm = llm
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tm, max_batch=2, window=16, greedy=False)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tm, max_batch=2, window=16, collector=object())
+    eng = ServingEngine(tm, max_batch=2, window=16, greedy=False,
+                        collector=MetricsCollector())
+    assert eng.sample_fn is not None and eng.collector is not None
 
 
 @pytest.mark.parametrize("extra", [[], ["--fastcache"]],
