@@ -149,6 +149,29 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             launches exact;
 9e. trace   a traced 2-request serve whose document passes
             validate_trace;
+9f. preempt_resume / preempt_resume_merge   the reference test's preempt
+            script at full width (merge off, then at 0.5) with a third
+            request: a and b admitted, b preempted after 3 steps, c
+            admitted into b's slot 2 steps later, b resumed into another
+            slot a step after that; beside the same requests served
+            without a preemption: every request's latents bitwise (the
+            victim's at least within 5e-2 of its scale) and req.cache
+            exact, the snapshot unchanged after c's admission and step,
+            preempt and the resuming add_request under sync debug "error"
+            (their CUDA-event spans printed), launches exact and on the
+            fast routes; then the snapshot, the donor reset and the restore
+            alone, device time behind a spin and kernels per call
+            (torch.profiler), beside the bound (the snapshot's bytes read
+            and written once);
+9g. slo_serve  SLOScheduler over 16 requests, 0.5 per engine step with a
+            burst of 2.0 from step 5 for 20 steps, priority mix 0,1,1,2,
+            deadline slacks 80,120,200, EDF, on_miss="reject", preemption
+            and the shed ladder on, counts zeroed just before and read
+            just after: at least one preemption, resumes == preemptions,
+            launches exact and on the fast routes, 29 syncs per warm model
+            step (1 + L) in both serves; the per-class summary, the shed walk and the collector's
+            SLO counts; then the same trace served plainly, and per engine
+            step both serves' wall time and CUDA-event span;
 10. kernel  flash_attention against its plain version at four shapes: (a)
             the LLM serve's prefill, B=1, H=16, KVH=8, S=512, dh=128,
             causal, window 1024, bf16; (b) S=2048, window 512 (tiles
@@ -1778,6 +1801,326 @@ def phase_trace(torch, dev, wl, model, m):
         raise AssertionError("trace: admit / finish events missing")
 
 
+PREEMPT_AFTER = 3          # the victim's steps before it is preempted
+PARKED_STEPS = 2           # steps it waits before the donor slot refills
+SLO_TRACE = dict(requests=16, rate=0.5, burst_rate=2.0, burst_start=5,
+                 burst_len=20, priority_mix=(0, 1, 1, 2),
+                 deadline_slack_mix=(80, 120, 200), sched="edf", slo=True,
+                 on_miss="reject", preempt=True, shed=True)
+
+
+def path_kernels(runner):
+    """The kernels a fastcache serve launches: B1, B5, B6, and the merge
+    kernels when token merging is on."""
+    names = ["fused_gate", "saliency_delta", "linear_blend"]
+    if runner.reducer is not None:
+        names += list(WINDOW_KERNELS) + ["unmerge_scatter"]
+    return names
+
+
+def check_path(label, wl, runner, eng, m, launches):
+    """A path's launches: exactly expected_launches, each of its kernels
+    at least once, every B1 / B5 / B6 launch (and B2 / B3 when merged) on
+    its tensor-core or onepass route (ROUTE_OF_SERVE)."""
+    want = expected_launches(wl, runner, eng, launches)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    for name in path_kernels(runner):
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} never launched")
+    for name, which in ROUTE_OF_SERVE.items():
+        got = dict(m.kernels[name].launches_by_route)
+        if got != {**dict.fromkeys(got, 0), which: launches[name]}:
+            raise AssertionError(f"{label}: {name} launches by route {got}, "
+                                 f"expected all {launches[name]} on {which}")
+
+
+def snapshot_tensors(snap):
+    """Every tensor of a preemption snapshot, by path."""
+    out = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(tree, tuple):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}{i}/")
+        else:
+            out[prefix[:-1]] = tree
+    walk(snap, "")
+    return out
+
+
+def profiled_launches(torch, fn, calls: int = 10):
+    """Kernels and copies per call of ``fn`` on the card (torch.profiler
+    around ``calls`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(1 for e in events if "emcpy" not in e.name)
+    return kernels / calls, (len(events) - kernels) / calls
+
+
+def event_ms(torch, fn):
+    """``fn()`` between two CUDA events: the stream's span from the call's
+    first enqueued work to its last (host enqueue gaps included)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    return out, (start, end)
+
+
+def run_preempt_script(torch, wl, model, m, preempt):
+    """The reference test's preempt script at full width with a third
+    request: a and b admitted, PREEMPT_AFTER steps, b preempted, then
+    PARKED_STEPS steps, c admitted (into b's slot), one step, b resumed
+    (into another slot), drained.  Without ``preempt`` the same requests
+    on the same clock, straight through (b keeps its slot, c the next).
+    ``preempt`` and the resuming ``add_request`` run under sync debug
+    "error" between CUDA events; every count is zeroed just before the
+    first admission and read after the drain."""
+    runner, eng = wl.build_engine(model)
+    reqs = [m.DiffusionRequest(rid=i, label=i + 1, seed=10 + i,
+                               num_steps=wl.steps, guidance_scale=wl.guidance)
+            for i in range(3)]
+    a, b, c = reqs
+    torch.cuda.synchronize()
+    zero_counts(m.kernels)
+    t0 = time.perf_counter()
+    eng.add_request(a)
+    eng.add_request(b)
+    done, info = [], {}
+    for _ in range(PREEMPT_AFTER):
+        done += eng.step()
+    if preempt:
+        donor = eng.slots.index(b)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, info["preempt_events"] = event_ms(torch,
+                                                 lambda: eng.preempt(donor))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        kept = {k: v.clone() for k, v in snapshot_tensors(b.snapshot).items()}
+    for _ in range(PARKED_STEPS):
+        done += eng.step()
+    eng.add_request(c)
+    done += eng.step()
+    if preempt:
+        if eng.slots.index(c) != donor:
+            raise AssertionError("c did not take the donor slot")
+        now = snapshot_tensors(b.snapshot)
+        info["snapshot_survived"] = all(torch.equal(v, kept[k])
+                                        for k, v in now.items())
+        info["snapshot_bytes"] = sum(v.numel() * v.element_size()
+                                     for v in now.values())
+        info["snapshot_leaves"] = len(now)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, info["resume_events"] = event_ms(torch,
+                                                lambda: eng.add_request(b))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        info["slots"] = {"donor": donor, "resumed": eng.slots.index(b)}
+        if info["slots"]["resumed"] == donor:
+            raise AssertionError("b resumed in its donor slot")
+    while len(done) < 3:
+        done += eng.step()
+    torch.cuda.synchronize()
+    info["wall_s"] = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in m.kernels.items()}
+    for key in ("preempt_events", "resume_events"):
+        if key in info:
+            start, end = info.pop(key)
+            info[key.replace("events", "span_ms")] = start.elapsed_time(end)
+    return runner, eng, sorted(done, key=lambda r: r.rid), launches, info
+
+
+def phase_preempt_resume(torch, dev, wl, model, m, label):
+    """The preempt script against the same requests served without a
+    preemption: the victim's latents bitwise and its req.cache exact (the
+    other two as well); the snapshot unchanged after c's admission into
+    its slot and a step; preempt and resume free of host syncs (sync debug
+    "error"); the path's launches exact and on the fast routes.  Then the
+    pair's device time alone, on the drained engine: ``_snapshot`` (the
+    copy out), the preempt's donor reset, and ``_restore``, each timed
+    behind a spin (device_ms) with its kernels and copies per call
+    (torch.profiler), beside the bound: the snapshot's bytes read and
+    written once at 3.35 TB/s.  Returns the launches of the preempted
+    run."""
+    _, _, want, _, _ = run_preempt_script(torch, wl, model, m, False)
+    runner, eng, got, launches, info = run_preempt_script(torch, wl, model,
+                                                          m, True)
+    check_path(label, wl, runner, eng, m, launches)
+    victim = got[1]
+    if (victim.preemptions, victim.steps_done) != (1, PREEMPT_AFTER):
+        raise AssertionError(f"victim: {victim.preemptions} preemptions, "
+                             f"{victim.steps_done} steps done")
+    if not info["snapshot_survived"]:
+        raise AssertionError("the snapshot changed after the donor slot "
+                             "was refilled")
+    diffs = {}
+    for r, w in zip(got, want):
+        if r.latents.shape != latent_shape(model) \
+                or not np.isfinite(r.latents).all():
+            raise AssertionError(f"rid={r.rid}: latents not finite")
+        diffs[r.rid] = float(np.abs(r.latents - w.latents).max())
+        if r.cache != w.cache:
+            raise AssertionError(f"rid={r.rid}: req.cache {r.cache} != "
+                                 f"the un-preempted serve's {w.cache}")
+    bitwise = {rid: d == 0.0 for rid, d in diffs.items()}
+    # the pair alone, on the drained engine (slot 0 -> slot 1)
+    snap = eng._snapshot(0)
+    rows = eng._slot_rows(0)
+    timings = {
+        "snapshot": lambda: eng._snapshot(0),
+        "reset": lambda: eng.runner.reset_slot(eng.state, rows),
+        "restore": lambda: eng._restore(snap, 1),
+    }
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in snapshot_tensors(snap).values())
+    bound_ms, _ = bound(2.0 * nbytes, 0.0)
+    pair = {}
+    for name, fn in timings.items():
+        kernels, copies = profiled_launches(torch, fn)
+        pair[name] = {"device_ms": device_ms(torch, fn),
+                      "kernels": kernels, "copies": copies}
+    emit({"phase": label, "merge_ratio": wl.merge_ratio, **info,
+          "latents_bitwise": bitwise, "max_abs_diff": diffs,
+          "victim_cache": victim.cache, "launches": launches,
+          "pair": pair, "snapshot_bytes_timed": nbytes,
+          "bound_ms_each": bound_ms, "card": smi()})
+    if not all(bitwise.values()):
+        # bf16 tolerance where the card does not give the bits back
+        scale = float(np.abs(want[1].latents).max())
+        if diffs[1] > 5e-2 * scale:
+            raise AssertionError(f"victim latents off by {diffs[1]} "
+                                 f"(scale {scale})")
+    return launches
+
+
+def phase_slo_serve(torch, dev, wl, model, m):
+    """SLOScheduler over the calm -> burst -> calm trace (SLO_TRACE on
+    the Workload's model and engine), counts zeroed just before and read
+    just after; then the same trace served plainly (engine.run, FIFO) for
+    the per-step times.  Checks: every request finished or rejected, at
+    least one preemption, resumes == preemptions, the launches exact and on
+    the fast routes, fastcache's syncs per warm model step 29 in both
+    serves.  Prints the per-class summary, the shed walk, the collector's
+    SLO counts, and per engine step the wall time and the CUDA-event span
+    (the step timer's) of both serves."""
+    wl_slo = dataclasses.replace(wl, **SLO_TRACE)
+    col = m.MetricsCollector(labels={"policy": wl.policy})
+    runner, eng = wl_slo.build_engine(model, collector=col)
+    slo = wl_slo.build_slo(eng, col)
+    walk = []
+    observe = slo.controller.observe
+
+    def observe_and_log(depth):
+        lvl = observe(depth)
+        walk.append(slo.controller.level_idx)
+        return lvl
+
+    slo.controller.observe = observe_and_log
+    trace = wl_slo.build_trace(model)
+    torch.cuda.synchronize()
+    zero_counts(m.kernels)                         # the path starts here
+    t0 = time.perf_counter()
+    done = slo.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in m.kernels.items()}
+    check_path("slo_serve", wl_slo, runner, eng, m, launches)
+    slo.timer.poll()
+    totals = col.totals()
+    rejected = slo.rejected
+    if len(done) + len(rejected) != len(trace):
+        raise AssertionError(f"{len(done)} finished + {len(rejected)} "
+                             f"rejected of {len(trace)}")
+    for r in done:
+        if r.latents.shape != latent_shape(model) \
+                or not np.isfinite(r.latents).all():
+            raise AssertionError(f"rid={r.rid}: latents not finite")
+    preemptions = sum(r.preemptions for r in done)
+    if preemptions < 1 or totals.get(m.obs_metrics.RESUMES, 0.0) \
+            != preemptions or totals[m.obs_metrics.PREEMPTIONS] != preemptions:
+        raise AssertionError(f"preemptions {preemptions}, collector "
+                             f"{totals}")
+
+    # the same trace, plainly served, each step between CUDA events
+    runner_p, eng_p = wl_slo.build_engine(model)
+    timer = m.StepTimer(dev)
+    step = eng_p.step
+
+    def timed_step():
+        timer.start()
+        out = step()
+        timer.stop()
+        return out
+
+    eng_p.step = timed_step
+    trace_p = wl_slo.build_trace(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done_p = eng_p.run(trace_p)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    timer.poll()
+
+    def syncs_per_warm(r):
+        kinds = r.impl.step_kinds
+        return (r.impl.host_syncs - kinds["cold"] - kinds["mixed"]) \
+            / kinds["warm"]
+
+    # fastcache on a warm step: one `have` read + one gate read per layer
+    syncs = {"slo": syncs_per_warm(runner), "plain": syncs_per_warm(runner_p)}
+    if set(syncs.values()) != {float(1 + runner.L)}:
+        raise AssertionError(f"syncs per warm model step {syncs}")
+    emit({"phase": "slo_serve", "requests": len(trace),
+          "finished": len(done), "rejected": len(rejected),
+          "reject_reasons": collections.Counter(
+              r.reject_reason for r in rejected),
+          "preemptions": preemptions,
+          "collector": {k: totals.get(k, 0.0) for k in (
+              m.obs_metrics.ADMISSIONS, m.obs_metrics.PREEMPTIONS,
+              m.obs_metrics.RESUMES, m.obs_metrics.REJECTIONS,
+              m.obs_metrics.DEADLINE_MISSES,
+              m.obs_metrics.REQUESTS_FINISHED)},
+          "gauges": dict(col._gauges),
+          "shed_level_final": slo.controller.level.name,
+          "shed_level_max": max(walk), "shed_walk_changes": sum(
+              1 for x, y in zip(walk, walk[1:]) if x != y),
+          "by_class": m.summarize_by_class(done + rejected),
+          "num_steps_served": collections.Counter(r.num_steps for r in done),
+          "engine_steps": eng.clock, "model_steps": eng.model_steps,
+          "step_kinds": dict(runner.impl.step_kinds),
+          "launches": launches,
+          "syncs_per_warm_model_step": syncs,
+          "host_syncs_per_model_step": {
+              "slo": (runner.impl.host_syncs + eng.host_syncs)
+              / eng.model_steps,
+              "plain": (runner_p.impl.host_syncs + eng_p.host_syncs)
+              / eng_p.model_steps},
+          "wall_ms_per_engine_step": {"slo": wall / eng.clock * 1e3,
+                                      "plain": wall_p / eng_p.clock * 1e3},
+          "event_ms_per_engine_step": {
+              "slo": slo.timer.total_ms / slo.timer.count,
+              "plain": timer.total_ms / timer.count},
+          "model_step_ms_ema": slo.admission.predictor.model_step_ms,
+          "plain": {"finished": len(done_p), "engine_steps": eng_p.clock,
+                    "model_steps": eng_p.model_steps},
+          "card": smi()})
+    return launches
+
+
 def phase_llm_sampled(torch, dev, wl, model, serve):
     """greedy=False: each request's first token drawn from its prefill's
     logits (torch.Generator seeded by rid); every request finishes."""
@@ -1832,7 +2175,9 @@ def main() -> int:
     from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
     from repro_torch.launch.serve_diffusion import Workload
     from repro_torch.models import attention
-    from repro_torch.serving.scheduler import percentile
+    from repro_torch.serving.scheduler import (DiffusionRequest, percentile,
+                                               summarize_by_class)
+    from repro_torch.serving.slo import StepTimer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1876,6 +2221,8 @@ def main() -> int:
         record_calibration=record_calibration, calibrate_dit=calibrate_dit,
         fit_batches=fit_batches,
         obs_audit=obs_audit, obs_metrics=obs_metrics,
+        DiffusionRequest=DiffusionRequest, StepTimer=StepTimer,
+        summarize_by_class=summarize_by_class,
         fastcache_mod=fastcache_mod,
         kernels={"fused_gate": fused_gate, "knn_density": knn_density,
                  "merge_assign": merge_assign,
@@ -1941,6 +2288,15 @@ def main() -> int:
     phase_trace(torch, dev, wl, model, m)
     emit({"phase": "observability", "seconds": time.perf_counter() - t0})
 
+    # ---- the SLO plane: preempt / resume and the prioritised serve
+    t0 = time.perf_counter()
+    launches_preempt = phase_preempt_resume(torch, dev, wl, model, m,
+                                            "preempt_resume")
+    launches_preempt_merge = phase_preempt_resume(
+        torch, dev, wl_merge, model, m, "preempt_resume_merge")
+    launches_slo = phase_slo_serve(torch, dev, wl, model, m)
+    emit({"phase": "slo", "seconds": time.perf_counter() - t0})
+
     # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate
     flash_row = phase_flash_attention(torch, dev, ref, flash_attention,
                                       build)
@@ -1993,6 +2349,9 @@ def main() -> int:
             "calibrate_record": launches_record[row["name"]],
             "serve_calibrated": launches_calibrated[row["name"]],
             "serve_nocfg": launches_nocfg[row["name"]],
+            "preempt_resume": launches_preempt[row["name"]],
+            "preempt_resume_merge": launches_preempt_merge[row["name"]],
+            "slo_serve": launches_slo[row["name"]],
             "llm_serve_exact": launches_exact[row["name"]],
             "llm_serve_fastcache": launches_llm[row["name"]]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -6,6 +6,8 @@ full contract).  The port's protocol:
 
   init_state(batch) -> dict     the policy's buffers plus the ``stats`` block
   reset_rows(state, rows)       re-arm sample rows (a list of ints) in place
+  snapshot_rows(state, rows)    copy the rows out (a preemption checkpoint)
+  restore_rows(state, snap, rows)  write a checkpoint back into rows, in place
   step(state, x_in, c)          one model evaluation -> (eps, new state); the
                                 input state's tensors are not modified
   stats(state)                  host-side summary (``summarize_stats``)
@@ -31,19 +33,23 @@ skip that reads the (B,) skip mask once per step, one host sync, counted in
 """
 from __future__ import annotations
 
-from typing import (TYPE_CHECKING, Callable, Dict, List, Optional,
-                    Sequence, Tuple, Type)
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
+                    Sequence, Tuple, Type, Union)
 
+import numpy as np
 import torch
 
 from repro_torch.core import linear_approx
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
+from repro_torch.device import to_device
 from repro_torch.models.dit import DiTModel
 
 if TYPE_CHECKING:
     from repro_torch.core.token_reduce import TokenReducer
 
 F32 = torch.float32
+
+Rows = Union[Sequence[int], torch.Tensor]
 
 _REGISTRY: Dict[str, Type["CachePolicy"]] = {}
 
@@ -118,6 +124,52 @@ class CachePolicy:
     def reset_rows(self, state: Dict, rows: Sequence[int]) -> Dict:
         """Default: nothing policy-specific to re-arm."""
         return state
+
+    def snapshot_rows(self, state: Dict, rows: Rows) -> Dict:
+        """Copy ``rows`` out of ``state`` into a snapshot of the same
+        structure (the preemption checkpoint).  Every leaf that carries the
+        sample batch under the ``slot_axis`` rank rule is row-copied along
+        that axis (``index_select``: the snapshot owns its memory, so later
+        writes into the donor rows never reach it); replicated leaves (the
+        scalar ``steps``) pass through.  ``rows`` is a list of ints or an
+        int64 index tensor on the state's device (the engine keeps one per
+        slot, so a CUDA snapshot makes no host copy)."""
+        batch = self._state_batch(state)
+        idx = row_index(rows, self.device)
+
+        def take(leaf):
+            axis = slot_axis(tuple(leaf.shape), batch, self.L)
+            return leaf if axis is None else leaf.index_select(axis, idx)
+
+        return map_tree(take, state)
+
+    def restore_rows(self, state: Dict, snap: Dict, rows: Rows) -> Dict:
+        """Write a ``snapshot_rows`` checkpoint into ``rows`` of a live
+        state, in place (``index_copy_``), bitwise; ``rows`` may differ from
+        the donor's.  Replicated leaves keep the live value: engine-lifetime
+        scalars like ``stats["steps"]`` are not rewound."""
+        batch = self._state_batch(state)
+        idx = row_index(rows, self.device)
+
+        def put(leaf, sleaf):
+            axis = slot_axis(tuple(leaf.shape), batch, self.L)
+            if axis is not None:
+                leaf.index_copy_(axis, idx, sleaf)
+            return leaf
+
+        return map_tree(put, state, snap)
+
+    def _state_batch(self, state: Dict) -> int:
+        """The state's sample-row count, read off the first (B,) counter of
+        the mandatory ``stats`` block: the anchor the snapshot walkers
+        classify every other leaf against."""
+        for k, v in state.get("stats", {}).items():
+            if k != "steps" and v.dim() == 1:
+                return int(v.shape[0])
+        raise ValueError(
+            f"policy {self.name or type(self).__name__!r}: state carries no "
+            "(B,) stats counter to infer the sample batch from; override "
+            "snapshot_rows/restore_rows or add a per-sample stats key")
 
     def step(self, state: Dict, x_in: torch.Tensor, c: torch.Tensor
              ) -> Tuple[torch.Tensor, Dict]:
@@ -239,6 +291,44 @@ class CachePolicy:
         stats["motion_frac_sum"] = stats["motion_frac_sum"] + (1.0 - skf)
         st["stats"] = stats
         return eps, st
+
+
+def slot_axis(shape: Tuple[int, ...], batch: int,
+              layers: Optional[int]) -> Optional[int]:
+    """Which dim of a state leaf is the sample batch, by the reference's
+    rank rule (its ``distributed/sharding.py:_slot_axis``): the leading
+    axis, except for layer-stacked leaves, whose leading extent is
+    ``layers`` or ``layers + 1`` followed by the batch extent, which put it
+    on axis 1.  Leaves without a batch-extent leading dim replicate.  The
+    layer rule is checked first, so an (L, B) tracker resolves to axis 1
+    even when ``L == batch``."""
+    if (layers is not None and len(shape) >= 2
+            and shape[0] in (layers, layers + 1) and shape[1] == batch):
+        return 1
+    if len(shape) >= 1 and shape[0] == batch:
+        return 0
+    return None
+
+
+def row_index(rows: Rows, device: torch.device) -> torch.Tensor:
+    """``rows`` as an int64 index tensor on ``device``; a list goes through
+    ``to_device`` (pinned, non-blocking), never a pageable copy."""
+    if isinstance(rows, torch.Tensor):
+        return rows
+    return to_device(np.asarray(rows, np.int64), device)
+
+
+def map_tree(fn: Callable, tree: Any, *others: Any) -> Any:
+    """``fn`` over the tensor leaves of nested dicts and named tuples (the
+    gate trackers), zipped with ``others`` of the same structure; the
+    structure is kept."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(map_tree(fn, v, *(o[i] for o in others))
+                            for i, v in enumerate(tree)))
+    return fn(tree, *others)
 
 
 def summarize_stats(state: Dict) -> Dict[str, float]:

@@ -3,6 +3,10 @@
   init_state(batch)           -> policy.init_state
   reset_slot(state, rows)     -> policy.reset_rows (re-arm serving slot rows;
                                  stats stay cumulative)
+  snapshot_slot(state, rows)  -> policy.snapshot_rows (a preemption
+                                 checkpoint of the rows, a copy)
+  restore_slot(state, snap, rows)
+                              -> policy.restore_rows (write it back, in place)
   step(state, latents, t, labels)
                               -> tokens_in + conditioning, then
                                  policy.step(state, x, c)
@@ -31,7 +35,7 @@ import torch
 from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core import linear_approx
 from repro_torch.core import policies as _policies  # noqa: F401 (registers)
-from repro_torch.core.policies.base import get_policy_class
+from repro_torch.core.policies.base import Rows, get_policy_class, row_index
 from repro_torch.core.policies.l2c import l2c_mask_from_deltas  # noqa: F401
 from repro_torch.core.statcache import GATE_MODES
 from repro_torch.core.token_reduce import STATE_KEY as TOKRED_KEY
@@ -103,6 +107,32 @@ class CachedDiT:
         if self.reducer is not None:
             self.reducer.reset_rows(state[TOKRED_KEY], rows)
         return state
+
+    def snapshot_slot(self, state: Dict, rows: Rows) -> Dict:
+        """Copy ``rows`` (a list of ints, or an int64 index tensor on the
+        device) out of the state: the policy's rows by its rank rule
+        (``CachePolicy.snapshot_rows``), the reducer's ``tokred`` rows when
+        token compression is on.  The snapshot owns its memory."""
+        idx = row_index(rows, self.device)
+        snap = self.impl.snapshot_rows(
+            {k: v for k, v in state.items() if k != TOKRED_KEY}, idx)
+        if self.reducer is not None:
+            snap[TOKRED_KEY] = self.reducer.snapshot_rows(state[TOKRED_KEY],
+                                                          idx)
+        return snap
+
+    def restore_slot(self, state: Dict, snap: Dict, rows: Rows) -> Dict:
+        """Write a ``snapshot_slot`` checkpoint into ``rows`` of the live
+        state, in place and bitwise; ``rows`` may differ from the donor
+        slot's."""
+        idx = row_index(rows, self.device)
+        out = self.impl.restore_rows(
+            {k: v for k, v in state.items() if k != TOKRED_KEY},
+            {k: v for k, v in snap.items() if k != TOKRED_KEY}, idx)
+        if self.reducer is not None:
+            out[TOKRED_KEY] = self.reducer.restore_rows(
+                state[TOKRED_KEY], snap[TOKRED_KEY], idx)
+        return out
 
     @torch.no_grad()
     def step(self, state: Dict, latents: torch.Tensor, t: torch.Tensor,

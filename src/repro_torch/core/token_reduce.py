@@ -82,6 +82,24 @@ class TokenReducer:
             tr["have_prev"][r].fill_(False)
         return tr
 
+    @staticmethod
+    def snapshot_rows(tr: Dict[str, torch.Tensor], idx: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Copy the rows ``idx`` (an int64 index tensor on the rows' device)
+        out of the reducer's state: the previous step's full-resolution
+        tokens and the warm flag, so a preempted merged request resumes its
+        merge bookkeeping where it stopped.  Every leaf is batch-leading."""
+        return {k: v.index_select(0, idx) for k, v in tr.items()}
+
+    @staticmethod
+    def restore_rows(tr: Dict[str, torch.Tensor],
+                     snap: Dict[str, torch.Tensor], idx: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+        """Write a ``snapshot_rows`` copy into rows ``idx``, in place."""
+        for k, v in tr.items():
+            v.index_copy_(0, idx, snap[k])
+        return tr
+
     # -- the stage -------------------------------------------------------
 
     def reduce(self, x_full: torch.Tensor, tr: Dict[str, torch.Tensor]

@@ -16,6 +16,22 @@ half); 1.0, the default, leaves it off.  ``--no-cfg`` serves on the static
 no-CFG fast path (guidance 1.0 only).  ``--device cpu --reduced`` runs
 the plain PyTorch path on a toy model.
 
+SLO control plane (``serving/slo/``), the reference's flags:
+``--priority-mix 0,1,1,2`` and ``--deadline-slack-mix 80,120,200`` draw
+per-request priority classes and deadlines (engine steps past arrival);
+``--burst-rate 2.0 --burst-start 5 --burst-len 20`` makes the arrivals calm
+-> burst -> calm; ``--sched edf`` orders each class by deadline.  ``--slo``
+serves through ``SLOScheduler``: strict-priority queues, deadline-aware
+admission (``--on-miss reject|defer``), priority preemption with a
+device-side snapshot and bitwise resume (``--no-preempt`` turns it off)
+and, with ``--shed``, the degradation controller's default ladder
+(``--shed-high`` / ``--shed-low`` watermarks of ready-queue depth).  The
+summary gains a per-class block (latency, queue wait, deadlines met and
+missed, preemptions, rejection reasons) and an ``slo`` block.  On the CPU:
+``--device cpu --reduced --slo --sched edf --priority-mix 0,1,1,2
+--deadline-slack-mix 8,14,30 --burst-rate 2 --burst-start 4 --burst-len 8
+--shed --shed-high 4 --shed-low 1``.
+
 Observability, the reference's flags: ``--metrics-out`` (Prometheus text)
 and ``--metrics-jsonl`` (JSONL windows, one every ``--metrics-window``
 engine steps and one at the end), ``--trace-out`` (Chrome/Perfetto trace
@@ -34,7 +50,7 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -49,8 +65,12 @@ from repro_torch.obs.calibration import load_calibration
 from repro_torch.obs.metrics import MetricsCollector
 from repro_torch.obs.tracing import TraceRecorder, validate_trace
 from repro_torch.serving.diffusion_engine import DiffusionServingEngine
-from repro_torch.serving.scheduler import (DiffusionRequest, percentile,
-                                           poisson_trace)
+from repro_torch.serving.scheduler import (SCHED_POLICIES, DiffusionRequest,
+                                           percentile, piecewise_rate,
+                                           poisson_trace, summarize_by_class,
+                                           summarize_by_steps)
+from repro_torch.serving.slo import (AdmissionController,
+                                     DegradationController, SLOScheduler)
 
 
 @dataclass(frozen=True)
@@ -70,6 +90,23 @@ class Workload:
     cfg_rows: bool = True           # False: the no-CFG fast path (g = 1)
     audit_fraction: float = 0.0     # shadow-audited share of serve steps
     audit_seed: int = 0
+    # traffic for the SLO plane: classes and deadline slacks drawn per
+    # request (empty: all class 0, no deadlines), a burst of burst_rate
+    # over [burst_start, burst_start + burst_len) (0: no burst), and the
+    # order within a class
+    sched: str = "fifo"
+    priority_mix: Tuple[int, ...] = ()
+    deadline_slack_mix: Tuple[int, ...] = ()
+    burst_rate: float = 0.0
+    burst_start: int = 0
+    burst_len: int = 0
+    # the SLO plane itself (SLOScheduler) and its knobs
+    slo: bool = False
+    on_miss: str = "reject"
+    preempt: bool = True
+    shed: bool = False
+    shed_high: int = 8
+    shed_low: int = 2
     # the policy's own constructor knobs (e.g. l2c_mask, smooth_schedule),
     # passed through CachedDiT; no flag sets them
     policy_kwargs: Mapping[str, Any] = dataclasses.field(
@@ -100,9 +137,37 @@ class Workload:
             enable_metrics=enable_metrics,
             audit_fraction=self.audit_fraction, audit_seed=self.audit_seed)
 
+    def rate_fn(self) -> Optional[Callable[[float], float]]:
+        """The calm -> burst -> calm arrival rate, or None (constant)."""
+        if self.burst_len <= 0:
+            return None
+        if self.burst_rate <= 0.0:
+            raise ValueError("burst_len > 0 needs burst_rate > 0")
+        return piecewise_rate([(self.burst_start, self.rate),
+                               (self.burst_start + self.burst_len,
+                                self.burst_rate), (10 ** 9, self.rate)])
+
     def build_trace(self, model: DiTModel) -> List[DiffusionRequest]:
         return poisson_trace(self.requests, self.rate, seed=self.seed,
-                             num_classes=model.cfg.dit.num_classes)
+                             num_classes=model.cfg.dit.num_classes,
+                             rate_fn=self.rate_fn(),
+                             priority_mix=self.priority_mix or None,
+                             deadline_slack_mix=(self.deadline_slack_mix
+                                                 or None))
+
+    def build_slo(self, eng: DiffusionServingEngine,
+                  collector: Optional[MetricsCollector] = None
+                  ) -> SLOScheduler:
+        """The SLO plane over ``eng``: deadline-aware admission, the shed
+        ladder when ``shed``, preemption unless ``preempt`` is off."""
+        admission = AdmissionController(eng, on_miss=self.on_miss,
+                                        collector=collector)
+        controller = DegradationController(
+            high_watermark=self.shed_high, low_watermark=self.shed_low,
+            collector=collector) if self.shed else None
+        return SLOScheduler(eng, sched_policy=self.sched,
+                            admission=admission, controller=controller,
+                            preempt=self.preempt, collector=collector)
 
     def warm_up(self, model: DiTModel
                 ) -> Tuple[CachedDiT, DiffusionServingEngine]:
@@ -137,13 +202,16 @@ def serve(args: argparse.Namespace) -> Dict:
     tracer = TraceRecorder() if args.trace_out else None
     runner, eng = wl.build_engine(model, collector=collector, tracer=tracer)
     trace = wl.build_trace(model)
+    slo = wl.build_slo(eng, collector) if wl.slo else None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    done = eng.run(trace)
+    done = (slo.run(trace) if slo is not None
+            else eng.run(trace, sched_policy=wl.sched))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
+    rejected = slo.rejected if slo is not None else []
     lats = [r.latency_steps for r in done]
     stats = eng.cache_stats()
     summary = {
@@ -165,7 +233,25 @@ def serve(args: argparse.Namespace) -> Dict:
         "token_merge": {"ratio": wl.merge_ratio, "window": wl.merge_window,
                         "active": runner.reducer is not None},
         "cfg_rows": wl.cfg_rows,
+        "sched_policy": wl.sched,
+        "latency_by_steps": summarize_by_steps(done + rejected),
+        "by_class": summarize_by_class(done + rejected),
     }
+    if slo is not None:
+        met = sum(1 for r in done if r.deadline_step is None
+                  or r.finish_step <= r.deadline_step)
+        ctl = slo.controller
+        slo.timer.poll()
+        summary["slo"] = {
+            "on_miss": wl.on_miss, "preempt": wl.preempt, "shed": wl.shed,
+            "shed_level": ctl.level.name if ctl is not None else None,
+            "rejected": len(rejected), "deadline_met": met,
+            "goodput": met / len(trace) if trace else 0.0,
+            "preemptions": sum(r.preemptions for r in done),
+            "model_step_ms_ema": slo.admission.predictor.model_step_ms,
+            "step_ms_mean": (slo.timer.total_ms / slo.timer.count
+                             if slo.timer.count else None),
+        }
     if collector is not None:
         collector.set_gauge("run_wall_seconds", wall)
         if args.metrics_out:
@@ -205,6 +291,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rate", type=float, default=Workload.rate,
                     help="Poisson arrival rate, requests per engine step")
     ap.add_argument("--seed", type=int, default=Workload.seed)
+    add_slo_args(ap)
     add_merge_args(ap)
     ap.add_argument("--no-cfg", dest="cfg_rows", action="store_false",
                     help="static no-CFG fast path for guidance==1.0-only "
@@ -249,7 +336,57 @@ def parse_args(argv=None) -> argparse.Namespace:
     if not args.cfg_rows and args.guidance != 1.0:
         raise SystemExit("--no-cfg serves guidance==1.0 only; pass "
                          "--guidance 1.0")
+    if args.burst_len > 0 and args.burst_rate <= 0.0:
+        raise SystemExit("--burst-len needs --burst-rate > 0")
     return args
+
+
+def _int_list(text: str) -> Tuple[int, ...]:
+    return tuple(int(v) for v in text.split(",") if v.strip())
+
+
+def add_slo_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--sched", default=Workload.sched, choices=SCHED_POLICIES,
+                    help="admission order among arrived requests within a "
+                         "priority class: FIFO, shortest-job-first, or "
+                         "earliest-deadline-first")
+    ap.add_argument("--priority-mix", type=_int_list, default=(),
+                    help="comma list of priority classes requests draw "
+                         "from uniformly (0 = most critical; empty = all "
+                         "class 0)")
+    ap.add_argument("--deadline-slack-mix", type=_int_list, default=(),
+                    help="comma list of deadline slacks (engine steps "
+                         "past arrival) requests draw from uniformly "
+                         "(empty = no deadlines)")
+    ap.add_argument("--burst-rate", type=float, default=Workload.burst_rate,
+                    help="burst arrival rate; with --burst-len > 0 the "
+                         "trace is calm (--rate) -> burst -> calm")
+    ap.add_argument("--burst-start", type=int, default=Workload.burst_start,
+                    help="engine step the burst begins at")
+    ap.add_argument("--burst-len", type=int, default=Workload.burst_len,
+                    help="burst duration in engine steps (0 = no burst)")
+    ap.add_argument("--slo", action="store_true",
+                    help="serve through the SLO control plane "
+                         "(SLOScheduler): strict-priority queues, "
+                         "deadline-aware admission, priority preemption "
+                         "with device-side snapshot/resume")
+    ap.add_argument("--on-miss", default=Workload.on_miss,
+                    choices=("reject", "defer"),
+                    help="--slo: what deadline-aware admission does with "
+                         "a request predicted to miss: reject it, or "
+                         "defer and re-test later")
+    ap.add_argument("--no-preempt", dest="preempt", action="store_false",
+                    help="--slo: disable priority preemption")
+    ap.add_argument("--shed", action="store_true",
+                    help="--slo: enable the degradation controller "
+                         "(default shed-level ladder, watermark "
+                         "hysteresis on ready-queue depth)")
+    ap.add_argument("--shed-high", type=int, default=Workload.shed_high,
+                    help="--shed: queue depth escalating one shed level "
+                         "when sustained")
+    ap.add_argument("--shed-low", type=int, default=Workload.shed_low,
+                    help="--shed: queue depth de-escalating one shed "
+                         "level when sustained")
 
 
 def add_merge_args(ap: argparse.ArgumentParser) -> None:

@@ -23,6 +23,14 @@ guidance 1.0 (the scalar 1.0 skips CFG in ``denoise_step``, and a
 per-sample 1.0 row selects the conditional eps outright), bitwise wherever
 the model's GEMMs give a row the same bits at batch S and 2S.
 
+**Preemption** (``serving/slo/``).  ``preempt(s)`` checkpoints slot ``s``'s
+request out of the engine: a device-side copy of its policy-state rows
+(``tokred`` included), its latents, its plan rows and its whole column of
+request-scoped counters lands on ``req.snapshot`` and the slot frees.
+``add_request`` of a request carrying a snapshot resumes it into any free
+slot, bitwise, with its step index at ``steps_done``.  Neither reads the
+device: the row index tensors are made once per slot at construction.
+
 Headline counters (``acc``) accumulate only active slots' decisions; the
 request-scoped ``slot_acc`` is zeroed at admission and harvested into
 ``req.cache`` at completion.  Both stay on the device as one (K,) vector
@@ -171,6 +179,10 @@ class DiffusionServingEngine:
         if collector is not None and self._audit_on:
             collector.set_audit_context(bound=self._audit_bound,
                                         fraction=self.audit_fraction)
+        # each slot's state rows as an index tensor, made once: the
+        # preemption pair's copies then need no host-to-device copy
+        self._rows_idx = [to_device(np.asarray(self._slot_rows(s), np.int64),
+                                    dev) for s in range(max_slots)]
 
     def _slot_rows(self, s: int) -> List[int]:
         """State rows owned by slot s: its CFG cond/uncond pair, or its one
@@ -269,6 +281,19 @@ class DiffusionServingEngine:
     def free_slots(self) -> List[int]:
         return [s for s in range(self.S) if self.slots[s] is None]
 
+    def reset_clock(self) -> None:
+        """Rewind the step clock and the headline counters (e.g. after a
+        warm-up trace, so a timed trace's arrival steps line up).  Needs an
+        idle engine; the per-row raw counters keep their history."""
+        if any(r is not None for r in self.slots):
+            raise ValueError("reset_clock requires an idle engine; slots "
+                             f"{[s for s, r in enumerate(self.slots) if r is not None]} "
+                             "still hold requests")
+        self.clock = 0
+        self.model_steps = 0
+        self.audited_steps = 0
+        self._acc_vec.zero_()
+
     def resolve_plan(self, req: DiffusionRequest) -> SamplingPlan:
         """The request's own plan where set, the engine defaults otherwise;
         the resolved values are written back onto the request.  The
@@ -293,11 +318,15 @@ class DiffusionServingEngine:
     def add_request(self, req: DiffusionRequest) -> bool:
         """Admit one request into a free slot (mid-flight is fine): reset
         the slot's cache rows, seed its latents, land its plan rows and zero
-        its request-scoped counters.  No host sync."""
+        its request-scoped counters.  A request carrying a preemption
+        snapshot resumes from it instead (``_resume_request``).  No host
+        sync."""
         free = self.free_slots()
         if not free:
             return False
         s = free[0]
+        if req.snapshot is not None:
+            return self._resume_request(req, s)
         plan = self.resolve_plan(req)
         ts_row, prev_row = plan.rows(self.max_steps, self.num_train_steps)
         self.state = self.runner.reset_slot(self.state, self._slot_rows(s))
@@ -313,15 +342,82 @@ class DiffusionServingEngine:
         self.slot_budget[s] = plan.num_steps
         self.slot_label[s] = req.label
         req.admit_step = self.clock
+        req.queue_wait_steps = max(self.clock - req.arrival_step, 0)
         if self.collector is not None:
             self.collector.inc(obs_metrics.ADMISSIONS)
             self.collector.observe(obs_metrics.QUEUE_WAIT,
-                                   max(self.clock - req.arrival_step, 0))
+                                   req.queue_wait_steps)
         if self.tracer is not None:
             self.tracer.admit(req.rid, s, label=req.label,
                               num_steps=plan.num_steps,
                               engine_step=self.clock)
         return True
+
+    # -- preemption (serving/slo/) ---------------------------------------
+
+    def _snapshot(self, s: int) -> Dict:
+        """Copy slot ``s`` out: its policy-state rows (``tokred`` too), its
+        latents, its plan rows and its whole column of request-scoped
+        counters (the audit plane's rows included).  Every tensor is a
+        fresh device copy, so later writes into the slot never reach it."""
+        return {
+            "state": self.runner.snapshot_slot(self.state, self._rows_idx[s]),
+            "x": self.x[s].clone(),
+            "ts": self.plan["ts"][s].clone(),
+            "ts_prev": self.plan["ts_prev"][s].clone(),
+            "guidance": self.plan["guidance"][s].clone(),
+            "slot_acc": self._slot_mat[:, s].clone(),
+        }
+
+    def _restore(self, snap: Dict, s: int) -> None:
+        """Write a ``_snapshot`` into slot ``s``, in place and bitwise; the
+        other slots are untouched."""
+        self.state = self.runner.restore_slot(self.state, snap["state"],
+                                              self._rows_idx[s])
+        self.x[s].copy_(snap["x"])
+        self.plan["ts"][s].copy_(snap["ts"])
+        self.plan["ts_prev"][s].copy_(snap["ts_prev"])
+        self.plan["guidance"][s].copy_(snap["guidance"])
+        self._slot_mat[:, s].copy_(snap["slot_acc"])
+
+    def _resume_request(self, req: DiffusionRequest, s: int) -> bool:
+        """Re-admit a preempted request from its snapshot into free slot
+        ``s``; the snapshot is consumed.  Its plan was resolved at first
+        admission and is not resolved (or shed) again."""
+        snap, req.snapshot = req.snapshot, None
+        self._restore(snap, s)
+        self.slots[s] = req
+        self.slot_step[s] = req.steps_done
+        self.slot_budget[s] = req.num_steps
+        self.slot_label[s] = req.label
+        if self.collector is not None:
+            self.collector.inc(obs_metrics.RESUMES)
+        if self.tracer is not None:
+            self.tracer.admit(req.rid, s, label=req.label,
+                              num_steps=req.num_steps,
+                              engine_step=self.clock)
+        return True
+
+    @torch.no_grad()
+    def preempt(self, s: int) -> DiffusionRequest:
+        """Checkpoint slot ``s``'s request out of the engine: its snapshot
+        lands on ``req.snapshot`` (on the device), ``steps_done`` is the
+        host's step count, the slot frees and is reset as on completion.
+        The caller requeues the request; ``add_request`` resumes it."""
+        req = self.slots[s]
+        if req is None:
+            raise ValueError(f"preempt: slot {s} holds no request")
+        req.snapshot = self._snapshot(s)
+        req.steps_done = int(self.slot_step[s])
+        req.preemptions += 1
+        self.slots[s] = None
+        self.slot_step[s] = -1
+        self.state = self.runner.reset_slot(self.state, self._slot_rows(s))
+        if self.collector is not None:
+            self.collector.inc(obs_metrics.PREEMPTIONS)
+        if self.tracer is not None:
+            self.tracer.finish(req.rid, engine_step=self.clock)
+        return req
 
     def step(self) -> List[DiffusionRequest]:
         """One engine step: advance all active slots one denoising step.
@@ -364,6 +460,9 @@ class DiffusionServingEngine:
                     self.collector.inc(obs_metrics.REQUESTS_FINISHED)
                     self.collector.observe(obs_metrics.REQUEST_LATENCY,
                                            req.finish_step - req.arrival_step)
+                    if (req.deadline_step is not None
+                            and req.finish_step > req.deadline_step):
+                        self.collector.inc(obs_metrics.DEADLINE_MISSES)
                 if self.tracer is not None:
                     self.tracer.finish(req.rid, engine_step=self.clock)
                 finished.append(req)
@@ -413,7 +512,13 @@ class DiffusionServingEngine:
                 self.harvest_metrics()      # a window's close: one read
         if self.collector is not None:
             self.harvest_metrics()          # run end
+        self.finalize_requests(finished)
         return finished
+
+    def finalize_requests(self, finished: List[DiffusionRequest]) -> None:
+        """End-of-drive hook for whoever owns the loop (``run``, or the SLO
+        plane's ``SLOScheduler.run`` / ``ReplicaRouter.run``): nothing to
+        do here, ``_harvest`` already filled every finished request."""
 
     def harvest_metrics(self) -> Optional[Dict]:
         """Fetch the device metrics into the collector: the metrics plane's

@@ -1194,3 +1194,68 @@ def test_simt_route_bf16_x_far_from_identity(cuda_device, kernel):
     torch.cuda.synchronize(cuda_device)
     rel = float((got.float() - want.float()).norm() / want.float().norm())
     assert rel <= 2e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# preempt / resume (the SLO plane's device-side snapshot)
+# ---------------------------------------------------------------------------
+
+def _preempt_resume(eng, preempt):
+    """Admit a and b, run 3 steps; with ``preempt``, park b, let 2 steps
+    pass, admit c into b's slot, step once and resume b in another slot
+    (``preempt`` and the resuming ``add_request`` under sync debug
+    "error"); without, the same requests served straight through."""
+    from repro_torch.serving.scheduler import DiffusionRequest
+
+    a, b, c = (DiffusionRequest(rid=i, label=i + 1, seed=10 + i,
+                                num_steps=6, guidance_scale=4.0)
+               for i in range(3))
+    assert eng.add_request(a) and eng.add_request(b)
+    done = []
+    for _ in range(3):
+        done += eng.step()
+    if preempt:
+        donor = eng.slots.index(b)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.preempt(donor)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for _ in range(2):
+        done += eng.step()
+    assert eng.add_request(c)
+    done += eng.step()
+    if preempt:
+        assert eng.slots.index(c) == donor
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            assert eng.add_request(b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng.slots.index(b) != donor
+    while len(done) < 3:
+        done += eng.step()
+    return sorted(done, key=lambda r: r.rid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge_ratio", [1.0, 0.5])
+def test_preempt_resume_is_sync_free_and_bitwise(cuda_device, merge_ratio):
+    """At the smoke size in bf16 on the kernels: preempt and resume make
+    no host sync, and every request's latents and counters, the resumed
+    one's included, equal an un-preempted serve's bitwise."""
+    from repro_torch.launch.serve_diffusion import Workload
+
+    wl = Workload(reduced=True, slots=3, steps=6, merge_ratio=merge_ratio,
+                  merge_window=8)
+    model = wl.build_model(cuda_device)
+    _, plain = wl.build_engine(model)
+    want = _preempt_resume(plain, False)
+    _, eng = wl.build_engine(model)
+    got = _preempt_resume(eng, True)
+    assert got[1].preemptions == 1 and got[1].steps_done == 3
+    for r, w in zip(got, want):
+        assert torch.equal(torch.from_numpy(r.latents),
+                           torch.from_numpy(w.latents)), r.rid
+        assert r.cache == w.cache, r.rid
