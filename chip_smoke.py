@@ -203,7 +203,31 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             512-token prefill through the kernel against the same prefill
             with the plain version patched in: relative L2 below 2e-2;
 15. llm_sampled  the fastcache LLM serve with greedy=False: every request
-            finishes with in-vocabulary tokens.
+            finishes with in-vocabulary tokens;
+16. train_dit  DiT-XL/2 at full width (bf16, the reference's initializers,
+            adaLN-zero) trained through training.loop.make_train_step for
+            30 steps on latent_stream batches of 32 (seed 0), AdamW on
+            cosine_schedule(3e-4, 5, 30), remat on; every count zeroed just
+            before and read just after (no kernel lies on the path, so all
+            stay 0, flash_attention included); every loss finite, the last
+            logged one below the first, every parameter with a nonzero
+            gradient at the last step, one step under sync debug "error";
+            ms per step and its forward / backward / clip + update split
+            (CUDA events at the step's phase boundaries, 25 steps after 3 of
+            warm-up), samples/s, tokens/s, launches per step
+            (torch.profiler, one step), peak memory and train_mfu (model
+            FLOPs, remat's recompute left out, over 989 TFLOP/s);
+17. checkpoint  the trained parameters and AdamW state saved in the
+            reference's format under build/, loaded into a fresh model and
+            state: bitwise, metadata round-tripped; bytes and seconds;
+18. trained_serve  the trained model served under fastcache (Workload, 4
+            requests, 50 steps): launches exact, latents finite, the block
+            cache ratio printed;
+19. train_llm  Qwen3-0.6B at full width, 5 steps of batch 8 x 256 tokens
+            drawn from token_stream (seed 0) before the phase: losses
+            finite, the first within 10% of ln(vocab), one step under sync
+            debug "error", no kernel launched; ms per step (2 timed steps),
+            tokens/s, launches per step, peak memory, train_mfu.
 
 Then the total seconds, the kernels line (seven rows), the card's name and
 power limit, and as the last
@@ -1807,6 +1831,12 @@ SLO_TRACE = dict(requests=16, rate=0.5, burst_rate=2.0, burst_start=5,
                  burst_len=20, priority_mix=(0, 1, 1, 2),
                  deadline_slack_mix=(80, 120, 200), sched="edf", slo=True,
                  on_miss="reject", preempt=True, shed=True)
+# req.cache's control-plane keys: a preemption changes them, not the counters
+CONTROL_KEYS = ("queue_wait_steps", "preemptions")
+
+
+def counters(cache):
+    return {k: v for k, v in cache.items() if k not in CONTROL_KEYS}
 
 
 def path_kernels(runner):
@@ -1973,9 +2003,13 @@ def phase_preempt_resume(torch, dev, wl, model, m, label):
                 or not np.isfinite(r.latents).all():
             raise AssertionError(f"rid={r.rid}: latents not finite")
         diffs[r.rid] = float(np.abs(r.latents - w.latents).max())
-        if r.cache != w.cache:
+        if counters(r.cache) != counters(w.cache):
             raise AssertionError(f"rid={r.rid}: req.cache {r.cache} != "
                                  f"the un-preempted serve's {w.cache}")
+        control = (r.cache["queue_wait_steps"], r.cache["preemptions"])
+        if control != (float(r.queue_wait_steps), float(r.preemptions)):
+            raise AssertionError(f"rid={r.rid}: req.cache's queue wait and "
+                                 f"preemptions {control} != the request's")
     bitwise = {rid: d == 0.0 for rid, d in diffs.items()}
     # the pair alone, on the drained engine (slot 0 -> slot 1)
     snap = eng._snapshot(0)
@@ -2134,6 +2168,280 @@ def phase_llm_sampled(torch, dev, wl, model, serve):
     return done
 
 
+# --------------------------------------------------------------------------
+# Training and checkpoints
+# --------------------------------------------------------------------------
+
+# DiT-XL/2 at full width: batch 32 of latent_stream (seed 0), the config's
+# optimizer (AdamW, the reference's defaults) on cosine_schedule(3e-4, 5,
+# 30), remat on; steps 0-2 warm up, step 3 runs under sync debug "error",
+# steps 4-28 are timed, step 29 is profiled
+TRAIN_DIT = dict(arch="dit-xl2", batch=32, steps=30, lr=3e-4, warmup=5,
+                 seed=0, warm=3)
+# Qwen3-0.6B at full width: the launcher's batch 8 and seq 256, 5 steps on
+# token_stream batches drawn before the phase (seed 0): step 0 warms up,
+# step 1 runs under sync debug "error", steps 2-3 are timed, 4 profiled
+TRAIN_LLM = dict(arch="qwen3-0.6b", batch=8, seq=256, steps=5, lr=3e-4,
+                 warmup=20, seed=0)
+TRAIN_LOG_EVERY = 10        # train()'s log steps: 0, 10, 20 and the last
+TRAINED_SERVE_REQUESTS = 4  # the trained DiT served under fastcache
+
+
+def dit_train_flops(cfg, batch: int) -> float:
+    """Model FLOPs of one DiT train step: 2*m*n*k per product (attention's
+    two included, the conditioning's per sample), times 3 for forward and
+    backward; remat's recompute left out."""
+    d, L, f = cfg.d_model, cfg.num_layers, cfg.d_ff
+    hd = cfg.num_heads * cfg.resolved_head_dim
+    dit = cfg.dit
+    n = (dit.image_size // dit.patch_size) ** 2
+    pd = dit.patch_size ** 2 * dit.in_channels
+    out = pd * (2 if dit.learn_sigma else 1)
+    block = (2 * d * 6 * d + 2 * n * d * 3 * hd + 4 * n * n * hd
+             + 2 * n * hd * d + 4 * n * d * f)
+    per_sample = (2 * n * pd * d + 2 * 256 * d + 2 * d * d + L * block
+                  + 2 * d * 2 * d + 2 * n * d * out)
+    return 3.0 * batch * per_sample
+
+
+def llm_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one LM train step, as dit_train_flops counts them;
+    attention's products over all S x S pairs (the direct attention
+    computes the masked half too), the vocabulary head included."""
+    d, L, f, v = cfg.d_model, cfg.num_layers, cfg.d_ff, cfg.vocab_size
+    q = cfg.num_heads * cfg.resolved_head_dim
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    per_token = L * (2 * d * q + 4 * d * kv + 2 * q * d + 6 * d * f) \
+        + 2 * d * v
+    attn = L * 4 * seq * seq * q
+    return 3.0 * batch * (seq * per_token + attn)
+
+
+def all_grads_nonzero(torch, model) -> list:
+    """Names of the parameters whose gradient is all zero (one read)."""
+    named = list(model.named_parameters())
+    peaks = torch.stack([p.grad.detach().abs().amax().float()
+                         for _, p in named]).cpu()
+    return [n for (n, _), v in zip(named, peaks.tolist()) if v == 0.0]
+
+
+def run_training(torch, dev, model, tr, batches, lr_fn, *, warm: int,
+                 sync_step: int, profile_step: int, label: str, m):
+    """Train ``model`` on ``batches`` through make_train_step, every
+    kernel's launch count zeroed just before and read just after (no kernel
+    lies on the training path).  Step ``sync_step`` runs under sync debug
+    "error", ``profile_step`` under torch.profiler (its kernels and
+    copies); the other steps from ``warm`` on are timed with CUDA events
+    at the step's phase boundaries.  Returns (params, state, losses,
+    timing, launches)."""
+    params = tr.loop.param_tree(model)
+    opt = tr.optimizer.make_optimizer(model.cfg.optimizer)
+    state = opt.init(params)
+    step_fn = tr.loop.make_train_step(model, opt, lr_fn)
+    steps = len(batches)
+    events = {i: [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for i in range(warm, steps) if i not in (sync_step,
+                                                       profile_step)}
+    losses, per_step = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(m.kernels)                         # the path starts here
+    for i, batch in enumerate(batches):
+        if i == sync_step:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                params, state, met = step_fn(params, state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        elif i == profile_step:
+            def one():
+                return step_fn(params, state, batch)
+            (params, state, met), prof = profiled_step(torch, one)
+            per_step["launches"] = prof
+        else:
+            params, state, met = step_fn(params, state, batch,
+                                         events=events.get(i))
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches                  # ... and ends here
+                for name, fn in m.kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if any(launches.values()):
+        raise AssertionError(f"{label}: kernels launched in training "
+                             f"{launches}: none lies on its path")
+    split = {k: [] for k in ("step", "forward", "backward", "update")}
+    for ev in events.values():
+        split["step"].append(ev[0].elapsed_time(ev[3]))
+        split["forward"].append(ev[0].elapsed_time(ev[1]))
+        split["backward"].append(ev[1].elapsed_time(ev[2]))
+        split["update"].append(ev[2].elapsed_time(ev[3]))
+    timing = {f"{k}_ms": float(np.mean(v)) for k, v in split.items()}
+    kernels, copies, busy_ms, wall_ms = per_step["launches"]
+    timing.update(timed_steps=len(events), launches_per_step=kernels,
+                  copies_per_step=copies, profiled_device_ms=busy_ms,
+                  profiled_wall_ms=wall_ms,
+                  profiled_busy_share=busy_ms / wall_ms,
+                  max_memory_allocated_bytes=peak)
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses not finite {losses}")
+    return params, state, losses, timing, launches
+
+
+def profiled_step(torch, fn):
+    """``fn()`` once under torch.profiler: (its result, (kernels, copies,
+    the device ms they took, the step's wall ms))."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(1 for e in events if "emcpy" not in e.name)
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return out, (kernels, len(events) - kernels, busy, wall)
+
+
+def phase_train_dit(torch, dev, tr, m):
+    """train_dit: DiT-XL/2 at full width from the reference's initializers
+    (adaLN-zero, as the launcher's model.init), TRAIN_DIT.  Checks: every
+    loss finite and the last logged one below the first; every parameter
+    with a nonzero gradient at the last step; the sync-debug step clean;
+    no kernel (flash_attention included) launched."""
+    c = TRAIN_DIT
+    cfg = tr.get_config(c["arch"])
+    t0 = time.perf_counter()
+    model = tr.init_model(cfg, dev, c["seed"])
+    it = tr.latent_stream(c["batch"], cfg.dit.image_size,
+                          cfg.dit.in_channels,
+                          num_classes=cfg.dit.num_classes, seed=c["seed"],
+                          device=dev)
+    batches = [next(it) for _ in range(c["steps"])]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lr_fn = tr.optimizer.cosine_schedule(c["lr"], c["warmup"], c["steps"])
+    params, state, losses, timing, launches = run_training(
+        torch, dev, model, tr, batches, lr_fn, warm=c["warm"],
+        sync_step=c["warm"], profile_step=c["steps"] - 1, label="train_dit",
+        m=m)
+    logged = [i for i in range(c["steps"])
+              if i % TRAIN_LOG_EVERY == 0 or i == c["steps"] - 1]
+    if not losses[logged[-1]] < losses[logged[0]]:
+        raise AssertionError(f"train_dit: last logged loss "
+                             f"{losses[logged[-1]]} not below the first "
+                             f"{losses[logged[0]]}")
+    zero = all_grads_nonzero(torch, model)
+    if zero:
+        raise AssertionError(f"train_dit: no gradient at step "
+                             f"{c['steps']} for {zero}")
+    step_s = timing["step_ms"] / 1e3
+    flops = dit_train_flops(cfg, c["batch"])
+    emit({"phase": "train_dit", **c, "arch": cfg.name,
+          "params": sum(p.numel() for p in model.parameters()),
+          "dtype": cfg.dtype, "optimizer": cfg.optimizer, "remat": cfg.remat,
+          "setup_s": setup_s, "losses": losses.tolist(),
+          "logged_losses": {i: float(losses[i]) for i in logged},
+          "samples_per_s": c["batch"] / step_s,
+          "tokens_per_s": c["batch"] * model.num_tokens / step_s,
+          "model_flops_per_step": flops,
+          "train_mfu": flops / step_s / BF16_TC_FLOPS_PER_S, **timing,
+          "sync_debug_step": c["warm"], "launches": launches,
+          "card": smi()})
+    return model, params, state, launches
+
+
+def phase_train_llm(torch, dev, tr, m):
+    """train_llm: Qwen3-0.6B at full width, TRAIN_LLM.  Checks: the losses
+    finite, the first within 10% of ln(vocab); the sync-debug step clean;
+    no kernel (flash_attention included) launched."""
+    c = TRAIN_LLM
+    cfg = tr.get_config(c["arch"])
+    t0 = time.perf_counter()
+    it = tr.token_stream(cfg.vocab_size, c["batch"], c["seq"],
+                         seed=c["seed"], device=dev)
+    batches = [next(it) for _ in range(c["steps"])]
+    draw_s = time.perf_counter() - t0
+    model = tr.init_model(cfg, dev, c["seed"])
+    lr_fn = tr.optimizer.cosine_schedule(c["lr"], c["warmup"], c["steps"])
+    _, _, losses, timing, launches = run_training(
+        torch, dev, model, tr, batches, lr_fn, warm=1, sync_step=1,
+        profile_step=c["steps"] - 1, label="train_llm", m=m)
+    ln_v = float(np.log(cfg.vocab_size))
+    if abs(losses[0] - ln_v) > 0.1 * ln_v:
+        raise AssertionError(f"train_llm: first loss {losses[0]} not within "
+                             f"10% of ln(vocab) {ln_v}")
+    step_s = timing["step_ms"] / 1e3
+    flops = llm_train_flops(cfg, c["batch"], c["seq"])
+    emit({"phase": "train_llm", **c, "arch": cfg.name,
+          "params": sum(p.numel() for p in model.parameters()),
+          "dtype": cfg.dtype, "optimizer": cfg.optimizer, "remat": cfg.remat,
+          "batch_draw_s": draw_s, "losses": losses.tolist(),
+          "ln_vocab": ln_v, "tokens_per_s": c["batch"] * c["seq"] / step_s,
+          "model_flops_per_step": flops,
+          "train_mfu": flops / step_s / BF16_TC_FLOPS_PER_S, **timing,
+          "launches": launches, "card": smi()})
+    return launches
+
+
+def _bits(torch, t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def phase_checkpoint(torch, dev, tr, model, params, state):
+    """checkpoint: save the trained DiT's parameters and AdamW state in the
+    reference's format (bytes, seconds), load them into a fresh model and
+    state (seconds): every leaf bitwise, the fresh model's per-layer
+    parameters the trained ones; metadata round-trips.  The files go under
+    build/ and are removed."""
+    path = ROOT / "build" / "chip_smoke_ckpt" / "dit.npz"
+    meta = {"arch": model.cfg.name, "steps": TRAIN_DIT["steps"],
+            "seed": TRAIN_DIT["seed"]}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.ckpt.save(str(path), {"params": params, "opt_state": state}, meta)
+        save_s = time.perf_counter() - t0
+        nbytes = path.stat().st_size
+        fresh = tr.DiTModel(model.cfg, device=dev)
+        fparams = tr.loop.param_tree(fresh)
+        fstate = tr.optimizer.make_optimizer(model.cfg.optimizer).init(
+            fparams)
+        t0 = time.perf_counter()
+        got = tr.ckpt.load(str(path), {"params": fparams,
+                                       "opt_state": fstate})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pairs = list(zip(tr.tree.leaves(got),
+                         tr.tree.leaves({"params": params,
+                                         "opt_state": state})))
+        for i, (g, w) in enumerate(pairs):
+            same = (g == w) if isinstance(w, int) else torch.equal(
+                _bits(torch, g), _bits(torch, w))
+            if not same:
+                raise AssertionError(f"checkpoint: leaf {i} differs")
+        for dst, src in zip(tr.tree.leaves(fparams),
+                            tr.tree.leaves(got["params"])):
+            dst.copy_(src)
+        for (name, p), (_, q) in zip(model.named_parameters(),
+                                     fresh.named_parameters()):
+            if not torch.equal(_bits(torch, p.detach()), _bits(torch, q)):
+                raise AssertionError(f"checkpoint: {name} differs in the "
+                                     f"fresh model")
+        if tr.ckpt.load_metadata(str(path))["metadata"] != meta:
+            raise AssertionError("checkpoint: metadata did not round-trip")
+    finally:
+        for f in path.parent.glob("dit*"):
+            f.unlink()
+    emit({"phase": "checkpoint", "leaves": len(pairs), "bytes": nbytes,
+          "save_s": save_s, "load_s": load_s,
+          "save_gb_per_s": nbytes / save_s / 1e9,
+          "load_gb_per_s": nbytes / load_s / 1e9, "bitwise": True,
+          "metadata": meta})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2178,6 +2486,14 @@ def main() -> int:
     from repro_torch.serving.scheduler import (DiffusionRequest, percentile,
                                                summarize_by_class)
     from repro_torch.serving.slo import StepTimer
+    from repro_torch import checkpoint as ckpt_io
+    from repro_torch import tree as port_tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import latent_stream, token_stream
+    from repro_torch.launch.train import init_model
+    from repro_torch.models.dit import DiTModel
+    from repro_torch.training import loop as train_loop
+    from repro_torch.training import optimizer as train_optimizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2325,6 +2641,31 @@ def main() -> int:
     phase_llm_prefill_parity(torch, dev, llm, llm_model, attention, ref)
     phase_llm_sampled(torch, dev, llm_fc, llm_model, llm_serve)
 
+    # ---- training and checkpoints: DiT-XL/2 and Qwen3-0.6B at full width
+    del model, llm_model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr = SimpleNamespace(loop=train_loop, optimizer=train_optimizer,
+                         ckpt=ckpt_io, tree=port_tree, DiTModel=DiTModel,
+                         get_config=get_config, init_model=init_model,
+                         latent_stream=latent_stream,
+                         token_stream=token_stream)
+    trained, params, state, launches_train_dit = phase_train_dit(
+        torch, dev, tr, m)
+    phase_checkpoint(torch, dev, tr, trained, params, state)
+    del params, state
+    for p in trained.parameters():
+        p.requires_grad_(False)
+        p.grad = None
+    torch.cuda.empty_cache()
+    launches_trained = phase_serve(
+        torch, dev, dataclasses.replace(wl, requests=TRAINED_SERVE_REQUESTS),
+        trained, m, label="trained_serve", parent_ratio=False).launches
+    del trained
+    torch.cuda.empty_cache()
+    launches_train_llm = phase_train_llm(torch, dev, tr, m)
+    emit({"phase": "training", "seconds": time.perf_counter() - t0})
+
     # launches: each kernel on its own main path (fused_gate, saliency_delta
     # and linear_blend: the merge-off fastcache serve; the merge kernels:
     # the merged serve; flash_attention: the LLM serve with the decode
@@ -2353,7 +2694,10 @@ def main() -> int:
             "preempt_resume_merge": launches_preempt_merge[row["name"]],
             "slo_serve": launches_slo[row["name"]],
             "llm_serve_exact": launches_exact[row["name"]],
-            "llm_serve_fastcache": launches_llm[row["name"]]}
+            "llm_serve_fastcache": launches_llm[row["name"]],
+            "train_dit": launches_train_dit[row["name"]],
+            "trained_serve": launches_trained[row["name"]],
+            "train_llm": launches_train_llm[row["name"]]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(card, flush=True)

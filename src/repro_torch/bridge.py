@@ -1,30 +1,108 @@
-"""Parameter bridge: the reference's parameter trees, as numpy arrays, into
-the port's modules.
+"""Parameter bridge between the reference's parameter trees, as numpy
+arrays, and the port's modules, both ways.
 
 Callers hand over ``jax.tree.map(np.asarray, params)``; this module never
 imports JAX.  The reference stacks block parameters on a leading L axis;
 the port keeps one block module per layer (``DiTBlock``,
-``TransformerBlock``), so the stack is split here.
+``TransformerBlock``), so the stack is split on the way in and rebuilt on
+the way out (``params_to_jax``).
+``param_groups`` names, for every leaf of the reference's tree, the port
+tensors that hold it.
+
+numpy has no bfloat16 (the reference's arrays are ml_dtypes'): a bf16
+tensor leaves as a 2-byte void array (``V2``) of its bits, the form
+``np.savez`` writes for an ml_dtypes bf16 leaf, and ``tensor_from_numpy``
+reads ``V2`` and ml_dtypes bf16 back bit for bit.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.dit import DiTModel
 from repro_torch.models.transformer import TransformerModel
 
 
+BF16_BITS = np.dtype("V2")   # a bf16 array's bits, as np.savez stores it
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16" or a.dtype == BF16_BITS
+
+
 def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """numpy -> tensor, including ml_dtypes' bfloat16 (bit-copied)."""
+    """numpy -> tensor, including ml_dtypes' bfloat16 and ``V2`` bf16 bits
+    (bit-copied)."""
     a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
+    if _is_bf16(a):
+        return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def to_numpy(t: Union[torch.Tensor, np.ndarray, int]) -> np.ndarray:
+    """tensor (or array) -> host numpy array, bf16 as ``V2`` bits; an int
+    (an optimizer's step count) -> an int32 scalar, as the reference keeps
+    it."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view(BF16_BITS)
+        return t.cpu().numpy()
+    if isinstance(t, int):
+        return np.asarray(t, np.int32)
+    return np.asarray(t)
+
+
+class LayerStack:
+    """The L per-layer tensors of one block parameter: one leaf, stacked
+    on axis 0, in the reference's tree."""
+
+    def __init__(self, tensors: List[torch.Tensor]):
+        self.tensors = list(tensors)
+
+
+def param_groups(model: Union[DiTModel, TransformerModel]) -> Dict:
+    """The reference's parameter tree of ``model``'s config with, at each
+    leaf, the port's tensor that holds it (a top-level Parameter) or the
+    ``LayerStack`` of its per-layer Parameters."""
+    if isinstance(model, DiTModel):
+        out = {name: getattr(model, name) for name in model._top_specs()}
+        out["blocks"] = {
+            name: LayerStack([getattr(blk, name) for blk in model.blocks])
+            for name in model.blocks[0].specs}
+        return out
+    out = {name: getattr(model.top, name) for name in model.top.defs}
+    out["blocks"] = {"pos0": {
+        sub: {name: LayerStack([getattr(getattr(blk, sub), name)
+                                for blk in model.blocks])
+              for name in getattr(model.blocks[0], sub).defs}
+        for sub in ("attn", "ffn")}}
+    return out
+
+
+def _stacked_numpy(g) -> np.ndarray:
+    if isinstance(g, LayerStack):
+        return to_numpy(torch.stack([t.detach() for t in g.tensors]))
+    return to_numpy(g)
+
+
+def params_to_jax(model: Union[DiTModel, TransformerModel]) -> Dict:
+    """The inverse of ``params_from_jax`` and
+    ``transformer_params_from_jax``: ``model``'s parameters as the
+    reference's tree of numpy arrays, block parameters stacked on L."""
+    return tree.map(_stacked_numpy, param_groups(model))
+
+
+def state_to_jax(state):
+    """An optimizer state (``AdamWState`` / ``AdafactorState`` over a
+    ``training.loop.param_tree``) as the reference's tree of numpy arrays:
+    the step an int32 scalar, the moments as they are."""
+    return tree.map(to_numpy, state)
 
 
 def _copy(dst: torch.Tensor, a: np.ndarray, dev: torch.device,

@@ -45,6 +45,9 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()
     dit: Optional[DiTConfig] = None
     dtype: str = "bfloat16"
+    # Training
+    optimizer: str = "adamw"         # adamw | adafactor
+    remat: bool = True
 
     @property
     def resolved_head_dim(self) -> int:
@@ -76,5 +79,7 @@ class FastCacheConfig:
     use_str: bool = True
     use_sc: bool = True
     use_mb: bool = True
-    # only "per_sample" is ported; "global" raises
+    # gating granularity: "per_sample" gates each batch element
+    # independently; "global" reduces the statistic over the batch (one
+    # decision per layer, an ablation)
     gate_mode: str = "per_sample"

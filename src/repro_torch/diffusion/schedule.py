@@ -25,6 +25,15 @@ def linear_schedule(num_train_steps: int = 1000, beta_start: float = 1e-4,
     return Schedule(betas=betas, alphas_cum=torch.cumprod(1.0 - betas, 0))
 
 
+def add_noise(sched: Schedule, x0: torch.Tensor, noise: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0): (B,...) with per-sample integer timesteps t."""
+    ac = sched.alphas_cum[t.long()]
+    shape = (-1,) + (1,) * (x0.ndim - 1)
+    return (torch.sqrt(ac).reshape(shape) * x0.to(F32)
+            + torch.sqrt(1.0 - ac).reshape(shape) * noise.to(F32))
+
+
 def ddim_timesteps(num_train_steps: int, num_inference_steps: int,
                    device: DeviceLike = "cuda") -> torch.Tensor:
     """Descending evenly-spaced timesteps (50-step default)."""

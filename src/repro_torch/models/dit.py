@@ -6,6 +6,11 @@ the module's surface are the reference's (``wq`` is ``(d, h, dh)``, ``wo``
 is ``(h, dh, d)``, ``ada_w`` is ``(d, 6d)``), so ``bridge.params_from_jax``
 is a copy; the reference's layer-stacked ``blocks`` tree becomes one
 ``DiTBlock`` per layer.
+
+``apply`` is serving's forward (no autograd); ``forward_train`` and
+``loss`` are the reference's ``apply(..., train=True)`` and ``loss``, with
+each block checkpointed (recomputed in backward) when ``cfg.remat`` is set,
+as the reference wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
@@ -201,3 +207,25 @@ class DiTModel(nn.Module):
         for bp in self.blocks:
             x = self.block_apply(bp, x, c)
         return self.eps_from_hidden(x, c)
+
+    def forward_train(self, latents: torch.Tensor, t: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+        """The differentiable forward: eps (B,Hs,Ws,C) with autograd."""
+        x = self.tokens_in(latents)
+        c = self.conditioning(t, labels)
+        for bp in self.blocks:
+            if self.cfg.remat:
+                x = checkpoint(self.block_apply, bp, x, c,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self.block_apply(bp, x, c)
+        return self.eps_from_hidden(x, c)
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Denoising MSE in f32: predict the noise added to clean latents
+        (batch: ``latents``, ``t``, ``labels``, ``noise``)."""
+        eps_hat = self.forward_train(batch["latents"], batch["t"],
+                                     batch["labels"])
+        mse = (eps_hat.to(F32) - batch["noise"].to(F32)).square().mean()
+        return mse, {"mse": mse}

@@ -21,7 +21,8 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.attention import attention, decode_attend
+from repro_torch.models.attention import (attend_direct, attention,
+                                         decode_attend)
 
 F32 = torch.float32
 
@@ -128,11 +129,15 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                decode_pos: Optional[torch.Tensor] = None,
-               window: int = 0
+               window: int = 0, train: bool = False
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Pre-norm attention sublayer with residual.
 
-    * train/encode: ``cache=None, decode_pos=None`` — full self-attention.
+    * train:        ``cache=None, decode_pos=None, train=True`` — full
+      self-attention through ``attend_direct``, which autograd
+      differentiates (the ``flash_attention`` kernel has no backward; the
+      reference trains on its XLA attention too).
+    * encode:       ``cache=None, decode_pos=None`` — full self-attention.
     * prefill:      ``cache`` is an empty layer cache to fill, decode_pos
       None.
     * decode:       ``cache`` holds K/V; ``decode_pos`` (B,) current
@@ -154,7 +159,12 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
         if rope_pos is None:
             rope_pos = torch.arange(s, device=x.device)[None]    # (1, S)
         q, k, v = _qkv(p, h_in, cfg, rope_pos)
-        out = attention(q, k, v, positions, causal=causal, window=window)
+        if train:
+            out = attend_direct(q, k, v, rope_pos, rope_pos, causal=causal,
+                                window=window)
+        else:
+            out = attention(q, k, v, positions, causal=causal,
+                            window=window)
         if cache is not None:                        # prefill: fill the cache
             pc = rope_pos.to(torch.int32).expand(x.shape[0], s)
             _prefill_fill(cache, k, v, pc)

@@ -10,6 +10,12 @@ reference's ``blocks/pos0`` leaves with the layer axis first, as one dict:
 (-1 = empty) and ``step`` (B,) int32.  ``decode_step`` updates it in place.
 MoE, SSM/Mamba mixers, M-RoPE, VLM/audio frontends, ``block_pattern`` and
 ``prefix_groups`` are not ported: a config that needs them raises.
+
+``forward_train`` and ``loss`` are the reference's ``apply(...,
+train=True)`` and ``loss``: attention through ``attend_direct`` (autograd
+cannot differentiate the ``flash_attention`` kernel), each layer
+checkpointed when ``cfg.remat`` is set, and the cross-entropy over the
+vocabulary head in chunks (``chunked_ce``).
 """
 from __future__ import annotations
 
@@ -17,10 +23,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
-from repro_torch.models import common, layers
+from repro_torch.models import common, flags, layers
 from repro_torch.models.layers import ParamDef, ParamGroup
 
 F32 = torch.float32
@@ -94,6 +102,12 @@ class TransformerModel(nn.Module):
             return common.feinsum("...d,vd->...v", hidden, self.top.embed)
         return common.fdot(hidden, self.top.lm_head)
 
+    def _head_matrix(self) -> torch.Tensor:
+        """(V, D) regardless of tie/untie."""
+        if self.cfg.tie_embeddings:
+            return self.top.embed
+        return self.top.lm_head.T
+
     # ------------------------------------------------------------------
     # Blocks
     # ------------------------------------------------------------------
@@ -102,11 +116,13 @@ class TransformerModel(nn.Module):
                     positions: Optional[torch.Tensor] = None,
                     cache: Optional[Cache] = None,
                     decode_pos: Optional[torch.Tensor] = None,
-                    window: int = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
+                    window: int = 0, train: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """One layer (attention then FFN). Returns (x, layer cache)."""
         x, c = layers.attn_apply(bp.attn, x, cfg=self.cfg,
                                  positions=positions, cache=cache,
-                                 decode_pos=decode_pos, window=window)
+                                 decode_pos=decode_pos, window=window,
+                                 train=train)
         return layers.ffn_apply(bp.ffn, x, self.cfg), c
 
     @torch.no_grad()
@@ -118,6 +134,42 @@ class TransformerModel(nn.Module):
         for bp in self.blocks:
             x, _ = self.block_apply(bp, x, positions=positions)
         return common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
+
+    def _train_block(self, bp: TransformerBlock,
+                     x: torch.Tensor) -> torch.Tensor:
+        return self.block_apply(bp, x, train=True)[0]
+
+    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The differentiable full-sequence forward: final-normed hidden
+        states (B, S, D) with autograd."""
+        x = self.embed(tokens)
+        for bp in self.blocks:
+            if self.cfg.remat:
+                x = checkpoint(self._train_block, bp, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._train_block(bp, x)
+        return common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
+
+    # ------------------------------------------------------------------
+    # Loss (chunked cross-entropy over the vocab head)
+    # ------------------------------------------------------------------
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy over ``batch["tokens"]`` (B, S), the
+        last position masked out (and by ``batch["loss_mask"]`` if given).
+        Returns (loss, {"nll", "moe_aux", "tokens"})."""
+        hidden = self.forward_train(batch["tokens"])
+        tokens = batch["tokens"]
+        targets = F.pad(tokens[:, 1:], (0, 1))
+        mask = F.pad(torch.ones_like(tokens[:, 1:], dtype=F32), (0, 1))
+        if "loss_mask" in batch:
+            mask = mask * batch["loss_mask"].to(F32)
+        nll, denom = chunked_ce(hidden, self._head_matrix(), targets, mask)
+        aux = torch.zeros((), dtype=F32, device=hidden.device)
+        mean = nll / torch.clamp(denom, min=1.0)
+        return mean + aux, {"nll": mean, "moe_aux": aux, "tokens": denom}
 
     # ------------------------------------------------------------------
     # Caching / decode
@@ -176,3 +228,47 @@ class TransformerModel(nn.Module):
         logits = self.unembed(x[:, 0])
         step.add_(1)
         return logits, cache
+
+
+# --------------------------------------------------------------------------
+# Chunked cross-entropy
+# --------------------------------------------------------------------------
+
+def _ce_chunk(h: torch.Tensor, head32: torch.Tensor, t: torch.Tensor,
+              m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = torch.einsum("bcd,vd->bcv", h.to(F32), head32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.take_along_dim(logits, t.long()[..., None], dim=-1)[..., 0]
+    return ((lse - tgt) * m).sum(), m.sum()
+
+
+def chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
+               targets: torch.Tensor, mask: torch.Tensor, chunk: int = 512
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materializing (B, S, V): S in chunks, a
+    sequence of a length that is not a multiple of ``chunk`` padded (masked)
+    to one.  hidden (B,S,D); head (V,D); targets / mask (B,S).  Returns
+    (sum nll, sum mask).  With ``flags.CE_REMAT`` each chunk's logits are
+    recomputed in backward instead of saved."""
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        pad = chunk - s % chunk
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+        s += pad
+    head32 = head.to(F32)
+    nll = torch.zeros((), dtype=F32, device=hidden.device)
+    denom = torch.zeros((), dtype=F32, device=hidden.device)
+    for i in range(0, s, chunk):
+        args = (hidden[:, i:i + chunk], head32, targets[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        if flags.CE_REMAT:
+            n, m = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            n, m = _ce_chunk(*args)
+        nll = nll + n
+        denom = denom + m
+    return nll, denom

@@ -456,6 +456,10 @@ class DiffusionServingEngine:
                 req = self.slots[s]
                 req.finish_step = self.clock
                 req.done = True
+                # control-plane accounting rides the harvested counters
+                req.cache["queue_wait_steps"] = float(
+                    max(req.queue_wait_steps, 0))
+                req.cache["preemptions"] = float(req.preemptions)
                 if self.collector is not None:
                     self.collector.inc(obs_metrics.REQUESTS_FINISHED)
                     self.collector.observe(obs_metrics.REQUEST_LATENCY,

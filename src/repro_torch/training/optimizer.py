@@ -1,0 +1,200 @@
+"""Optimizers from scratch, after the reference's ``training/optimizer.py``:
+AdamW and Adafactor (factored second moment), a cosine learning-rate
+schedule and global-norm clipping.
+
+Both optimizers are transforms of a parameter tree (``repro_torch.tree``):
+``init(params) -> state`` and ``update(grads, state, params, lr) ->
+(params, state)``, with the reference's defaults and rules.  Where the
+reference returns new arrays, the port updates ``params``, the state's
+moments and (in ``clip_by_global_norm``) the gradients in place, and
+returns them.  ``torch.optim`` is not used: its decay and step rules are
+not the reference's.
+
+The rules read a leaf's ``ndim`` (AdamW decays, Adafactor factors, leaves
+of two or more dimensions) and Adafactor reduces over a whole leaf (the
+update's RMS, the column statistics of a stacked vector).  The reference's
+block parameters are one leaf stacked on the layer axis, so the tree given
+here must hold them the same way: ``training.loop.param_tree`` lays a
+model's per-layer tensors out as rows of one (L, ...) leaf.
+
+Parameters are updated in their own dtype with no f32 master copy, as in
+the reference (``new_p.astype(p.dtype)``): an update smaller than half a
+bf16 ulp of a parameter is lost.  The step count and the learning rate are
+host numbers, so an update makes no device sync.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+
+F32 = torch.float32
+_f = np.float32
+
+
+# --------------------------------------------------------------------------
+# LR schedule
+# --------------------------------------------------------------------------
+
+def cosine_schedule(base_lr: float, warmup: int,
+                    total: int) -> Callable[[int], float]:
+    """Linear warm-up then cosine decay, computed in float32 from a host
+    step, as the reference computes it on the device."""
+    def lr(step: int) -> float:
+        s = _f(step)
+        if s < warmup:
+            return float(_f(base_lr) * (s + _f(1.0)) / _f(max(1, warmup)))
+        prog = np.clip((s - _f(warmup)) / _f(max(1, total - warmup)),
+                       _f(0.0), _f(1.0))
+        # cos of the f32 argument, rounded once (as XLA's cos is, but for
+        # one in 80 arguments; numpy's f32 cos is an ulp off in one in 5)
+        cos = _f(np.cos(np.float64(_f(np.pi) * prog)))
+        return float(_f(base_lr) * _f(0.5) * (_f(1.0) + cos))
+    return lr
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g**2), in float32 (0-dim)."""
+    norms = torch._foreach_norm(tree.leaves(grads), 2, dtype=F32)
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
+    """Scale every gradient by min(1, max_norm / norm) in float32, rounded
+    back to its dtype, in place.  Returns (grads, norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    with torch.no_grad():
+        torch._foreach_mul_(tree.leaves(grads), scale)
+    return grads, norm
+
+
+def _as_f32(ts):
+    return [t.to(F32) for t in ts]
+
+
+def _store(params, new):
+    """Write float32 results back into the parameters (in their dtype);
+    an f32 parameter was updated in place already."""
+    pairs = [(p, n) for p, n in zip(params, new) if p is not n]
+    if pairs:
+        torch._foreach_copy_([p for p, _ in pairs], [n for _, n in pairs])
+
+
+# --------------------------------------------------------------------------
+# AdamW
+# --------------------------------------------------------------------------
+
+class AdamWState(NamedTuple):
+    step: int
+    mu: Any
+    nu: Any
+
+
+class AdamW:
+    def __init__(self, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1):
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+
+    def init(self, params) -> AdamWState:
+        zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+        return AdamWState(step=0, mu=tree.map(zeros, params),
+                          nu=tree.map(zeros, params))
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params, lr: float):
+        step = state.step + 1
+        b1, b2 = self.b1, self.b2
+        c1 = float(_f(1.0) - _f(b1) ** _f(step))
+        c2 = float(_f(1.0) - _f(b2) ** _f(step))
+        ps, ms, vs = (tree.leaves(params), tree.leaves(state.mu),
+                      tree.leaves(state.nu))
+        gs = _as_f32(tree.leaves(grads))
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        den = torch._foreach_div(vs, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(ms, c1)
+        torch._foreach_div_(u, den)
+        del den, gs
+        p32 = _as_f32(ps)
+        decayed = [i for i, p in enumerate(ps) if p.ndim >= 2]
+        if decayed and self.wd:
+            torch._foreach_add_([u[i] for i in decayed],
+                                [p32[i] for i in decayed], alpha=self.wd)
+        torch._foreach_add_(p32, u, alpha=-lr)
+        _store(ps, p32)
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+# --------------------------------------------------------------------------
+# Adafactor
+# --------------------------------------------------------------------------
+
+class AdafactorState(NamedTuple):
+    step: int
+    vr: Any     # row statistics (or full v for <2D leaves)
+    vc: Any     # col statistics (or a (1,) placeholder)
+
+
+class Adafactor:
+    """Factored second-moment RMS optimizer (Shazeer & Stern 2018), no
+    momentum, update-clipping d=1.0."""
+
+    def __init__(self, eps: float = 1e-30, clip: float = 1.0,
+                 decay_pow: float = 0.8, weight_decay: float = 0.0):
+        self.eps, self.clip, self.decay_pow = eps, clip, decay_pow
+        self.wd = weight_decay
+
+    def init(self, params) -> AdafactorState:
+        def vr(p):
+            shape = p.shape[:-1] if p.ndim >= 2 else p.shape
+            return torch.zeros(shape, dtype=F32, device=p.device)
+
+        def vc(p):
+            shape = (p.shape[:-2] + p.shape[-1:]) if p.ndim >= 2 else (1,)
+            return torch.zeros(shape, dtype=F32, device=p.device)
+
+        return AdafactorState(step=0, vr=tree.map(vr, params),
+                              vc=tree.map(vc, params))
+
+    @torch.no_grad()
+    def update(self, grads, state: AdafactorState, params, lr: float):
+        step = state.step + 1
+        beta = float(_f(1.0) - (_f(step) + _f(1.0)) ** _f(-self.decay_pow))
+        for g, vr, vc, p in zip(tree.leaves(grads), tree.leaves(state.vr),
+                                tree.leaves(state.vc), tree.leaves(params)):
+            g = g.to(F32)
+            g2 = g * g + self.eps
+            if p.ndim >= 2:
+                vr.mul_(beta).add_(g2.mean(dim=-1), alpha=1 - beta)
+                vc.mul_(beta).add_(g2.mean(dim=-2), alpha=1 - beta)
+                denom = torch.clamp(vr.mean(dim=-1, keepdim=True),
+                                    min=self.eps)
+                vhat = vr[..., :, None] * vc[..., None, :] / denom[..., None]
+                u = g / torch.sqrt(vhat + self.eps)
+            else:
+                vr.mul_(beta).add_(g2, alpha=1 - beta)
+                u = g / torch.sqrt(vr + self.eps)
+            # update clipping on RMS
+            rms = torch.sqrt((u * u).mean() + self.eps)
+            u = u / torch.clamp(rms / self.clip, min=1.0)
+            decay = self.wd if p.ndim >= 2 else 0.0
+            p32 = p.to(F32)
+            new_p = p32 - lr * u - lr * decay * p32
+            p.copy_(new_p)
+        return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
+
+
+def make_optimizer(name: str, **kw):
+    if name == "adamw":
+        return AdamW(**kw)
+    if name == "adafactor":
+        return Adafactor(**kw)
+    raise KeyError(name)

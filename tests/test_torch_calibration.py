@@ -219,7 +219,7 @@ def test_fitted_serve_matches_reference(dit, fitted):
         jax.tree.map(np.asarray, ref), "cpu"))
     assert [r.rid for r in done] == [r.rid for r in jdone]
     for r, jr in zip(done, jdone):
-        assert r.cache == {k: jr.cache[k] for k in r.cache}, r.rid
+        assert r.cache == jr.cache, r.rid
         want = np.asarray(jr.latents)
         np.testing.assert_allclose(r.latents, want, rtol=0,
                                    atol=RTOL * float(np.abs(want).max()))

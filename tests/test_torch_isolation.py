@@ -58,3 +58,30 @@ def test_observability_modules_are_scanned(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES
     assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
+TRAINING_MODULES = ("tree.py", "data/synthetic.py", "training/optimizer.py",
+                    "training/loop.py", "checkpoint/io.py", "models/flags.py",
+                    "launch/train.py")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_scanned(module):
+    """The training slice's modules keep their own copies of what they need
+    from the reference (the tree walk, the streams, the optimizers): each
+    is a port file the import scan covers."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
+def test_training_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.train, repro_torch.training, "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.bridge; "
+            "assert 'jax' not in sys.modules, 'jax was imported'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro was imported'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

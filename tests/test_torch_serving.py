@@ -70,7 +70,7 @@ def test_engine_matches_reference(served):
         assert (r.num_steps, r.guidance_scale, r.admit_step,
                 r.finish_step) == (jr.num_steps, jr.guidance_scale,
                                    jr.admit_step, jr.finish_step)
-        assert r.cache == {k: jr.cache[k] for k in r.cache}, r.rid
+        assert r.cache == jr.cache, r.rid
         want = np.asarray(jr.latents)
         np.testing.assert_allclose(
             r.latents, want, rtol=0,
@@ -103,8 +103,10 @@ def test_solo_replay_is_bitwise(served):
         msg = (f"rid={r.rid} plan=({r.num_steps}, {r.guidance_scale}) "
                f"admit_step={r.admit_step}")
         np.testing.assert_array_equal(x, r.latents, err_msg=msg)
-        assert r.cache == {k: float(v.sum()) for k, v in stats.items()
-                           if v.dim() == 1}, msg
+        want = {k: float(v.sum()) for k, v in stats.items() if v.dim() == 1}
+        want["queue_wait_steps"] = float(r.admit_step - r.arrival_step)
+        want["preemptions"] = 0.0
+        assert r.cache == want, msg
 
 
 def test_unguided_scalar_replay(served):
