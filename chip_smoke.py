@@ -15,7 +15,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             Python (the host's launch overhead included), ``*_device_ms``
             the device time per call (CUDA events around calls queued
             behind a spin kernel, so no host gap falls between them),
-            L2-warm:
+            L2-warm (B5 / B6 also at the decode gate's widths 5120 and
+            7168):
             - fused_gate at B=8, C=128 (merge off) and C=64 (merge on),
               D=1152, bf16, blend on and off, half the samples gating, on
               the wgmma route (bf16 X against the bf16 copy of W): gate
@@ -201,9 +202,36 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             fastcache against exact;
 14. llm_prefill_parity  the last-position logits of one full-width
             512-token prefill through the kernel against the same prefill
-            with the plain version patched in: relative L2 below 2e-2;
+            with the plain version patched in: relative L2 below 2e-2,
+            the same argmax, each layer's kernel output within 2e-2 of
+            the plain version on that layer's own q, k, v, and the two
+            plain prefills (p in f32, p in bf16) within 2e-2 of each
+            other, except for the configs of PREFILL_CHAOTIC (yi-9b,
+            stablelm-3b), whose plain prefills are chaotic at random init
+            and which are held layer by layer;
 15. llm_sampled  the fastcache LLM serve with greedy=False: every request
             finishes with in-vocabulary tokens;
+15a. the other LLM configs at full width, each model freed before the
+            next (``llm_model`` prints its parameter bytes and the peak
+            memory of building it): flash_attention at the head dims the
+            128 instance runs below its own (NEW_FLASH_SHAPES: stablelm-
+            3b's prefill, 32 heads of 80, and kimi's, 64 of 112 on 8 KV
+            heads; bf16 and f32 within the tolerances above, no spills;
+            and arctic's, 56 of 128 on 8 KV heads, in bf16);
+            qwen3-14b (40 layers, 29.5 GB) served exact and gated with
+            LLMWorkload's defaults (launches as in 13, 40 per prefill or
+            decode step), agreement and prefill parity; arctic-480b at full
+            width with 2 layers (every expert, 55.4 GB): llm_syncs (L + 1
+            = 3 per decode step, the MoE adding none), exact and gated
+            serves, prefill parity, the copies each prefill drops at the experts' capacity
+            (moe_drops), moe_routes (the first layer's MoE at a decode batch
+            on the capacity and the gather path: same experts, within 2e-2,
+            each timed beside its bytes), and per decode step exact against
+            gated the wall, the CUDA-event span and the profiled kernels
+            (decode_profile); yi-9b (17.7 GB), stablelm-3b (5.6 GB, dh 80)
+            and kimi-k2-1t-a32b at full width with 1 layer (38.8 GB, dh
+            112): prefill parity and a gated serve of 2 requests of 16 new
+            tokens (launches exact, on the fast routes);
 16. train_dit  DiT-XL/2 at full width (bf16, the reference's initializers,
             adaLN-zero) trained through training.loop.make_train_step for
             30 steps on latent_stream batches of 32 (seed 0), AdamW on
@@ -229,7 +257,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             debug "error", no kernel launched; ms per step (2 timed steps),
             tokens/s, launches per step, peak memory, train_mfu.
 
-Then the total seconds, the kernels line (seven rows), the card's name and
+Then the total seconds, the kernels line (the seven kernels' rows, and
+flash_attention's at dh 80 and 112 in bf16), the card's name and
 power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no CUDA card is present or any phase fails.
@@ -270,14 +299,43 @@ FLASH_SHAPES = {"a": (1, 16, 8, 512, 512, 128, True, 1024, "bfloat16"),
                 "c": (1, 16, 8, 64, 576, 128, True, 0, "bfloat16"),
                 "d": (1, 16, 8, 512, 512, 128, True, 1024, "float32")}
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the head dims the 128 instance runs below its own: the prefills of
+# stablelm-3b (32 heads of 80, MHA) and kimi-k2-1t-a32b (64 of 112, 8 KV);
+# and arctic-480b's prefill (56 heads of 128 on 8 KV heads, GQA 7:1)
+NEW_FLASH_SHAPES = {"e": (1, 32, 32, 512, 512, 80, True, 1024, "bfloat16"),
+                    "f": (1, 32, 32, 512, 512, 80, True, 1024, "float32"),
+                    "g": (1, 64, 8, 512, 512, 112, True, 1024, "bfloat16"),
+                    "h": (1, 64, 8, 512, 512, 112, True, 1024, "float32"),
+                    "i": (1, 56, 8, 512, 512, 128, True, 1024, "bfloat16")}
+# the full-width configs beyond qwen3-0.6b, each at LLMWorkload's defaults
+# unless cut: the MoE configs at full width with their depth cut to fit one
+# card (arctic-480b: every expert of 2 layers, 55.4 GB; kimi: 1 layer,
+# 38.8 GB); the parity configs also serve 2 requests of 16 new tokens
+ARCTIC = dict(arch="arctic-480b", num_layers=2)
+PARITY_LLMS = (dict(arch="yi-9b"), dict(arch="stablelm-3b"),
+               dict(arch="kimi-k2-1t-a32b", num_layers=1))
+SHORT_SERVE = dict(requests=2, new_tokens=16, fastcache=True)
+DECODE_PROFILE_STEPS = 8   # decode steps timed by CUDA events, then profiled
 PREFILL_REL_L2 = 2e-2      # kernel vs plain full-width prefill logits
+# the configs whose two plain prefills (p in f32, and p rounded to bf16)
+# differ by more than PREFILL_REL_L2 at random init, with that distance as
+# this script measured it (NVIDIA H100 80GB HBM3, 700 W): no qk-norm, so
+# attention logits reach ~100 and a 1-ulp change flips a near-one-hot
+# softmax row.  Only these hold the kernel to the plain version layer by
+# layer alone; any other config whose floor reaches the bound fails.
+PREFILL_CHAOTIC = {"yi-9b": 1.2992669343948364,
+                   "stablelm-3b": 1.2654507160186768}
 # saliency_delta shapes (B, N, D, dtype): fastcache/teacache at 4 slots (the
 # CFG batch of 8 rows of 256 tokens), in bf16 and f32, and merged (128
 # kept); the decode gate's (batch 4 of one 1024-wide token), the audit's
-# per-layer stacks ((L+1) x 8 rows) and the calibration recorder's (L x 4)
+# per-layer stacks ((L+1) x 8 rows) and the calibration recorder's (L x 4);
+# the decode gate's of the other LLMs (qwen3-14b, the MoE configs, yi-9b,
+# stablelm-3b)
 SAL_SHAPES = ((8, 256, 1152, "bfloat16"), (8, 256, 1152, "float32"),
               (8, 128, 1152, "bfloat16"), (4, 1, 1024, "bfloat16"),
-              (232, 256, 1152, "bfloat16"), (112, 256, 1152, "bfloat16"))
+              (232, 256, 1152, "bfloat16"), (112, 256, 1152, "bfloat16"),
+              (4, 1, 5120, "bfloat16"), (4, 1, 7168, "bfloat16"),
+              (4, 1, 4096, "bfloat16"), (4, 1, 2560, "bfloat16"))
 # linear_blend shapes (M, D, F, dtype, gamma): 4 slots x CFG x 256 tokens at
 # the callers' gamma 1 and the reference's default 0.5, merged, and ragged
 BLEND_SHAPES = ((2048, 1152, 1152, "bfloat16", 1.0),
@@ -285,7 +343,11 @@ BLEND_SHAPES = ((2048, 1152, 1152, "bfloat16", 1.0),
                 (1024, 1152, 1152, "bfloat16", 1.0),
                 (1000, 1000, 1000, "float32", 0.5),
                 (4, 1024, 1024, "bfloat16", 1.0),     # the decode gate's
-                (1, 1024, 1024, "bfloat16", 1.0))
+                (1, 1024, 1024, "bfloat16", 1.0),
+                (4, 5120, 5120, "bfloat16", 1.0),     # qwen3-14b's gate
+                (4, 7168, 7168, "bfloat16", 1.0),     # the MoE configs'
+                (4, 4096, 4096, "bfloat16", 1.0),     # yi-9b's
+                (4, 2560, 2560, "bfloat16", 1.0))     # stablelm-3b's
 BLEND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the merge-off fastcache serve's block cache ratio with fused_gate and
 # linear_blend on the SIMT route (parent commit, NVIDIA H100 80GB HBM3): the
@@ -1282,14 +1344,15 @@ def instance_ptxas(lines, fragment: str):
     return out
 
 
-def phase_flash_attention(torch, dev, ref, flash_attention, build):
-    """flash_attention against its plain version at FLASH_SHAPES; returns
-    the row of shape (a), the serve's prefill."""
+def phase_flash_attention(torch, dev, ref, flash_attention, build,
+                          shapes=FLASH_SHAPES):
+    """flash_attention against its plain version at ``shapes``; returns
+    the rows by key (FLASH_SHAPES' (a): the serve's prefill)."""
     import torch.nn.functional as F
+    from repro_torch.cuda_kernels.flash_attention import instance_dh
     ptxas = build.ptxas_lines(build.load_library("flash_attention").log)
     rows = {}
-    for key, (b, h, kvh, sq, skv, dh, causal, window, dt) in \
-            FLASH_SHAPES.items():
+    for key, (b, h, kvh, sq, skv, dh, causal, window, dt) in shapes.items():
         dtype = getattr(torch, dt)
         gen = torch.Generator(dev).manual_seed(4)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1302,7 +1365,7 @@ def phase_flash_attention(torch, dev, ref, flash_attention, build):
         tol = FLASH_TOL[dt]
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-        if key in ("a", "d"):        # window >= S: plain causal attention
+        if causal and sq == skv and not 0 < window < skv:   # plain causal
             sdpa = dict(is_causal=True)
             call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
         else:
@@ -1340,12 +1403,15 @@ def phase_flash_attention(torch, dev, ref, flash_attention, build):
         row["ms"] = row["kernel_ms"]
         row["vs_library"] = (row["kernel_device_ms"]
                              / row["library_device_ms"])
+        row["instance_dh"] = instance_dh(dh)
         row["ptxas"] = instance_ptxas(
             ptxas, "flash_attention_kernel_"
-            + ("wgmma" if dt == "bfloat16" else "simt") + f"ILi{dh}E")
+            + ("wgmma" if dt == "bfloat16" else "simt")
+            + f"ILi{row['instance_dh']}E")
+        no_spills(row["ptxas"], f"flash_attention {dt} dh {dh}")
         emit({"phase": "kernel", **row})
         rows[key] = row
-    return rows["a"]
+    return rows
 
 
 def phase_llm_syncs(torch, wl, model):
@@ -1374,7 +1440,7 @@ def phase_llm_syncs(torch, wl, model):
     return per_step
 
 
-def phase_llm_serve(torch, dev, wl, model, m, serve):
+def phase_llm_serve(torch, dev, wl, model, m, serve, label="llm_serve"):
     """Serve ``wl`` on a fresh engine, timed; every kernel's launch count is
     zeroed just before and read just after.  Returns (launches, done)."""
     torch.cuda.synchronize()
@@ -1410,7 +1476,7 @@ def phase_llm_serve(torch, dev, wl, model, m, serve):
         raise AssertionError(f"LLM launches {launches} != {want} "
                              f"({eng.prefills} prefills, "
                              f"{eng.decode_steps} decode steps)")
-    emit({"phase": "llm_serve", **summary, "launches": launches,
+    emit({"phase": label, **summary, "launches": launches,
           "launches_by_route": by_route,
           "launches_per_decode_step": {
               k: v / eng.decode_steps for k, v in launches.items()
@@ -1421,29 +1487,295 @@ def phase_llm_serve(torch, dev, wl, model, m, serve):
 
 def phase_llm_prefill_parity(torch, dev, wl, model, attention, ref):
     """One full-width prefill through the kernel and through the plain
-    version: relative L2 of the last-position logits, positions exact."""
+    version: relative L2 of the last-position logits, positions exact;
+    and each layer's kernel output against the plain version run on that
+    layer's own captured q, k, v (rel-L2 within PREFILL_REL_L2 in every
+    layer).  The two plain prefills (p kept in f32, and p rounded to bf16
+    as the reference's model attention rounds it, ``attend_direct``) must
+    agree within the logits' bound, and the kernel's logits must then meet
+    it too.  Only a config of PREFILL_CHAOTIC may have plain prefills
+    farther apart: the random-weight model is chaotic at this init (a
+    1-ulp change of one attention logit flips a near-one-hot softmax row,
+    and the flip grows through the layers), and the per-layer check is the
+    kernel's."""
     tokens = torch.from_numpy(
         wl.build_requests(model)[0].prompt).long()[None].to(dev)
-    logits, cache = model.prefill(tokens, wl.window)
     kernel_fn = attention.flash_attention
-    attention.flash_attention = ref.flash_attention
-    try:
-        plain_logits, plain_cache = model.prefill(tokens, wl.window)
-    finally:
-        attention.flash_attention = kernel_fn
+    captured = []
+
+    def capturing(q, k, v, *, causal, window=0):
+        out = kernel_fn(q, k, v, causal=causal, window=window)
+        captured.append((q, k, v, out, causal, window))
+        return out
+
+    def rounded_p(q, k, v, *, causal, window=0):
+        pos = torch.arange(q.shape[2], device=q.device)
+        return attention.attend_direct(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,
+            pos, causal=causal, window=window).transpose(1, 2)
+
+    def prefill_with(fn):
+        attention.flash_attention = fn
+        try:
+            return model.prefill(tokens, wl.window)
+        finally:
+            attention.flash_attention = kernel_fn
+
+    logits, cache = prefill_with(capturing)
+    plain_logits, plain_cache = prefill_with(ref.flash_attention)
+    rounded_logits, _ = prefill_with(rounded_p)
+    layer_rel = [rel_l2(torch, out, ref.flash_attention(
+        q, k, v, causal=causal, window=window))
+        for q, k, v, out, causal, window in captured]
+    del captured
     a, b = logits.float(), plain_logits.float()
     rel = float((a - b).norm() / b.norm())
+    floor = rel_l2(torch, rounded_logits, plain_logits)
     same_argmax = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-    emit({"phase": "llm_prefill_parity", "prompt_len": tokens.shape[1],
+    held = floor < PREFILL_REL_L2
+    emit({"phase": "llm_prefill_parity", "arch": model.cfg.name,
+          "num_layers": model.cfg.num_layers, "prompt_len": tokens.shape[1],
           "rel_l2_logits": rel, "bound": PREFILL_REL_L2,
           "same_argmax": same_argmax,
+          "rel_l2_logits_plain_p_f32_vs_p_bf16": floor,
+          "logits_bound_held": held,
+          "chaotic_floor_recorded": PREFILL_CHAOTIC.get(model.cfg.name),
+          "rel_l2_per_layer_max": max(layer_rel),
+          "rel_l2_per_layer_mean": float(np.mean(layer_rel)),
           "rel_l2_k_cache": float((cache["k"].float() - plain_cache["k"].float()
                                    ).norm() / plain_cache["k"].float().norm())})
-    if not torch.isfinite(a).all() or not rel < PREFILL_REL_L2:
+    if not torch.isfinite(a).all() or len(layer_rel) != \
+            model.cfg.num_layers or not max(layer_rel) < PREFILL_REL_L2:
+        raise AssertionError(f"prefill per layer: rel L2 up to "
+                             f"{max(layer_rel)} (bound {PREFILL_REL_L2})")
+    if not held and model.cfg.name not in PREFILL_CHAOTIC:
+        raise AssertionError(f"the plain prefills differ by {floor} (bound "
+                             f"{PREFILL_REL_L2}), and {model.cfg.name} is "
+                             f"not one of PREFILL_CHAOTIC")
+    if held and not (rel < PREFILL_REL_L2 and same_argmax):
         raise AssertionError(f"prefill logits: rel L2 {rel} (bound "
-                             f"{PREFILL_REL_L2})")
+                             f"{PREFILL_REL_L2}), same argmax "
+                             f"{same_argmax}")
     if not torch.equal(cache["pos"], plain_cache["pos"]):
         raise AssertionError("prefill cache positions differ")
+
+
+def agreement(label, done_exact, done_fc) -> dict:
+    """Greedy-token agreement of the gated serve with the exact one."""
+    pairs = list(zip(sorted(done_exact, key=lambda r: r.rid),
+                     sorted(done_fc, key=lambda r: r.rid)))
+    out = {"phase": label,
+           "greedy_token_agreement_fastcache_vs_exact": float(np.mean(
+               [np.mean(np.array(a.generated) == np.array(b.generated))
+                for a, b in pairs])),
+           "first_token_agreement": float(np.mean(
+               [a.generated[0] == b.generated[0] for a, b in pairs]))}
+    emit(out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# The other LLM configs at full width: qwen3-14b, yi-9b, stablelm-3b and the
+# MoE family (arctic-480b, kimi-k2-1t-a32b) with its depth cut
+# --------------------------------------------------------------------------
+
+def build_llm(torch, dev, wl):
+    """``wl``'s model on the card: its parameters' bytes, the init seconds
+    and the peak memory of building it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = wl.build_model(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "llm_model", "arch": model.cfg.name,
+          "num_layers": model.cfg.num_layers, "d_model": model.cfg.d_model,
+          "params": sum(p.numel() for p in model.parameters()),
+          "param_bytes": sum(p.numel() * p.element_size()
+                             for p in model.parameters()),
+          "dtype": str(model.dtype), "init_s": time.perf_counter() - t0,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)})
+    return model
+
+
+def free_memory(torch) -> None:
+    """Return the card memory of what the caller has just deleted."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_drops(torch, dev, wl, model, layers_mod) -> dict:
+    """Copies (token, choice) each prefill drops at the experts' capacity,
+    per layer: the workload's prompts prefilled one by one outside any
+    timed serve, each MoE call's routing recomputed and counted."""
+    m = model.cfg.moe
+    counts = []
+    real = layers_mod.moe_apply
+
+    def counting(p, x, cfg):
+        t = x.shape[0] * x.shape[1]
+        h = layers_mod.common.rms_norm(x, p.norm, cfg.norm_eps)
+        top_i = layers_mod._route(p, h.reshape(t, -1), m.top_k)[2]
+        per_e = torch.bincount(top_i.reshape(-1), minlength=m.num_experts)
+        cap = layers_mod.moe_capacity(m, t)
+        counts.append((t, cap, int((per_e - cap).clamp(min=0).sum())))
+        return real(p, x, cfg)
+
+    layers_mod.moe_apply = counting
+    try:
+        reqs = wl.build_requests(model)
+        for req in reqs:
+            model.prefill(torch.from_numpy(req.prompt).long()[None].to(dev),
+                          wl.window)
+    finally:
+        layers_mod.moe_apply = real
+    dropped = sum(c[2] for c in counts)
+    out = {"phase": "moe_drops", "arch": model.cfg.name,
+           "prefills": len(reqs), "tokens": counts[0][0],
+           "capacity": counts[0][1],
+           "copies_per_prefill": counts[0][0] * m.top_k * model.cfg.num_layers,
+           "dropped_per_prefill": dropped / len(reqs),
+           "dropped_share": dropped / sum(c[0] * m.top_k for c in counts)}
+    emit(out)
+    return out
+
+
+def phase_moe_routes(torch, dev, model, layers_mod, batch: int):
+    """The first layer's MoE at a decode batch on both paths: the capacity
+    dispatch (every expert's GEMM on a min_capacity buffer) and the gather
+    path (``MOE_GATHER_DECODE``: the chosen experts' weights only).  With
+    T * k <= E and capacity min_capacity no copy is dropped, so the two
+    take the same experts (``_route``, shared) and agree within bf16's
+    2e-2; each timed on the card beside its bytes."""
+    p, cfg = model.blocks[0].moe, model.cfg
+    m = cfg.moe
+    if batch * m.top_k > m.num_experts or \
+            layers_mod.moe_capacity(m, batch) < batch:
+        raise AssertionError("moe_routes needs a drop-free decode batch")
+    gen = torch.Generator(dev).manual_seed(5)
+    x = torch.randn((batch, 1, cfg.d_model), generator=gen,
+                    device=dev).to(model.dtype)
+    y_cap, a_cap = layers_mod.moe_apply(p, x, cfg)
+    y_gat, a_gat = layers_mod.moe_gather_apply(p, x, cfg)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(y_gat.float().abs().max()))
+    torch.testing.assert_close(y_cap.float(), y_gat.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+    torch.testing.assert_close(a_cap, a_gat, rtol=1e-6, atol=0)
+    esize = 2
+    d, f, e, k = cfg.d_model, m.d_ff_expert, m.num_experts, m.top_k
+    expert_bytes = 3 * d * f * esize
+    row = {"phase": "moe_routes", "arch": cfg.name, "batch": batch,
+           "rel_l2": rel_l2(torch, y_cap, y_gat),
+           "max_abs_err": float((y_cap.float() - y_gat.float()).abs().max()),
+           "scale": scale, "aux_capacity": float(a_cap),
+           "aux_gather": float(a_gat),
+           "capacity_device_ms": device_ms(
+               torch, lambda: layers_mod.moe_apply(p, x, cfg), iters=10),
+           "gather_device_ms": device_ms(
+               torch, lambda: layers_mod.moe_gather_apply(p, x, cfg),
+               iters=10),
+           "capacity_bound_ms": bound(e * expert_bytes, 0.0)[0],
+           "gather_bound_ms": bound(batch * k * expert_bytes, 0.0)[0]}
+    emit(row)
+    return row
+
+
+def phase_decode_profile(torch, dev, wl, model, label: str) -> dict:
+    """Per decode step of ``wl``'s engine with every slot busy: the wall
+    and CUDA-event span of DECODE_PROFILE_STEPS steps, then the kernels of
+    4 steps under torch.profiler (launches, kernel ms, busy share, top
+    kernels), as ``launch/profile_llm.py`` reports them."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_llm import _window
+    eng = wl.build_engine(model)
+    for req in wl.build_requests(model)[:wl.max_batch]:
+        eng.add_request(req)
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(DECODE_PROFILE_STEPS):
+        eng.step()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    win = _window(prof, pwall, 4)
+    out = {"phase": "decode_profile", "label": label, "arch": model.cfg.name,
+           "fastcache": wl.fastcache, "active": wl.max_batch,
+           "ms_per_step_wall": wall / DECODE_PROFILE_STEPS * 1e3,
+           "ms_per_step_events": start.elapsed_time(end)
+           / DECODE_PROFILE_STEPS,
+           "profiled": win}
+    emit(out)
+    return out
+
+
+def phase_more_llms(torch, dev, m, k, serve, layers_mod, attention, ref):
+    """The twelfth slice's serves, each model freed before the next.
+    Returns {label: launches} of every serve."""
+    launches = {}
+
+    def serve_pair(wl, model, tag):
+        wl.warm_up(model)
+        launches[f"llm_serve_{tag}_exact"], done_e = phase_llm_serve(
+            torch, dev, wl, model, m, serve, label=f"llm_serve_{tag}_exact")
+        wl_fc = dataclasses.replace(wl, fastcache=True)
+        launches[f"llm_serve_{tag}_fastcache"], done_f = phase_llm_serve(
+            torch, dev, wl_fc, model, m, serve,
+            label=f"llm_serve_{tag}_fastcache")
+        agreement(f"llm_agreement_{tag}", done_e, done_f)
+
+    # qwen3-14b at full size: exact and gated
+    wl = k.LLMWorkload(arch="qwen3-14b")
+    model = build_llm(torch, dev, wl)
+    serve_pair(wl, model, "qwen3_14b")
+    phase_llm_prefill_parity(torch, dev, wl, model, attention, ref)
+    del model
+    free_memory(torch)
+
+    # arctic-480b at full width, 2 layers: syncs, serves, drops, the two
+    # MoE paths, the decode step's time exact against gated
+    wl = k.LLMWorkload(**ARCTIC)
+    model = build_llm(torch, dev, wl)
+    wl_fc = dataclasses.replace(wl, fastcache=True)
+    phase_llm_syncs(torch, wl_fc, model)
+    serve_pair(wl, model, "arctic")
+    phase_llm_prefill_parity(torch, dev, wl, model, attention, ref)
+    moe_drops(torch, dev, wl, model, layers_mod)
+    moe = model.cfg.moe
+    phase_moe_routes(torch, dev, model, layers_mod,
+                     min(wl.max_batch, moe.num_experts // moe.top_k))
+    phase_decode_profile(torch, dev, wl, model, "arctic_exact")
+    phase_decode_profile(torch, dev, wl_fc, model, "arctic_fastcache")
+    del model
+    free_memory(torch)
+
+    # yi-9b, stablelm-3b (dh 80), kimi-k2 (dh 112, 1 layer): prefill
+    # parity and a short gated serve
+    for kw in PARITY_LLMS:
+        wl = k.LLMWorkload(**kw)
+        model = build_llm(torch, dev, wl)
+        phase_llm_prefill_parity(torch, dev, wl, model, attention, ref)
+        short = dataclasses.replace(wl, **SHORT_SERVE)
+        short.warm_up(model)
+        tag = kw["arch"].split("-")[0]
+        launches[f"llm_serve_{tag}_fastcache"] = phase_llm_serve(
+            torch, dev, short, model, m, serve,
+            label=f"llm_serve_{tag}_fastcache")[0]
+        del model
+        free_memory(torch)
+    return launches
 
 
 @contextlib.contextmanager
@@ -2483,6 +2815,7 @@ def main() -> int:
     from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
     from repro_torch.launch.serve_diffusion import Workload
     from repro_torch.models import attention
+    from repro_torch.models import layers as moe_layers
     from repro_torch.serving.scheduler import (DiffusionRequest, percentile,
                                                summarize_by_class)
     from repro_torch.serving.slo import StepTimer
@@ -2615,7 +2948,7 @@ def main() -> int:
 
     # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate
     flash_row = phase_flash_attention(torch, dev, ref, flash_attention,
-                                      build)
+                                      build)["a"]
     llm = LLMWorkload()
     t0 = time.perf_counter()
     llm_model = llm.build_model(dev)
@@ -2630,20 +2963,23 @@ def main() -> int:
                                                  m, llm_serve)
     launches_llm, done_fc = phase_llm_serve(torch, dev, llm_fc, llm_model, m,
                                             llm_serve)
-    pairs = list(zip(sorted(done_exact, key=lambda r: r.rid),
-                     sorted(done_fc, key=lambda r: r.rid)))
-    emit({"phase": "llm_agreement",
-          "greedy_token_agreement_fastcache_vs_exact": float(np.mean(
-              [np.mean(np.array(a.generated) == np.array(b.generated))
-               for a, b in pairs])),
-          "first_token_agreement": float(np.mean(
-              [a.generated[0] == b.generated[0] for a, b in pairs]))})
+    agreement("llm_agreement", done_exact, done_fc)
     phase_llm_prefill_parity(torch, dev, llm, llm_model, attention, ref)
     phase_llm_sampled(torch, dev, llm_fc, llm_model, llm_serve)
-
-    # ---- training and checkpoints: DiT-XL/2 and Qwen3-0.6B at full width
     del model, llm_model
     torch.cuda.empty_cache()
+
+    # ---- B7 at head dims 80 / 112, the other dense configs and the MoE
+    # family at full width, each model freed before the next
+    t0 = time.perf_counter()
+    new_flash = phase_flash_attention(torch, dev, ref, flash_attention,
+                                      build, NEW_FLASH_SHAPES)
+    launches_more = phase_more_llms(
+        torch, dev, m, SimpleNamespace(LLMWorkload=LLMWorkload), llm_serve,
+        moe_layers, attention, ref)
+    emit({"phase": "more_llms", "seconds": time.perf_counter() - t0})
+
+    # ---- training and checkpoints: DiT-XL/2 and Qwen3-0.6B at full width
     t0 = time.perf_counter()
     tr = SimpleNamespace(loop=train_loop, optimizer=train_optimizer,
                          ckpt=ckpt_io, tree=port_tree, DiTModel=DiTModel,
@@ -2676,7 +3012,14 @@ def main() -> int:
     flash_row["launches"] = launches_llm["flash_attention"]
     sal_row["launches"] = launches["saliency_delta"]
     blend_row["launches"] = launches["linear_blend"]
-    rows = [gate_row] + merge_rows + [sal_row, blend_row, flash_row]
+    # the new head dims' bf16 rows: flash_attention on the serve of the
+    # config that has the head dim (stablelm-3b: 80, kimi: 112)
+    new_flash["e"]["launches"] = launches_more[
+        "llm_serve_stablelm_fastcache"]["flash_attention"]
+    new_flash["g"]["launches"] = launches_more[
+        "llm_serve_kimi_fastcache"]["flash_attention"]
+    rows = [gate_row] + merge_rows + [sal_row, blend_row, flash_row,
+                                      new_flash["e"], new_flash["g"]]
     for row in rows:
         row["serve_launches"] = {
             "serve": launches[row["name"]],
@@ -2697,7 +3040,8 @@ def main() -> int:
             "llm_serve_fastcache": launches_llm[row["name"]],
             "train_dit": launches_train_dit[row["name"]],
             "trained_serve": launches_trained[row["name"]],
-            "train_llm": launches_train_llm[row["name"]]}
+            "train_llm": launches_train_llm[row["name"]],
+            **{label: n[row["name"]] for label, n in launches_more.items()}}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(card, flush=True)

@@ -81,7 +81,7 @@ def param_groups(model: Union[DiTModel, TransformerModel]) -> Dict:
         sub: {name: LayerStack([getattr(getattr(blk, sub), name)
                                 for blk in model.blocks])
               for name in getattr(model.blocks[0], sub).defs}
-        for sub in ("attn", "ffn")}}
+        for sub in model.blocks[0].subs}}
     return out
 
 
@@ -145,11 +145,12 @@ def params_from_jax(np_tree: Mapping, model: DiTModel,
 @torch.no_grad()
 def transformer_params_from_jax(np_tree: Mapping, model: TransformerModel
                                 ) -> TransformerModel:
-    """Copy a reference ``TransformerModel`` parameter tree (dense, period
-    1: ``embed``, ``final_norm``, optional ``lm_head`` and the layer-stacked
-    ``blocks/pos0/{attn,ffn}/*``) into ``model`` (in place) and return it.
-    Shapes and key sets must match exactly; values are cast to the
-    parameters' dtypes (bf16 bit-copied)."""
+    """Copy a reference ``TransformerModel`` parameter tree (dense or MoE,
+    period 1: ``embed``, ``final_norm``, optional ``lm_head`` and the
+    layer-stacked ``blocks/pos0/{attn,ffn}/*`` or ``blocks/pos0/{attn,moe}/
+    *``, the MoE's expert leaves (L, E, D, F) and its f32 router (L, D, E))
+    into ``model`` (in place) and return it.  Shapes and key sets must match
+    exactly; values are cast to the parameters' dtypes (bf16 bit-copied)."""
     dev = model.device
     if set(np_tree) - {"blocks"} != set(model.top.defs):
         raise ValueError(f"top-level keys {sorted(np_tree)} do not match "
@@ -161,10 +162,12 @@ def transformer_params_from_jax(np_tree: Mapping, model: TransformerModel
         raise ValueError(f"blocks {sorted(blocks)}: only a period-1 stack "
                          "(pos0) is ported")
     pos0 = blocks["pos0"]
-    if set(pos0) != {"attn", "ffn"}:
+    subs = model.blocks[0].subs
+    if set(pos0) != set(subs):
         raise ValueError(f"blocks/pos0 holds {sorted(pos0)}; the port's "
-                         "block is attn + ffn")
-    for sub in ("attn", "ffn"):
+                         f"block is attn + ffn or attn + moe, this model's "
+                         f"{' + '.join(subs)}")
+    for sub in subs:
         groups = [getattr(blk, sub) for blk in model.blocks]
         if set(pos0[sub]) != set(groups[0].defs):
             raise ValueError(f"blocks/pos0/{sub}: keys {sorted(pos0[sub])} "

@@ -1,4 +1,4 @@
-"""Config dataclasses for the DiT and the dense LLM serving paths.
+"""Config dataclasses for the DiT and the LLM serving paths (dense and MoE).
 
 The port keeps its own copy of the JAX package's config types
 (``repro/configs/base.py``; it imports nothing of ``repro``).  Only the
@@ -15,6 +15,19 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0      # DeepSeek/Kimi-style always-on experts
+    dense_ff_parallel: int = 0       # Arctic-style dense FFN residual branch
+    capacity_factor: float = 1.25
+    min_capacity: int = 4
+    router_aux_weight: float = 0.01
+    moe_layer_period: int = 1        # MoE every k-th FFN (Jamba: 2)
+
+
+@dataclass(frozen=True)
 class DiTConfig:
     patch_size: int = 2
     in_channels: int = 4             # SD VAE latent channels
@@ -26,7 +39,7 @@ class DiTConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # ported: "dit" and "dense"
+    family: str                      # ported: dit, dense, moe
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,6 +56,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     # hybrid layouts are not ported: a non-empty pattern raises
     block_pattern: Tuple[str, ...] = ()
+    moe: Optional[MoEConfig] = None
     dit: Optional[DiTConfig] = None
     dtype: str = "bfloat16"
     # Training

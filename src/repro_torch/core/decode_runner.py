@@ -16,7 +16,11 @@ The reference's ``lax.cond(jnp.all(do_cache), all_skip, mixed)`` is a real
 skip here, decided on the host: one host sync per layer per decode step
 (``bool(do_cache.all())``), counted in ``host_syncs``; ``skipped_layers``
 counts the layers where every sample skipped.  Both branches give
-the same per-row results, so either way is exact.  ``gate_mode="global"``
+the same per-row results, so either way is exact.  The mixed branch runs
+the block on the whole batch, cached slots included, and keeps the
+approximation for those slots, as the reference does; in an MoE block the
+cached slots' tokens therefore take part in the routing and share the
+experts' capacity.  The all-skip branch writes K/V only.  ``gate_mode="global"``
 reduces the statistic over the batch into one decision per layer.  The
 cache is updated in place; the state comes back as a new dict.
 
@@ -155,8 +159,8 @@ class CachedDecoder:
                 self._kv_write(bp.attn, x, lc, step)
                 x_new = approx
             else:
-                x_blk, _ = m.block_apply(bp, x, positions=positions, cache=lc,
-                                         decode_pos=step)
+                x_blk = m.block_apply(bp, x, positions=positions, cache=lc,
+                                      decode_pos=step)[0]
                 x_new = torch.where(do_cache[:, None, None], approx, x_blk)
             # only observe deltas taken against a REAL previous hidden: after
             # a slot reset prev_hidden is zeroed and ||h - 0||^2 would poison

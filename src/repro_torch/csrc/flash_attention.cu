@@ -13,6 +13,15 @@
 //   o_i        = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp(s_ij - max_j s_ij)
 //                over the live j, s_ij = (q_i . k_j) * dh^-1/2
 //
+// Head dims: any multiple of 16 up to 128.  Two template instances, DH = 64
+// and DH = 128; a head dim dh below DH runs on the next instance up with
+// columns dh..DH-1 read as zeros (the bf16 tensor maps take the true dh as
+// their innermost extent, so TMA zero-fills the rest of each 64-column box;
+// the f32 loads are masked), which add nothing to Q K^T, and only the dh
+// true columns of O are stored.  The scale is the caller's dh^-1/2 of the
+// true dh.  Dedicated instances for 80 and 112 (wgmma N = 80 / 112) would
+// skip the zero columns' work; they are not written.
+//
 // with the running max, the denominator and the accumulator in f32, as in
 // the TPU kernel, and o in q's dtype.  Both routes below give one block to
 // each (b, h, tile of 64 queries), heaviest causal tiles first, and loop over
@@ -95,6 +104,7 @@ struct Shape {
 };
 
 struct Params : Shape {
+  int dh;       // the true head dim, <= the instance's DH
   float scale;
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
@@ -121,16 +131,17 @@ __device__ __forceinline__ bool live(const Shape& p, int qpos, int kpos) {
 // ---------------------------------------------------------------------------
 
 // A 64 x DH f32 tile of `src` (row stride `rs` elements, 16-byte aligned
-// rows) into shared memory with row pitch `pitch`; rows at or past `nvalid`
+// rows of `dh` <= DH elements, dh a multiple of 4) into shared memory with
+// row pitch `pitch`; rows at or past `nvalid` and columns at or past `dh`
 // are zero.
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, int pitch,
                                           const float* src, long long rs,
-                                          int nvalid) {
+                                          int nvalid, int dh) {
   constexpr int kPerRow = DH / 4;
   for (int idx = threadIdx.x; idx < kBQ * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow, c = (idx % kPerRow) * 4;
-    const float4 x = r < nvalid
+    const float4 x = r < nvalid && c < dh
                          ? *reinterpret_cast<const float4*>(src + r * rs + c)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     float* d = dst + r * pitch + c;
@@ -183,7 +194,8 @@ flash_attention_kernel_simt(const float* __restrict__ q,
   const float* kp = k + b * p.kb + kvh * p.kh;
   const float* vp = v + b * p.vb + kvh * p.vh;
 
-  load_tile<DH>(Qs, kQP, q + b * p.qb + h * p.qh + t.q0 * p.qs, p.qs, t.nq);
+  load_tile<DH>(Qs, kQP, q + b * p.qb + h * p.qh + t.q0 * p.qs, p.qs, t.nq,
+                p.dh);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -197,8 +209,8 @@ flash_attention_kernel_simt(const float* __restrict__ q,
   for (int k0 = (t.k_lo / kBK) * kBK; k0 < t.k_hi; k0 += kBK) {
     const int nk = min(kBK, p.Skv - k0);
     __syncthreads();  // Q is staged; the last tile's P and V are consumed
-    load_tile<DH>(Ks, kQP, kp + k0 * p.ks, p.ks, nk);
-    load_tile<DH>(Vs, DH, vp + k0 * p.vs, p.vs, nk);
+    load_tile<DH>(Ks, kQP, kp + k0 * p.ks, p.ks, nk, p.dh);
+    load_tile<DH>(Vs, DH, vp + k0 * p.vs, p.vs, nk, p.dh);
     __syncthreads();
 
     float s[4][8];
@@ -269,7 +281,8 @@ flash_attention_kernel_simt(const float* __restrict__ q,
     if (r < t.nq) {
       float* orow = o + b * p.ob + h * p.oh + (t.q0 + r) * p.os;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) orow[tx + 8 * c] = acc[i][c] / den;
+      for (int c = 0; c < kCols; ++c)
+        if (tx + 8 * c < p.dh) orow[tx + 8 * c] = acc[i][c] / den;
     }
   }
 }
@@ -671,7 +684,9 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
 // A bf16 tensor (B, heads, S, dh) with element strides (bs, hs, ss, 1) as a
 // 4-d tensor map (dh, S, heads, B) of 64 x 64 boxes, 128-byte swizzle.  A
 // dimension of extent 1 gets a nominal stride (TMA wants nonzero multiples
-// of 16 bytes, and never uses it).
+// of 16 bytes, and never uses it).  The innermost extent is the true dh:
+// a load fills the box's columns past it with zeros (and still completes
+// the whole box's bytes on the mbarrier), a store drops them.
 bool encode_map(CUtensorMap* map, const void* ptr, int dh, int S, int heads,
                 int B, long long ss, long long hs, long long bs) {
   const EncodeTiled encode = encoder();
@@ -704,10 +719,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
     opted_in = true;
   }
   CUtensorMap qmap, kmap, vmap, omap;
-  if (!encode_map(&qmap, q, DH, p.Sq, H, B, p.qs, p.qh, p.qb) ||
-      !encode_map(&kmap, k, DH, p.Skv, KVH, B, p.ks, p.kh, p.kb) ||
-      !encode_map(&vmap, v, DH, p.Skv, KVH, B, p.vs, p.vh, p.vb) ||
-      !encode_map(&omap, o, DH, p.Sq, H, B, p.os, p.oh, p.ob))
+  if (!encode_map(&qmap, q, p.dh, p.Sq, H, B, p.qs, p.qh, p.qb) ||
+      !encode_map(&kmap, k, p.dh, p.Skv, KVH, B, p.ks, p.kh, p.kb) ||
+      !encode_map(&vmap, v, p.dh, p.Skv, KVH, B, p.vs, p.vh, p.vb) ||
+      !encode_map(&omap, o, p.dh, p.Sq, H, B, p.os, p.oh, p.ob))
     return (int)cudaErrorInvalidValue;
   WgmmaParams wp;
   static_cast<Shape&>(wp) = p;
@@ -725,7 +740,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 // kernel), with the given element strides along (batch, head, sequence),
 // unit stride along dh, and 16-byte aligned rows (bf16: nonzero strides
 // along every dimension of extent > 1, for the tensor maps).  Needs
-// H % KVH == 0, 1 <= Sq <= Skv and dh in {64, 128}.  `scale` is dh^-1/2
+// H % KVH == 0, 1 <= Sq <= Skv and dh a multiple of 16 in [16, 128]
+// (instance 64 up to 64, else 128).  `scale` is dh^-1/2
 // rounded to f32 by the caller, as the plain version's f32 product with the
 // Python float rounds it.  Returns cudaGetLastError() after the launch
 // (0 = success), or cudaErrorInvalidValue for arguments it refuses.
@@ -744,19 +760,20 @@ extern "C" int flash_attention_launch(
   p.group = H / KVH;
   p.causal = causal != 0;
   p.window = window;
+  p.dh = dh;
   p.scale = scale;
   p.qb = qb; p.qh = qh; p.qs = qs;
   p.kb = kb; p.kh = kh; p.ks = ks;
   p.vb = vb; p.vh = vh; p.vs = vs;
   p.ob = ob; p.oh = oh; p.os = os;
+  if (dh < 16 || dh > 128 || dh % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1 && dh == 128)
-    return launch_wgmma<128>(q, k, v, o, B, H, KVH, p, s);
-  if (dtype_code == 1 && dh == 64)
-    return launch_wgmma<64>(q, k, v, o, B, H, KVH, p, s);
-  if (dtype_code == 0 && dh == 128)
-    return launch_simt<128>(q, k, v, o, B, H, p, s);
-  if (dtype_code == 0 && dh == 64)
-    return launch_simt<64>(q, k, v, o, B, H, p, s);
+  const bool wide = dh > 64;
+  if (dtype_code == 1)
+    return wide ? launch_wgmma<128>(q, k, v, o, B, H, KVH, p, s)
+                : launch_wgmma<64>(q, k, v, o, B, H, KVH, p, s);
+  if (dtype_code == 0)
+    return wide ? launch_simt<128>(q, k, v, o, B, H, p, s)
+                : launch_simt<64>(q, k, v, o, B, H, p, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,6 +25,16 @@ f32.  At the serve's prefill (B=1, H=16, KVH=8, S=512, dh=128, causal) the
 bound is 1.88 us, set by the 6.29 MB that q, k, v and o move.  The bf16
 tensor maps take no zero stride, so a broadcast (expanded) bf16 input is
 refused; materialize it first.
+
+Head dims: every multiple of 16 up to 128 (``HEAD_DIMS``) on two template
+instances, 64 and 128 (``instance_dh``).  A head dim below its instance's
+(StableLM-3B's 80, Kimi-K2's 112) reads its missing columns as zeros:
+the bf16 tensor maps take the true dh as their innermost extent, so TMA
+zero-fills the rest of each 64-column box, the f32 loads are masked, and
+only the true columns are stored.  Zeros add nothing to QK^T, so the
+result is the true-dh attention, at the scale dh^-1/2 of the true dh; the
+zero columns' products are wasted work (80 / 128 of the products do work at
+dh 80).
 """
 from __future__ import annotations
 
@@ -34,7 +44,7 @@ import torch
 
 from repro_torch.cuda_kernels import build, ref
 
-HEAD_DIMS = (64, 128)          # the kernel's template instances
+HEAD_DIMS = tuple(range(16, 129, 16))   # the head dims the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -46,6 +56,14 @@ def _kernel():
                        + [_int, _int, ctypes.c_float, _int, _vp])
         fn.restype = _int
     return fn
+
+
+def instance_dh(dh: int) -> int:
+    """The template instance (its DH) that runs head dim ``dh``."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {dh}")
+    return 64 if dh <= 64 else 128
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -107,9 +125,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.device}")
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {dh}")
+    instance_dh(dh)
     out = torch.empty_like(q)            # q's strides when q is dense
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(t, name)

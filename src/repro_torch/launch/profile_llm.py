@@ -3,6 +3,8 @@ window of decode steps.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_llm --fastcache \\
         --warmup 8 --window 8 --out build/profile_llm.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_llm --fastcache \\
+        --arch arctic-480b --num-layers 2 --out build/profile_arctic.json
 
 Serves ``launch.serve.LLMWorkload`` (the serve ``chip_smoke.py`` measures)
 after its warm-up: records the first admission (a 512-token prefill) with
@@ -26,6 +28,7 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.configs import LLM_IDS
 from repro_torch.launch.profile_serve import _busy_us
 from repro_torch.launch.serve import LLMWorkload
 
@@ -60,6 +63,10 @@ def _syncs(eng) -> int:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fastcache", action="store_true")
+    ap.add_argument("--arch", default=LLMWorkload.arch, choices=LLM_IDS)
+    ap.add_argument("--num-layers", type=int, default=LLMWorkload.num_layers,
+                    help="cut the config's depth at its full width "
+                         "(0: the config's own)")
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--window", type=int, default=8)
     ap.add_argument("--out", default="build/profile_llm.json")
@@ -70,7 +77,8 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    wl = LLMWorkload(fastcache=args.fastcache, reduced=args.reduced)
+    wl = LLMWorkload(arch=args.arch, num_layers=args.num_layers,
+                     fastcache=args.fastcache, reduced=args.reduced)
     if args.warmup + args.window >= wl.new_tokens:
         raise SystemExit("--warmup + --window must stay below the "
                          f"{wl.new_tokens} new tokens of a request")
@@ -113,6 +121,7 @@ def main(argv=None) -> None:
                            text=True, check=True, timeout=60).stdout.strip()
             if cuda else "cpu")
     report = {"card": card, "arch": model.cfg.name,
+              "num_layers": model.cfg.num_layers,
               "fastcache": args.fastcache, "max_batch": wl.max_batch,
               "prompt_len": wl.prompt_len, "prefill": prefill,
               "decode": decode}

@@ -5,6 +5,11 @@ optional FastCache decode gating, on one CUDA card (the reference's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --fastcache --json
 
+``--arch`` takes any registered LLM id (dense or MoE).  ``--num-layers N``
+keeps the config's width and cuts its depth to N layers (0: the config's
+own), so that a full-width MoE (arctic-480b, kimi-k2-1t-a32b: 480 B and 1 T
+parameters) fits one card.
+
 Weights are random (``torch.Generator`` seeded from ``--seed``); prompts
 are drawn by ``numpy.random.default_rng(seed)``.  After an untimed warm-up
 on a fresh engine, prints decode steps and tokens per second of wall time,
@@ -39,9 +44,12 @@ from repro_torch.serving.engine import Request, ServingEngine
 @dataclass(frozen=True)
 class LLMWorkload:
     """An LLM serve: the model, the decode gate, the engine and the
-    requests."""
+    requests.  ``num_layers`` > 0 cuts the config's depth to that many
+    layers at its full width; it adds no feature to the system, only lets a
+    config whose full depth does not fit one card run there."""
     arch: str = "qwen3-0.6b"
     reduced: bool = False           # the reduced config, in f32
+    num_layers: int = 0             # 0: the config's own depth
     requests: int = 8
     prompt_len: int = 512
     new_tokens: int = 64
@@ -55,6 +63,8 @@ class LLMWorkload:
         cfg = get_reduced(self.arch) if self.reduced else get_config(self.arch)
         if self.reduced:
             cfg = cfg.replace(dtype="float32")
+        if self.num_layers:
+            cfg = cfg.replace(num_layers=self.num_layers)
         dev = resolve_device(device)
         return build_model(cfg, device=dev).init(
             torch.Generator(dev).manual_seed(self.seed))
@@ -103,7 +113,8 @@ def serve(wl: LLMWorkload, model: TransformerModel
     decode_s = wall - eng.prefill_s
     syncs = eng.host_syncs + (eng.decoder.host_syncs if eng.decoder else 0)
     out = {
-        "arch": model.cfg.name, "device": str(dev),
+        "arch": model.cfg.name, "num_layers": model.cfg.num_layers,
+        "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
         "fastcache": wl.fastcache, "greedy": wl.greedy,
@@ -131,6 +142,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=LLMWorkload.arch, choices=LLM_IDS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=LLMWorkload.num_layers,
+                    help="cut the config's depth to this many layers at its "
+                         "full width (0: the config's own)")
     ap.add_argument("--requests", type=int, default=LLMWorkload.requests)
     ap.add_argument("--prompt-len", type=int, default=LLMWorkload.prompt_len)
     ap.add_argument("--new-tokens", type=int, default=LLMWorkload.new_tokens)

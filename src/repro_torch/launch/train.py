@@ -5,6 +5,12 @@ one model on one device, random initial weights, a synthetic stream.
         --steps 30 --batch 32 --save build/dit.npz
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --reduced --steps 50 --batch 8 --seq 128 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \\
+        --reduced --steps 10 --batch 4 --seq 64 --device cpu
+
+Families: the DiT, the dense LMs and the MoE LMs (the MoE's loss adds the
+router's aux; arctic-480b and kimi-k2-1t-a32b name Adafactor, which factors
+each stacked (L, E, D, F) expert leaf over its last two axes).
 
 Defaults and printed lines are the reference's.  ``--reduced`` trains the
 smoke-scale config in f32.  Weights come from ``torch.Generator`` seeded

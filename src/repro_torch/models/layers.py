@@ -1,12 +1,13 @@
-"""Attention and SwiGLU FFN layer bodies and their parameter definitions,
-after the reference's ``models/layers.py`` (``attn_defs``, ``_qkv``,
-``attn_apply``, ``attn_cache_defs``, ``ffn_defs``, ``ffn_apply``).
+"""Attention, SwiGLU FFN and MoE layer bodies and their parameter
+definitions, after the reference's ``models/layers.py`` (``attn_defs``,
+``_qkv``, ``attn_apply``, ``attn_cache_defs``, ``ffn_defs``, ``ffn_apply``,
+``moe_defs``, ``moe_capacity``, ``moe_gather_apply``, ``moe_apply``).
 
 Each ``*_defs`` returns a dict of ``ParamDef`` (shape, init kind, scale,
 dtype override), the reference's ParamDefs without the sharding axes;
 ``ParamGroup`` materializes one dict as the parameters of a module, so a
 layer's parameters are attributes (``p.wq``) where the reference reads
-``p["wq"]``.  MoE and the GELU FFN are not ported.
+``p["wq"]``.  The GELU FFN is not ported.
 
 KV caches are updated in place: the decode step writes one slot per sample
 into the cache it is given and the prefill fills the (empty) cache it is
@@ -19,12 +20,19 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models import common, flags
 from repro_torch.models.attention import (attend_direct, attention,
                                          decode_attend)
 
 F32 = torch.float32
+# a leaf whose f32 draw is larger is drawn in slices along its first axis,
+# so that initializing a full-width MoE (an (E, D, F) expert leaf of up to
+# 17.8 GB in f32) does not hold the whole draw beside the parameters; no
+# leaf of a dense or DiT config reaches it, so their draws are unchanged
+DRAW_SLICE_BYTES = 4 << 30
 
 
 class ParamDef(NamedTuple):
@@ -51,7 +59,8 @@ class ParamGroup(nn.Module):
     def init(self, generator: torch.Generator) -> None:
         """The reference's initializers (``models/params.py:init_params``):
         zeros, ones, normal with std 0.02 * scale, fan_in with std
-        scale / sqrt(shape[-2]); drawn in f32, then cast."""
+        scale / sqrt(shape[-2]); drawn in f32, scaled in place, then cast
+        (a leaf above ``DRAW_SLICE_BYTES`` of f32 in slices along axis 0)."""
         for name, d in self.defs.items():
             p = getattr(self, name)
             if d.init in ("zeros", "ones"):
@@ -62,8 +71,13 @@ class ParamGroup(nn.Module):
                 std = d.scale / fan_in ** 0.5
             else:
                 std = 0.02 * d.scale
-            p.copy_(torch.randn(d.shape, generator=generator, device=p.device,
-                                dtype=F32) * std)
+            rows = d.shape[0]
+            if 4 * p.numel() > DRAW_SLICE_BYTES:
+                rows = max(1, DRAW_SLICE_BYTES // (4 * p[0].numel()))
+            for i in range(0, d.shape[0], rows):
+                part = p[i:i + rows]
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       device=p.device, dtype=F32).mul_(std))
 
 
 # --------------------------------------------------------------------------
@@ -214,3 +228,166 @@ def ffn_apply(p: ParamGroup, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     h = common.rms_norm(x, p.norm, cfg.norm_eps)
     return x + common.swiglu(h, p.w_gate, p.w_up, p.w_down)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    m = cfg.moe
+    if m is None:
+        raise ValueError(f"{cfg.name}: moe block requested but cfg.moe is "
+                         "None")
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    out = {
+        "norm": ParamDef((d,), "ones", dtype="float32"),
+        "router": ParamDef((d, e), "fan_in", dtype="float32"),
+        "we_gate": ParamDef((e, d, f), "fan_in"),
+        "we_up": ParamDef((e, d, f), "fan_in"),
+        "we_down": ParamDef((e, f, d), "fan_in",
+                            scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+    }
+    if m.num_shared_experts:
+        fs = f * m.num_shared_experts
+        out.update({
+            "ws_gate": ParamDef((d, fs), "fan_in"),
+            "ws_up": ParamDef((d, fs), "fan_in"),
+            "ws_down": ParamDef((fs, d), "fan_in"),
+        })
+    if m.dense_ff_parallel:
+        fd = m.dense_ff_parallel
+        out.update({
+            "wd_gate": ParamDef((d, fd), "fan_in"),
+            "wd_up": ParamDef((d, fd), "fan_in"),
+            "wd_down": ParamDef((fd, d), "fan_in"),
+        })
+    return out
+
+
+def moe_capacity(m: MoEConfig, tokens: int) -> int:
+    c = int(m.capacity_factor * m.top_k * tokens / m.num_experts)
+    return max(m.min_capacity, c)
+
+
+def _route(p: ParamGroup, xt: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 router: (probs (T, E), top_w (T, k) normalized, top_i (T, k)).
+    The top k by a stable descending sort, so tied probabilities go to the
+    lower expert id first, as ``lax.top_k`` breaks ties."""
+    logits = torch.matmul(xt.to(F32), p.router)              # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :k], top_i[:, :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_w, top_i
+
+
+def _aux_loss(m: MoEConfig, probs: torch.Tensor,
+              top_i: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * sum(frac_tokens * frac_probs)
+    * weight, frac_tokens the share of tokens whose first choice is each
+    expert (counted by ``index_add_``: no one-hot, no host sync)."""
+    t, e = probs.shape
+    first = torch.zeros((e,), dtype=F32, device=probs.device)
+    first.index_add_(0, top_i[:, 0], torch.ones((t,), dtype=F32,
+                                                device=probs.device))
+    frac_tokens = first / t
+    frac_probs = probs.mean(dim=0)
+    return e * torch.sum(frac_tokens * frac_probs) * m.router_aux_weight
+
+
+def _dense_branches(p: ParamGroup, m: MoEConfig, h: torch.Tensor,
+                    y: torch.Tensor) -> torch.Tensor:
+    """The shared experts (Kimi) and the parallel dense FFN (Arctic) on the
+    normed tokens h (T, D), added to the routed output y."""
+    if m.num_shared_experts:
+        y = y + common.swiglu(h, p.ws_gate, p.ws_up, p.ws_down)
+    if m.dense_ff_parallel:
+        y = y + common.swiglu(h, p.wd_gate, p.wd_up, p.wd_down)
+    return y
+
+
+def moe_gather_apply(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode-path MoE: gather the top-k experts' weights per token and run
+    per-token GEMVs, no capacity padding.  Materializes (T, k, D, F) weight
+    copies.  Returns (residual-added output, aux load loss)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    h = common.rms_norm(x, p.norm, cfg.norm_eps)
+    xt = h.reshape(t, d)
+    probs, top_w, top_i = _route(p, xt, m.top_k)
+    wg = p.we_gate[top_i]                                    # (T,k,D,F)
+    wu = p.we_up[top_i]
+    wd = p.we_down[top_i]                                    # (T,k,F,D)
+    g = common.feinsum("td,tkdf->tkf", xt, wg)
+    u = common.feinsum("td,tkdf->tkf", xt, wu)
+    act = F.silu(g.to(F32)).to(x.dtype) * u
+    out = common.feinsum("tkf,tkfd->tkd", act, wd)           # (T,k,D)
+    y = torch.einsum("tkd,tk->td", out.to(F32), top_w).to(x.dtype)
+    aux = _aux_loss(m, probs, top_i)
+    y = _dense_branches(p, m, xt, y)
+    return x + y.reshape(b, s, d), aux
+
+
+def moe_apply(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k dispatch (scatter, not a one-hot product) with
+    the experts' GEMMs as batched products over E.  Returns (residual-added
+    output, aux load loss).
+
+    Each expert takes up to ``moe_capacity`` copies (token, choice); the
+    copies are ranked within their expert by a stable sort of the expert
+    ids, so the earliest keep the slots and the rest go to a dump row that
+    is thrown away, as in the reference.  The dump row takes duplicate
+    writes (their winner is unspecified and unused); every kept slot is
+    written once.  No step reads a value back to the host."""
+    m = cfg.moe
+    if m is None:
+        raise ValueError(f"{cfg.name}: moe block requested but cfg.moe is "
+                         "None")
+    b, s, d = x.shape
+    t = b * s
+    k, e = m.top_k, m.num_experts
+    if flags.MOE_GATHER_DECODE and t * k <= e:
+        return moe_gather_apply(p, x, cfg)
+    cap = moe_capacity(m, t)
+
+    h = common.rms_norm(x, p.norm, cfg.norm_eps)
+    xt = h.reshape(t, d)
+    probs, top_w, top_i = _route(p, xt, k)
+
+    # ---- slot assignment: a copy's slot is its rank within its expert's
+    # run of the stably sorted expert ids
+    dev = x.device
+    flat_e = top_i.reshape(t * k)                            # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+    slot_sorted = torch.arange(t * k, device=dev) - starts[sorted_e]
+    flat_slot = torch.empty_like(slot_sorted)
+    flat_slot[order] = slot_sorted
+    valid = flat_slot < cap
+    dump = torch.where(valid, flat_slot, cap)                # overflow slot
+
+    # ---- dispatch: scatter the copies into (E, cap + 1, D)
+    xk = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=dev)
+    buf[flat_e, dump] = xk
+    buf = buf[:, :cap]
+
+    # ---- expert GEMMs, batched over E
+    g = torch.bmm(buf, p.we_gate)                            # (E, cap, F)
+    u = torch.bmm(buf, p.we_up)
+    act = F.silu(g.to(F32)).to(x.dtype) * u
+    out_e = F.pad(torch.bmm(act, p.we_down), (0, 0, 0, 1))   # dump slot = 0
+
+    # ---- combine with the f32 weights
+    gathered = out_e[flat_e, dump] * valid[:, None].to(x.dtype)
+    y = torch.einsum("tkd,tk->td", gathered.reshape(t, k, d).to(F32),
+                     top_w).to(x.dtype)
+    aux = _aux_loss(m, probs, top_i)
+    y = _dense_branches(p, m, xt, y)
+    return x + y.reshape(b, s, d), aux

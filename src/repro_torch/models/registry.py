@@ -1,5 +1,6 @@
 """Model construction from config (the reference's
-``models/registry.py:build_model``)."""
+``models/registry.py:build_model``): the DiT, and ``TransformerModel`` for
+the LM families, dense and MoE (it raises for the families not ported)."""
 from __future__ import annotations
 
 from typing import Union

@@ -1,6 +1,8 @@
-"""Dense decoder-only transformer, after the reference's
-``models/transformer.py:TransformerModel``, for the dense family with a
-period-1 attention stack (the only stack ``CachedDecoder`` accepts).
+"""Decoder-only transformer, after the reference's
+``models/transformer.py:TransformerModel``, for the dense and MoE families
+with a period-1 attention stack (the only stack ``CachedDecoder`` accepts).
+A block is attention then a SwiGLU FFN, or attention then an MoE layer
+where ``_moe_at`` says so (every layer of the MoE family).
 
 The reference scans one stacked ``blocks/pos0`` tree over the layers; the
 port keeps one ``TransformerBlock`` per layer (``bridge.
@@ -8,14 +10,15 @@ transformer_params_from_jax`` splits the stack).  The decode cache is the
 reference's ``blocks/pos0`` leaves with the layer axis first, as one dict:
 ``k``/``v`` (L, B, W, KVH, dh) in the model dtype, ``pos`` (L, B, W) int32
 (-1 = empty) and ``step`` (B,) int32.  ``decode_step`` updates it in place.
-MoE, SSM/Mamba mixers, M-RoPE, VLM/audio frontends, ``block_pattern`` and
+SSM/Mamba mixers, M-RoPE, VLM/audio frontends, ``block_pattern`` and
 ``prefix_groups`` are not ported: a config that needs them raises.
 
 ``forward_train`` and ``loss`` are the reference's ``apply(...,
 train=True)`` and ``loss``: attention through ``attend_direct`` (autograd
 cannot differentiate the ``flash_attention`` kernel), each layer
-checkpointed when ``cfg.remat`` is set, and the cross-entropy over the
-vocabulary head in chunks (``chunked_ce``).
+checkpointed when ``cfg.remat`` is set (its MoE aux loss with it), and
+the cross-entropy over the vocabulary head in chunks (``chunked_ce``) plus
+the layers' MoE aux losses.
 """
 from __future__ import annotations
 
@@ -33,26 +36,42 @@ from repro_torch.models.layers import ParamDef, ParamGroup
 
 F32 = torch.float32
 Cache = Dict[str, torch.Tensor]
+FAMILIES = ("dense", "moe")
+
+
+def _moe_at(cfg: ModelConfig, pos: int) -> bool:
+    if cfg.moe is None:
+        return False
+    if cfg.family == "moe":
+        return True
+    return pos % cfg.moe.moe_layer_period == 1
 
 
 class TransformerBlock(nn.Module):
     """One layer's parameters: the reference's ``params["blocks"]["pos0"]``
-    at one layer, ``attn`` and ``ffn`` sub-trees."""
+    at one layer, the ``attn`` sub-tree and an ``ffn`` or ``moe`` one
+    (``subs`` names them)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
         self.attn = ParamGroup(layers.attn_defs(cfg), dtype, device)
-        self.ffn = ParamGroup(layers.ffn_defs(cfg), dtype, device)
+        if _moe_at(cfg, 0):
+            self.moe = ParamGroup(layers.moe_defs(cfg), dtype, device)
+            self.subs = ("attn", "moe")
+        else:
+            self.ffn = ParamGroup(layers.ffn_defs(cfg), dtype, device)
+            self.subs = ("attn", "ffn")
 
 
 class TransformerModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
         super().__init__()
-        if cfg.family != "dense" or cfg.block_pattern:
+        if cfg.family not in FAMILIES or cfg.block_pattern:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family with a period-1 attention "
-                f"stack is ported; got family={cfg.family!r}, "
+                f"{cfg.name}: only the {' and '.join(FAMILIES)} families with "
+                f"a period-1 attention stack are ported; got "
+                f"family={cfg.family!r}, "
                 f"block_pattern={cfg.block_pattern}")
         if cfg.rope_kind not in ("default", "none"):
             raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
@@ -81,12 +100,12 @@ class TransformerModel(nn.Module):
     def init(self, generator: torch.Generator) -> "TransformerModel":
         """Random weights drawn from ``generator`` (on the model's device),
         with the reference's init kinds: normal 0.02 for the embedding,
-        fan_in for the projections with ``wo``/``w_down`` scaled by
-        1/sqrt(L), ones for the norms (f32)."""
+        fan_in for the projections and the router with ``wo``/``w_down``/
+        ``we_down`` scaled by 1/sqrt(L), ones for the norms (f32)."""
         self.top.init(generator)
         for blk in self.blocks:
-            blk.attn.init(generator)
-            blk.ffn.init(generator)
+            for sub in blk.subs:
+                getattr(blk, sub).init(generator)
         return self
 
     # ------------------------------------------------------------------
@@ -116,14 +135,18 @@ class TransformerModel(nn.Module):
                     positions: Optional[torch.Tensor] = None,
                     cache: Optional[Cache] = None,
                     decode_pos: Optional[torch.Tensor] = None,
-                    window: int = 0, train: bool = False
-                    ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """One layer (attention then FFN). Returns (x, layer cache)."""
+                    window: int = 0, train: bool = False):
+        """One layer (attention then FFN or MoE).  Returns (x, layer cache,
+        aux): the MoE layer's aux load loss (a 0-d f32 tensor), 0.0 after
+        an FFN."""
         x, c = layers.attn_apply(bp.attn, x, cfg=self.cfg,
                                  positions=positions, cache=cache,
                                  decode_pos=decode_pos, window=window,
                                  train=train)
-        return layers.ffn_apply(bp.ffn, x, self.cfg), c
+        if "moe" in bp.subs:
+            x, aux = layers.moe_apply(bp.moe, x, self.cfg)
+            return x, c, aux
+        return layers.ffn_apply(bp.ffn, x, self.cfg), c, 0.0
 
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor,
@@ -132,24 +155,30 @@ class TransformerModel(nn.Module):
         states (B, S, D) (the reference's ``apply(...)[0]``)."""
         x = self.embed(tokens)
         for bp in self.blocks:
-            x, _ = self.block_apply(bp, x, positions=positions)
+            x = self.block_apply(bp, x, positions=positions)[0]
         return common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
 
-    def _train_block(self, bp: TransformerBlock,
-                     x: torch.Tensor) -> torch.Tensor:
-        return self.block_apply(bp, x, train=True)[0]
+    def _train_block(self, bp: TransformerBlock, x: torch.Tensor):
+        x, _, aux = self.block_apply(bp, x, train=True)
+        return x, aux
 
-    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The differentiable full-sequence forward: final-normed hidden
-        states (B, S, D) with autograd."""
+    def forward_train(self, tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The differentiable full-sequence forward: (final-normed hidden
+        states (B, S, D), the layers' summed MoE aux loss) with autograd."""
         x = self.embed(tokens)
+        aux = torch.zeros((), dtype=F32, device=x.device)
         for bp in self.blocks:
             if self.cfg.remat:
-                x = checkpoint(self._train_block, bp, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, a = checkpoint(self._train_block, bp, x,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = self._train_block(bp, x)
-        return common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
+                x, a = self._train_block(bp, x)
+            if torch.is_tensor(a):                    # an MoE layer's
+                aux = aux + a
+        return (common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps),
+                aux)
 
     # ------------------------------------------------------------------
     # Loss (chunked cross-entropy over the vocab head)
@@ -159,15 +188,15 @@ class TransformerModel(nn.Module):
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross-entropy over ``batch["tokens"]`` (B, S), the
         last position masked out (and by ``batch["loss_mask"]`` if given).
-        Returns (loss, {"nll", "moe_aux", "tokens"})."""
-        hidden = self.forward_train(batch["tokens"])
+        Returns (loss, {"nll", "moe_aux", "tokens"}), the loss the mean
+        nll plus the MoE aux."""
+        hidden, aux = self.forward_train(batch["tokens"])
         tokens = batch["tokens"]
         targets = F.pad(tokens[:, 1:], (0, 1))
         mask = F.pad(torch.ones_like(tokens[:, 1:], dtype=F32), (0, 1))
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"].to(F32)
         nll, denom = chunked_ce(hidden, self._head_matrix(), targets, mask)
-        aux = torch.zeros((), dtype=F32, device=hidden.device)
         mean = nll / torch.clamp(denom, min=1.0)
         return mean + aux, {"nll": mean, "moe_aux": aux, "tokens": denom}
 
@@ -206,8 +235,8 @@ class TransformerModel(nn.Module):
         cache = self.init_cache(b, window)
         x = self.embed(tokens)
         for l, bp in enumerate(self.blocks):
-            x, _ = self.block_apply(bp, x, cache=self.layer_cache(cache, l),
-                                    window=window)
+            x = self.block_apply(bp, x, cache=self.layer_cache(cache, l),
+                                 window=window)[0]
         x = common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
         cache["step"].fill_(s)
         return self.unembed(x[:, -1]), cache
@@ -221,9 +250,9 @@ class TransformerModel(nn.Module):
         x = self.embed(tokens[:, None])
         positions = step[:, None]
         for l, bp in enumerate(self.blocks):
-            x, _ = self.block_apply(bp, x, positions=positions,
-                                    cache=self.layer_cache(cache, l),
-                                    decode_pos=step)
+            x = self.block_apply(bp, x, positions=positions,
+                                 cache=self.layer_cache(cache, l),
+                                 decode_pos=step)[0]
         x = common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
         logits = self.unembed(x[:, 0])
         step.add_(1)

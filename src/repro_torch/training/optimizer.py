@@ -145,7 +145,10 @@ class AdafactorState(NamedTuple):
 
 class Adafactor:
     """Factored second-moment RMS optimizer (Shazeer & Stern 2018), no
-    momentum, update-clipping d=1.0."""
+    momentum, update-clipping d=1.0.  A leaf of ndim >= 2 is factored over
+    its last two axes (a stacked (L, E, D, F) expert leaf keeps rows
+    (L, E, D) and columns (L, E, F)) and its update clipped by the RMS over
+    the whole leaf, as the reference does with its stacked leaves."""
 
     def __init__(self, eps: float = 1e-30, clip: float = 1.0,
                  decay_pow: float = 0.8, weight_decay: float = 0.0):

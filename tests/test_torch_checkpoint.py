@@ -197,3 +197,49 @@ def test_reference_cannot_read_its_own_bf16_checkpoint(tmp_path):
     jsave(path, jp)
     with pytest.raises(ValueError, match="No cast function"):
         jload(path, jp)
+
+
+def test_moe_checkpoint_crosses_both_ways(tmp_path):
+    """A reduced-arctic-480b f32 tree with its Adafactor state: the port's
+    file loads in the reference with the reference's keys and bitwise
+    leaves ((L, E, D, F) experts, (L, D, E) router, the factored moments
+    (L, E, D) / (L, E, F)), and the reference's file loads in the port."""
+    from repro.training.optimizer import Adafactor as JAdafactor
+    from repro_torch.training.optimizer import Adafactor
+    arch = "arctic-480b"
+    _, jm, jp = jax_llm("float32", arch=arch)
+    model = port_llm("float32", jp, arch)
+    params = loop.param_tree(model)
+    state = Adafactor().init(params)
+    g = torch.Generator().manual_seed(1)
+    for leaf in tree.leaves(state.vr) + tree.leaves(state.vc):
+        leaf.copy_(torch.rand(leaf.shape, generator=g))
+    state = state._replace(step=3)
+    path = str(tmp_path / "moe.npz")
+    save(path, {"params": params, "opt_state": state}, {"arch": arch})
+    like = {"params": jp, "opt_state": JAdafactor().init(jp)}
+    got = jload(path, like)
+    assert jax.tree.structure(got) == jax.tree.structure(like)
+    want = {"params": bridge.params_to_jax(model),
+            "opt_state": bridge.state_to_jax(state)}
+    for (p, w), a in zip(tree.flatten_with_path(want), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(np.asarray(a), w,
+                                      err_msg=tree.keystr(p))
+    moe = got["params"]["blocks"]["pos0"]["moe"]
+    assert moe["we_gate"].shape == (2, 4, 256, 512)
+    assert moe["router"].shape == (2, 256, 4)
+    assert got["opt_state"].vc["blocks"]["pos0"]["moe"]["we_down"].shape == (
+        2, 4, 256)
+    jsave(str(tmp_path / "ref.npz"), got, {"arch": arch})
+    assert load_metadata(path)["keys"] == \
+        jload_metadata(str(tmp_path / "ref.npz"))["keys"]
+    fresh = port_llm("float32", jax.tree.map(jnp.zeros_like, jp), arch)
+    fparams = loop.param_tree(fresh)
+    back = load(str(tmp_path / "ref.npz"),
+                {"params": fparams, "opt_state": Adafactor().init(fparams)})
+    assert back["opt_state"].step == 3
+    for (p, a), w in zip(tree.flatten_with_path(back),
+                         jax.tree.leaves(got)):
+        np.testing.assert_array_equal(
+            a.numpy() if isinstance(a, torch.Tensor) else a, np.asarray(w),
+            err_msg=tree.keystr(p))

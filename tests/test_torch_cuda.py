@@ -53,6 +53,7 @@ lb_mod = importlib.import_module("repro_torch.cuda_kernels.linear_blend")
 knn_mod = importlib.import_module("repro_torch.cuda_kernels.knn_density")
 tm_mod = importlib.import_module("repro_torch.cuda_kernels.token_merge")
 sal_mod = importlib.import_module("repro_torch.cuda_kernels.saliency_delta")
+fa_mod = importlib.import_module("repro_torch.cuda_kernels.flash_attention")
 BF16 = torch.bfloat16
 
 
@@ -533,12 +534,14 @@ def _qkv(dev, dtype, b, h, kvh, sq, skv, dh, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 16, 32, 48, 80, 96, 112])
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, dh, shape):
     """Tolerances: the reference's (tests/test_kernels.py:106), 2e-5 in
     f32 (online softmax against a full softmax, both f32) and 2e-2 in bf16
-    (the output is rounded to bf16)."""
+    (the output is rounded to bf16).  Head dims below an instance's (16-48
+    on the 64 instance, 80-112 on the 128 one) read zero columns past dh,
+    and the output's columns stop at dh."""
     b, h, kvh, sq, skv, causal, window = shape
     q, k, v = _qkv(cuda_device, dtype, b, h, kvh, sq, skv, dh)
     before = flash_attention.launches
@@ -552,7 +555,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, dh, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 80, 112])
 def test_flash_attention_bf16_and_f32_instances_each_launch(cuda_device, dh):
     """bf16 runs the wgmma instance and f32 the SIMT one: one launch each,
     each within its dtype's tolerance of the plain version."""
@@ -597,9 +600,9 @@ def test_flash_attention_raises_on_bad_cuda_input(cuda_device):
     q, k, v = _qkv(cuda_device, torch.float16, 1, 4, 2, 16, 16, 64)
     with pytest.raises(TypeError):
         flash_attention(q, k, v, causal=True)
-    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 2, 16, 16, 32)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q, k, v, causal=True)
+    q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 2, 16, 16, 40)
+    with pytest.raises(ValueError, match="head_dim"):    # not a multiple
+        flash_attention(q, k, v, causal=True)            # of 16
     q, k, v = _qkv(cuda_device, torch.float32, 1, 4, 2, 16, 16, 64)
     padded = torch.zeros((1, 2, 16, 65), device=cuda_device)[..., :64]
     with pytest.raises(ValueError, match="aligned"):      # rows of 260 B
@@ -668,6 +671,119 @@ def test_llm_prefill_and_decode_make_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize(cuda_device)
     assert cache["step"].tolist() == [43, 43]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [80, 112])
+def test_flash_attention_new_head_dims_write_only_their_columns(cuda_device,
+                                                                 dh):
+    """At dh 80 and 112 (the 128 instance) the kernel writes the dh true
+    columns of a strided output and nothing past them: a (B, S, H, 128)
+    buffer's columns dh..127 keep their fill, in both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(cuda_device, dtype, 1, 4, 2, 130, 130, dh, seed=7)
+        want = ref.flash_attention(q, k, v, causal=True, window=0)
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize(cuda_device)
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        # the output as a (B, H, S, dh) view of a (B, S, H, 128) buffer
+        wide = torch.full((1, 130, 4, 128), 7.0, dtype=dtype,
+                          device=cuda_device)
+        out = wide[..., :dh].transpose(1, 2)
+        b, h, sq, _ = q.shape
+        err = fa_mod._kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            2, sq, sq, dh, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], 1, 0, dh ** -0.5,
+            fa_mod._DTYPE_CODE[dtype],
+            torch.cuda.current_stream(cuda_device).cuda_stream)
+        torch.cuda.synchronize(cuda_device)
+        assert err == 0
+        assert torch.equal(out, got)
+        assert bool((wide[..., dh:] == 7.0).all())
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer (no kernel of its own: plain PyTorch, as the reference
+# leaves it to XLA)
+# ---------------------------------------------------------------------------
+
+def _moe_model(dev, arch="arctic-480b", num_layers=2):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import TransformerModel
+    cfg = get_reduced(arch).replace(num_layers=num_layers)   # bf16
+    return TransformerModel(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_moe_capacity_and_gather_paths_agree_on_the_card(cuda_device, arch):
+    """At a decode batch (T * k <= E, capacity min_capacity: no copy
+    dropped) the capacity path and the gather path (``MOE_GATHER_DECODE``)
+    choose the same experts and agree within bf16's 2e-2 of the output's
+    scale; neither reads anything back to the host (sync debug "error")."""
+    from repro_torch.models import layers
+    model = _moe_model(cuda_device, arch)
+    p, cfg = model.blocks[0].moe, model.cfg
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen,
+                    device=cuda_device).to(BF16)
+    layers.moe_apply(p, x, cfg)                   # first calls of each op
+    layers.moe_gather_apply(p, x, cfg)
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y_cap, a_cap = layers.moe_apply(p, x, cfg)
+        y_gat, a_gat = layers.moe_gather_apply(p, x, cfg)
+        h = layers.common.rms_norm(x, p.norm, cfg.norm_eps).reshape(2, -1)
+        top_i = layers._route(p, h, cfg.moe.top_k)[2]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(cuda_device)
+    assert top_i.shape == (2, cfg.moe.top_k)
+    scale = max(1.0, float(y_gat.float().abs().max()))
+    torch.testing.assert_close(y_cap.float(), y_gat.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+    torch.testing.assert_close(a_cap, a_gat, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_moe_gated_decode_makes_l_plus_one_syncs(cuda_device):
+    """The reduced arctic-480b (bf16) served with the decode gate: every
+    decode step makes L + 1 host syncs (one gate decision per layer and
+    the greedy tokens), all in the port's counted places; the MoE blocks
+    add none."""
+    import warnings
+    from repro_torch.configs.base import FastCacheConfig
+    from repro_torch.serving.engine import Request, ServingEngine
+    model = _moe_model(cuda_device)
+    eng = ServingEngine(model, max_batch=2, window=64,
+                        fastcache=FastCacheConfig())
+    gen = torch.Generator().manual_seed(0)
+    for rid in range(2):
+        eng.add_request(Request(rid=rid, prompt=torch.randint(
+            0, model.cfg.vocab_size, (24,), generator=gen).numpy(),
+            max_new_tokens=12))
+    for _ in range(3):
+        eng.step()                                 # first calls, trackers
+    torch.cuda.synchronize(cuda_device)
+    counted = eng.host_syncs + eng.decoder.host_syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(4):
+                eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = [w for w in caught if "synchroniz" in str(w.message)]
+    want = 4 * (model.cfg.num_layers + 1)
+    assert eng.host_syncs + eng.decoder.host_syncs - counted == want
+    assert len(flagged) == want, [f"{w.filename}:{w.lineno}"
+                                  for w in flagged]
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ once, to nearest even, in both).  Tolerances are the reference's own
 (``tests/test_kernels.py:106``): rtol/atol 2e-5 in f32 (two f32
 implementations, other summation orders), 2e-2 in bf16 (the output is
 rounded to bf16).  The grid is ``tests/test_kernels.py``'s: MHA, GQA and
-Sq < Skv, each causal, windowed and bidirectional.  The Pallas kernel needs
+Sq < Skv, each causal, windowed and bidirectional, plus the head dims 80
+(StableLM-3B) and 112 (Kimi-K2), which the card runs on its 128 instance.  The Pallas kernel needs
 lengths that divide its blocks, so a ragged length is held against the jnp
 twin only.
 """
@@ -24,7 +25,9 @@ from repro_torch.cuda_kernels.flash_attention import flash_attention
 
 GRID = [(1, 4, 4, 128, 128, 64),     # MHA square
         (2, 8, 2, 128, 128, 64),     # GQA
-        (1, 4, 1, 64, 256, 32)]      # cross / decode-ish (Sq < Skv)
+        (1, 4, 1, 64, 256, 32),      # cross / decode-ish (Sq < Skv)
+        (1, 4, 4, 128, 128, 80),     # StableLM-3B's head dim (MHA)
+        (1, 8, 1, 128, 128, 112)]    # Kimi-K2's head dim (GQA 8:1)
 MASKS = [(True, 0), (True, 96), (False, 0)]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -127,3 +130,15 @@ def test_layout_check_refuses_broadcast_bf16(dtype, shape, raises):
             fa_mod._check_layout(t, "k")
     else:
         fa_mod._check_layout(t, "k")
+
+
+def test_head_dims_and_instances():
+    """Every multiple of 16 up to 128 runs on the card, on the 64 instance
+    up to 64 and on the 128 instance above; any other head dim raises (on
+    the card, before a launch)."""
+    assert fa_mod.HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+    assert [fa_mod.instance_dh(d) for d in (16, 48, 64, 80, 112, 128)] == [
+        64, 64, 64, 128, 128, 128]
+    for bad in (8, 40, 72, 120, 144, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa_mod.instance_dh(bad)

@@ -1,8 +1,10 @@
 """The port's training path against the reference's, on the CPU in f32:
 the learning-rate schedule, global-norm clipping, AdamW and Adafactor
 (stacked leaves included), the chunked cross-entropy, the DiT's and the
-LM's losses and parameter gradients, three steps of ``make_train_step``,
-the reference's learning checks and the launcher.
+LM's losses and parameter gradients (the dense LM and the reduced
+arctic-480b MoE, whose loss adds the router's aux), three steps of
+``make_train_step`` (one Adafactor step of the MoE), the reference's
+learning checks and the launcher.
 
 The reference runs under ``jax.jit`` on the CPU, the port on the CPU with
 the reference's parameters copied through ``repro_torch.bridge`` and the
@@ -24,6 +26,14 @@ adaLN-zero start) are held to the reference's trajectory through the
 metrics (rtol 1e-4) and to the
 reference's optimizer replayed on the port's own clipped gradients
 (rtol 1e-5), the LM's also elementwise within 1e-4 of each leaf's scale.
+
+The reduced MoE (arctic-480b, f32, ample capacity) has no qk-norm, so its
+attention logits are large too (``tests/test_torch_transformer.py``):
+scaling its embedding table by one ulp moves the port's own gradients by
+up to 2.7e-4 of a leaf's largest element (attention's ``wk``; measured),
+and the port lands 1.3e-4 from the reference at most.  Its gradients are
+held to ``MOE_GRAD_SCALE`` = 5e-4 of each leaf's scale, its loss and
+metrics to rtol 1e-4.
 """
 import re
 import subprocess
@@ -41,19 +51,25 @@ from repro.models import build_model as jbuild_model
 from repro.models import transformer as jtransformer
 from repro.training import loop as jloop
 from repro.training import optimizer as jopt
-from repro_torch import tree
+from repro_torch import bridge, tree
 from repro_torch.data import latent_stream, token_stream
 from repro_torch.models import flags
 from repro_torch.models import transformer as ttransformer
 from repro_torch.training import loop, optimizer as topt
+from repro.configs import get_reduced as jget_reduced
+from repro_torch.configs import get_reduced
+from repro_torch.models.transformer import TransformerModel
+from tests.conftest import f32_cfg
 from tests.test_torch_model import jax_config, jax_dit, port_dit
 from tests.test_torch_transformer import jax_llm, port_llm
 
 ROOT = Path(__file__).resolve().parents[1]
+MOE_ARCH = "arctic-480b"
 L = 3          # layers of the optimizer tests' stacked leaves
 OPT_TOL = dict(rtol=1e-5, atol=1e-7)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 DIT_GRAD_SCALE = 2e-4   # the smoke DiT's block gradients, of a leaf's scale
+MOE_GRAD_SCALE = 5e-4   # the reduced MoE's gradients, of a leaf's scale
 
 
 def _np(t):
@@ -155,6 +171,28 @@ def test_adamw_decays_a_stacked_bias():
                                rtol=1e-6)
 
 
+def test_adamw_decays_the_moe_router_and_experts():
+    """The MoE's stacked leaves under AdamW with zero gradients: the
+    router (ndim 2 a layer, (L, D, E) stacked), the (L, E, D, F) experts
+    and, stacked to ndim 2, the (L, D) norm decay; the top-level (D,)
+    final norm does not, as in the reference."""
+    _, jp, model, _ = _models("moe")
+    params = loop.param_tree(model)
+    p0 = tree.map(lambda t: np.array(_np(t)), params)
+    zeros = tree.map(np.zeros_like, p0)
+    want, _ = jopt.AdamW().update(_jax(zeros), jopt.AdamW().init(_jax(p0)),
+                                  _jax(p0), 0.5)
+    got, _ = topt.AdamW().update(_port(zeros), topt.AdamW().init(params),
+                                 params, 0.5)
+    _close(got, want, **OPT_TOL)
+    moe, moe0 = got["blocks"]["pos0"]["moe"], p0["blocks"]["pos0"]["moe"]
+    for name in ("router", "we_gate", "wd_down", "norm"):
+        np.testing.assert_allclose(moe[name].numpy(),
+                                   moe0[name] * (1 - 0.5 * 0.1), rtol=1e-6)
+    np.testing.assert_array_equal(got["final_norm"].numpy(),
+                                  p0["final_norm"])
+
+
 def test_make_optimizer_rejects_unknown_names():
     with pytest.raises(KeyError):
         topt.make_optimizer("sgd")
@@ -226,6 +264,15 @@ def _models(family: str, remat: bool = True, unzero: bool = True):
             jp = jm.init(jax.random.PRNGKey(0))
         model = port_dit(jcfg, jp)
         batch = _dit_batch(jcfg)
+    elif family == "moe":           # f32_cfg's ample capacity: no drop
+        jcfg = f32_cfg(jget_reduced(MOE_ARCH))
+        jm = jbuild_model(jcfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        model = TransformerModel(f32_cfg(get_reduced(MOE_ARCH)),
+                                 device="cpu")
+        bridge.transformer_params_from_jax(jax.tree.map(np.asarray, jp),
+                                           model)
+        batch = _llm_batch(jcfg)
     else:
         jcfg, jm, jp = jax_llm("float32")
         model = port_llm("float32", jp)
@@ -247,7 +294,7 @@ def _backward(model, batch):
 
 
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "saved"])
-@pytest.mark.parametrize("family", ["dit", "llm"])
+@pytest.mark.parametrize("family", ["dit", "llm", "moe"])
 def test_loss_and_grads_match_reference(family, remat):
     jm, jp, model, batch = _models(family, remat)
     (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
@@ -266,6 +313,8 @@ def test_loss_and_grads_match_reference(family, remat):
         assert float(g.abs().max()) > 0, key
         if family == "dit" and not key.startswith("['final_"):
             tol = dict(rtol=0, atol=DIT_GRAD_SCALE * float(np.abs(w).max()))
+        elif family == "moe":
+            tol = dict(rtol=0, atol=MOE_GRAD_SCALE * float(np.abs(w).max()))
         else:
             tol = GRAD_TOL
         np.testing.assert_allclose(g.numpy(), w, err_msg=key, **tol)
@@ -333,6 +382,54 @@ def test_train_step_matches_reference(family):
                     p.detach().numpy(), w, rtol=0,
                     atol=1e-4 * float(np.abs(w).max()),
                     err_msg=f"step {i} {tree.keystr(path)}")
+
+
+def test_adafactor_step_on_the_moe_matches_reference():
+    """One ``make_train_step`` step of the reduced arctic-480b with its
+    config's optimizer, Adafactor, beside the reference's: the metrics
+    (nll, moe_aux, loss); the parameters equal to the reference's Adafactor
+    replayed on the port's clipped gradients (the (L, E, D, F) expert
+    leaves factored over (D, F), rows (L, E, D) and columns (L, E, F), the
+    RMS over the whole leaf) and within ``MOE_GRAD_SCALE`` of each leaf's
+    scale of the reference's step (Adafactor divides each gradient by its
+    factored RMS, so the gradients' noise carries into the step as it is:
+    measured 1.5e-4 of the embedding's scale)."""
+    jm, jp, model, batch = _models("moe")
+    assert model.cfg.optimizer == "adafactor"
+    jopt_ = jopt.Adafactor()
+    jstep = jax.jit(jloop.make_train_step(
+        jm, jopt_, jopt.cosine_schedule(1e-3, 2, 3)))
+    js = jopt_.init(jp)
+    params = loop.param_tree(model)
+    to = topt.make_optimizer(model.cfg.optimizer)
+    ts = to.init(params)
+    assert tuple(ts.vr["blocks"]["pos0"]["moe"]["we_gate"].shape) == (
+        2, 4, 256)
+    assert tuple(ts.vc["blocks"]["pos0"]["moe"]["we_gate"].shape) == (
+        2, 4, 512)
+    before = jax.tree.map(jnp.asarray, tree.map(
+        lambda x: np.array(_np(x)), params))
+    step = loop.make_train_step(model, to, topt.cosine_schedule(1e-3, 2, 3))
+    jp2, js2, jmet = jstep(jp, js, jax.tree.map(jnp.asarray, batch))
+    params, ts, met = step(params, ts, _tb(batch))
+    assert set(met) == set(jmet)
+    for k in met:
+        np.testing.assert_allclose(float(met[k]), float(jmet[k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    rp, rs = jax.jit(jopt_.update)(
+        jax.tree.map(jnp.asarray, tree.map(lambda x: np.array(_np(x)),
+                                           step.grads)),
+        js, before, jnp.float32(met["lr"]))
+    _close(params, rp, **OPT_TOL)
+    _close(ts.vr, rs.vr, **OPT_TOL)
+    _close(ts.vc, rs.vc, **OPT_TOL)
+    for (path, p), w in zip(tree.flatten_with_path(params),
+                            jax.tree.leaves(jp2)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            p.detach().numpy(), w, rtol=0,
+            atol=MOE_GRAD_SCALE * float(np.abs(w).max()),
+            err_msg=tree.keystr(path))
 
 
 def test_train_step_reads_nothing_back():
@@ -421,3 +518,21 @@ def test_launcher_trains_and_saves(tmp_path, arch, extra):
     got = jload(ckpt, like)
     assert jax.tree.structure(got) == jax.tree.structure(like)
     assert all(np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(got))
+
+
+def test_launcher_trains_the_moe_with_adafactor(tmp_path):
+    """The MoE family through the launcher on the CPU: the reduced
+    arctic-480b with its config's Adafactor, saved and read back by the
+    reference's ``load`` into its own tree."""
+    ckpt = str(tmp_path / "moe.npz")
+    lines = _launch("--arch", MOE_ARCH, "--reduced", "--steps", "3",
+                    "--batch", "2", "--seq", "16", "--device", "cpu",
+                    "--save", ckpt)
+    assert re.match(r"^\[train\] arctic-480b-smoke: \d+\.\dM params, "
+                    r"opt=adafactor$", lines[0]), lines[0]
+    assert all(LINE.match(ln) for ln in lines[1:-1]), lines
+    like = jbuild_model(jget_reduced(MOE_ARCH).replace(
+        dtype="float32")).init(jax.random.PRNGKey(1))
+    got = jload(ckpt, like)
+    assert jax.tree.structure(got) == jax.tree.structure(like)
+    assert got["blocks"]["pos0"]["moe"]["we_up"].shape == (2, 4, 256, 512)
