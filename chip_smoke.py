@@ -232,6 +232,29 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             and kimi-k2-1t-a32b at full width with 1 layer (38.8 GB, dh
             112): prefill parity and a gated serve of 2 requests of 16 new
             tokens (launches exact, on the fast routes);
+15b. ssm_llms  the hybrid and SSM families at full width, each model
+            freed before the next: flash_attention at Jamba's prefill
+            (NEW_FLASH_SHAPES (j): 32 heads of 128 on 8 KV heads, bf16);
+            jamba-v0.1-52b at full width with one period of 8 layers (7
+            Mamba, 1 attention, 4 MoE of 16 experts, 26.6 GB) and
+            xlstm-1.3b at full size (48 layers, 7.45 GB), each on
+            LLMWorkload's defaults (xLSTM with 2 requests), exact: a fastcache workload comes back
+            exact with the reference launcher's line (the decode gate takes
+            only period-1 attention stacks), llm_syncs (1 per decode step,
+            one per admission, flagged = counted), the exact serve
+            (flash_attention = attention layers x prefills: 8 on Jamba, 0
+            on xLSTM; no other kernel), Jamba's prefill parity (its one
+            attention layer held to the plain version) and moe_drops,
+            prefill_profile (one admission under torch.profiler: launches,
+            kernel ms, busy share, peak memory; xLSTM's sLSTM layer alone)
+            and decode_profile (on the same engine, the other slots
+            filled: per exact decode step, beside the step's
+            bytes bound: weights and cache read once, mixer states written
+            once); ssm_consistency: one Mamba (d 4096), mLSTM and sLSTM (d
+            2048) layer in f32 with random weights, 508 positions prefilled
+            and 4 decoded from the state left in a stacked cache leaf,
+            against the full forward of all 512 (rel-L2 of the layer's
+            output delta below 1e-3);
 16. train_dit  DiT-XL/2 at full width (bf16, the reference's initializers,
             adaLN-zero) trained through training.loop.make_train_step for
             30 steps on latent_stream batches of 32 (seed 0), AdamW on
@@ -258,7 +281,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             tokens/s, launches per step, peak memory, train_mfu.
 
 Then the total seconds, the kernels line (the seven kernels' rows, and
-flash_attention's at dh 80 and 112 in bf16), the card's name and
+flash_attention's at dh 80 and 112 and at Jamba's prefill in bf16), the
+card's name and
 power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no CUDA card is present or any phase fails.
@@ -306,7 +330,9 @@ NEW_FLASH_SHAPES = {"e": (1, 32, 32, 512, 512, 80, True, 1024, "bfloat16"),
                     "f": (1, 32, 32, 512, 512, 80, True, 1024, "float32"),
                     "g": (1, 64, 8, 512, 512, 112, True, 1024, "bfloat16"),
                     "h": (1, 64, 8, 512, 512, 112, True, 1024, "float32"),
-                    "i": (1, 56, 8, 512, 512, 128, True, 1024, "bfloat16")}
+                    "i": (1, 56, 8, 512, 512, 128, True, 1024, "bfloat16"),
+                    # jamba-v0.1-52b's prefill: 32 heads of 128 on 8 KV
+                    "j": (1, 32, 8, 512, 512, 128, True, 1024, "bfloat16")}
 # the full-width configs beyond qwen3-0.6b, each at LLMWorkload's defaults
 # unless cut: the MoE configs at full width with their depth cut to fit one
 # card (arctic-480b: every expert of 2 layers, 55.4 GB; kimi: 1 layer,
@@ -315,6 +341,19 @@ ARCTIC = dict(arch="arctic-480b", num_layers=2)
 PARITY_LLMS = (dict(arch="yi-9b"), dict(arch="stablelm-3b"),
                dict(arch="kimi-k2-1t-a32b", num_layers=1))
 SHORT_SERVE = dict(requests=2, new_tokens=16, fastcache=True)
+# the hybrid and SSM families: Jamba at full width with one period of its
+# block pattern (8 of 32 layers, 26.6 GB), xLSTM at full size (48 layers)
+# serving 2 requests, not 8: its token-by-token sLSTM prefill is ~85,000
+# launches (1.1-1.3 s a request on the card), and 4 requests already took
+# the phase to 90.8 s, past its 90 s
+JAMBA = dict(arch="jamba-v0.1-52b", num_layers=8)
+XLSTM = dict(arch="xlstm-1.3b", requests=2)
+# ssm_consistency: one layer of each mixer at its config's full width in
+# f32, (batch, prefilled, decoded) positions, and the rel-L2 bound
+SSM_MIXERS = (("mamba", "jamba-v0.1-52b"), ("mlstm", "xlstm-1.3b"),
+              ("slstm", "xlstm-1.3b"))
+SSM_CONSISTENCY = (2, 508, 4)
+SSM_CONSISTENCY_REL_L2 = 1e-3
 DECODE_PROFILE_STEPS = 8   # decode steps timed by CUDA events, then profiled
 PREFILL_REL_L2 = 2e-2      # kernel vs plain full-width prefill logits
 # the configs whose two plain prefills (p in f32, and p rounded to bf16)
@@ -1415,24 +1454,28 @@ def phase_flash_attention(torch, dev, ref, flash_attention, build,
 
 
 def phase_llm_syncs(torch, wl, model):
-    """Warm-up fastcache serve under sync debug: the synchronizations it
-    flags in the port's code must be the ones the code counts, and those
-    L + 1 per decode step (admissions' syncs left out)."""
+    """Warm-up serve under sync debug: the synchronizations it flags in the
+    port's code must be the ones the code counts, and those L + 1 per
+    decode step with the decode gate, 1 without (admissions' syncs left
+    out)."""
     eng, flagged, sources, in_port = sync_flags(
         torch, lambda: wl.warm_up(model))
-    counted = eng.host_syncs + eng.decoder.host_syncs
+    counted = eng.host_syncs + (eng.decoder.host_syncs if eng.decoder
+                                else 0)
     per_step = (counted - eng.prefills) / eng.decode_steps
-    emit({"phase": "llm_syncs", "decode_steps": eng.decode_steps,
+    emit({"phase": "llm_syncs", "arch": model.cfg.name,
+          "fastcache": wl.fastcache, "decode_steps": eng.decode_steps,
           "prefills": eng.prefills, "counted": counted,
           "flagged": flagged, "flagged_in_port": in_port,
           "counted_per_decode_step": per_step,
           "flagged_in_port_per_decode_step":
               (in_port - eng.prefills) / eng.decode_steps,
           "sources": sources})
-    want = model.cfg.num_layers + 1
+    want = model.cfg.num_layers + 1 if wl.fastcache else 1
     if per_step != want:
         raise AssertionError(f"{per_step} counted syncs per decode step, "
-                             f"expected {want} (one per layer + tokens)")
+                             f"expected {want} (tokens, and one per layer "
+                             f"under the gate)")
     if in_port != counted:
         raise AssertionError(f"sync debug flagged {in_port} syncs in the "
                              f"port's code, the code counts {counted}: "
@@ -1458,7 +1501,7 @@ def phase_llm_serve(torch, dev, wl, model, m, serve, label="llm_serve"):
         raise AssertionError("a generated token lies outside the vocab")
     n_layers = model.cfg.num_layers
     want = dict.fromkeys(launches, 0)
-    want["flash_attention"] = n_layers * eng.prefills
+    want["flash_attention"] = model.kind_counts.get("attn", 0) * eng.prefills
     by_route = {}
     if wl.fastcache:
         # the decode gate: saliency_delta on the (B, 1, D) rows and
@@ -1545,7 +1588,7 @@ def phase_llm_prefill_parity(torch, dev, wl, model, attention, ref):
           "rel_l2_k_cache": float((cache["k"].float() - plain_cache["k"].float()
                                    ).norm() / plain_cache["k"].float().norm())})
     if not torch.isfinite(a).all() or len(layer_rel) != \
-            model.cfg.num_layers or not max(layer_rel) < PREFILL_REL_L2:
+            model.kind_counts["attn"] or not max(layer_rel) < PREFILL_REL_L2:
         raise AssertionError(f"prefill per layer: rel L2 up to "
                              f"{max(layer_rel)} (bound {PREFILL_REL_L2})")
     if not held and model.cfg.name not in PREFILL_CHAOTIC:
@@ -1630,10 +1673,11 @@ def moe_drops(torch, dev, wl, model, layers_mod) -> dict:
     finally:
         layers_mod.moe_apply = real
     dropped = sum(c[2] for c in counts)
+    moe_layers = len(counts) // len(reqs)
     out = {"phase": "moe_drops", "arch": model.cfg.name,
            "prefills": len(reqs), "tokens": counts[0][0],
-           "capacity": counts[0][1],
-           "copies_per_prefill": counts[0][0] * m.top_k * model.cfg.num_layers,
+           "capacity": counts[0][1], "moe_layers": moe_layers,
+           "copies_per_prefill": counts[0][0] * m.top_k * moe_layers,
            "dropped_per_prefill": dropped / len(reqs),
            "dropped_share": dropped / sum(c[0] * m.top_k for c in counts)}
     emit(out)
@@ -1681,15 +1725,20 @@ def phase_moe_routes(torch, dev, model, layers_mod, batch: int):
     return row
 
 
-def phase_decode_profile(torch, dev, wl, model, label: str) -> dict:
-    """Per decode step of ``wl``'s engine with every slot busy: the wall
+def phase_decode_profile(torch, dev, wl, model, label: str,
+                         eng=None) -> dict:
+    """Per decode step of ``wl``'s engine (``eng``, or a fresh one) with
+    every slot busy (the free ones filled from ``wl``'s requests): the wall
     and CUDA-event span of DECODE_PROFILE_STEPS steps, then the kernels of
     4 steps under torch.profiler (launches, kernel ms, busy share, top
     kernels), as ``launch/profile_llm.py`` reports them."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.profile_llm import _window
-    eng = wl.build_engine(model)
-    for req in wl.build_requests(model)[:wl.max_batch]:
+    if eng is None:
+        eng = wl.build_engine(model)
+    busy = sum(r is not None for r in eng.slots)
+    full = dataclasses.replace(wl, requests=max(wl.requests, wl.max_batch))
+    for req in full.build_requests(model)[busy:wl.max_batch]:
         eng.add_request(req)
     for _ in range(4):
         eng.step()
@@ -1775,6 +1824,230 @@ def phase_more_llms(torch, dev, m, k, serve, layers_mod, attention, ref):
             label=f"llm_serve_{tag}_fastcache")[0]
         del model
         free_memory(torch)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# The hybrid and SSM families: jamba-v0.1-52b (one period at full width)
+# and xlstm-1.3b (full size), exact (the decode gate refuses both)
+# --------------------------------------------------------------------------
+
+def step_bytes(model, cache) -> dict:
+    """The least bytes an exact decode step of ``model`` moves: every
+    parameter read once (the embedding table's rows aside: a step gathers
+    B of them), every cache leaf read once, and the mixers' states written
+    once (the step's one K/V slot per attention layer left out).  An MoE
+    layer's experts count only as many as the batch can reach, min(E,
+    B * top_k); the capacity path reads all E of them, and
+    ``capacity_path_bytes`` counts those."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    embed = model.top.embed
+    weights = sum(nbytes(p) for p in model.parameters()) - nbytes(embed)
+    batch = cache["step"].shape[0]
+    unreached = 0
+    for blk in model.blocks:
+        if "moe" in blk.subs:
+            e, k = model.cfg.moe.num_experts, model.cfg.moe.top_k
+            experts = sum(nbytes(getattr(blk.moe, n))
+                          for n in ("we_gate", "we_up", "we_down"))
+            unreached += experts // e * max(0, e - batch * k)
+    leaves = {k: nbytes(t) for k, t in cache.items()}
+    states = sum(n for k, n in leaves.items()
+                 if k not in ("k", "v", "pos", "step"))
+    moved = sum(leaves.values()) + states
+    return {"weight_bytes": weights - unreached,
+            "unreached_expert_bytes": unreached,
+            "cache_bytes": sum(leaves.values()),
+            "state_bytes_written": states,
+            "bytes": weights - unreached + moved,
+            "capacity_path_bytes": weights + moved}
+
+
+def phase_prefill_profile(torch, dev, wl, model, label: str):
+    """One admission (a prefill of ``wl.prompt_len`` tokens, batch 1, and
+    its splice) of ``wl``'s engine: its wall time and CUDA-event span, then
+    the same admission of the next request under torch.profiler (kernel
+    launches, kernel ms, busy share), and the peak memory it adds.
+    Returns (the row, the engine with those two requests admitted)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_llm import _window
+    eng = wl.build_engine(model)
+    reqs = dataclasses.replace(wl, requests=max(wl.requests, 2)
+                               ).build_requests(model)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    eng.add_request(reqs[0])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        eng.add_request(reqs[1])
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    win = _window(prof, pwall, 1)
+    out = {"phase": "prefill_profile", "label": label,
+           "arch": model.cfg.name, "num_layers": model.cfg.num_layers,
+           "prompt_len": wl.prompt_len, "ms_wall": wall * 1e3,
+           "ms_events": start.elapsed_time(end),
+           "peak_memory_added_bytes": peak,
+           "launches": win["kernel_launches_per_step"],
+           "kernel_ms": win["kernel_ms_per_step"],
+           "device_busy_share": win["device_busy_share"],
+           "flash_attention_ms": win["flash_attention_ms_per_step"],
+           "profiled": win}
+    emit(out)
+    return out, eng
+
+
+def phase_slstm_prefill(torch, dev, wl, model) -> dict:
+    """The first sLSTM layer alone over a prompt of ``wl.prompt_len``
+    positions (batch 1): its kernel launches under torch.profiler and its
+    CUDA-event span; the token-by-token scan is the xLSTM prefill's
+    sequential part."""
+    from torch.profiler import ProfilerActivity, profile
+    l = model.layer_kinds.index("slstm")
+    gen = torch.Generator(dev).manual_seed(6)
+    x = torch.randn((1, wl.prompt_len, model.cfg.d_model), generator=gen,
+                    device=dev).to(model.dtype)
+
+    def run():
+        return model.block_apply(model.blocks[l], x)[0]
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = model.kind_counts["slstm"]
+    out = {"phase": "slstm_prefill", "arch": model.cfg.name, "layer": l,
+           "prompt_len": wl.prompt_len, "launches_per_layer": launches,
+           "launches_per_token": launches / wl.prompt_len,
+           "slstm_layers": n, "launches_per_prefill": launches * n,
+           "ms_per_layer_events": start.elapsed_time(end)}
+    emit(out)
+    return out
+
+
+def phase_ssm_consistency(torch, dev, get_config, mixers) -> list:
+    """One layer of each mixer at its config's full width, f32, random
+    weights (the reference's initializers, seed 7): ``SSM_CONSISTENCY``'s
+    positions prefilled, the state copied into row 1 of a stacked (2, ...)
+    leaf as the model's cache holds it, the rest decoded one by one in
+    place from there; against the full forward of all positions.  rel-L2
+    of the layer's output delta (output minus its residual input) over the
+    decoded positions and over the prefilled ones."""
+    from repro_torch.models.layers import ParamGroup
+    b, s_pre, n_dec = SSM_CONSISTENCY
+    rows = []
+    for kind, arch in SSM_MIXERS:
+        cfg = get_config(arch).replace(dtype="float32")
+        defs, state_defs, apply = mixers[kind]
+        gen = torch.Generator(dev).manual_seed(7)
+        p = ParamGroup(defs(cfg), torch.float32, dev)
+        p.init(gen)
+        x = torch.randn((b, s_pre + n_dec, cfg.d_model), generator=gen,
+                        device=dev)
+        full = apply(p, x, cfg=cfg)[0] - x
+        pre, st = apply(p, x[:, :s_pre], cfg=cfg)
+        leaves = {k: torch.zeros((2,) + d.shape, device=dev)
+                  for k, d in state_defs(cfg, b).items()}
+        views = {k: t[1] for k, t in leaves.items()}
+        for k, t in st.items():
+            views[k].copy_(t)
+        outs = []
+        for t in range(s_pre, s_pre + n_dec):
+            outs.append(apply(p, x[:, t:t + 1], cfg=cfg, state=views,
+                              decode=True)[0] - x[:, t:t + 1])
+        torch.cuda.synchronize()
+        dec = torch.cat(outs, 1)
+        row = {"phase": "ssm_consistency", "mixer": kind, "arch": arch,
+               "d_model": cfg.d_model, "batch": b, "prefilled": s_pre,
+               "decoded": n_dec,
+               "rel_l2_decode": rel_l2(torch, dec, full[:, s_pre:]),
+               "rel_l2_prefill": rel_l2(torch, pre[:, :s_pre] - x[:, :s_pre],
+                                        full[:, :s_pre]),
+               "unused_row_zero": all(bool((t[0] == 0).all())
+                                      for t in leaves.values()),
+               "bound": SSM_CONSISTENCY_REL_L2}
+        emit(row)
+        if not (row["rel_l2_decode"] < SSM_CONSISTENCY_REL_L2
+                and row["rel_l2_prefill"] < SSM_CONSISTENCY_REL_L2
+                and row["unused_row_zero"]):
+            raise AssertionError(f"ssm_consistency {kind}: {row}")
+        rows.append(row)
+        del p, x, full, pre, st, leaves, views, outs, dec
+        free_memory(torch)
+    return rows
+
+
+def phase_ssm_llms(torch, dev, m, k, serve, layers_mod, attention, ref,
+                   get_config, mixers):
+    """The thirteenth slice's serves, each model freed before the next.
+    Returns {label: launches} of every serve."""
+    launches = {}
+    for kw in (JAMBA, XLSTM):
+        t0 = time.perf_counter()
+        wl = k.LLMWorkload(**kw)
+        model = build_llm(torch, dev, wl)
+        tag = kw["arch"].split("-")[0]
+        got, line = k.exact_fallback(dataclasses.replace(wl, fastcache=True),
+                                     model)
+        emit({"phase": "llm_gate_refused", "arch": model.cfg.name,
+              "line": line, "fastcache": got.fastcache})
+        if got != wl or line != k.GATE_NEEDS_ATTENTION:
+            raise AssertionError(f"{model.cfg.name}: fastcache came back "
+                                 f"{got} with {line!r}")
+        phase_llm_syncs(torch, wl, model)
+        wl.warm_up(model)
+        label = f"llm_serve_{tag}_exact"
+        launches[label] = phase_llm_serve(torch, dev, wl, model, m, serve,
+                                          label=label)[0]
+        if "attn" in model.kind_counts:
+            phase_llm_prefill_parity(torch, dev, wl, model, attention, ref)
+        if model.cfg.moe is not None:
+            moe_drops(torch, dev, wl, model, layers_mod)
+        eng = phase_prefill_profile(torch, dev, wl, model, f"{tag}_exact")[1]
+        if "slstm" in model.kind_counts:
+            phase_slstm_prefill(torch, dev, wl, model)
+        prof = phase_decode_profile(torch, dev, wl, model, f"{tag}_exact",
+                                    eng)
+        del eng
+        nbytes = step_bytes(model, model.init_cache(wl.max_batch, wl.window))
+        bound_ms = bound(nbytes["bytes"], 0.0)[0]
+        device_ms = prof["profiled"]["kernel_ms_per_step"]
+        emit({"phase": "decode_bound", "arch": model.cfg.name, **nbytes,
+              "bound_ms": bound_ms, "bound_by": "bytes",
+              "capacity_path_ms": bound(nbytes["capacity_path_bytes"],
+                                        0.0)[0],
+              "device_ms": device_ms,
+              "device_over_bound": device_ms / bound_ms})
+        del model
+        free_memory(torch)
+        emit({"phase": "ssm_model_seconds", "arch": kw["arch"],
+              "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_ssm_consistency(torch, dev, get_config, mixers)
+    emit({"phase": "ssm_consistency_seconds",
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -2813,6 +3086,8 @@ def main() -> int:
     knn_mod = importlib.import_module("repro_torch.cuda_kernels.knn_density")
     tm_mod = importlib.import_module("repro_torch.cuda_kernels.token_merge")
     from repro_torch.launch.serve import LLMWorkload, serve as llm_serve
+    from repro_torch.launch.serve import GATE_NEEDS_ATTENTION, exact_fallback
+    from repro_torch.models.transformer import MIXERS as SSM_MIXER_FNS
     from repro_torch.launch.serve_diffusion import Workload
     from repro_torch.models import attention
     from repro_torch.models import layers as moe_layers
@@ -2979,6 +3254,16 @@ def main() -> int:
         moe_layers, attention, ref)
     emit({"phase": "more_llms", "seconds": time.perf_counter() - t0})
 
+    # ---- the hybrid (Jamba) and SSM (xLSTM) families at full width
+    t0 = time.perf_counter()
+    launches_ssm = phase_ssm_llms(
+        torch, dev, m, SimpleNamespace(
+            LLMWorkload=LLMWorkload, exact_fallback=exact_fallback,
+            GATE_NEEDS_ATTENTION=GATE_NEEDS_ATTENTION),
+        llm_serve, moe_layers, attention, ref, get_config, SSM_MIXER_FNS)
+    launches_more.update(launches_ssm)
+    emit({"phase": "ssm_llms", "seconds": time.perf_counter() - t0})
+
     # ---- training and checkpoints: DiT-XL/2 and Qwen3-0.6B at full width
     t0 = time.perf_counter()
     tr = SimpleNamespace(loop=train_loop, optimizer=train_optimizer,
@@ -3018,8 +3303,12 @@ def main() -> int:
         "llm_serve_stablelm_fastcache"]["flash_attention"]
     new_flash["g"]["launches"] = launches_more[
         "llm_serve_kimi_fastcache"]["flash_attention"]
+    # Jamba's prefill shape: its exact serve (1 attention layer x 8)
+    new_flash["j"]["launches"] = launches_more[
+        "llm_serve_jamba_exact"]["flash_attention"]
     rows = [gate_row] + merge_rows + [sal_row, blend_row, flash_row,
-                                      new_flash["e"], new_flash["g"]]
+                                      new_flash["e"], new_flash["g"],
+                                      new_flash["j"]]
     for row in rows:
         row["serve_launches"] = {
             "serve": launches[row["name"]],

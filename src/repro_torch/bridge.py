@@ -77,11 +77,14 @@ def param_groups(model: Union[DiTModel, TransformerModel]) -> Dict:
             for name in model.blocks[0].specs}
         return out
     out = {name: getattr(model.top, name) for name in model.top.defs}
-    out["blocks"] = {"pos0": {
-        sub: {name: LayerStack([getattr(getattr(blk, sub), name)
-                                for blk in model.blocks])
-              for name in getattr(model.blocks[0], sub).defs}
-        for sub in model.blocks[0].subs}}
+    out["blocks"] = {}
+    for i in range(model.period):
+        blks = model.blocks[i::model.period]                # one per period
+        out["blocks"][f"pos{i}"] = {
+            sub: {name: LayerStack([getattr(getattr(blk, sub), name)
+                                    for blk in blks])
+                  for name in getattr(blks[0], sub).defs}
+            for sub in blks[0].subs}
     return out
 
 
@@ -145,12 +148,15 @@ def params_from_jax(np_tree: Mapping, model: DiTModel,
 @torch.no_grad()
 def transformer_params_from_jax(np_tree: Mapping, model: TransformerModel
                                 ) -> TransformerModel:
-    """Copy a reference ``TransformerModel`` parameter tree (dense or MoE,
-    period 1: ``embed``, ``final_norm``, optional ``lm_head`` and the
-    layer-stacked ``blocks/pos0/{attn,ffn}/*`` or ``blocks/pos0/{attn,moe}/
-    *``, the MoE's expert leaves (L, E, D, F) and its f32 router (L, D, E))
-    into ``model`` (in place) and return it.  Shapes and key sets must match
-    exactly; values are cast to the parameters' dtypes (bf16 bit-copied)."""
+    """Copy a reference ``TransformerModel`` parameter tree (``embed``,
+    ``final_norm``, optional ``lm_head`` and, for each position i of the
+    block pattern's period, the stacked ``blocks/pos{i}/<sub>/*`` with
+    leaves (n_super, ...): the mixer's sub-tree (``attn``, ``mamba``,
+    ``mlstm`` or ``slstm``) and an ``ffn`` or ``moe`` one where the layer
+    has it, the MoE's expert leaves (n, E, D, F) and its f32 router) into
+    ``model`` (in place) and return it.  Shapes and key sets must match
+    exactly; values are cast to the parameters' dtypes (bf16
+    bit-copied)."""
     dev = model.device
     if set(np_tree) - {"blocks"} != set(model.top.defs):
         raise ValueError(f"top-level keys {sorted(np_tree)} do not match "
@@ -158,23 +164,25 @@ def transformer_params_from_jax(np_tree: Mapping, model: TransformerModel
     for name in model.top.defs:
         _copy(getattr(model.top, name), np_tree[name], dev, name)
     blocks = np_tree["blocks"]
-    if set(blocks) != {"pos0"}:
-        raise ValueError(f"blocks {sorted(blocks)}: only a period-1 stack "
-                         "(pos0) is ported")
-    pos0 = blocks["pos0"]
-    subs = model.blocks[0].subs
-    if set(pos0) != set(subs):
-        raise ValueError(f"blocks/pos0 holds {sorted(pos0)}; the port's "
-                         f"block is attn + ffn or attn + moe, this model's "
-                         f"{' + '.join(subs)}")
-    for sub in subs:
-        groups = [getattr(blk, sub) for blk in model.blocks]
-        if set(pos0[sub]) != set(groups[0].defs):
-            raise ValueError(f"blocks/pos0/{sub}: keys {sorted(pos0[sub])} "
-                             f"!= {sorted(groups[0].defs)}")
-        for name in groups[0].defs:
-            _copy_stack(pos0[sub][name], [getattr(g, name) for g in groups],
-                        dev, f"blocks/pos0/{sub}/{name}")
+    want = [f"pos{i}" for i in range(model.period)]
+    if set(blocks) != set(want):
+        raise ValueError(f"blocks {sorted(blocks)} != {want}: this model's "
+                         f"pattern {model.kinds} has period {model.period}")
+    for i, key in enumerate(want):
+        pos, blks = blocks[key], model.blocks[i::model.period]
+        subs = blks[0].subs
+        if set(pos) != set(subs):
+            raise ValueError(f"blocks/{key} holds {sorted(pos)}; expected "
+                             f"{' + '.join(subs)} (a {blks[0].kind} layer)")
+        for sub in subs:
+            groups = [getattr(blk, sub) for blk in blks]
+            if set(pos[sub]) != set(groups[0].defs):
+                raise ValueError(f"blocks/{key}/{sub}: keys "
+                                 f"{sorted(pos[sub])} != "
+                                 f"{sorted(groups[0].defs)}")
+            for name in groups[0].defs:
+                _copy_stack(pos[sub][name], [getattr(g, name) for g in groups],
+                            dev, f"blocks/{key}/{sub}/{name}")
     return model
 
 

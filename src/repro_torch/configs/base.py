@@ -1,4 +1,5 @@
-"""Config dataclasses for the DiT and the LLM serving paths (dense and MoE).
+"""Config dataclasses for the DiT and the LLM serving paths (dense, MoE,
+SSM and hybrid).
 
 The port keeps its own copy of the JAX package's config types
 (``repro/configs/base.py``; it imports nothing of ``repro``).  Only the
@@ -28,6 +29,20 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    # xLSTM
+    slstm_every: int = 8             # every k-th block is sLSTM (rest mLSTM)
+    proj_factor: float = 2.0         # mLSTM up-projection factor
+    conv_kernel: int = 4
+    chunk_size: int = 64             # chunkwise-parallel mLSTM chunk
+    # Mamba (Jamba mixers)
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                 # 0 -> ceil(d_model/16)
+
+
+@dataclass(frozen=True)
 class DiTConfig:
     patch_size: int = 2
     in_channels: int = 4             # SD VAE latent channels
@@ -39,7 +54,7 @@ class DiTConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # ported: dit, dense, moe
+    family: str                      # ported: dit, dense, moe, ssm, hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -54,9 +69,11 @@ class ModelConfig:
     tie_embeddings: bool = False
     sliding_window: int = 0          # 0 = full attention; >0 enables SWA variant
     norm_eps: float = 1e-6
-    # hybrid layouts are not ported: a non-empty pattern raises
+    # Hybrid layout: pattern of one period, tiled over num_layers.
+    # entries: "attn" | "mamba" | "mlstm" | "slstm" (all four ported)
     block_pattern: Tuple[str, ...] = ()
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     dit: Optional[DiTConfig] = None
     dtype: str = "bfloat16"
     # Training
@@ -66,6 +83,15 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer mixer kind, length == num_layers."""
+        if not self.block_pattern:
+            return ("attn",) * self.num_layers
+        p = self.block_pattern
+        reps = -(-self.num_layers // len(p))
+        return (p * reps)[: self.num_layers]
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -5,6 +5,8 @@ window of decode steps.
         --warmup 8 --window 8 --out build/profile_llm.json
     PYTHONPATH=src python -m repro_torch.launch.profile_llm --fastcache \\
         --arch arctic-480b --num-layers 2 --out build/profile_arctic.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_llm \\
+        --arch jamba-v0.1-52b --num-layers 8 --out build/profile_jamba.json
 
 Serves ``launch.serve.LLMWorkload`` (the serve ``chip_smoke.py`` measures)
 after its warm-up: records the first admission (a 512-token prefill) with
@@ -13,8 +15,10 @@ decode steps pass, then records ``--window`` decode steps.  Reports, for
 each window, the wall time, the device busy share (union of kernel
 intervals over the window's wall time), the kernel launches and device time
 per step, the host syncs, and the kernels by total device time, with the
-card's ``nvidia-smi`` name and power limit.  ``--reduced --device cpu``
-rehearses the script on the CPU (no device times).
+card's ``nvidia-smi`` name and power limit.  ``--fastcache`` on a hybrid
+or SSM stack profiles the exact serve, as ``launch/serve.py`` serves it.
+``--reduced --device cpu`` rehearses the script on the CPU (no device
+times).
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import LLM_IDS
 from repro_torch.launch.profile_serve import _busy_us
-from repro_torch.launch.serve import LLMWorkload
+from repro_torch.launch.serve import LLMWorkload, exact_fallback
 
 
 def _window(prof, wall_s: float, steps: int) -> dict:
@@ -83,6 +87,9 @@ def main(argv=None) -> None:
         raise SystemExit("--warmup + --window must stay below the "
                          f"{wl.new_tokens} new tokens of a request")
     model = wl.build_model(args.device)
+    wl, line = exact_fallback(wl, model)
+    if line is not None:
+        print(line)
     dev = model.device
     cuda = dev.type == "cuda"
 
@@ -122,7 +129,7 @@ def main(argv=None) -> None:
             if cuda else "cpu")
     report = {"card": card, "arch": model.cfg.name,
               "num_layers": model.cfg.num_layers,
-              "fastcache": args.fastcache, "max_batch": wl.max_batch,
+              "fastcache": wl.fastcache, "max_batch": wl.max_batch,
               "prompt_len": wl.prompt_len, "prefill": prefill,
               "decode": decode}
     stats = eng.cache_stats()
@@ -133,7 +140,7 @@ def main(argv=None) -> None:
     out.write_text(json.dumps(report, indent=1))
     for name in ("prefill", "decode"):
         print(json.dumps({"card": card, "window": name,
-                          "fastcache": args.fastcache,
+                          "fastcache": wl.fastcache,
                           **{k: v for k, v in report[name].items()
                              if k != "top_kernels"}}))
         for row in report[name]["top_kernels"]:

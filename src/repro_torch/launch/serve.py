@@ -5,10 +5,14 @@ optional FastCache decode gating, on one CUDA card (the reference's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --fastcache --json
 
-``--arch`` takes any registered LLM id (dense or MoE).  ``--num-layers N``
-keeps the config's width and cuts its depth to N layers (0: the config's
-own), so that a full-width MoE (arctic-480b, kimi-k2-1t-a32b: 480 B and 1 T
-parameters) fits one card.
+``--arch`` takes any registered LLM id (dense, MoE, hybrid or SSM).
+``--num-layers N`` keeps the config's width and cuts its depth to N layers
+(0: the config's own; a multiple of the block pattern's period), so that a
+full-width MoE (arctic-480b, kimi-k2-1t-a32b: 480 B and 1 T parameters) or
+Jamba (52 B; one period of 8 layers is 26.6 GB) fits one card.  The decode
+gate needs a period-1 attention stack: ``--fastcache`` on a hybrid or SSM
+stack (jamba-v0.1-52b, xlstm-1.3b) prints the reference's line and serves
+exact, as the reference's launcher does.
 
 Weights are random (``torch.Generator`` seeded from ``--seed``); prompts
 are drawn by ``numpy.random.default_rng(seed)``.  After an untimed warm-up
@@ -28,7 +32,7 @@ import dataclasses
 import json
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +97,21 @@ class LLMWorkload:
         eng = short.build_engine(model)
         eng.run(short.build_requests(model))
         return eng
+
+
+GATE_NEEDS_ATTENTION = ("[serve] FastCache decode gating needs a period-1 "
+                        "attention stack; running without it")
+
+
+def exact_fallback(wl: LLMWorkload, model: TransformerModel
+                   ) -> Tuple[LLMWorkload, Optional[str]]:
+    """The reference launcher's rule: the decode gate (``CachedDecoder``)
+    takes only a period-1 attention stack, so ``wl`` with ``fastcache`` on
+    any other model comes back exact, with the line to print; else ``wl``
+    as it is and None."""
+    if wl.fastcache and model.kinds != ("attn",):
+        return dataclasses.replace(wl, fastcache=False), GATE_NEEDS_ATTENTION
+    return wl, None
 
 
 def serve(wl: LLMWorkload, model: TransformerModel
@@ -168,6 +187,9 @@ def main(argv=None) -> None:
     wl = LLMWorkload(**{f.name: getattr(args, f.name)
                         for f in dataclasses.fields(LLMWorkload)})
     model = wl.build_model(args.device)
+    wl, line = exact_fallback(wl, model)
+    if line is not None:
+        print(line)
     wl.warm_up(model)
     summary = serve(wl, model)[0]
     if args.json:

@@ -20,7 +20,9 @@ adaLN-zero modulation and head start at zero, as the reference's
 seed.  ``--save`` writes the trained parameters as the reference's tree
 (``checkpoint.save``, loadable by the reference's ``load`` in f32).  The
 reference's ``--production-mesh`` (multi-device sharding) is not ported;
-the audio family is not ported either, so its configs raise.
+the audio family is not ported either, so its configs raise; the SSM and
+hybrid families (xlstm-1.3b, jamba-v0.1-52b) serve but do not train in the
+port yet (ROADMAP A6), so the launcher refuses them.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.training import (cosine_schedule, make_optimizer,
                                   param_tree, train)
+
+UNTRAINED_FAMILIES = ("ssm", "hybrid")     # ROADMAP A6
 
 
 def data_for(cfg, batch, seq, seed=0, device="cuda"):
@@ -80,6 +84,9 @@ def main(argv=None) -> None:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.reduced:
         cfg = cfg.replace(dtype="float32")
+    if cfg.family in UNTRAINED_FAMILIES:
+        raise SystemExit(f"[train] {cfg.name}: training the {cfg.family} "
+                         "family is not ported (ROADMAP A6)")
     model = init_model(cfg, args.device, args.seed)
     n = sum(p.numel() for p in model.parameters())
     print(f"[train] {cfg.name}: {n/1e6:.1f}M params, opt={cfg.optimizer}")

@@ -1,4 +1,5 @@
-"""Models of the PyTorch port: the DiT and the dense transformer."""
+"""Models of the PyTorch port: the DiT and the LM (dense, MoE, SSM and
+hybrid families)."""
 from repro_torch.models.dit import DiTModel
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import TransformerModel

@@ -1,6 +1,7 @@
 """Shared model building blocks (the reference's ``models/common.py``):
-matmuls with f32 accumulation, RMSNorm, RoPE, SwiGLU, and for the DiT
-adaLN modulation, the tanh-GELU MLP, timestep embedding and (un)patchify.
+matmuls with f32 accumulation, RMSNorm, RoPE, SwiGLU, the depthwise causal
+conv of the Mamba and mLSTM mixers, and for the DiT adaLN modulation, the
+tanh-GELU MLP, timestep embedding and (un)patchify.
 
 ``fdot``/``feinsum`` mirror the reference's ``preferred_element_type=f32``
 followed by a cast back: PyTorch's matmul on bf16 operands accumulates in
@@ -12,6 +13,7 @@ PyTorch's default for matmul).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -120,3 +122,25 @@ def unpatchify(tokens: torch.Tensor, patch: int, grid: int) -> torch.Tensor:
     x = tokens.reshape(b, grid, grid, patch, patch, c)
     x = x.permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, grid * patch, grid * patch, c)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv along seq. x: (B, S, C); w: (K, C).
+
+    If ``state`` (B, K-1, C) is given, it is the trailing context (decode),
+    cast to x's dtype as the reference casts it; else the pad is zeros in
+    x's dtype.  Taps accumulate in f32 in the reference's order, the result
+    is cast back to x's dtype."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros(x.shape[:1] + (k - 1,) + x.shape[2:], dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = torch.zeros(x.shape, dtype=F32, device=x.device)
+    for i in range(k):
+        out = out + xp[:, i:i + s].to(F32) * w[i].to(F32)
+    return out.to(x.dtype)

@@ -1,6 +1,7 @@
 """Model construction from config (the reference's
 ``models/registry.py:build_model``): the DiT, and ``TransformerModel`` for
-the LM families, dense and MoE (it raises for the families not ported)."""
+the LM families, dense, MoE, SSM and hybrid (it raises for the families
+not ported)."""
 from __future__ import annotations
 
 from typing import Union

@@ -1,24 +1,34 @@
-"""Decoder-only transformer, after the reference's
-``models/transformer.py:TransformerModel``, for the dense and MoE families
-with a period-1 attention stack (the only stack ``CachedDecoder`` accepts).
-A block is attention then a SwiGLU FFN, or attention then an MoE layer
-where ``_moe_at`` says so (every layer of the MoE family).
+"""Decoder-only LM, after the reference's
+``models/transformer.py:TransformerModel``, for the dense, MoE, SSM and
+hybrid families.  Layers follow ``cfg.block_pattern`` (one period, tiled
+over the depth; empty means attention only): a layer's mixer is attention,
+Mamba, mLSTM or sLSTM, and an attention or Mamba mixer is followed by a
+SwiGLU FFN, or by an MoE layer where ``_moe_at`` says so (every layer of
+the MoE family, the odd positions of Jamba's period); mLSTM and sLSTM
+blocks, and a config with ``d_ff == 0``, have neither.
 
-The reference scans one stacked ``blocks/pos0`` tree over the layers; the
-port keeps one ``TransformerBlock`` per layer (``bridge.
-transformer_params_from_jax`` splits the stack).  The decode cache is the
-reference's ``blocks/pos0`` leaves with the layer axis first, as one dict:
-``k``/``v`` (L, B, W, KVH, dh) in the model dtype, ``pos`` (L, B, W) int32
-(-1 = empty) and ``step`` (B,) int32.  ``decode_step`` updates it in place.
-SSM/Mamba mixers, M-RoPE, VLM/audio frontends, ``block_pattern`` and
-``prefix_groups`` are not ported: a config that needs them raises.
+The reference scans one stacked ``blocks/pos{i}`` tree per period position
+over the ``n_super`` periods; the port keeps one ``TransformerBlock`` per
+layer, layer ``s * period + i`` holding period ``s``'s slice of
+``pos{i}`` (``bridge.transformer_params_from_jax`` splits the stacks).
+The decode cache is one dict of leaves, each stacked over the layers of
+one kind with the batch on axis 1: ``k``/``v`` (n_attn, B, W, KVH, dh) in
+the model dtype and ``pos`` (n_attn, B, W) int32 (-1 = empty) over the
+attention layers, ``<kind>_<leaf>`` over each mixer kind's layers (e.g.
+``mamba_ssm`` (n_mamba, B, di, ds) f32, ``mlstm_C`` (n_mlstm, B, H, dh,
+dh) f32), and ``step`` (B,) int32.  A dense or MoE model's cache is thus
+``k``/``v``/``pos`` over all L layers and ``step``.  ``layer_cache`` gives
+one layer's views; ``decode_step`` updates the cache in place.  M-RoPE,
+the VLM / audio frontends and ``prefix_groups`` are not ported: a config
+that needs them raises.
 
 ``forward_train`` and ``loss`` are the reference's ``apply(...,
-train=True)`` and ``loss``: attention through ``attend_direct`` (autograd
-cannot differentiate the ``flash_attention`` kernel), each layer
-checkpointed when ``cfg.remat`` is set (its MoE aux loss with it), and
-the cross-entropy over the vocabulary head in chunks (``chunked_ce``) plus
-the layers' MoE aux losses.
+train=True)`` and ``loss``, for attention-only stacks: attention through
+``attend_direct`` (autograd cannot differentiate the ``flash_attention``
+kernel), each layer checkpointed when ``cfg.remat`` is set (its MoE aux
+loss with it), and the cross-entropy over the vocabulary head in chunks
+(``chunked_ce``) plus the layers' MoE aux losses.  Training a stack with
+another mixer kind is not ported and raises.
 """
 from __future__ import annotations
 
@@ -31,12 +41,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
-from repro_torch.models import common, flags, layers
+from repro_torch.models import common, flags, layers, mamba, ssm
 from repro_torch.models.layers import ParamDef, ParamGroup
 
 F32 = torch.float32
 Cache = Dict[str, torch.Tensor]
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# each mixer kind: (its parameter defs, its decode state's defs, its apply)
+MIXERS = {"mamba": (mamba.mamba_defs, mamba.mamba_state_defs,
+                    mamba.mamba_apply),
+          "mlstm": (ssm.mlstm_defs, ssm.mlstm_state_defs, ssm.mlstm_apply),
+          "slstm": (ssm.slstm_defs, ssm.slstm_state_defs, ssm.slstm_apply)}
+KINDS = ("attn",) + tuple(MIXERS)
 
 
 def _moe_at(cfg: ModelConfig, pos: int) -> bool:
@@ -48,43 +64,67 @@ def _moe_at(cfg: ModelConfig, pos: int) -> bool:
 
 
 class TransformerBlock(nn.Module):
-    """One layer's parameters: the reference's ``params["blocks"]["pos0"]``
-    at one layer, the ``attn`` sub-tree and an ``ffn`` or ``moe`` one
-    (``subs`` names them)."""
+    """One layer's parameters: the reference's ``params["blocks"]
+    ["pos{i}"]`` at one period, the mixer's sub-tree under its kind's name
+    (``attn``, ``mamba``, ``mlstm``, ``slstm``) and, after an attention or
+    Mamba mixer, an ``ffn`` or ``moe`` one (``subs`` names them)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype,
-                 device: torch.device):
+    def __init__(self, cfg: ModelConfig, kind: str, pos: int,
+                 dtype: torch.dtype, device: torch.device):
         super().__init__()
-        self.attn = ParamGroup(layers.attn_defs(cfg), dtype, device)
-        if _moe_at(cfg, 0):
-            self.moe = ParamGroup(layers.moe_defs(cfg), dtype, device)
-            self.subs = ("attn", "moe")
-        else:
-            self.ffn = ParamGroup(layers.ffn_defs(cfg), dtype, device)
-            self.subs = ("attn", "ffn")
+        self.kind = kind
+        defs = (layers.attn_defs(cfg) if kind == "attn"
+                else MIXERS[kind][0](cfg))
+        setattr(self, kind, ParamGroup(defs, dtype, device))
+        self.subs = (kind,)
+        if kind not in ("mlstm", "slstm") and cfg.d_ff > 0:
+            if _moe_at(cfg, pos):
+                self.moe = ParamGroup(layers.moe_defs(cfg), dtype, device)
+                self.subs += ("moe",)
+            else:
+                self.ffn = ParamGroup(layers.ffn_defs(cfg), dtype, device)
+                self.subs += ("ffn",)
 
 
 class TransformerModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.block_pattern:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: only the {' and '.join(FAMILIES)} families with "
-                f"a period-1 attention stack are ported; got "
-                f"family={cfg.family!r}, "
-                f"block_pattern={cfg.block_pattern}")
+                f"{cfg.name}: only the {', '.join(FAMILIES)} families are "
+                f"ported; got family={cfg.family!r}")
         if cfg.rope_kind not in ("default", "none"):
             raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
                                       "ported")
         self.cfg = cfg
-        self.kinds = ("attn",)
-        self.period = 1
+        self.kinds = cfg.block_pattern or ("attn",)
+        self.period = len(self.kinds)
+        if cfg.num_layers % self.period != 0:
+            raise ValueError(
+                f"{cfg.name}: {cfg.num_layers} layers not divisible by "
+                f"pattern period {self.period}")
+        for kind in self.kinds:
+            if kind not in KINDS:
+                raise ValueError(f"{cfg.name}: unknown block kind {kind!r}; "
+                                 f"expected one of {KINDS}")
+            if kind != "attn" and cfg.ssm is None:
+                raise ValueError(f"{cfg.name}: a {kind} block needs "
+                                 "cfg.ssm")
+        self.layer_kinds = cfg.layer_kinds
+        # each layer's index within its kind's stack of cache leaves
+        seen: Dict[str, int] = {}
+        self.kind_index = []
+        for kind in self.layer_kinds:
+            self.kind_index.append(seen.get(kind, 0))
+            seen[kind] = self.kind_index[-1] + 1
+        self.kind_counts = seen
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
         self.top = ParamGroup(self._top_defs(), self.dtype, self.device)
         self.blocks = nn.ModuleList(
-            TransformerBlock(cfg, self.dtype, self.device)
-            for _ in range(cfg.num_layers))
+            TransformerBlock(cfg, kind, l % self.period, self.dtype,
+                             self.device)
+            for l, kind in enumerate(self.layer_kinds))
 
     def _top_defs(self) -> Dict[str, ParamDef]:
         cfg = self.cfg
@@ -101,7 +141,8 @@ class TransformerModel(nn.Module):
         """Random weights drawn from ``generator`` (on the model's device),
         with the reference's init kinds: normal 0.02 for the embedding,
         fan_in for the projections and the router with ``wo``/``w_down``/
-        ``we_down`` scaled by 1/sqrt(L), ones for the norms (f32)."""
+        ``we_down``/``w_out``/``w_ff_out`` scaled by 1/sqrt(L), ones for
+        the norms and the Mamba's ``a_log``, ``b_dt``, ``d_skip`` (f32)."""
         self.top.init(generator)
         for blk in self.blocks:
             for sub in blk.subs:
@@ -135,18 +176,40 @@ class TransformerModel(nn.Module):
                     positions: Optional[torch.Tensor] = None,
                     cache: Optional[Cache] = None,
                     decode_pos: Optional[torch.Tensor] = None,
-                    window: int = 0, train: bool = False):
-        """One layer (attention then FFN or MoE).  Returns (x, layer cache,
-        aux): the MoE layer's aux load loss (a 0-d f32 tensor), 0.0 after
-        an FFN."""
-        x, c = layers.attn_apply(bp.attn, x, cfg=self.cfg,
-                                 positions=positions, cache=cache,
-                                 decode_pos=decode_pos, window=window,
-                                 train=train)
+                    window: int = 0, train: bool = False,
+                    decode: bool = False):
+        """One layer (its mixer, then an FFN or MoE if it has one).
+        Returns (x, layer cache, aux): the MoE layer's aux load loss (a 0-d
+        f32 tensor), else 0.0.
+
+        Attention: ``cache`` is the layer's K/V to fill (prefill) or to
+        decode from (``decode_pos`` set), as ``layers.attn_apply``.  A
+        mixer: with ``decode`` it steps ``cache`` (its state's views) in
+        place; else it runs from a zero state and, if ``cache`` is given,
+        copies the state after the sequence into it (prefill); without a
+        cache it returns that state."""
+        if bp.kind == "attn":
+            x, c = layers.attn_apply(bp.attn, x, cfg=self.cfg,
+                                     positions=positions, cache=cache,
+                                     decode_pos=decode_pos, window=window,
+                                     train=train)
+        else:
+            fn = MIXERS[bp.kind][2]
+            p = getattr(bp, bp.kind)
+            if decode:
+                x, c = fn(p, x, cfg=self.cfg, state=cache, decode=True)
+            else:
+                x, c = fn(p, x, cfg=self.cfg)
+                if cache is not None:
+                    for key, t in c.items():
+                        cache[key].copy_(t)
+                    c = cache
         if "moe" in bp.subs:
             x, aux = layers.moe_apply(bp.moe, x, self.cfg)
             return x, c, aux
-        return layers.ffn_apply(bp.ffn, x, self.cfg), c, 0.0
+        if "ffn" in bp.subs:
+            x = layers.ffn_apply(bp.ffn, x, self.cfg)
+        return x, c, 0.0
 
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor,
@@ -165,7 +228,13 @@ class TransformerModel(nn.Module):
     def forward_train(self, tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The differentiable full-sequence forward: (final-normed hidden
-        states (B, S, D), the layers' summed MoE aux loss) with autograd."""
+        states (B, S, D), the layers' summed MoE aux loss) with autograd.
+        Attention-only stacks: training the SSM and hybrid families is not
+        ported (ROADMAP A6) and raises."""
+        if set(self.kinds) != {"attn"}:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training a stack of {self.kinds} is not "
+                "ported (ROADMAP A6: the SSM and hybrid families)")
         x = self.embed(tokens)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for bp in self.blocks:
@@ -205,25 +274,39 @@ class TransformerModel(nn.Module):
     # ------------------------------------------------------------------
 
     def init_cache(self, batch: int, window: int) -> Cache:
-        """Empty cache: zero K/V, pos = -1, step 0."""
-        defs = layers.attn_cache_defs(self.cfg, batch, window)
-        lead = (self.cfg.num_layers,)
+        """Empty cache: zero K/V, pos = -1, zero mixer states, step 0."""
         dev = self.device
-        return {
-            "k": torch.zeros(lead + defs["k"].shape, dtype=self.dtype,
-                             device=dev),
-            "v": torch.zeros(lead + defs["v"].shape, dtype=self.dtype,
-                             device=dev),
-            "pos": torch.full(lead + defs["pos"].shape, -1,
-                              dtype=torch.int32, device=dev),
-            "step": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        }
+        out: Cache = {}
+        n_attn = self.kind_counts.get("attn", 0)
+        if n_attn:
+            defs = layers.attn_cache_defs(self.cfg, batch, window)
+            lead = (n_attn,)
+            out["k"] = torch.zeros(lead + defs["k"].shape, dtype=self.dtype,
+                                   device=dev)
+            out["v"] = torch.zeros(lead + defs["v"].shape, dtype=self.dtype,
+                                   device=dev)
+            out["pos"] = torch.full(lead + defs["pos"].shape, -1,
+                                    dtype=torch.int32, device=dev)
+        for kind in MIXERS:
+            if kind not in self.kind_counts:
+                continue
+            for name, d in MIXERS[kind][1](self.cfg, batch).items():
+                out[f"{kind}_{name}"] = torch.zeros(
+                    (self.kind_counts[kind],) + d.shape, dtype=F32,
+                    device=dev)
+        out["step"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        return out
 
-    @staticmethod
-    def layer_cache(cache: Cache, layer: int) -> Cache:
-        """Views of one layer's K/V/pos: writes land in ``cache``."""
-        return {"k": cache["k"][layer], "v": cache["v"][layer],
-                "pos": cache["pos"][layer]}
+    def layer_cache(self, cache: Cache, layer: int) -> Cache:
+        """Views of one layer's K/V/pos or mixer state: writes land in
+        ``cache``."""
+        kind, i = self.layer_kinds[layer], self.kind_index[layer]
+        if kind == "attn":
+            return {"k": cache["k"][i], "v": cache["v"][i],
+                    "pos": cache["pos"][i]}
+        pre = f"{kind}_"
+        return {key[len(pre):]: t[i] for key, t in cache.items()
+                if key.startswith(pre)}
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, window: int
@@ -245,14 +328,16 @@ class TransformerModel(nn.Module):
     def decode_step(self, tokens: torch.Tensor, cache: Cache
                     ) -> Tuple[torch.Tensor, Cache]:
         """tokens: (B,) int. Returns (logits (B, V), cache), the cache
-        updated in place (one slot per layer and sample, step + 1)."""
+        updated in place (one K/V slot per attention layer and sample, each
+        mixer's state one step on, step + 1)."""
         step = cache["step"]                                 # (B,)
         x = self.embed(tokens[:, None])
         positions = step[:, None]
         for l, bp in enumerate(self.blocks):
-            x = self.block_apply(bp, x, positions=positions,
-                                 cache=self.layer_cache(cache, l),
-                                 decode_pos=step)[0]
+            x = self.block_apply(
+                bp, x, positions=positions, cache=self.layer_cache(cache, l),
+                decode_pos=step if bp.kind == "attn" else None,
+                decode=True)[0]
         x = common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
         logits = self.unembed(x[:, 0])
         step.add_(1)

@@ -89,11 +89,14 @@ class ServingEngine:
     # -- device work ----------------------------------------------------
 
     def _prefill(self, prompt: np.ndarray, slot: int) -> torch.Tensor:
-        """Prefill ONE request (batch 1) and splice its cache into `slot`."""
+        """Prefill ONE request (batch 1) and splice its cache into `slot`:
+        every leaf (K/V/pos and each mixer's state, (n, B, ...)) along its
+        batch axis 1, ``step`` along axis 0."""
         tokens = to_device(np.asarray(prompt, np.int64)[None], self.device)
         logits, one = self.model.prefill(tokens, self.window)
-        for key in ("k", "v", "pos"):                # (L, B, W, ...)
-            self.cache[key][:, slot].copy_(one[key][:, 0])
+        for key, leaf in one.items():
+            if key != "step":
+                self.cache[key][:, slot].copy_(leaf[:, 0])
         self.cache["step"][slot].copy_(one["step"][0])
         return logits[0]
 

@@ -1479,3 +1479,89 @@ def test_train_steps_sync_free_without_flash_attention(cuda_device, arch):
     zero = [n for n, p in card.named_parameters()
             if not bool(p.grad.abs().amax() > 0)]
     assert not zero, zero
+
+
+# ---------------------------------------------------------------------------
+# The hybrid (Jamba) and SSM (xLSTM) families
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_jambas_prefill_shape(cuda_device):
+    """Jamba's prefill (32 heads of 128 on 8 KV heads, S 512, causal,
+    window 1024) in bf16: one launch, within 2e-2 of the plain version."""
+    q, k, v = _qkv(cuda_device, BF16, 1, 32, 8, 512, 512, 128)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=1024)
+    torch.cuda.synchronize(cuda_device)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=True, window=1024)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _ssm_model(dev, arch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import TransformerModel
+    model = TransformerModel(get_reduced(arch), device=dev)
+    return model.init(torch.Generator(dev).manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_exact_decode_makes_one_sync_a_step(cuda_device, arch):
+    """The reduced hybrid / SSM model (bf16) prefills and decodes with no
+    host sync (sync debug "error"), and the exact engine makes one sync a
+    decode step and one an admission."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    model = _ssm_model(cuda_device, arch)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 40), generator=gen,
+                           device=cuda_device)
+    _, warm = model.prefill(tokens[:, :8], 16)     # first calls of each op
+    model.decode_step(tokens[:, 8], warm)
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, cache = model.prefill(tokens, 16)
+        for i in range(3):
+            model.decode_step(tokens[:, i], cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cache["step"].tolist() == [43, 43]
+    eng = ServingEngine(model, max_batch=2, window=16)
+    reqs = [Request(rid=i, prompt=tokens[i % 2, i:i + 12].cpu().numpy(),
+                    max_new_tokens=5) for i in range(3)]
+    done = eng.run(reqs)
+    assert len(done) == 3 and all(len(r.generated) == 5 for r in done)
+    assert eng.host_syncs == eng.prefills + eng.decode_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_engine_splices_every_leaf_in_place(cuda_device, arch):
+    """An admission on the card writes the prefill's state into its slot of
+    every cache leaf in place (the leaves keep their storage), bitwise the
+    standalone prefill's, and leaves the other slots' rows alone; a decode
+    step updates every leaf in place."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    model = _ssm_model(cuda_device, arch)
+    eng = ServingEngine(model, max_batch=3, window=16)
+    ptrs = {k: t.data_ptr() for k, t in eng.cache.items()}
+    before = {k: t.clone() for k, t in eng.cache.items()}
+    prompt = np.arange(12, dtype=np.int32) * 7 % model.cfg.vocab_size
+    eng._prefill(prompt, 1)
+    _, one = model.prefill(torch.as_tensor(prompt, device=cuda_device)
+                           .long()[None], 16)
+    for key, leaf in eng.cache.items():
+        if key == "step":
+            continue
+        assert torch.equal(leaf[:, 1], one[key][:, 0]), key
+        assert torch.equal(leaf[:, 0], before[key][:, 0]), key
+        assert torch.equal(leaf[:, 2], before[key][:, 2]), key
+    eng.step()
+    assert {k: t.data_ptr() for k, t in eng.cache.items()} == ptrs
+    assert eng.cache["step"].tolist() == [1, 13, 1]

@@ -2,7 +2,9 @@
 decode gate (``CachedDecoder``), the ``ServingEngine`` and the launcher.
 
 Models: the reduced qwen3-0.6b, arctic-480b and kimi-k2-1t-a32b in f32
-with the reference's parameters (``tests/test_torch_transformer.py``); the
+with the reference's parameters (``tests/test_torch_transformer.py``),
+and for the exact engine traces also the hybrid jamba-v0.1-52b and the SSM
+xlstm-1.3b (the decode gate refuses both, as the reference's does); the
 MoE configs at their own capacity factor 1.25, so a prefill drops copies
 (16 prompt tokens, 32 copies, 10 slots an expert) and the decode gate's
 mixed branch routes the cached slots' tokens with the others.  Gate bits,
@@ -37,6 +39,7 @@ from tests.test_torch_transformer import (BASE_ARCH, MOE_ARCHS, Tol,
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_ARCHS = (BASE_ARCH,) + MOE_ARCHS
+SSM_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")     # served exact only
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,10 +129,14 @@ def test_cached_decoder_rejects_global_gate(llm):
 # (requests, prompt, new tokens, max_batch, window): the serve_llm.py-style
 # trace, and one whose prompts outrun the window (the ring's rotation)
 TRACES = {"serve_llm": (6, 16, 12, 4, 128), "ring": (5, 24, 10, 3, 16)}
-# (arch, trace) of the engine test; qwen3-0.6b's ids are the trace alone
-ARCH_TRACES = [(a, t) for a in SERVE_ARCHS for t in sorted(TRACES)]
-ARCH_TRACE_IDS = [t if a == BASE_ARCH else f"{a}-{t}"
-                  for a, t in ARCH_TRACES]
+# (arch, trace, fastcache) of the engine test, the hybrid and SSM archs
+# exact only; qwen3-0.6b's ids are the mode and the trace alone
+ARCH_TRACES = [(a, t, fc) for fc in (False, True)
+               for a in SERVE_ARCHS + SSM_ARCHS for t in sorted(TRACES)
+               if not (fc and a in SSM_ARCHS)]
+ARCH_TRACE_IDS = [("fastcache" if fc else "exact")
+                  + ("" if a == BASE_ARCH else f"-{a}") + f"-{t}"
+                  for a, t, fc in ARCH_TRACES]
 
 
 def _requests(cls, n, prompt_len, new_tokens, seed=0):
@@ -138,10 +145,13 @@ def _requests(cls, n, prompt_len, new_tokens, seed=0):
         np.int32), max_new_tokens=new_tokens) for i in range(n)]
 
 
-@pytest.mark.parametrize("arch,trace", ARCH_TRACES, ids=ARCH_TRACE_IDS)
-@pytest.mark.parametrize("fastcache", [False, True], ids=["exact",
-                                                          "fastcache"])
+@pytest.mark.parametrize("arch,trace,fastcache", ARCH_TRACES,
+                         ids=ARCH_TRACE_IDS)
 def test_engine_trace_matches_reference(arch, trace, fastcache):
+    """Greedy token streams of the port's engine against the live
+    reference's.  The hybrid / SSM traces catch a cache leaf the admission
+    does not splice: a slot would then decode from another request's
+    mixer state."""
     jm, jp, tm = _llm(arch)
     n, prompt_len, new_tokens, max_batch, window = TRACES[trace]
     jeng = JServingEngine(jm, jp, max_batch=max_batch, window=window,

@@ -2,31 +2,40 @@
 parameters (``model.init(PRNGKey(0))``) copied through
 ``repro_torch.bridge.transformer_params_from_jax``.
 
-Configs: the reduced config of each of the six LLM ids, in f32 and in bf16
-(the ``pair`` fixture; the qwen3-0.6b cases keep their plain dtype ids).
-``get_reduced("qwen3-0.6b")`` is 2 layers, d 256, 4 query and 2 KV heads
-of 64, SwiGLU 512, vocab 512, qk-norm, RoPE 1e6, tied embeddings; the
+Configs: the reduced config of each of the eight LLM ids, in f32 and in
+bf16 (the ``pair`` fixture; the qwen3-0.6b cases keep their plain dtype
+ids).  ``get_reduced("qwen3-0.6b")`` is 2 layers, d 256, 4 query and 2
+KV heads of 64, SwiGLU 512, vocab 512, qk-norm, RoPE 1e6, tied embeddings; the
 others are the same size with their own heads, norms, RoPE base and
 untied heads, stablelm-3b with 4 KV heads, and the two MoE configs with 4
 experts of 512 (arctic-480b, beside a dense 512 branch) or 256 (kimi, one
 shared expert), top-2, at the configs' own capacity factor 1.25, so the
-prefills drop copies (the reference's stable rank rule decides which).  Tolerances: f32 rtol/atol 1e-4 (two f32 implementations,
-other summation orders; measured ~2e-6 on hidden states of size ~3); bf16
-rtol 5e-2 and atol 5e-2 of the compared tensor's scale (max |x|, at least
-1), the reference's own 5e-2.
+prefills drop copies (the reference's stable rank rule decides which).
+The hybrid jamba-v0.1-52b is 4 layers of period (mamba, attn, mamba,
+mamba), d 256, no RoPE, 4 experts of 512 top-2 on the odd positions and
+SwiGLU 512 on the even ones; the SSM xlstm-1.3b is 2 layers (mlstm,
+slstm), d 256, 2 heads.  Their caches are compared leaf by leaf in the
+port's layout (``port_cache``).
 
-The configs without qk-norm (yi-9b, stablelm-3b and the two MoE configs)
-are held in f32 only, at rtol 1e-4 and atol ``NO_QK_NORM_ATOL`` = 5e-4 of
-the compared tensor's scale.  The reference's fan-in init reads the heads
-axis of the (d, h, dh) projections as the fan-in (std 1/2 here), so without
-qk-norm the attention logits reach ~64 and rounding is amplified: measured
+Tolerances: f32 rtol/atol 1e-4 (two f32 implementations, other summation
+orders; measured ~2e-6 on hidden states of size ~3); bf16 rtol 5e-2 and
+atol 5e-2 of the compared tensor's scale (max |x|, at least 1), the
+reference's own 5e-2.
+
+The configs without qk-norm (yi-9b, stablelm-3b, the two MoE configs and
+the hybrid and SSM ones) are held in f32 only, at rtol 1e-4 and atol
+``NO_QK_NORM_ATOL`` = 5e-4 of the compared tensor's scale.  The
+reference's fan-in init reads the heads axis of the (d, h, dh)
+projections as the fan-in (std 1/2 here), so without qk-norm the
+attention logits reach ~64 and rounding is amplified: measured
 in f32, up to 3.6e-4 absolute (1.2e-4 of scale, relative L2 9.4e-5) on
 stablelm's decode logits of scale 3.1, 2.8e-4 to 4.8e-4 on hidden states
 of scale 57-76; in bf16 the same configs move by 8e-3 to 6.7e-2 in
 relative L2 (a 1-ulp change of a bf16 q or k moves a logit by ~0.25, and in
 the MoE configs a routing choice with it), so bf16 is compared only for the
-two qk-norm configs.  A changed routing choice moves a token by far more
-than either tolerance.  The MoE's expert choices (``top_i``) are
+two qk-norm configs (the SSM mixers' bf16 cases are in
+``tests/test_torch_ssm.py``).  A changed routing choice moves a token by
+far more than either tolerance.  The MoE's expert choices (``top_i``) are
 held exactly in ``tests/test_torch_moe.py``; here they show through the
 outputs.  The scale matters for the hidden states and
 V: the reference's fan-in init makes them reach ~40 after one block, where
@@ -121,6 +130,21 @@ def pair(request):
     return pair_tol(arch, dtype), jm, jp, port_llm(dtype, jp, arch)
 
 
+def port_cache(jcache, model: TransformerModel) -> dict:
+    """The reference's decode cache (``blocks/pos{i}/<leaf>`` with leaves
+    (n_super, B, ...), and ``step``) in the port's layout, as numpy: each
+    attention leaf stacked over the attention layers, each mixer leaf as
+    ``<kind>_<leaf>`` over that kind's layers, in layer order."""
+    blocks = jcache["blocks"]
+    out = {"step": np.asarray(jcache["step"])}
+    for l, kind in enumerate(model.layer_kinds):
+        pos = blocks[f"pos{l % model.period}"]
+        for leaf, a in pos.items():
+            key = leaf if kind == "attn" else f"{kind}_{leaf}"
+            out.setdefault(key, []).append(np.asarray(a[l // model.period]))
+    return {k: v if k == "step" else np.stack(v) for k, v in out.items()}
+
+
 def _check_init(arch: str) -> None:
     """Shapes, dtypes and init kinds of the port's own init against the
     reference's ParamDefs (and spreads against the reference's draws)."""
@@ -131,13 +155,16 @@ def _check_init(arch: str) -> None:
     top = [k for k in defs if k != "blocks"]
     assert set(top) == set(model.top.defs)
     pairs = [(f"top.{k}", defs[k], jp[k]) for k in top]
-    subs = sorted(defs["blocks"]["pos0"])
-    assert subs == sorted(model.blocks[0].subs)
-    for sub in subs:
-        for name, d in defs["blocks"]["pos0"][sub].items():
-            pairs += [(f"blocks.{l}.{sub}.{name}", d,
-                       jp["blocks"]["pos0"][sub][name][l])
-                      for l in range(jcfg.num_layers)]
+    period = model.period
+    assert sorted(defs["blocks"]) == [f"pos{i}" for i in range(period)]
+    for i in range(period):
+        pos = defs["blocks"][f"pos{i}"]
+        assert sorted(pos) == sorted(model.blocks[i].subs)
+        for sub in pos:
+            for name, d in pos[sub].items():
+                pairs += [(f"blocks.{s * period + i}.{sub}.{name}", d,
+                           jp["blocks"][f"pos{i}"][sub][name][s])
+                          for s in range(jcfg.num_layers // period)]
     params = dict(model.named_parameters())
     assert set(params) == {name for name, _, _ in pairs}
     for name, d, ja in pairs:
@@ -146,8 +173,9 @@ def _check_init(arch: str) -> None:
         assert tuple(p.shape) == tuple(shape), name
         want_dtype = torch.float32 if d.dtype == "float32" else torch.bfloat16
         assert p.dtype == want_dtype, name
-        if d.init == "ones":
-            assert torch.equal(p, torch.ones_like(p)), name
+        if d.init in ("ones", "zeros"):
+            assert torch.equal(p, torch.full_like(
+                p, 1.0 if d.init == "ones" else 0.0)), name
         else:
             std, jstd = float(p.float().std()), float(np.std(np.asarray(
                 ja, np.float32)))
@@ -164,8 +192,9 @@ def test_init_matches_param_defs():
 
 @pytest.mark.parametrize("arch", [a for a in LLM_IDS if a != BASE_ARCH])
 def test_init_matches_param_defs_of_each_config(arch):
-    """As above for the other five LLM configs (untied heads; the MoE
-    family's router in f32 and its (E, D, F) expert leaves)."""
+    """As above for the other seven LLM configs (untied heads; the MoE
+    family's router in f32 and its (E, D, F) expert leaves; the Mamba,
+    mLSTM and sLSTM mixers' leaves, f32 where the reference's are)."""
     _check_init(arch)
 
 
@@ -184,9 +213,14 @@ def test_block_apply(pair):
     toks = tokens((2, 24), 2)
     x_j = jm.embed(jp, {"tokens": jnp.asarray(toks)})
     bp0 = jax.tree.map(lambda a: a[0], jp["blocks"])["pos0"]
-    y_j, _, aux_j = jm.block_apply(0, bp0, x_j)
+    y_j, st_j, aux_j = jm.block_apply(0, bp0, x_j)
     y_t, cache, aux_t = tm.block_apply(tm.blocks[0], tm.embed(tt(toks)))
-    assert cache is None
+    if tm.kinds[0] == "attn":
+        assert cache is None
+    else:                       # a mixer returns its state after the prompt
+        assert set(cache) == set(st_j)
+        for key in st_j:
+            assert_close(cache[key], st_j[key], tol)
     assert_close(y_t, y_j, tol)
     assert_close(torch.as_tensor(aux_t), aux_j, tol)
 
@@ -204,12 +238,16 @@ def test_apply(pair):
 PREFILL_CASES = [(24, 32), (40, 16), (40, 12), (16, 16)]
 
 
-def _cache_close(ct, cj, tol):
-    blk = cj["blocks"]["pos0"]
-    assert np.array_equal(ct["pos"].numpy(), np.asarray(blk["pos"]))
-    assert np.array_equal(ct["step"].numpy(), np.asarray(cj["step"]))
-    assert_close(ct["k"], blk["k"], tol)
-    assert_close(ct["v"], blk["v"], tol)
+def _cache_close(ct, cj, tol, model):
+    """Every leaf of the port's cache against the reference's, in the
+    port's layout: positions and steps exact, the rest within ``tol``."""
+    want = port_cache(cj, model)
+    assert set(ct) == set(want)
+    for key, a in want.items():
+        if key in ("pos", "step"):
+            assert np.array_equal(ct[key].numpy(), a), key
+        else:
+            assert_close(ct[key], a, tol)
 
 
 @pytest.mark.parametrize("s,w", PREFILL_CASES)
@@ -220,7 +258,7 @@ def test_prefill_logits_and_cache(pair, s, w):
     lt, ct = tm.prefill(tt(toks), w)
     assert lt.shape == (2, 512)
     assert_close(lt, lj, tol)
-    _cache_close(ct, cj, tol)
+    _cache_close(ct, cj, tol, tm)
 
 
 def test_prefill_ring_order_is_the_references():
@@ -253,15 +291,21 @@ def test_decode_steps_teacher_forced(pair, s, w):
         lj, cj = jm.decode_step(jp, jnp.asarray(feed[i]), cj)
         lt, ct = tm.decode_step(tt(feed[i]), ct)
         assert_close(lt, lj, tol)
-    _cache_close(ct, cj, tol)
+    _cache_close(ct, cj, tol, tm)
 
 
 def test_unported_configs_raise():
+    """The VLM family and M-RoPE raise as not ported; an unknown block kind
+    and a depth that is not a multiple of the pattern's period raise
+    ``ValueError``, as in the reference."""
     cfg = get_reduced("qwen3-0.6b")
     with pytest.raises(NotImplementedError):
-        TransformerModel(cfg.replace(family="hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TransformerModel(cfg.replace(block_pattern=("attn", "mamba")),
+        TransformerModel(cfg.replace(family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TransformerModel(cfg.replace(block_pattern=("attn", "conv")),
+                         device="cpu")
+    with pytest.raises(ValueError, match="not divisible"):
+        TransformerModel(cfg.replace(block_pattern=("attn",) * 3),
                          device="cpu")
     with pytest.raises(NotImplementedError):
         TransformerModel(cfg.replace(rope_kind="mrope"), device="cpu")
@@ -285,5 +329,6 @@ def test_bridge_rejects_mismatched_trees():
         bridge.transformer_params_from_jax(short, model)
     mamba = jax.tree.map(lambda a: a, tree)
     mamba["blocks"]["pos0"]["mamba"] = mamba["blocks"]["pos0"].pop("ffn")
-    with pytest.raises(ValueError, match="attn \\+ ffn or attn \\+ moe"):
+    with pytest.raises(ValueError,
+                       match="blocks/pos0 holds .*; expected attn \\+ ffn"):
         bridge.transformer_params_from_jax(mamba, model)
