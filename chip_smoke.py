@@ -207,7 +207,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             the plain version on that layer's own q, k, v, and the two
             plain prefills (p in f32, p in bf16) within 2e-2 of each
             other, except for the configs of PREFILL_CHAOTIC (yi-9b,
-            stablelm-3b), whose plain prefills are chaotic at random init
+            stablelm-3b, qwen2-vl-2b), whose plain prefills are chaotic at
+            random init
             and which are held layer by layer;
 15. llm_sampled  the fastcache LLM serve with greedy=False: every request
             finishes with in-vocabulary tokens;
@@ -255,6 +256,33 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             and 4 decoded from the state left in a stacked cache leaf,
             against the full forward of all 512 (rel-L2 of the layer's
             output delta below 1e-3);
+15c. vlm_audio  the VLM and audio families at full size, nothing cut,
+            each model freed before the next: flash_attention at
+            VLM_AUDIO_FLASH_SHAPES (HuBERT's 16 heads of 80, MHA,
+            bidirectional, at S 500 (k, l), where the last query and key
+            tiles hold 52 of their 64 rows, and S 512 (n, o), bf16 and f32;
+            Qwen2-VL's prefill, 12 heads of 128 on 2 KV heads (m), bf16;
+            library: SDPA with is_causal=False at k, l, n, o); qwen2-vl-2b
+            (M-RoPE, 28 layers, 3.09 GB) on LLMWorkload's defaults:
+            llm_syncs exact (1) and gated (29), the exact and gated serves
+            (launches as in 13: 28 flash_attention per prefill, 28
+            saliency_delta and linear_blend per gated decode step, at d
+            1536), agreement, the text prefill's parity and the vision
+            prefill's (256 embeddings at positions 1-256 with 3-axis
+            positions on a 16 x 16 grid; vlm_vision_prefill_parity; both
+            chaotic at random init, PREFILL_CHAOTIC, held per layer),
+            decode_profile exact and gated and the exact step's
+            decode_bound; hubert-xlarge (48 layers, 1.89 GB): hubert_encode
+            of 4 x 500 frames (counts zeroed just before and read just
+            after: 48 flash_attention launches, all bidirectional, no other
+            kernel; each layer held to the plain version on its own q, k, v
+            within 2e-2; the hidden states against the plain route's
+            printed; moving the last 100 frames moves the first 100: not
+            causal; time, frames/s, MFU) and train_hubert (launch/train.py's
+            init_model and data_for: 5 AdamW steps of 8 x 500 frames, as
+            train_llm below: losses finite, a step under sync debug "error",
+            no kernel launched; ms per step and its split, frames/s,
+            train_mfu, busy share, peak memory);
 16. train_dit  DiT-XL/2 at full width (bf16, the reference's initializers,
             adaLN-zero) trained through training.loop.make_train_step for
             30 steps on latent_stream batches of 32 (seed 0), AdamW on
@@ -281,8 +309,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             tokens/s, launches per step, peak memory, train_mfu.
 
 Then the total seconds, the kernels line (the seven kernels' rows, and
-flash_attention's at dh 80 and 112 and at Jamba's prefill in bf16), the
-card's name and
+flash_attention's at dh 80 and 112, at Jamba's prefill, bidirectional at
+HuBERT's heads and at Qwen2-VL's prefill in bf16, and saliency_delta and
+linear_blend at Qwen2-VL's d 1536), the card's name and
 power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no CUDA card is present or any phase fails.
@@ -354,16 +383,37 @@ SSM_MIXERS = (("mamba", "jamba-v0.1-52b"), ("mlstm", "xlstm-1.3b"),
               ("slstm", "xlstm-1.3b"))
 SSM_CONSISTENCY = (2, 508, 4)
 SSM_CONSISTENCY_REL_L2 = 1e-3
+# the VLM and audio families at full size, nothing cut: Qwen2-VL-2B on
+# LLMWorkload's defaults (exact and gated), one prefill of its first prompt
+# with VISION_TOKENS embeddings at positions 1.. on a VISION_GRID x
+# VISION_GRID grid; HuBERT-XLarge encoding HUBERT_ENCODE (batch, frames: 10
+# s of audio at 50 Hz) and training TRAIN_HUBERT through launch/train.py's
+# path.  B7 at HuBERT's attention (16 heads of 80, MHA, bidirectional; at
+# its 500 frames, where the last query and key tiles hold 52 of their 64
+# rows, and at 512) and at Qwen2-VL's prefill (12 heads of 128 on 2 KV)
+VLM = dict(arch="qwen2-vl-2b")
+VISION_TOKENS, VISION_GRID = 256, 16
+HUBERT = "hubert-xlarge"
+HUBERT_ENCODE = (4, 500)
+BIDIRECTIONAL_FRAMES = 100  # the late frames moved, the early ones read
+VLM_AUDIO_FLASH_SHAPES = {
+    "k": (1, 16, 16, 500, 500, 80, False, 0, "bfloat16"),
+    "l": (1, 16, 16, 500, 500, 80, False, 0, "float32"),
+    "m": (1, 12, 2, 512, 512, 128, True, 1024, "bfloat16"),
+    "n": (1, 16, 16, 512, 512, 80, False, 0, "bfloat16"),
+    "o": (1, 16, 16, 512, 512, 80, False, 0, "float32")}
 DECODE_PROFILE_STEPS = 8   # decode steps timed by CUDA events, then profiled
 PREFILL_REL_L2 = 2e-2      # kernel vs plain full-width prefill logits
 # the configs whose two plain prefills (p in f32, and p rounded to bf16)
 # differ by more than PREFILL_REL_L2 at random init, with that distance as
-# this script measured it (NVIDIA H100 80GB HBM3, 700 W): no qk-norm, so
+# this script measured it (NVIDIA H100 80GB HBM3, 700 W; qwen2-vl-2b's on
+# its text prompt, its vision prefill's 1.2524): no qk-norm, so
 # attention logits reach ~100 and a 1-ulp change flips a near-one-hot
 # softmax row.  Only these hold the kernel to the plain version layer by
 # layer alone; any other config whose floor reaches the bound fails.
 PREFILL_CHAOTIC = {"yi-9b": 1.2992669343948364,
-                   "stablelm-3b": 1.2654507160186768}
+                   "stablelm-3b": 1.2654507160186768,
+                   "qwen2-vl-2b": 1.246437430381775}
 # saliency_delta shapes (B, N, D, dtype): fastcache/teacache at 4 slots (the
 # CFG batch of 8 rows of 256 tokens), in bf16 and f32, and merged (128
 # kept); the decode gate's (batch 4 of one 1024-wide token), the audit's
@@ -374,7 +424,8 @@ SAL_SHAPES = ((8, 256, 1152, "bfloat16"), (8, 256, 1152, "float32"),
               (8, 128, 1152, "bfloat16"), (4, 1, 1024, "bfloat16"),
               (232, 256, 1152, "bfloat16"), (112, 256, 1152, "bfloat16"),
               (4, 1, 5120, "bfloat16"), (4, 1, 7168, "bfloat16"),
-              (4, 1, 4096, "bfloat16"), (4, 1, 2560, "bfloat16"))
+              (4, 1, 4096, "bfloat16"), (4, 1, 2560, "bfloat16"),
+              (4, 1, 1536, "bfloat16"))                # qwen2-vl-2b's gate
 # linear_blend shapes (M, D, F, dtype, gamma): 4 slots x CFG x 256 tokens at
 # the callers' gamma 1 and the reference's default 0.5, merged, and ragged
 BLEND_SHAPES = ((2048, 1152, 1152, "bfloat16", 1.0),
@@ -386,7 +437,8 @@ BLEND_SHAPES = ((2048, 1152, 1152, "bfloat16", 1.0),
                 (4, 5120, 5120, "bfloat16", 1.0),     # qwen3-14b's gate
                 (4, 7168, 7168, "bfloat16", 1.0),     # the MoE configs'
                 (4, 4096, 4096, "bfloat16", 1.0),     # yi-9b's
-                (4, 2560, 2560, "bfloat16", 1.0))     # stablelm-3b's
+                (4, 2560, 2560, "bfloat16", 1.0),     # stablelm-3b's
+                (4, 1536, 1536, "bfloat16", 1.0))     # qwen2-vl-2b's
 BLEND_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the merge-off fastcache serve's block cache ratio with fused_gate and
 # linear_blend on the SIMT route (parent commit, NVIDIA H100 80GB HBM3): the
@@ -885,8 +937,8 @@ def phase_saliency_delta(torch, dev, ref, sal_mod, build):
     """saliency_delta at SAL_SHAPES: the wrapper on the onepass route
     against the plain version and against the SIMT route (bitwise), both
     routes timed warm and L2-cold, the onepass kernel's ptxas lines and
-    whether its blocks fit on the card in one wave.  Returns the row of the
-    first shape, the merge-off serve's."""
+    whether its blocks fit on the card in one wave.  Returns the rows by
+    shape (the first shape's: the merge-off serve's)."""
     saliency_delta = sal_mod.saliency_delta
     ptxas = build.ptxas_lines(build.load_library("saliency_delta").log)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -960,7 +1012,7 @@ def phase_saliency_delta(torch, dev, ref, sal_mod, build):
         row["ms"] = row["kernel_ms"]
         emit({"phase": "kernel", **row})
         rows.append(row)
-    return rows[0]
+    return rows
 
 
 @contextlib.contextmanager
@@ -1007,7 +1059,7 @@ def phase_saliency_parity(torch, policy, captured, sal_mod):
 
 def phase_linear_blend(torch, dev, ref, linear_blend, build):
     """linear_blend against its plain version at BLEND_SHAPES; returns the
-    row of the first shape, the callers' (gamma 1 at 4 slots)."""
+    rows by shape (the first shape's: the callers', gamma 1 at 4 slots)."""
     ptxas = build.ptxas_lines(build.load_library("linear_blend").log)
     rows = []
     for i, (m, d, f, dt, gamma) in enumerate(BLEND_SHAPES):
@@ -1076,7 +1128,7 @@ def phase_linear_blend(torch, dev, ref, linear_blend, build):
         row["ms"] = row["kernel_ms"]
         emit({"phase": "kernel", **row})
         rows.append(row)
-    return rows[0]
+    return rows
 
 
 def sync_flags(torch, fn):
@@ -1407,6 +1459,10 @@ def phase_flash_attention(torch, dev, ref, flash_attention, build,
         if causal and sq == skv and not 0 < window < skv:   # plain causal
             sdpa = dict(is_causal=True)
             call = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+        elif not causal and window == 0:                    # no mask
+            sdpa = dict(is_causal=False)
+            call = ("F.scaled_dot_product_attention(is_causal=False, "
+                    "enable_gqa=True)")
         else:
             qpos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
             kpos = torch.arange(skv, device=dev)[None, :]
@@ -1528,21 +1584,13 @@ def phase_llm_serve(torch, dev, wl, model, m, serve, label="llm_serve"):
     return launches, done
 
 
-def phase_llm_prefill_parity(torch, dev, wl, model, attention, ref):
-    """One full-width prefill through the kernel and through the plain
-    version: relative L2 of the last-position logits, positions exact;
-    and each layer's kernel output against the plain version run on that
-    layer's own captured q, k, v (rel-L2 within PREFILL_REL_L2 in every
-    layer).  The two plain prefills (p kept in f32, and p rounded to bf16
-    as the reference's model attention rounds it, ``attend_direct``) must
-    agree within the logits' bound, and the kernel's logits must then meet
-    it too.  Only a config of PREFILL_CHAOTIC may have plain prefills
-    farther apart: the random-weight model is chaotic at this init (a
-    1-ulp change of one attention logit flips a near-one-hot softmax row,
-    and the flip grows through the layers), and the per-layer check is the
-    kernel's."""
-    tokens = torch.from_numpy(
-        wl.build_requests(model)[0].prompt).long()[None].to(dev)
+def three_routes(torch, attention, ref, run):
+    """``run()`` (a prefill or an encode) three times: with full-sequence
+    attention on the kernel, each call's output captured and held against
+    the plain version on that call's own q, k, v; on the plain version (p
+    in f32); and on the reference's model attention (p rounded to bf16,
+    ``attend_direct``).  Returns the three results, the kernel calls'
+    rel-L2 against the plain version and their ``causal`` flags."""
     kernel_fn = attention.flash_attention
     captured = []
 
@@ -1557,27 +1605,53 @@ def phase_llm_prefill_parity(torch, dev, wl, model, attention, ref):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,
             pos, causal=causal, window=window).transpose(1, 2)
 
-    def prefill_with(fn):
+    def run_with(fn):
         attention.flash_attention = fn
         try:
-            return model.prefill(tokens, wl.window)
+            return run()
         finally:
             attention.flash_attention = kernel_fn
 
-    logits, cache = prefill_with(capturing)
-    plain_logits, plain_cache = prefill_with(ref.flash_attention)
-    rounded_logits, _ = prefill_with(rounded_p)
+    got = run_with(capturing)
     layer_rel = [rel_l2(torch, out, ref.flash_attention(
         q, k, v, causal=causal, window=window))
         for q, k, v, out, causal, window in captured]
+    causal = [c[4] for c in captured]
     del captured
+    return (got, run_with(ref.flash_attention), run_with(rounded_p),
+            layer_rel, causal)
+
+
+def phase_llm_prefill_parity(torch, dev, wl, model, attention, ref,
+                             batch=None, label="llm_prefill_parity"):
+    """One full-width prefill (of ``wl``'s first prompt, or of ``batch``)
+    through the kernel and through the plain version: relative L2 of the
+    last-position logits, positions exact;
+    and each layer's kernel output against the plain version run on that
+    layer's own captured q, k, v (rel-L2 within PREFILL_REL_L2 in every
+    layer).  The two plain prefills (p kept in f32, and p rounded to bf16
+    as the reference's model attention rounds it, ``attend_direct``) must
+    agree within the logits' bound, and the kernel's logits must then meet
+    it too.  Only a config of PREFILL_CHAOTIC may have plain prefills
+    farther apart: the random-weight model is chaotic at this init (a
+    1-ulp change of one attention logit flips a near-one-hot softmax row,
+    and the flip grows through the layers), and the per-layer check is the
+    kernel's."""
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(
+            wl.build_requests(model)[0].prompt).long()[None].to(dev)}
+    ((logits, cache), (plain_logits, plain_cache), (rounded_logits, _),
+     layer_rel, _) = three_routes(torch, attention, ref,
+                                  lambda: model.prefill(batch, wl.window))
     a, b = logits.float(), plain_logits.float()
     rel = float((a - b).norm() / b.norm())
     floor = rel_l2(torch, rounded_logits, plain_logits)
     same_argmax = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
     held = floor < PREFILL_REL_L2
-    emit({"phase": "llm_prefill_parity", "arch": model.cfg.name,
-          "num_layers": model.cfg.num_layers, "prompt_len": tokens.shape[1],
+    emit({"phase": label, "arch": model.cfg.name,
+          "num_layers": model.cfg.num_layers,
+          "prompt_len": batch["tokens"].shape[1],
+          "inputs": sorted(batch),
           "rel_l2_logits": rel, "bound": PREFILL_REL_L2,
           "same_argmax": same_argmax,
           "rel_l2_logits_plain_p_f32_vs_p_bf16": floor,
@@ -1668,8 +1742,9 @@ def moe_drops(torch, dev, wl, model, layers_mod) -> dict:
     try:
         reqs = wl.build_requests(model)
         for req in reqs:
-            model.prefill(torch.from_numpy(req.prompt).long()[None].to(dev),
-                          wl.window)
+            model.prefill(
+                {"tokens": torch.from_numpy(req.prompt).long()[None].to(dev)},
+                wl.window)
     finally:
         layers_mod.moe_apply = real
     dropped = sum(c[2] for c in counts)
@@ -2048,6 +2123,210 @@ def phase_ssm_llms(torch, dev, m, k, serve, layers_mod, attention, ref,
     phase_ssm_consistency(torch, dev, get_config, mixers)
     emit({"phase": "ssm_consistency_seconds",
           "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# --------------------------------------------------------------------------
+# The VLM (Qwen2-VL-2B: M-RoPE, the vision stub) and audio (HuBERT-XLarge:
+# the bidirectional encoder, the feature stub) families at full size
+# --------------------------------------------------------------------------
+
+def vision_batch(torch, dev, wl, model) -> dict:
+    """``wl``'s first prompt with VISION_TOKENS embeddings (0.02 x a normal
+    draw, the token embeddings' scale; seed 9) at positions 1.. and their
+    3-axis M-RoPE positions: t = arange(S) (full-sequence attention's one
+    layout), h and w the image tokens' grid row and column (offset by 1),
+    the text's own position elsewhere."""
+    tokens = torch.from_numpy(
+        wl.build_requests(model)[0].prompt).long()[None].to(dev)
+    s, d = tokens.shape[1], model.cfg.d_model
+    gen = torch.Generator(dev).manual_seed(9)
+    embeds = 0.02 * torch.randn((1, VISION_TOKENS, d), generator=gen,
+                                device=dev)
+    mask = torch.zeros((1, s), dtype=torch.bool, device=dev)
+    mask[:, 1:1 + VISION_TOKENS] = True
+    t = torch.arange(s, device=dev)
+    img = torch.arange(VISION_TOKENS, device=dev)
+    h, w = t.clone(), t.clone()
+    h[1:1 + VISION_TOKENS] = 1 + img // VISION_GRID
+    w[1:1 + VISION_TOKENS] = 1 + img % VISION_GRID
+    return {"tokens": tokens, "vision_embeds": embeds.to(model.dtype),
+            "vision_mask": mask,
+            "positions": torch.stack([t, h, w], -1)[None]}
+
+
+def phase_vlm(torch, dev, m, k, serve, attention, ref) -> dict:
+    """Qwen2-VL-2B at full size: llm_syncs exact (1 a decode step) and
+    gated (L + 1), the exact and gated serves on LLMWorkload's defaults
+    (launches exact and on the fast routes) and their agreement, the text
+    prefill's parity, the vision prefill's (vision_batch) parity, and per
+    decode step exact and gated the wall, events and profiled kernels,
+    beside the exact step's bytes bound.  Returns {label: launches}."""
+    launches = {}
+    wl = k.LLMWorkload(**VLM)
+    wl_fc = dataclasses.replace(wl, fastcache=True)
+    model = build_llm(torch, dev, wl)
+    phase_llm_syncs(torch, wl, model)
+    phase_llm_syncs(torch, wl_fc, model)
+    wl.warm_up(model)
+    done = {}
+    for w, mode in ((wl, "exact"), (wl_fc, "fastcache")):
+        label = f"llm_serve_qwen2_vl_{mode}"
+        launches[label], done[mode] = phase_llm_serve(
+            torch, dev, w, model, m, serve, label=label)
+    agreement("llm_agreement_qwen2_vl", done["exact"], done["fastcache"])
+    phase_llm_prefill_parity(torch, dev, wl, model, attention, ref)
+    phase_llm_prefill_parity(torch, dev, wl, model, attention, ref,
+                             batch=vision_batch(torch, dev, wl, model),
+                             label="vlm_vision_prefill_parity")
+    prof = phase_decode_profile(torch, dev, wl, model, "qwen2_vl_exact")
+    phase_decode_profile(torch, dev, wl_fc, model, "qwen2_vl_fastcache")
+    nbytes = step_bytes(model, model.init_cache(wl.max_batch, wl.window))
+    bound_ms = bound(nbytes["bytes"], 0.0)[0]
+    device_ms = prof["profiled"]["kernel_ms_per_step"]
+    emit({"phase": "decode_bound", "arch": model.cfg.name, **nbytes,
+          "bound_ms": bound_ms, "bound_by": "bytes", "device_ms": device_ms,
+          "device_over_bound": device_ms / bound_ms})
+    del model
+    free_memory(torch)
+    return launches
+
+
+def encoder_flops(cfg, batch: int, seq: int) -> float:
+    """Forward FLOPs of the audio encoder over (batch, seq) frames, as
+    llm_train_flops counts them: the feature projection and positional
+    conv, per layer q/k/v/o and the GELU MLP's two products, attention's
+    two products over all S x S pairs, the head."""
+    d, L, f, v = cfg.d_model, cfg.num_layers, cfg.d_ff, cfg.vocab_size
+    q = cfg.num_heads * cfg.resolved_head_dim
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    per_token = (2 * cfg.frontend_dim * d + 2 * 15 * d + 2 * d * v
+                 + L * (2 * d * q + 4 * d * kv + 2 * q * d + 4 * d * f))
+    return batch * (seq * per_token + L * 4 * seq * seq * q)
+
+
+def phase_encode(torch, dev, model, m, attention, ref) -> dict:
+    """hubert_encode: HUBERT_ENCODE frames of normal features (seed 8)
+    through ``TransformerModel.apply`` after an untimed encode; every count
+    zeroed just before the timed encode and read just after:
+    flash_attention once a layer (bidirectional), no other kernel.  Then,
+    outside the counted run: each layer's kernel output against the plain
+    version on that layer's own q, k, v (rel-L2 within PREFILL_REL_L2),
+    the hidden states against the plain route's (printed beside the floor
+    of the two plain routes, p in f32 and p in bf16: the encoder has no
+    qk-norm), and bidirectionality: moving the last BIDIRECTIONAL_FRAMES
+    frames moves the first ones' hidden states."""
+    b, s = HUBERT_ENCODE
+    cfg = model.cfg
+    gen = torch.Generator(dev).manual_seed(8)
+    feats = torch.randn((b, s, cfg.frontend_dim), generator=gen, device=dev)
+    batch = {"features": feats}
+    model.apply(batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    zero_counts(m.kernels)                         # the path starts here
+    t0 = time.perf_counter()
+    start.record()
+    hidden = model.apply(batch)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches                  # ... and ends here
+                for name, fn in m.kernels.items()}
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.num_layers
+    if launches != want:
+        raise AssertionError(f"hubert encode launches {launches} != {want}")
+    hidden_k, plain, rounded, layer_rel, causal = three_routes(
+        torch, attention, ref, lambda: model.apply(batch))
+    causal_calls = sum(causal)
+    moved = feats.clone()
+    moved[:, -BIDIRECTIONAL_FRAMES:] += 1.0
+    hidden2 = model.apply({"features": moved})
+    n = BIDIRECTIONAL_FRAMES
+    early = rel_l2(torch, hidden2[:, :n], hidden[:, :n])
+    flops = encoder_flops(cfg, b, s)
+    ms = start.elapsed_time(end)
+    row = {"phase": "hubert_encode", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "batch": b, "frames": s,
+           "dtype": str(model.dtype), "ms_events": ms, "ms_wall": wall * 1e3,
+           "frames_per_s": b * s / (ms / 1e3), "model_flops": flops,
+           "mfu": flops / (ms / 1e3) / BF16_TC_FLOPS_PER_S,
+           "launches": launches, "finite": bool(torch.isfinite(
+               hidden.float()).all()),
+           "repeat_bitwise": bool(torch.equal(hidden, hidden_k)),
+           "causal_calls": causal_calls,
+           "rel_l2_per_layer_max": max(layer_rel),
+           "rel_l2_per_layer_mean": float(np.mean(layer_rel)),
+           "bound": PREFILL_REL_L2,
+           "rel_l2_hidden_vs_plain": rel_l2(torch, hidden, plain),
+           "rel_l2_hidden_plain_p_f32_vs_p_bf16": rel_l2(torch, rounded,
+                                                         plain),
+           "rel_l2_early_frames_moved": early,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(
+               dev), "card": smi()}
+    emit(row)
+    if not (row["finite"] and row["repeat_bitwise"]
+            and len(layer_rel) == cfg.num_layers and causal_calls == 0
+            and row["rel_l2_per_layer_max"] < PREFILL_REL_L2):
+        raise AssertionError(f"hubert encode: {row}")
+    if not early > 1e-3:
+        raise AssertionError(f"hubert encode: moving the last {n} frames "
+                             f"moved the first {n} by rel-L2 {early}: not "
+                             f"bidirectional")
+    return launches
+
+
+# HuBERT-XLarge at full size: launch/train.py's batch 8 of 500 frames of
+# audio_stream (seed 0), 5 steps as TRAIN_LLM's (0 warms up, 1 under sync
+# debug "error", 2-3 timed, 4 profiled), the config's AdamW
+TRAIN_HUBERT = dict(arch=HUBERT, batch=8, seq=500, steps=5, lr=3e-4,
+                    warmup=20, seed=0)
+
+
+def phase_train_hubert(torch, dev, tr, m):
+    """train_hubert: the audio encoder through launch/train.py's model and
+    stream (``init_model``, ``data_for``) and make_train_step.  Checks:
+    every loss finite; the sync-debug step clean; no kernel launched."""
+    c = TRAIN_HUBERT
+    cfg = tr.get_config(c["arch"])
+    t0 = time.perf_counter()
+    it = tr.data_for(cfg, c["batch"], c["seq"], c["seed"], dev)
+    batches = [next(it) for _ in range(c["steps"])]
+    draw_s = time.perf_counter() - t0
+    model = tr.init_model(cfg, dev, c["seed"])
+    lr_fn = tr.optimizer.cosine_schedule(c["lr"], c["warmup"], c["steps"])
+    _, _, losses, timing, launches = run_training(
+        torch, dev, model, tr, batches, lr_fn, warm=1, sync_step=1,
+        profile_step=c["steps"] - 1, label="train_hubert", m=m)
+    step_s = timing["step_ms"] / 1e3
+    flops = 3.0 * encoder_flops(cfg, c["batch"], c["seq"])
+    emit({"phase": "train_hubert", **c, "arch": cfg.name,
+          "params": sum(p.numel() for p in model.parameters()),
+          "dtype": cfg.dtype, "optimizer": cfg.optimizer, "remat": cfg.remat,
+          "batch_draw_s": draw_s, "losses": losses.tolist(),
+          "ln_vocab": float(np.log(cfg.vocab_size)),
+          "frames_per_s": c["batch"] * c["seq"] / step_s,
+          "model_flops_per_step": flops,
+          "train_mfu": flops / step_s / BF16_TC_FLOPS_PER_S, **timing,
+          "launches": launches, "card": smi()})
+    del model
+    free_memory(torch)
+    return launches
+
+
+def phase_vlm_audio(torch, dev, m, k, serve, attention, ref, tr) -> dict:
+    """The fourteenth slice: phase_vlm, then HuBERT-XLarge built, encoded
+    and freed, then trained.  Returns {label: launches} of every run."""
+    launches = phase_vlm(torch, dev, m, k, serve, attention, ref)
+    wl = k.LLMWorkload(arch=HUBERT)
+    model = build_llm(torch, dev, wl)
+    launches["hubert_encode"] = phase_encode(torch, dev, model, m,
+                                             attention, ref)
+    del model
+    free_memory(torch)
+    launches["train_hubert"] = phase_train_hubert(torch, dev, tr, m)
     return launches
 
 
@@ -3098,7 +3377,7 @@ def main() -> int:
     from repro_torch import tree as port_tree
     from repro_torch.configs import get_config
     from repro_torch.data import latent_stream, token_stream
-    from repro_torch.launch.train import init_model
+    from repro_torch.launch.train import data_for, init_model
     from repro_torch.models.dit import DiTModel
     from repro_torch.training import loop as train_loop
     from repro_torch.training import optimizer as train_optimizer
@@ -3131,8 +3410,9 @@ def main() -> int:
                         merge_assign=merge_assign,
                         unmerge_scatter=unmerge_scatter)
     merge_rows = phase_token_merge(torch, dev, k, build)
-    sal_row = phase_saliency_delta(torch, dev, ref, sal_mod, build)
-    blend_row = phase_linear_blend(torch, dev, ref, linear_blend, build)
+    sal_rows = phase_saliency_delta(torch, dev, ref, sal_mod, build)
+    blend_rows = phase_linear_blend(torch, dev, ref, linear_blend, build)
+    sal_row, blend_row = sal_rows[0], blend_rows[0]
 
     m = SimpleNamespace(
         CachedDiT=CachedDiT, FastCacheConfig=FastCacheConfig,
@@ -3264,13 +3544,24 @@ def main() -> int:
     launches_more.update(launches_ssm)
     emit({"phase": "ssm_llms", "seconds": time.perf_counter() - t0})
 
-    # ---- training and checkpoints: DiT-XL/2 and Qwen3-0.6B at full width
-    t0 = time.perf_counter()
+    # ---- the VLM (Qwen2-VL-2B) and audio (HuBERT-XLarge) families at
+    # full size: B7 bidirectional and at Qwen2-VL's prefill, the serves,
+    # the encode, the encoder's training
     tr = SimpleNamespace(loop=train_loop, optimizer=train_optimizer,
                          ckpt=ckpt_io, tree=port_tree, DiTModel=DiTModel,
                          get_config=get_config, init_model=init_model,
-                         latent_stream=latent_stream,
+                         data_for=data_for, latent_stream=latent_stream,
                          token_stream=token_stream)
+    t0 = time.perf_counter()
+    va_flash = phase_flash_attention(torch, dev, ref, flash_attention,
+                                     build, VLM_AUDIO_FLASH_SHAPES)
+    launches_more.update(phase_vlm_audio(
+        torch, dev, m, SimpleNamespace(LLMWorkload=LLMWorkload), llm_serve,
+        attention, ref, tr))
+    emit({"phase": "vlm_audio", "seconds": time.perf_counter() - t0})
+
+    # ---- training and checkpoints: DiT-XL/2 and Qwen3-0.6B at full width
+    t0 = time.perf_counter()
     trained, params, state, launches_train_dit = phase_train_dit(
         torch, dev, tr, m)
     phase_checkpoint(torch, dev, tr, trained, params, state)
@@ -3306,9 +3597,24 @@ def main() -> int:
     # Jamba's prefill shape: its exact serve (1 attention layer x 8)
     new_flash["j"]["launches"] = launches_more[
         "llm_serve_jamba_exact"]["flash_attention"]
+    # the fourteenth slice's: B7 bidirectional at HuBERT's heads (its
+    # encode) and at Qwen2-VL's prefill, B5 / B6 at d 1536 (its gated
+    # serve)
+    va_flash["k"]["launches"] = launches_more["hubert_encode"][
+        "flash_attention"]
+    va_fc = launches_more["llm_serve_qwen2_vl_fastcache"]
+    va_flash["m"]["launches"] = va_fc["flash_attention"]
+    vlm_rows = [va_flash["k"], va_flash["m"]]
+    for row in sal_rows + blend_rows:
+        if row["shape"] in ([4, 1, 1536], [4, 1536, 1536]):
+            row["launches"] = va_fc[row["name"]]
+            vlm_rows.append(row)
+    if len(vlm_rows) != 4:
+        raise AssertionError(f"{len(vlm_rows)} of the 4 rows at Qwen2-VL's "
+                             "and HuBERT's shapes")
     rows = [gate_row] + merge_rows + [sal_row, blend_row, flash_row,
                                       new_flash["e"], new_flash["g"],
-                                      new_flash["j"]]
+                                      new_flash["j"]] + vlm_rows
     for row in rows:
         row["serve_launches"] = {
             "serve": launches[row["name"]],

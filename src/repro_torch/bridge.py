@@ -149,12 +149,16 @@ def params_from_jax(np_tree: Mapping, model: DiTModel,
 def transformer_params_from_jax(np_tree: Mapping, model: TransformerModel
                                 ) -> TransformerModel:
     """Copy a reference ``TransformerModel`` parameter tree (``embed``,
-    ``final_norm``, optional ``lm_head`` and, for each position i of the
-    block pattern's period, the stacked ``blocks/pos{i}/<sub>/*`` with
-    leaves (n_super, ...): the mixer's sub-tree (``attn``, ``mamba``,
-    ``mlstm`` or ``slstm``) and an ``ffn`` or ``moe`` one where the layer
-    has it, the MoE's expert leaves (n, E, D, F) and its f32 router) into
-    ``model`` (in place) and return it.  Shapes and key sets must match
+    ``final_norm``, optional ``lm_head``; for the audio encoder
+    ``feat_proj``, ``feat_bias``, ``pos_conv`` and ``lm_head`` in place of
+    ``embed``; and, for each position i of the block pattern's period, the
+    stacked ``blocks/pos{i}/<sub>/*`` with leaves (n_super, ...): the
+    mixer's sub-tree (``attn``, with LayerNorm's ``norm_b`` in the
+    encoder, ``mamba``, ``mlstm`` or ``slstm``) and an ``ffn`` (SwiGLU, or
+    the encoder's GELU leaves ``norm_b``, ``w_in``, ``b_in``, ``w_out``,
+    ``b_out``) or ``moe`` one where the layer has it, the MoE's expert
+    leaves (n, E, D, F) and its f32 router) into ``model`` (in place) and
+    return it.  Shapes and key sets must match
     exactly; values are cast to the parameters' dtypes (bf16
     bit-copied)."""
     dev = model.device

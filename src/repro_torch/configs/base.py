@@ -1,5 +1,5 @@
-"""Config dataclasses for the DiT and the LLM serving paths (dense, MoE,
-SSM and hybrid).
+"""Config dataclasses for the DiT and the LLM paths (dense, MoE, SSM,
+hybrid, VLM and audio).
 
 The port keeps its own copy of the JAX package's config types
 (``repro/configs/base.py``; it imports nothing of ``repro``).  Only the
@@ -54,7 +54,7 @@ class DiTConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # ported: dit, dense, moe, ssm, hybrid
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio | dit
     num_layers: int
     d_model: int
     num_heads: int
@@ -64,7 +64,8 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // num_heads
     qk_norm: bool = False
     rope_theta: float = 1_000_000.0
-    rope_kind: str = "default"       # ported: default | none
+    rope_kind: str = "default"       # default | mrope | none
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)   # per-axis half-dims (t,h,w)
     is_encoder: bool = False         # bidirectional attention, no decode step
     tie_embeddings: bool = False
     sliding_window: int = 0          # 0 = full attention; >0 enables SWA variant
@@ -75,6 +76,9 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     dit: Optional[DiTConfig] = None
+    # Audio/VLM frontends are stubbed: inputs are precomputed embeddings.
+    frontend_dim: int = 0            # e.g. hubert conv-feature dim (512)
+    vision_tokens: int = 0           # VLM: number of image-patch embeddings
     dtype: str = "bfloat16"
     # Training
     optimizer: str = "adamw"         # adamw | adafactor

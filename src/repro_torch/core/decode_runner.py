@@ -107,7 +107,7 @@ class CachedDecoder:
         if cfg.qk_norm:
             k = common.rms_norm(k, p_attn.k_norm, cfg.norm_eps)
         k = common.rope_dispatch(k, decode_pos[:, None], cfg.rope_kind,
-                                 cfg.rope_theta)
+                                 cfg.rope_theta, cfg.mrope_sections)
         layers.write_kv(cache, k, v, decode_pos)
 
     @torch.no_grad()
@@ -119,7 +119,7 @@ class CachedDecoder:
         fc = self.fc
         fcp = self.fc_params
         step = cache["step"]
-        x = m.embed(tokens[:, None])                       # (B,1,D)
+        x = m.embed({"tokens": tokens[:, None]})           # (B,1,D)
         b = x.shape[0]
         positions = step[:, None]
         nd = int(x.shape[-1])                # per-sample elements (one token)

@@ -5,7 +5,9 @@ optional FastCache decode gating, on one CUDA card (the reference's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --fastcache --json
 
-``--arch`` takes any registered LLM id (dense, MoE, hybrid or SSM).
+``--arch`` takes any registered LLM id (dense, MoE, hybrid, SSM or VLM);
+an encoder id (hubert-xlarge) exits with the reference's "encoder-only"
+line.
 ``--num-layers N`` keeps the config's width and cuts its depth to N layers
 (0: the config's own; a multiple of the block pattern's period), so that a
 full-width MoE (arctic-480b, kimi-k2-1t-a32b: 480 B and 1 T parameters) or
@@ -37,8 +39,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import LLM_IDS, get_config, get_reduced
-from repro_torch.configs.base import FastCacheConfig
+from repro_torch.configs import (ENCODER_IDS, LLM_IDS, get_config,
+                                 get_reduced)
+from repro_torch.configs.base import FastCacheConfig, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import TransformerModel
@@ -63,14 +66,17 @@ class LLMWorkload:
     greedy: bool = True             # False: sample each first token
     seed: int = 0                   # weights and prompts
 
-    def build_model(self, device) -> TransformerModel:
+    def config(self) -> ModelConfig:
         cfg = get_reduced(self.arch) if self.reduced else get_config(self.arch)
         if self.reduced:
             cfg = cfg.replace(dtype="float32")
         if self.num_layers:
             cfg = cfg.replace(num_layers=self.num_layers)
+        return cfg
+
+    def build_model(self, device) -> TransformerModel:
         dev = resolve_device(device)
-        return build_model(cfg, device=dev).init(
+        return build_model(self.config(), device=dev).init(
             torch.Generator(dev).manual_seed(self.seed))
 
     def build_engine(self, model: TransformerModel) -> ServingEngine:
@@ -159,7 +165,8 @@ def serve(wl: LLMWorkload, model: TransformerModel
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default=LLMWorkload.arch, choices=LLM_IDS)
+    ap.add_argument("--arch", default=LLMWorkload.arch,
+                    choices=LLM_IDS + ENCODER_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--num-layers", type=int, default=LLMWorkload.num_layers,
                     help="cut the config's depth to this many layers at its "
@@ -186,6 +193,9 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     wl = LLMWorkload(**{f.name: getattr(args, f.name)
                         for f in dataclasses.fields(LLMWorkload)})
+    cfg = wl.config()
+    if cfg.is_encoder:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     model = wl.build_model(args.device)
     wl, line = exact_fallback(wl, model)
     if line is not None:

@@ -8,9 +8,12 @@ one model on one device, random initial weights, a synthetic stream.
     PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \\
         --reduced --steps 10 --batch 4 --seq 64 --device cpu
 
-Families: the DiT, the dense LMs and the MoE LMs (the MoE's loss adds the
+Families: the DiT, the dense LMs, the MoE LMs (the MoE's loss adds the
 router's aux; arctic-480b and kimi-k2-1t-a32b name Adafactor, which factors
-each stacked (L, E, D, F) expert leaf over its last two axes).
+each stacked (L, E, D, F) expert leaf over its last two axes), the VLM
+(qwen2-vl-2b, on text-only token batches, as the reference's launcher
+feeds it) and the audio encoder (hubert-xlarge, masked prediction on the
+synthetic ``audio_stream``; ``--seq`` is its frame count).
 
 Defaults and printed lines are the reference's.  ``--reduced`` trains the
 smoke-scale config in f32.  Weights come from ``torch.Generator`` seeded
@@ -20,9 +23,8 @@ adaLN-zero modulation and head start at zero, as the reference's
 seed.  ``--save`` writes the trained parameters as the reference's tree
 (``checkpoint.save``, loadable by the reference's ``load`` in f32).  The
 reference's ``--production-mesh`` (multi-device sharding) is not ported;
-the audio family is not ported either, so its configs raise; the SSM and
-hybrid families (xlstm-1.3b, jamba-v0.1-52b) serve but do not train in the
-port yet (ROADMAP A6), so the launcher refuses them.
+the SSM and hybrid families (xlstm-1.3b, jamba-v0.1-52b) serve but do not
+train in the port yet (ROADMAP A6), so the launcher refuses them.
 """
 from __future__ import annotations
 

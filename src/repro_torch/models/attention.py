@@ -84,8 +84,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Full-sequence attention, q (B,S,H,dh), k/v (B,S,KVH,dh), through the
     ``flash_attention`` wrapper (strided views, no copy).  Positions are
     implicit (``arange(S)``, the kernel's end-aligned positions at
-    Sq == Skv); explicit ``positions`` must equal them, or this raises: only
-    the dense family's attention is ported."""
+    Sq == Skv); explicit ``positions`` (B, S) (M-RoPE's t axis, as
+    ``layers.attn_apply`` passes it) must equal them, or this raises:
+    attention masked by other positions is not ported (ROADMAP A3).
+    Checking them reads one flag back to the host."""
     s = q.shape[1]
     if k.shape[1] != s:
         raise ValueError(f"full-sequence attention needs Sq == Skv, got "

@@ -1,7 +1,8 @@
 """Shared model building blocks (the reference's ``models/common.py``):
-matmuls with f32 accumulation, RMSNorm, RoPE, SwiGLU, the depthwise causal
-conv of the Mamba and mLSTM mixers, and for the DiT adaLN modulation, the
-tanh-GELU MLP, timestep embedding and (un)patchify.
+matmuls with f32 accumulation, RMSNorm, LayerNorm, RoPE and M-RoPE,
+SwiGLU, the tanh-GELU MLP (the audio family's FFN and the DiT's), the
+depthwise causal conv of the Mamba and mLSTM mixers, and for the DiT adaLN
+modulation, timestep embedding and (un)patchify.
 
 ``fdot``/``feinsum`` mirror the reference's ``preferred_element_type=f32``
 followed by a cast back: PyTorch's matmul on bf16 operands accumulates in
@@ -13,7 +14,7 @@ PyTorch's default for matmul).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,14 +38,32 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * w.to(F32)).to(x.dtype)
 
 
-def _rope_angles(positions: torch.Tensor, half_dim: int,
-                 theta: float) -> torch.Tensor:
-    """positions (...,) -> angles (..., half_dim), f32.  ``theta`` stays a
-    Python scalar: a tensor made from it on the card would be a host copy
-    that synchronizes."""
-    exps = torch.arange(half_dim, dtype=F32, device=positions.device) / half_dim
-    inv_freq = 1.0 / theta ** exps
-    return positions.to(F32)[..., None] * inv_freq
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * w.to(F32) + b.to(F32)
+    return out.to(x.dtype)
+
+
+def _inv_freq(half_dim: int, theta: float,
+              device: torch.device) -> torch.Tensor:
+    """(half_dim,) f32 rotary frequencies.  ``theta`` stays a Python
+    scalar: a tensor made from it on the card would be a host copy that
+    synchronizes."""
+    exps = torch.arange(half_dim, dtype=F32, device=device) / half_dim
+    return 1.0 / theta ** exps
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Split-half rotation of x (B, S, H, dh) by angles (B, S, dh/2), in
+    f32, cast back."""
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -54,23 +73,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     dh = x.shape[-1]
     if positions.ndim == 1:
         positions = positions[None, :]
-    ang = _rope_angles(positions, dh // 2, theta)          # (B, S, dh/2)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x.to(F32).chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    ang = positions.to(F32)[..., None] * _inv_freq(dh // 2, theta, x.device)
+    return _rotate(x, ang)
 
 
-def rope_dispatch(x: torch.Tensor, positions, kind: str,
-                  theta: float) -> torch.Tensor:
-    """``kind`` "none" (or no positions) leaves x as it is; "default" is
-    ``apply_rope``.  M-RoPE is not ported and raises."""
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Tuple[int, ...], theta: float) -> torch.Tensor:
+    """Qwen2-VL's multi-axis RoPE.  x: (B, S, H, dh); positions (B, S, A)
+    with A == len(sections): the rotary half-dims are split into
+    ``sections`` (summing to dh // 2), each rotated with its own position
+    axis (t, h, w).  Where the A axes agree this is ``apply_rope``, angle
+    for angle."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"mrope sections {sections} must sum to half the "
+                         f"head dim ({dh} // 2 = {dh // 2})")
+    lead = positions.shape[:2]
+    pos = torch.cat([positions[..., i, None].to(F32).expand(*lead, n)
+                     for i, n in enumerate(sections)], dim=-1)
+    return _rotate(x, pos * _inv_freq(dh // 2, theta, x.device))
+
+
+def rope_dispatch(x: torch.Tensor, positions, kind: str, theta: float,
+                  sections: Tuple[int, ...]) -> torch.Tensor:
+    """``kind`` "none" (or no positions) leaves x as it is; "mrope" is
+    ``apply_mrope``, 2-d (text-only) positions repeated over the sections'
+    axes; any other kind is ``apply_rope``, as in the reference
+    (``TransformerModel`` refuses kinds the reference does not name)."""
     if kind == "none" or positions is None:
         return x
-    if kind != "default":
-        raise NotImplementedError(f"rope_kind {kind!r} is not ported; only "
-                                  "'default' and 'none'")
+    if kind == "mrope":
+        if positions.ndim == 2:
+            positions = positions[..., None].expand(*positions.shape,
+                                                    len(sections))
+        return apply_mrope(x, positions, sections, theta)
     return apply_rope(x, positions, theta)
 
 

@@ -1,13 +1,14 @@
-"""Attention, SwiGLU FFN and MoE layer bodies and their parameter
-definitions, after the reference's ``models/layers.py`` (``attn_defs``,
-``_qkv``, ``attn_apply``, ``attn_cache_defs``, ``ffn_defs``, ``ffn_apply``,
-``moe_defs``, ``moe_capacity``, ``moe_gather_apply``, ``moe_apply``).
+"""Attention, FFN (SwiGLU, or the audio family's LayerNorm + GELU) and MoE
+layer bodies and their parameter definitions, after the reference's
+``models/layers.py`` (``attn_defs``, ``_qkv``, ``attn_apply``,
+``attn_cache_defs``, ``ffn_defs``, ``ffn_apply``, ``moe_defs``,
+``moe_capacity``, ``moe_gather_apply``, ``moe_apply``).
 
 Each ``*_defs`` returns a dict of ``ParamDef`` (shape, init kind, scale,
 dtype override), the reference's ParamDefs without the sharding axes;
 ``ParamGroup`` materializes one dict as the parameters of a module, so a
 layer's parameters are attributes (``p.wq``) where the reference reads
-``p["wq"]``.  The GELU FFN is not ported.
+``p["wq"]``.
 
 KV caches are updated in place: the decode step writes one slot per sample
 into the cache it is given and the prefill fills the (empty) cache it is
@@ -98,6 +99,8 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     if cfg.qk_norm:
         out["q_norm"] = ParamDef((dh,), "ones", dtype="float32")
         out["k_norm"] = ParamDef((dh,), "ones", dtype="float32")
+    if cfg.is_encoder and cfg.family == "audio":      # LayerNorm's bias
+        out["norm_b"] = ParamDef((d,), "zeros", dtype="float32")
     return out
 
 
@@ -108,8 +111,10 @@ def _qkv(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = common.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = common.rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = common.rope_dispatch(q, positions, cfg.rope_kind, cfg.rope_theta)
-    k = common.rope_dispatch(k, positions, cfg.rope_kind, cfg.rope_theta)
+    q = common.rope_dispatch(q, positions, cfg.rope_kind, cfg.rope_theta,
+                             cfg.mrope_sections)
+    k = common.rope_dispatch(k, positions, cfg.rope_kind, cfg.rope_theta,
+                             cfg.mrope_sections)
     return q, k, v
 
 
@@ -145,7 +150,9 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                decode_pos: Optional[torch.Tensor] = None,
                window: int = 0, train: bool = False
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Pre-norm attention sublayer with residual.
+    """Pre-norm attention sublayer with residual.  ``positions`` are (B, S)
+    or, under M-RoPE, the reference's (B, S, 3); the mask and the cache
+    take the t axis (``[..., 0]``), as the reference's ``pos1d``.
 
     * train:        ``cache=None, decode_pos=None, train=True`` — full
       self-attention through ``attend_direct``, which autograd
@@ -157,7 +164,10 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
     * decode:       ``cache`` holds K/V; ``decode_pos`` (B,) current
       positions; this position's K/V are written at slot decode_pos % w.
     """
-    h_in = common.rms_norm(x, p.norm, cfg.norm_eps)
+    if "norm_b" in p.defs:                          # the audio encoder
+        h_in = common.layer_norm(x, p.norm, p.norm_b, cfg.norm_eps)
+    else:
+        h_in = common.rms_norm(x, p.norm, cfg.norm_eps)
     causal = not cfg.is_encoder
     if decode_pos is not None:                       # ---- decode (Sq == 1)
         if cache is None:
@@ -173,14 +183,15 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
         if rope_pos is None:
             rope_pos = torch.arange(s, device=x.device)[None]    # (1, S)
         q, k, v = _qkv(p, h_in, cfg, rope_pos)
+        pos1d = rope_pos[..., 0] if rope_pos.ndim == 3 else rope_pos
         if train:
-            out = attend_direct(q, k, v, rope_pos, rope_pos, causal=causal,
+            out = attend_direct(q, k, v, pos1d, pos1d, causal=causal,
                                 window=window)
         else:
-            out = attention(q, k, v, positions, causal=causal,
-                            window=window)
+            out = attention(q, k, v, None if positions is None else pos1d,
+                            causal=causal, window=window)
         if cache is not None:                        # prefill: fill the cache
-            pc = rope_pos.to(torch.int32).expand(x.shape[0], s)
+            pc = pos1d.to(torch.int32).expand(x.shape[0], s)
             _prefill_fill(cache, k, v, pc)
     proj = common.feinsum("bshk,hkd->bsd", out, p.wo)
     return x + proj, cache
@@ -209,23 +220,37 @@ def attn_cache_defs(cfg: ModelConfig, batch: int,
 
 
 # --------------------------------------------------------------------------
-# Dense FFN (SwiGLU)
+# Dense FFN (SwiGLU, or LayerNorm + GELU for the audio family)
 # --------------------------------------------------------------------------
 
-def ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    """SwiGLU only (the reference's ``kind="gelu"`` is the audio family's)."""
+def ffn_defs(cfg: ModelConfig, kind: str = "swiglu") -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
-    return {
-        "norm": ParamDef((d,), "ones", dtype="float32"),
-        "w_gate": ParamDef((d, f), "fan_in"),
-        "w_up": ParamDef((d, f), "fan_in"),
-        "w_down": ParamDef((f, d), "fan_in",
-                           scale=1.0 / max(1, cfg.num_layers) ** 0.5),
-    }
+    out_scale = 1.0 / max(1, cfg.num_layers) ** 0.5
+    out = {"norm": ParamDef((d,), "ones", dtype="float32")}
+    if kind == "swiglu":
+        out.update({
+            "w_gate": ParamDef((d, f), "fan_in"),
+            "w_up": ParamDef((d, f), "fan_in"),
+            "w_down": ParamDef((f, d), "fan_in", scale=out_scale),
+        })
+    else:                                            # gelu
+        out.update({
+            "norm_b": ParamDef((d,), "zeros", dtype="float32"),
+            "w_in": ParamDef((d, f), "fan_in"),
+            "b_in": ParamDef((f,), "zeros"),
+            "w_out": ParamDef((f, d), "fan_in", scale=out_scale),
+            "b_out": ParamDef((d,), "zeros"),
+        })
+    return out
 
 
 def ffn_apply(p: ParamGroup, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU after RMSNorm, or, where the layer has ``w_in``, the tanh-GELU
+    MLP (biases added in the model dtype) after LayerNorm."""
+    if "w_in" in p.defs:
+        h = common.layer_norm(x, p.norm, p.norm_b, cfg.norm_eps)
+        return x + common.gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out)
     h = common.rms_norm(x, p.norm, cfg.norm_eps)
     return x + common.swiglu(h, p.w_gate, p.w_up, p.w_down)
 

@@ -1,7 +1,6 @@
 """Model construction from config (the reference's
 ``models/registry.py:build_model``): the DiT, and ``TransformerModel`` for
-the LM families, dense, MoE, SSM and hybrid (it raises for the families
-not ported)."""
+every other family (dense, MoE, SSM, hybrid, VLM and audio)."""
 from __future__ import annotations
 
 from typing import Union

@@ -1,11 +1,21 @@
-"""Decoder-only LM, after the reference's
-``models/transformer.py:TransformerModel``, for the dense, MoE, SSM and
-hybrid families.  Layers follow ``cfg.block_pattern`` (one period, tiled
-over the depth; empty means attention only): a layer's mixer is attention,
-Mamba, mLSTM or sLSTM, and an attention or Mamba mixer is followed by a
-SwiGLU FFN, or by an MoE layer where ``_moe_at`` says so (every layer of
-the MoE family, the odd positions of Jamba's period); mLSTM and sLSTM
-blocks, and a config with ``d_ff == 0``, have neither.
+"""The LM of the reference's ``models/transformer.py:TransformerModel``,
+for the dense, MoE, SSM, hybrid, VLM and audio families.  Layers follow
+``cfg.block_pattern`` (one period, tiled over the depth; empty means
+attention only): a layer's mixer is attention, Mamba, mLSTM or sLSTM, and
+an attention or Mamba mixer is followed by a SwiGLU FFN (the audio
+family's: LayerNorm and a tanh-GELU MLP), or by an MoE layer where
+``_moe_at`` says so (every layer of the MoE family, the odd positions of
+Jamba's period); mLSTM and sLSTM blocks, and a config with ``d_ff == 0``,
+have neither.
+
+The entry points take the reference's batch dict: ``tokens`` (B, S), with
+``vision_embeds`` (B, vision_tokens, D) and ``vision_mask`` (B, S) for the
+VLM (the vision encoder is a stub: its embeddings replace the masked
+positions' token embeddings), or ``features`` (B, S, frontend_dim) for the
+audio encoder (its conv frontend is a stub: a projection and a 15-tap
+positional conv); optional ``positions``, (B, S) or (B, S, 3) for
+M-RoPE.  The audio encoder has no embedding table and an untied head, and
+attends bidirectionally; it has no decode step.
 
 The reference scans one stacked ``blocks/pos{i}`` tree per period position
 over the ``n_super`` periods; the port keeps one ``TransformerBlock`` per
@@ -18,17 +28,17 @@ attention layers, ``<kind>_<leaf>`` over each mixer kind's layers (e.g.
 ``mamba_ssm`` (n_mamba, B, di, ds) f32, ``mlstm_C`` (n_mlstm, B, H, dh,
 dh) f32), and ``step`` (B,) int32.  A dense or MoE model's cache is thus
 ``k``/``v``/``pos`` over all L layers and ``step``.  ``layer_cache`` gives
-one layer's views; ``decode_step`` updates the cache in place.  M-RoPE,
-the VLM / audio frontends and ``prefix_groups`` are not ported: a config
-that needs them raises.
+one layer's views; ``decode_step`` updates the cache in place.
+``prefix_groups`` is not ported.
 
 ``forward_train`` and ``loss`` are the reference's ``apply(...,
 train=True)`` and ``loss``, for attention-only stacks: attention through
 ``attend_direct`` (autograd cannot differentiate the ``flash_attention``
 kernel), each layer checkpointed when ``cfg.remat`` is set (its MoE aux
 loss with it), and the cross-entropy over the vocabulary head in chunks
-(``chunked_ce``) plus the layers' MoE aux losses.  Training a stack with
-another mixer kind is not ported and raises.
+(``chunked_ce``) plus the layers' MoE aux losses: next-token for the
+decoders, masked prediction of ``targets`` for the audio encoder.
+Training a stack with another mixer kind is not ported and raises.
 """
 from __future__ import annotations
 
@@ -46,7 +56,10 @@ from repro_torch.models.layers import ParamDef, ParamGroup
 
 F32 = torch.float32
 Cache = Dict[str, torch.Tensor]
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+Batch = Dict[str, torch.Tensor]
+POS_CONV_TAPS = 15        # the audio frontend's positional conv, pad 7 / 7
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+ROPE_KINDS = ("default", "mrope", "none")
 # each mixer kind: (its parameter defs, its decode state's defs, its apply)
 MIXERS = {"mamba": (mamba.mamba_defs, mamba.mamba_state_defs,
                     mamba.mamba_apply),
@@ -82,7 +95,9 @@ class TransformerBlock(nn.Module):
                 self.moe = ParamGroup(layers.moe_defs(cfg), dtype, device)
                 self.subs += ("moe",)
             else:
-                self.ffn = ParamGroup(layers.ffn_defs(cfg), dtype, device)
+                kind_ff = "gelu" if cfg.family == "audio" else "swiglu"
+                self.ffn = ParamGroup(layers.ffn_defs(cfg, kind_ff), dtype,
+                                      device)
                 self.subs += ("ffn",)
 
 
@@ -93,9 +108,9 @@ class TransformerModel(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: only the {', '.join(FAMILIES)} families are "
                 f"ported; got family={cfg.family!r}")
-        if cfg.rope_kind not in ("default", "none"):
+        if cfg.rope_kind not in ROPE_KINDS:
             raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
-                                      "ported")
+                                      f"one of {ROPE_KINDS}")
         self.cfg = cfg
         self.kinds = cfg.block_pattern or ("attn",)
         self.period = len(self.kinds)
@@ -128,12 +143,17 @@ class TransformerModel(nn.Module):
 
     def _top_defs(self) -> Dict[str, ParamDef]:
         cfg = self.cfg
-        defs = {"final_norm": ParamDef((cfg.d_model,), "ones",
-                                       dtype="float32"),
-                "embed": ParamDef((cfg.vocab_size, cfg.d_model), "normal")}
-        if not cfg.tie_embeddings:
-            defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
-                                       "fan_in")
+        d = cfg.d_model
+        defs = {"final_norm": ParamDef((d,), "ones", dtype="float32")}
+        if cfg.family == "audio":
+            defs.update({
+                "feat_proj": ParamDef((cfg.frontend_dim, d), "fan_in"),
+                "feat_bias": ParamDef((d,), "zeros"),
+                "pos_conv": ParamDef((POS_CONV_TAPS, d), "fan_in")})
+        else:
+            defs["embed"] = ParamDef((cfg.vocab_size, d), "normal")
+        if cfg.family == "audio" or not cfg.tie_embeddings:
+            defs["lm_head"] = ParamDef((d, cfg.vocab_size), "fan_in")
         return defs
 
     @torch.no_grad()
@@ -153,9 +173,36 @@ class TransformerModel(nn.Module):
     # Embedding / head
     # ------------------------------------------------------------------
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int -> (B, S, D) in the model dtype."""
-        return self.top.embed[tokens]
+    def embed(self, batch: Batch) -> torch.Tensor:
+        """The batch's inputs -> (B, S, D) in the model dtype.
+
+        Audio: ``features`` cast to the model dtype, projected, then the
+        symmetric depthwise positional conv (taps accumulated in f32 in the
+        reference's order, zero padding 7 / 7) added through a tanh GELU.
+        Otherwise the ``tokens``' embeddings; for the VLM, position s takes
+        vision embedding ``clip(cumsum(vision_mask)[s] - 1, 0, V - 1)``
+        where ``vision_mask`` is set (so mask positions past the V-th reuse
+        the last embedding)."""
+        top = self.top
+        if self.cfg.family == "audio":
+            x = common.fdot(batch["features"].to(self.dtype),
+                            top.feat_proj) + top.feat_bias
+            k, s = top.pos_conv.shape[0], x.shape[1]
+            xp = F.pad(x, (0, 0, k // 2, k - 1 - k // 2))
+            pos = torch.zeros(x.shape, dtype=F32, device=x.device)
+            for i in range(k):
+                pos = pos + xp[:, i:i + s].to(F32) * top.pos_conv[i].to(F32)
+            return x + F.gelu(pos, approximate="tanh").to(x.dtype)
+        x = top.embed[batch["tokens"]]
+        if self.cfg.family == "vlm" and "vision_embeds" in batch:
+            vis, msk = batch["vision_embeds"], batch["vision_mask"]
+            idx = torch.clamp(torch.cumsum(msk.to(torch.int32), dim=1) - 1,
+                              0, vis.shape[1] - 1)
+            scattered = torch.gather(
+                vis.to(x.dtype), 1,
+                idx[..., None].expand(*idx.shape, x.shape[-1]))
+            x = torch.where(msk[..., None], scattered, x)
+        return x
 
     def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -212,20 +259,21 @@ class TransformerModel(nn.Module):
         return x, c, 0.0
 
     @torch.no_grad()
-    def apply(self, tokens: torch.Tensor,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full-sequence forward (train / encode): the final-normed hidden
-        states (B, S, D) (the reference's ``apply(...)[0]``)."""
-        x = self.embed(tokens)
+    def apply(self, batch: Batch) -> torch.Tensor:
+        """Full-sequence forward (encode): the final-normed hidden states
+        (B, S, D) (the reference's ``apply(...)[0]``)."""
+        x = self.embed(batch)
+        positions = batch.get("positions")
         for bp in self.blocks:
             x = self.block_apply(bp, x, positions=positions)[0]
         return common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
 
-    def _train_block(self, bp: TransformerBlock, x: torch.Tensor):
-        x, _, aux = self.block_apply(bp, x, train=True)
+    def _train_block(self, bp: TransformerBlock, x: torch.Tensor,
+                     positions: Optional[torch.Tensor]):
+        x, _, aux = self.block_apply(bp, x, positions=positions, train=True)
         return x, aux
 
-    def forward_train(self, tokens: torch.Tensor
+    def forward_train(self, batch: Batch
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The differentiable full-sequence forward: (final-normed hidden
         states (B, S, D), the layers' summed MoE aux loss) with autograd.
@@ -235,15 +283,16 @@ class TransformerModel(nn.Module):
             raise NotImplementedError(
                 f"{self.cfg.name}: training a stack of {self.kinds} is not "
                 "ported (ROADMAP A6: the SSM and hybrid families)")
-        x = self.embed(tokens)
+        x = self.embed(batch)
+        positions = batch.get("positions")
         aux = torch.zeros((), dtype=F32, device=x.device)
         for bp in self.blocks:
             if self.cfg.remat:
-                x, a = checkpoint(self._train_block, bp, x,
+                x, a = checkpoint(self._train_block, bp, x, positions,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = self._train_block(bp, x)
+                x, a = self._train_block(bp, x, positions)
             if torch.is_tensor(a):                    # an MoE layer's
                 aux = aux + a
         return (common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps),
@@ -253,18 +302,26 @@ class TransformerModel(nn.Module):
     # Loss (chunked cross-entropy over the vocab head)
     # ------------------------------------------------------------------
 
-    def loss(self, batch: Dict[str, torch.Tensor]
+    def loss(self, batch: Batch
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token cross-entropy over ``batch["tokens"]`` (B, S), the
+        """Cross-entropy: for the audio encoder over ``batch["targets"]``
+        (B, S) where ``batch["mask_indices"]`` is set (every position
+        without it); else next-token over ``batch["tokens"]`` (B, S), the
         last position masked out (and by ``batch["loss_mask"]`` if given).
         Returns (loss, {"nll", "moe_aux", "tokens"}), the loss the mean
         nll plus the MoE aux."""
-        hidden, aux = self.forward_train(batch["tokens"])
-        tokens = batch["tokens"]
-        targets = F.pad(tokens[:, 1:], (0, 1))
-        mask = F.pad(torch.ones_like(tokens[:, 1:], dtype=F32), (0, 1))
-        if "loss_mask" in batch:
-            mask = mask * batch["loss_mask"].to(F32)
+        hidden, aux = self.forward_train(batch)
+        if self.cfg.family == "audio":
+            targets = batch["targets"]
+            mask = torch.ones(targets.shape, dtype=F32, device=targets.device)
+            if "mask_indices" in batch:
+                mask = batch["mask_indices"].to(F32)
+        else:
+            tokens = batch["tokens"]
+            targets = F.pad(tokens[:, 1:], (0, 1))
+            mask = F.pad(torch.ones_like(tokens[:, 1:], dtype=F32), (0, 1))
+            if "loss_mask" in batch:
+                mask = mask * batch["loss_mask"].to(F32)
         nll, denom = chunked_ce(hidden, self._head_matrix(), targets, mask)
         mean = nll / torch.clamp(denom, min=1.0)
         return mean + aux, {"nll": mean, "moe_aux": aux, "tokens": denom}
@@ -309,30 +366,38 @@ class TransformerModel(nn.Module):
                 if key.startswith(pre)}
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, window: int
+    def prefill(self, batch: Batch, window: int
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Full causal forward over tokens (B, S) that also builds the
-        decode cache of ``window`` slots.  Attention is sliding-window with
-        that window.  Returns (last-position logits (B, V), cache)."""
-        b, s = tokens.shape
+        """Full causal forward over the batch's S positions that also
+        builds the decode cache of ``window`` slots.  Attention is
+        sliding-window with that window.  Returns (last-position logits
+        (B, V), cache)."""
+        x = self.embed(batch)
+        b, s = x.shape[:2]
+        positions = batch.get("positions")
         cache = self.init_cache(b, window)
-        x = self.embed(tokens)
         for l, bp in enumerate(self.blocks):
-            x = self.block_apply(bp, x, cache=self.layer_cache(cache, l),
+            x = self.block_apply(bp, x, positions=positions,
+                                 cache=self.layer_cache(cache, l),
                                  window=window)[0]
         x = common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
         cache["step"].fill_(s)
         return self.unembed(x[:, -1]), cache
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, cache: Cache
+    def decode_step(self, tokens: torch.Tensor, cache: Cache,
+                    extra: Optional[Batch] = None
                     ) -> Tuple[torch.Tensor, Cache]:
-        """tokens: (B,) int. Returns (logits (B, V), cache), the cache
-        updated in place (one K/V slot per attention layer and sample, each
-        mixer's state one step on, step + 1)."""
+        """tokens: (B,) int; ``extra`` joins the one-token batch (a VLM's
+        ``vision_embeds`` / ``vision_mask``).  Returns (logits (B, V),
+        cache), the cache updated in place (one K/V slot per attention
+        layer and sample, each mixer's state one step on, step + 1)."""
         step = cache["step"]                                 # (B,)
-        x = self.embed(tokens[:, None])
+        x = self.embed({"tokens": tokens[:, None], **(extra or {})})
         positions = step[:, None]
+        if self.cfg.rope_kind == "mrope":          # one position, every axis
+            positions = positions[..., None].expand(
+                -1, -1, len(self.cfg.mrope_sections))
         for l, bp in enumerate(self.blocks):
             x = self.block_apply(
                 bp, x, positions=positions, cache=self.layer_cache(cache, l),

@@ -93,7 +93,7 @@ class ServingEngine:
         every leaf (K/V/pos and each mixer's state, (n, B, ...)) along its
         batch axis 1, ``step`` along axis 0."""
         tokens = to_device(np.asarray(prompt, np.int64)[None], self.device)
-        logits, one = self.model.prefill(tokens, self.window)
+        logits, one = self.model.prefill({"tokens": tokens}, self.window)
         for key, leaf in one.items():
             if key != "step":
                 self.cache[key][:, slot].copy_(leaf[:, 0])

@@ -11,6 +11,7 @@ violations and bound violations exact; per-slot ``audit_err_sum`` /
 ``audit_err_sq_sum``, per-layer means and histogram sums at rtol 1e-4
 (f32 sums in another order).
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import json
 
 import jax

@@ -20,6 +20,7 @@ sums).
 The fastcache serve with the fitted maps: counters and gate decisions
 exact, latents within 1e-4 of their scale (``tests/test_torch_serving``).
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ as in the reference; metadata round-trips.  (The reference cannot read its
 own bf16 checkpoint back: ``np.savez`` stores an ml_dtypes leaf as
 ``|V2`` and ``load`` cannot cast it; ROADMAP, faults of the reference.
 So the cross-package checks use f32 trees.)"""
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import json
 
 import jax

@@ -631,12 +631,12 @@ def test_full_width_prefill_kernel_matches_plain_path(cuda_device,
     prompt = torch.from_numpy(wl.build_requests(model)[0].prompt).long()
     tokens = prompt[None].to(cuda_device)
     before = flash_attention.launches
-    logits, cache = model.prefill(tokens, wl.window)
+    logits, cache = model.prefill({"tokens": tokens}, wl.window)
     torch.cuda.synchronize(cuda_device)
     assert flash_attention.launches - before == model.cfg.num_layers
     with monkeypatch.context() as m:
         m.setattr(attention, "flash_attention", ref.flash_attention)
-        plain_logits, plain_cache = model.prefill(tokens, wl.window)
+        plain_logits, plain_cache = model.prefill({"tokens": tokens}, wl.window)
     assert flash_attention.launches - before == model.cfg.num_layers
     assert torch.equal(cache["pos"], plain_cache["pos"])
     a, b = logits.float(), plain_logits.float()
@@ -659,12 +659,12 @@ def test_llm_prefill_and_decode_make_no_host_sync(cuda_device):
     gen = torch.Generator(cuda_device).manual_seed(1)
     tokens = torch.randint(0, model.cfg.vocab_size, (2, 40), generator=gen,
                            device=cuda_device)
-    _, warm = model.prefill(tokens[:, :8], 16)     # first calls of each op
+    _, warm = model.prefill({"tokens": tokens[:, :8]}, 16)     # first calls of each op
     model.decode_step(tokens[:, 8], warm)
     torch.cuda.synchronize(cuda_device)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, cache = model.prefill(tokens, 16)
+        _, cache = model.prefill({"tokens": tokens}, 16)
         for i in range(3):
             model.decode_step(tokens[:, i], cache)
     finally:
@@ -1410,6 +1410,13 @@ def _train_pair(arch, dev):
         batch = {k: torch.from_numpy(v.astype(np.float32 if v.dtype.kind
                                                 == "f" else np.int32))
                  for k, v in batch.items()}
+    elif cfg.family == "audio":
+        batch = {"features": torch.from_numpy(rng.standard_normal(
+                     (3, 24, cfg.frontend_dim)).astype(np.float32)),
+                 "targets": torch.from_numpy(rng.integers(
+                     0, cfg.vocab_size, (3, 24)).astype(np.int32)),
+                 "mask_indices": torch.from_numpy(rng.random((3, 24))
+                                                  < 0.3)}
     else:
         batch = {"tokens": torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (3, 24)).astype(np.int32))}
@@ -1457,7 +1464,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["dit-xl2", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["dit-xl2", "qwen3-0.6b", "qwen2-vl-2b",
+                                  "hubert-xlarge"])
 def test_train_steps_sync_free_without_flash_attention(cuda_device, arch):
     """Training on the card: a step after warm-up makes no host sync (sync
     debug "error"), flash_attention (no autograd) is never launched, and
@@ -1520,12 +1528,12 @@ def test_ssm_exact_decode_makes_one_sync_a_step(cuda_device, arch):
     gen = torch.Generator(cuda_device).manual_seed(1)
     tokens = torch.randint(0, model.cfg.vocab_size, (2, 40), generator=gen,
                            device=cuda_device)
-    _, warm = model.prefill(tokens[:, :8], 16)     # first calls of each op
+    _, warm = model.prefill({"tokens": tokens[:, :8]}, 16)     # first calls of each op
     model.decode_step(tokens[:, 8], warm)
     torch.cuda.synchronize(cuda_device)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, cache = model.prefill(tokens, 16)
+        _, cache = model.prefill({"tokens": tokens}, 16)
         for i in range(3):
             model.decode_step(tokens[:, i], cache)
     finally:
@@ -1554,8 +1562,8 @@ def test_ssm_engine_splices_every_leaf_in_place(cuda_device, arch):
     before = {k: t.clone() for k, t in eng.cache.items()}
     prompt = np.arange(12, dtype=np.int32) * 7 % model.cfg.vocab_size
     eng._prefill(prompt, 1)
-    _, one = model.prefill(torch.as_tensor(prompt, device=cuda_device)
-                           .long()[None], 16)
+    _, one = model.prefill({"tokens": torch.as_tensor(
+        prompt, device=cuda_device).long()[None]}, 16)
     for key, leaf in eng.cache.items():
         if key == "step":
             continue
@@ -1565,3 +1573,94 @@ def test_ssm_engine_splices_every_leaf_in_place(cuda_device, arch):
     eng.step()
     assert {k: t.data_ptr() for k, t in eng.cache.items()} == ptrs
     assert eng.cache["step"].tolist() == [1, 13, 1]
+
+
+# ---------------------------------------------------------------------------
+# The VLM (Qwen2-VL-2B) and audio (HuBERT-XLarge) families
+# ---------------------------------------------------------------------------
+
+# (H, KVH, S, dh, causal, window): HuBERT-XLarge's attention (16 heads of
+# 80, MHA, bidirectional) at its 500 frames (the last query and key tiles
+# hold 52 of their 64 rows) and at 512, and Qwen2-VL-2B's prefill (12
+# heads of 128 on 2 KV heads, GQA 6:1)
+VLM_AUDIO_FLASH = [(16, 16, 500, 80, False, 0), (16, 16, 512, 80, False, 0),
+                   (12, 2, 512, 128, True, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VLM_AUDIO_FLASH)
+def test_flash_attention_at_hubert_and_qwen2_vl_shapes(cuda_device, dtype,
+                                                       shape):
+    """Batch 4 (HuBERT's encode) and 1, one launch each, within the
+    tolerances of test_flash_attention_kernel_matches_plain."""
+    h, kvh, s, dh, causal, window = shape
+    for b in (4, 1):
+        q, k, v = _qkv(cuda_device, dtype, b, h, kvh, s, s, dh, seed=b)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize(cuda_device)
+        assert flash_attention.launches == before + 1
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_vlm_and_audio_make_no_host_sync(cuda_device):
+    """The reduced Qwen2-VL's prefill with vision embeddings and its decode
+    steps, and the reduced HuBERT's encode, queue device work only (sync
+    debug "error"; explicit positions cost one read a layer, the check
+    that their t axis is arange(S), so the 3-axis prefill runs outside);
+    the encode launches flash_attention once a layer, bidirectionally:
+    moving the last frames moves the first ones' hidden states."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import TransformerModel
+
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    vlm = TransformerModel(get_reduced("qwen2-vl-2b"), device=cuda_device)
+    vlm.init(torch.Generator(cuda_device).manual_seed(0))
+    s = 32
+    t = torch.arange(s, device=cuda_device)
+    hw = t.clone()
+    hw[1:17] = 1 + torch.arange(16, device=cuda_device) // 4
+    mask = torch.zeros((2, s), dtype=torch.bool, device=cuda_device)
+    mask[:, 1:17] = True
+    batch = {"tokens": torch.randint(0, 512, (2, s), generator=gen,
+                                     device=cuda_device),
+             "vision_embeds": torch.randn((2, 16, 256), generator=gen,
+                                          device=cuda_device).to(BF16),
+             "vision_mask": mask}
+    grid = dict(batch, positions=torch.stack([t, hw, hw], -1)[None].expand(
+        2, s, 3))
+    enc = TransformerModel(get_reduced("hubert-xlarge"), device=cuda_device)
+    enc.init(torch.Generator(cuda_device).manual_seed(0))
+    feats = torch.randn((2, 40, 64), generator=gen, device=cuda_device)
+    _, warm = vlm.prefill(batch, 48)                # first calls of each op
+    vlm.decode_step(batch["tokens"][:, 0], warm)
+    enc.apply({"features": feats})
+    torch.cuda.synchronize(cuda_device)
+    before = flash_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        text_logits, cache = vlm.prefill(batch, 48)
+        for i in range(3):
+            vlm.decode_step(batch["tokens"][:, i], cache)
+        h1 = enc.apply({"features": feats})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert flash_attention.launches == before + 2 + 2
+    assert cache["step"].tolist() == [s + 3, s + 3]
+    logits, grid_cache = vlm.prefill(grid, 48)
+    assert flash_attention.launches == before + 6
+    assert torch.isfinite(logits.float()).all()
+    assert not torch.equal(logits, text_logits)     # the grid's angles
+    assert torch.equal(grid_cache["pos"][..., :s],
+                       torch.arange(s, device=cuda_device).int().expand(
+                           2, 2, s))
+    moved = feats.clone()
+    moved[:, 30:] += 1.0
+    h2 = enc.apply({"features": moved})
+    assert not torch.allclose(h1[:, :10].float(), h2[:, :10].float(),
+                              atol=1e-3)

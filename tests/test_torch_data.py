@@ -3,6 +3,7 @@
 and noise are bitwise equal; ``latents`` (x_t of the DDPM forward, each
 package's own noise schedule on its own device) within rtol 1e-6, atol
 1e-6 of latents of order 1."""
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import numpy as np
 import pytest
 

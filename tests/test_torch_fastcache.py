@@ -6,6 +6,7 @@ where it starts.  Per-step block counters, motion fractions and tracker
 bits must be equal exactly; eps is held to the block-level f32 tolerance
 of test_torch_model.py (rtol 1e-4, atol 1e-3) and sigma2 to rtol 1e-4.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

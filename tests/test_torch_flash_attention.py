@@ -12,6 +12,7 @@ Sq < Skv, each causal, windowed and bidirectional, plus the head dims 80
 lengths that divide its blocks, so a ragged length is held against the jnp
 twin only.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

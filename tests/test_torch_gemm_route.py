@@ -11,6 +11,7 @@ read ``w_bf16``: their results are the reference's, as before (tolerances
 as in ``test_torch_policy_kernels.py`` and ``test_torch_kernels.py``: bf16
 5e-2, the output rounded to bf16; gate bits exact).
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 from types import SimpleNamespace
 
 import jax.numpy as jnp

@@ -10,12 +10,9 @@ against the reference is in ``tests/test_torch_transformer.py`` (the
 ``pair`` fixture) and of the engine's token streams in
 ``tests/test_torch_llm_serving.py``.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import dataclasses
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +29,7 @@ from repro_torch.checkpoint import load, save
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core.decode_runner import CachedDecoder
+from repro_torch.launch import profile_llm, serve
 from repro_torch.launch import train as train_launcher
 from repro_torch.launch.serve import (GATE_NEEDS_ATTENTION, LLMWorkload,
                                       exact_fallback)
@@ -40,7 +38,6 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.training import loop
 from tests.test_torch_transformer import jax_llm, port_llm, tokens, tt
 
-ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")
 
 
@@ -62,8 +59,8 @@ def test_decode_matches_full_forward(arch):
     steps give the full forward's logits at those positions."""
     model = f32_model(arch)
     toks = tt(tokens((2, 28), 70))
-    ref = model.unembed(model.apply(toks))
-    logits, cache = model.prefill(toks[:, :24], 48)
+    ref = model.unembed(model.apply({"tokens": toks}))
+    logits, cache = model.prefill({"tokens": toks[:, :24]}, 48)
     np.testing.assert_allclose(logits.numpy(), ref[:, 23].numpy(),
                                atol=2e-3)
     for t in range(4):
@@ -78,10 +75,10 @@ def test_causality(arch):
     ``test_causality``)."""
     model = f32_model(arch)
     toks = tt(tokens((1, 16), 71))
-    h1 = model.apply(toks)
+    h1 = model.apply({"tokens": toks})
     toks2 = toks.clone()
     toks2[:, 12:] = (toks2[:, 12:] + 7) % model.cfg.vocab_size
-    h2 = model.apply(toks2)
+    h2 = model.apply({"tokens": toks2})
     np.testing.assert_allclose(h1[:, :12].numpy(), h2[:, :12].numpy(),
                                atol=1e-4)
     assert not torch.allclose(h1[:, 12:], h2[:, 12:], atol=1e-4)
@@ -122,7 +119,7 @@ def test_engine_splices_every_leaf(arch):
     before = {k: v.clone() for k, v in eng.cache.items()}
     prompt = tokens((12,), 72)
     eng._prefill(prompt, 1)
-    _, one = model.prefill(tt(prompt[None]), 16)
+    _, one = model.prefill({"tokens": tt(prompt[None])}, 16)
     for key, leaf in eng.cache.items():
         if key == "step":
             assert leaf.tolist() == [0, 12, 0]
@@ -167,20 +164,13 @@ def test_workload_depth_is_a_multiple_of_the_period():
     assert model.kind_counts == {"mamba": 6, "attn": 2}
 
 
-def _run(args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    return subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-
-
-def test_launcher_serves_xlstm_exact_under_fastcache():
+def test_launcher_serves_xlstm_exact_under_fastcache(capsys):
     """``--fastcache --arch xlstm-1.3b`` prints the reference's line and
     serves exact: 1 sync per decode step, no cache ratio."""
-    proc = _run(["repro_torch.launch.serve", "--arch", "xlstm-1.3b",
-                 "--reduced", "--device", "cpu", "--json", "--fastcache",
-                 "--requests", "3", "--new-tokens", "6"])
-    assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.strip().splitlines()
+    serve.main(["--arch", "xlstm-1.3b", "--reduced", "--device", "cpu",
+                "--json", "--fastcache", "--requests", "3", "--new-tokens",
+                "6"])
+    lines = capsys.readouterr().out.strip().splitlines()
     assert GATE_NEEDS_ATTENTION in lines
     out = json.loads(lines[-1])
     assert out["fastcache"] is False and "block_cache_ratio" not in out
@@ -188,16 +178,14 @@ def test_launcher_serves_xlstm_exact_under_fastcache():
     assert out["host_syncs_per_decode_step"] == 1.0
 
 
-def test_profile_llm_runs_jamba_on_the_cpu(tmp_path):
+def test_profile_llm_runs_jamba_on_the_cpu(tmp_path, capsys):
     """``profile_llm --arch jamba-v0.1-52b`` (reduced, its 4 layers)
     profiles the exact prefill and decode steps."""
     out = tmp_path / "p.json"
-    proc = _run(["repro_torch.launch.profile_llm", "--arch",
-                 "jamba-v0.1-52b", "--num-layers", "4", "--reduced",
-                 "--device", "cpu", "--fastcache", "--warmup", "2",
-                 "--window", "2", "--out", str(out)])
-    assert proc.returncode == 0, proc.stderr
-    assert GATE_NEEDS_ATTENTION in proc.stdout
+    profile_llm.main(["--arch", "jamba-v0.1-52b", "--num-layers", "4",
+                      "--reduced", "--device", "cpu", "--fastcache",
+                      "--warmup", "2", "--window", "2", "--out", str(out)])
+    assert GATE_NEEDS_ATTENTION in capsys.readouterr().out
     report = json.loads(out.read_text())
     assert report["fastcache"] is False and report["num_layers"] == 4
     assert report["decode"]["host_syncs_per_step"] == 1.0

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the reference package ``repro``."""
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import ast
 import os
 import subprocess

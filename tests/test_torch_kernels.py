@@ -8,6 +8,7 @@ output is rounded to bf16); gate bits exact.  sigma2 is set per sample from
 the float64 statistic so that each gate decision sits a factor 2 from the
 threshold.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

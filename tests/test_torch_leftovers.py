@@ -13,6 +13,7 @@ the no-CFG fast path bitwise wherever this machine's GEMMs give a row the
 same bits at both batch sizes (the test checks), else within 1e-4 of the
 latents' scale with exact counters.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,7 +117,7 @@ def test_global_gate_decoder_matches_reference(llm):
     tdec = CachedDecoder(tmodel, FastCacheConfig(**GLOBAL))
     prompt = tokens((3, 16), 11)
     _, cj = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompt)}, 32)
-    _, ct = tmodel.prefill(tt(prompt), 32)
+    _, ct = tmodel.prefill({"tokens": tt(prompt)}, 32)
     sj, st = jdec.init_state(3), tdec.init_state(3)
     feed = tokens((8, 3), 12)
     for i in range(8):
@@ -152,7 +153,7 @@ def test_decode_gate_reaches_the_kernel_wrappers(llm, monkeypatch):
     spy("linear_blend", linear_blend)
     dec = CachedDecoder(tmodel, FastCacheConfig())
     assert dec.w_l_bf16 == [None] * tmodel.cfg.num_layers   # f32 on the CPU
-    _, cache = tmodel.prefill(tt(tokens((2, 8), 3)), 16)
+    _, cache = tmodel.prefill({"tokens": tt(tokens((2, 8), 3))}, 16)
     state = dec.init_state(2)
     launches = (saliency_delta.launches, linear_blend.launches)
     d, n_layers = tmodel.cfg.d_model, tmodel.cfg.num_layers

@@ -3,8 +3,10 @@ decode gate (``CachedDecoder``), the ``ServingEngine`` and the launcher.
 
 Models: the reduced qwen3-0.6b, arctic-480b and kimi-k2-1t-a32b in f32
 with the reference's parameters (``tests/test_torch_transformer.py``),
-and for the exact engine traces also the hybrid jamba-v0.1-52b and the SSM
-xlstm-1.3b (the decode gate refuses both, as the reference's does); the
+the VLM qwen2-vl-2b (M-RoPE; text-only prompts, as the engine serves
+them) for the decode gate and the ``serve_llm`` trace, and for the exact
+engine traces also the hybrid jamba-v0.1-52b and the SSM xlstm-1.3b (the
+decode gate refuses both, as the reference's does); the
 MoE configs at their own capacity factor 1.25, so a prefill drops copies
 (16 prompt tokens, 32 copies, 10 slots an expert) and the decode gate's
 mixed branch routes the cached slots' tokens with the others.  Gate bits,
@@ -15,12 +17,9 @@ for the MoE configs (no qk-norm; ``tests/test_torch_transformer.py``
 measures why).  Every greedy token of the traces below matches the
 reference's, so no step needed teacher forcing.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import functools
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,14 +31,15 @@ from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core.decode_runner import CachedDecoder
+from repro_torch.launch import serve
 from repro_torch.serving.engine import Request, ServingEngine
 from tests.test_torch_transformer import (BASE_ARCH, MOE_ARCHS, Tol,
                                           assert_close, jax_llm, pair_tol,
                                           port_llm, tokens, tt)
 
-ROOT = Path(__file__).resolve().parents[1]
 SERVE_ARCHS = (BASE_ARCH,) + MOE_ARCHS
 SSM_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")     # served exact only
+VLM_ARCH = "qwen2-vl-2b"                          # the serve_llm trace only
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,10 +79,12 @@ def test_cached_decoder_steps_with_a_slot_reset(llm):
     _decoder_steps(*llm, pair_tol(BASE_ARCH, "float32"))
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", MOE_ARCHS + (VLM_ARCH,))
 def test_cached_decoder_steps_over_moe_blocks(arch):
     """The same 8 steps over MoE blocks: the mixed branch runs the MoE on
-    the whole batch, cached slots included, the all-skip branch no MoE."""
+    the whole batch, cached slots included, the all-skip branch no MoE;
+    and over the VLM's M-RoPE attention blocks, whose skipped layers write
+    K rotated by the step on all three axes (``_kv_write``)."""
     _decoder_steps(*_llm(arch), pair_tol(arch, "float32"))
 
 
@@ -91,7 +93,7 @@ def _decoder_steps(jm, jp, tm, tol):
     jdec, tdec = JCachedDecoder(jm, fc_j), CachedDecoder(tm, fc_t)
     prompt = tokens((3, 16), 11)
     _, cj = jm.prefill(jp, {"tokens": jnp.asarray(prompt)}, 32)
-    _, ct = tm.prefill(tt(prompt), 32)
+    _, ct = tm.prefill({"tokens": tt(prompt)}, 32)
     sj, st = jdec.init_state(3), tdec.init_state(3)
     feed = tokens((8, 3), 12)
     mixed = 0
@@ -132,8 +134,10 @@ TRACES = {"serve_llm": (6, 16, 12, 4, 128), "ring": (5, 24, 10, 3, 16)}
 # (arch, trace, fastcache) of the engine test, the hybrid and SSM archs
 # exact only; qwen3-0.6b's ids are the mode and the trace alone
 ARCH_TRACES = [(a, t, fc) for fc in (False, True)
-               for a in SERVE_ARCHS + SSM_ARCHS for t in sorted(TRACES)
-               if not (fc and a in SSM_ARCHS)]
+               for a in SERVE_ARCHS + SSM_ARCHS + (VLM_ARCH,)
+               for t in sorted(TRACES)
+               if not (fc and a in SSM_ARCHS)
+               and not (a == VLM_ARCH and t != "serve_llm")]
 ARCH_TRACE_IDS = [("fastcache" if fc else "exact")
                   + ("" if a == BASE_ARCH else f"-{a}") + f"-{t}"
                   for a, t, fc in ARCH_TRACES]
@@ -187,14 +191,12 @@ def test_engine_raises_on_unported_options(llm):
 
 @pytest.mark.parametrize("extra", [[], ["--fastcache"]],
                          ids=["exact", "fastcache"])
-def test_launcher_runs_on_the_cpu(extra):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "qwen3-0.6b", "--reduced", "--device", "cpu", "--json", *extra]
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+def test_launcher_runs_on_the_cpu(capsys, extra):
+    """The launcher's defaults (8 prompts of 512 tokens, 64 new tokens)
+    on the reduced model."""
+    serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+                "--json", *extra])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu" and out["finished"] == out["requests"] == 8
     assert out["tokens"] == 8 * 64
     assert out["host_syncs_per_decode_step"] == (3.0 if extra else 1.0)
@@ -202,18 +204,14 @@ def test_launcher_runs_on_the_cpu(extra):
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "stablelm-3b"])
-def test_launcher_serves_every_llm_id(arch):
+def test_launcher_serves_every_llm_id(capsys, arch):
     """``--arch`` takes the registered LLM ids beyond qwen3-0.6b (an MoE
     and a dense one) and ``--num-layers`` cuts the depth at the config's
     width (here 1 layer of the reduced config)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-           "--reduced", "--device", "cpu", "--json", "--fastcache",
-           "--num-layers", "1", "--requests", "3", "--new-tokens", "6"]
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--json",
+                "--fastcache", "--num-layers", "1", "--requests", "3",
+                "--new-tokens", "6"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["num_layers"] == 1 and out["arch"].endswith("-smoke")
     assert out["finished"] == 3 and out["tokens"] == 3 * 6
     assert out["host_syncs_per_decode_step"] == 2.0        # L + 1

@@ -15,6 +15,7 @@ atol 1e-3.  The reference's fan-in init draws ``wq``/``wk`` with std
 
 The helpers here are shared by the other ``test_torch_*`` files.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import dataclasses
 
 import jax

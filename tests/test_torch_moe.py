@@ -14,6 +14,7 @@ rtol/atol 1e-4 on outputs and aux (two f32 implementations, other
 summation orders; measured <= 2.7e-6); bf16 5e-2 of the output's scale,
 the reference's own; the experts chosen (``top_i``) exact in both.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import dataclasses
 
 import jax

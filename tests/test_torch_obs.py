@@ -8,6 +8,7 @@ Prometheus text and JSONL windows equal character for character for the
 same observations (the windows' wall-clock stamp, a host clock, set to 0 on
 both sides first); the served trace's float sums at rtol 1e-4 (f32).
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import json
 
 import jax

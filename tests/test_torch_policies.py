@@ -20,6 +20,7 @@ reference's noise: plan rows and counters exact, latents within
 l2c runs with a one-layer mask from ``l2c_mask_from_deltas``; smoothcache
 with the default schedule and with an interval-3 one.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ bf16 5e-2 (bf16 inputs are rounded once, the same way in both frameworks;
 the blend's output is rounded to bf16).  W and b are f32, as every caller
 of the port passes them.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

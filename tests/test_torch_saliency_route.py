@@ -12,6 +12,7 @@ which is emulated here in float32 and compared bitwise.  Tolerance against
 the reference: its rtol 1e-5 on the f32 sums (bf16 inputs are rounded once
 in numpy and cast exactly by both frameworks).
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import importlib
 import re
 from pathlib import Path

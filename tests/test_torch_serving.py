@@ -18,6 +18,7 @@ row inside a batch.  A request replayed with the per-sample guidance form
 bitwise; one replayed with a scalar 1.0 runs a batch of one and is held to
 exact gates and latents within 2e-5 of their scale instead.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import numpy as np
 import pytest
 import torch

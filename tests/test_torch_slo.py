@@ -16,6 +16,7 @@ random state: the same rows copied out, the same rows written back, and
 0.5, and at the sizes where the row count equals the layer count L or
 L + 1 (the rank rule's layer test first, as in the reference).
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import dataclasses
 import json
 

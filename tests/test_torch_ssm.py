@@ -1,6 +1,7 @@
 """The port's SSM mixers (``models/mamba.py``, ``models/ssm.py``) and
 ``common.causal_conv1d`` against the live reference (``repro.models.mamba``,
 ``repro.models.ssm``, ``repro.models.common``), on inputs drawn with numpy
+import tests.torch_threads  # noqa: F401  (first: one thread)
 from fixed seeds.
 
 Parameters are the reference's ``init_params`` of each mixer's ParamDefs at

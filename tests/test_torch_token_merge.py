@@ -9,6 +9,7 @@ frameworks.  Tolerances are the reference's: ``knn_density`` 1e-4 in f32,
 6e-2 in bf16; ``merged`` 1e-4 in f32, 5e-2 in bf16 (one bf16 rounding of
 the output); ``assign`` / ``centers`` and ``unmerge_scatter`` exact.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

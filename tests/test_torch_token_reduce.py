@@ -15,6 +15,7 @@ eps within the block tolerance of test_torch_model.py (rtol 1e-4, atol
 against a live run of the reference engine: counters exact, latents within
 ``LATENT_REL`` of their scale.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -35,10 +35,8 @@ and the port lands 1.3e-4 from the reference at most.  Its gradients are
 held to ``MOE_GRAD_SCALE`` = 5e-4 of each leaf's scale, its loss and
 metrics to rtol 1e-4.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import re
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +51,7 @@ from repro.training import loop as jloop
 from repro.training import optimizer as jopt
 from repro_torch import bridge, tree
 from repro_torch.data import latent_stream, token_stream
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import flags
 from repro_torch.models import transformer as ttransformer
 from repro_torch.training import loop, optimizer as topt
@@ -63,7 +62,6 @@ from tests.conftest import f32_cfg
 from tests.test_torch_model import jax_config, jax_dit, port_dit
 from tests.test_torch_transformer import jax_llm, port_llm
 
-ROOT = Path(__file__).resolve().parents[1]
 MOE_ARCH = "arctic-480b"
 L = 3          # layers of the optimizer tests' stacked leaves
 OPT_TOL = dict(rtol=1e-5, atol=1e-7)
@@ -485,24 +483,22 @@ LINE = re.compile(r"^\[train\] step +\d+ loss=\d+\.\d{4} lr=\d\.\d\de[-+]\d\d "
                   r"\|g\|=\d+\.\d\d \(\d+\.\ds\)$")
 
 
-def _launch(*args):
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                           *args], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    return proc.stdout.splitlines()
+def _launch(capsys, *args):
+    """``launch/train.py``'s ``main`` in this process: its printed lines."""
+    capsys.readouterr()
+    train_launcher.main(list(args))
+    return capsys.readouterr().out.splitlines()
 
 
 @pytest.mark.parametrize("arch,extra", [
     ("dit-xl2", ["--batch", "4"]),
     ("qwen3-0.6b", ["--batch", "4", "--seq", "32"])])
-def test_launcher_trains_and_saves(tmp_path, arch, extra):
+def test_launcher_trains_and_saves(tmp_path, capsys, arch, extra):
     """The reference's lines (header, a step line at 0, 10 and the last
     step, the save line), and a checkpoint that the reference's ``load``
     reads into its own tree of the reduced config in f32."""
     ckpt = str(tmp_path / "model.npz")
-    lines = _launch("--arch", arch, "--reduced", "--steps", "12",
+    lines = _launch(capsys, "--arch", arch, "--reduced", "--steps", "12",
                     "--device", "cpu", "--save", ckpt, *extra)
     assert re.match(r"^\[train\] [\w.-]+-smoke: \d+\.\dM params, "
                     r"opt=adamw$", lines[0]), lines[0]
@@ -520,12 +516,12 @@ def test_launcher_trains_and_saves(tmp_path, arch, extra):
     assert all(np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(got))
 
 
-def test_launcher_trains_the_moe_with_adafactor(tmp_path):
+def test_launcher_trains_the_moe_with_adafactor(tmp_path, capsys):
     """The MoE family through the launcher on the CPU: the reduced
     arctic-480b with its config's Adafactor, saved and read back by the
     reference's ``load`` into its own tree."""
     ckpt = str(tmp_path / "moe.npz")
-    lines = _launch("--arch", MOE_ARCH, "--reduced", "--steps", "3",
+    lines = _launch(capsys, "--arch", MOE_ARCH, "--reduced", "--steps", "3",
                     "--batch", "2", "--seq", "16", "--device", "cpu",
                     "--save", ckpt)
     assert re.match(r"^\[train\] arctic-480b-smoke: \d+\.\dM params, "

@@ -2,20 +2,22 @@
 parameters (``model.init(PRNGKey(0))``) copied through
 ``repro_torch.bridge.transformer_params_from_jax``.
 
-Configs: the reduced config of each of the eight LLM ids, in f32 and in
-bf16 (the ``pair`` fixture; the qwen3-0.6b cases keep their plain dtype
-ids).  ``get_reduced("qwen3-0.6b")`` is 2 layers, d 256, 4 query and 2
-KV heads of 64, SwiGLU 512, vocab 512, qk-norm, RoPE 1e6, tied embeddings; the
-others are the same size with their own heads, norms, RoPE base and
-untied heads, stablelm-3b with 4 KV heads, and the two MoE configs with 4
-experts of 512 (arctic-480b, beside a dense 512 branch) or 256 (kimi, one
-shared expert), top-2, at the configs' own capacity factor 1.25, so the
-prefills drop copies (the reference's stable rank rule decides which).
-The hybrid jamba-v0.1-52b is 4 layers of period (mamba, attn, mamba,
-mamba), d 256, no RoPE, 4 experts of 512 top-2 on the odd positions and
-SwiGLU 512 on the even ones; the SSM xlstm-1.3b is 2 layers (mlstm,
-slstm), d 256, 2 heads.  Their caches are compared leaf by leaf in the
-port's layout (``port_cache``).
+Configs: the reduced config of each of the nine LLM ids, in f32 and in bf16
+(the ``pair`` fixture; the qwen3-0.6b cases keep their plain dtype ids);
+the VLM qwen2-vl-2b here on text (M-RoPE with its three axes equal; its
+vision inputs and 3-axis positions are ``tests/test_torch_vlm.py``'s).
+``get_reduced("qwen3-0.6b")`` is 2 layers, d 256, 4 query and 2 KV heads of
+64, SwiGLU 512, vocab 512, qk-norm, RoPE 1e6, tied embeddings; the others
+are the same size with their own heads, norms, RoPE base and untied heads,
+stablelm-3b with 4 KV heads, and the two MoE configs with 4 experts of 512
+(arctic-480b, beside a dense 512 branch) or 256 (kimi, one shared expert),
+top-2, at the configs' own capacity factor 1.25, so the prefills drop
+copies (the reference's stable rank rule decides which). The hybrid
+jamba-v0.1-52b is 4 layers of period (mamba, attn, mamba, mamba), d 256, no
+RoPE, 4 experts of 512 top-2 on the odd positions and SwiGLU 512 on the
+even ones; the SSM xlstm-1.3b is 2 layers (mlstm, slstm), d 256, 2 heads.
+Their caches are compared leaf by leaf in the port's layout
+(``port_cache``).
 
 Tolerances: f32 rtol/atol 1e-4 (two f32 implementations, other summation
 orders; measured ~2e-6 on hidden states of size ~3); bf16 rtol 5e-2 and
@@ -45,6 +47,7 @@ the token ids fed in are exact.
 
 The helpers here are shared by ``tests/test_torch_llm_serving.py``.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 from typing import NamedTuple
 
 import jax
@@ -56,7 +59,7 @@ import torch
 from repro.configs import get_reduced as jget_reduced
 from repro.models import build_model as jbuild_model
 from repro_torch import bridge
-from repro_torch.configs import LLM_IDS, get_reduced
+from repro_torch.configs import ENCODER_IDS, LLM_IDS, get_reduced
 from repro_torch.models.transformer import TransformerModel
 
 DTYPES = ("float32", "bfloat16")
@@ -190,11 +193,13 @@ def test_init_matches_param_defs():
                                              device="cpu").top.defs
 
 
-@pytest.mark.parametrize("arch", [a for a in LLM_IDS if a != BASE_ARCH])
+@pytest.mark.parametrize("arch", [a for a in LLM_IDS + ENCODER_IDS
+                                  if a != BASE_ARCH])
 def test_init_matches_param_defs_of_each_config(arch):
-    """As above for the other seven LLM configs (untied heads; the MoE
-    family's router in f32 and its (E, D, F) expert leaves; the Mamba,
-    mLSTM and sLSTM mixers' leaves, f32 where the reference's are)."""
+    """As above for the other LLM configs and the audio encoder (untied
+    heads; the MoE family's router in f32 and its (E, D, F) expert leaves;
+    the Mamba, mLSTM and sLSTM mixers' leaves, f32 where the reference's
+    are; the encoder's frontend, LayerNorm biases and GELU FFN)."""
     _check_init(arch)
 
 
@@ -202,7 +207,7 @@ def test_embed_and_unembed(pair):
     tol, jm, jp, tm = pair
     toks = tokens((2, 24), 1)
     x_j = jm.embed(jp, {"tokens": jnp.asarray(toks)})
-    x_t = tm.embed(tt(toks))
+    x_t = tm.embed({"tokens": tt(toks)})
     assert torch.equal(x_t.float(), torch.from_numpy(
         np.array(x_j, np.float32)))
     assert_close(tm.unembed(x_t[:, -1]), jm.unembed(jp, x_j[:, -1]), tol)
@@ -214,7 +219,8 @@ def test_block_apply(pair):
     x_j = jm.embed(jp, {"tokens": jnp.asarray(toks)})
     bp0 = jax.tree.map(lambda a: a[0], jp["blocks"])["pos0"]
     y_j, st_j, aux_j = jm.block_apply(0, bp0, x_j)
-    y_t, cache, aux_t = tm.block_apply(tm.blocks[0], tm.embed(tt(toks)))
+    y_t, cache, aux_t = tm.block_apply(tm.blocks[0],
+                                     tm.embed({"tokens": tt(toks)}))
     if tm.kinds[0] == "attn":
         assert cache is None
     else:                       # a mixer returns its state after the prompt
@@ -229,7 +235,7 @@ def test_apply(pair):
     tol, jm, jp, tm = pair
     toks = tokens((2, 40), 3)
     h_j, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
-    assert_close(tm.apply(tt(toks)), h_j, tol)
+    assert_close(tm.apply({"tokens": tt(toks)}), h_j, tol)
 
 
 # (S, window): S < w pads; S >= w rotates (shift = (S - w) % w: 8 on 16
@@ -255,7 +261,7 @@ def test_prefill_logits_and_cache(pair, s, w):
     tol, jm, jp, tm = pair
     toks = tokens((2, s), 4)
     lj, cj = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, w)
-    lt, ct = tm.prefill(tt(toks), w)
+    lt, ct = tm.prefill({"tokens": tt(toks)}, w)
     assert lt.shape == (2, 512)
     assert_close(lt, lj, tol)
     _cache_close(ct, cj, tol, tm)
@@ -271,7 +277,7 @@ def test_prefill_ring_order_is_the_references():
     tm = port_llm("float32", jp)
     toks = tokens((1, 40), 5)
     _, cj = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 12)
-    _, ct = tm.prefill(tt(toks), 12)
+    _, ct = tm.prefill({"tokens": tt(toks)}, 12)
     want = 28 + (np.arange(12) + 4) % 12
     assert np.array_equal(np.asarray(cj["blocks"]["pos0"]["pos"][0, 0]), want)
     assert np.array_equal(ct["pos"][0, 0].numpy(), want)
@@ -285,7 +291,7 @@ def test_decode_steps_teacher_forced(pair, s, w):
     tol, jm, jp, tm = pair
     toks = tokens((2, s), 6)
     _, cj = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, w)
-    _, ct = tm.prefill(tt(toks), w)
+    _, ct = tm.prefill({"tokens": tt(toks)}, w)
     feed = tokens((6, 2), 7)
     for i in range(6):
         lj, cj = jm.decode_step(jp, jnp.asarray(feed[i]), cj)
@@ -295,12 +301,15 @@ def test_decode_steps_teacher_forced(pair, s, w):
 
 
 def test_unported_configs_raise():
-    """The VLM family and M-RoPE raise as not ported; an unknown block kind
-    and a depth that is not a multiple of the pattern's period raise
-    ``ValueError``, as in the reference."""
+    """A family or a rope kind the reference does not have raises as not
+    ported (the VLM family and M-RoPE build since they were ported); an
+    unknown block kind and a depth that is not a multiple of the pattern's
+    period raise ``ValueError``, as in the reference; positions whose t
+    axis is not ``arange(S)`` raise in full-sequence attention (2-d, and
+    M-RoPE's 3-axis ones alike)."""
     cfg = get_reduced("qwen3-0.6b")
     with pytest.raises(NotImplementedError):
-        TransformerModel(cfg.replace(family="vlm"), device="cpu")
+        TransformerModel(cfg.replace(family="vit"), device="cpu")
     with pytest.raises(ValueError, match="unknown block kind"):
         TransformerModel(cfg.replace(block_pattern=("attn", "conv")),
                          device="cpu")
@@ -308,10 +317,17 @@ def test_unported_configs_raise():
         TransformerModel(cfg.replace(block_pattern=("attn",) * 3),
                          device="cpu")
     with pytest.raises(NotImplementedError):
-        TransformerModel(cfg.replace(rope_kind="mrope"), device="cpu")
+        TransformerModel(cfg.replace(rope_kind="yarn"), device="cpu")
     tm = TransformerModel(cfg.replace(dtype="float32"), device="cpu")
+    toks = tt(tokens((1, 8), 8))
     with pytest.raises(NotImplementedError, match="arange"):
-        tm.apply(tt(tokens((1, 8), 8)), positions=torch.arange(8) + 3)
+        tm.apply({"tokens": toks, "positions": torch.arange(8) + 3})
+    vlm = TransformerModel(get_reduced("qwen2-vl-2b").replace(
+        dtype="float32"), device="cpu")
+    t = torch.arange(8)
+    with pytest.raises(NotImplementedError, match="arange"):
+        vlm.apply({"tokens": toks,
+                   "positions": torch.stack([t + 3, t, t], -1)[None]})
 
 
 def test_bridge_rejects_mismatched_trees():

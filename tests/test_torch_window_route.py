@@ -12,6 +12,7 @@ inputs are rounded once in numpy and cast exactly by both frameworks),
 merged 1e-4 in f32 and 5e-2 in bf16 (one bf16 rounding of the output),
 centers and assign exact.
 """
+import tests.torch_threads  # noqa: F401  (first: one thread)
 import re
 from pathlib import Path
 
