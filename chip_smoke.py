@@ -283,6 +283,24 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             train_llm below: losses finite, a step under sync debug "error",
             no kernel launched; ms per step and its split, frames/s,
             train_mfu, busy share, peak memory);
+15d. vlm_positions  attention masked by explicit positions: B7's position
+            mode against its plain version at Qwen2-VL-2B's image prompt
+            (POSITION_FLASH_SHAPES: 1 x 12 / 2 heads of 128, S 512, causal,
+            window 1,024; p bf16 on the layout's t positions, q bf16 on
+            arange (bit for bit the implicit mode), r = p in f32 on the SIMT
+            route; bf16 5e-2, f32 1e-4; timed as the other B7 rows, beside
+            SDPA with the equivalent boolean mask; the bound from this
+            input's live pairs); then Qwen2-VL-2B at full size (nothing
+            cut) on an image prompt in the reference's M-RoPE layout (128
+            text tokens at t = h = w = 0-127, 256 vision embeddings on a 16
+            x 16 grid at t = 128, h = 128 + row, w = 128 + column, 128 text
+            tokens from 144): one prefill and 8 greedy decode steps under
+            sync debug "error" (no host sync), counts zeroed just before
+            and read just after (28 flash_attention launches, all in
+            position mode, no other kernel), the cache's positions the t
+            axis exactly and the decode steps at 512, 513, ...; the
+            prefill's parity per layer (vlm_positions_prefill_parity;
+            chaotic at random init, PREFILL_CHAOTIC);
 16. train_dit  DiT-XL/2 at full width (bf16, the reference's initializers,
             adaLN-zero) trained through training.loop.make_train_step for
             30 steps on latent_stream batches of 32 (seed 0), AdamW on
@@ -306,12 +324,22 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             drawn from token_stream (seed 0) before the phase: losses
             finite, the first within 10% of ln(vocab), one step under sync
             debug "error", no kernel launched; ms per step (2 timed steps),
-            tokens/s, launches per step, peak memory, train_mfu.
+            tokens/s, launches per step, peak memory, train_mfu;
+20. train_ssm  the SSM and hybrid families' training (TRAIN_SSM):
+            xLSTM-1.3b at full size (48 layers, AdamW, 4 x 256 tokens) and
+            Jamba-v0.1-52b at full width with one period of 8 layers
+            (Adafactor over its 16 x 4,096 x 14,336 expert banks in row
+            blocks, 1 x 512 tokens), 3 steps each through launch/train.py's
+            model and stream: losses finite, step 0 under sync debug
+            "error", no kernel launched, every parameter with a gradient;
+            ms per step and its split, tokens/s, train_mfu (6 x active
+            parameters), launches, busy share, peak memory.
 
 Then the total seconds, the kernels line (the seven kernels' rows, and
 flash_attention's at dh 80 and 112, at Jamba's prefill, bidirectional at
-HuBERT's heads and at Qwen2-VL's prefill in bf16, and saliency_delta and
-linear_blend at Qwen2-VL's d 1536), the card's name and
+HuBERT's heads, at Qwen2-VL's prefill in bf16 and in position mode at its
+image prompt, and saliency_delta and linear_blend at Qwen2-VL's d 1536),
+the card's name and
 power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 when no CUDA card is present or any phase fails.
@@ -1218,11 +1246,13 @@ def audited_layer_steps(wl, runner, eng) -> int:
 
 
 def zero_counts(kernels) -> None:
-    """Every wrapper's launch count, and the per-route ones, to 0."""
+    """Every wrapper's launch count, and the per-route and per-mode ones,
+    to 0."""
     for fn in kernels.values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_route"):
-            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        for per in ("launches_by_route", "launches_by_mode"):
+            if hasattr(fn, per):
+                setattr(fn, per, dict.fromkeys(getattr(fn, per), 0))
 
 
 def phase_serve(torch, dev, wl, model, m, label="serve", engine_kwargs=None,
@@ -1502,7 +1532,7 @@ def phase_flash_attention(torch, dev, ref, flash_attention, build,
         row["ptxas"] = instance_ptxas(
             ptxas, "flash_attention_kernel_"
             + ("wgmma" if dt == "bfloat16" else "simt")
-            + f"ILi{row['instance_dh']}E")
+            + f"ILi{row['instance_dh']}ELb0E")
         no_spills(row["ptxas"], f"flash_attention {dt} dh {dh}")
         emit({"phase": "kernel", **row})
         rows[key] = row
@@ -1594,16 +1624,17 @@ def three_routes(torch, attention, ref, run):
     kernel_fn = attention.flash_attention
     captured = []
 
-    def capturing(q, k, v, *, causal, window=0):
-        out = kernel_fn(q, k, v, causal=causal, window=window)
-        captured.append((q, k, v, out, causal, window))
+    def capturing(q, k, v, *, causal, window=0, **pos):
+        out = kernel_fn(q, k, v, causal=causal, window=window, **pos)
+        captured.append((q, k, v, out, causal, window, pos))
         return out
 
-    def rounded_p(q, k, v, *, causal, window=0):
-        pos = torch.arange(q.shape[2], device=q.device)
+    def rounded_p(q, k, v, *, causal, window=0, q_pos=None, kv_pos=None):
+        if q_pos is None:
+            q_pos = kv_pos = torch.arange(q.shape[2], device=q.device)
         return attention.attend_direct(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,
-            pos, causal=causal, window=window).transpose(1, 2)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
+            kv_pos, causal=causal, window=window).transpose(1, 2)
 
     def run_with(fn):
         attention.flash_attention = fn
@@ -1614,8 +1645,8 @@ def three_routes(torch, attention, ref, run):
 
     got = run_with(capturing)
     layer_rel = [rel_l2(torch, out, ref.flash_attention(
-        q, k, v, causal=causal, window=window))
-        for q, k, v, out, causal, window in captured]
+        q, k, v, causal=causal, window=window, **pos))
+        for q, k, v, out, causal, window, pos in captured]
     causal = [c[4] for c in captured]
     del captured
     return (got, run_with(ref.flash_attention), run_with(rounded_p),
@@ -2134,9 +2165,10 @@ def phase_ssm_llms(torch, dev, m, k, serve, layers_mod, attention, ref,
 def vision_batch(torch, dev, wl, model) -> dict:
     """``wl``'s first prompt with VISION_TOKENS embeddings (0.02 x a normal
     draw, the token embeddings' scale; seed 9) at positions 1.. and their
-    3-axis M-RoPE positions: t = arange(S) (full-sequence attention's one
-    layout), h and w the image tokens' grid row and column (offset by 1),
-    the text's own position elsewhere."""
+    3-axis M-RoPE positions: t = arange(S) (B7's position mode on arange
+    positions, bitwise its implicit mode), h and w the image tokens' grid
+    row and column (offset by 1), the text's own position elsewhere (the
+    reference's layout is vlm_positions')."""
     tokens = torch.from_numpy(
         wl.build_requests(model)[0].prompt).long()[None].to(dev)
     s, d = tokens.shape[1], model.cfg.d_model
@@ -2327,6 +2359,227 @@ def phase_vlm_audio(torch, dev, m, k, serve, attention, ref, tr) -> dict:
     del model
     free_memory(torch)
     launches["train_hubert"] = phase_train_hubert(torch, dev, tr, m)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Attention masked by explicit positions: B7's position mode at Qwen2-VL-2B's
+# image prompt in the reference's M-RoPE layout
+# --------------------------------------------------------------------------
+
+# the image prompt: IMAGE_TEXT text tokens at t = h = w = 0 .. 127, the
+# VISION_GRID x VISION_GRID image at t = 128, h = 128 + row, w = 128 +
+# column, then IMAGE_TEXT text tokens from 128 + VISION_GRID (512 tokens)
+IMAGE_TEXT = 128
+IMAGE_DECODE_STEPS = 8
+# B7 rows at that prefill (B, H, KVH, S, dh, causal, window, dtype,
+# positions): p the layout's t axis, q arange (bitwise the implicit mode),
+# r = p in f32 (SIMT route)
+POSITION_FLASH_SHAPES = {
+    "p": (1, 12, 2, 512, 128, True, 1024, "bfloat16", "layout"),
+    "q": (1, 12, 2, 512, 128, True, 1024, "bfloat16", "arange"),
+    "r": (1, 12, 2, 512, 128, True, 1024, "float32", "layout")}
+POSITION_FLASH_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+
+
+def image_layout(torch, dev):
+    """(S, 3) int32 M-RoPE positions of the image prompt (IMAGE_TEXT text,
+    the image, IMAGE_TEXT text), in the reference's layout."""
+    n, g = IMAGE_TEXT, VISION_GRID
+    t = torch.cat([torch.arange(n), torch.full((g * g,), n),
+                   torch.arange(n + g, n + g + n)])
+    h, w = t.clone(), t.clone()
+    h[n:n + g * g] = n + torch.arange(g).repeat_interleave(g)
+    w[n:n + g * g] = n + torch.arange(g).repeat(g)
+    return torch.stack([t, h, w], -1).to(torch.int32).to(dev)
+
+
+def position_mask(torch, q_pos, kv_pos, causal: bool, window: int):
+    """The reference's ``_mask`` of (Sq,) / (Skv,) positions: (Sq, Skv)."""
+    qp, kp = q_pos[:, None], kv_pos[None, :]
+    live = (kp >= 0).expand(qp.shape[0], kp.shape[1])
+    if causal:
+        live = live & (kp <= qp)
+    if window > 0:
+        live = live & (kp > qp - window)
+    return live
+
+
+def phase_flash_positions(torch, dev, ref, flash_attention, build):
+    """B7's position mode at POSITION_FLASH_SHAPES against its plain
+    version on the same positions (bf16 5e-2, f32 1e-4), row q also bit for
+    bit against the implicit mode; timed as the other B7 rows, beside
+    F.scaled_dot_product_attention with the equivalent boolean mask.  The
+    bound counts this input's live pairs and the positions' bytes.
+    Returns the rows by key."""
+    import torch.nn.functional as F
+    ptxas = build.ptxas_lines(build.load_library("flash_attention").log)
+    layout = image_layout(torch, dev)[:, 0]
+    rows = {}
+    for key, (b, h, kvh, s, dh, causal, window, dt,
+              which) in POSITION_FLASH_SHAPES.items():
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(dev).manual_seed(4)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, h, s, dh), (b, kvh, s, dh),
+                                 (b, kvh, s, dh)))
+        pos = (layout if which == "layout"
+               else torch.arange(s, device=dev, dtype=torch.int32))[None]
+        kw = dict(causal=causal, window=window, q_pos=pos, kv_pos=pos)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, **kw)
+        tol = POSITION_FLASH_TOL[dt]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        bitwise = None
+        if which == "arange":
+            bitwise = bool(torch.equal(got, flash_attention(
+                q, k, v, causal=causal, window=window)))
+            if not bitwise:
+                raise AssertionError(f"B7 row {key}: position mode on "
+                                     "arange differs from the implicit mode")
+        mask = position_mask(torch, pos[0], pos[0], causal, window)
+        lib_out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+        torch.testing.assert_close(lib_out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        pairs = int(mask.sum())
+        esize = q.element_size()
+        nbytes = (esize * dh * (2 * b * h * s + 2 * b * kvh * s)
+                  + 4 * 2 * s)                       # + the positions
+        ops = 4 * dh * b * h * pairs
+        peak = BF16_TC_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
+        bound_ms, bound_by = bound(nbytes, ops / peak)
+        row = {"name": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:74",
+               "case": key, "mode": "positions", "positions": which,
+               "shape": [b, h, kvh, s, s, dh], "causal": causal,
+               "window": window, "dtype": dt,
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "tol": tol, "bitwise_implicit": bitwise,
+               **timed(torch, "kernel", lambda: flash_attention(q, k, v, **kw)),
+               **timed(torch, "plain", lambda: ref.flash_attention(q, k, v,
+                                                                   **kw)),
+               **timed(torch, "library", lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, enable_gqa=True)),
+               "library_call": ("F.scaled_dot_product_attention(attn_mask="
+                                "bool mask of the positions, enable_gqa=True)"),
+               "live_pairs": pairs, "bytes": nbytes, "operations": ops,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "instance_dh": 128}
+        row["ms"] = row["kernel_ms"]
+        row["vs_library"] = (row["kernel_device_ms"]
+                             / row["library_device_ms"])
+        row["ptxas"] = instance_ptxas(
+            ptxas, "flash_attention_kernel_"
+            + ("wgmma" if dt == "bfloat16" else "simt") + "ILi128ELb1E")
+        no_spills(row["ptxas"], f"flash_attention position mode {dt}")
+        emit({"phase": "kernel", **row})
+        rows[key] = row
+    return rows
+
+
+def image_prompt(torch, dev, wl, model) -> dict:
+    """``wl``'s first prompt (512 tokens) as an image prompt in the
+    reference's layout: VISION_TOKENS embeddings (0.02 x a normal draw, the
+    token embeddings' scale; seed 9) at the image's positions, the 3-axis
+    positions of ``image_layout``."""
+    tokens = torch.from_numpy(
+        wl.build_requests(model)[0].prompt).long()[None].to(dev)
+    s, d = tokens.shape[1], model.cfg.d_model
+    if s != 2 * IMAGE_TEXT + VISION_TOKENS:
+        raise AssertionError(f"prompt of {s} tokens, the layout needs "
+                             f"{2 * IMAGE_TEXT + VISION_TOKENS}")
+    gen = torch.Generator(dev).manual_seed(9)
+    embeds = 0.02 * torch.randn((1, VISION_TOKENS, d), generator=gen,
+                                device=dev)
+    mask = torch.zeros((1, s), dtype=torch.bool, device=dev)
+    mask[:, IMAGE_TEXT:IMAGE_TEXT + VISION_TOKENS] = True
+    return {"tokens": tokens, "vision_embeds": embeds.to(model.dtype),
+            "vision_mask": mask,
+            "positions": image_layout(torch, dev)[None]}
+
+
+def phase_vlm_positions(torch, dev, m, k, attention, ref, flash_attention):
+    """vlm_positions: Qwen2-VL-2B at full size (LLMWorkload's defaults,
+    nothing cut), one prefill of the image prompt and IMAGE_DECODE_STEPS
+    greedy decode steps under sync debug "error" after a warm-up, every
+    count zeroed just before and read just after: flash_attention once a
+    layer, all in position mode, no other kernel; the cache's positions
+    the layout's t axis exactly after the prefill, the decode steps at S,
+    S + 1, ... (the reference's step); logits finite.  Then the prefill's
+    parity (phase_llm_prefill_parity: each layer's kernel output against
+    the plain version on its own q, k, v and positions; chaotic at random
+    init, PREFILL_CHAOTIC) and the prefill's CUDA-event time.  Returns
+    the counted run's launches."""
+    wl = k.LLMWorkload(**VLM)
+    model = build_llm(torch, dev, wl)
+    batch = image_prompt(torch, dev, wl, model)
+    s = batch["tokens"].shape[1]
+    logits, cache = model.prefill(batch, wl.window)      # warm-up
+    model.decode_step(logits.argmax(-1), cache)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    mid = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    zero_counts(m.kernels)                         # the path starts here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        logits, cache = model.prefill(batch, wl.window)
+        mid.record()
+        pos_after_prefill = cache["pos"].clone()
+        finite = [torch.isfinite(logits).all()]
+        for _ in range(IMAGE_DECODE_STEPS):
+            logits, cache = model.decode_step(logits.argmax(-1), cache)
+            finite.append(torch.isfinite(logits).all())
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches                  # ... and ends here
+                for name, fn in m.kernels.items()}
+    by_mode = dict(flash_attention.launches_by_mode)
+    n_attn = model.kind_counts["attn"]
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = n_attn
+    t_axis = batch["positions"][0, :, 0]
+    pos_exact = bool(torch.equal(pos_after_prefill[:, 0, :s],
+                                 t_axis.expand(n_attn, s))
+                     and bool((pos_after_prefill[:, 0, s:] == -1).all()))
+    steps = torch.arange(s, s + IMAGE_DECODE_STEPS, device=dev,
+                         dtype=torch.int32)
+    decoded_exact = bool(torch.equal(
+        cache["pos"][:, 0, s:s + IMAGE_DECODE_STEPS],
+        steps.expand(n_attn, IMAGE_DECODE_STEPS)))
+    row = {"phase": "vlm_positions", "arch": model.cfg.name,
+           "num_layers": model.cfg.num_layers, "prompt_len": s,
+           "t_positions": [int(t_axis.min()), int(t_axis.max())],
+           "distinct_t": int(torch.unique(t_axis).numel()),
+           "window": wl.window, "decode_steps": IMAGE_DECODE_STEPS,
+           "host_syncs": 0, "sync_debug": "error",
+           "launches": launches, "flash_attention_by_mode": by_mode,
+           "cache_pos_is_t_axis": pos_exact,
+           "decode_pos_from_step_s": decoded_exact,
+           "step": cache["step"].tolist(),
+           "logits_finite": bool(torch.stack(finite).all()),
+           "prefill_ms_events": start.elapsed_time(mid),
+           "decode_ms_per_step_events": mid.elapsed_time(end)
+           / IMAGE_DECODE_STEPS, "card": smi()}
+    emit(row)
+    if launches != want or by_mode != {"implicit": 0, "positions": n_attn}:
+        raise AssertionError(f"vlm_positions launches {launches}, by mode "
+                             f"{by_mode}; expected {n_attn} in position mode")
+    if not (pos_exact and decoded_exact and row["logits_finite"]
+            and row["step"] == [s + IMAGE_DECODE_STEPS]):
+        raise AssertionError(f"vlm_positions: {row}")
+    phase_llm_prefill_parity(torch, dev, wl, model, attention, ref,
+                             batch=batch,
+                             label="vlm_positions_prefill_parity")
+    del model, cache
+    free_memory(torch)
     return launches
 
 
@@ -3270,6 +3523,89 @@ def phase_train_llm(torch, dev, tr, m):
     return launches
 
 
+# the SSM and hybrid families' training at full width: xLSTM-1.3b at full
+# size (48 layers) with its config's AdamW, 4 x 256 tokens; Jamba at full
+# width cut to one period of 8 layers (13.30 B parameters) with its
+# config's Adafactor, 1 x 512 tokens; 3 steps each on token_stream batches
+# drawn before the phase (seed 0): step 0 under sync debug "error", step 1
+# timed, step 2 profiled
+TRAIN_SSM = (dict(arch="xlstm-1.3b", batch=4, seq=256, steps=3, lr=3e-4,
+                  warmup=20, seed=0),
+             dict(arch="jamba-v0.1-52b", num_layers=8, batch=1, seq=512,
+                  steps=3, lr=3e-4, warmup=20, seed=0))
+
+
+def active_params(model) -> int:
+    """Parameters a token passes through: all but the embedding table
+    (a lookup) and, in an MoE layer, the experts it is not routed to
+    (top_k of num_experts of each expert bank)."""
+    cfg, n = model.cfg, 0
+    for name, p in model.named_parameters():
+        if name == "top.embed" and not cfg.tie_embeddings:
+            continue
+        share = 1.0
+        if ".moe.we_" in name:
+            share = cfg.moe.top_k / cfg.moe.num_experts
+        n += int(p.numel() * share)
+    return n
+
+
+def phase_train_ssm(torch, dev, tr, m) -> dict:
+    """train_ssm: each of TRAIN_SSM through launch/train.py's model and
+    stream (``init_model``, ``data_for``) and make_train_step, built,
+    trained and freed in turn.  Checks: every loss finite; the sync-debug
+    step clean; no kernel launched (the path is plain PyTorch, as the
+    reference's is plain jnp); every parameter with a nonzero gradient.
+    Prints ms per step and its split, tokens/s, model FLOPs (6 x active
+    parameters x tokens: the scans', attention's and the gates' sequence
+    work left out) and train_mfu, launches, busy share, peak memory.
+    Returns {label: launches}."""
+    free_memory(torch)
+    out = {}
+    for c in TRAIN_SSM:
+        t0 = time.perf_counter()
+        cfg = tr.get_config(c["arch"])
+        if "num_layers" in c:
+            cfg = cfg.replace(num_layers=c["num_layers"])
+        it = tr.data_for(cfg, c["batch"], c["seq"], c["seed"], dev)
+        batches = [next(it) for _ in range(c["steps"])]
+        model = tr.init_model(cfg, dev, c["seed"])
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        lr_fn = tr.optimizer.cosine_schedule(c["lr"], c["warmup"],
+                                             c["steps"])
+        tag = c["arch"].split("-")[0]
+        # the trained parameters and the optimizer state are dropped here,
+        # so that the next model has the card
+        losses, timing, launches = run_training(
+            torch, dev, model, tr, batches, lr_fn, warm=1, sync_step=0,
+            profile_step=c["steps"] - 1, label=f"train_{tag}", m=m)[2:]
+        zero = all_grads_nonzero(torch, model)
+        if zero:
+            raise AssertionError(f"train_{tag}: no gradient for {zero}")
+        step_s = timing["step_ms"] / 1e3
+        tokens = c["batch"] * c["seq"]
+        flops = 6.0 * active_params(model) * tokens
+        emit({"phase": "train_ssm", **c, "arch": cfg.name,
+              "num_layers": cfg.num_layers,
+              "params": sum(p.numel() for p in model.parameters()),
+              "param_bytes": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()),
+              "dtype": cfg.dtype, "optimizer": cfg.optimizer,
+              "remat": cfg.remat, "setup_s": setup_s,
+              "losses": losses.tolist(),
+              "ln_vocab": float(np.log(cfg.vocab_size)),
+              "tokens_per_s": tokens / step_s,
+              "model_flops_per_step": flops,
+              "train_mfu": flops / step_s / BF16_TC_FLOPS_PER_S, **timing,
+              "sync_debug_step": 0, "launches": launches,
+              "seconds": time.perf_counter() - t0, "card": smi()})
+        out[f"train_{tag}"] = launches
+        del model
+        free_memory(torch)
+    return out
+
+
 def _bits(torch, t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
@@ -3560,6 +3896,17 @@ def main() -> int:
         attention, ref, tr))
     emit({"phase": "vlm_audio", "seconds": time.perf_counter() - t0})
 
+    # ---- attention masked by explicit positions: B7's position mode at
+    # Qwen2-VL-2B's image prompt in the reference's M-RoPE layout
+    t0 = time.perf_counter()
+    pos_flash = phase_flash_positions(torch, dev, ref, flash_attention,
+                                      build)
+    launches_more["vlm_positions"] = phase_vlm_positions(
+        torch, dev, m, SimpleNamespace(LLMWorkload=LLMWorkload), attention,
+        ref, flash_attention)
+    emit({"phase": "vlm_positions_seconds",
+          "seconds": time.perf_counter() - t0})
+
     # ---- training and checkpoints: DiT-XL/2 and Qwen3-0.6B at full width
     t0 = time.perf_counter()
     trained, params, state, launches_train_dit = phase_train_dit(
@@ -3577,6 +3924,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_train_llm = phase_train_llm(torch, dev, tr, m)
     emit({"phase": "training", "seconds": time.perf_counter() - t0})
+
+    # ---- the SSM and hybrid families' training at full width
+    t0 = time.perf_counter()
+    launches_more.update(phase_train_ssm(torch, dev, tr, m))
+    emit({"phase": "train_ssm_seconds", "seconds": time.perf_counter() - t0})
 
     # launches: each kernel on its own main path (fused_gate, saliency_delta
     # and linear_blend: the merge-off fastcache serve; the merge kernels:
@@ -3612,9 +3964,14 @@ def main() -> int:
     if len(vlm_rows) != 4:
         raise AssertionError(f"{len(vlm_rows)} of the 4 rows at Qwen2-VL's "
                              "and HuBERT's shapes")
+    # the fifteenth slice's: B7's position mode at Qwen2-VL's image prompt
+    # (vlm_positions: every attention layer's launch)
+    pos_flash["p"]["launches"] = launches_more["vlm_positions"][
+        "flash_attention"]
     rows = [gate_row] + merge_rows + [sal_row, blend_row, flash_row,
                                       new_flash["e"], new_flash["g"],
-                                      new_flash["j"]] + vlm_rows
+                                      new_flash["j"]] + vlm_rows + [
+                                          pos_flash["p"]]
     for row in rows:
         row["serve_launches"] = {
             "serve": launches[row["name"]],

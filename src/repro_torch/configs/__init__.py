@@ -16,8 +16,10 @@ from repro_torch.configs import qwen3_14b as _qwen3_14b
 from repro_torch.configs import stablelm_3b as _stablelm_3b
 from repro_torch.configs import xlstm_1p3b as _xlstm_1p3b
 from repro_torch.configs import yi_9b as _yi_9b
-from repro_torch.configs.base import (DiTConfig, FastCacheConfig, ModelConfig,
-                                      MoEConfig, SSMConfig)
+from repro_torch.configs.base import (DiTConfig, FastCacheConfig,
+                                      InputShape, ModelConfig, MoEConfig,
+                                      SSMConfig)
+from repro_torch.configs.shapes import SHAPES
 
 DIT_IDS = ("dit-s2", "dit-b2", "dit-l2", "dit-xl2")
 _LLM_MODULES = {"qwen3-0.6b": _qwen3_0p6b, "stablelm-3b": _stablelm_3b,
@@ -48,6 +50,6 @@ def get_reduced(arch: str) -> ModelConfig:
     raise KeyError(f"unknown arch {arch!r}; known: {_KNOWN}")
 
 
-__all__ = ["DiTConfig", "FastCacheConfig", "ModelConfig", "MoEConfig",
-           "SSMConfig",
+__all__ = ["DiTConfig", "FastCacheConfig", "InputShape", "ModelConfig",
+           "MoEConfig", "SSMConfig", "SHAPES",
            "DIT_IDS", "ENCODER_IDS", "LLM_IDS", "get_config", "get_reduced"]

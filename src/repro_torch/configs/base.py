@@ -102,6 +102,16 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    """One of the assigned input shapes (``configs/shapes.py``), as the
+    reference's."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+@dataclass(frozen=True)
 class FastCacheConfig:
     """Paper defaults (§5.2 / Appendix E.1), as in the reference."""
     enabled: bool = True

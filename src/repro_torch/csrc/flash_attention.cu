@@ -75,6 +75,37 @@
 // thread (ty, tx) owning rows 4ty..4ty+3 and columns tx + 8j of the score
 // tile, f32 FMAs, p kept in f32 as in the TPU kernel.
 //
+// Position mode (both routes; a second template instance of each kernel,
+// kPos): the caller passes int32 positions q_pos (B, Sq) and kv_pos (B, Skv)
+// with their strides (a zero batch stride broadcasts one row), any Sq and
+// Skv, and the mask is the reference's `_mask` (src/repro/models/
+// attention.py:36-48):
+//
+//   live(i, j) = kv_pos_j >= 0 && (!causal || kv_pos_j <= q_pos_i)
+//                && (window <= 0 || kv_pos_j > q_pos_i - window)
+//
+// Key tiles are not a range any more: a tile is skipped only when no pair
+// of it and the block's query tile can be live, which each block finds
+// itself from the positions (no host read): no key with kv_pos >= 0, or
+// min(kv_pos >= 0 in tile) > max(q_pos in tile) under causal, or max(kv_pos
+// in tile) <= min(q_pos in tile) - window under a window.  The bf16 route
+// lists the live tiles in shared memory before its loop (one warp tests a
+// tile, warp 0 compacts the flags in order), and its warpgroups take the
+// list's entries w, w + 2, ...; the f32 route tests each tile in turn.
+// Every entry of a visited tile is masked by the positions (each thread
+// holds its rows' q positions and loads its 16 key positions of a tile
+// while the tile's copy is in flight).  With q_pos = i + Skv - Sq and
+// kv_pos = j the live tiles are the implicit mode's range in the same
+// order and the masked softmax step equals the unmasked one on live
+// entries, so position mode then gives the implicit mode's result bit for
+// bit.  A row with no live key (a layout the model never makes: a token's
+// own key is live, tests/test_torch_positions.py) takes the uniform mean
+// of all Skv values, as the reference's `attend_direct` gives it (its
+// softmax over a row of -1e30): the epilogue finds the row's denominator
+// at 0 and sums V from device memory, so the rare row costs Skv reads.
+// Without positions (the null pointers) the implicit instances run as
+// before, with no extra load.
+//
 // Bound at the serve's prefill (B=1, H=16, KVH=8, S=512, dh=128, causal,
 // bf16): q, k, v read and o written once is 6.29 MB, 1.88 us at 3.35 TB/s;
 // the causal work is 4 * dh * 16 * 512 * 513 / 2 = 1.08 GFLOP, 1.09 us on
@@ -99,8 +130,12 @@ constexpr int kThreads = 128;  // f32 route: 16 row groups x 8 column lanes
 constexpr float kNegInf = -1e30f;
 
 // What the masks and the tile range read; both routes' parameters extend it.
+// Position mode reads qpos / kvpos (element strides: batch, sequence).
 struct Shape {
   int Sq, Skv, group, causal, window;
+  const int* qpos;
+  const int* kvpos;
+  long long qpb, qps, kpb, kps;
 };
 
 struct Params : Shape {
@@ -125,6 +160,46 @@ __device__ __forceinline__ bool live(const Shape& p, int qpos, int kpos) {
   return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
          (p.window <= 0 || kpos > qpos - p.window);
 }
+
+// Position mode: the reference's mask on explicit positions (keys past Skv
+// carry kv position -1).
+__device__ __forceinline__ bool live_pos(const Shape& p, int qpos, int kpos) {
+  return kpos >= 0 && (!p.causal || kpos <= qpos) &&
+         (p.window <= 0 || kpos > qpos - p.window);
+}
+
+__device__ __forceinline__ int q_position(const Shape& p, int b, int row) {
+  return row < p.Sq ? __ldg(p.qpos + b * p.qpb + row * p.qps) : -1;
+}
+
+__device__ __forceinline__ int kv_position(const Shape& p, int b, int key) {
+  return key < p.Skv ? __ldg(p.kvpos + b * p.kpb + key * p.kps) : -1;
+}
+
+// Whether some pair of query positions in [qmin, qmax] and live key
+// positions in [kmin, kmax] (kmax < 0: no key with a position) can be live.
+__device__ __forceinline__ bool tile_may_live(const Shape& p, int qmin,
+                                              int qmax, int kmin, int kmax) {
+  return kmax >= 0 && (!p.causal || kmin <= qmax) &&
+         (p.window <= 0 || kmax > qmin - p.window);
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+constexpr int kIntMax = 0x7fffffff;
+constexpr int kIntMin = -kIntMax - 1;
 
 // ---------------------------------------------------------------------------
 // f32 route: SIMT products from shared memory
@@ -164,14 +239,17 @@ __device__ __forceinline__ float lane8_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <int DH>
+template <int DH, bool kPos>
 constexpr size_t simt_smem_bytes() {
-  // Q and K at pitch DH + 1, V at DH, P at kBK + 1
+  // Q and K at pitch DH + 1, V at DH, P at kBK + 1; position mode: the
+  // query tile's and the key tile's positions
   return sizeof(float) *
-         (size_t)(kBQ * (DH + 1) + kBK * (DH + 1) + kBK * DH + kBQ * (kBK + 1));
+             (size_t)(kBQ * (DH + 1) + kBK * (DH + 1) + kBK * DH +
+                      kBQ * (kBK + 1)) +
+         (kPos ? sizeof(int) * (kBQ + kBK) : 0);
 }
 
-template <int DH>
+template <int DH, bool kPos>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel_simt(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -185,6 +263,8 @@ flash_attention_kernel_simt(const float* __restrict__ q,
   float* Ks = Qs + kBQ * kQP;
   float* Vs = Ks + kBK * kQP;
   float* Ps = Vs + kBK * DH;
+  int* Qp = reinterpret_cast<int*>(Ps + kBQ * kPP);  // position mode only
+  int* Kp = Qp + kBQ;
 
   const int tx = threadIdx.x & 7;
   const int ty = threadIdx.x >> 3;
@@ -196,6 +276,17 @@ flash_attention_kernel_simt(const float* __restrict__ q,
 
   load_tile<DH>(Qs, kQP, q + b * p.qb + h * p.qh + t.q0 * p.qs, p.qs, t.nq,
                 p.dh);
+  int qmin = 0, qmax = 0;
+  if constexpr (kPos) {
+    if (threadIdx.x < kBQ) Qp[threadIdx.x] = q_position(p, b, t.q0 + threadIdx.x);
+    __syncthreads();
+    qmin = kIntMax;
+    qmax = kIntMin;
+    for (int r = 0; r < t.nq; ++r) {
+      qmin = min(qmin, Qp[r]);
+      qmax = max(qmax, Qp[r]);
+    }
+  }
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -206,9 +297,22 @@ flash_attention_kernel_simt(const float* __restrict__ q,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = (t.k_lo / kBK) * kBK; k0 < t.k_hi; k0 += kBK) {
+  const int k_first = kPos ? 0 : (t.k_lo / kBK) * kBK;
+  const int k_end = kPos ? p.Skv : t.k_hi;
+  for (int k0 = k_first; k0 < k_end; k0 += kBK) {
     const int nk = min(kBK, p.Skv - k0);
     __syncthreads();  // Q is staged; the last tile's P and V are consumed
+    if constexpr (kPos) {
+      if (threadIdx.x < kBK) Kp[threadIdx.x] = kv_position(p, b, k0 + threadIdx.x);
+      __syncthreads();
+      int kmin = kIntMax, kmax = -1;
+      for (int j = 0; j < kBK; ++j)
+        if (Kp[j] >= 0) {
+          kmin = min(kmin, Kp[j]);
+          kmax = max(kmax, Kp[j]);
+        }
+      if (!tile_may_live(p, qmin, qmax, kmin, kmax)) continue;  // uniform
+    }
     load_tile<DH>(Ks, kQP, kp + k0 * p.ks, p.ks, nk, p.dh);
     load_tile<DH>(Vs, DH, vp + k0 * p.vs, p.vs, nk, p.dh);
     __syncthreads();
@@ -233,12 +337,13 @@ flash_attention_kernel_simt(const float* __restrict__ q,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = t.qlo + 4 * ty + i;
+      const int qpos = kPos ? Qp[4 * ty + i] : t.qlo + 4 * ty + i;
       unsigned ok = 0;
       float mx = m[i];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const bool lj = live(p, qpos, k0 + tx + 8 * j);
+        const bool lj = kPos ? live_pos(p, qpos, Kp[tx + 8 * j])
+                             : live(p, qpos, k0 + tx + 8 * j);
         s[i][j] = lj ? s[i][j] * p.scale : kNegInf;
         ok |= (unsigned)lj << j;
         mx = fmaxf(mx, s[i][j]);
@@ -276,9 +381,18 @@ flash_attention_kernel_simt(const float* __restrict__ q,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float den = fmaxf(lane8_sum(l[i]), 1e-30f);
+    float den = fmaxf(lane8_sum(l[i]), 1e-30f);
     const int r = 4 * ty + i;
     if (r < t.nq) {
+      if (kPos && den == 1e-30f) {  // no live key: the mean of all values
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+        for (int j = 0; j < p.Skv; ++j)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            if (tx + 8 * c < p.dh) acc[i][c] += vp[j * p.vs + tx + 8 * c];
+        den = (float)p.Skv;
+      }
       float* orow = o + b * p.ob + h * p.oh + (t.q0 + r) * p.os;
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
@@ -287,20 +401,20 @@ flash_attention_kernel_simt(const float* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DH, bool kPos>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
                 int H, const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = simt_smem_bytes<DH>();
+  constexpr size_t smem = simt_smem_bytes<DH, kPos>();
   static bool opted_in = false;  // per instance; a repeated call is harmless
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel_simt<DH>,
+        flash_attention_kernel_simt<DH, kPos>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const dim3 grid((p.Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel_simt<DH><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel_simt<DH, kPos><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), p);
   return (int)cudaGetLastError();
@@ -317,6 +431,7 @@ constexpr int kBox = 64;                // TMA box: 64 rows x 64 bf16 (128 B)
 constexpr uint32_t kBoxBytes = kBox * kBox * 2;
 constexpr uint32_t kSwizzleAtom = 8 * 128;  // 8 rows of 128 B
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kMaxSmem = 232448;     // a block's dynamic shared memory
 
 template <int DH>
 __host__ __device__ constexpr uint32_t tile_bytes() {
@@ -334,6 +449,9 @@ constexpr size_t wgmma_smem_bytes() {
 
 struct WgmmaParams : Shape {
   float scale_log2;  // dh^-1/2 * log2(e)
+  int dh;            // position mode's rows with no live key read V itself
+  const __nv_bfloat16* v;
+  long long vb, vh, vs;
 };
 
 // D (64 x 64, f32) {+}= A (64 x 16, smem) * B (64 x 16, smem), both K-major
@@ -444,13 +562,16 @@ __device__ __forceinline__ float ex2(float x) {
 // dh^-1/2 log2 e) and this thread's share of the denominator l per row, the
 // accumulator o rescaled, and sc overwritten with p.  kMasked: the tile
 // straddles a mask boundary, so every entry is tested and masked ones get
-// p = 0 explicitly.
-template <int DH, bool kMasked>
+// p = 0 explicitly.  kPos: the mask reads the thread's two rows' query
+// positions qp and its 16 columns' key positions kp (position mode), not
+// qpos0 / kpos0.
+template <int DH, bool kMasked, bool kPos = false>
 __device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2],
                                              float (&l)[2],
                                              float (&o)[DH / 2],
                                              const WgmmaParams& wp, int qpos0,
-                                             int kpos0) {
+                                             int kpos0, const int (&qp)[2],
+                                             const int (&kp)[16]) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qpos = qpos0 + 8 * half;
@@ -459,7 +580,9 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2],
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
       float& x = sc[4 * (e / 2) + 2 * half + (e % 2)];
-      if (kMasked && !live(wp, qpos, kpos0 + 8 * (e / 2) + (e % 2))) {
+      const bool lv = kPos ? live_pos(wp, qp[half], kp[e])
+                           : live(wp, qpos, kpos0 + 8 * (e / 2) + (e % 2));
+      if (kMasked && !lv) {
         x = kNegInf;
         ok &= ~(1u << e);
       }
@@ -495,8 +618,9 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2],
 // accumulator) to warpgroup 0 through shared memory, thread t to thread t,
 // and warpgroup 0 merges the two in that fixed order.  The output tile is
 // staged in Q's place in the swizzled box layout and written by TMA, which
-// drops the rows past Sq.
-template <int DH>
+// drops the rows past Sq.  kPos: position mode (see the top of the file);
+// the live key tiles' list follows the mbarriers in shared memory.
+template <int DH, bool kPos>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
@@ -514,22 +638,31 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
   const uint32_t bars = base + rings + 4 * kX * 128;
   const uint32_t q_bar = bars + 8 * kConsumers * kStages;
 
+  // position mode: [0, 4) the query tile's min / max position by warp,
+  // [4] the live tile count, then the list of live key tiles
+  int* list = reinterpret_cast<int*>(
+      smem_raw + (q_bar + 8 - raw));
+  int* live_tiles = list + 8;
+
   const Tile t(wp);
   const int tid = threadIdx.x % 128;  // thread within its warpgroup
   const int wg = threadIdx.x / 128;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / wp.group;
   const int kt0 = t.k_lo / kBK;
-  const int ntiles = (t.k_hi - kt0 * kBK + kBK - 1) / kBK;
-  const int mine = (ntiles - wg + kConsumers - 1) / kConsumers;
+  int ntiles = (t.k_hi - kt0 * kBK + kBK - 1) / kBK;
   const uint32_t my_bars = bars + 8 * kStages * wg;
+  // the key tile of this warpgroup's i-th tile
+  auto tile_of = [&](int i) {
+    return kPos ? live_tiles[wg + kConsumers * i] : kt0 + wg + kConsumers * i;
+  };
   // stage s of this warpgroup's ring: K at k_s(s), V at k_s(s) + kTile
   auto k_s = [&](int s) {
     return base + kTile * (1 + 2 * (wg * kStages + s));
   };
   auto load_kv = [&](int s, int i) {  // this warpgroup's i-th tile
     const uint32_t bar = my_bars + 8 * s;
-    const int row = (kt0 + wg + kConsumers * i) * kBK;
+    const int row = tile_of(i) * kBK;
     mbar_expect_tx(bar, 2 * kTile);
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
@@ -549,13 +682,62 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
       tma_load(base + c * kBoxBytes, &qmap, q_bar, c * kBox, t.q0, h, b);
   }
   __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  int qp[2] = {0, 0};
+  if constexpr (kPos) {
+    // the query tile's position range (warps 0 and 1 of warpgroup 0 hold
+    // its 64 rows), then one flag per key tile (warp w tests tiles w, w +
+    // 8, ...), then warp 0 compacts the flags into the ordered list
+    const int gw = threadIdx.x >> 5;  // warp in the block
+    if (gw < 2) {
+      const int row = t.q0 + threadIdx.x;
+      const int qv = q_position(wp, b, row);
+      const int lo = warp_min(row < wp.Sq ? qv : kIntMax);
+      const int hi = warp_max(row < wp.Sq ? qv : kIntMin);
+      if (lane == 0) {
+        list[2 * gw] = lo;
+        list[2 * gw + 1] = hi;
+      }
+    }
+    __syncthreads();
+    const int qmin = min(list[0], list[2]), qmax = max(list[1], list[3]);
+    const int n_kt = (wp.Skv + kBK - 1) / kBK;
+    for (int j = gw; j < n_kt; j += kWgThreads / 32) {
+      const int k0 = j * kBK + lane;
+      const int a = kv_position(wp, b, k0), c = kv_position(wp, b, k0 + 32);
+      const int kmin = warp_min(min(a >= 0 ? a : kIntMax, c >= 0 ? c : kIntMax));
+      const int kmax = warp_max(max(a, c));
+      if (lane == 0)
+        live_tiles[j] = tile_may_live(wp, qmin, qmax, kmin, kmax) ? 1 : 0;
+    }
+    __syncthreads();
+    if (gw == 0) {
+      int count = 0;
+      for (int c = 0; c < n_kt; c += 32) {
+        const int j = c + lane;
+        const bool f = j < n_kt && live_tiles[j] != 0;
+        const unsigned ballot = __ballot_sync(0xffffffffu, f);
+        __syncwarp();  // every flag of the chunk is read before any write
+        if (f) live_tiles[count + __popc(ballot & ((1u << lane) - 1u))] = j;
+        count += __popc(ballot);
+        __syncwarp();
+      }
+      if (lane == 0) list[4] = count;
+    }
+    __syncthreads();
+    ntiles = list[4];
+  }
+  const int mine = (ntiles - wg + kConsumers - 1) / kConsumers;
   if (tid == 0)
     for (int s = 0; s < kStages && s < mine; ++s) load_kv(s, s);
 
-  const int warp = tid >> 5, lane = tid & 31;
   const int r0 = 16 * warp + (lane >> 2);
   const int c0 = 2 * (lane & 3);
   const int qhi = t.qlo + kBQ - 1;  // last row's position, padding included
+  if constexpr (kPos) {
+    qp[0] = q_position(wp, b, t.q0 + r0);
+    qp[1] = q_position(wp, b, t.q0 + r0 + 8);
+  }
   float o[DH / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int e = 0; e < DH / 2; ++e) o[e] = 0.f;
@@ -563,7 +745,11 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
 
   for (int i = 0; i < mine; ++i) {
     const int s = i % kStages;
-    const int k0 = (kt0 + wg + kConsumers * i) * kBK;
+    const int k0 = tile_of(i) * kBK;
+    int kp[16];  // position mode: this thread's 16 key positions
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      kp[e] = kPos ? kv_position(wp, b, k0 + c0 + 8 * (e / 2) + (e % 2)) : 0;
     mbar_wait(my_bars + 8 * s, (i / kStages) & 1);
 
     // S = Q K^T: dh in k16 slices, 32 bytes apart inside a swizzled row
@@ -582,14 +768,16 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait_all();
     pin(sc);
 
-    // masks only on tiles that straddle a boundary
-    const bool whole = k0 + kBK <= wp.Skv &&
+    // masks only on tiles that straddle a boundary (every tile in position
+    // mode)
+    const bool whole = !kPos && k0 + kBK <= wp.Skv &&
                        (!wp.causal || k0 + kBK - 1 <= t.qlo) &&
                        (wp.window <= 0 || k0 > qhi - wp.window);
     if (whole)
-      softmax_step<DH, false>(sc, m, l, o, wp, t.qlo + r0, k0 + c0);
+      softmax_step<DH, false>(sc, m, l, o, wp, t.qlo + r0, k0 + c0, qp, kp);
     else
-      softmax_step<DH, true>(sc, m, l, o, wp, t.qlo + r0, k0 + c0);
+      softmax_step<DH, true, kPos>(sc, m, l, o, wp, t.qlo + r0, k0 + c0, qp,
+                                   kp);
 
     // O += P V: P's accumulator pairs are the A fragments of the k16 slices
     // (keys 16 kk .. 16 kk + 15); V MN-major, k16 slices 16 rows apart,
@@ -652,8 +840,24 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     float den = l[half];
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
-    const float inv = 1.f / fmaxf(den, 1e-30f);
+    float inv = 1.f / fmaxf(den, 1e-30f);
     const int r = r0 + 8 * half;
+    if (kPos && den == 0.f && t.q0 + r < wp.Sq) {
+      // no live key: the mean of all Skv values, summed in f32
+      const __nv_bfloat16* vrow = wp.v + b * wp.vb + kvh * wp.vh;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * c + c0 + e;
+          float acc = 0.f;
+          if (col < wp.dh)
+            for (int j = 0; j < wp.Skv; ++j)
+              acc += __bfloat162float(vrow[j * wp.vs + col]);
+          o[4 * c + 2 * half + e] = acc;
+        }
+      inv = 1.f / (float)wp.Skv;
+    }
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c) {
       const uint32_t addr = base + (c / 8) * kBoxBytes + r * 128 +
@@ -706,17 +910,22 @@ bool encode_map(CUtensorMap* map, const void* ptr, int dh, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, bool kPos>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int H, int KVH, const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = wgmma_smem_bytes<DH>();
-  static bool opted_in = false;  // per instance; a repeated call is harmless
-  if (!opted_in) {
+  // position mode: the query range, the count and a flag / entry per key
+  // tile after the mbarriers
+  const size_t smem =
+      wgmma_smem_bytes<DH>() +
+      (kPos ? sizeof(int) * (8 + (size_t)(p.Skv + kBK - 1) / kBK) : 0);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static size_t opted_in = 0;  // per instance; a repeated call is harmless
+  if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel_wgmma<DH>,
+        flash_attention_kernel_wgmma<DH, kPos>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+    opted_in = smem;
   }
   CUtensorMap qmap, kmap, vmap, omap;
   if (!encode_map(&qmap, q, p.dh, p.Sq, H, B, p.qs, p.qh, p.qb) ||
@@ -727,8 +936,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   WgmmaParams wp;
   static_cast<Shape&>(wp) = p;
   wp.scale_log2 = p.scale * kLog2e;
+  wp.dh = p.dh;
+  wp.v = static_cast<const __nv_bfloat16*>(v);
+  wp.vb = p.vb;
+  wp.vh = p.vh;
+  wp.vs = p.vs;
   const dim3 grid((p.Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel_wgmma<DH>
+  flash_attention_kernel_wgmma<DH, kPos>
       <<<grid, kWgThreads, smem, stream>>>(qmap, kmap, vmap, omap, wp);
   return (int)cudaGetLastError();
 }
@@ -743,16 +957,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 // H % KVH == 0, 1 <= Sq <= Skv and dh a multiple of 16 in [16, 128]
 // (instance 64 up to 64, else 128).  `scale` is dh^-1/2
 // rounded to f32 by the caller, as the plain version's f32 product with the
-// Python float rounds it.  Returns cudaGetLastError() after the launch
-// (0 = success), or cudaErrorInvalidValue for arguments it refuses.
+// Python float rounds it.  q_pos / kv_pos: null for the implicit positions,
+// or int32 (B, Sq) / (B, Skv) positions with element strides (qpb, qps) /
+// (kpb, kps) for position mode, which takes any Sq >= 1.  Returns
+// cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for arguments it refuses.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KVH, int Sq, int Skv, int dh, long long qb, long long qh,
     long long qs, long long kb, long long kh, long long ks, long long vb,
     long long vh, long long vs, long long ob, long long oh, long long os,
-    int causal, int window, float scale, int dtype_code, void* stream) {
-  if (B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 || Sq > Skv ||
-      B > 65535 || H > 65535)
+    int causal, int window, float scale, int dtype_code,
+    const void* q_pos, const void* kv_pos, long long qpb, long long qps,
+    long long kpb, long long kps, void* stream) {
+  const bool pos = q_pos != nullptr;
+  if (B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 || Skv < 1 ||
+      (!pos && Sq > Skv) || pos != (kv_pos != nullptr) || B > 65535 ||
+      H > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.Sq = Sq;
@@ -766,14 +987,25 @@ extern "C" int flash_attention_launch(
   p.kb = kb; p.kh = kh; p.ks = ks;
   p.vb = vb; p.vh = vh; p.vs = vs;
   p.ob = ob; p.oh = oh; p.os = os;
+  p.qpos = static_cast<const int*>(q_pos);
+  p.kvpos = static_cast<const int*>(kv_pos);
+  p.qpb = qpb; p.qps = qps; p.kpb = kpb; p.kps = kps;
   if (dh < 16 || dh > 128 || dh % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = dh > 64;
-  if (dtype_code == 1)
-    return wide ? launch_wgmma<128>(q, k, v, o, B, H, KVH, p, s)
-                : launch_wgmma<64>(q, k, v, o, B, H, KVH, p, s);
-  if (dtype_code == 0)
-    return wide ? launch_simt<128>(q, k, v, o, B, H, p, s)
-                : launch_simt<64>(q, k, v, o, B, H, p, s);
+  if (dtype_code == 1) {
+    if (pos)
+      return wide ? launch_wgmma<128, true>(q, k, v, o, B, H, KVH, p, s)
+                  : launch_wgmma<64, true>(q, k, v, o, B, H, KVH, p, s);
+    return wide ? launch_wgmma<128, false>(q, k, v, o, B, H, KVH, p, s)
+                : launch_wgmma<64, false>(q, k, v, o, B, H, KVH, p, s);
+  }
+  if (dtype_code == 0) {
+    if (pos)
+      return wide ? launch_simt<128, true>(q, k, v, o, B, H, p, s)
+                  : launch_simt<64, true>(q, k, v, o, B, H, p, s);
+    return wide ? launch_simt<128, false>(q, k, v, o, B, H, p, s)
+                : launch_simt<64, false>(q, k, v, o, B, H, p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

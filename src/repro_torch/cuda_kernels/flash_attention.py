@@ -5,7 +5,8 @@ Replaces the reference's Pallas kernel ``repro/kernels/flash_attention.py:
 flash_attention``.  CPU tensors go to the plain version
 (``ref.flash_attention``); CUDA tensors launch the kernel or raise — there
 is no fallback.  Each kernel launch adds one to
-``flash_attention.launches``.
+``flash_attention.launches`` and to its mode's count in
+``flash_attention.launches_by_mode`` ("implicit" or "positions").
 
 The kernel reads any strides with a unit stride along dh, so a caller
 holding (B, S, H, dh) activations passes ``x.transpose(1, 2)`` views and
@@ -35,10 +36,21 @@ only the true columns are stored.  Zeros add nothing to QK^T, so the
 result is the true-dh attention, at the scale dh^-1/2 of the true dh; the
 zero columns' products are wasted work (80 / 128 of the products do work at
 dh 80).
+
+Position mode: ``q_pos`` (B or 1, Sq) and ``kv_pos`` (B or 1, Skv)
+integer positions (both or neither) mask by the reference's rule
+(``ref.flash_attention``; the full-sequence attention of an M-RoPE image
+prompt, whose tokens share t positions) on a second instance of each
+route's kernel, which finds its live key tiles from the positions on the
+card.  Positions go to the kernel as int32 views with their strides (a
+row of batch 1 is read for every sample); an int64 tensor is converted
+first, one small copy.  Without positions the launch is the implicit
+mode's, unchanged.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -53,7 +65,8 @@ def _kernel():
     fn = build.load_library("flash_attention").lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([_vp] * 4 + [_int] * 6 + [_i64] * 12
-                       + [_int, _int, ctypes.c_float, _int, _vp])
+                       + [_int, _int, ctypes.c_float, _int, _vp, _vp]
+                       + [_i64] * 4 + [_vp])
         fn.restype = _int
     return fn
 
@@ -66,7 +79,8 @@ def instance_dh(dh: int) -> int:
     return 64 if dh <= 64 else 128
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           positions: bool = False) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-d, got shape {tuple(t.shape)}")
@@ -89,9 +103,31 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if h % kvh:
         raise ValueError(f"{h} query heads are not a multiple of {kvh} KV "
                          "heads")
-    if sq > skv:
+    if sq > skv and not positions:
         raise ValueError(f"Sq={sq} > Skv={skv}: query positions are aligned "
                          "to the end of the KV sequence")
+
+
+def _check_positions(q: torch.Tensor, k: torch.Tensor, q_pos, kv_pos):
+    """(q_pos, kv_pos) as (B or 1, S) int32 tensors on q's device."""
+    if (q_pos is None) != (kv_pos is None):
+        raise ValueError("q_pos and kv_pos go together: pass both or "
+                         "neither")
+    out = []
+    for name, t, n in (("q_pos", q_pos, q.shape[2]),
+                       ("kv_pos", kv_pos, k.shape[2])):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+        if t.dim() == 1:
+            t = t[None]
+        if t.dim() != 2 or t.shape[1] != n or t.shape[0] not in (
+                1, q.shape[0]):
+            raise ValueError(f"{name} must be (B or 1, {n}), got shape "
+                             f"{tuple(t.shape)}")
+        out.append(t.to(torch.int32))
+    return out
 
 
 def _check_layout(t: torch.Tensor, name: str) -> None:
@@ -112,14 +148,22 @@ def _check_layout(t: torch.Tensor, name: str) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int = 0) -> torch.Tensor:
+                    causal: bool, window: int = 0,
+                    q_pos: Optional[torch.Tensor] = None,
+                    kv_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, Sq, dh); k, v: (B, KVH, Skv, dh), float32 or bfloat16, one
     dtype -> (B, H, Sq, dh) in q.dtype (on the card: in q's memory layout),
-    as ``ref.flash_attention``.  Query positions are aligned to the end of
-    the KV sequence; ``window > 0`` keeps keys with kpos > qpos - window."""
-    _check(q, k, v)
+    as ``ref.flash_attention``.  Without positions, query positions are
+    aligned to the end of the KV sequence; ``window > 0`` keeps keys with
+    kpos > qpos - window.  ``q_pos`` / ``kv_pos`` (B or 1, S) integer
+    positions select position mode (the module docstring)."""
+    explicit = q_pos is not None or kv_pos is not None
+    _check(q, k, v, positions=explicit)
+    if explicit:
+        q_pos, kv_pos = _check_positions(q, k, q_pos, kv_pos)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_pos=q_pos, kv_pos=kv_pos)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA, not "
                          f"{q.device}")
@@ -129,18 +173,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)            # q's strides when q is dense
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(t, name)
+    pos_args = [None, None, 0, 0, 0, 0]
+    if explicit:
+        pos_args = [q_pos.data_ptr(), kv_pos.data_ptr(),
+                    q_pos.stride(0) if q_pos.shape[0] > 1 else 0,
+                    q_pos.stride(1),
+                    kv_pos.stride(0) if kv_pos.shape[0] > 1 else 0,
+                    kv_pos.stride(1)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, kvh, sq, skv, dh, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
-            int(window), dh ** -0.5, _DTYPE_CODE[q.dtype], stream)
+            int(window), dh ** -0.5, _DTYPE_CODE[q.dtype], *pos_args,
+            stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_mode["positions" if explicit
+                                     else "implicit"] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_mode = {"implicit": 0, "positions": 0}

@@ -3,7 +3,7 @@ the reference's ``kernels/ref.py``.  The wrappers use them for CPU tensors;
 the tests and ``chip_smoke.py`` hold the CUDA kernels against them."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,24 +55,37 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int = 0) -> torch.Tensor:
+                    causal: bool, window: int = 0,
+                    q_pos: Optional[torch.Tensor] = None,
+                    kv_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, Sq, dh); k, v: (B, KVH, Skv, dh); GQA by head grouping.
-    Query positions are aligned to the end of the KV sequence (prefill:
-    Sq == Skv); any Sq <= Skv.  Scores and p in f32, masked scores -1e30,
-    output in q.dtype."""
+    Without positions, query positions are aligned to the end of the KV
+    sequence (prefill: Sq == Skv; any Sq <= Skv).  With ``q_pos`` (B or 1,
+    Sq) and ``kv_pos`` (B or 1, Skv) integer positions, any Sq and Skv,
+    the mask is the reference's ``_mask``: key j is live for query i where
+    kv_pos[j] >= 0, kv_pos[j] <= q_pos[i] if causal, and kv_pos[j] >
+    q_pos[i] - window if window > 0.  Scores and p in f32, masked scores
+    -1e30 (a row with no live key takes the uniform mean over all keys, as
+    the reference's ``attend_direct``), output in q.dtype."""
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.reshape(b, kvh, g, sq, dh)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg.to(F32), k.to(F32))
     s = s * dh ** -0.5
-    qpos = torch.arange(sq, device=q.device) + (skv - sq)
-    kpos = torch.arange(skv, device=q.device)
-    m = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if (q_pos is None) != (kv_pos is None):
+        raise ValueError("q_pos and kv_pos go together")
+    if q_pos is None:
+        qp = (torch.arange(sq, device=q.device) + (skv - sq))[:, None]
+        kp = torch.arange(skv, device=q.device)[None, :]
+    else:                                            # (B|1, 1, 1, Sq, Skv)
+        qp = q_pos[:, None, None, :, None]
+        kp = kv_pos[:, None, None, None, :]
+    m = kp >= 0
     if causal:
-        m &= kpos[None, :] <= qpos[:, None]
+        m = m & (kp <= qp)
     if window > 0:
-        m &= kpos[None, :] > qpos[:, None] - window
+        m = m & (kp > qp - window)
     s = s.masked_fill(~m, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(F32))

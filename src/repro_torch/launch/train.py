@@ -7,10 +7,14 @@ one model on one device, random initial weights, a synthetic stream.
         --reduced --steps 50 --batch 8 --seq 128 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \\
         --reduced --steps 10 --batch 4 --seq 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
+        --reduced --steps 3 --batch 2 --seq 32 --device cpu
 
 Families: the DiT, the dense LMs, the MoE LMs (the MoE's loss adds the
 router's aux; arctic-480b and kimi-k2-1t-a32b name Adafactor, which factors
-each stacked (L, E, D, F) expert leaf over its last two axes), the VLM
+each stacked (L, E, D, F) expert leaf over its last two axes), the SSM
+family (xlstm-1.3b: mLSTM and sLSTM blocks, AdamW), the hybrid family
+(jamba-v0.1-52b: Mamba, attention and MoE layers, Adafactor), the VLM
 (qwen2-vl-2b, on text-only token batches, as the reference's launcher
 feeds it) and the audio encoder (hubert-xlarge, masked prediction on the
 synthetic ``audio_stream``; ``--seq`` is its frame count).
@@ -22,9 +26,7 @@ adaLN-zero modulation and head start at zero, as the reference's
 ``model.init`` leaves them); batches from the ported streams with the same
 seed.  ``--save`` writes the trained parameters as the reference's tree
 (``checkpoint.save``, loadable by the reference's ``load`` in f32).  The
-reference's ``--production-mesh`` (multi-device sharding) is not ported;
-the SSM and hybrid families (xlstm-1.3b, jamba-v0.1-52b) serve but do not
-train in the port yet (ROADMAP A6), so the launcher refuses them.
+reference's ``--production-mesh`` (multi-device sharding) is not ported.
 """
 from __future__ import annotations
 
@@ -39,8 +41,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.training import (cosine_schedule, make_optimizer,
                                   param_tree, train)
-
-UNTRAINED_FAMILIES = ("ssm", "hybrid")     # ROADMAP A6
 
 
 def data_for(cfg, batch, seq, seed=0, device="cuda"):
@@ -86,9 +86,6 @@ def main(argv=None) -> None:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.reduced:
         cfg = cfg.replace(dtype="float32")
-    if cfg.family in UNTRAINED_FAMILIES:
-        raise SystemExit(f"[train] {cfg.name}: training the {cfg.family} "
-                         "family is not ported (ROADMAP A6)")
     model = init_model(cfg, args.device, args.seed)
     n = sum(p.numel() for p in model.parameters())
     print(f"[train] {cfg.name}: {n/1e6:.1f}M params, opt={cfg.optimizer}")

@@ -2,7 +2,7 @@
 layer bodies and their parameter definitions, after the reference's
 ``models/layers.py`` (``attn_defs``, ``_qkv``, ``attn_apply``,
 ``attn_cache_defs``, ``ffn_defs``, ``ffn_apply``, ``moe_defs``,
-``moe_capacity``, ``moe_gather_apply``, ``moe_apply``).
+``moe_capacity``, ``moe_gather_apply``, ``moe_apply``, ``stack_defs``).
 
 Each ``*_defs`` returns a dict of ``ParamDef`` (shape, init kind, scale,
 dtype override), the reference's ParamDefs without the sharding axes;
@@ -41,6 +41,15 @@ class ParamDef(NamedTuple):
     init: str = "normal"        # normal | zeros | ones | fan_in
     scale: float = 1.0
     dtype: Optional[str] = None  # override the model dtype (f32 norms)
+
+
+def stack_defs(defs, n: int):
+    """Add a leading stacking dim of size n to every ParamDef of a (nested)
+    dict, as the reference's ``stack_defs`` (its ``layers`` axis)."""
+    if isinstance(defs, ParamDef):
+        return ParamDef((n,) + tuple(defs.shape), defs.init, defs.scale,
+                        defs.dtype)
+    return {key: stack_defs(d, n) for key, d in defs.items()}
 
 
 class ParamGroup(nn.Module):
@@ -148,11 +157,14 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                decode_pos: Optional[torch.Tensor] = None,
-               window: int = 0, train: bool = False
+               window: int = 0, train: bool = False, prefix_groups: int = 1
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Pre-norm attention sublayer with residual.  ``positions`` are (B, S)
     or, under M-RoPE, the reference's (B, S, 3); the mask and the cache
-    take the t axis (``[..., 0]``), as the reference's ``pos1d``.
+    take the t axis (``[..., 0]``), as the reference's ``pos1d``: every
+    full-sequence call masks by it (without ``positions``, by arange(S),
+    which the kernel's implicit mode gives bit for bit).  ``prefix_groups``
+    is the reference's (causal attention as that many prefix attends).
 
     * train:        ``cache=None, decode_pos=None, train=True`` — full
       self-attention through ``attend_direct``, which autograd
@@ -189,7 +201,8 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                                 window=window)
         else:
             out = attention(q, k, v, None if positions is None else pos1d,
-                            causal=causal, window=window)
+                            causal=causal, window=window,
+                            prefix_groups=prefix_groups)
         if cache is not None:                        # prefill: fill the cache
             pc = pos1d.to(torch.int32).expand(x.shape[0], s)
             _prefill_fill(cache, k, v, pc)

@@ -10,6 +10,9 @@ pairs in another tree order, so the two agree to f32 rounding).  Decode is
 the single-step recurrent form, which updates a given state in place.  No
 step reads a value back to the host.
 
+The doubling runs out of place (each round builds new tensors), so that
+autograd differentiates it, in training and in a ``no_grad`` prefill alike.
+
 Casts are the reference's promotions: ``dt_r`` (model dtype) times the
 model-dtype ``w_dt`` is an f32 product (JAX promotes, here ``w_dt`` is cast),
 the conv bias is added in the model dtype, the skip term in f32.
@@ -86,15 +89,15 @@ def _chunk_scan(da: torch.Tensor, dbx: torch.Tensor, c_mat: torch.Tensor,
     state.  Hillis-Steele doubling over the chunk axis: log2(L) rounds,
     each combining every position with the one ``k`` before it by the
     reference's ``combine`` (a1 * a2, a2 * b1 + b2)."""
-    a = da.clone()
-    b = dbx.clone()
-    b[:, 0] += da[:, 0] * h0                       # fold the initial state
-    n = b.shape[1]
+    n = dbx.shape[1]
+    a = da
+    b = torch.cat([dbx[:, :1] + da[:, :1] * h0[:, None], dbx[:, 1:]],
+                  dim=1)                           # fold the initial state
     k = 1
     while k < n:
-        b[:, k:] = a[:, k:] * b[:, :-k] + b[:, k:]
+        b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
         if 2 * k < n:
-            a[:, k:] = a[:, k:] * a[:, :-k]
+            a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
         k *= 2
     y = torch.matmul(b, c_mat[..., None])[..., 0]            # (B,L,di)
     return y, b[:, -1]

@@ -8,7 +8,10 @@ the S/c chunks.  Its decode is the recurrent single-step form, which
 updates the (B, H, dh, dh) matrix memory of a given state in place (a
 scale and one rank-1 ``baddbmm_``).  The sLSTM scans the prompt token by
 token, as the reference does.  All state math is in f32 with running-max
-stabilization; no step reads a value back to the host.
+stabilization; no step reads a value back to the host.  The two sequence
+forms (``mlstm_sequence``, the sLSTM's token loop) build new tensors at
+every step, so autograd differentiates them as they are (training); only
+the decode steps update a state in place.
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ VLM (the vision encoder is a stub: its embeddings replace the masked
 positions' token embeddings), or ``features`` (B, S, frontend_dim) for the
 audio encoder (its conv frontend is a stub: a projection and a 15-tap
 positional conv); optional ``positions``, (B, S) or (B, S, 3) for
-M-RoPE.  The audio encoder has no embedding table and an untied head, and
+M-RoPE, any integers (an image prompt's tokens share t positions): they
+rotate q and k and, through their t axis, mask every full-sequence
+attention, as the reference's ``pos1d``.  They go to the layers as int32,
+converted once per call.  The audio encoder has no embedding table and an untied head, and
 attends bidirectionally; it has no decode step.
 
 The reference scans one stacked ``blocks/pos{i}`` tree per period position
@@ -29,16 +32,20 @@ attention layers, ``<kind>_<leaf>`` over each mixer kind's layers (e.g.
 dh) f32), and ``step`` (B,) int32.  A dense or MoE model's cache is thus
 ``k``/``v``/``pos`` over all L layers and ``step``.  ``layer_cache`` gives
 one layer's views; ``decode_step`` updates the cache in place.
-``prefix_groups`` is not ported.
+``prefix_groups`` (the constructor's, as the reference's) runs causal
+full-sequence attention as that many prefix attends
+(``attention.prefix_grouped_causal``).
 
 ``forward_train`` and ``loss`` are the reference's ``apply(...,
-train=True)`` and ``loss``, for attention-only stacks: attention through
-``attend_direct`` (autograd cannot differentiate the ``flash_attention``
-kernel), each layer checkpointed when ``cfg.remat`` is set (its MoE aux
-loss with it), and the cross-entropy over the vocabulary head in chunks
-(``chunked_ce``) plus the layers' MoE aux losses: next-token for the
-decoders, masked prediction of ``targets`` for the audio encoder.
-Training a stack with another mixer kind is not ported and raises.
+train=True)`` and ``loss``, for every block kind and ``block_pattern``
+stack: attention through ``attend_direct`` (autograd cannot differentiate
+the ``flash_attention`` kernel), the Mamba doubling scan (out of place,
+``mamba._chunk_scan``), the mLSTM chunkwise and the sLSTM
+token-by-token sequence forms as they are, each layer checkpointed when
+``cfg.remat`` is set (its MoE aux loss with it), and the cross-entropy
+over the vocabulary head in chunks (``chunked_ce``) plus the layers' MoE
+aux losses: next-token for the decoders, masked prediction of ``targets``
+for the audio encoder.
 """
 from __future__ import annotations
 
@@ -101,8 +108,15 @@ class TransformerBlock(nn.Module):
                 self.subs += ("ffn",)
 
 
+def _positions(batch: Batch) -> Optional[torch.Tensor]:
+    """The batch's ``positions`` as int32 (None without them)."""
+    pos = batch.get("positions")
+    return None if pos is None else pos.to(torch.int32)
+
+
 class TransformerModel(nn.Module):
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda", *,
+                 prefix_groups: int = 1):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -112,6 +126,7 @@ class TransformerModel(nn.Module):
             raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
                                       f"one of {ROPE_KINDS}")
         self.cfg = cfg
+        self.prefix_groups = prefix_groups
         self.kinds = cfg.block_pattern or ("attn",)
         self.period = len(self.kinds)
         if cfg.num_layers % self.period != 0:
@@ -239,7 +254,8 @@ class TransformerModel(nn.Module):
             x, c = layers.attn_apply(bp.attn, x, cfg=self.cfg,
                                      positions=positions, cache=cache,
                                      decode_pos=decode_pos, window=window,
-                                     train=train)
+                                     train=train,
+                                     prefix_groups=self.prefix_groups)
         else:
             fn = MIXERS[bp.kind][2]
             p = getattr(bp, bp.kind)
@@ -263,7 +279,7 @@ class TransformerModel(nn.Module):
         """Full-sequence forward (encode): the final-normed hidden states
         (B, S, D) (the reference's ``apply(...)[0]``)."""
         x = self.embed(batch)
-        positions = batch.get("positions")
+        positions = _positions(batch)
         for bp in self.blocks:
             x = self.block_apply(bp, x, positions=positions)[0]
         return common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
@@ -276,15 +292,10 @@ class TransformerModel(nn.Module):
     def forward_train(self, batch: Batch
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The differentiable full-sequence forward: (final-normed hidden
-        states (B, S, D), the layers' summed MoE aux loss) with autograd.
-        Attention-only stacks: training the SSM and hybrid families is not
-        ported (ROADMAP A6) and raises."""
-        if set(self.kinds) != {"attn"}:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training a stack of {self.kinds} is not "
-                "ported (ROADMAP A6: the SSM and hybrid families)")
+        states (B, S, D), the layers' summed MoE aux loss) with autograd,
+        through every block kind."""
         x = self.embed(batch)
-        positions = batch.get("positions")
+        positions = _positions(batch)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for bp in self.blocks:
             if self.cfg.remat:
@@ -374,7 +385,7 @@ class TransformerModel(nn.Module):
         (B, V), cache)."""
         x = self.embed(batch)
         b, s = x.shape[:2]
-        positions = batch.get("positions")
+        positions = _positions(batch)
         cache = self.init_cache(b, window)
         for l, bp in enumerate(self.blocks):
             x = self.block_apply(bp, x, positions=positions,

@@ -21,6 +21,17 @@ Parameters are updated in their own dtype with no f32 master copy, as in
 the reference (``new_p.astype(p.dtype)``): an update smaller than half a
 bf16 ulp of a parameter is lost.  The step count and the learning rate are
 host numbers, so an update makes no device sync.
+
+An update's f32 temporaries are bounded, so that a full-width model whose
+parameters and gradients fill most of the card still steps (xLSTM-1.3b's
+3.6 B parameters under AdamW, Jamba's 16 x 4,096 x 14,336 expert banks
+under Adafactor) with at most ``UPDATE_BYTES`` of f32 per temporary: AdamW
+runs its elementwise rule over buckets of leaves, a leaf larger than the
+bound in flat slices (bit for bit the rule over all leaves at once), and
+Adafactor runs a leaf of two or more dimensions in blocks of its (D, F)
+matrices, in three passes (statistics, the update's RMS over the whole
+leaf, the update), which sum in another order than the reference's
+whole-leaf rule (f32 rounding).
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ from repro_torch import tree
 
 F32 = torch.float32
 _f = np.float32
+UPDATE_BYTES = 1 << 30      # f32 bytes an update works on at once
 
 
 # --------------------------------------------------------------------------
@@ -107,12 +119,25 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, lr: float):
         step = state.step + 1
+        c1 = float(_f(1.0) - _f(self.b1) ** _f(step))
+        c2 = float(_f(1.0) - _f(self.b2) ** _f(step))
+        bucket, nbytes = [], 0
+        for leaf in _pieces(params, state.mu, state.nu, grads):
+            size = 4 * leaf[0].numel()
+            if bucket and nbytes + size > UPDATE_BYTES:
+                self._update(bucket, c1, c2, lr)
+                bucket, nbytes = [], 0
+            bucket.append(leaf)
+            nbytes += size
+        if bucket:
+            self._update(bucket, c1, c2, lr)
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+    def _update(self, leaves, c1: float, c2: float, lr: float) -> None:
+        """The rule on one bucket of (param, mu, nu, grad, decayed)."""
         b1, b2 = self.b1, self.b2
-        c1 = float(_f(1.0) - _f(b1) ** _f(step))
-        c2 = float(_f(1.0) - _f(b2) ** _f(step))
-        ps, ms, vs = (tree.leaves(params), tree.leaves(state.mu),
-                      tree.leaves(state.nu))
-        gs = _as_f32(tree.leaves(grads))
+        ps, ms, vs, gs, decay = (list(x) for x in zip(*leaves))
+        gs = _as_f32(gs)
         torch._foreach_mul_(ms, b1)
         torch._foreach_add_(ms, gs, alpha=1 - b1)
         torch._foreach_mul_(vs, b2)
@@ -124,13 +149,29 @@ class AdamW:
         torch._foreach_div_(u, den)
         del den, gs
         p32 = _as_f32(ps)
-        decayed = [i for i, p in enumerate(ps) if p.ndim >= 2]
+        decayed = [i for i, d in enumerate(decay) if d]
         if decayed and self.wd:
             torch._foreach_add_([u[i] for i in decayed],
                                 [p32[i] for i in decayed], alpha=self.wd)
         torch._foreach_add_(p32, u, alpha=-lr)
         _store(ps, p32)
-        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _pieces(params, mu, nu, grads):
+    """(param, mu, nu, grad, decayed) for each leaf, a leaf of more than
+    ``UPDATE_BYTES`` of f32 as flat slices of at most that many (views of
+    its parameter and moments, which the update writes); ``decayed`` is the
+    leaf's own ``ndim >= 2``."""
+    n = UPDATE_BYTES // 4
+    for p, m, v, g in zip(tree.leaves(params), tree.leaves(mu),
+                          tree.leaves(nu), tree.leaves(grads)):
+        decay = p.ndim >= 2
+        if p.numel() <= n:
+            yield p, m, v, g, decay
+            continue
+        flat = [t.view(-1) for t in (p, m, v)] + [g.reshape(-1)]
+        for i in range(0, p.numel(), n):
+            yield (*(t[i:i + n] for t in flat), decay)
 
 
 # --------------------------------------------------------------------------
@@ -173,26 +214,63 @@ class Adafactor:
         beta = float(_f(1.0) - (_f(step) + _f(1.0)) ** _f(-self.decay_pow))
         for g, vr, vc, p in zip(tree.leaves(grads), tree.leaves(state.vr),
                                 tree.leaves(state.vc), tree.leaves(params)):
-            g = g.to(F32)
-            g2 = g * g + self.eps
             if p.ndim >= 2:
-                vr.mul_(beta).add_(g2.mean(dim=-1), alpha=1 - beta)
-                vc.mul_(beta).add_(g2.mean(dim=-2), alpha=1 - beta)
-                denom = torch.clamp(vr.mean(dim=-1, keepdim=True),
-                                    min=self.eps)
-                vhat = vr[..., :, None] * vc[..., None, :] / denom[..., None]
-                u = g / torch.sqrt(vhat + self.eps)
-            else:
-                vr.mul_(beta).add_(g2, alpha=1 - beta)
-                u = g / torch.sqrt(vr + self.eps)
+                self._update_factored(g, vr, vc, p, beta, lr)
+                continue
+            g = g.to(F32)
+            vr.mul_(beta).add_(g * g + self.eps, alpha=1 - beta)
+            u = g / torch.sqrt(vr + self.eps)
             # update clipping on RMS
             rms = torch.sqrt((u * u).mean() + self.eps)
             u = u / torch.clamp(rms / self.clip, min=1.0)
-            decay = self.wd if p.ndim >= 2 else 0.0
-            p32 = p.to(F32)
-            new_p = p32 - lr * u - lr * decay * p32
-            p.copy_(new_p)
+            p.copy_(p.to(F32) - lr * u)
         return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
+
+    def _update_factored(self, g, vr, vc, p, beta: float, lr: float) -> None:
+        """The factored rule on a leaf of ndim >= 2, (..., D, F) seen as N
+        matrices, in blocks holding at most ``UPDATE_BYTES`` of f32 (as
+        many whole matrices as fit, else rows of one matrix): pass 1
+        updates the row and column statistics (the columns' means from the
+        blocks' sums), pass 2 sums the update's squares over the whole leaf
+        for its RMS, pass 3 recomputes each block's update and applies it.
+        Nothing is read back to the host."""
+        d, f = p.shape[-2:]
+        n = p.numel() // (d * f)
+        gm, pm = g.reshape(n, d, f), p.view(n, d, f)   # pm writes p
+        vrm, vcm = vr.view(n, d), vc.view(n, f)
+        per = UPDATE_BYTES // (4 * d * f)
+        if per:
+            blocks = [(i, min(n, i + per), 0, d) for i in range(0, n, per)]
+        else:
+            rows = max(1, UPDATE_BYTES // (4 * f))
+            blocks = [(i, i + 1, r, min(d, r + rows)) for i in range(n)
+                      for r in range(0, d, rows)]
+
+        def update_of(i0, i1, r0, r1):
+            gb = gm[i0:i1, r0:r1].to(F32)
+            denom = torch.clamp(vrm[i0:i1].mean(dim=-1), min=self.eps)
+            vhat = (vrm[i0:i1, r0:r1, None] * vcm[i0:i1, None, :]
+                    / denom[:, None, None])
+            return gb / torch.sqrt(vhat + self.eps)
+
+        colsum = torch.zeros((n, f), dtype=F32, device=p.device)
+        for i0, i1, r0, r1 in blocks:                  # pass 1: statistics
+            gb = gm[i0:i1, r0:r1].to(F32)
+            g2 = gb * gb + self.eps
+            vrm[i0:i1, r0:r1].mul_(beta).add_(g2.mean(dim=-1),
+                                             alpha=1 - beta)
+            colsum[i0:i1] += g2.sum(dim=1)
+        vcm.mul_(beta).add_(colsum / d, alpha=1 - beta)
+        sq = torch.zeros((), dtype=F32, device=p.device)
+        for blk in blocks:                             # pass 2: the RMS
+            u = update_of(*blk)
+            sq += (u * u).sum()
+        rms = torch.sqrt(sq / p.numel() + self.eps)
+        scale = torch.clamp(rms / self.clip, min=1.0)
+        for i0, i1, r0, r1 in blocks:                  # pass 3: the update
+            u = update_of(i0, i1, r0, r1) / scale
+            p32 = pm[i0:i1, r0:r1].to(F32)
+            pm[i0:i1, r0:r1].copy_(p32 - lr * u - lr * self.wd * p32)
 
 
 def make_optimizer(name: str, **kw):

@@ -35,6 +35,7 @@ assignments, bitwise merged tokens, and rho within 1e-4 (bitwise on
 integer-valued windows, whose Gram is exact in any order).
 """
 import importlib
+import math
 
 import pytest
 import torch
@@ -697,12 +698,232 @@ def test_flash_attention_new_head_dims_write_only_their_columns(cuda_device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             2, sq, sq, dh, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], 1, 0, dh ** -0.5,
-            fa_mod._DTYPE_CODE[dtype],
+            fa_mod._DTYPE_CODE[dtype], None, None, 0, 0, 0, 0,
             torch.cuda.current_stream(cuda_device).cuda_stream)
         torch.cuda.synchronize(cuda_device)
         assert err == 0
         assert torch.equal(out, got)
         assert bool((wide[..., dh:] == 7.0).all())
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's position mode
+# ---------------------------------------------------------------------------
+
+def layout_t(n_text: int, grid: int, n_after: int) -> torch.Tensor:
+    """The t axis of the reference's M-RoPE layout of an image prompt:
+    text at 0 .. n_text - 1, the grid x grid image at n_text, text from
+    n_text + grid."""
+    return torch.cat([torch.arange(n_text),
+                      torch.full((grid * grid,), n_text),
+                      torch.arange(n_text + grid, n_text + grid + n_after)])
+
+
+def _positions(case: str, b: int, s: int, seed: int) -> torch.Tensor:
+    """(b, s) int32 self-attention positions (CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    if case == "layout":
+        n_text = max(1, (s - 256) // 2)
+        t = layout_t(n_text, 16, s - n_text - 256) if s > 256 + 1 else \
+            layout_t(s // 4, 4, s - s // 4 - 16)
+        return t[None].expand(b, s).to(torch.int32)
+    if case == "repeats":
+        return torch.sort(torch.randint(0, max(1, s // 3), (b, s),
+                                        generator=gen), dim=1).values.to(
+                                            torch.int32)
+    if case == "permutation":
+        return torch.stack([torch.randperm(s, generator=gen)
+                            for _ in range(b)]).to(torch.int32)
+    if case == "empty_slots":            # -1 keys, and rows with no live key
+        pos = torch.arange(s).repeat(b, 1)
+        pos[torch.rand((b, s), generator=gen) < 0.25] = -1
+        return pos.to(torch.int32)
+    raise KeyError(case)
+
+
+# (B, H, KVH, S, dh): Qwen2-VL-2B's prefill (12 / 2 heads of 128, S 512),
+# ragged lengths, GQA 4:1 at dh 64 and MHA at dh 80
+POS_SHAPES = [(1, 12, 2, 512, 128), (2, 4, 2, 200, 64), (1, 4, 4, 130, 80)]
+POS_MASKS = [(True, 1024), (True, 0), (True, 48), (False, 0), (False, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", POS_MASKS)
+@pytest.mark.parametrize("case", ["layout", "repeats", "permutation",
+                                  "empty_slots"])
+@pytest.mark.parametrize("shape", POS_SHAPES)
+def test_flash_attention_position_mode_matches_plain(cuda_device, dtype,
+                                                     mask, case, shape):
+    """Position mode on both routes (bf16: wgmma, f32: SIMT) against the
+    plain version on the same positions: the reference's M-RoPE layout,
+    repeated positions, a permutation (tiles in no order of position) and
+    -1 slots (rows with no live key: the uniform mean of the values).
+    Tolerances as the implicit mode's: 2e-5 in f32, 2e-2 in bf16."""
+    b, h, kvh, s, dh = shape
+    causal, window = mask
+    q, k, v = _qkv(cuda_device, dtype, b, h, kvh, s, s, dh, seed=s)
+    pos = _positions(case, b, s, seed=dh).to(cuda_device)
+    kw = dict(causal=causal, window=window, q_pos=pos, kv_pos=pos)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize(cuda_device)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(flash_attention(q, k, v, **kw), got)   # repeats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_arange_positions_equal_implicit(cuda_device,
+                                                         dtype, shape):
+    """Position mode fed q_pos = i + Skv - Sq and kv_pos = j (one row,
+    broadcast over the batch) gives the implicit mode's output bit for
+    bit, on both routes, at every shape of the implicit mode's tests."""
+    b, h, kvh, sq, skv, causal, window = shape
+    q, k, v = _qkv(cuda_device, dtype, b, h, kvh, sq, skv, 128, seed=1)
+    want = flash_attention(q, k, v, causal=causal, window=window)
+    got = flash_attention(
+        q, k, v, causal=causal, window=window,
+        q_pos=(torch.arange(sq, device=cuda_device) + skv - sq)[None],
+        kv_pos=torch.arange(skv, device=cuda_device)[None])
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_position_mode_queries_a_ring(cuda_device, dtype):
+    """Sq = 64 queries against a ring of 1,024 key slots in rotated order
+    with empty (-1) slots, a batch stride of 0 on the positions (one row
+    for both samples), causal with a window of 300: tiles skipped on the
+    positions' test alone."""
+    q, k, v = _qkv(cuda_device, dtype, 2, 8, 2, 64, 1024, 128, seed=3)
+    kv = torch.roll(torch.arange(1024), 300)
+    kv[torch.rand(1024, generator=torch.Generator().manual_seed(0))
+       < 0.1] = -1
+    qp = torch.arange(960, 1024)
+    kw = dict(causal=True, window=300, q_pos=qp[None].to(cuda_device),
+              kv_pos=kv[None].to(cuda_device))
+    got = flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_vlm_image_prompt_prefill_makes_no_host_sync(cuda_device):
+    """A reduced Qwen2-VL (bf16) prefill of an image prompt in the
+    reference's M-RoPE layout (t positions shared by the image) and 3
+    decode steps queue device work only (sync debug "error"); every
+    attention layer launches the kernel in position mode, and the cache's
+    positions are the t axis."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import TransformerModel
+
+    model = TransformerModel(get_reduced("qwen2-vl-2b"), device=cuda_device)
+    model.init(torch.Generator(cuda_device).manual_seed(0))
+    n_text, grid = 12, 4                        # 16 embeddings, S = 40
+    t = layout_t(n_text, grid, 12)
+    s = t.numel()
+    r = torch.arange(grid).repeat_interleave(grid)
+    c = torch.arange(grid).repeat(grid)
+    h, w = t.clone(), t.clone()
+    h[n_text:n_text + 16] = n_text + r
+    w[n_text:n_text + 16] = n_text + c
+    mask = torch.zeros((2, s), dtype=torch.bool)
+    mask[:, n_text:n_text + 16] = True
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab_size, (2, s),
+                                     generator=gen, device=cuda_device),
+             "vision_embeds": 0.02 * torch.randn(
+                 (2, 16, model.cfg.d_model), generator=gen,
+                 device=cuda_device).to(model.dtype),
+             "vision_mask": mask.to(cuda_device),
+             "positions": torch.stack([t, h, w], -1)[None].expand(
+                 2, s, 3).to(torch.int32).to(cuda_device)}
+    _, warm = model.prefill(batch, 64)          # first calls of each op
+    model.decode_step(batch["tokens"][:, 0], warm)
+    torch.cuda.synchronize(cuda_device)
+    before = flash_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, cache = model.prefill(batch, 64)
+        for i in range(3):
+            model.decode_step(batch["tokens"][:, i], cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(cuda_device)
+    assert flash_attention.launches - before == model.cfg.num_layers
+    assert torch.equal(cache["pos"][:, :, :s].cpu(),
+                       t.to(torch.int32).expand(model.cfg.num_layers, 2, s))
+    assert cache["step"].tolist() == [s + 3, s + 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [64, 256])
+def test_mamba_scans_are_bitwise_equal_on_the_card(cuda_device, length):
+    """The Mamba chunk scan on the card at Jamba's full width (d_inner
+    8,192, d_state 16), called as a no_grad prefill calls it and as
+    training does (autograd recording): the same bits, and within f32's
+    1e-4 of the same scan on the CPU."""
+    from repro_torch.models import mamba
+
+    gen = torch.Generator(cuda_device).manual_seed(length)
+    da = torch.rand((1, length, 8192, 16), generator=gen, device=cuda_device)
+    dbx, c, h0 = (torch.randn(shape, generator=gen, device=cuda_device)
+                  for shape in ((1, length, 8192, 16), (1, length, 16),
+                                (1, 8192, 16)))
+    with torch.no_grad():
+        a = mamba._chunk_scan(da, dbx, c, h0)
+    b = mamba._chunk_scan(da, dbx.requires_grad_(True), c, h0)
+    assert b[0].requires_grad
+    assert all(torch.equal(x, y.detach()) for x, y in zip(a, b))
+    with torch.no_grad():
+        want = mamba._chunk_scan(*(t.cpu() for t in (da, dbx, c, h0)))
+    for got, w in zip(a, want):
+        torch.testing.assert_close(got.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b"])
+def test_ssm_train_step_on_the_card(cuda_device, arch):
+    """One train step of the reduced config (f32) on the card beside the
+    same step on the CPU from the same weights and batch: the loss within
+    1e-4 relative, and no host sync in the step."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import TransformerModel
+    from repro_torch.training import loop, optimizer
+
+    cfg = get_reduced(arch).replace(dtype="float32")
+    out = {}
+    toks = torch.randint(0, cfg.vocab_size, (2, 32),
+                         generator=torch.Generator().manual_seed(2))
+    weights = TransformerModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    for dev in ("cpu", cuda_device):
+        model = TransformerModel(cfg, device=dev)
+        model.load_state_dict(weights)
+        params = loop.param_tree(model)
+        opt = optimizer.make_optimizer(cfg.optimizer)
+        state = opt.init(params)
+        step = loop.make_train_step(model, opt,
+                                    optimizer.cosine_schedule(1e-3, 1, 2))
+        batch = {"tokens": toks.to(dev)}
+        step(params, state, batch)                 # first calls of each op
+        if dev != "cpu":
+            torch.cuda.synchronize(cuda_device)
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, met = step(params, state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[str(dev)] = float(met["loss"])
+    assert all(math.isfinite(x) for x in out.values())
+    assert math.isclose(out[str(cuda_device)], out["cpu"], rel_tol=1e-4), out
 
 
 # ---------------------------------------------------------------------------
@@ -1611,8 +1832,8 @@ def test_flash_attention_at_hubert_and_qwen2_vl_shapes(cuda_device, dtype,
 def test_vlm_and_audio_make_no_host_sync(cuda_device):
     """The reduced Qwen2-VL's prefill with vision embeddings and its decode
     steps, and the reduced HuBERT's encode, queue device work only (sync
-    debug "error"; explicit positions cost one read a layer, the check
-    that their t axis is arange(S), so the 3-axis prefill runs outside);
+    debug "error"; the 3-axis prefill's sync-free run, in the reference's
+    layout, is ``test_vlm_image_prompt_prefill_makes_no_host_sync``);
     the encode launches flash_attention once a layer, bidirectionally:
     moving the last frames moves the first ones' hidden states."""
     from repro_torch.configs import get_reduced

@@ -304,9 +304,8 @@ def test_unported_configs_raise():
     """A family or a rope kind the reference does not have raises as not
     ported (the VLM family and M-RoPE build since they were ported); an
     unknown block kind and a depth that is not a multiple of the pattern's
-    period raise ``ValueError``, as in the reference; positions whose t
-    axis is not ``arange(S)`` raise in full-sequence attention (2-d, and
-    M-RoPE's 3-axis ones alike)."""
+    period raise ``ValueError``, as in the reference.  (Positions other
+    than ``arange(S)`` are ported: ``tests/test_torch_positions.py``.)"""
     cfg = get_reduced("qwen3-0.6b")
     with pytest.raises(NotImplementedError):
         TransformerModel(cfg.replace(family="vit"), device="cpu")
@@ -318,16 +317,6 @@ def test_unported_configs_raise():
                          device="cpu")
     with pytest.raises(NotImplementedError):
         TransformerModel(cfg.replace(rope_kind="yarn"), device="cpu")
-    tm = TransformerModel(cfg.replace(dtype="float32"), device="cpu")
-    toks = tt(tokens((1, 8), 8))
-    with pytest.raises(NotImplementedError, match="arange"):
-        tm.apply({"tokens": toks, "positions": torch.arange(8) + 3})
-    vlm = TransformerModel(get_reduced("qwen2-vl-2b").replace(
-        dtype="float32"), device="cpu")
-    t = torch.arange(8)
-    with pytest.raises(NotImplementedError, match="arange"):
-        vlm.apply({"tokens": toks,
-                   "positions": torch.stack([t + 3, t, t], -1)[None]})
 
 
 def test_bridge_rejects_mismatched_trees():

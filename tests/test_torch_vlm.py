@@ -11,10 +11,10 @@ heads of 64, SwiGLU 512, vocab 512, 16 vision embeddings, M-RoPE sections
 (8, 12, 12) over theta 1e6, tied embeddings, no qk-norm, with the
 reference's parameters (``model.init(PRNGKey(0))``) copied through
 ``repro_torch.bridge``; inputs drawn with numpy from a seed.  Image tokens
-sit at positions 1.. of the prompt; their 3-axis positions keep t =
-arange(S) (the one layout full-sequence attention runs, ROADMAP A3) and
-put h and w on a 4 x 4 grid, so the three axes differ there and M-RoPE
-differs from RoPE.
+sit at positions 1.. of the prompt; their 3-axis positions here keep t =
+arange(S) and put h and w on a 4 x 4 grid, so the three axes differ there
+and M-RoPE differs from RoPE (the reference's layout, whose image tokens
+share a t position, is ``tests/test_torch_positions.py``'s).
 
 Tolerances: M-RoPE rtol/atol 1e-4 in f32 and 5e-2 of the tensor's scale
 in bf16.  The config has no qk-norm, so its model outputs take
