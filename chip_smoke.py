@@ -173,6 +173,42 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             step (1 + L) in both serves; the per-class summary, the shed walk and the collector's
             SLO counts; then the same trace served plainly, and per engine
             step both serves' wall time and CUDA-event span;
+9h. sharded_serve  the serve phase's workload through
+            ShardedDiffusionEngine (launch.serve_diffusion.Workload.
+            build_engine(mesh=...)).  (1, 1) on nccl with world size 1 in
+            this process, through timed_run in the order plain engine,
+            sharded, sharded, plain, sharded with sync admission: the
+            sharded serves' latents bitwise the serve phase's, the block
+            cache ratio PARENT_BLOCK_CACHE_RATIO, 1 + L host syncs per
+            warm model step, one completion fetch per run (async),
+            launches exact on every serve, wall time and CUDA-event span
+            per engine step of each.  The launcher's own --mesh path
+            (serve_diffusion.serve_mesh, LAUNCHER_MESH_RUNS: 2,1 with a
+            steps and guidance mix on gloo ranks sharing the card, 1,1
+            lockstep on nccl), its rank-0 summary equal on LAUNCHER_EXACT
+            to the single-device launcher's on the same flags, its
+            topology the mesh's with the backend the card count calls
+            for.  Then two ranks sharing the card over gloo
+            (launch.mesh.RankGroup, SHARDED_SCENARIOS), each rank's
+            launches exactly expected_launches for its slots and per rank
+            the wall time and CUDA-event span per engine step: data = 2:
+            the same (admit, finish) schedule and latents within
+            LATENT_REL (1e-4 of their scale) of the serve phase's; model =
+            2 (18 heads and 4,608 ffn columns halve): one block on its
+            shards within BLOCK_TP_BOUND of the unsharded block (f32, bf16)
+            and off by more than BLOCK_TP_FAULT without its all-reduce;
+            the numerics self-check (TP_SELF_CHECK: f32, one layer, atol
+            SELF_CHECK_ATOL) passes, and raises with blocks that skip
+            their all-reduce; a 3-step serve of a two-layer cut
+            (TP_SERVED_CUT) lies within TP_LATENT_REL of a single-device
+            serve of the same model, and farther without the all-reduce;
+            at full depth the served schedule and launches are exact and
+            the latents' distance is recorded beside chaos_probe's (the
+            model in f32 with no sharding, its input moved by one part
+            in 2^23, block by block); beside each served distance, how
+            far the single-device serve's latents move when its initial
+            noise moves by one part in 2^23 (noise_spread); a rank's
+            failure fails the phase;
 10. kernel  flash_attention against its plain version at four shapes: (a)
             the LLM serve's prefill, B=1, H=16, KVH=8, S=512, dh=128,
             causal, window 1024, bf16; (b) S=2048, window 512 (tiles
@@ -493,6 +529,66 @@ FLUSH_BYTES = 64 << 20     # the buffer written to push inputs out of L2
 BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
 L2C_SKIP = 14
 SPIN_CYCLES = 4_000_000    # ~2 ms spin opening each device_ms window
+LATENT_REL = 1e-4          # the port's latent tolerance, of their scale
+# the sharded serve's two-rank runs, both ranks sharing card 0 over gloo
+# (see 9h), on the Workload's model at full width in the scenario's
+# ``dtype`` (absent: bf16), cut to ``num_layers`` (absent: all 28), its
+# requests' plans ``steps`` long (absent: 50).  "block" holds one block on
+# local shards to the unsharded block (BLOCK_TP_BOUND by dtype); a
+# "self_check" scenario builds the engine with the numerics self-check on
+# at ``atol``, which must pass (``expect`` "pass") or, with blocks that
+# skip their all-reduce (``bad_reduce``), raise; a "served" one serves
+# with the self-check off, its schedule exact and its latents within
+# ``bound`` of a single-device serve of the same model (None: measured,
+# not bounded), or, with ``bad_reduce``, farther than ``bound``.
+#
+# Why model = 2 is checked cut down (PERF.md, §6): the random-init
+# DiT's hidden states reach ~960, where an f32 sum in another order moves
+# an element by 0.02 in one block ("block"), so the self-check's absolute
+# 1e-2 (the reference's default, kept by the engine) fails on a correct
+# engine; it runs here at SELF_CHECK_ATOL, ~1e-3 of that scale, in f32 at
+# one layer.  And the served trajectory is chaotic: one part in 2^23 of
+# the initial noise moves the single-device latents by 0.85 of their
+# scale at full depth, but by 1.7e-4 over a 3-step plan at two layers,
+# where model = 2 lies 0.033 away and a skipped all-reduce 1.67
+# (noise_spread, beside each served distance)
+SELF_CHECK_ATOL = 1.0
+TP_LATENT_REL = 0.1
+TP_SELF_CHECK = dict(kind="self_check", dtype="float32", num_layers=1,
+                     atol=SELF_CHECK_ATOL)
+TP_SERVED_CUT = dict(num_layers=2, steps=3, bound=TP_LATENT_REL)
+SHARDED_SCENARIOS = {
+    (2, 1): [dict(name="served", bound=LATENT_REL)],
+    (1, 2): [dict(name="block"),
+             dict(name="self_check", expect="pass", **TP_SELF_CHECK),
+             dict(name="bad_reduce", expect="raise", bad_reduce=True,
+                  **TP_SELF_CHECK),
+             dict(name="served_cut", **TP_SERVED_CUT),
+             dict(name="served_cut_bad_reduce", bad_reduce=True,
+                  **TP_SERVED_CUT),
+             dict(name="served", bound=None)],
+}
+# the launcher's own --mesh runs (serve_diffusion.serve_mesh), each
+# against the single-device launcher on the same flags: name -> (the mesh
+# flags, the other flags); LAUNCHER_EXACT: the summary keys that must agree
+LAUNCHER_MESH_RUNS = {
+    "mesh_2x1_mix": (["--mesh", "2,1"],
+                     ["--steps-mix", "20,50", "--guidance-mix", "1.0,4.0"]),
+    "mesh_1x1_lockstep": (["--mesh", "1,1"], ["--lockstep"]),
+}
+LAUNCHER_EXACT = ("finished", "engine_steps", "model_steps",
+                  "latency_steps_p50", "latency_steps_p95",
+                  "latency_by_steps", "block_cache_ratio", "steps_reused",
+                  "blocks_skipped", "blocks_computed", "mode", "steps_mix",
+                  "guidance_mix")
+# one DiT block at full width on two heads / ffn shards against the
+# unsharded block, relative L2 over a (8, 256, 1152) input: f32 sums its
+# partials in another order (~1e-6), bf16 rounds the block's products once
+# (its ulp, 2^-8); a block whose products are not all-reduced is off by
+# ~0.5, which BLOCK_TP_FAULT must see
+BLOCK_TP_BOUND = {"float32": 1e-4, "bfloat16": 1e-2}
+BLOCK_TP_FAULT = 0.1
+SHARDED_TIMEOUT_S = 300    # both ranks of one mesh, start to result
 
 
 def emit(obj) -> None:
@@ -3292,6 +3388,470 @@ def phase_slo_serve(torch, dev, wl, model, m):
     return launches
 
 
+def timed_run(torch, m, eng, trace):
+    """``eng.run(trace)`` with each engine step between CUDA events (the
+    SLO plane's StepTimer).  Returns the finished requests, the wall
+    seconds and the mean event span per engine step in ms."""
+    timer = m.StepTimer(torch.device("cuda"))
+    step = eng.step
+
+    def timed_step():
+        timer.start()
+        out = step()
+        timer.stop()
+        return out
+
+    eng.step = timed_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timer.poll()
+    return done, wall, timer.total_ms / max(timer.count, 1)
+
+
+def syncs_per_warm_step(runner) -> float:
+    kinds = runner.impl.step_kinds
+    return (runner.impl.host_syncs - kinds["cold"] - kinds["mixed"]) \
+        / kinds["warm"]
+
+
+def sharded_model(torch, wl, dtype=None, num_layers=None):
+    """The Workload's DiT on the current card (its seed), optionally in
+    another dtype or cut to ``num_layers`` at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.dit import DiTModel
+    cfg = get_config(wl.arch)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    dev = torch.device("cuda")
+    return DiTModel(cfg, device=dev).init(
+        torch.Generator(dev).manual_seed(wl.seed))
+
+
+def sharded_rank(rank, world, port, topo, scenarios):
+    """One rank of a two-rank sharded serve on card 0 over gloo (a
+    ``launch.mesh.RankGroup`` target).  For each scenario
+    (SHARDED_SCENARIOS) it builds the Workload's model (in the scenario's
+    dtype, depth and plan length) and the engine through
+    ``Workload.build_engine`` on the (data, model) mesh, with blocks that
+    skip their all-reduce when ``bad_reduce``: ``rank_self_check`` or
+    ``rank_serve``.  Returns the results, latents included."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)
+    from repro_torch.cuda_kernels.fused_gate import fused_gate
+    from repro_torch.cuda_kernels.knn_density import knn_density
+    from repro_torch.cuda_kernels.linear_blend import linear_blend
+    from repro_torch.cuda_kernels.saliency_delta import saliency_delta
+    from repro_torch.cuda_kernels.token_merge import (merge_assign,
+                                                      unmerge_scatter)
+    from repro_torch.cuda_kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import init_ranks, make_serving_mesh
+    from repro_torch.launch.serve_diffusion import Workload
+    from repro_torch.models import dit as dit_mod
+    from repro_torch.serving.slo import StepTimer
+    m = SimpleNamespace(StepTimer=StepTimer, kernels={
+        "fused_gate": fused_gate, "knn_density": knn_density,
+        "merge_assign": merge_assign, "unmerge_scatter": unmerge_scatter,
+        "flash_attention": flash_attention,
+        "saliency_delta": saliency_delta, "linear_blend": linear_blend})
+    init_ranks(rank, world, port=port, backend="gloo")
+    mesh = make_serving_mesh(*topo)
+    wl = Workload()
+    results = {}
+    for sc in scenarios:
+        name = sc["name"]
+        if name == "block":
+            results[name] = block_tp_check(torch, wl, mesh, dit_mod)
+            continue
+        wl_sc = dataclasses.replace(wl, steps=sc.get("steps", wl.steps))
+        model = sharded_model(torch, wl_sc, sc.get("dtype"),
+                              sc.get("num_layers"))
+        real = dit_mod.tp_all_reduce
+        if sc.get("bad_reduce"):
+            dit_mod.tp_all_reduce = lambda partial: partial
+        try:
+            results[name] = (
+                rank_self_check(wl_sc, model, mesh, sc.get("atol"))
+                if sc.get("kind") == "self_check" else
+                rank_serve(torch, wl_sc, model, mesh, m,
+                           f"sharded_serve_{topo[0]}x{topo[1]}_{name}"
+                           f"_rank{rank}"))
+        finally:
+            dit_mod.tp_all_reduce = real
+        del model
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return results
+
+
+def rank_self_check(wl, model, mesh, atol=None) -> dict:
+    """Build the engine with the numerics self-check on (at ``atol``, or
+    the engine's own 1e-2 when None) and record what it said."""
+    import functools
+    from repro_torch.serving.sharded_engine import ShardedDiffusionEngine
+    cls = ShardedDiffusionEngine
+    check = cls._verify_step_numerics
+    if atol is not None:
+        cls._verify_step_numerics = functools.partialmethod(check, atol=atol)
+    try:
+        wl.build_engine(model, mesh=mesh, numerics_check=True)
+        return {"raised": None}
+    except RuntimeError as e:
+        return {"raised": str(e)}
+    finally:
+        cls._verify_step_numerics = check
+
+
+def rank_serve(torch, wl, model, mesh, m, label) -> dict:
+    """Serve ``wl`` on this rank through the sharded engine with the
+    self-check off, every kernel's count zeroed just before and read just
+    after; the launches held to expected_launches (and the routes to
+    ROUTE_OF_SERVE in bf16).  Returns its record, latents included."""
+    wl.warm_up(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner, eng = wl.build_engine(model, mesh=mesh, numerics_check=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    trace = wl.build_trace(model)
+    zero_counts(m.kernels)                         # the path starts here
+    done, wall, span_ms = timed_run(torch, m, eng, trace)
+    launches = {k: fn.launches                     # ... and ends here
+                for k, fn in m.kernels.items()}
+    if model.dtype == torch.bfloat16:
+        check_path(label, wl, runner, eng, m, launches)
+    elif launches != expected_launches(wl, runner, eng, launches):
+        raise AssertionError(f"{label}: launches {launches}")
+    return {
+        "rank": torch.distributed.get_rank(), "topology": eng.topology(),
+        "dtype": str(model.dtype), "layers": model.cfg.num_layers,
+        "steps": wl.steps, "window": [eng._lo, eng.S_dev],
+        "engine_build_s": build_s, "engine_steps": eng.clock,
+        "model_steps": eng.model_steps,
+        "step_kinds": dict(runner.impl.step_kinds), "launches": launches,
+        "block_cache_ratio": eng.cache_stats()["block_cache_ratio"],
+        "wall_s": wall, "engine_steps_per_s": eng.clock / wall,
+        "wall_ms_per_engine_step": wall / eng.clock * 1e3,
+        "event_ms_per_engine_step": span_ms,
+        "engine_host_syncs": eng.host_syncs,
+        "schedule": {r.rid: (r.admit_step, r.finish_step) for r in done},
+        "latents": {r.rid: r.latents for r in done},
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def block_tp_check(torch, wl, mesh, dit_mod) -> dict:
+    """One block of the Workload's DiT (full width, its seed) on this
+    rank's shards, cut by the sharding rules as the engine cuts them,
+    against the unsharded block on the same (8, 256, 1152) input, in f32
+    and bf16; and with the all-reduce skipped.  Relative L2 of each."""
+    from repro_torch.distributed import sharding as sh
+    ctx = sh.ShardingCtx(mesh, sh.make_rules("serve"))
+    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model = sharded_model(torch, wl, dtype, num_layers=1)
+        bp = model.blocks[0]
+        g = torch.Generator(dev).manual_seed(1)
+        d = model.cfg.d_model
+        x = torch.randn((8, model.num_tokens, d), generator=g,
+                        device=dev).to(model.dtype)
+        c = torch.randn((8, d), generator=g, device=dev).to(model.dtype)
+        with torch.no_grad():
+            want = model.block_apply(bp, x, c).float()
+            specs = sh.param_specs(model.param_defs(), ctx)["blocks"]
+            for name, spec in specs.items():
+                if any(a is not None for a in spec[1:]):
+                    bp._parameters[name] = torch.nn.Parameter(
+                        sh.local_slice(getattr(bp, name).data, spec[1:],
+                                       coords, ctx.extents),
+                        requires_grad=False)
+            real = dit_mod.tp_all_reduce
+            with sh.use_sharding(ctx=ctx):
+                got = model.block_apply(bp, x, c).float()
+                dit_mod.tp_all_reduce = lambda partial: partial
+                try:
+                    bad = model.block_apply(bp, x, c).float()
+                finally:
+                    dit_mod.tp_all_reduce = real
+        rel = float((got - want).norm() / want.norm())
+        rel_bad = float((bad - want).norm() / want.norm())
+        if rel > BLOCK_TP_BOUND[dtype] or rel_bad < BLOCK_TP_FAULT:
+            raise AssertionError(f"block on shards, {dtype}: rel L2 {rel} "
+                                 f"(bound {BLOCK_TP_BOUND[dtype]}), "
+                                 f"without the all-reduce {rel_bad}")
+        out[dtype] = {"rel_l2": rel, "max_abs": float((got - want).abs().max()),
+                      "scale": float(want.abs().max()),
+                      "rel_l2_without_all_reduce": rel_bad,
+                      "shard_shapes": {k: list(getattr(bp, k).shape)
+                                       for k in ("wq", "wo", "w_in",
+                                                 "w_out")}}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def latent_distance(done_by_rid, want) -> dict:
+    """Each request's max |latent difference| over the scale of the
+    reference's latents, by rid."""
+    return {rid: float(np.abs(lat - want[rid].latents).max()
+                       / np.abs(want[rid].latents).max())
+            for rid, lat in done_by_rid.items()}
+
+
+def chaos_probe(torch, wl) -> list:
+    """The served DiT's sensitivity, with no sharding: the Workload's
+    model in f32 at full depth fed latents moved by one part in 2^23, each
+    block's output's relative L2 change."""
+    model = sharded_model(torch, wl, "float32")
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(1)
+    lat = torch.randn((8,) + latent_shape(model), generator=g, device=dev)
+    t = torch.full((8,), 999, device=dev)
+    labels = torch.zeros((8,), dtype=torch.int64, device=dev)
+    out = []
+    with torch.no_grad():
+        c = model.conditioning(t, labels)
+        x = model.tokens_in(lat)
+        y = model.tokens_in(lat * (1.0 + 2.0 ** -23))
+        for bp in model.blocks:
+            x, y = model.block_apply(bp, x, c), model.block_apply(bp, y, c)
+            out.append(float((x - y).norm() / x.norm()))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_one_by_one(torch, wl, model, m, base) -> dict:
+    """(1, 1) on nccl in this process, each serve through timed_run in one
+    order, plain / sharded / sharded / plain / sharded with sync
+    admission: every sharded serve's latents bitwise the serve phase's,
+    ratio PARENT_BLOCK_CACHE_RATIO, 1 + L syncs per warm model step, one
+    completion fetch a run (async); launches exact on every serve.
+    Returns the launches by label."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (free_port, init_ranks,
+                                         make_serving_mesh)
+    want = {r.rid: r for r in base.done}
+    order = ("plain", "sharded", "sharded", "plain", "sharded_sync")
+    runs, out = [], {}
+    init_ranks(0, 1, port=free_port(), backend="nccl")
+    try:
+        mesh = make_serving_mesh(1, 1)
+        for kind in order:
+            runner, eng = (wl.build_engine(model) if kind == "plain" else
+                           wl.build_engine(model, mesh=mesh,
+                                           async_admission=kind == "sharded"))
+            trace = wl.build_trace(model)
+            zero_counts(m.kernels)                 # the path starts here
+            done, wall, span_ms = timed_run(torch, m, eng, trace)
+            launches = {name: fn.launches          # ... and ends here
+                        for name, fn in m.kernels.items()}
+            label = f"sharded_serve_1x1_{kind}"
+            check_path(label, wl, runner, eng, m, launches)
+            if kind != "plain":
+                out["sharded_serve_1x1" + kind[len("sharded"):]] = launches
+                topo = eng.topology()
+                for r in done:
+                    if not np.array_equal(r.latents, want[r.rid].latents):
+                        raise AssertionError(f"{label} rid={r.rid}: latents "
+                                             "differ from the serve phase's")
+                    if r.cache != want[r.rid].cache:
+                        raise AssertionError(f"{label} rid={r.rid}: request "
+                                             f"counters {r.cache}")
+                ratio = eng.cache_stats()["block_cache_ratio"]
+                if ratio != PARENT_BLOCK_CACHE_RATIO:
+                    raise AssertionError(f"{label}: block cache ratio {ratio}")
+                syncs = syncs_per_warm_step(runner)
+                if syncs != float(1 + runner.L):
+                    raise AssertionError(f"{label}: {syncs} syncs per warm "
+                                         "model step")
+                if kind == "sharded" and eng.host_syncs != 1:
+                    raise AssertionError(f"{label}: {eng.host_syncs} "
+                                         "completion fetches in one run")
+            runs.append({"kind": kind, "engine_steps": eng.clock,
+                         "wall_ms_per_engine_step": wall / eng.clock * 1e3,
+                         "event_ms_per_engine_step": span_ms,
+                         "completion_fetches": eng.host_syncs})
+            del runner, eng
+    finally:
+        dist.destroy_process_group()
+    mean = {kind: {k: float(np.mean([r[k] for r in runs
+                                     if r["kind"] == kind]))
+                   for k in ("wall_ms_per_engine_step",
+                             "event_ms_per_engine_step")}
+            for kind in ("plain", "sharded")}
+    emit({"phase": "sharded_serve", "mesh": [1, 1], "topology": topo,
+          "requests": len(want), "bitwise_serve": True,
+          "async_bitwise_sync": True,
+          "block_cache_ratio": PARENT_BLOCK_CACHE_RATIO,
+          "syncs_per_warm_model_step": float(1 + base.runner.L),
+          "launches": out["sharded_serve_1x1"], "runs_in_order": runs,
+          "mean": mean,
+          "sharded_over_plain_wall": (mean["sharded"]["wall_ms_per_engine_step"]
+                                      / mean["plain"]
+                                      ["wall_ms_per_engine_step"]),
+          "serve_phase_wall_ms_per_engine_step":
+              base.wall / base.eng.clock * 1e3, "card": smi()})
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_launcher(torch) -> None:
+    """The launcher's own ``--mesh`` path at full width
+    (``serve_diffusion.serve_mesh``: the backend chosen by card count,
+    each rank's card, the kernel prebuild, rank 0's summary) for each of
+    LAUNCHER_MESH_RUNS, against the single-device launcher
+    (``serve_diffusion.serve``) on the same flags in this process: the
+    LAUNCHER_EXACT keys equal, the topology the mesh's with the backend
+    that the card count calls for, async admission on."""
+    from repro_torch.launch import serve_diffusion as launcher
+    for label, (mesh_flags, flags) in LAUNCHER_MESH_RUNS.items():
+        t0 = time.perf_counter()
+        got = launcher.serve_mesh(launcher.parse_args(mesh_flags + flags),
+                                  timeout=SHARDED_TIMEOUT_S)
+        mesh_s = time.perf_counter() - t0
+        want = launcher.serve(launcher.parse_args(flags))
+        data, model = (int(v) for v in mesh_flags[1].split(","))
+        world = data * model
+        topo = {"data": data, "model": model, "devices": world,
+                "backend": ("nccl" if torch.cuda.device_count() >= world
+                            else "gloo")}
+        bad = {k: (got[k], want[k]) for k in LAUNCHER_EXACT
+               if got[k] != want[k]}
+        if got["topology"] != topo or not got["async_admission"]:
+            bad["topology"] = (got["topology"], topo)
+        if bad:
+            raise AssertionError(f"launcher {label}: mesh != single-device "
+                                 f"summary on {bad}")
+        emit({"phase": "sharded_serve_launcher", "run": label,
+              "flags": mesh_flags + flags, "topology": got["topology"],
+              **{k: got[k] for k in LAUNCHER_EXACT},
+              "engine_steps_per_s": {"mesh": got["engine_steps_per_s"],
+                                     "single": want["engine_steps_per_s"]},
+              "mesh_run_s": mesh_s, "card": smi()})
+
+
+def noise_spread(wl, model, done) -> float:
+    """How far a single-device serve's latents move when every request's
+    initial noise moves by one part in 2^23: the largest latent_distance
+    from ``done``, a serve of ``wl`` on ``model``."""
+    eng = wl.build_engine(model)[1]
+    noise = eng.noise_fn
+    eng.noise_fn = lambda r: noise(r) * (1.0 + 2.0 ** -23)
+    moved = eng.run(wl.build_trace(model))
+    return max(latent_distance({r.rid: r.latents for r in moved},
+                               {r.rid: r for r in done}).values())
+
+
+def ref_key(wl, sc) -> tuple:
+    """(dtype, layers, steps) of the single-device serve that a "served"
+    scenario is held to (None: the Workload's)."""
+    return sc.get("dtype"), sc.get("num_layers"), sc.get("steps", wl.steps)
+
+
+def phase_sharded_serve(torch, dev, wl, model, m, base):
+    """The serve phase's workload through ShardedDiffusionEngine: (1, 1)
+    on nccl in this process, the launcher's --mesh runs, then two ranks
+    sharing the card over gloo for each of SHARDED_SCENARIOS (see the
+    module docstring, 9h).  Returns each path's launches by label (rank
+    0's for two ranks)."""
+    from repro_torch.launch.mesh import run_ranks
+    out = sharded_one_by_one(torch, wl, model, m, base)
+    sharded_launcher(torch)
+    chaos = chaos_probe(torch, wl)
+    # the single-device serve each "served" scenario is held to, by model,
+    # and how far its latents move when its initial noise moves by one
+    # part in 2^23
+    refs = {(None, None, wl.steps): base.done}
+    spread = {(None, None, wl.steps): noise_spread(wl, model, base.done)}
+    for sc in (sc for scs in SHARDED_SCENARIOS.values() for sc in scs):
+        key = ref_key(wl, sc)
+        if sc["name"].startswith("served") and key not in refs:
+            wl_sc = dataclasses.replace(wl, steps=key[2])
+            cut = sharded_model(torch, wl_sc, *key[:2])
+            wl_sc.warm_up(cut)
+            refs[key] = wl_sc.build_engine(cut)[1].run(
+                wl_sc.build_trace(cut))
+            spread[key] = noise_spread(wl_sc, cut, refs[key])
+            del cut
+            torch.cuda.empty_cache()
+    for topo, scenarios in SHARDED_SCENARIOS.items():
+        ranks = run_ranks(sharded_rank, 2, (topo, scenarios),
+                          timeout=SHARDED_TIMEOUT_S, label=f"mesh {topo}")
+        row = {"phase": "sharded_serve", "mesh": list(topo)}
+        for sc in scenarios:
+            name = sc["name"]
+            if name == "block":
+                row[name] = [res[name] for res in ranks]
+                continue
+            if sc.get("kind") == "self_check":
+                msgs = [res[name]["raised"] for res in ranks]
+                passed = [msg is None for msg in msgs]
+                if sc["expect"] == "pass" and not all(passed):
+                    raise AssertionError(f"mesh {topo} {name}: the "
+                                         f"self-check raised: {msgs}")
+                if sc["expect"] == "raise" and not all(
+                        msg and "numerics self-check failed" in msg
+                        for msg in msgs):
+                    raise AssertionError(f"mesh {topo} {name}: the "
+                                         f"self-check did not raise: {msgs}")
+                row[name] = {"layers": sc.get("num_layers"),
+                             "dtype": sc.get("dtype") or str(model.dtype),
+                             "atol": sc.get("atol"), "passed": passed,
+                             "message": msgs[0]}
+                continue
+            want = {r.rid: r for r in refs[ref_key(wl, sc)]}
+            sched = {rid: (r.admit_step, r.finish_step)
+                     for rid, r in want.items()}
+            dist_rel = {}
+            for res in ranks:
+                got = res[name]
+                if got["schedule"] != sched:
+                    raise AssertionError(f"mesh {topo} {name} rank "
+                                         f"{got['rank']}: schedule "
+                                         f"{got['schedule']}")
+                for lat in got["latents"].values():
+                    if not np.isfinite(lat).all():
+                        raise AssertionError(f"mesh {topo} {name}: "
+                                             "latents not finite")
+                for rid, d in latent_distance(got["latents"], want).items():
+                    dist_rel[rid] = max(dist_rel.get(rid, 0.0), d)
+            worst = max(dist_rel.values())
+            bound, bad = sc.get("bound"), bool(sc.get("bad_reduce"))
+            if bound is not None and (worst > bound) != bad:
+                rule = "must exceed" if bad else "within"
+                raise AssertionError(
+                    f"mesh {topo} {name}: latents {worst:.3e} of their "
+                    f"scale from the single-device serve's ({rule} "
+                    f"{bound})")
+            out[f"sharded_serve_{topo[0]}x{topo[1]}_{name}"] = \
+                ranks[0][name]["launches"]
+            row[name] = {
+                "layers": sc.get("num_layers") or model.cfg.num_layers,
+                "dtype": sc.get("dtype") or str(model.dtype),
+                "max_latent_rel": worst, "latent_bound": sc.get("bound"),
+                "single_device_noise_spread": spread[ref_key(wl, sc)],
+                "ranks": [{k: v for k, v in res[name].items()
+                           if k not in ("latents", "schedule")}
+                          for res in ranks]}
+        if topo[1] > 1:
+            row["chaos_f32_per_layer"] = chaos
+        row["serve_phase_wall_ms_per_engine_step"] = \
+            base.wall / base.eng.clock * 1e3
+        row["card"] = smi()
+        emit(row)
+    return out
+
+
 def phase_llm_sampled(torch, dev, wl, model, serve):
     """greedy=False: each request's first token drawn from its prefill's
     logits (torch.Generator seeded by rid); every request finishes."""
@@ -3837,6 +4397,12 @@ def main() -> int:
     launches_slo = phase_slo_serve(torch, dev, wl, model, m)
     emit({"phase": "slo", "seconds": time.perf_counter() - t0})
 
+    # ---- serving past one device: the sharded engine on (1, 1) and on two
+    # ranks sharing the card
+    t0 = time.perf_counter()
+    launches_sharded = phase_sharded_serve(torch, dev, wl, model, m, base)
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t0})
+
     # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate
     flash_row = phase_flash_attention(torch, dev, ref, flash_attention,
                                       build)["a"]
@@ -3988,6 +4554,8 @@ def main() -> int:
             "preempt_resume": launches_preempt[row["name"]],
             "preempt_resume_merge": launches_preempt_merge[row["name"]],
             "slo_serve": launches_slo[row["name"]],
+            **{label: n[row["name"]]
+               for label, n in launches_sharded.items()},
             "llm_serve_exact": launches_exact[row["name"]],
             "llm_serve_fastcache": launches_llm[row["name"]],
             "train_dit": launches_train_dit[row["name"]],

@@ -42,6 +42,9 @@ import torch
 from repro_torch.core import linear_approx
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.device import to_device
+# the slot-axis rank rule is the sharding rules' own
+from repro_torch.distributed.sharding import _slot_axis as slot_axis
+from repro_torch.distributed.sharding import agree_all
 from repro_torch.models.dit import DiTModel
 
 if TYPE_CHECKING:
@@ -267,7 +270,9 @@ class CachePolicy:
         inputs, x_out)`` writes the policy's own payloads into ``out`` on
         the recompute path (masking with ``skip`` itself)."""
         self.host_syncs += 1
-        if bool(skip.all()):                       # one host sync per step
+        # one host sync per step, agreed over the model group when the
+        # blocks' weights are sharded (the stack holds all-reduces)
+        if bool(agree_all(skip.all())):
             eps = state["prev_eps"].to(F32).to(x_in.dtype)
             st = dict(state)
         else:
@@ -291,23 +296,6 @@ class CachePolicy:
         stats["motion_frac_sum"] = stats["motion_frac_sum"] + (1.0 - skf)
         st["stats"] = stats
         return eps, st
-
-
-def slot_axis(shape: Tuple[int, ...], batch: int,
-              layers: Optional[int]) -> Optional[int]:
-    """Which dim of a state leaf is the sample batch, by the reference's
-    rank rule (its ``distributed/sharding.py:_slot_axis``): the leading
-    axis, except for layer-stacked leaves, whose leading extent is
-    ``layers`` or ``layers + 1`` followed by the batch extent, which put it
-    on axis 1.  Leaves without a batch-extent leading dim replicate.  The
-    layer rule is checked first, so an (L, B) tracker resolves to axis 1
-    even when ``L == batch``."""
-    if (layers is not None and len(shape) >= 2
-            and shape[0] in (layers, layers + 1) and shape[1] == batch):
-        return 1
-    if len(shape) >= 1 and shape[0] == batch:
-        return 0
-    return None
 
 
 def row_index(rows: Rows, device: torch.device) -> torch.Tensor:

@@ -33,6 +33,7 @@ from repro_torch.core.policies.base import F32, CachePolicy, register
 from repro_torch.cuda_kernels.fused_gate import fused_gate
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
+from repro_torch.distributed.sharding import agree_all, constrain
 
 
 @register("fastcache")
@@ -175,9 +176,11 @@ class FastCache(CachePolicy):
 
             # skip the block entirely when every sample caches; otherwise
             # compute it once for the batch and keep cached samples' approx
+            # (agreed over the model group when the block's weights are
+            # sharded: every rank of the group enters its all-reduce or none)
             if can_skip:
                 self.host_syncs += 1
-                all_cache = bool(do_cache.all())
+                all_cache = bool(agree_all(do_cache.all()))
             else:
                 all_cache = False
             if all_cache:
@@ -185,6 +188,7 @@ class FastCache(CachePolicy):
             else:
                 xm_new = torch.where(do_cache[:, None, None], out,
                                      self.model.block_apply(bp, xm, c))
+            xm_new = constrain(xm_new, "act_batch", "act_seq", "act_embed")
             # sliding-window variance tracker updates on recompute
             new_sig, _ = statcache.update_sigma(
                 sig[lidx], ini[lidx], diff, nd, fc.background_momentum)

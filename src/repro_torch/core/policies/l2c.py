@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.policies.base import CachePolicy, register
 from repro_torch.cuda_kernels.linear_blend import linear_blend
+from repro_torch.distributed.sharding import constrain
 
 MaskLike = Union[torch.Tensor, np.ndarray]
 
@@ -58,6 +59,7 @@ class LearnedLayerCache(CachePolicy):
                                  ).reshape(b, n, d)
             else:
                 x = self.model.block_apply(bp, x, c)
+            x = constrain(x, "act_batch", "act_seq", "act_embed")
         eps = self._eps(x, c)
         skipped = float(sum(self.mask))
         st = dict(state)

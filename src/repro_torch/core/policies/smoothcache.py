@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core.policies.base import F32, CachePolicy, register
 from repro_torch.device import to_device
+from repro_torch.distributed.sharding import constrain
 
 DEFAULT_TABLE_STEPS = 1000
 
@@ -120,6 +121,7 @@ class SmoothCache(CachePolicy):
             else:
                 x_new = torch.where(skip_l[:, None, None], reuse,
                                     self.model.block_apply(bp, x, c))
+            x_new = constrain(x_new, "act_batch", "act_seq", "act_embed")
             new_delta.append(torch.where(skip_l[:, None, None], delta_prev,
                                          x_new - x))
             sk = skip_l.to(F32)

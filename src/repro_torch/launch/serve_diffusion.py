@@ -39,6 +39,22 @@ JSON), ``--audit-fraction`` / ``--audit-seed`` (the shadow-compute audit
 plane's schedule), ``--audit-baseline`` (a calibration ``.npz`` arming the
 drift gauge) and ``--audit-out`` (the per-request error budgets).
 
+The reference's workload and mesh flags: ``--steps-mix 20,50`` /
+``--guidance-mix 1.0,4.0`` draw each request's plan (DDIM step budget,
+guidance scale) from a mix, one engine batch serving them side by side
+(the plan tables sized to the largest budget); ``--lockstep`` admits a new
+wave only once every slot is free (the fixed-wave baseline).  ``--mesh
+data,model`` serves through ``ShardedDiffusionEngine`` (slots over
+``data``, DiT weights tensor-parallel over ``model``) on ``data * model``
+ranks that the launcher starts itself, one process each, printing from
+rank 0 only; ``--sync-admission`` fetches each completion at once instead
+of once at run end.  On the card the ranks use ``nccl`` with a card each,
+and ``gloo`` when they share fewer cards; on the CPU ``gloo``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_diffusion \\
+        --mesh 2,1 --reduced --device cpu --requests 4 --slots 2 \\
+        --steps 6 --json
+
 ``Workload`` is the one definition of the served configuration: its
 defaults are the flags' defaults, and ``chip_smoke.py`` and
 ``launch/profile_serve.py`` build their serve from it.
@@ -69,6 +85,7 @@ from repro_torch.serving.scheduler import (SCHED_POLICIES, DiffusionRequest,
                                            percentile, piecewise_rate,
                                            poisson_trace, summarize_by_class,
                                            summarize_by_steps)
+from repro_torch.serving.sharded_engine import ShardedDiffusionEngine
 from repro_torch.serving.slo import (AdmissionController,
                                      DegradationController, SLOScheduler)
 
@@ -80,8 +97,12 @@ class Workload:
     reduced: bool = False
     policy: str = "fastcache"
     slots: int = 4
-    steps: int = 50                 # DDIM steps per request
+    steps: int = 50                 # DDIM steps per request (default plan)
     guidance: float = 4.0
+    # each request draws its own plan from these (empty: the defaults)
+    steps_mix: Tuple[int, ...] = ()
+    guidance_mix: Tuple[float, ...] = ()
+    lockstep: bool = False          # admit a wave only when all slots free
     requests: int = 8
     rate: float = 0.5               # Poisson arrivals per engine step
     seed: int = 0                   # weights and arrivals
@@ -118,24 +139,39 @@ class Workload:
         return DiTModel(cfg, device=dev).init(
             torch.Generator(dev).manual_seed(self.seed))
 
+    @property
+    def max_steps(self) -> int:
+        """The plan tables' width: the largest step budget served."""
+        return max(self.steps_mix + (self.steps,))
+
     def build_engine(self, model: DiTModel, *,
                      collector: Optional[MetricsCollector] = None,
                      tracer: Optional[TraceRecorder] = None,
-                     enable_metrics: bool = True, **runner_kwargs
+                     enable_metrics: bool = True, mesh=None,
+                     async_admission: bool = True,
+                     numerics_check: Optional[bool] = None, **runner_kwargs
                      ) -> Tuple[CachedDiT, DiffusionServingEngine]:
         """The runner and a fresh engine; ``runner_kwargs`` go to
-        ``CachedDiT`` (e.g. ``fc_params`` of ``calibrate_dit``)."""
+        ``CachedDiT`` (e.g. ``fc_params`` of ``calibrate_dit``).  With a
+        ``mesh`` (``launch.mesh.make_serving_mesh``), the engine is a
+        ``ShardedDiffusionEngine`` on it (its numerics self-check as
+        ``numerics_check`` says), which cuts ``model`` in place."""
         fc = FastCacheConfig(merge_enabled=self.merge_ratio < 1.0,
                              merge_ratio=self.merge_ratio,
                              merge_window=self.merge_window)
         runner = CachedDiT(model, fc, policy=self.policy,
                            **self.policy_kwargs, **runner_kwargs)
-        return runner, DiffusionServingEngine(
-            runner, max_slots=self.slots, num_steps=self.steps,
-            guidance_scale=self.guidance, cfg_rows=self.cfg_rows,
-            collector=collector, tracer=tracer,
-            enable_metrics=enable_metrics,
-            audit_fraction=self.audit_fraction, audit_seed=self.audit_seed)
+        kw = dict(max_slots=self.slots, num_steps=self.steps,
+                  guidance_scale=self.guidance, max_steps=self.max_steps,
+                  cfg_rows=self.cfg_rows, collector=collector,
+                  tracer=tracer, enable_metrics=enable_metrics,
+                  audit_fraction=self.audit_fraction,
+                  audit_seed=self.audit_seed)
+        if mesh is None:
+            return runner, DiffusionServingEngine(runner, **kw)
+        return runner, ShardedDiffusionEngine(
+            runner, mesh=mesh, async_admission=async_admission,
+            numerics_check=numerics_check, **kw)
 
     def rate_fn(self) -> Optional[Callable[[float], float]]:
         """The calm -> burst -> calm arrival rate, or None (constant)."""
@@ -150,6 +186,8 @@ class Workload:
     def build_trace(self, model: DiTModel) -> List[DiffusionRequest]:
         return poisson_trace(self.requests, self.rate, seed=self.seed,
                              num_classes=model.cfg.dit.num_classes,
+                             steps_mix=self.steps_mix or None,
+                             guidance_mix=self.guidance_mix or None,
                              rate_fn=self.rate_fn(),
                              priority_mix=self.priority_mix or None,
                              deadline_slack_mix=(self.deadline_slack_mix
@@ -176,17 +214,20 @@ class Workload:
         included) land here and not in a timed run.  Its steps take both
         the cold and the gated branch.  Returns the runner and engine it
         used."""
-        short = dataclasses.replace(self, requests=2, steps=3)
+        short = dataclasses.replace(self, requests=2, steps=3, steps_mix=(),
+                                    guidance_mix=())
         runner, eng = short.build_engine(model)
         eng.run(short.build_trace(model))
         return runner, eng
 
 
-def serve(args: argparse.Namespace) -> Dict:
+def serve(args: argparse.Namespace, *, device=None, mesh=None) -> Dict:
+    """One serve of the flags' workload on ``device`` (``args.device`` by
+    default), through the sharded engine on ``mesh`` when one is given."""
     wl = Workload(**{f.name: getattr(args, f.name)
                      for f in dataclasses.fields(Workload)
                      if hasattr(args, f.name)})
-    model = wl.build_model(args.device)
+    model = wl.build_model(device or args.device)
     dev = model.device
     wl.warm_up(model)
     # the audit plane folds into the device metrics, so auditing implies
@@ -200,14 +241,16 @@ def serve(args: argparse.Namespace) -> Dict:
         calib = load_calibration(args.audit_baseline)
         collector.set_audit_context(baseline=calib["errors_mean"])
     tracer = TraceRecorder() if args.trace_out else None
-    runner, eng = wl.build_engine(model, collector=collector, tracer=tracer)
+    runner, eng = wl.build_engine(model, collector=collector, tracer=tracer,
+                                  mesh=mesh,
+                                  async_admission=not args.sync_admission)
     trace = wl.build_trace(model)
     slo = wl.build_slo(eng, collector) if wl.slo else None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     done = (slo.run(trace) if slo is not None
-            else eng.run(trace, sched_policy=wl.sched))
+            else eng.run(trace, lockstep=wl.lockstep, sched_policy=wl.sched))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -232,6 +275,12 @@ def serve(args: argparse.Namespace) -> Dict:
         "blocks_computed": stats["blocks_computed"],
         "token_merge": {"ratio": wl.merge_ratio, "window": wl.merge_window,
                         "active": runner.reducer is not None},
+        "mode": "lockstep" if wl.lockstep else "continuous",
+        "topology": (eng.topology() if mesh is not None
+                     else {"data": 1, "model": 1, "devices": 1}),
+        "async_admission": mesh is not None and not args.sync_admission,
+        "steps_mix": list(wl.steps_mix) or [wl.steps],
+        "guidance_mix": list(wl.guidance_mix) or [wl.guidance],
         "cfg_rows": wl.cfg_rows,
         "sched_policy": wl.sched,
         "latency_by_steps": summarize_by_steps(done + rejected),
@@ -291,6 +340,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rate", type=float, default=Workload.rate,
                     help="Poisson arrival rate, requests per engine step")
     ap.add_argument("--seed", type=int, default=Workload.seed)
+    ap.add_argument("--steps-mix", type=_int_list, default=(),
+                    help="comma list of DDIM step budgets; each request "
+                         "draws its own (e.g. 20,50)")
+    ap.add_argument("--guidance-mix", type=_float_list, default=(),
+                    help="comma list of guidance scales; each request "
+                         "draws its own (e.g. 1.0,4.0)")
+    ap.add_argument("--lockstep", action="store_true",
+                    help="fixed-wave baseline instead of continuous "
+                         "admission")
+    ap.add_argument("--mesh", type=_mesh, default=None,
+                    help="serve sharded on a 'data,model' mesh of ranks "
+                         "(e.g. 2,1) that the launcher starts; empty = the "
+                         "single-device engine")
+    ap.add_argument("--sync-admission", action="store_true",
+                    help="sharded engine only: fetch each completion at "
+                         "once instead of once at run end")
     add_slo_args(ap)
     add_merge_args(ap)
     ap.add_argument("--no-cfg", dest="cfg_rows", action="store_false",
@@ -333,9 +398,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = check_merge_args(ap.parse_args(argv))
     if args.audit_out and args.audit_fraction <= 0.0:
         raise SystemExit("--audit-out needs --audit-fraction > 0")
-    if not args.cfg_rows and args.guidance != 1.0:
+    if not args.cfg_rows and (args.guidance != 1.0
+                              or any(g != 1.0 for g in args.guidance_mix)):
         raise SystemExit("--no-cfg serves guidance==1.0 only; pass "
-                         "--guidance 1.0")
+                         "--guidance 1.0 and an all-1.0 --guidance-mix")
+    if args.slo and args.lockstep:
+        raise SystemExit("--slo drives continuous admission; drop "
+                         "--lockstep")
     if args.burst_len > 0 and args.burst_rate <= 0.0:
         raise SystemExit("--burst-len needs --burst-rate > 0")
     return args
@@ -343,6 +412,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def _int_list(text: str) -> Tuple[int, ...]:
     return tuple(int(v) for v in text.split(",") if v.strip())
+
+
+def _float_list(text: str) -> Tuple[float, ...]:
+    return tuple(float(v) for v in text.split(",") if v.strip())
+
+
+def _mesh(text: str) -> Optional[Tuple[int, int]]:
+    """'data,model' (e.g. '2,1') -> (data, model); '' -> None."""
+    if not text:
+        return None
+    try:
+        data, model = (int(v) for v in text.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh expects 'data,model' ints, got {text!r}")
+    return data, model
 
 
 def add_slo_args(ap: argparse.ArgumentParser) -> None:
@@ -410,12 +494,69 @@ def check_merge_args(args: argparse.Namespace) -> argparse.Namespace:
     return args
 
 
-def main(argv=None) -> None:
+# the kernels a DiT serve launches, built once before ranks start (two
+# ranks building into build/kernels at first use would race each other)
+SERVE_KERNELS = ("fused_gate", "linear_blend", "saliency_delta",
+                 "knn_density", "token_merge")
+MESH_TIMEOUT_S = 3600.0    # every rank of a --mesh serve, start to summary
+
+
+def mesh_backend(device: str, world: int) -> Tuple[str, List[str]]:
+    """The process-group backend and each rank's device: ``nccl`` with a
+    card per rank, ``gloo`` when the ranks share the cards there are (NCCL
+    refuses two ranks on one card) and on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "gloo", [str(dev)] * world
+    n = torch.cuda.device_count()
+    if n >= world:
+        return "nccl", [f"cuda:{r}" for r in range(world)]
+    return "gloo", [f"cuda:{r % n}" for r in range(world)]
+
+
+def _mesh_rank(rank: int, world: int, port: int, backend: str,
+               devices: List[str], args: argparse.Namespace
+               ) -> Optional[Dict]:
+    """One rank of ``serve_mesh``: its summary on rank 0, else None."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_serving_mesh
+    _numerics()
+    if devices[rank].startswith("cuda"):
+        torch.cuda.set_device(torch.device(devices[rank]))
+    init_ranks(rank, world, port=port, backend=backend)
+    summary = serve(args, device=devices[rank],
+                    mesh=make_serving_mesh(*args.mesh))
+    dist.destroy_process_group()
+    return summary if rank == 0 else None
+
+
+def serve_mesh(args: argparse.Namespace, *,
+               timeout: float = MESH_TIMEOUT_S) -> Dict:
+    """Start ``data * model`` ranks, serve on each, return rank 0's
+    summary; a rank's failure, or no summary within ``timeout`` seconds,
+    raises with its traceback."""
+    from repro_torch.launch.mesh import run_ranks
+    world = args.mesh[0] * args.mesh[1]
+    backend, devices = mesh_backend(args.device, world)
+    if devices[0].startswith("cuda"):
+        from concurrent.futures import ThreadPoolExecutor
+        from repro_torch.cuda_kernels import build
+        with ThreadPoolExecutor(len(SERVE_KERNELS)) as pool:
+            list(pool.map(build.load_library, SERVE_KERNELS))
+    return run_ranks(_mesh_rank, world, (backend, devices, args),
+                     timeout=timeout, label="serve_diffusion")[0]
+
+
+def _numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def main(argv=None) -> None:
+    _numerics()
     args = parse_args(argv)
-    summary = serve(args)
+    summary = serve_mesh(args) if args.mesh else serve(args)
     if args.json:
         print(json.dumps(summary))
     else:

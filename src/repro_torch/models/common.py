@@ -14,7 +14,7 @@ PyTorch's default for matmul).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,10 +124,18 @@ def modulate(x: torch.Tensor, shift: torch.Tensor,
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
-             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+             w_out: torch.Tensor, b_out: torch.Tensor,
+             reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """The tanh-GELU MLP.  With ``reduce``, ``w_in``/``b_in`` hold this
+    rank's ffn columns and ``w_out`` its rows: the f32 partial product is
+    summed by ``reduce`` (an all-reduce over the model group), rounded
+    once, then ``b_out`` is added once."""
     h = fdot(x, w_in) + b_in
     h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
-    return fdot(h, w_out) + b_out
+    if reduce is None:
+        return fdot(h, w_out) + b_out
+    return reduce(torch.matmul(h.to(F32), w_out.to(F32))).to(x.dtype) + b_out
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,

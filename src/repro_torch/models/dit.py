@@ -11,26 +11,48 @@ is a copy; the reference's layer-stacked ``blocks`` tree becomes one
 ``loss`` are the reference's ``apply(..., train=True)`` and ``loss``, with
 each block checkpointed (recomputed in backward) when ``cfg.remat`` is set,
 as the reference wraps its scan body in ``jax.checkpoint``.
+
+``param_defs`` carries the reference's logical axes, from which the sharded
+serving engine (``serving/sharded_engine.py``) cuts each block's weights
+over the mesh's ``model`` axis.  ``block_apply`` runs on such local shards
+as well: ``wq``/``wk``/``wv``/``wo`` may hold a share of the heads and
+``w_in``/``b_in``/``w_out`` a share of the ffn columns, each as its spec
+fell (18 heads do not divide a 4-way axis; 4608 ffn columns do).  A
+sharded product sums its f32 partials over the model group
+(``tp_all_reduce``), rounds once, then adds the bias and the residual once,
+as the unsharded product rounds its f32 accumulation once.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.distributed.sharding import constrain, current_ctx
 from repro_torch.models import common
 from repro_torch.models.attention import attend_bidirectional
+from repro_torch.models.layers import ParamDef, stack_defs
 
 F32 = torch.float32
 
-# (shape, init) per parameter; init is "zeros", "normal" (0.02 std) or
-# "fan_in" (1/sqrt(shape[-2]) std), as in the reference's ParamDefs
-ParamSpec = Tuple[Tuple[int, ...], str]
+
+def tp_all_reduce(partial: torch.Tensor) -> torch.Tensor:
+    """Sum an f32 partial product over this rank's model group, in place.
+    A block holding a weight shard needs a sharding context whose model
+    axis is wider than one device."""
+    ctx = current_ctx()
+    group = ctx.group("model") if ctx is not None else None
+    if group is None:
+        raise RuntimeError("a DiT block holds a weight shard, but no "
+                           "sharding context with a model axis is active")
+    dist.all_reduce(partial, group=group)
+    return partial
 
 
 def _ln(x: torch.Tensor) -> torch.Tensor:
@@ -41,18 +63,18 @@ def _ln(x: torch.Tensor) -> torch.Tensor:
     return ((xf - mu) * torch.rsqrt(var + 1e-6)).to(x.dtype)
 
 
-def _make_params(module: nn.Module, specs: Dict[str, ParamSpec],
+def _make_params(module: nn.Module, specs: Dict[str, ParamDef],
                  dtype: torch.dtype, device: torch.device) -> None:
-    for name, (shape, _) in specs.items():
+    for name, d in specs.items():
         module.register_parameter(name, nn.Parameter(
-            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(d.shape, dtype=dtype, device=device),
             requires_grad=False))
 
 
 class DiTBlock(nn.Module):
     """One block's parameters (the reference's ``params["blocks"][...][l]``)."""
 
-    def __init__(self, specs: Dict[str, ParamSpec], dtype: torch.dtype,
+    def __init__(self, specs: Dict[str, ParamDef], dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
         self.specs = specs
@@ -80,39 +102,57 @@ class DiTModel(nn.Module):
 
     # ------------------------------------------------------------------
 
-    def _block_specs(self) -> Dict[str, ParamSpec]:
+    def _block_specs(self) -> Dict[str, ParamDef]:
+        """One block's defs; init is "zeros", "normal" (0.02 std) or
+        "fan_in" (1/sqrt(shape[-2]) std), axes the reference's."""
         cfg = self.cfg
         d, h, dh, f = (cfg.d_model, cfg.num_heads, cfg.resolved_head_dim,
                        cfg.d_ff)
         return {
-            "ada_w": ((d, 6 * d), "zeros"),
-            "ada_b": ((6 * d,), "zeros"),
-            "wq": ((d, h, dh), "fan_in"),
-            "wk": ((d, h, dh), "fan_in"),
-            "wv": ((d, h, dh), "fan_in"),
-            "wo": ((h, dh, d), "fan_in"),
-            "w_in": ((d, f), "fan_in"),
-            "b_in": ((f,), "zeros"),
-            "w_out": ((f, d), "fan_in"),
-            "b_out": ((d,), "zeros"),
+            "ada_w": ParamDef((d, 6 * d), "zeros", axes=("embed", None)),
+            "ada_b": ParamDef((6 * d,), "zeros", axes=(None,)),
+            "wq": ParamDef((d, h, dh), "fan_in",
+                           axes=("embed", "heads", "head_dim")),
+            "wk": ParamDef((d, h, dh), "fan_in",
+                           axes=("embed", "heads", "head_dim")),
+            "wv": ParamDef((d, h, dh), "fan_in",
+                           axes=("embed", "heads", "head_dim")),
+            "wo": ParamDef((h, dh, d), "fan_in",
+                           axes=("heads", "head_dim", "embed")),
+            "w_in": ParamDef((d, f), "fan_in", axes=("embed", "ffn")),
+            "b_in": ParamDef((f,), "zeros", axes=("ffn",)),
+            "w_out": ParamDef((f, d), "fan_in", axes=("ffn", "embed")),
+            "b_out": ParamDef((d,), "zeros", axes=("embed",)),
         }
 
-    def _top_specs(self) -> Dict[str, ParamSpec]:
+    def _top_specs(self) -> Dict[str, ParamDef]:
         d = self.cfg.d_model
         return {
-            "patch_w": ((self.patch_dim, d), "fan_in"),
-            "patch_b": ((d,), "zeros"),
-            "pos_emb": ((self.num_tokens, d), "normal"),
-            "t_w1": ((256, d), "fan_in"),
-            "t_b1": ((d,), "zeros"),
-            "t_w2": ((d, d), "fan_in"),
-            "t_b2": ((d,), "zeros"),
-            "label_emb": ((self.cfg.dit.num_classes + 1, d), "normal"),
-            "final_ada_w": ((d, 2 * d), "zeros"),
-            "final_ada_b": ((2 * d,), "zeros"),
-            "final_w": ((d, self.out_dim), "zeros"),
-            "final_b": ((self.out_dim,), "zeros"),
+            "patch_w": ParamDef((self.patch_dim, d), "fan_in",
+                                axes=(None, "embed")),
+            "patch_b": ParamDef((d,), "zeros", axes=("embed",)),
+            "pos_emb": ParamDef((self.num_tokens, d), "normal",
+                                axes=(None, "embed")),
+            "t_w1": ParamDef((256, d), "fan_in", axes=(None, "embed")),
+            "t_b1": ParamDef((d,), "zeros", axes=("embed",)),
+            "t_w2": ParamDef((d, d), "fan_in", axes=("embed", "embed")),
+            "t_b2": ParamDef((d,), "zeros", axes=("embed",)),
+            "label_emb": ParamDef((self.cfg.dit.num_classes + 1, d),
+                                  "normal", axes=(None, "embed")),
+            "final_ada_w": ParamDef((d, 2 * d), "zeros",
+                                    axes=("embed", None)),
+            "final_ada_b": ParamDef((2 * d,), "zeros", axes=(None,)),
+            "final_w": ParamDef((d, self.out_dim), "zeros",
+                                axes=("embed", None)),
+            "final_b": ParamDef((self.out_dim,), "zeros", axes=(None,)),
         }
+
+    def param_defs(self) -> Dict:
+        """The reference's ``param_defs`` tree: the top-level defs plus the
+        blocks' stacked over a leading ``layers`` axis."""
+        defs = dict(self._top_specs())
+        defs["blocks"] = stack_defs(self._block_specs(), self.cfg.num_layers)
+        return defs
 
     @torch.no_grad()
     def init(self, generator: torch.Generator, unzero: bool = True
@@ -140,11 +180,11 @@ class DiTModel(nn.Module):
 
         unz = {"ada_w": 0.05, "ada_b": 0.2,
                "final_w": 1.0 / self.cfg.d_model ** 0.5} if unzero else {}
-        for name, (shape, init) in self._top_specs().items():
-            fill(getattr(self, name), shape, init, unz.get(name))
+        for name, d in self._top_specs().items():
+            fill(getattr(self, name), d.shape, d.init, unz.get(name))
         for blk in self.blocks:
-            for name, (shape, init) in blk.specs.items():
-                fill(getattr(blk, name), shape, init, unz.get(name))
+            for name, d in blk.specs.items():
+                fill(getattr(blk, name), d.shape, d.init, unz.get(name))
         return self
 
     # ------------------------------------------------------------------
@@ -161,7 +201,9 @@ class DiTModel(nn.Module):
 
     def block_apply(self, bp: DiTBlock, x: torch.Tensor,
                     c: torch.Tensor) -> torch.Tensor:
-        """One DiT block. x: (B,N,D); c: (B,D)."""
+        """One DiT block. x: (B,N,D); c: (B,D).  The weights may be local
+        shards (see the module docstring)."""
+        cfg = self.cfg
         mod = common.fdot(F.silu(c.to(F32)).to(x.dtype), bp.ada_w) + bp.ada_b
         sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
         h = common.modulate(_ln(x), sh1, sc1)
@@ -169,11 +211,19 @@ class DiTModel(nn.Module):
         k = common.feinsum("bnd,dhk->bnhk", h, bp.wk)
         v = common.feinsum("bnd,dhk->bnhk", h, bp.wv)
         o = attend_bidirectional(q, k, v)
-        o = common.feinsum("bnhk,hkd->bnd", o, bp.wo)
+        if bp.wo.shape[0] != cfg.num_heads:      # a share of the heads
+            o = tp_all_reduce(torch.einsum("bnhk,hkd->bnd", o.to(F32),
+                                           bp.wo.to(F32))).to(x.dtype)
+        else:
+            o = common.feinsum("bnhk,hkd->bnd", o, bp.wo)
         x = x + g1[:, None, :] * o
         h = common.modulate(_ln(x), sh2, sc2)
-        h = common.gelu_mlp(h, bp.w_in, bp.b_in, bp.w_out, bp.b_out)
-        return x + g2[:, None, :] * h
+        h = common.gelu_mlp(h, bp.w_in, bp.b_in, bp.w_out, bp.b_out,
+                            reduce=(tp_all_reduce
+                                    if bp.w_in.shape[1] != cfg.d_ff
+                                    else None))
+        x = x + g2[:, None, :] * h
+        return constrain(x, "act_batch", "act_seq", "act_embed")
 
     def final_layer(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         mod = (common.fdot(F.silu(c.to(F32)).to(x.dtype), self.final_ada_w)

@@ -5,7 +5,8 @@ layer bodies and their parameter definitions, after the reference's
 ``moe_capacity``, ``moe_gather_apply``, ``moe_apply``, ``stack_defs``).
 
 Each ``*_defs`` returns a dict of ``ParamDef`` (shape, init kind, scale,
-dtype override), the reference's ParamDefs without the sharding axes;
+dtype override, logical axes); the LLM defs leave the axes unnamed
+(replicated), the DiT's (``models/dit.py``) carry the reference's;
 ``ParamGroup`` materializes one dict as the parameters of a module, so a
 layer's parameters are attributes (``p.wq``) where the reference reads
 ``p["wq"]``.
@@ -41,14 +42,18 @@ class ParamDef(NamedTuple):
     init: str = "normal"        # normal | zeros | ones | fan_in
     scale: float = 1.0
     dtype: Optional[str] = None  # override the model dtype (f32 norms)
+    # one logical axis name (or None) per dim for the sharding rules
+    # (``distributed/sharding.py``); None: unnamed, replicated
+    axes: Optional[Tuple[Optional[str], ...]] = None
 
 
 def stack_defs(defs, n: int):
     """Add a leading stacking dim of size n to every ParamDef of a (nested)
     dict, as the reference's ``stack_defs`` (its ``layers`` axis)."""
     if isinstance(defs, ParamDef):
+        axes = None if defs.axes is None else ("layers",) + tuple(defs.axes)
         return ParamDef((n,) + tuple(defs.shape), defs.init, defs.scale,
-                        defs.dtype)
+                        defs.dtype, axes)
     return {key: stack_defs(d, n) for key, d in defs.items()}
 
 

@@ -38,6 +38,13 @@ and one (K, S) matrix (the dicts hold views of their rows), updated with a
 few batched ops per step; the host reads them at completion and in
 ``cache_stats``.
 
+**Slot window.**  The host bookkeeping (slots, step counters, plans,
+queue) always covers all ``max_slots`` slots; the device tensors cover the
+window ``_slot_window()`` names, laid out as an engine of that many slots
+would lay them out.  This engine's window is every slot; the sharded
+engine (``serving/sharded_engine.py``) gives each data rank its own share
+and leaves the rest of this class as it is.
+
 **Observability** (``obs/``).  With ``enable_metrics`` (the default) the
 device metrics (``obs.metrics.init_device_metrics``) take one batched
 update per step (``DeviceUpdate``: one copy of the host-known increments,
@@ -54,7 +61,7 @@ device value on the host during a step.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -112,6 +119,8 @@ class DiffusionServingEngine:
         self.runner = runner
         self.device = runner.device
         self.S = max_slots
+        # the device slots: global slots [_lo, _lo + S_dev)
+        self._lo, self.S_dev = self._slot_window()
         self.cfg_rows = cfg_rows
         self.rows_per_slot = 2 if cfg_rows else 1
         self.num_steps = num_steps
@@ -132,20 +141,21 @@ class DiffusionServingEngine:
         self.sched = sch.linear_schedule(num_train_steps, device=dev)
         ts_row, prev_row = self.default_plan.rows(self.max_steps,
                                                   num_train_steps)
+        n_dev = self.S_dev
         self.plan = {
-            "ts": to_device(np.tile(ts_row[None], (max_slots, 1)), dev),
-            "ts_prev": to_device(np.tile(prev_row[None], (max_slots, 1)), dev),
-            "guidance": torch.full((max_slots,), guidance_scale, dtype=F32,
+            "ts": to_device(np.tile(ts_row[None], (n_dev, 1)), dev),
+            "ts_prev": to_device(np.tile(prev_row[None], (n_dev, 1)), dev),
+            "guidance": torch.full((n_dev,), guidance_scale, dtype=F32,
                                    device=dev),
         }
-        self.state = runner.init_state(self.rows_per_slot * max_slots)
+        self.state = runner.init_state(self.rows_per_slot * n_dev)
         self._acc_keys = tuple(k for k, v in self.state["stats"].items()
                                if v.dim() == 1)
         self.audit_fraction = float(audit_fraction)
         self.audit_seed = int(audit_seed)
         self._audit_on = audit_fraction > 0.0
         self._audit_bound = runner.audit_bound() if self._audit_on else None
-        self.x = torch.zeros((max_slots, self.img, self.img, self.ch),
+        self.x = torch.zeros((n_dev, self.img, self.img, self.ch),
                              dtype=F32, device=dev)
         self.slots: List[Optional[DiffusionRequest]] = [None] * max_slots
         self.slot_step = np.full((max_slots,), -1, np.int32)
@@ -164,7 +174,7 @@ class DiffusionServingEngine:
         self._acc_vec = torch.zeros((k,), dtype=F32, device=dev)
         self.acc = {key: self._acc_vec[i]
                     for i, key in enumerate(self._acc_keys)}
-        self._slot_mat = torch.zeros((len(slot_keys), max_slots), dtype=F32,
+        self._slot_mat = torch.zeros((len(slot_keys), n_dev), dtype=F32,
                                      device=dev)
         self.slot_acc = {key: self._slot_mat[i]
                          for i, key in enumerate(slot_keys)}
@@ -179,20 +189,30 @@ class DiffusionServingEngine:
         if collector is not None and self._audit_on:
             collector.set_audit_context(bound=self._audit_bound,
                                         fraction=self.audit_fraction)
-        # each slot's state rows as an index tensor, made once: the
+        # each device slot's state rows as an index tensor, made once: the
         # preemption pair's copies then need no host-to-device copy
         self._rows_idx = [to_device(np.asarray(self._slot_rows(s), np.int64),
-                                    dev) for s in range(max_slots)]
+                                    dev)
+                          for s in range(self._lo, self._lo + n_dev)]
+
+    def _slot_window(self) -> Tuple[int, int]:
+        """(first global slot, count) of the slots whose rows live on this
+        engine's device: all of them."""
+        return 0, self.S
+
+    def _owns(self, s: int) -> bool:
+        return self._lo <= s < self._lo + self.S_dev
 
     def _slot_rows(self, s: int) -> List[int]:
-        """State rows owned by slot s: its CFG cond/uncond pair, or its one
-        row on the cfg_rows=False fast path."""
-        return [s, self.S + s] if self.cfg_rows else [s]
+        """State rows of (global) slot s on the device: its CFG
+        cond/uncond pair, or its one row on the cfg_rows=False fast path."""
+        ls = s - self._lo
+        return [ls, self.S_dev + ls] if self.cfg_rows else [ls]
 
     def _fold(self, rows: torch.Tensor) -> torch.Tensor:
-        """(..., rows) per-row values summed into (..., S) per slot."""
-        return rows[..., :self.S] + rows[..., self.S:] if self.cfg_rows \
-            else rows
+        """(..., rows) per-row values summed into (..., S_dev) per slot."""
+        n = self.S_dev
+        return rows[..., :n] + rows[..., n:] if self.cfg_rows else rows
 
     # -- device step ----------------------------------------------------
 
@@ -200,12 +220,12 @@ class DiffusionServingEngine:
     def _serve_step(self, step_idx: torch.Tensor, labels: torch.Tensor,
                     active: torch.Tensor, active_host: np.ndarray,
                     audit_now: bool) -> None:
-        """Advance all slots one denoising step.  ``step_idx`` (S,) is each
-        slot's position in its own plan row; idle slots run through the
-        model as padding but their latents are frozen and their cache
-        decisions are left out of the counters.  ``active_host`` is
-        ``active`` as the host holds it, ``audit_now`` the host's audit
-        schedule bit for this step."""
+        """Advance the device slots one denoising step.  ``step_idx``
+        (S_dev,) is each slot's position in its own plan row; idle slots
+        run through the model as padding but their latents are frozen and
+        their cache decisions are left out of the counters.
+        ``active_host`` is every slot's activity as the host holds it,
+        ``audit_now`` the host's audit schedule bit for this step."""
         idx = step_idx.clamp(0, self.max_steps - 1)[:, None]
         t = torch.gather(self.plan["ts"], 1, idx)[:, 0]
         t_prev = torch.gather(self.plan["ts_prev"], 1, idx)[:, 0]
@@ -238,12 +258,18 @@ class DiffusionServingEngine:
                 self._audit_bound, self.metrics, self.slot_acc, audit_now,
                 ranges=ranges)
 
+    def _batch_sum(self, v: torch.Tensor) -> torch.Tensor:
+        """A per-device partial of a whole-batch quantity, summed over
+        every slot: the partial itself on one device."""
+        return v
+
     def _update_metrics(self, active: np.ndarray, dsum: torch.Tensor,
                         dfold: torch.Tensor) -> None:
         """The step's device-metrics update, batched (``DeviceUpdate``):
         the host's increments (steps, active slots) in one copy, the stat
         deltas' in one ``index_add_``.  Keys the policy's stats do not carry
-        are not counted."""
+        are not counted.  ``active`` covers every slot, ``dsum`` and
+        ``dfold`` the device slots."""
         pos = {k: i for i, k in enumerate(self._acc_keys)}
         n_act = float(active.sum())
         up = obs_metrics.DeviceUpdate(self.metrics)
@@ -255,7 +281,7 @@ class DiffusionServingEngine:
         up.observe(obs_metrics.ACTIVE_SLOTS, n_act)
         if "steps_reused" in pos:
             up.observe(obs_metrics.SKIP_FRACTION,
-                       dsum[pos["steps_reused"]]
+                       self._batch_sum(dsum[pos["steps_reused"]])
                        / max(n_act * self.rows_per_slot, 1.0))
         if "tokens_merged" in pos:
             # token compression on: per slot, the realized kept/(kept +
@@ -266,7 +292,9 @@ class DiffusionServingEngine:
             up.inc(obs_metrics.TOKENS_MERGED, dsum[pos["tokens_merged"]])
             up.slot_add(obs_metrics.SLOT_MERGE_RATIO,
                         kept / (kept + merged).clamp(min=1.0))
-        up.slot_add(obs_metrics.SLOT_ACTIVE_STEPS, active.astype(np.float32))
+        lo = self._lo
+        up.slot_add(obs_metrics.SLOT_ACTIVE_STEPS,
+                    active[lo:lo + self.S_dev].astype(np.float32))
         up.apply()
 
     # -- host orchestration ---------------------------------------------
@@ -328,15 +356,8 @@ class DiffusionServingEngine:
         if req.snapshot is not None:
             return self._resume_request(req, s)
         plan = self.resolve_plan(req)
-        ts_row, prev_row = plan.rows(self.max_steps, self.num_train_steps)
-        self.state = self.runner.reset_slot(self.state, self._slot_rows(s))
-        self.x[s] = self.noise_fn(req).to(device=self.device, dtype=F32)
-        self.plan["ts"][s].copy_(to_device(ts_row, self.device))
-        self.plan["ts_prev"][s].copy_(to_device(prev_row, self.device))
-        # fill_, not item assignment: a Python scalar assigned to a 0-dim
-        # CUDA view goes through a synchronizing host copy
-        self.plan["guidance"][s].fill_(plan.guidance_scale)
-        self._slot_mat[:, s].fill_(0.0)
+        if self._owns(s):
+            self._admit(req, s, plan)
         self.slots[s] = req
         self.slot_step[s] = 0
         self.slot_budget[s] = plan.num_steps
@@ -353,6 +374,22 @@ class DiffusionServingEngine:
                               engine_step=self.clock)
         return True
 
+    def _admit(self, req: DiffusionRequest, s: int,
+               plan: SamplingPlan) -> None:
+        """The device half of admission into device slot ``s``: reset its
+        rows, seed its latents, land its plan rows, zero its counters."""
+        ls = s - self._lo
+        ts_row, prev_row = plan.rows(self.max_steps, self.num_train_steps)
+        self.state = self.runner.reset_slot(self.state, self._slot_rows(s))
+        self.x[ls] = self.noise_fn(req).to(device=self.device, dtype=F32)
+        # through pinned buffers: a pageable host-to-device copy synchronizes
+        self.plan["ts"][ls].copy_(to_device(ts_row, self.device))
+        self.plan["ts_prev"][ls].copy_(to_device(prev_row, self.device))
+        # fill_, not item assignment: a Python scalar assigned to a 0-dim
+        # CUDA view goes through a synchronizing host copy
+        self.plan["guidance"][ls].fill_(plan.guidance_scale)
+        self._slot_mat[:, ls].fill_(0.0)
+
     # -- preemption (serving/slo/) ---------------------------------------
 
     def _snapshot(self, s: int) -> Dict:
@@ -360,25 +397,28 @@ class DiffusionServingEngine:
         latents, its plan rows and its whole column of request-scoped
         counters (the audit plane's rows included).  Every tensor is a
         fresh device copy, so later writes into the slot never reach it."""
+        ls = s - self._lo
         return {
-            "state": self.runner.snapshot_slot(self.state, self._rows_idx[s]),
-            "x": self.x[s].clone(),
-            "ts": self.plan["ts"][s].clone(),
-            "ts_prev": self.plan["ts_prev"][s].clone(),
-            "guidance": self.plan["guidance"][s].clone(),
-            "slot_acc": self._slot_mat[:, s].clone(),
+            "state": self.runner.snapshot_slot(self.state,
+                                               self._rows_idx[ls]),
+            "x": self.x[ls].clone(),
+            "ts": self.plan["ts"][ls].clone(),
+            "ts_prev": self.plan["ts_prev"][ls].clone(),
+            "guidance": self.plan["guidance"][ls].clone(),
+            "slot_acc": self._slot_mat[:, ls].clone(),
         }
 
     def _restore(self, snap: Dict, s: int) -> None:
         """Write a ``_snapshot`` into slot ``s``, in place and bitwise; the
         other slots are untouched."""
+        ls = s - self._lo
         self.state = self.runner.restore_slot(self.state, snap["state"],
-                                              self._rows_idx[s])
-        self.x[s].copy_(snap["x"])
-        self.plan["ts"][s].copy_(snap["ts"])
-        self.plan["ts_prev"][s].copy_(snap["ts_prev"])
-        self.plan["guidance"][s].copy_(snap["guidance"])
-        self._slot_mat[:, s].copy_(snap["slot_acc"])
+                                              self._rows_idx[ls])
+        self.x[ls].copy_(snap["x"])
+        self.plan["ts"][ls].copy_(snap["ts"])
+        self.plan["ts_prev"][ls].copy_(snap["ts_prev"])
+        self.plan["guidance"][ls].copy_(snap["guidance"])
+        self._slot_mat[:, ls].copy_(snap["slot_acc"])
 
     def _resume_request(self, req: DiffusionRequest, s: int) -> bool:
         """Re-admit a preempted request from its snapshot into free slot
@@ -412,7 +452,9 @@ class DiffusionServingEngine:
         req.preemptions += 1
         self.slots[s] = None
         self.slot_step[s] = -1
-        self.state = self.runner.reset_slot(self.state, self._slot_rows(s))
+        if self._owns(s):
+            self.state = self.runner.reset_slot(self.state,
+                                                self._slot_rows(s))
         if self.collector is not None:
             self.collector.inc(obs_metrics.PREEMPTIONS)
         if self.tracer is not None:
@@ -431,15 +473,17 @@ class DiffusionServingEngine:
         audit_now = self._audit_on and obs_audit.audit_mask(
             self.model_steps, self.audit_fraction, self.audit_seed)
         self.audited_steps += int(audit_now)
-        args = (to_device(np.where(active, self.slot_step, 0).astype(np.int64),
-                          dev),
-                to_device(self.slot_label, dev), to_device(active, dev),
-                active, audit_now)
+        win = slice(self._lo, self._lo + self.S_dev)
+        args = (to_device(np.where(active, self.slot_step, 0)[win]
+                          .astype(np.int64), dev),
+                to_device(self.slot_label[win], dev),
+                to_device(active[win], dev), active, audit_now)
         if self.tracer is not None:
             with self.tracer.step_begin(self.clock,
                                         active=int(active.sum())):
                 self._serve_step(*args)
-            self.tracer.snapshot_slots(self.clock, active, self.slot_acc)
+            self.tracer.snapshot_slots(self.clock, active[win],
+                                       self.slot_acc)
         else:
             self._serve_step(*args)
         self.model_steps += 1
@@ -474,8 +518,9 @@ class DiffusionServingEngine:
                 # never carries stale gate/cache state
                 self.slots[s] = None
                 self.slot_step[s] = -1
-                self.state = self.runner.reset_slot(self.state,
-                                                    self._slot_rows(s))
+                if self._owns(s):
+                    self.state = self.runner.reset_slot(self.state,
+                                                        self._slot_rows(s))
         return finished
 
     def _harvest(self, done_slots: List[int]) -> None:
@@ -486,11 +531,12 @@ class DiffusionServingEngine:
         flat = torch.cat([self.x.reshape(-1),
                           self._slot_mat.reshape(-1)]).cpu().numpy()
         x_host = flat[:self.x.numel()].reshape(self.x.shape)
-        acc_host = flat[self.x.numel():].reshape(len(keys), self.S)
+        acc_host = flat[self.x.numel():].reshape(len(keys), self.S_dev)
         for s in done_slots:
-            req = self.slots[s]
-            req.latents = x_host[s].copy()
-            req.cache = {k: float(acc_host[i, s]) for i, k in enumerate(keys)}
+            req, ls = self.slots[s], s - self._lo
+            req.latents = x_host[ls].copy()
+            req.cache = {k: float(acc_host[i, ls])
+                         for i, k in enumerate(keys)}
 
     def run(self, requests: Union[List[DiffusionRequest], RequestQueue],
             *, lockstep: bool = False, sched_policy: str = "fifo",
@@ -532,16 +578,24 @@ class DiffusionServingEngine:
         return self.collector.harvest(self.metrics or None,
                                       at_step=self.clock)
 
+    def _stat_view(self, row_keys) -> Tuple[Dict[str, float],
+                                            Dict[str, List[float]]]:
+        """The headline counters by key, and the per-row counters of
+        ``row_keys`` over every state row (the cond rows of all slots, then
+        the uncond rows), as host values."""
+        totals = {k: float(v) for k, v in self.acc.items()}
+        rows = {k: [float(x) for x in self.state["stats"][k].cpu()]
+                for k in row_keys}
+        return totals, rows
+
     def cache_stats(self) -> Dict:
         """Engine-lifetime cache counters, active slots only; raw per-row
         counters (idle padding steps included) under per_slot_*; the token
         counters when token compression is on."""
-        def acc(k):
-            v = self.acc.get(k)
-            return 0.0 if v is None else float(v)
+        totals, rows = self._stat_view(("blocks_skipped", "blocks_computed"))
 
-        def per_slot(k):
-            return [float(x) for x in self.state["stats"][k].cpu()]
+        def acc(k):
+            return totals.get(k, 0.0)
 
         skipped, computed = acc("blocks_skipped"), acc("blocks_computed")
         tot = computed + skipped
@@ -553,11 +607,11 @@ class DiffusionServingEngine:
             "blocks_computed": computed,
             "block_cache_ratio": skipped / tot if tot else 0.0,
             "steps_reused": acc("steps_reused"),
-            "per_slot_blocks_skipped": per_slot("blocks_skipped"),
-            "per_slot_blocks_computed": per_slot("blocks_computed"),
+            "per_slot_blocks_skipped": rows["blocks_skipped"],
+            "per_slot_blocks_computed": rows["blocks_computed"],
         }
         # token compression on: kept / merged tokens of active slots' rows
         for k in ("tokens_kept", "tokens_merged"):
-            if k in self.acc:
-                out[k] = acc(k)
+            if k in totals:
+                out[k] = totals[k]
         return out
