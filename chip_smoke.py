@@ -369,7 +369,24 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             model and stream: losses finite, step 0 under sync debug
             "error", no kernel launched, every parameter with a gradient;
             ms per step and its split, tokens/s, train_mfu (6 x active
-            parameters), launches, busy share, peak memory.
+            parameters), launches, busy share, peak memory;
+21. dryrun  the dry run (launch/dryrun.py) of every assigned arch x shape
+            on the one-pod production mesh (16 x 16), in process on the
+            meta device: its own lines (one per record, with the
+            roofline's), a JSON row per record and the sweep's ok / skip /
+            fail and seconds; no kernel launched, no record failed.  Its
+            card tie (dryrun_tie): Qwen3-0.6B's train step at TRAIN_LLM's
+            shape on a (1, 1) mesh, the dry run's argument bytes within 1%
+            of the growth of memory_allocated() once the parameters, the
+            AdamW state and the batch are on the card, its FLOPs equal to
+            FlopCounterMode's count of the same step on the card, the
+            card's step ms beside the roofline's compute_s.  Arctic's
+            one-layer train_4k argument bytes on (1, 1), a prediction;
+22. examples  each of the port's examples (examples/torch_*.py) at its
+            defaults on the card, in process, its printed lines kept,
+            counts zeroed just before and read just after: the
+            quickstart's FastCache sample launches B1, B5 and B6, the LLM
+            serve B7.
 
 Then the total seconds, the kernels line (the seven kernels' rows, and
 flash_attention's at dh 80 and 112, at Jamba's prefill, bidirectional at
@@ -385,6 +402,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
 import inspect
 import json
 import subprocess
@@ -589,6 +607,22 @@ LAUNCHER_EXACT = ("finished", "engine_steps", "model_steps",
 BLOCK_TP_BOUND = {"float32": 1e-4, "bfloat16": 1e-2}
 BLOCK_TP_FAULT = 0.1
 SHARDED_TIMEOUT_S = 300    # both ranks of one mesh, start to result
+# the dry run (launch/dryrun.py): its card tie holds the dry run of Qwen3-0.6B's
+# train step at TRAIN_LLM's shape on a (1, 1) mesh to the card: the argument
+# bytes within DRYRUN_TIE_REL of the growth of memory_allocated() once the
+# parameters, the AdamW state and the batch are on the card, the FLOPs
+# equal to FlopCounterMode's count of the step on the card; Arctic's
+# one-layer train_4k step on (1, 1) is printed as a prediction
+DRYRUN_TIE_REL = 0.01
+ARCTIC_ONE_LAYER = dict(arch="arctic-480b", shape="train_4k", num_layers=1)
+# the port's examples, run at their defaults on the card, and the kernels
+# each must launch
+EXAMPLES = ("torch_quickstart", "torch_generate_images",
+            "torch_serve_images", "torch_serve_llm", "torch_train_dit")
+EXAMPLE_KERNELS = {"torch_quickstart": ("fused_gate", "saliency_delta",
+                                        "linear_blend"),
+                   "torch_serve_llm": ("flash_attention",)}
+EXAMPLE_CKPT = "build/torch_dit_ckpt"   # torch_train_dit's default --save
 
 
 def emit(obj) -> None:
@@ -4222,6 +4256,158 @@ def phase_checkpoint(torch, dev, tr, model, params, state):
           "metadata": meta})
 
 
+def phase_dryrun(torch, dev, tr, m, dr) -> dict:
+    """dryrun: the sweep of every assigned arch x shape on the one-pod mesh
+    (launch/dryrun.py, on meta; its own lines printed), no kernel launched,
+    no record failed; then its card tie and Arctic's one-layer bytes."""
+    zero_counts(m.kernels)                          # the path starts here
+    t0 = time.perf_counter()
+    recs = dr.dryrun.sweep(dr.dryrun.ASSIGNED_ARCHS, list(dr.SHAPES),
+                           [False], "")
+    sweep_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in m.kernels.items()}
+    if any(launches.values()):
+        raise AssertionError(f"dryrun: kernels launched on meta {launches}")
+    status = collections.Counter(r["status"] for r in recs)
+    for r in recs:
+        if r["status"] != "ok":
+            emit({"phase": "dryrun_record", "arch": r["arch"],
+                  "shape": r["shape"], "status": r["status"],
+                  "reason": r.get("skip_reason") or r.get("error")})
+            continue
+        emit({"phase": "dryrun_record", "arch": r["arch"],
+              "shape": r["shape"], "mesh": r["mesh"], "status": "ok",
+              "per_device_flops": r["per_device_flops"],
+              "per_device_bytes_accessed": r["per_device_bytes_accessed"],
+              "argument_size_in_bytes":
+                  r["memory_analysis"]["argument_size_in_bytes"],
+              "output_size_in_bytes":
+                  r["memory_analysis"]["output_size_in_bytes"],
+              "useful_flops_ratio": r["useful_flops_ratio"],
+              "roofline": r["roofline"], "proof_seq_len": r["proof_seq_len"],
+              "compile_s": r["compile_s"],
+              "cost_measure_s": r["cost_measure_s"]})
+    emit({"phase": "dryrun", "records": len(recs), "ok": status["ok"],
+          "skip": status["skip"], "fail": status["fail"],
+          "seconds": sweep_s})
+    if status["fail"]:
+        raise AssertionError("dryrun: failed records " + str(
+            [(r["arch"], r["shape"], r["error"]) for r in recs
+             if r["status"] == "fail"]))
+    dryrun_tie(torch, dev, tr, m, dr)
+    one = ARCTIC_ONE_LAYER
+    mesh = dr.abstract_mesh((1, 1))
+    b = dr.specs.build_bundle(one["arch"], one["shape"], mesh,
+                              num_layers=one["num_layers"])
+    args_b = dr.specs.shard_bytes(b.args, b.in_specs,
+                                  dr.mesh_extents(mesh))
+    emit({"phase": "dryrun_arctic_one_layer", **one, "mesh": [1, 1],
+          "params": b.meta["params"], "argument_size_in_bytes": args_b,
+          "argument_gib": args_b / 2**30, "card_hbm_gib": torch.cuda.
+          get_device_properties(dev).total_memory / 2**30,
+          "note": "a prediction: no card run", "card": smi()})
+    return launches
+
+
+def dryrun_tie(torch, dev, tr, m, dr) -> None:
+    """The dry run of Qwen3-0.6B's train step at TRAIN_LLM's shape on a
+    (1, 1) mesh against the same step on the card: argument bytes within
+    DRYRUN_TIE_REL of memory_allocated()'s growth, FLOPs equal to
+    FlopCounterMode's count on the card (the training forward runs
+    attend_direct and no kernel, so both see the same aten ops); the
+    card's step time beside the roofline's compute_s."""
+    from torch.utils.flop_counter import FlopCounterMode
+    c = TRAIN_LLM
+    mesh = dr.abstract_mesh((1, 1))
+    b = dr.specs.build_bundle(c["arch"], "train_4k", mesh,
+                              seq_override=c["seq"],
+                              batch_override=c["batch"])
+    args_b = dr.specs.shard_bytes(b.args, b.in_specs, dr.mesh_extents(mesh))
+    meta = dr.dryrun.counted(b.step_fn, *b.args)[1]
+    del b
+    cfg = tr.get_config(c["arch"])
+    free_memory(torch)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    model = tr.init_model(cfg, dev, c["seed"])
+    params = tr.loop.param_tree(model)
+    opt = tr.optimizer.make_optimizer(cfg.optimizer)
+    state = opt.init(params)
+    batch = next(tr.token_stream(cfg.vocab_size, c["batch"], c["seq"],
+                                 seed=c["seed"], device=dev))
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - m0
+    bytes_rel = abs(grown - args_b) / args_b
+    step_fn = tr.loop.make_train_step(
+        model, opt, tr.optimizer.cosine_schedule(3e-4, 100, 10_000))
+    zero_counts(m.kernels)
+    params, state, _ = step_fn(params, state, batch)          # warm-up
+    with FlopCounterMode(display=False) as fc:
+        params, state, _ = step_fn(params, state, batch)
+    card_flops = float(fc.get_total_flops())
+    ms = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, state, met = step_fn(params, state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    launches = {name: fn.launches for name, fn in m.kernels.items()}
+    row = {"phase": "dryrun_tie", **c, "mesh": [1, 1],
+           "argument_size_in_bytes": args_b, "allocated_growth": grown,
+           "bytes_rel": bytes_rel, "meta_flops": meta["flops"],
+           "card_flops": card_flops, "meta_bytes_accessed": meta["bytes"],
+           "step_ms": ms, "compute_s": meta["flops"] / dr.dryrun.PEAK_FLOPS,
+           "memory_s": meta["bytes"] / dr.dryrun.HBM_BW,
+           "loss": float(met["loss"]), "launches": launches, "card": smi()}
+    emit(row)
+    del model, params, state, step_fn, batch
+    free_memory(torch)
+    if bytes_rel > DRYRUN_TIE_REL:
+        raise AssertionError(f"dryrun_tie: argument bytes {args_b} vs "
+                             f"{grown} grown on the card ({bytes_rel:.4f})")
+    if card_flops != meta["flops"]:
+        raise AssertionError(f"dryrun_tie: FLOPs {meta['flops']} on meta, "
+                             f"{card_flops} on the card")
+    if any(launches.values()):
+        raise AssertionError(f"dryrun_tie: kernels launched {launches}")
+
+
+def phase_examples(torch, m) -> dict:
+    """examples: each of EXAMPLES at its defaults on the card, in process
+    (its main()), its printed lines kept; every count zeroed just before
+    and read just after; EXAMPLE_KERNELS must have launched."""
+    import io
+    out = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zero_counts(m.kernels)                      # the path starts here
+        with contextlib.redirect_stdout(buf):
+            mod.main([])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in m.kernels.items()}
+        seconds = time.perf_counter() - t0
+        emit({"phase": f"example_{name}", "seconds": seconds,
+              "lines": buf.getvalue().splitlines(), "launches": launches})
+        missing = [k for k in EXAMPLE_KERNELS.get(name, ())
+                   if not launches[k]]
+        if missing:
+            raise AssertionError(f"example {name}: {missing} not launched")
+        out[f"example_{name}"] = launches
+        del mod
+        free_memory(torch)
+    for suffix in (".npz", ".meta.json"):
+        (ROOT / (EXAMPLE_CKPT + suffix)).unlink(missing_ok=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4277,6 +4463,11 @@ def main() -> int:
     from repro_torch.models.dit import DiTModel
     from repro_torch.training import loop as train_loop
     from repro_torch.training import optimizer as train_optimizer
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.distributed.sharding import mesh_extents
+    from repro_torch.launch import dryrun as dryrun_mod
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.launch.mesh import abstract_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4495,6 +4686,19 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_more.update(phase_train_ssm(torch, dev, tr, m))
     emit({"phase": "train_ssm_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- the dry run on the production mesh (meta) and its card tie
+    t0 = time.perf_counter()
+    launches_more["dryrun"] = phase_dryrun(
+        torch, dev, tr, m, SimpleNamespace(
+            dryrun=dryrun_mod, specs=specs_mod, SHAPES=SHAPES,
+            abstract_mesh=abstract_mesh, mesh_extents=mesh_extents))
+    emit({"phase": "dryrun_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- the port's examples at their defaults
+    t0 = time.perf_counter()
+    launches_more.update(phase_examples(torch, m))
+    emit({"phase": "examples", "seconds": time.perf_counter() - t0})
 
     # launches: each kernel on its own main path (fused_gate, saliency_delta
     # and linear_blend: the merge-off fastcache serve; the merge kernels:

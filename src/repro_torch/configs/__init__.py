@@ -32,6 +32,10 @@ _ENCODER_MODULES = {"hubert-xlarge": _hubert_xlarge}
 ENCODER_IDS = tuple(_ENCODER_MODULES)
 _MODULES = {**_LLM_MODULES, **_ENCODER_MODULES}
 _KNOWN = DIT_IDS + tuple(_MODULES)
+# the reference's assigned architectures (its ``--all`` sweeps), its order
+ASSIGNED_ARCHS = ("hubert-xlarge", "qwen3-0.6b", "stablelm-3b",
+                  "arctic-480b", "xlstm-1.3b", "kimi-k2-1t-a32b",
+                  "qwen3-14b", "qwen2-vl-2b", "jamba-v0.1-52b", "yi-9b")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -52,4 +56,5 @@ def get_reduced(arch: str) -> ModelConfig:
 
 __all__ = ["DiTConfig", "FastCacheConfig", "InputShape", "ModelConfig",
            "MoEConfig", "SSMConfig", "SHAPES",
-           "DIT_IDS", "ENCODER_IDS", "LLM_IDS", "get_config", "get_reduced"]
+           "ASSIGNED_ARCHS", "DIT_IDS", "ENCODER_IDS", "LLM_IDS",
+           "get_config", "get_reduced"]

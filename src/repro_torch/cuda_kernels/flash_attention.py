@@ -3,8 +3,9 @@
 
 Replaces the reference's Pallas kernel ``repro/kernels/flash_attention.py:
 flash_attention``.  CPU tensors go to the plain version
-(``ref.flash_attention``); CUDA tensors launch the kernel or raise — there
-is no fallback.  Each kernel launch adds one to
+(``ref.flash_attention``), and so do ``meta`` tensors, which carry shapes
+only (the dry run, ``launch/dryrun.py``); CUDA tensors launch the kernel
+or raise — there is no fallback.  Each kernel launch adds one to
 ``flash_attention.launches`` and to its mode's count in
 ``flash_attention.launches_by_mode`` ("implicit" or "positions").
 
@@ -161,11 +162,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, positions=explicit)
     if explicit:
         q_pos, kv_pos = _check_positions(q, k, q_pos, kv_pos)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta (the dry run): shapes only
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    q_pos=q_pos, kv_pos=kv_pos)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CPU or CUDA, not "
+        raise ValueError(f"flash_attention runs on CPU, CUDA or meta, not "
                          f"{q.device}")
     b, h, sq, dh = q.shape
     kvh, skv = k.shape[1], k.shape[2]

@@ -29,6 +29,10 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def dtype_of(name: str) -> torch.dtype:
+def dtype_of(name: Union[str, torch.dtype]) -> torch.dtype:
+    """A config's or a ``ParamDef``'s dtype name as a ``torch.dtype``."""
+    if isinstance(name, torch.dtype):
+        return name
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
-            "float16": torch.float16}[name]
+            "float16": torch.float16, "int32": torch.int32,
+            "bool": torch.bool}[name]

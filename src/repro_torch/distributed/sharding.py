@@ -105,11 +105,15 @@ def make_rules(kind: str = "train", *, long_context: bool = False,
 
 def mesh_extents(mesh) -> Dict[str, int]:
     """{axis name: extent} of a ``DeviceMesh`` (``mesh_dim_names``,
-    ``mesh.shape``) or of any object with ``axis_names`` and a ``devices``
-    array, as the reference's rules read a JAX mesh."""
+    ``mesh.shape``), of an abstract mesh (``axis_names``, ``axis_sizes``:
+    ``launch.mesh.AbstractMesh``) or of any object with ``axis_names`` and
+    a ``devices`` array, as the reference's rules read a JAX mesh."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
         return dict(zip(names, tuple(mesh.mesh.shape)))
+    sizes = getattr(mesh, "axis_sizes", None)
+    if sizes is not None:
+        return dict(zip(mesh.axis_names, tuple(sizes)))
     return dict(zip(mesh.axis_names, tuple(mesh.devices.shape)))
 
 
@@ -326,7 +330,7 @@ def serve_metrics_specs(metrics, ctx: Optional[ShardingCtx] = None):
 def param_specs(defs, ctx: Optional[ShardingCtx] = None):
     """Specs matching a tree of ``ParamDef`` (the reference's
     ``param_shardings``); a def with no axes is replicated."""
-    from repro_torch.models.layers import ParamDef   # local: avoids a cycle
+    from repro_torch.models.params import ParamDef   # local: avoids a cycle
     ctx = _require_ctx(ctx or current_ctx(), "param_specs")
 
     def one(d: ParamDef) -> Spec:

@@ -6,20 +6,50 @@ initialized process group, one process per rank.  ``RankGroup`` starts
 those processes (the ``spawn`` start method) on one host, each joining a
 group on localhost (``init_ranks`` on a ``free_port``), and collects what
 each returns.  Functions, not module constants, so that importing this
-module touches no process group.  The reference's
-``make_production_mesh`` (a 256-chip dry-run mesh) has no counterpart
-yet.
+module touches no process group.
+
+The dry run (``launch/dryrun.py``) plans for meshes no host here holds:
+``make_production_mesh`` gives the reference's 256- and 512-chip meshes as
+an ``AbstractMesh``, axis names and extents with no device and no process
+group, which is all the sharding rules read of a mesh.
 """
 from __future__ import annotations
 
+import math
 import queue as queue_mod
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+
+class AbstractMesh(NamedTuple):
+    """A mesh's axis extents and names (as ``jax.sharding.AbstractMesh``):
+    ``distributed.sharding.mesh_extents`` reads it like a live mesh."""
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def abstract_mesh(dims: Sequence[int]) -> AbstractMesh:
+    """(data, model) or, with three extents, (pod, data, model)."""
+    dims = tuple(int(d) for d in dims)
+    if len(dims) not in (2, 3):
+        raise ValueError(f"a mesh has 2 or 3 axes, got {dims}")
+    names = ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
+    return AbstractMesh(dims, names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production meshes: one pod (data=16, model=16) =
+    256 chips; ``multi_pod``: (pod=2, data=16, model=16) = 512 chips."""
+    return abstract_mesh((2, 16, 16) if multi_pod else (16, 16))
 
 
 def free_port() -> int:

@@ -37,7 +37,8 @@ from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.distributed.sharding import constrain, current_ctx
 from repro_torch.models import common
 from repro_torch.models.attention import attend_bidirectional
-from repro_torch.models.layers import ParamDef, stack_defs
+from repro_torch.models.layers import stack_defs
+from repro_torch.models.params import ParamDef, abstract_params
 
 F32 = torch.float32
 
@@ -153,6 +154,10 @@ class DiTModel(nn.Module):
         defs = dict(self._top_specs())
         defs["blocks"] = stack_defs(self._block_specs(), self.cfg.num_layers)
         return defs
+
+    def abstract_params(self) -> Dict:
+        """``param_defs`` as ``meta`` tensors (shapes and dtypes only)."""
+        return abstract_params(self.param_defs(), self.cfg.dtype)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator, unzero: bool = True

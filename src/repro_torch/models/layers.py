@@ -4,11 +4,11 @@ layer bodies and their parameter definitions, after the reference's
 ``attn_cache_defs``, ``ffn_defs``, ``ffn_apply``, ``moe_defs``,
 ``moe_capacity``, ``moe_gather_apply``, ``moe_apply``, ``stack_defs``).
 
-Each ``*_defs`` returns a dict of ``ParamDef`` (shape, init kind, scale,
-dtype override, logical axes); the LLM defs leave the axes unnamed
-(replicated), the DiT's (``models/dit.py``) carry the reference's;
-``ParamGroup`` materializes one dict as the parameters of a module, so a
-layer's parameters are attributes (``p.wq``) where the reference reads
+Each ``*_defs`` returns a dict of ``ParamDef`` (``models/params.py``:
+shape, init kind, scale, dtype override and the reference's logical axes,
+which ``distributed/sharding.py`` maps onto a mesh); ``ParamGroup``
+materializes one dict as the parameters of a module, so a layer's
+parameters are attributes (``p.wq``) where the reference reads
 ``p["wq"]``.
 
 KV caches are updated in place: the decode step writes one slot per sample
@@ -17,7 +17,7 @@ given, where the reference returns new arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,6 +28,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import common, flags
 from repro_torch.models.attention import (attend_direct, attention,
                                          decode_attend)
+from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
 # a leaf whose f32 draw is larger is drawn in slices along its first axis,
@@ -35,16 +36,6 @@ F32 = torch.float32
 # 17.8 GB in f32) does not hold the whole draw beside the parameters; no
 # leaf of a dense or DiT config reaches it, so their draws are unchanged
 DRAW_SLICE_BYTES = 4 << 30
-
-
-class ParamDef(NamedTuple):
-    shape: Tuple[int, ...]
-    init: str = "normal"        # normal | zeros | ones | fan_in
-    scale: float = 1.0
-    dtype: Optional[str] = None  # override the model dtype (f32 norms)
-    # one logical axis name (or None) per dim for the sharding rules
-    # (``distributed/sharding.py``); None: unnamed, replicated
-    axes: Optional[Tuple[Optional[str], ...]] = None
 
 
 def stack_defs(defs, n: int):
@@ -103,18 +94,25 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, h, kvh, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
     out = {
-        "norm": ParamDef((d,), "ones", dtype="float32"),
-        "wq": ParamDef((d, h, dh), "fan_in"),
-        "wk": ParamDef((d, kvh, dh), "fan_in"),
-        "wv": ParamDef((d, kvh, dh), "fan_in"),
+        "norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",)),
+        "wq": ParamDef((d, h, dh), "fan_in",
+                       axes=("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, kvh, dh), "fan_in",
+                       axes=("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, kvh, dh), "fan_in",
+                       axes=("embed", "kv_heads", "head_dim")),
         "wo": ParamDef((h, dh, d), "fan_in",
-                       scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+                       scale=1.0 / max(1, cfg.num_layers) ** 0.5,
+                       axes=("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:
-        out["q_norm"] = ParamDef((dh,), "ones", dtype="float32")
-        out["k_norm"] = ParamDef((dh,), "ones", dtype="float32")
+        out["q_norm"] = ParamDef((dh,), "ones", dtype="float32",
+                                 axes=("head_dim",))
+        out["k_norm"] = ParamDef((dh,), "ones", dtype="float32",
+                                 axes=("head_dim",))
     if cfg.is_encoder and cfg.family == "audio":      # LayerNorm's bias
-        out["norm_b"] = ParamDef((d,), "zeros", dtype="float32")
+        out["norm_b"] = ParamDef((d,), "zeros", dtype="float32",
+                                 axes=("embed",))
     return out
 
 
@@ -230,11 +228,14 @@ def write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
 def attn_cache_defs(cfg: ModelConfig, batch: int,
                     window: int) -> Dict[str, ParamDef]:
     """One layer's cache: K/V in the model dtype, pos int32 (the empty
-    cache has pos = -1, set by ``TransformerModel.init_cache``)."""
+    cache has pos = -1, set by ``TransformerModel.init_cache``), with the
+    reference's axes (the slots on ``act_kv_seq``)."""
     kvh, dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {"k": ParamDef((batch, window, kvh, dh), "zeros"),
-            "v": ParamDef((batch, window, kvh, dh), "zeros"),
-            "pos": ParamDef((batch, window), "zeros", dtype="int32")}
+    kv_axes = ("act_batch", "act_kv_seq", None, None)
+    return {"k": ParamDef((batch, window, kvh, dh), "zeros", axes=kv_axes),
+            "v": ParamDef((batch, window, kvh, dh), "zeros", axes=kv_axes),
+            "pos": ParamDef((batch, window), "zeros", dtype="int32",
+                            axes=("act_batch", "act_kv_seq"))}
 
 
 # --------------------------------------------------------------------------
@@ -244,20 +245,23 @@ def attn_cache_defs(cfg: ModelConfig, batch: int,
 def ffn_defs(cfg: ModelConfig, kind: str = "swiglu") -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
     out_scale = 1.0 / max(1, cfg.num_layers) ** 0.5
-    out = {"norm": ParamDef((d,), "ones", dtype="float32")}
+    out = {"norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",))}
     if kind == "swiglu":
         out.update({
-            "w_gate": ParamDef((d, f), "fan_in"),
-            "w_up": ParamDef((d, f), "fan_in"),
-            "w_down": ParamDef((f, d), "fan_in", scale=out_scale),
+            "w_gate": ParamDef((d, f), "fan_in", axes=("embed", "ffn")),
+            "w_up": ParamDef((d, f), "fan_in", axes=("embed", "ffn")),
+            "w_down": ParamDef((f, d), "fan_in", scale=out_scale,
+                               axes=("ffn", "embed")),
         })
     else:                                            # gelu
         out.update({
-            "norm_b": ParamDef((d,), "zeros", dtype="float32"),
-            "w_in": ParamDef((d, f), "fan_in"),
-            "b_in": ParamDef((f,), "zeros"),
-            "w_out": ParamDef((f, d), "fan_in", scale=out_scale),
-            "b_out": ParamDef((d,), "zeros"),
+            "norm_b": ParamDef((d,), "zeros", dtype="float32",
+                               axes=("embed",)),
+            "w_in": ParamDef((d, f), "fan_in", axes=("embed", "ffn")),
+            "b_in": ParamDef((f,), "zeros", axes=("ffn",)),
+            "w_out": ParamDef((f, d), "fan_in", scale=out_scale,
+                              axes=("ffn", "embed")),
+            "b_out": ParamDef((d,), "zeros", axes=("embed",)),
         })
     return out
 
@@ -283,28 +287,28 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
         raise ValueError(f"{cfg.name}: moe block requested but cfg.moe is "
                          "None")
     d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    expert_in = ("expert", "expert_embed", None)
     out = {
-        "norm": ParamDef((d,), "ones", dtype="float32"),
-        "router": ParamDef((d, e), "fan_in", dtype="float32"),
-        "we_gate": ParamDef((e, d, f), "fan_in"),
-        "we_up": ParamDef((e, d, f), "fan_in"),
+        "norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",)),
+        "router": ParamDef((d, e), "fan_in", dtype="float32",
+                           axes=("embed", None)),
+        "we_gate": ParamDef((e, d, f), "fan_in", axes=expert_in),
+        "we_up": ParamDef((e, d, f), "fan_in", axes=expert_in),
         "we_down": ParamDef((e, f, d), "fan_in",
-                            scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+                            scale=1.0 / max(1, cfg.num_layers) ** 0.5,
+                            axes=("expert", None, "expert_embed")),
     }
-    if m.num_shared_experts:
-        fs = f * m.num_shared_experts
-        out.update({
-            "ws_gate": ParamDef((d, fs), "fan_in"),
-            "ws_up": ParamDef((d, fs), "fan_in"),
-            "ws_down": ParamDef((fs, d), "fan_in"),
-        })
-    if m.dense_ff_parallel:
-        fd = m.dense_ff_parallel
-        out.update({
-            "wd_gate": ParamDef((d, fd), "fan_in"),
-            "wd_up": ParamDef((d, fd), "fan_in"),
-            "wd_down": ParamDef((fd, d), "fan_in"),
-        })
+    for pre, width in (("ws", f * m.num_shared_experts),
+                       ("wd", m.dense_ff_parallel)):
+        if width:                    # shared experts (Kimi), dense (Arctic)
+            out.update({
+                f"{pre}_gate": ParamDef((d, width), "fan_in",
+                                        axes=("embed", "ffn")),
+                f"{pre}_up": ParamDef((d, width), "fan_in",
+                                      axes=("embed", "ffn")),
+                f"{pre}_down": ParamDef((width, d), "fan_in",
+                                        axes=("ffn", "embed")),
+            })
     return out
 
 

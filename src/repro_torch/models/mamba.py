@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.layers import ParamDef, ParamGroup
+from repro_torch.models.layers import ParamGroup
+from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
 State = Dict[str, torch.Tensor]
@@ -45,25 +46,30 @@ def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, di, ds, dtr = _dims(cfg)
     k = cfg.ssm.d_conv
     return {
-        "norm": ParamDef((d,), "ones", dtype="float32"),
-        "w_in": ParamDef((d, 2 * di), "fan_in"),
-        "conv_w": ParamDef((k, di), "fan_in"),
-        "conv_b": ParamDef((di,), "zeros"),
-        "w_x_proj": ParamDef((di, dtr + 2 * ds), "fan_in"),
-        "w_dt": ParamDef((dtr, di), "fan_in"),
-        "b_dt": ParamDef((di,), "ones", dtype="float32"),
-        "a_log": ParamDef((di, ds), "ones", dtype="float32"),
-        "d_skip": ParamDef((di,), "ones", dtype="float32"),
+        "norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",)),
+        "w_in": ParamDef((d, 2 * di), "fan_in", axes=("embed", "inner")),
+        "conv_w": ParamDef((k, di), "fan_in", axes=(None, "inner")),
+        "conv_b": ParamDef((di,), "zeros", axes=("inner",)),
+        "w_x_proj": ParamDef((di, dtr + 2 * ds), "fan_in",
+                             axes=("inner", None)),
+        "w_dt": ParamDef((dtr, di), "fan_in", axes=(None, "inner")),
+        "b_dt": ParamDef((di,), "ones", dtype="float32", axes=("inner",)),
+        "a_log": ParamDef((di, ds), "ones", dtype="float32",
+                          axes=("inner", "state")),
+        "d_skip": ParamDef((di,), "ones", dtype="float32", axes=("inner",)),
         "w_out": ParamDef((di, d), "fan_in",
-                          scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+                          scale=1.0 / max(1, cfg.num_layers) ** 0.5,
+                          axes=("inner", "embed")),
     }
 
 
 def mamba_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
     _, di, ds, _ = _dims(cfg)
     k = cfg.ssm.d_conv
-    return {"ssm": ParamDef((batch, di, ds), "zeros", dtype="float32"),
-            "conv": ParamDef((batch, k - 1, di), "zeros", dtype="float32")}
+    return {"ssm": ParamDef((batch, di, ds), "zeros", dtype="float32",
+                            axes=("act_batch", "act_inner", None)),
+            "conv": ParamDef((batch, k - 1, di), "zeros", dtype="float32",
+                             axes=("act_batch", None, "act_inner"))}
 
 
 def _ssm_params(p: ParamGroup, xc: torch.Tensor, cfg: ModelConfig):

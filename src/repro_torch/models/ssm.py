@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
-from repro_torch.models.layers import ParamDef, ParamGroup
+from repro_torch.models.layers import ParamGroup
+from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
 State = Dict[str, torch.Tensor]
@@ -39,19 +40,23 @@ def mlstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     h = cfg.num_heads
     k = cfg.ssm.conv_kernel
     return {
-        "norm": ParamDef((d,), "ones", dtype="float32"),
-        "w_up": ParamDef((d, 2 * inner), "fan_in"),
-        "conv_w": ParamDef((k, inner), "fan_in"),
-        "wq": ParamDef((inner, inner), "fan_in"),
-        "wk": ParamDef((inner, inner), "fan_in"),
-        "wv": ParamDef((inner, inner), "fan_in"),
-        "w_igate": ParamDef((inner, h), "fan_in", dtype="float32"),
-        "b_igate": ParamDef((h,), "zeros", dtype="float32"),
-        "w_fgate": ParamDef((inner, h), "fan_in", dtype="float32"),
-        "b_fgate": ParamDef((h,), "ones", dtype="float32"),
-        "out_norm": ParamDef((inner,), "ones", dtype="float32"),
+        "norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",)),
+        "w_up": ParamDef((d, 2 * inner), "fan_in", axes=("embed", "inner")),
+        "conv_w": ParamDef((k, inner), "fan_in", axes=(None, "inner")),
+        "wq": ParamDef((inner, inner), "fan_in", axes=("inner", None)),
+        "wk": ParamDef((inner, inner), "fan_in", axes=("inner", None)),
+        "wv": ParamDef((inner, inner), "fan_in", axes=("inner", None)),
+        "w_igate": ParamDef((inner, h), "fan_in", dtype="float32",
+                            axes=("inner", None)),
+        "b_igate": ParamDef((h,), "zeros", dtype="float32", axes=(None,)),
+        "w_fgate": ParamDef((inner, h), "fan_in", dtype="float32",
+                            axes=("inner", None)),
+        "b_fgate": ParamDef((h,), "ones", dtype="float32", axes=(None,)),
+        "out_norm": ParamDef((inner,), "ones", dtype="float32",
+                             axes=("inner",)),
         "w_down": ParamDef((inner, d), "fan_in",
-                           scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+                           scale=1.0 / max(1, cfg.num_layers) ** 0.5,
+                           axes=("inner", "embed")),
     }
 
 
@@ -60,11 +65,15 @@ def mlstm_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
     h = cfg.num_heads
     dh = inner // h
     k = cfg.ssm.conv_kernel
+    f32 = dict(init="zeros", dtype="float32")
     return {
-        "C": ParamDef((batch, h, dh, dh), "zeros", dtype="float32"),
-        "n": ParamDef((batch, h, dh), "zeros", dtype="float32"),
-        "m": ParamDef((batch, h), "zeros", dtype="float32"),
-        "conv": ParamDef((batch, k - 1, inner), "zeros", dtype="float32"),
+        "C": ParamDef((batch, h, dh, dh), **f32,
+                      axes=("act_batch", None, "act_inner", None)),
+        "n": ParamDef((batch, h, dh), **f32,
+                      axes=("act_batch", None, "act_inner")),
+        "m": ParamDef((batch, h), **f32, axes=("act_batch", None)),
+        "conv": ParamDef((batch, k - 1, inner), **f32,
+                         axes=("act_batch", None, "act_inner")),
     }
 
 
@@ -241,25 +250,30 @@ def slstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     dh = d // h
     ff = int(4 * d / 3 + 63) // 64 * 64
     return {
-        "norm": ParamDef((d,), "ones", dtype="float32"),
+        "norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",)),
         # gates order: z, i, f, o (per head)
-        "w_gates": ParamDef((d, 4 * d), "fan_in", dtype="float32"),
-        "r_gates": ParamDef((h, dh, 4 * dh), "fan_in", dtype="float32"),
-        "b_gates": ParamDef((4 * d,), "zeros", dtype="float32"),
-        "out_norm": ParamDef((d,), "ones", dtype="float32"),
-        "w_out": ParamDef((d, d), "fan_in"),
+        "w_gates": ParamDef((d, 4 * d), "fan_in", dtype="float32",
+                            axes=("embed", "inner")),
+        "r_gates": ParamDef((h, dh, 4 * dh), "fan_in", dtype="float32",
+                            axes=(None, None, "inner")),
+        "b_gates": ParamDef((4 * d,), "zeros", dtype="float32",
+                            axes=("inner",)),
+        "out_norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",)),
+        "w_out": ParamDef((d, d), "fan_in", axes=("embed", "embed")),
         # post-FFN
-        "ffn_norm": ParamDef((d,), "ones", dtype="float32"),
-        "w_ff_in": ParamDef((d, ff), "fan_in"),
+        "ffn_norm": ParamDef((d,), "ones", dtype="float32", axes=("embed",)),
+        "w_ff_in": ParamDef((d, ff), "fan_in", axes=("embed", "ffn")),
         "w_ff_out": ParamDef((ff, d), "fan_in",
-                             scale=1.0 / max(1, cfg.num_layers) ** 0.5),
+                             scale=1.0 / max(1, cfg.num_layers) ** 0.5,
+                             axes=("ffn", "embed")),
     }
 
 
 def slstm_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
     d, h = cfg.d_model, cfg.num_heads
     dh = d // h
-    return {name: ParamDef((batch, h, dh), "zeros", dtype="float32")
+    return {name: ParamDef((batch, h, dh), "zeros", dtype="float32",
+                           axes=("act_batch", None, None))
             for name in ("c", "n", "m", "h")}
 
 

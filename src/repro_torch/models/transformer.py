@@ -59,7 +59,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import common, flags, layers, mamba, ssm
-from repro_torch.models.layers import ParamDef, ParamGroup
+from repro_torch.models.layers import ParamGroup, stack_defs
+from repro_torch.models.params import ParamDef, abstract_params
 
 F32 = torch.float32
 Cache = Dict[str, torch.Tensor]
@@ -83,29 +84,36 @@ def _moe_at(cfg: ModelConfig, pos: int) -> bool:
     return pos % cfg.moe.moe_layer_period == 1
 
 
+def block_defs(cfg: ModelConfig, kind: str,
+               pos: int) -> Dict[str, Dict[str, ParamDef]]:
+    """One layer's defs at period position ``pos`` (the reference's
+    ``_block_defs``): the mixer's under its kind's name (``attn``,
+    ``mamba``, ``mlstm``, ``slstm``) and, after an attention or Mamba
+    mixer, an ``ffn`` or ``moe`` one."""
+    out = {kind: (layers.attn_defs(cfg) if kind == "attn"
+                  else MIXERS[kind][0](cfg))}
+    if kind not in ("mlstm", "slstm") and cfg.d_ff > 0:
+        if _moe_at(cfg, pos):
+            out["moe"] = layers.moe_defs(cfg)
+        else:
+            kind_ff = "gelu" if cfg.family == "audio" else "swiglu"
+            out["ffn"] = layers.ffn_defs(cfg, kind_ff)
+    return out
+
+
 class TransformerBlock(nn.Module):
     """One layer's parameters: the reference's ``params["blocks"]
-    ["pos{i}"]`` at one period, the mixer's sub-tree under its kind's name
-    (``attn``, ``mamba``, ``mlstm``, ``slstm``) and, after an attention or
-    Mamba mixer, an ``ffn`` or ``moe`` one (``subs`` names them)."""
+    ["pos{i}"]`` at one period, one ``ParamGroup`` per sub-tree of
+    ``block_defs`` (``subs`` names them)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, pos: int,
                  dtype: torch.dtype, device: torch.device):
         super().__init__()
         self.kind = kind
-        defs = (layers.attn_defs(cfg) if kind == "attn"
-                else MIXERS[kind][0](cfg))
-        setattr(self, kind, ParamGroup(defs, dtype, device))
-        self.subs = (kind,)
-        if kind not in ("mlstm", "slstm") and cfg.d_ff > 0:
-            if _moe_at(cfg, pos):
-                self.moe = ParamGroup(layers.moe_defs(cfg), dtype, device)
-                self.subs += ("moe",)
-            else:
-                kind_ff = "gelu" if cfg.family == "audio" else "swiglu"
-                self.ffn = ParamGroup(layers.ffn_defs(cfg, kind_ff), dtype,
-                                      device)
-                self.subs += ("ffn",)
+        defs = block_defs(cfg, kind, pos)
+        for sub, d in defs.items():
+            setattr(self, sub, ParamGroup(d, dtype, device))
+        self.subs = tuple(defs)
 
 
 def _positions(batch: Batch) -> Optional[torch.Tensor]:
@@ -133,6 +141,7 @@ class TransformerModel(nn.Module):
             raise ValueError(
                 f"{cfg.name}: {cfg.num_layers} layers not divisible by "
                 f"pattern period {self.period}")
+        self.n_super = cfg.num_layers // self.period
         for kind in self.kinds:
             if kind not in KINDS:
                 raise ValueError(f"{cfg.name}: unknown block kind {kind!r}; "
@@ -159,17 +168,37 @@ class TransformerModel(nn.Module):
     def _top_defs(self) -> Dict[str, ParamDef]:
         cfg = self.cfg
         d = cfg.d_model
-        defs = {"final_norm": ParamDef((d,), "ones", dtype="float32")}
+        defs = {"final_norm": ParamDef((d,), "ones", dtype="float32",
+                                       axes=("embed",))}
         if cfg.family == "audio":
             defs.update({
-                "feat_proj": ParamDef((cfg.frontend_dim, d), "fan_in"),
-                "feat_bias": ParamDef((d,), "zeros"),
-                "pos_conv": ParamDef((POS_CONV_TAPS, d), "fan_in")})
+                "feat_proj": ParamDef((cfg.frontend_dim, d), "fan_in",
+                                      axes=(None, "embed")),
+                "feat_bias": ParamDef((d,), "zeros", axes=("embed",)),
+                "pos_conv": ParamDef((POS_CONV_TAPS, d), "fan_in",
+                                     axes=(None, "embed"))})
         else:
-            defs["embed"] = ParamDef((cfg.vocab_size, d), "normal")
+            defs["embed"] = ParamDef((cfg.vocab_size, d), "normal",
+                                     axes=("vocab", "embed"))
         if cfg.family == "audio" or not cfg.tie_embeddings:
-            defs["lm_head"] = ParamDef((d, cfg.vocab_size), "fan_in")
+            defs["lm_head"] = ParamDef((d, cfg.vocab_size), "fan_in",
+                                       axes=("embed", "vocab"))
         return defs
+
+    def param_defs(self) -> Dict:
+        """The reference's ``param_defs`` tree: the top-level defs and
+        ``blocks/pos{i}``, period position i's layer defs stacked over the
+        ``n_super`` periods on a leading ``layers`` axis."""
+        defs: Dict = dict(self._top_defs())
+        defs["blocks"] = {
+            f"pos{i}": stack_defs(block_defs(self.cfg, kind, i),
+                                  self.n_super)
+            for i, kind in enumerate(self.kinds)}
+        return defs
+
+    def abstract_params(self) -> Dict:
+        """``param_defs`` as ``meta`` tensors (shapes and dtypes only)."""
+        return abstract_params(self.param_defs(), self.cfg.dtype)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "TransformerModel":
@@ -341,28 +370,39 @@ class TransformerModel(nn.Module):
     # Caching / decode
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, window: int) -> Cache:
-        """Empty cache: zero K/V, pos = -1, zero mixer states, step 0."""
-        dev = self.device
-        out: Cache = {}
+    def cache_defs(self, batch: int, window: int) -> Dict[str, ParamDef]:
+        """The port's cache layout (the module docstring) as defs: each
+        leaf one layer's def stacked over its kind's layers (``layers``
+        axis first, the batch on axis 1), and ``step``.  The axes are the
+        reference's ``cache_defs``' for the same leaves, so a mesh cuts
+        both caches alike."""
+        out: Dict[str, ParamDef] = {}
         n_attn = self.kind_counts.get("attn", 0)
         if n_attn:
-            defs = layers.attn_cache_defs(self.cfg, batch, window)
-            lead = (n_attn,)
-            out["k"] = torch.zeros(lead + defs["k"].shape, dtype=self.dtype,
-                                   device=dev)
-            out["v"] = torch.zeros(lead + defs["v"].shape, dtype=self.dtype,
-                                   device=dev)
-            out["pos"] = torch.full(lead + defs["pos"].shape, -1,
-                                    dtype=torch.int32, device=dev)
+            out.update(stack_defs(
+                layers.attn_cache_defs(self.cfg, batch, window), n_attn))
         for kind in MIXERS:
-            if kind not in self.kind_counts:
-                continue
-            for name, d in MIXERS[kind][1](self.cfg, batch).items():
-                out[f"{kind}_{name}"] = torch.zeros(
-                    (self.kind_counts[kind],) + d.shape, dtype=F32,
-                    device=dev)
-        out["step"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+            if kind in self.kind_counts:
+                defs = stack_defs(MIXERS[kind][1](self.cfg, batch),
+                                  self.kind_counts[kind])
+                out.update({f"{kind}_{name}": d for name, d in defs.items()})
+        out["step"] = ParamDef((batch,), "zeros", dtype="int32",
+                               axes=("act_batch",))
+        return out
+
+    def abstract_cache(self, batch: int, window: int) -> Dict:
+        """``cache_defs`` as ``meta`` tensors (shapes and dtypes only)."""
+        return abstract_params(self.cache_defs(batch, window),
+                               self.cfg.dtype)
+
+    def init_cache(self, batch: int, window: int) -> Cache:
+        """Empty cache: zero K/V, pos = -1, zero mixer states, step 0."""
+        out: Cache = {
+            name: torch.zeros(d.shape, dtype=dtype_of(d.dtype or self.dtype),
+                              device=self.device)
+            for name, d in self.cache_defs(batch, window).items()}
+        if "pos" in out:
+            out["pos"].fill_(-1)
         return out
 
     def layer_cache(self, cache: Cache, layer: int) -> Cache:

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, no example of
+the port (``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or
+the reference package ``repro``."""
 import tests.torch_threads  # noqa: F401  (first: one thread)
 import ast
 import os
@@ -10,8 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -85,4 +86,44 @@ def test_training_import_leaves_jax_unloaded():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+DRYRUN_MODULES = ("models/params.py", "launch/specs.py", "launch/dryrun.py",
+                  "launch/mesh.py")
+EXAMPLES = ("torch_quickstart.py", "torch_generate_images.py",
+            "torch_serve_images.py", "torch_serve_llm.py",
+            "torch_train_dit.py")
+
+
+@pytest.mark.parametrize("module", DRYRUN_MODULES)
+def test_dryrun_modules_are_scanned(module):
+    """The dry run's modules keep their own copies of what they need from
+    the reference (``ParamDef``, the bundles, the roofline): each is a
+    port file the import scan covers."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_are_scanned(name):
+    path = ROOT / "examples" / name
+    assert path in PORT_FILES
+    roots = set(_imported_roots(path))
+    assert "repro_torch" in roots and not roots & set(FORBIDDEN)
+
+
+def test_dryrun_import_leaves_jax_unloaded():
+    code = ("import sys, runpy, repro_torch.launch.dryrun, "
+            "repro_torch.launch.specs, repro_torch.models.params; "
+            "[runpy.run_path(p) for p in sys.argv[1:]]; "
+            "assert 'jax' not in sys.modules, 'jax was imported'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro was imported'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code] + [str(ROOT / "examples" / e)
+                                        for e in EXAMPLES],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
