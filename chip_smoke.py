@@ -361,6 +361,30 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             finite, the first within 10% of ln(vocab), one step under sync
             debug "error", no kernel launched; ms per step (2 timed steps),
             tokens/s, launches per step, peak memory, train_mfu;
+19b. sharded_train  LLM training on a mesh (training/sharded.py,
+            SHARDED_TRAIN): Qwen3-0.6B whole (28 layers, bf16, AdamW,
+            TRAIN_LLM's 8 x 256 stream and seed, 3 steps) on (1, 1) over
+            nccl in this process, bitwise make_train_step on init_model's
+            weights (losses, step-0 gradients, final parameters), then on
+            two ranks sharing card 0 over gloo as (2, 1) (FSDP) and (1, 2)
+            (tensor parallel); Arctic-480B at full width with one layer
+            (Adafactor, 1 x 256 tokens, 2 steps) on (1, 1) over nccl, then,
+            freed, on (1, 2) with 64 experts a rank.  Every count zeroed
+            just before each leg and read just after (no kernel lies on the
+            path); each mesh's step-0 loss within 1e-3 (relative) of the
+            (1, 1) loss and of rank 0's recomputed (1, 1) reference, its
+            step-0 gradients, gathered block by block from the ranks'
+            hosts, within 5e-2 relative L2 of the reference's on every
+            leaf (Arctic, no qk-norm: within the fixed 1e-1 of
+            SHARDED_CHAOTIC_GRAD_REL_L2, about the (1, 1) step's own
+            spread when its q, k, v are rounded once from f32, which is
+            printed beside it); every rank's collective bytes per step
+            equal to the dry run's count (launch/dryrun.collective_bytes)
+            for the arch, batch and mesh; per rank ms per step (CUDA
+            events), bytes by kind and peak memory (Arctic's beside the
+            66-68 GB reckoning).  The two-rank legs share one pair of rank
+            processes.  Then the launcher's ``--mesh 2,1 --steps 3`` prints
+            the reference's lines, its step-0 loss within 1e-3 of (1, 1)'s;
 20. train_ssm  the SSM and hybrid families' training (TRAIN_SSM):
             xLSTM-1.3b at full size (48 layers, AdamW, 4 x 256 tokens) and
             Jamba-v0.1-52b at full width with one period of 8 layers
@@ -371,8 +395,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             ms per step and its split, tokens/s, train_mfu (6 x active
             parameters), launches, busy share, peak memory;
 21. dryrun  the dry run (launch/dryrun.py) of every assigned arch x shape
-            on the one-pod production mesh (16 x 16), in process on the
-            meta device: its own lines (one per record, with the
+            on the one-pod production mesh (16 x 16) on the meta device,
+            in a process of its own with no card, started before the
+            build so that it runs beside the card's phases
+            (dryrun_sweep_child): its own lines (one per record, with the
             roofline's), a JSON row per record and the sweep's ok / skip /
             fail and seconds; no kernel launched, no record failed.  Its
             card tie (dryrun_tie): Qwen3-0.6B's train step at TRAIN_LLM's
@@ -381,7 +407,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             AdamW state and the batch are on the card, its FLOPs equal to
             FlopCounterMode's count of the same step on the card, the
             card's step ms beside the roofline's compute_s.  Arctic's
-            one-layer train_4k argument bytes on (1, 1), a prediction;
+            one-layer train_4k argument bytes on (1, 1), a prediction.
+            Each train record of an attention-only family carries the
+            sharded step's collective bytes by kind (counting comms on
+            meta);
 22. examples  each of the port's examples (examples/torch_*.py) at its
             defaults on the card, in process, its printed lines kept,
             counts zeroed just before and read just after: the
@@ -4200,6 +4229,475 @@ def phase_train_ssm(torch, dev, tr, m) -> dict:
     return out
 
 
+# LLM training on a mesh (training/sharded.py): Qwen3-0.6B whole with
+# TRAIN_LLM's batch, seed and schedule for 3 steps on (1, 1) over nccl in
+# this process, then on two ranks sharing card 0 over gloo as (2, 1) (FSDP)
+# and (1, 2) (tensor parallel); Arctic-480B at full width with one layer
+# (Adafactor, 1 x 256 tokens) for 2 steps on (1, 1), then on (1, 2) with
+# 64 experts a rank.  The three two-rank legs run in one pair of processes
+# (one spawn and one warm-up of each rank)
+SHARDED_TRAIN = (
+    dict(label="qwen", arch="qwen3-0.6b", batch=8, seq=256, steps=3,
+         lr=3e-4, warmup=20, seed=0, meshes=((2, 1), (1, 2))),
+    dict(label="arctic", arch="arctic-480b", num_layers=1, batch=1, seq=256,
+         steps=2, lr=3e-4, warmup=20, seed=0, meshes=((1, 2),)))
+SHARDED_LOSS_RTOL = 1e-3      # a mesh's step-0 loss against (1, 1)'s
+SHARDED_GRAD_REL_L2 = 5e-2    # its gathered step-0 gradients, bf16
+# a config without qk-norm, at the reference's random init, carries
+# activations of ~60-100 into saturated softmaxes (attention's and the
+# router's): one-ulp changes of q and k (a rank's GEMM on its heads rounds
+# otherwise) move its bf16 gradients by percents.  Arctic's (1, 2) step-0
+# gradients read 5.44% rel L2, 6.25% on the worst leaf (the expert banks),
+# where its (1, 1) step moves 4.58%, and 7.86% on the worst leaf (the
+# router), when only q, k, v are rounded once from f32 (qkv_in_f32), all
+# on an H100 80GB HBM3 at 700 W: its bound is fixed at about that worst
+# leaf's spread, which each run prints beside it (floor_f32_qkv)
+SHARDED_CHAOTIC_GRAD_REL_L2 = {"arctic": 0.1}
+SHARDED_TRAIN_TIMEOUT_S = 900  # both ranks, every leg, start to result
+# the reckoning of Arctic's one-layer step on (1, 1) before any card run:
+# parameters, Adafactor's state and the batch (the dry run's 28.18 GB),
+# their bf16 gradients again, one 8.93 GB expert-bank gradient in flight
+ARCTIC_PEAK_RECKONING_GB = (66.0, 68.0)
+LAUNCHER_LINE = (r"\[train\] step +\d+ loss=[\d.]+ lr=[\d.e+-]+ "
+                 r"\|g\|=[\d.]+ \([\d.]+s\)")
+
+
+def sharded_cfg(tr, c):
+    cfg = tr.get_config(c["arch"])
+    if "num_layers" in c:
+        cfg = cfg.replace(num_layers=c["num_layers"])
+    return cfg
+
+
+def sharded_batches(tr, cfg, c) -> list:
+    """The leg's global batches as host arrays (token_stream, seed 0)."""
+    it = tr.token_stream(cfg.vocab_size, c["batch"], c["seq"],
+                         seed=c["seed"], device="cpu")
+    return [next(it)["tokens"].numpy() for _ in range(c["steps"])]
+
+
+def train_leg(torch, dev, c, step_fn, params, state, batches, m, counter):
+    """Run ``step_fn`` on ``batches`` (on the card), every kernel count
+    zeroed just before and read just after; each step timed with CUDA
+    events, its collective bytes read from ``counter`` (its mesh's).
+    Returns (params, state, per step [loss, ms, bytes], step-0 metrics,
+    launches, peak bytes)."""
+    from repro_torch.training.loop import host_metrics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(m.kernels)                         # the path starts here
+    steps, met0 = [], None
+    for i, b in enumerate(batches):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        counter.reset()
+        ev[0].record()
+        params, state, met = step_fn(params, state, b)
+        ev[1].record()
+        torch.cuda.synchronize()
+        steps.append({"loss": float(met["loss"]),
+                      "ms": ev[0].elapsed_time(ev[1]),
+                      "collective_bytes": counter.read()})
+        if i == 0:
+            met0 = host_metrics(met)
+    launches = {name: fn.launches                  # ... and ends here
+                for name, fn in m.kernels.items()}
+    if any(launches.values()):
+        raise AssertionError(f"sharded_train {c['label']}: kernels launched "
+                             f"{launches}: none lies on its path")
+    return (params, state, steps, met0, launches,
+            torch.cuda.max_memory_allocated(dev))
+
+
+def chunks(shape, budget: int = 1 << 26):
+    """Index tuples cutting a tensor of ``shape`` along its first dims into
+    pieces of at most ``budget`` elements (one row of the last dims
+    whole), so that a comparison holds little more than its operands."""
+    import math
+    for d in range(len(shape)):
+        if math.prod(shape[d + 1:]) <= budget:
+            step = max(1, budget // max(1, math.prod(shape[d + 1:])))
+            break
+    else:
+        d, step = len(shape) - 1, 1
+    for lead in np.ndindex(*shape[:d]):
+        for i in range(0, shape[d] if shape else 1, step):
+            yield tuple(lead) + (slice(i, i + step),) if shape else ()
+
+
+def rel_l2_sums(torch, dev, got, want, sl_iter) -> tuple:
+    """(||got - want||^2, ||want||^2) over the chunks ``sl_iter`` (each on
+    the host or the card)."""
+    d2 = r2 = 0.0
+    for sl in sl_iter:
+        w = want[sl].to(dev).float()
+        diff = got[sl].to(dev).float() - w
+        d2 += float(diff.square().sum())
+        r2 += float(w.square().sum())
+        del w, diff
+    return d2, r2
+
+
+@contextlib.contextmanager
+def qkv_in_f32(torch, common):
+    """The attention's q, k, v projections computed on f32 operands and
+    rounded once: the same products summed in another order, as a GEMM of
+    another shape (a tensor-parallel rank's, on its heads) sums them."""
+    real = common.feinsum
+
+    def feinsum(eq, *xs):
+        if eq == "bsd,dhk->bshk":
+            return torch.einsum(eq, *(x.float() for x in xs)).to(xs[0].dtype)
+        return real(eq, *xs)
+
+    common.feinsum = feinsum
+    try:
+        yield
+    finally:
+        common.feinsum = real
+
+
+def sharded_leg(torch, dist, rank, world, c, topo, want, m):
+    """One leg on this rank's (data, model) mesh of the two ranks: its
+    blocks of the weights ``init_model`` draws (``init_sharded``), its rows
+    of the leg's global batches, ``c["steps"]`` sharded steps (train_leg),
+    every step's collective bytes equal to ``want`` (the dry run's).  Then
+    the (1, 1) references: rank 0 receives every rank's distinct step-0
+    blocks on its host (over gloo), the others' card memory freed, and
+    holds them against ``sharded_reference``'s."""
+    import gc
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import rows_of
+    from repro_torch.distributed.sharding import _as_tuple, block_view
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import def_leaves
+    from repro_torch.training import loop, optimizer, sharded
+    dev = torch.device("cuda", 0)
+    cfg = sharded_cfg(SimpleNamespace(get_config=get_config), c)
+    mesh = sharded.train_mesh(make_mesh(*topo), "gloo", c["batch"])
+    t0 = time.perf_counter()
+    model = sharded.init_sharded(cfg, dev, c["seed"], mesh)
+    params = loop.param_tree(model)
+    opt = optimizer.make_optimizer(cfg.optimizer)
+    state = opt.init(params)
+    lr_fn = optimizer.cosine_schedule(c["lr"], c["warmup"], c["steps"])
+    step = sharded.make_sharded_train_step(model, opt, lr_fn, mesh)
+    rows = rows_of(c["batch"], sharded.data_shard(mesh))
+    batches = [{"tokens": torch.from_numpy(b[rows].copy()).to(dev)}
+               for b in c["global_batches"]]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held = {}
+
+    def step_and_keep(p, s, b):
+        out = step(p, s, b)
+        if not held:                    # step 0's blocks, to the host
+            held["grads"] = [g.detach().to("cpu", copy=True)
+                             for g in tree_mod.leaves(step.grads)]
+        return out
+
+    params, state, steps, met0, launches, peak = train_leg(
+        torch, dev, c, step_and_keep, params, state, batches, m,
+        mesh.counter)
+    for i, s in enumerate(steps):
+        if s["collective_bytes"] != want:
+            raise AssertionError(
+                f"sharded_train {c['label']} {topo} rank {rank} step {i}: "
+                f"collective bytes {s['collective_bytes']} != the dry "
+                f"run's {want}")
+    specs = sharded.spec_leaves(sharded.leaf_specs(model, mesh))
+    c_shapes = [tuple(d.shape) for d in def_leaves(model.param_defs())]
+    coords = mesh.coords
+    del model, params, state, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"rank": rank, "coords": coords, "setup_s": setup_s,
+           "steps": steps, "metrics_step0": met0, "launches": launches,
+           "max_memory_allocated_bytes": peak}
+    every = [None] * world
+    dist.all_gather_object(every, coords)
+    if rank == 0:
+        # every rank's distinct blocks on this host, then the references
+        blocks = [[] for _ in specs]
+        for li, spec in enumerate(specs):
+            cut = {a for e in spec for a in _as_tuple(e)}
+            for r in range(world):
+                got = held["grads"][li]
+                if r:
+                    got = torch.empty(block_view(
+                        torch.empty(c_shapes[li], device="meta"), spec,
+                        every[r], mesh.extents).shape,
+                        dtype=got.dtype)
+                    dist.recv(got, src=r)
+                if not any(every[r][a] for a in every[r] if a not in cut):
+                    blocks[li].append((r, got))
+        del held
+        out.update(sharded_reference(torch, dev, cfg, c, specs, every,
+                                     mesh.extents, blocks))
+    else:
+        for g in held["grads"]:
+            dist.send(g, dst=0)
+        del held
+    dist.barrier()
+    return out
+
+
+def sharded_reference(torch, dev, cfg, c, specs, every, extents,
+                      blocks) -> dict:
+    """Rank 0's (1, 1) reference of a leg's step-0 gradients: the whole
+    model on one device from ``init_model``'s weights and the whole batch,
+    clipped (``make_train_step``'s code); the ranks' ``blocks`` against it
+    in relative L2 by leaf.  Then its own spread under rounding: the same
+    step with q, k, v rounded once from f32 (``qkv_in_f32``) against it,
+    on whole leaves (the ranks' blocks dropped first, the reference's
+    gradients held on the host meanwhile)."""
+    import gc
+    from repro_torch import tree as tree_mod
+    from repro_torch.distributed.sharding import block_view
+    from repro_torch.launch.train import init_model
+    from repro_torch.models import common
+    from repro_torch.training import loop, optimizer
+    t0 = time.perf_counter()
+    ref = init_model(cfg, dev, c["seed"])
+    loop.param_tree(ref)
+    grads = loop.grad_tree(ref)
+    full = {"tokens": torch.from_numpy(c["global_batches"][0]).to(dev)}
+    paths = [tree_mod.keystr(p) for p, _ in
+             tree_mod.flatten_with_path(grads)]
+
+    def grads_of():
+        torch._foreach_zero_(tree_mod.leaves(grads))
+        loss, _ = ref.loss(full)
+        loss.backward()
+        optimizer.clip_by_global_norm(grads, 1.0)
+        return float(loss.detach())
+
+    out = {"reference_loss": grads_of()}
+    by_leaf, num, den = {}, 0.0, 0.0
+    for li, (g, spec) in enumerate(zip(tree_mod.leaves(grads), specs)):
+        d2 = r2 = 0.0
+        for r, got in blocks[li]:
+            blk = block_view(g, spec, every[r], extents)
+            a, b = rel_l2_sums(torch, dev, got, blk, chunks(blk.shape))
+            d2, r2 = d2 + a, r2 + b
+        by_leaf[paths[li]] = (d2 / r2) ** 0.5 if r2 else 0.0
+        num, den = num + d2, den + r2
+    out["grad_rel_l2_by_leaf"] = by_leaf
+    out["grad_rel_l2"] = (num / den) ** 0.5
+    blocks.clear()
+    kept = [g.to("cpu", copy=True) for g in tree_mod.leaves(grads)]
+    with qkv_in_f32(torch, common):
+        out["f32_qkv_loss"] = grads_of()
+    floor, num, den = {}, 0.0, 0.0
+    for path, k, g in zip(paths, kept, tree_mod.leaves(grads)):
+        a, b = rel_l2_sums(torch, dev, g, k, chunks(tuple(k.shape)))
+        floor[path] = (a / b) ** 0.5 if b else 0.0
+        num, den = num + a, den + b
+    floor["all"] = (num / den) ** 0.5 if den else 0.0
+    out["floor_f32_qkv"] = floor
+    out["reference_s"] = time.perf_counter() - t0
+    del ref, grads, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_train_ranks(rank, world, port, legs):
+    """Two ranks sharing card 0 over gloo (a ``launch.mesh.RankGroup``
+    target), running each of ``legs`` ((c, topo, want) of SHARDED_TRAIN's
+    two-rank meshes) in turn (sharded_leg).  Returns this rank's results
+    by leg."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)
+    from repro_torch.launch.mesh import init_ranks
+    m = SimpleNamespace(kernels=kernel_wrappers())
+    init_ranks(rank, world, port=port, backend="gloo")
+    try:
+        return [sharded_leg(torch, dist, rank, world, c, topo, want, m)
+                for c, topo, want in legs]
+    finally:
+        dist.destroy_process_group()
+
+
+def one_by_one_leg(torch, dev, tr, m, c, cfg, plain: bool):
+    """(1, 1) in this process: ``init_sharded`` + ``make_sharded_train_step``
+    on a one-rank nccl mesh, or (``plain``) ``init_model`` +
+    ``make_train_step``.  Returns (train_leg's steps, step-0 metrics,
+    launches, peak, step-0 gradients and final parameters (Qwen's))."""
+    from repro_torch.distributed.collectives import Counter
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import sharded
+    free_memory(torch)
+    lr_fn = tr.optimizer.cosine_schedule(c["lr"], c["warmup"], c["steps"])
+    opt = tr.optimizer.make_optimizer(cfg.optimizer)
+    if plain:
+        model = tr.init_model(cfg, dev, c["seed"])
+        counter = Counter()
+    else:
+        mesh = sharded.train_mesh(make_mesh(1, 1), "nccl", c["batch"])
+        model = sharded.init_sharded(cfg, dev, c["seed"], mesh)
+        counter = mesh.counter
+    params = tr.loop.param_tree(model)
+    state = opt.init(params)
+    step = (tr.loop.make_train_step(model, opt, lr_fn) if plain else
+            sharded.make_sharded_train_step(model, opt, lr_fn, mesh))
+    batches = [{"tokens": torch.from_numpy(b).to(dev)}
+               for b in c["global_batches"]]
+    keep = c["label"] == "qwen"
+    held = {}
+
+    def step_and_keep(p, s, b):
+        out = step(p, s, b)
+        if not held and keep:
+            held["grads"] = [g.detach().clone()
+                             for g in tr.tree.leaves(step.grads)]
+        return out
+
+    params, state, steps, met0, launches, peak = train_leg(
+        torch, dev, c, step_and_keep, params, state, batches, m, counter)
+    final = ([p.detach().clone() for p in tr.tree.leaves(params)]
+             if keep else None)
+    del model, params, state, step, opt
+    free_memory(torch)
+    return steps, met0, launches, peak, held.get("grads"), final
+
+
+def phase_sharded_train(torch, dev, tr, m, dryrun_mod) -> dict:
+    """sharded_train: each of SHARDED_TRAIN on (1, 1) over nccl in this
+    process, then its two-rank meshes over gloo on card 0 (one pair of
+    rank processes for every leg: sharded_train_ranks), then the
+    launcher's --mesh 2,1.  Checks: no kernel launched; Qwen3-0.6B's (1,
+    1) losses, step-0 gradients and final parameters bitwise
+    make_train_step's on init_model's weights; every mesh's step-0 loss
+    within SHARDED_LOSS_RTOL of (1, 1)'s and of rank 0's recomputed (1, 1)
+    reference; its gathered step-0 gradients within SHARDED_GRAD_REL_L2 in
+    relative L2 on every leaf of rank 0's (1, 1) reference (Arctic's
+    within SHARDED_CHAOTIC_GRAD_REL_L2; that reference's own spread when
+    q, k, v are rounded from f32 printed beside it); every
+    step's collective bytes on every rank equal to the dry run's count for
+    the arch, batch and mesh; the launcher prints the reference's lines,
+    its step-0 loss within SHARDED_LOSS_RTOL of (1, 1)'s.  Prints ms per
+    step (CUDA events), collective bytes by kind and peak memory per rank.
+    Returns the launches by label."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import free_port, init_ranks, run_ranks
+    out, legs, base = {}, [], {}
+    free_memory(torch)
+    init_ranks(0, 1, port=free_port(), backend="nccl")
+    try:
+        for c in SHARDED_TRAIN:
+            t0 = time.perf_counter()
+            cfg = sharded_cfg(tr, c)
+            c = dict(c, global_batches=sharded_batches(tr, cfg, c))
+            one = one_by_one_leg(torch, dev, tr, m, c, cfg, plain=False)
+            steps, met0, launches, peak, grads, final = one
+            row = {"phase": "sharded_train", "label": c["label"],
+                   "arch": cfg.name, "num_layers": cfg.num_layers,
+                   "mesh": [1, 1], "backend": "nccl", "batch": c["batch"],
+                   "seq": c["seq"], "optimizer": cfg.optimizer,
+                   "steps": steps, "metrics_step0": met0,
+                   "max_memory_allocated_bytes": peak,
+                   "max_memory_allocated_gb": peak / 1e9, "card": smi()}
+            if grads is not None:
+                plain = one_by_one_leg(torch, dev, tr, m, c, cfg, plain=True)
+                same = ([s["loss"] for s in steps]
+                        == [s["loss"] for s in plain[0]]
+                        and all(torch.equal(a, b) for a, b in
+                                zip(grads, plain[4]))
+                        and all(torch.equal(a, b) for a, b in
+                                zip(final, plain[5])))
+                row["bitwise_make_train_step"] = same
+                del grads, final, plain
+                if not same:
+                    raise AssertionError(f"sharded_train {c['label']} "
+                                         "(1, 1): not bitwise "
+                                         "make_train_step")
+            else:
+                row["peak_reckoning_gb"] = list(ARCTIC_PEAK_RECKONING_GB)
+            row["seconds"] = time.perf_counter() - t0
+            emit(row)
+            out[f"sharded_train_{c['label']}_1x1"] = launches
+            base[c["label"]] = steps[0]["loss"]
+            legs += [(c, topo, dryrun_mod.collective_bytes(
+                cfg, c["batch"], c["seq"], topo)) for topo in c["meshes"]]
+            free_memory(torch)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_train_ranks, 2, (legs,),
+                      timeout=SHARDED_TRAIN_TIMEOUT_S, label="sharded_train")
+    emit({"phase": "sharded_train_ranks_seconds",
+          "seconds": time.perf_counter() - t0})
+    for li, (c, topo, want) in enumerate(legs):
+        label = c["label"]
+        lead = ranks[0][li]
+        for r in (rk[li] for rk in ranks):
+            emit({"phase": "sharded_train_rank", "label": label,
+                  "mesh": list(topo), "backend": "gloo (one card)",
+                  "rank": r["rank"], "coords": r["coords"],
+                  "setup_s": r["setup_s"], "steps": r["steps"],
+                  "max_memory_allocated_bytes":
+                      r["max_memory_allocated_bytes"],
+                  "max_memory_allocated_gb":
+                      r["max_memory_allocated_bytes"] / 1e9})
+        loss0 = lead["steps"][0]["loss"]
+        floor = lead["floor_f32_qkv"]
+        bound = SHARDED_CHAOTIC_GRAD_REL_L2.get(label, SHARDED_GRAD_REL_L2)
+        emit({"phase": "sharded_train", "label": label, "arch": c["arch"],
+              "mesh": list(topo), "loss_step0": loss0,
+              "loss_step0_1x1": base[label],
+              "reference_loss": lead["reference_loss"],
+              "f32_qkv_loss": lead["f32_qkv_loss"],
+              "loss_rel": abs(loss0 - base[label]) / abs(base[label]),
+              "grad_rel_l2": lead["grad_rel_l2"],
+              "grad_rel_l2_by_leaf": lead["grad_rel_l2_by_leaf"],
+              "floor_f32_qkv": floor, "grad_bound": bound,
+              "reference_s": lead["reference_s"],
+              "dryrun_collective_bytes": want, "card": smi()})
+        for loss in (base[label], lead["reference_loss"]):
+            if abs(loss0 - loss) > SHARDED_LOSS_RTOL * abs(loss):
+                raise AssertionError(f"sharded_train {label} {topo}: "
+                                     f"step-0 loss {loss0} vs (1, 1) {loss}")
+        bad = {k: v for k, v in lead["grad_rel_l2_by_leaf"].items()
+               if not v <= bound}
+        if bad:
+            raise AssertionError(f"sharded_train {label} {topo}: gradients "
+                                 f"off (1, 1)'s past {bound}: {bad}")
+        out[f"sharded_train_{label}_{topo[0]}x{topo[1]}"] = lead["launches"]
+    sharded_train_launcher(base["qwen"])
+    return out
+
+
+def sharded_train_launcher(base_loss: float) -> None:
+    """``python -m repro_torch.launch.train --arch qwen3-0.6b --mesh 2,1
+    --steps 3``: two gloo ranks on the card, rank 0 printing the
+    reference's lines; its step-0 loss against (1, 1)'s."""
+    import os
+    import re
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen3-0.6b", "--mesh", "2,1", "--steps", "3"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=SHARDED_TRAIN_TIMEOUT_S)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("[train]")]
+    emit({"phase": "sharded_train_launcher", "returncode": proc.returncode,
+          "lines": lines, "seconds": time.perf_counter() - t0,
+          "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
+    if proc.returncode or len(lines) != 3 or not re.fullmatch(
+            r"\[train\] .+: [\d.]+M params, opt=adamw", lines[0]) \
+            or not all(re.fullmatch(LAUNCHER_LINE, l) for l in lines[1:]):
+        raise AssertionError(f"sharded_train_launcher: {lines}")
+    loss0 = float(re.search(r"loss=([\d.]+)", lines[1]).group(1))
+    if abs(loss0 - base_loss) > SHARDED_LOSS_RTOL * abs(base_loss):
+        raise AssertionError(f"sharded_train_launcher: step-0 loss {loss0} "
+                             f"vs (1, 1) {base_loss}")
+
+
 def _bits(torch, t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
@@ -4256,16 +4754,87 @@ def phase_checkpoint(torch, dev, tr, model, params, state):
           "metadata": meta})
 
 
-def phase_dryrun(torch, dev, tr, m, dr) -> dict:
-    """dryrun: the sweep of every assigned arch x shape on the one-pod mesh
-    (launch/dryrun.py, on meta; its own lines printed), no kernel launched,
-    no record failed; then its card tie and Arctic's one-layer bytes."""
-    zero_counts(m.kernels)                          # the path starts here
+DRYRUN_SWEEP_DIR = ROOT / "build" / "dryrun_sweep"
+DRYRUN_SWEEP_TIMEOUT_S = 900     # from its start to its result
+
+
+def kernel_wrappers() -> dict:
+    """The seven kernels' wrappers by name, each with its launch count."""
+    from repro_torch.cuda_kernels.fused_gate import fused_gate
+    from repro_torch.cuda_kernels.knn_density import knn_density
+    from repro_torch.cuda_kernels.linear_blend import linear_blend
+    from repro_torch.cuda_kernels.saliency_delta import saliency_delta
+    from repro_torch.cuda_kernels.token_merge import (merge_assign,
+                                                      unmerge_scatter)
+    from repro_torch.cuda_kernels.flash_attention import flash_attention
+    return {"fused_gate": fused_gate, "knn_density": knn_density,
+            "merge_assign": merge_assign, "unmerge_scatter": unmerge_scatter,
+            "flash_attention": flash_attention,
+            "saliency_delta": saliency_delta, "linear_blend": linear_blend}
+
+
+def dryrun_sweep_child(path: str) -> None:
+    """The dry run's sweep (every assigned arch x shape on the one-pod
+    mesh, on meta) in a process of its own: every count zeroed just before
+    and read just after; the records, the sweep's seconds and the counts
+    written to ``path`` as JSON."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+    kernels = kernel_wrappers()
+    zero_counts(kernels)                            # the path starts here
     t0 = time.perf_counter()
-    recs = dr.dryrun.sweep(dr.dryrun.ASSIGNED_ARCHS, list(dr.SHAPES),
-                           [False], "")
-    sweep_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in m.kernels.items()}
+    recs = dryrun.sweep(dryrun.ASSIGNED_ARCHS, list(SHAPES), [False], "")
+    out = {"seconds": time.perf_counter() - t0,
+           "launches": {n: fn.launches for n, fn in kernels.items()},
+           "records": recs}                         # ... and ends here
+    Path(path).write_text(json.dumps(out, default=str))
+
+
+def start_dryrun_sweep() -> SimpleNamespace:
+    """Start ``dryrun_sweep_child`` with no card visible (it runs on meta
+    and needs none), its printed lines to a file; stopped at exit if it
+    still runs."""
+    import atexit
+    import os
+    DRYRUN_SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+    out = DRYRUN_SWEEP_DIR / "records.json"
+    log = DRYRUN_SWEEP_DIR / "lines.txt"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.dryrun_sweep_child(sys.argv[1])", str(out)],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return SimpleNamespace(proc=proc, out=out, log=log,
+                           t0=time.perf_counter())
+
+
+def phase_dryrun(torch, dev, tr, m, dr, sweep) -> dict:
+    """dryrun: the sweep of every assigned arch x shape on the one-pod mesh
+    (launch/dryrun.py, on meta), ``sweep``'s process (start_dryrun_sweep)
+    awaited and its own lines printed, no kernel launched there, no record
+    failed; then its card tie and Arctic's one-layer bytes."""
+    try:
+        code = sweep.proc.wait(
+            timeout=max(1.0, DRYRUN_SWEEP_TIMEOUT_S
+                        - (time.perf_counter() - sweep.t0)))
+    except subprocess.TimeoutExpired:
+        sweep.proc.kill()
+        sweep.proc.wait()
+        raise AssertionError("dryrun: the sweep gave no result within "
+                             f"{DRYRUN_SWEEP_TIMEOUT_S} s")
+    lines = sweep.log.read_text()
+    print(lines, end="", flush=True)
+    if code != 0:
+        raise AssertionError(f"dryrun: the sweep's process exited {code}: "
+                             f"{lines[-3000:]}")
+    got = json.loads(sweep.out.read_text())
+    recs, sweep_s, launches = got["records"], got["seconds"], got["launches"]
     if any(launches.values()):
         raise AssertionError(f"dryrun: kernels launched on meta {launches}")
     status = collections.Counter(r["status"] for r in recs)
@@ -4286,7 +4855,8 @@ def phase_dryrun(torch, dev, tr, m, dr) -> dict:
               "useful_flops_ratio": r["useful_flops_ratio"],
               "roofline": r["roofline"], "proof_seq_len": r["proof_seq_len"],
               "compile_s": r["compile_s"],
-              "cost_measure_s": r["cost_measure_s"]})
+              "cost_measure_s": r["cost_measure_s"],
+              "collective_bytes": r["collective_bytes"]})
     emit({"phase": "dryrun", "records": len(recs), "ok": status["ok"],
           "skip": status["skip"], "fail": status["fail"],
           "seconds": sweep_s})
@@ -4488,6 +5058,7 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     t_start = time.perf_counter()
+    sweep = start_dryrun_sweep()
     phase_build(build)
     dev = torch.device("cuda")
     gate_row = phase_fused_gate(torch, dev, fused_gate, ref, statcache, 128,
@@ -4682,6 +5253,12 @@ def main() -> int:
     launches_train_llm = phase_train_llm(torch, dev, tr, m)
     emit({"phase": "training", "seconds": time.perf_counter() - t0})
 
+    # ---- LLM training on a mesh: (1, 1) on nccl, two gloo ranks a mesh
+    t0 = time.perf_counter()
+    launches_more.update(phase_sharded_train(torch, dev, tr, m, dryrun_mod))
+    emit({"phase": "sharded_train_total", "seconds":
+          time.perf_counter() - t0})
+
     # ---- the SSM and hybrid families' training at full width
     t0 = time.perf_counter()
     launches_more.update(phase_train_ssm(torch, dev, tr, m))
@@ -4692,7 +5269,7 @@ def main() -> int:
     launches_more["dryrun"] = phase_dryrun(
         torch, dev, tr, m, SimpleNamespace(
             dryrun=dryrun_mod, specs=specs_mod, SHAPES=SHAPES,
-            abstract_mesh=abstract_mesh, mesh_extents=mesh_extents))
+            abstract_mesh=abstract_mesh, mesh_extents=mesh_extents), sweep)
     emit({"phase": "dryrun_seconds", "seconds": time.perf_counter() - t0})
 
     # ---- the port's examples at their defaults

@@ -16,6 +16,11 @@ bit; batches land on the requested device through ``device.to_device``
   foreground and a static background.
 * ``audio_stream`` — HuBERT-style masked-prediction batches.
 
+``token_stream`` and ``audio_stream`` take ``shard=(index, count)``: the
+global batch is drawn as the reference draws it and a data rank keeps its
+``count``-th part of the rows (``batch`` stays the global batch), so the
+ranks' parts make up the reference's batch.
+
 The CPU-side draw is the reference's: ``token_stream`` builds a cumsum over
 (batch, vocab) per position, so at a 151,936-token vocabulary a batch of
 256 positions takes about a second of host time; draw such batches ahead of
@@ -23,7 +28,7 @@ a timed window.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,10 +37,24 @@ from repro_torch.device import DeviceLike, resolve_device, to_device
 from repro_torch.diffusion.schedule import add_noise, linear_schedule
 
 
+def rows_of(batch: int, shard: Optional[Tuple[int, int]]) -> slice:
+    """The rows of a global batch that ``shard = (index, count)`` keeps
+    (all of them for None); ``count`` must divide ``batch``."""
+    if shard is None:
+        return slice(None)
+    i, n = shard
+    if batch % n:
+        raise ValueError(f"a batch of {batch} rows does not split over "
+                         f"{n} data ranks")
+    return slice(i * batch // n, (i + 1) * batch // n)
+
+
 def token_stream(vocab: int, batch: int, seq: int, *, seed: int = 0,
-                 num_classes: int = 8,
-                 device: DeviceLike = "cuda") -> Iterator[Dict]:
+                 num_classes: int = 8, device: DeviceLike = "cuda",
+                 shard: Optional[Tuple[int, int]] = None
+                 ) -> Iterator[Dict]:
     dev = resolve_device(device)
+    rows = rows_of(batch, shard)
     rng = np.random.default_rng(seed)
     # class-conditional unigram tables (Zipf base re-shuffled per class)
     base = 1.0 / (np.arange(1, vocab + 1) ** 1.1)
@@ -51,7 +70,7 @@ def token_stream(vocab: int, batch: int, seq: int, *, seed: int = 0,
             nxt = (u[:, None] < cdf).argmax(-1)
             out[:, t] = nxt
             prev = nxt
-        yield {"tokens": to_device(out, dev)}
+        yield {"tokens": to_device(out[rows], dev)}
 
 
 def latent_stream(batch: int, image_size: int, channels: int, *,
@@ -109,9 +128,11 @@ def video_latents(batch: int, frames: int, image_size: int, channels: int,
 
 def audio_stream(batch: int, seq: int, frontend_dim: int, vocab: int, *,
                  seed: int = 0, mask_prob: float = 0.2,
-                 device: DeviceLike = "cuda") -> Iterator[Dict]:
+                 device: DeviceLike = "cuda",
+                 shard: Optional[Tuple[int, int]] = None) -> Iterator[Dict]:
     """HuBERT-style masked-prediction batches over stub conv features."""
     dev = resolve_device(device)
+    rows = rows_of(batch, shard)
     rng = np.random.default_rng(seed)
     proto = rng.standard_normal((vocab, frontend_dim)).astype(np.float32)
     while True:
@@ -120,6 +141,6 @@ def audio_stream(batch: int, seq: int, frontend_dim: int, vocab: int, *,
             (batch, seq, frontend_dim)).astype(np.float32)
         mask = rng.random((batch, seq)) < mask_prob
         feats = np.where(mask[..., None], 0.0, feats)
-        yield {"features": to_device(feats.astype(np.float32), dev),
-               "targets": to_device(targets.astype(np.int32), dev),
-               "mask_indices": to_device(mask, dev)}
+        yield {"features": to_device(feats[rows].astype(np.float32), dev),
+               "targets": to_device(targets[rows].astype(np.int32), dev),
+               "mask_indices": to_device(mask[rows], dev)}

@@ -344,11 +344,11 @@ def param_specs(defs, ctx: Optional[ShardingCtx] = None):
 # Local shards
 # --------------------------------------------------------------------------
 
-def local_slice(full: torch.Tensor, spec: Spec, coords: Dict[str, int],
-                extents: Dict[str, int]) -> torch.Tensor:
-    """This rank's block of ``full`` under ``spec``: each sharded dim cut
-    into equal contiguous blocks over its mesh axes (major axis first), the
-    block at the rank's ``coords`` kept.  A contiguous copy."""
+def block_view(full: torch.Tensor, spec: Spec, coords: Dict[str, int],
+               extents: Dict[str, int]) -> torch.Tensor:
+    """The view of ``full`` that a rank at ``coords`` holds under ``spec``:
+    each sharded dim cut into equal contiguous blocks over its mesh axes
+    (major axis first), the block at the rank's ``coords`` kept."""
     out = full
     for dim, axes in enumerate(spec):
         names = _as_tuple(axes)
@@ -360,4 +360,11 @@ def local_slice(full: torch.Tensor, spec: Spec, coords: Dict[str, int],
             n *= extents[a]
         size = full.shape[dim] // n
         out = out.narrow(dim, idx * size, size)
-    return out.contiguous()
+    return out
+
+
+def local_slice(full: torch.Tensor, spec: Spec, coords: Dict[str, int],
+                extents: Dict[str, int]) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (``block_view``), as a
+    contiguous copy."""
+    return block_view(full, spec, coords, extents).contiguous()

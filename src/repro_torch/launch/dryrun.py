@@ -32,15 +32,23 @@ What each part of a record is here, against the reference's compile:
   sums of the local shards of the step's inputs / outputs under their
   specs (``specs.shard_bytes``), exact; there is no compiler, so the
   temporaries and the generated code have no size (``null``).
-* collectives: the port's LLMs run on one device, with no partitioned
-  program to parse (the reference's ``distributed/hlo.py``), so
-  ``collective_bytes`` is ``null``.
+* collectives: for a train record of an attention-only family (dense,
+  MoE, VLM, audio), the sharded step (``training/sharded.py``) runs on
+  ``meta`` at the local shard shapes of rank coordinates 0 of the record's
+  mesh, through counting comms (``distributed/collectives.py``: nothing
+  moves, each call's result size is counted), the counterpart of the
+  reference's HLO parse (``distributed/hlo.py``): ``collective_bytes`` by
+  kind per device and step, and ``collective_s`` = total over NVLink's
+  bandwidth.  Prefill and decode records, and the SSM and hybrid
+  families, stay ``null``: the port has no sharded serving of the LLMs,
+  and the sharded step does not cut the mixers' ``inner`` axis yet.
 * roofline: on the H100's peaks (below), per device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -54,23 +62,30 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.distributed.sharding import mesh_extents
-from repro_torch.launch.mesh import abstract_mesh, make_production_mesh
-from repro_torch.launch.specs import (build_bundle, model_flops,
-                                      shard_bytes, skip_reason)
+from repro_torch.launch.mesh import abstract_mesh, abstract_production_mesh
+from repro_torch.launch.specs import (batch_specs, build_bundle, model_flops,
+                                      resolve_config, shard_bytes,
+                                      skip_reason)
 from repro_torch.models import flags as model_flags
+from repro_torch.models.transformer import TransformerModel
+from repro_torch.training.loop import param_tree
+from repro_torch.training.optimizer import cosine_schedule, make_optimizer
+from repro_torch.training.sharded import (ATTENTION_ONLY, counting_train_mesh,
+                                          cut_model, make_sharded_train_step)
 
 # NVIDIA H100 SXM (80 GB HBM3) roofline denominators, per card
 PEAK_FLOPS = 989e12          # bf16 dense tensor-core FLOP/s
 HBM_BW = 3.35e12             # HBM3 bytes/s
+NVLINK_BW = 900e9            # NVLink 4, 18 links: bytes/s, both directions
 
 NOTES = {
     "temp_size_in_bytes": "no compiler: an eager step's temporaries have "
                           "no static size",
     "generated_code_size_in_bytes": "no compiler",
     "alias_size_in_bytes": "no compiler",
-    "collective_bytes": "the port's LLMs run on one device: there is no "
-                        "partitioned program and no collective call to "
-                        "count",
+    "collective_bytes": "the sharded train step on meta at rank "
+                        "coordinates 0, through counting comms: each "
+                        "call's result bytes on this device, by kind",
     "per_device": "global FLOPs and bytes over n_chips, an even split",
     "bytes_accessed": "every non-view aten op's input and output bytes "
                       "(eager, unfused)",
@@ -259,10 +274,41 @@ def global_cost(arch: str, shape_name: str, mesh, prefix_groups: int = 1,
     return _extrapolate(c1, c2, period, 2 * period, cfg.num_layers)
 
 
+def collectives_null_reason(cfg, shape) -> Optional[str]:
+    """Why a record has no collective count (None when it has one)."""
+    if shape.kind != "train":
+        return ("the port has no sharded serving of the LLMs (prefill, "
+                "decode): only the train step runs on a mesh")
+    if cfg.family not in ATTENTION_ONLY:
+        return ("the SSM and hybrid families train on one device: the "
+                "sharded step does not cut the mixers' inner axis yet")
+    return None
+
+
+def collective_bytes(cfg, global_batch: int, seq: int,
+                     dims: Sequence[int]) -> Dict[str, int]:
+    """The collective bytes of one sharded train step of ``cfg`` (a global
+    batch of ``global_batch`` x ``seq``) on a mesh of ``dims``, per device
+    by kind and ``total``: the step on ``meta`` at rank coordinates 0's
+    shard shapes, through counting comms."""
+    mesh = counting_train_mesh(tuple(dims), global_batch)
+    model = cut_model(TransformerModel(cfg, device="meta"), mesh)
+    params = param_tree(model)
+    opt = make_optimizer(cfg.optimizer)
+    state = opt.init(params)
+    step = make_sharded_train_step(model, opt,
+                                   cosine_schedule(3e-4, 100, 10_000), mesh)
+    rows = global_batch // math.prod(mesh.extents[a]
+                                     for a in mesh.batch_axes)
+    batch = batch_specs(cfg, rows, seq, train=True)[0]
+    step(params, state, batch)
+    return mesh.counter.read()
+
+
 def make_mesh(multi_pod: bool, mesh_shape: str = ""):
     if mesh_shape:
         return abstract_mesh(int(x) for x in mesh_shape.split(","))
-    return make_production_mesh(multi_pod=multi_pod)
+    return abstract_production_mesh(multi_pod=multi_pod)
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
@@ -334,7 +380,21 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             exact = memo[("cost",) + key]
         t_cost = time.perf_counter() - t0
 
+        t0 = time.perf_counter()
+        coll, t_coll = None, None
+        why_null = collectives_null_reason(cfg, shape)
+        if why_null is None:
+            ckey = ("collectives", mesh_name) + key
+            if ckey not in memo:
+                memo[ckey] = collective_bytes(
+                    resolve_config(arch, shape), shape.global_batch,
+                    shape.seq_len, tuple(extents.values()))
+            coll = memo[ckey]
+            t_coll = round(time.perf_counter() - t0, 2)
+
         notes = dict(NOTES)
+        if why_null is not None:
+            notes["collective_bytes"] = why_null
         if proof_seq:
             notes["proof_seq_len"] = (
                 f"the sLSTM token loop: the proof ran at full depth at "
@@ -343,8 +403,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         flops, nbytes = exact["flops"] / n_chips, exact["bytes"] / n_chips
         mflops = model_flops(cfg, shape)
         terms = {"compute_s": flops / PEAK_FLOPS,
-                 "memory_s": nbytes / HBM_BW, "collective_s": None}
-        terms["dominant"] = max(("compute_s", "memory_s"),
+                 "memory_s": nbytes / HBM_BW,
+                 "collective_s": (None if coll is None
+                                  else coll["total"] / NVLINK_BW)}
+        terms["dominant"] = max((k for k, v in terms.items()
+                                 if v is not None),
                                 key=lambda k: terms[k])
         rec.update({
             "status": "ok",
@@ -353,10 +416,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "meta": bundle.meta,
             "per_device_flops": flops,
             "per_device_bytes_accessed": nbytes,
-            "collective_bytes": None,
+            "collective_bytes": coll,
             "scan_compile": {"flops": proof["flops"],
-                             "bytes": proof["bytes"], "collectives": None,
-                             "collectives_static": None},
+                             "bytes": proof["bytes"], "collectives": coll,
+                             "collectives_static": coll},
             "memory_analysis": mem_rec,
             "model_flops_global": mflops,
             "model_flops_per_device": mflops / n_chips,
@@ -367,6 +430,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "compile_s": round(t_proof, 2),
             "proof_reused": reused,
             "cost_measure_s": round(t_cost, 2),
+            "collective_count_s": t_coll,
             "hlo_bytes": None,
             "proof_seq_len": proof_seq or shape.seq_len,
             "notes": notes,
@@ -377,8 +441,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
               f" useful={rec['useful_flops_ratio']:.2f}"
               f" proof={t_proof:.1f}s{' (reused)' if reused else ''}"
               f" cost={t_cost:.1f}s", flush=True)
+        coll_s = ("null" if coll is None
+                  else f"{terms['collective_s']:.4e}")
         print(f"         roofline: compute_s={terms['compute_s']:.4e}"
               f" memory_s={terms['memory_s']:.4e}"
+              f" collective_s={coll_s}"
               f" dominant={terms['dominant']}", flush=True)
     except Exception as e:  # noqa: BLE001 — report, don't crash the sweep
         rec.update({"status": "fail", "error": f"{type(e).__name__}: {e}",

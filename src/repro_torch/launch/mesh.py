@@ -1,16 +1,20 @@
-"""Serving meshes and the ranks behind them, after the reference's
+"""Meshes and the ranks behind them, after the reference's
 ``launch/mesh.py``.
 
 A mesh here is a ``torch.distributed`` ``DeviceMesh`` over the ranks of an
-initialized process group, one process per rank.  ``RankGroup`` starts
-those processes (the ``spawn`` start method) on one host, each joining a
-group on localhost (``init_ranks`` on a ``free_port``), and collects what
-each returns.  Functions, not module constants, so that importing this
-module touches no process group.
+initialized process group, one process per rank: ``make_mesh(data,
+model)`` over the ranks a launcher starts or torchrun's, ``make_host_mesh``
+the one-rank (1, 1) mesh, ``make_production_mesh`` the reference's (16,
+16) pod (or (2, 16, 16)), real only in a process group of 256 (512) ranks.
+``RankGroup`` starts processes (the ``spawn`` start method) on one host,
+each joining a group on localhost (``init_ranks`` on a ``free_port``), and
+collects what each returns; ``mesh_backend`` picks their backend and
+devices.  Functions, not module constants, so that importing this module
+touches no process group.
 
 The dry run (``launch/dryrun.py``) plans for meshes no host here holds:
-``make_production_mesh`` gives the reference's 256- and 512-chip meshes as
-an ``AbstractMesh``, axis names and extents with no device and no process
+``abstract_production_mesh`` gives the production meshes as an
+``AbstractMesh``, axis names and extents with no device and no process
 group, which is all the sharding rules read of a mesh.
 """
 from __future__ import annotations
@@ -46,10 +50,47 @@ def abstract_mesh(dims: Sequence[int]) -> AbstractMesh:
     return AbstractMesh(dims, names)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+def production_shape(multi_pod: bool = False) -> Tuple[int, ...]:
     """The reference's production meshes: one pod (data=16, model=16) =
     256 chips; ``multi_pod``: (pod=2, data=16, model=16) = 512 chips."""
-    return abstract_mesh((2, 16, 16) if multi_pod else (16, 16))
+    return (2, 16, 16) if multi_pod else (16, 16)
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """``production_shape`` as an ``AbstractMesh`` (the dry run's)."""
+    return abstract_mesh(production_shape(multi_pod))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh as a ``DeviceMesh`` over an initialized process
+    group of exactly its 256 (``multi_pod``: 512) ranks, e.g. torchrun's;
+    any other world size is refused with the size it needs."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape = production_shape(multi_pod)
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != need:
+        raise ValueError(f"the production mesh {shape} needs a process "
+                         f"group of {need} ranks (WORLD_SIZE={need}); this "
+                         f"one has {have}")
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type,
+                      torch.arange(need, dtype=torch.int).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def mesh_backend(device: str, world: int) -> Tuple[str, List[str]]:
+    """The process-group backend and each rank's device: ``nccl`` with a
+    card per rank, ``gloo`` when the ranks share the cards there are (NCCL
+    refuses two ranks on one card) and on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "gloo", [str(dev)] * world
+    n = torch.cuda.device_count()
+    if n >= world:
+        return "nccl", [f"cuda:{r}" for r in range(world)]
+    return "gloo", [f"cuda:{r % n}" for r in range(world)]
 
 
 def free_port() -> int:
@@ -66,15 +107,14 @@ def init_ranks(rank: int, world_size: int, *, port: int,
                             rank=rank, world_size=world_size)
 
 
-def make_serving_mesh(data: Optional[int] = None, model: int = 1):
-    """(data, model) mesh for the sharded diffusion serving engine: slots
-    over ``data``, DiT weights tensor-parallel over ``model``.  A
-    ``DeviceMesh`` over the initialized process group's ranks, row-major
-    (rank = d * model + m); ``data`` defaults to ``world_size // model``."""
+def make_mesh(data: Optional[int] = None, model: int = 1):
+    """A (data, model) ``DeviceMesh`` over the initialized process group's
+    ranks, row-major (rank = d * model + m); ``data`` defaults to
+    ``world_size // model``."""
     from torch.distributed.device_mesh import DeviceMesh
     if not dist.is_initialized():
-        raise RuntimeError("make_serving_mesh needs an initialized process "
-                           "group (init_ranks)")
+        raise RuntimeError("a mesh needs an initialized process group "
+                           "(init_ranks)")
     n = dist.get_world_size()
     if data is None:
         data = max(1, n // model)
@@ -87,10 +127,17 @@ def make_serving_mesh(data: Optional[int] = None, model: int = 1):
                       mesh_dim_names=("data", "model"))
 
 
+def make_serving_mesh(data: Optional[int] = None, model: int = 1):
+    """(data, model) mesh for the sharded diffusion serving engine: slots
+    over ``data``, DiT weights tensor-parallel over ``model``
+    (``make_mesh``)."""
+    return make_mesh(data, model)
+
+
 def make_host_mesh():
     """The (1, 1) mesh of a one-rank process group (axis names as in
     production); the group must be initialized (``init_ranks``)."""
-    return make_serving_mesh(1, 1)
+    return make_mesh(1, 1)
 
 
 def _rank_entry(target: Callable, rank: int, world: int, port: int,

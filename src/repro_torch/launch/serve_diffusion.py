@@ -75,6 +75,7 @@ from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core.policies.base import registered_policies
 from repro_torch.core.runner import CachedDiT
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_backend
 from repro_torch.models.dit import DiTModel
 from repro_torch.obs import audit as obs_audit
 from repro_torch.obs.calibration import load_calibration
@@ -499,19 +500,6 @@ def check_merge_args(args: argparse.Namespace) -> argparse.Namespace:
 SERVE_KERNELS = ("fused_gate", "linear_blend", "saliency_delta",
                  "knn_density", "token_merge")
 MESH_TIMEOUT_S = 3600.0    # every rank of a --mesh serve, start to summary
-
-
-def mesh_backend(device: str, world: int) -> Tuple[str, List[str]]:
-    """The process-group backend and each rank's device: ``nccl`` with a
-    card per rank, ``gloo`` when the ranks share the cards there are (NCCL
-    refuses two ranks on one card) and on the CPU."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return "gloo", [str(dev)] * world
-    n = torch.cuda.device_count()
-    if n >= world:
-        return "nccl", [f"cuda:{r}" for r in range(world)]
-    return "gloo", [f"cuda:{r % n}" for r in range(world)]
 
 
 def _mesh_rank(rank: int, world: int, port: int, backend: str,

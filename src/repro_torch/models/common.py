@@ -111,10 +111,27 @@ def rope_dispatch(x: torch.Tensor, positions, kind: str, theta: float,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor,
+           reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+           ) -> torch.Tensor:
+    """SwiGLU.  With ``reduce``, the gate / up columns and ``w_down``'s
+    rows are this rank's: the f32 partial product (``swiglu_partial``) is
+    summed by ``reduce`` (over the model group) and rounded once."""
+    if reduce is not None:
+        return reduce(swiglu_partial(x, w_gate, w_up, w_down)).to(x.dtype)
     g = fdot(x, w_gate)
     u = fdot(x, w_up)
     return fdot(F.silu(g.to(F32)).to(x.dtype) * u, w_down)
+
+
+def swiglu_partial(x: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU on this rank's columns, its down projection an f32 partial
+    product (a row-parallel sum's term)."""
+    g = fdot(x, w_gate)
+    u = fdot(x, w_up)
+    act = F.silu(g.to(F32)).to(x.dtype) * u
+    return torch.matmul(act.to(F32), w_down.to(F32))
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor,

@@ -14,6 +14,22 @@ parameters are attributes (``p.wq``) where the reference reads
 KV caches are updated in place: the decode step writes one slot per sample
 into the cache it is given and the prefill fills the (empty) cache it is
 given, where the reference returns new arrays.
+
+Sharded training (``training/sharded.py``).  A model cut onto a mesh holds
+this rank's block of every parameter and each ``ParamGroup`` its specs;
+under ``collectives.active(mesh)`` a layer first gathers its weights over
+the FSDP axes (``gathered``: every mesh axis but ``model``; the gradients
+are reduce-scattered back), then runs tensor- and expert-parallel over
+``model`` where a weight's dim is cut over it: ``wq`` (and ``wk`` / ``wv``
+when the kv heads divide) and the FFN's and the MoE's dense branches'
+input projections column-parallel, ``wo`` and the down projections
+row-parallel (the f32 partial products summed over ``model``, rounded
+once), the experts expert-parallel (every rank routes all of its data
+rank's tokens and runs its own experts, the combine summed over
+``model``).  A replicated tensor enters a tensor-parallel region through
+``collectives.reduce_backward``, so every replicated parameter's gradient
+is whole on every model rank.  A dim that is not cut runs whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -25,12 +41,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import (reduce_backward,
+                                                 reduce_forward)
 from repro_torch.models import common, flags
 from repro_torch.models.attention import (attend_direct, attention,
                                          decode_attend)
 from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
+# when a list, each capacity dispatch appends its copies' kept flags (T*k,
+# on the CPU; a sync on the card): the tests' view of which copies drop
+MOE_TRACE: Optional[list] = None
 # a leaf whose f32 draw is larger is drawn in slices along its first axis,
 # so that initializing a full-width MoE (an (E, D, F) expert leaf of up to
 # 17.8 GB in f32) does not hold the whole draw beside the parameters; no
@@ -48,13 +70,40 @@ def stack_defs(defs, n: int):
     return {key: stack_defs(d, n) for key, d in defs.items()}
 
 
+@torch.no_grad()
+def draw(d: ParamDef, p: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill ``p`` (of ``d``'s shape) by the reference's initializer
+    (``models/params.py:init_params``): zeros, ones, normal with std
+    0.02 * scale, fan_in with std scale / sqrt(shape[-2]); drawn in f32,
+    scaled in place, then cast (a leaf above ``DRAW_SLICE_BYTES`` of f32
+    in slices along axis 0)."""
+    if d.init in ("zeros", "ones"):
+        p.fill_(1.0 if d.init == "ones" else 0.0)
+        return
+    if d.init == "fan_in":
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale / fan_in ** 0.5
+    else:
+        std = 0.02 * d.scale
+    rows = d.shape[0]
+    if 4 * p.numel() > DRAW_SLICE_BYTES:
+        rows = max(1, DRAW_SLICE_BYTES // (4 * p[0].numel()))
+    for i in range(0, d.shape[0], rows):
+        part = p[i:i + rows]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=p.device, dtype=F32).mul_(std))
+
+
 class ParamGroup(nn.Module):
-    """One dict of ParamDefs as (frozen) parameters of a module."""
+    """One dict of ParamDefs as (frozen) parameters of a module.  ``specs``
+    (None until a mesh cuts the group, ``training/sharded.py``) holds each
+    parameter's spec; the parameters are then this rank's blocks."""
 
     def __init__(self, defs: Dict[str, ParamDef], dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
         self.defs = defs
+        self.specs: Optional[Dict[str, tuple]] = None
         for name, d in defs.items():
             dt = torch.float32 if d.dtype == "float32" else dtype
             self.register_parameter(name, nn.Parameter(
@@ -63,27 +112,64 @@ class ParamGroup(nn.Module):
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
-        """The reference's initializers (``models/params.py:init_params``):
-        zeros, ones, normal with std 0.02 * scale, fan_in with std
-        scale / sqrt(shape[-2]); drawn in f32, scaled in place, then cast
-        (a leaf above ``DRAW_SLICE_BYTES`` of f32 in slices along axis 0)."""
+        """Every parameter by the reference's initializer (``draw``)."""
         for name, d in self.defs.items():
-            p = getattr(self, name)
-            if d.init in ("zeros", "ones"):
-                p.fill_(1.0 if d.init == "ones" else 0.0)
-                continue
-            if d.init == "fan_in":
-                fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-                std = d.scale / fan_in ** 0.5
-            else:
-                std = 0.02 * d.scale
-            rows = d.shape[0]
-            if 4 * p.numel() > DRAW_SLICE_BYTES:
-                rows = max(1, DRAW_SLICE_BYTES // (4 * p[0].numel()))
-            for i in range(0, d.shape[0], rows):
-                part = p[i:i + rows]
-                part.copy_(torch.randn(part.shape, generator=generator,
-                                       device=p.device, dtype=F32).mul_(std))
+            draw(d, getattr(self, name), generator)
+
+    def cut(self, name: str, dim: int) -> bool:
+        """Whether dim ``dim`` of parameter ``name`` is cut over ``model``."""
+        if self.specs is None:
+            return False
+        axes = self.specs[name][dim]
+        return axes == "model" or (isinstance(axes, tuple)
+                                   and "model" in axes)
+
+
+def fsdp_axes(axes) -> Tuple[str, ...]:
+    """The FSDP axes of one spec entry (every mesh axis but ``model``);
+    an entry may not mix them with ``model``."""
+    names = () if axes is None else ((axes,) if isinstance(axes, str)
+                                     else tuple(axes))
+    out = tuple(a for a in names if a != "model")
+    if out and len(out) != len(names):
+        raise ValueError(f"spec entry {axes} mixes model and FSDP axes")
+    return out
+
+
+class _Gathered:
+    """A cut ``ParamGroup``'s parameters with their FSDP cuts gathered over
+    the mesh (``collectives.gather_forward``: the gradients come back
+    reduce-scattered); the model cuts stay."""
+
+    def __init__(self, p: ParamGroup, mesh: collectives.MeshComms):
+        self.defs, self.specs = p.defs, p.specs
+        for name in p.defs:
+            t = getattr(p, name)
+            for dim, axes in enumerate(p.specs[name]):
+                fsdp = fsdp_axes(axes)
+                if fsdp:
+                    t = collectives.gather_forward(t, mesh.comm(fsdp), dim)
+            setattr(self, name, t)
+
+    cut = ParamGroup.cut
+
+
+def gathered(p: ParamGroup):
+    """``p`` as a layer uses it: under an active mesh, its weights
+    gathered over the FSDP axes; else ``p`` itself."""
+    mesh = collectives.current()
+    if mesh is None or p.specs is None:
+        return p
+    return _Gathered(p, mesh)
+
+
+def _tp(p, name: str, dim: int) -> Optional[collectives.Comm]:
+    """The model group, when the active mesh's ``model`` axis is wider than
+    one rank and cuts dim ``dim`` of ``p``'s parameter ``name``."""
+    mesh = collectives.current()
+    if mesh is None or not p.cut(name, dim):
+        return None
+    return mesh.comm(("model",))
 
 
 # --------------------------------------------------------------------------
@@ -116,17 +202,38 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
-def _qkv(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig, positions):
-    q = common.feinsum("bsd,dhk->bshk", x, p.wq)
-    k = common.feinsum("bsd,dhk->bshk", x, p.wk)
-    v = common.feinsum("bsd,dhk->bshk", x, p.wv)
+def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
+         tp: Optional[collectives.Comm] = None):
+    """q, k, v of the normed input x.  With ``tp`` (training, ``wq`` cut
+    over ``model``), on this rank's q heads: ``wq`` column-parallel, and
+    ``wk`` / ``wv`` alike when the kv heads are cut too; with those
+    replicated (they do not divide ``model``), every rank projects all kv
+    heads from the replicated input and each local q head takes its own,
+    kv head ``i // (H // KVH)`` for global q head i, as ``attend_direct``'s
+    grouping does (the gradient of the whole k and v summed over
+    ``model``).  The qk-norm weights then act on local heads, so their
+    gradients are summed over ``model`` too.  ``tp`` None is the
+    single-device projection."""
+    kv_cut = tp is None or p.cut("wk", 1)
+    hq = reduce_backward(x, tp)
+    hk = hq if kv_cut else x
+    q = common.feinsum("bsd,dhk->bshk", hq, p.wq)
+    k = common.feinsum("bsd,dhk->bshk", hk, p.wk)
+    v = common.feinsum("bsd,dhk->bshk", hk, p.wv)
     if cfg.qk_norm:
-        q = common.rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = common.rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = common.rms_norm(q, reduce_backward(p.q_norm, tp), cfg.norm_eps)
+        k_norm = reduce_backward(p.k_norm, tp) if kv_cut else p.k_norm
+        k = common.rms_norm(k, k_norm, cfg.norm_eps)
     q = common.rope_dispatch(q, positions, cfg.rope_kind, cfg.rope_theta,
                              cfg.mrope_sections)
     k = common.rope_dispatch(k, positions, cfg.rope_kind, cfg.rope_theta,
                              cfg.mrope_sections)
+    if not kv_cut:
+        hl = q.shape[2]
+        group = cfg.num_heads // cfg.num_kv_heads
+        idx = (tp.rank * hl + torch.arange(hl, device=q.device)) // group
+        k = reduce_backward(k, tp)[:, :, idx]
+        v = reduce_backward(v, tp)[:, :, idx]
     return q, k, v
 
 
@@ -197,7 +304,8 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
         rope_pos = positions
         if rope_pos is None:
             rope_pos = torch.arange(s, device=x.device)[None]    # (1, S)
-        q, k, v = _qkv(p, h_in, cfg, rope_pos)
+        tp = _tp(p, "wq", 1) if train else None
+        q, k, v = _qkv(p, h_in, cfg, rope_pos, tp)
         pos1d = rope_pos[..., 0] if rope_pos.ndim == 3 else rope_pos
         if train:
             out = attend_direct(q, k, v, pos1d, pos1d, causal=causal,
@@ -209,6 +317,10 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
         if cache is not None:                        # prefill: fill the cache
             pc = pos1d.to(torch.int32).expand(x.shape[0], s)
             _prefill_fill(cache, k, v, pc)
+        if tp is not None:                           # wo row-parallel
+            proj = reduce_forward(torch.einsum(
+                "bshk,hkd->bsd", out.to(F32), p.wo.to(F32)), tp)
+            return x + proj.to(x.dtype), None
     proj = common.feinsum("bshk,hkd->bsd", out, p.wo)
     return x + proj, cache
 
@@ -269,11 +381,23 @@ def ffn_defs(cfg: ModelConfig, kind: str = "swiglu") -> Dict[str, ParamDef]:
 def ffn_apply(p: ParamGroup, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU after RMSNorm, or, where the layer has ``w_in``, the tanh-GELU
-    MLP (biases added in the model dtype) after LayerNorm."""
+    MLP (biases added in the model dtype) after LayerNorm.  With the ffn
+    dim cut over ``model``: column-parallel in, row-parallel out (``b_in``
+    cut with the columns, ``b_out`` added once)."""
     if "w_in" in p.defs:
         h = common.layer_norm(x, p.norm, p.norm_b, cfg.norm_eps)
+        tp = _tp(p, "w_in", 1)
+        if tp is not None:
+            return x + common.gelu_mlp(
+                reduce_backward(h, tp), p.w_in, p.b_in, p.w_out, p.b_out,
+                reduce=lambda t: reduce_forward(t, tp))
         return x + common.gelu_mlp(h, p.w_in, p.b_in, p.w_out, p.b_out)
     h = common.rms_norm(x, p.norm, cfg.norm_eps)
+    tp = _tp(p, "w_gate", 1)
+    if tp is not None:
+        return x + common.swiglu(reduce_backward(h, tp), p.w_gate, p.w_up,
+                                 p.w_down,
+                                 reduce=lambda t: reduce_forward(t, tp))
     return x + common.swiglu(h, p.w_gate, p.w_up, p.w_down)
 
 
@@ -330,17 +454,23 @@ def _route(p: ParamGroup, xt: torch.Tensor, k: int
     return probs, top_w, top_i
 
 
-def _aux_loss(m: MoEConfig, probs: torch.Tensor,
-              top_i: torch.Tensor) -> torch.Tensor:
+def _aux_loss(m: MoEConfig, probs: torch.Tensor, top_i: torch.Tensor,
+              dp: Optional[collectives.Comm] = None) -> torch.Tensor:
     """Switch-style load-balancing loss: E * sum(frac_tokens * frac_probs)
     * weight, frac_tokens the share of tokens whose first choice is each
-    expert (counted by ``index_add_``: no one-hot, no host sync)."""
+    expert (counted by ``index_add_``: no one-hot, no host sync).  With
+    ``dp``, both fractions are the data-global ones: their sums all-reduced
+    over the batch axes, over the global token count."""
     t, e = probs.shape
     first = torch.zeros((e,), dtype=F32, device=probs.device)
     first.index_add_(0, top_i[:, 0], torch.ones((t,), dtype=F32,
                                                 device=probs.device))
-    frac_tokens = first / t
-    frac_probs = probs.mean(dim=0)
+    if dp is None:
+        frac_tokens, frac_probs = first / t, probs.mean(dim=0)
+    else:
+        frac = reduce_forward(torch.cat([first, probs.sum(dim=0)]),
+                              dp) / (t * dp.size)
+        frac_tokens, frac_probs = frac[:e], frac[e:]
     return e * torch.sum(frac_tokens * frac_probs) * m.router_aux_weight
 
 
@@ -359,7 +489,11 @@ def moe_gather_apply(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode-path MoE: gather the top-k experts' weights per token and run
     per-token GEMVs, no capacity padding.  Materializes (T, k, D, F) weight
-    copies.  Returns (residual-added output, aux load loss)."""
+    copies.  Returns (residual-added output, aux load loss).  Single-device
+    only: it raises under an active mesh."""
+    if collectives.current() is not None:
+        raise NotImplementedError("moe_gather_apply runs on one device; the "
+                                  "sharded step takes the capacity dispatch")
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -390,7 +524,22 @@ def moe_apply(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig
     ids, so the earliest keep the slots and the rest go to a dump row that
     is thrown away, as in the reference.  The dump row takes duplicate
     writes (their winner is unspecified and unused); every kept slot is
-    written once.  No step reads a value back to the host."""
+    written once.  No step reads a value back to the host.
+
+    Under an active mesh x holds this rank's rows of the global batch,
+    which the reference runs flattened with the data ranks major.  The
+    capacity is then the global token count's; a copy's slot is its rank
+    within its expert among the copies of every data rank before it (an
+    exclusive prefix, over the batch axes, of the per-expert counts,
+    all-gathered), so the same copies are dropped; the aux loss takes the
+    data-global fractions.  Experts cut over ``model`` run
+    expert-parallel: every model rank routes all of its data rank's tokens
+    with the replicated router and runs its own experts.  The shared
+    (Kimi) and parallel dense (Arctic) branches cut over ``model`` are
+    tensor-parallel like the FFN.  Those partial terms are summed in f32,
+    all-reduced over ``model`` once and rounded once; whatever is not cut
+    runs whole on every rank, on the replicated input, and is added after
+    that sum."""
     m = cfg.moe
     if m is None:
         raise ValueError(f"{cfg.name}: moe block requested but cfg.moe is "
@@ -400,29 +549,58 @@ def moe_apply(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig
     k, e = m.top_k, m.num_experts
     if flags.MOE_GATHER_DECODE and t * k <= e:
         return moe_gather_apply(p, x, cfg)
-    cap = moe_capacity(m, t)
+    mesh = collectives.current()
+    dp = tp = None
+    if mesh is not None:
+        dp, tp = mesh.comm(mesh.batch_axes), mesh.comm(("model",))
+    n_dp, r_dp = (dp.size, dp.rank) if dp is not None else (1, 0)
+    cap = moe_capacity(m, t * n_dp)
 
     h = common.rms_norm(x, p.norm, cfg.norm_eps)
     xt = h.reshape(t, d)
     probs, top_w, top_i = _route(p, xt, k)
 
     # ---- slot assignment: a copy's slot is its rank within its expert's
-    # run of the stably sorted expert ids
+    # run of the stably sorted expert ids (after the earlier data ranks')
     dev = x.device
     flat_e = top_i.reshape(t * k)                            # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    starts = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+    experts = torch.arange(e, device=dev)
+    starts = torch.searchsorted(sorted_e, experts)
     slot_sorted = torch.arange(t * k, device=dev) - starts[sorted_e]
     flat_slot = torch.empty_like(slot_sorted)
     flat_slot[order] = slot_sorted
+    if dp is not None:
+        counts = torch.searchsorted(sorted_e, experts, right=True) - starts
+        every = dp.all_gather(counts[None], 0)               # (n_dp, E)
+        flat_slot = flat_slot + every[:r_dp].sum(0)[flat_e]
     valid = flat_slot < cap
-    dump = torch.where(valid, flat_slot, cap)                # overflow slot
+    if MOE_TRACE is not None:
+        MOE_TRACE.append(valid.cpu())
+
+    # ---- the terms summed over model: this rank's experts, the cut
+    # dense branches (their input's gradient summed over model once)
+    ep = _tp(p, "we_gate", 0)
+    dense = [pre for pre, width in (("ws", m.num_shared_experts),
+                                    ("wd", m.dense_ff_parallel)) if width]
+    cut = [pre for pre in dense if tp is not None and p.cut(f"{pre}_gate", 1)]
+    xin = reduce_backward(xt, tp) if ep is not None or cut else xt
+    if ep is not None:
+        e_loc = e // ep.size
+        lo = ep.rank * e_loc
+        mine = (flat_e >= lo) & (flat_e < lo + e_loc)
+        keep = valid & mine
+        idx_e = torch.where(mine, flat_e - lo, 0)
+        xe, w = xin, reduce_backward(top_w, ep)
+    else:                       # every expert, whole on every rank
+        e_loc, keep, idx_e, xe, w = e, valid, flat_e, xt, top_w
+    dump = torch.where(keep, flat_slot, cap)                 # overflow slot
 
     # ---- dispatch: scatter the copies into (E, cap + 1, D)
-    xk = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=dev)
-    buf[flat_e, dump] = xk
+    xk = xe[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = torch.zeros((e_loc, cap + 1, d), dtype=x.dtype, device=dev)
+    buf[idx_e, dump] = xk
     buf = buf[:, :cap]
 
     # ---- expert GEMMs, batched over E
@@ -432,9 +610,22 @@ def moe_apply(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig
     out_e = F.pad(torch.bmm(act, p.we_down), (0, 0, 0, 1))   # dump slot = 0
 
     # ---- combine with the f32 weights
-    gathered = out_e[flat_e, dump] * valid[:, None].to(x.dtype)
-    y = torch.einsum("tkd,tk->td", gathered.reshape(t, k, d).to(F32),
-                     top_w).to(x.dtype)
-    aux = _aux_loss(m, probs, top_i)
-    y = _dense_branches(p, m, xt, y)
+    gathered = out_e[idx_e, dump] * keep[:, None].to(x.dtype)
+    routed = torch.einsum("tkd,tk->td", gathered.reshape(t, k, d).to(F32), w)
+    partial = [routed] if ep is not None else []
+    whole = [] if ep is not None else [routed]
+    for pre in dense:
+        ws = (getattr(p, f"{pre}_gate"), getattr(p, f"{pre}_up"),
+              getattr(p, f"{pre}_down"))
+        if pre in cut:
+            partial.append(common.swiglu_partial(xin, *ws))
+        else:
+            whole.append(common.swiglu(xt, *ws))
+    y = None
+    if partial:
+        y = reduce_forward(sum(partial[1:], partial[0]), tp).to(x.dtype)
+    for term in whole:
+        term = term.to(x.dtype)
+        y = term if y is None else y + term
+    aux = _aux_loss(m, probs, top_i, dp)
     return x + y.reshape(b, s, d), aux

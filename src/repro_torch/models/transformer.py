@@ -58,6 +58,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import (reduce_backward,
+                                                 reduce_forward)
 from repro_torch.models import common, flags, layers, mamba, ssm
 from repro_torch.models.layers import ParamGroup, stack_defs
 from repro_torch.models.params import ParamDef, abstract_params
@@ -159,6 +162,7 @@ class TransformerModel(nn.Module):
         self.kind_counts = seen
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
+        self.cut_onto = None        # the mesh's extents once cut onto one
         self.top = ParamGroup(self._top_defs(), self.dtype, self.device)
         self.blocks = nn.ModuleList(
             TransformerBlock(cfg, kind, l % self.period, self.dtype,
@@ -217,7 +221,7 @@ class TransformerModel(nn.Module):
     # Embedding / head
     # ------------------------------------------------------------------
 
-    def embed(self, batch: Batch) -> torch.Tensor:
+    def embed(self, batch: Batch, top=None) -> torch.Tensor:
         """The batch's inputs -> (B, S, D) in the model dtype.
 
         Audio: ``features`` cast to the model dtype, projected, then the
@@ -226,8 +230,11 @@ class TransformerModel(nn.Module):
         Otherwise the ``tokens``' embeddings; for the VLM, position s takes
         vision embedding ``clip(cumsum(vision_mask)[s] - 1, 0, V - 1)``
         where ``vision_mask`` is set (so mask positions past the V-th reuse
-        the last embedding)."""
-        top = self.top
+        the last embedding).  ``top`` stands for ``self.top`` (its gathered
+        view in a sharded step); with the vocab cut over ``model`` each
+        rank looks up its own rows and the lookups are summed over
+        ``model`` (the other ranks' rows are zeros)."""
+        top = self.top if top is None else top
         if self.cfg.family == "audio":
             x = common.fdot(batch["features"].to(self.dtype),
                             top.feat_proj) + top.feat_bias
@@ -237,7 +244,16 @@ class TransformerModel(nn.Module):
             for i in range(k):
                 pos = pos + xp[:, i:i + s].to(F32) * top.pos_conv[i].to(F32)
             return x + F.gelu(pos, approximate="tanh").to(x.dtype)
-        x = top.embed[batch["tokens"]]
+        tp = layers._tp(top, "embed", 0)
+        if tp is not None:                        # vocab-parallel lookup
+            tokens = batch["tokens"]
+            v = top.embed.shape[0]
+            lo = tp.rank * v
+            mine = (tokens >= lo) & (tokens < lo + v)
+            rows = top.embed[torch.where(mine, tokens - lo, 0)]
+            x = reduce_forward(torch.where(mine[..., None], rows, 0), tp)
+        else:
+            x = top.embed[batch["tokens"]]
         if self.cfg.family == "vlm" and "vision_embeds" in batch:
             vis, msk = batch["vision_embeds"], batch["vision_mask"]
             idx = torch.clamp(torch.cumsum(msk.to(torch.int32), dim=1) - 1,
@@ -253,11 +269,26 @@ class TransformerModel(nn.Module):
             return common.feinsum("...d,vd->...v", hidden, self.top.embed)
         return common.fdot(hidden, self.top.lm_head)
 
-    def _head_matrix(self) -> torch.Tensor:
-        """(V, D) regardless of tie/untie."""
+    def _head_matrix(self, top=None) -> torch.Tensor:
+        """(V, D) regardless of tie/untie (this rank's vocab rows when the
+        vocab is cut over ``model``)."""
+        top = self.top if top is None else top
         if self.cfg.tie_embeddings:
-            return self.top.embed
-        return self.top.lm_head.T
+            return top.embed
+        return top.lm_head.T
+
+    def _head_tp(self, top):
+        """The model group when the head's vocab is cut over it."""
+        if self.cfg.tie_embeddings:
+            return layers._tp(top, "embed", 0)
+        return layers._tp(top, "lm_head", 1)
+
+    def _single_device(self, what: str) -> None:
+        if self.cut_onto is not None:
+            raise NotImplementedError(
+                f"{what} runs on one device; this model is cut onto a "
+                f"{self.cut_onto} mesh (sharded serving of the LLMs is not "
+                "ported)")
 
     # ------------------------------------------------------------------
     # Blocks
@@ -280,7 +311,8 @@ class TransformerModel(nn.Module):
         copies the state after the sequence into it (prefill); without a
         cache it returns that state."""
         if bp.kind == "attn":
-            x, c = layers.attn_apply(bp.attn, x, cfg=self.cfg,
+            x, c = layers.attn_apply(layers.gathered(bp.attn), x,
+                                     cfg=self.cfg,
                                      positions=positions, cache=cache,
                                      decode_pos=decode_pos, window=window,
                                      train=train,
@@ -297,16 +329,17 @@ class TransformerModel(nn.Module):
                         cache[key].copy_(t)
                     c = cache
         if "moe" in bp.subs:
-            x, aux = layers.moe_apply(bp.moe, x, self.cfg)
+            x, aux = layers.moe_apply(layers.gathered(bp.moe), x, self.cfg)
             return x, c, aux
         if "ffn" in bp.subs:
-            x = layers.ffn_apply(bp.ffn, x, self.cfg)
+            x = layers.ffn_apply(layers.gathered(bp.ffn), x, self.cfg)
         return x, c, 0.0
 
     @torch.no_grad()
     def apply(self, batch: Batch) -> torch.Tensor:
         """Full-sequence forward (encode): the final-normed hidden states
         (B, S, D) (the reference's ``apply(...)[0]``)."""
+        self._single_device("apply")
         x = self.embed(batch)
         positions = _positions(batch)
         for bp in self.blocks:
@@ -318,12 +351,13 @@ class TransformerModel(nn.Module):
         x, _, aux = self.block_apply(bp, x, positions=positions, train=True)
         return x, aux
 
-    def forward_train(self, batch: Batch
+    def forward_train(self, batch: Batch, top=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The differentiable full-sequence forward: (final-normed hidden
         states (B, S, D), the layers' summed MoE aux loss) with autograd,
-        through every block kind."""
-        x = self.embed(batch)
+        through every block kind.  ``top`` stands for ``self.top``."""
+        top = self.top if top is None else top
+        x = self.embed(batch, top)
         positions = _positions(batch)
         aux = torch.zeros((), dtype=F32, device=x.device)
         for bp in self.blocks:
@@ -335,7 +369,7 @@ class TransformerModel(nn.Module):
                 x, a = self._train_block(bp, x, positions)
             if torch.is_tensor(a):                    # an MoE layer's
                 aux = aux + a
-        return (common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps),
+        return (common.rms_norm(x, top.final_norm, self.cfg.norm_eps),
                 aux)
 
     # ------------------------------------------------------------------
@@ -349,8 +383,16 @@ class TransformerModel(nn.Module):
         without it); else next-token over ``batch["tokens"]`` (B, S), the
         last position masked out (and by ``batch["loss_mask"]`` if given).
         Returns (loss, {"nll", "moe_aux", "tokens"}), the loss the mean
-        nll plus the MoE aux."""
-        hidden, aux = self.forward_train(batch)
+        nll plus the MoE aux.
+
+        In a sharded step (``collectives.active``) the batch is this rank's
+        rows: the top-level weights are gathered over the FSDP axes once,
+        the head runs vocab-parallel where the vocab is cut over ``model``
+        and the nll and token sums are summed over the batch axes, so the
+        loss is the global batch's mean."""
+        mesh = collectives.current()
+        top = layers.gathered(self.top)
+        hidden, aux = self.forward_train(batch, top)
         if self.cfg.family == "audio":
             targets = batch["targets"]
             mask = torch.ones(targets.shape, dtype=F32, device=targets.device)
@@ -362,7 +404,12 @@ class TransformerModel(nn.Module):
             mask = F.pad(torch.ones_like(tokens[:, 1:], dtype=F32), (0, 1))
             if "loss_mask" in batch:
                 mask = mask * batch["loss_mask"].to(F32)
-        nll, denom = chunked_ce(hidden, self._head_matrix(), targets, mask)
+        nll, denom = chunked_ce(hidden, self._head_matrix(top), targets,
+                                mask, tp=self._head_tp(top))
+        if mesh is not None:
+            sums = reduce_forward(torch.stack([nll, denom]),
+                                  mesh.comm(mesh.batch_axes))
+            nll, denom = sums[0], sums[1]
         mean = nll / torch.clamp(denom, min=1.0)
         return mean + aux, {"nll": mean, "moe_aux": aux, "tokens": denom}
 
@@ -423,6 +470,7 @@ class TransformerModel(nn.Module):
         builds the decode cache of ``window`` slots.  Attention is
         sliding-window with that window.  Returns (last-position logits
         (B, V), cache)."""
+        self._single_device("prefill")
         x = self.embed(batch)
         b, s = x.shape[:2]
         positions = _positions(batch)
@@ -443,6 +491,7 @@ class TransformerModel(nn.Module):
         ``vision_embeds`` / ``vision_mask``).  Returns (logits (B, V),
         cache), the cache updated in place (one K/V slot per attention
         layer and sample, each mixer's state one step on, step + 1)."""
+        self._single_device("decode_step")
         step = cache["step"]                                 # (B,)
         x = self.embed({"tokens": tokens[:, None], **(extra or {})})
         positions = step[:, None]
@@ -465,21 +514,42 @@ class TransformerModel(nn.Module):
 # --------------------------------------------------------------------------
 
 def _ce_chunk(h: torch.Tensor, head32: torch.Tensor, t: torch.Tensor,
-              m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              m: torch.Tensor, tp: Optional[collectives.Comm] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (sum nll, sum mask).  With ``tp``, ``head32`` holds this
+    rank's vocab rows: the max of the logits (no gradient), then the sums
+    of their exponentials and the target logit (zero off this rank's
+    rows) over ``model``."""
     logits = torch.einsum("bcd,vd->bcv", h.to(F32), head32)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.take_along_dim(logits, t.long()[..., None], dim=-1)[..., 0]
-    return ((lse - tgt) * m).sum(), m.sum()
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.take_along_dim(logits, t.long()[..., None],
+                                   dim=-1)[..., 0]
+        return ((lse - tgt) * m).sum(), m.sum()
+    mx = tp.all_reduce(logits.detach().amax(dim=-1), op="max")
+    v = logits.shape[-1]
+    local = t.long() - tp.rank * v
+    mine = (local >= 0) & (local < v)
+    tgt = torch.take_along_dim(logits, local.clamp(0, v - 1)[..., None],
+                               dim=-1)[..., 0]
+    sums = reduce_forward(torch.stack([
+        torch.exp(logits - mx[..., None]).sum(dim=-1),
+        torch.where(mine, tgt, 0.0)]), tp)
+    lse = mx + torch.log(sums[0])
+    return ((lse - sums[1]) * m).sum(), m.sum()
 
 
 def chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
-               targets: torch.Tensor, mask: torch.Tensor, chunk: int = 512
+               targets: torch.Tensor, mask: torch.Tensor, chunk: int = 512,
+               tp: Optional[collectives.Comm] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materializing (B, S, V): S in chunks, a
     sequence of a length that is not a multiple of ``chunk`` padded (masked)
     to one.  hidden (B,S,D); head (V,D); targets / mask (B,S).  Returns
     (sum nll, sum mask).  With ``flags.CE_REMAT`` each chunk's logits are
-    recomputed in backward instead of saved."""
+    recomputed in backward instead of saved.  With ``tp``, ``head`` holds
+    this rank's block of the vocab rows (vocab-parallel: the logsumexp and
+    the target logit reduced over the model group)."""
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -489,11 +559,12 @@ def chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
         mask = F.pad(mask, (0, pad))
         s += pad
     head32 = head.to(F32)
+    hidden = reduce_backward(hidden, tp)
     nll = torch.zeros((), dtype=F32, device=hidden.device)
     denom = torch.zeros((), dtype=F32, device=hidden.device)
     for i in range(0, s, chunk):
         args = (hidden[:, i:i + chunk], head32, targets[:, i:i + chunk],
-                mask[:, i:i + chunk])
+                mask[:, i:i + chunk], tp)
         if flags.CE_REMAT:
             n, m = checkpoint(_ce_chunk, *args, use_reentrant=False,
                               preserve_rng_state=False)

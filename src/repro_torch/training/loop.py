@@ -103,12 +103,20 @@ def host_metrics(metrics: Dict) -> Dict[str, float]:
 
 def train(model, params, opt, lr_fn, data_iter, *, steps: int,
           log_every: int = 10, max_grad_norm: float = 1.0,
-          callback: Optional[Callable[[int, Dict], None]] = None):
+          callback: Optional[Callable[[int, Dict], None]] = None,
+          mesh=None):
     """Host loop: ``steps`` train steps on ``next(data_iter)`` batches,
     the metrics read back at every ``log_every``-th step and the last.
-    ``params`` is ``param_tree(model)``.  Returns (params, opt_state,
-    history)."""
-    step_fn = make_train_step(model, opt, lr_fn, max_grad_norm)
+    ``params`` is ``param_tree(model)``; with ``mesh`` (a
+    ``collectives.MeshComms``) the model is cut onto it and the step is
+    ``training.sharded.make_sharded_train_step``'s.  Returns (params,
+    opt_state, history)."""
+    if mesh is None:
+        step_fn = make_train_step(model, opt, lr_fn, max_grad_norm)
+    else:
+        from repro_torch.training.sharded import make_sharded_train_step
+        step_fn = make_sharded_train_step(model, opt, lr_fn, mesh,
+                                          max_grad_norm)
     opt_state = opt.init(params)
     history = []
     t0 = time.perf_counter()

@@ -35,7 +35,8 @@ whole-leaf rule (f32 rounding).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+import math
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,16 +69,41 @@ def cosine_schedule(base_lr: float, warmup: int,
     return lr
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(g**2), in float32 (0-dim)."""
+class LeafShard(NamedTuple):
+    """How a mesh cuts one leaf (``training/sharded.py``): ``shape`` its
+    global shape, ``dims`` per dim the Comm over the axes that cut it
+    (None: whole here), ``whole`` the Comm over every axis that cuts it
+    (the ranks holding its distinct blocks)."""
+    shape: Tuple[int, ...]
+    dims: Tuple[Any, ...]
+    whole: Any
+
+
+def _sum_over(x: torch.Tensor, comm) -> torch.Tensor:
+    return x if comm is None else comm.all_reduce(x)
+
+
+def global_norm(grads, shards=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g**2), in float32 (0-dim).  With
+    ``shards`` (a tree of ``LeafShard`` over local blocks), each distinct
+    block is counted once: the squares are summed per group of leaves cut
+    alike, over the ranks holding that group's blocks."""
     norms = torch._foreach_norm(tree.leaves(grads), 2, dtype=F32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if shards is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    groups: dict = {}
+    for n, sh in zip(norms, shards):
+        groups.setdefault(id(sh.whole), (sh.whole, []))[1].append(n * n)
+    total = sum(_sum_over(torch.stack(sq).sum(), comm)
+                for comm, sq in groups.values())
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads, max_norm: float,
+                        shards=None) -> Tuple[Any, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / norm) in float32, rounded
     back to its dtype, in place.  Returns (grads, norm)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shards)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     with torch.no_grad():
         torch._foreach_mul_(tree.leaves(grads), scale)
@@ -117,7 +143,10 @@ class AdamW:
                           nu=tree.map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, lr: float):
+    def update(self, grads, state: AdamWState, params, lr: float,
+               shards=None):
+        """One step; elementwise, so local blocks (``shards``) change
+        nothing."""
         step = state.step + 1
         c1 = float(_f(1.0) - _f(self.b1) ** _f(step))
         c2 = float(_f(1.0) - _f(self.b2) ** _f(step))
@@ -209,32 +238,52 @@ class Adafactor:
                               vc=tree.map(vc, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdafactorState, params, lr: float):
+    def update(self, grads, state: AdafactorState, params, lr: float,
+               shards=None):
+        """One step.  With ``shards`` (a ``LeafShard`` per leaf) the leaves
+        are local blocks: each mean (a row's, a column's, the row
+        statistics' normalizer, the update's RMS) sums over the ranks
+        that cut the dims it averages and divides by the global count."""
         step = state.step + 1
         beta = float(_f(1.0) - (_f(step) + _f(1.0)) ** _f(-self.decay_pow))
-        for g, vr, vc, p in zip(tree.leaves(grads), tree.leaves(state.vr),
-                                tree.leaves(state.vc), tree.leaves(params)):
+        sh_leaves = (shards if shards is not None
+                     else [None] * len(tree.leaves(params)))
+        for g, vr, vc, p, sh in zip(tree.leaves(grads), tree.leaves(state.vr),
+                                    tree.leaves(state.vc),
+                                    tree.leaves(params), sh_leaves):
             if p.ndim >= 2:
-                self._update_factored(g, vr, vc, p, beta, lr)
+                self._update_factored(g, vr, vc, p, beta, lr, sh)
                 continue
             g = g.to(F32)
             vr.mul_(beta).add_(g * g + self.eps, alpha=1 - beta)
             u = g / torch.sqrt(vr + self.eps)
             # update clipping on RMS
-            rms = torch.sqrt((u * u).mean() + self.eps)
+            if sh is None:
+                rms = torch.sqrt((u * u).mean() + self.eps)
+            else:
+                sq = _sum_over((u * u).sum(), sh.whole)
+                rms = torch.sqrt(sq / math.prod(sh.shape) + self.eps)
             u = u / torch.clamp(rms / self.clip, min=1.0)
             p.copy_(p.to(F32) - lr * u)
         return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
 
-    def _update_factored(self, g, vr, vc, p, beta: float, lr: float) -> None:
+    def _update_factored(self, g, vr, vc, p, beta: float, lr: float,
+                         sh: Optional[LeafShard] = None) -> None:
         """The factored rule on a leaf of ndim >= 2, (..., D, F) seen as N
         matrices, in blocks holding at most ``UPDATE_BYTES`` of f32 (as
         many whole matrices as fit, else rows of one matrix): pass 1
         updates the row and column statistics (the columns' means from the
         blocks' sums), pass 2 sums the update's squares over the whole leaf
         for its RMS, pass 3 recomputes each block's update and applies it.
-        Nothing is read back to the host."""
+        Nothing is read back to the host.  ``sh``: the leaf is a local
+        block (``update``)."""
         d, f = p.shape[-2:]
+        rows_c = cols_c = whole_c = None
+        d_all, f_all, numel = d, f, p.numel()
+        if sh is not None:
+            rows_c, cols_c, whole_c = sh.dims[-2], sh.dims[-1], sh.whole
+            d_all, f_all = sh.shape[-2:]
+            numel = math.prod(sh.shape)
         n = p.numel() // (d * f)
         gm, pm = g.reshape(n, d, f), p.view(n, d, f)   # pm writes p
         vrm, vcm = vr.view(n, d), vc.view(n, f)
@@ -248,24 +297,33 @@ class Adafactor:
 
         def update_of(i0, i1, r0, r1):
             gb = gm[i0:i1, r0:r1].to(F32)
-            denom = torch.clamp(vrm[i0:i1].mean(dim=-1), min=self.eps)
             vhat = (vrm[i0:i1, r0:r1, None] * vcm[i0:i1, None, :]
-                    / denom[:, None, None])
+                    / denom[i0:i1, None, None])
             return gb / torch.sqrt(vhat + self.eps)
+
+        def row_mean(g2):
+            if rows_c is None and cols_c is None:
+                return g2.mean(dim=-1)
+            return _sum_over(g2.sum(dim=-1), cols_c) / f_all
 
         colsum = torch.zeros((n, f), dtype=F32, device=p.device)
         for i0, i1, r0, r1 in blocks:                  # pass 1: statistics
             gb = gm[i0:i1, r0:r1].to(F32)
             g2 = gb * gb + self.eps
-            vrm[i0:i1, r0:r1].mul_(beta).add_(g2.mean(dim=-1),
-                                             alpha=1 - beta)
+            vrm[i0:i1, r0:r1].mul_(beta).add_(row_mean(g2), alpha=1 - beta)
             colsum[i0:i1] += g2.sum(dim=1)
-        vcm.mul_(beta).add_(colsum / d, alpha=1 - beta)
+        vcm.mul_(beta).add_(_sum_over(colsum, rows_c) / d_all,
+                            alpha=1 - beta)
+        if rows_c is None:
+            mean_vr = vrm.mean(dim=-1)
+        else:
+            mean_vr = rows_c.all_reduce(vrm.sum(dim=-1)) / d_all
+        denom = torch.clamp(mean_vr, min=self.eps)
         sq = torch.zeros((), dtype=F32, device=p.device)
         for blk in blocks:                             # pass 2: the RMS
             u = update_of(*blk)
             sq += (u * u).sum()
-        rms = torch.sqrt(sq / p.numel() + self.eps)
+        rms = torch.sqrt(_sum_over(sq, whole_c) / numel + self.eps)
         scale = torch.clamp(rms / self.clip, min=1.0)
         for i0, i1, r0, r1 in blocks:                  # pass 3: the update
             u = update_of(i0, i1, r0, r1) / scale

@@ -1,5 +1,5 @@
 """The port's dry run (``repro_torch.models.params``, the LLM families'
-logical axes and trees, ``launch/mesh.make_production_mesh``,
+logical axes and trees, ``launch/mesh``'s production meshes,
 ``launch/specs.py``, ``launch/dryrun.py``, B7 on ``meta``) against the
 reference's.
 
@@ -37,7 +37,8 @@ from repro_torch.cuda_kernels import ref
 from repro_torch.cuda_kernels.flash_attention import flash_attention
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch import dryrun, specs
-from repro_torch.launch.mesh import abstract_mesh, make_production_mesh
+from repro_torch.launch.mesh import (abstract_mesh, abstract_production_mesh,
+                                     make_production_mesh)
 from repro_torch.models.params import (ParamDef, abstract_params,
                                        count_params)
 from repro_torch.models.registry import build_model
@@ -391,11 +392,153 @@ def test_cli_small_meshes_are_ok(argv, tmp_path, capsys):
     rec = json.loads(path.read_text())
     assert rec == json.loads(json.dumps(recs[0], default=str))
     assert REF_RECORD_KEYS <= set(rec)
+    # a decode record: no sharded serving of the LLMs, so no count
     assert rec["collective_bytes"] is None
+    assert rec["roofline"]["collective_s"] is None
+    assert "no sharded serving" in rec["notes"]["collective_bytes"]
     assert rec["memory_analysis"]["temp_size_in_bytes"] is None
     assert rec["roofline"]["dominant"] in ("compute_s", "memory_s")
     assert rec["n_chips"] == math.prod(int(x) for x in argv[-1].split(","))
     assert rec["meta"]["cache_window"] in (8192, 32768)
+
+
+def _fsdp_bytes(arch: str, dims) -> tuple:
+    """(all-gather, reduce-scatter) bytes of one sharded train step, from
+    the specs alone: each leaf cut over ``data`` is gathered over it, the
+    result its model block (a block leaf twice: remat's recomputed forward
+    gathers again), and its gradient reduce-scattered once to its block;
+    each MoE dispatch (twice a layer) gathers the per-expert counts (int64)
+    over ``data``."""
+    cfg = get_config(arch)
+    ctx = sh.ShardingCtx(abstract_mesh(dims), sh.make_rules("train"))
+    defs = build_model(cfg, device="meta").param_defs()
+    ext = sh.mesh_extents(ctx.mesh)
+    gather = scatter = 0
+    for key, d in _port_paths(defs, lambda x: isinstance(x, ParamDef)
+                              ).items():
+        spec = sh.spec_for(d.shape, d.axes, ctx)
+        split = {a: ext[a] for e in spec for a in sh._as_tuple(e)}
+        data = math.prod(n for a, n in split.items() if a != "model")
+        if data == 1:
+            continue
+        item = 4 if (d.dtype or cfg.dtype) == "float32" else 2
+        block = math.prod(d.shape) * item // math.prod(split.values())
+        uses = 2 if key.startswith("blocks") and cfg.remat else 1
+        gather += uses * block * data
+        scatter += block
+    if cfg.moe is not None:
+        gather += 2 * cfg.num_layers * ext["data"] * cfg.moe.num_experts * 8
+    return gather, scatter
+
+
+def _qwen3_all_reduce(dims, batch: int, seq: int) -> int:
+    """Qwen3-0.6B's all-reduce bytes on (data, model) with the heads, the
+    ffn and the vocab cut over ``model`` and its 8 kv heads replicated
+    (model = 16), bf16, remat on: per layer the f32 sums of the two
+    row-parallel outputs in the forward and again in remat's recompute of
+    the attention (the recompute stops before the FFN's sum, which nothing
+    saved needs), the bf16 gradients of the replicated inputs of q, k and
+    v (all kv heads) and of the FFN, and q_norm's gradient; the
+    vocab-parallel lookup's sum, the head's input gradient, per 512-token
+    chunk of the CE the max and the two sums; the loss's two sums over
+    ``data``; the qk-norm weights' gradients over ``data`` (replicated);
+    the global norm's two partial sums."""
+    cfg = get_config("qwen3-0.6b")
+    d_, m_ = dims
+    b = batch // d_
+    act = b * seq * cfg.d_model
+    kv = b * seq * cfg.num_kv_heads * cfg.resolved_head_dim
+    dh = cfg.resolved_head_dim
+    layer = 3 * 4 * act + 2 * (act + 2 * kv + act) + 4 * dh
+    top = 2 * act + 2 * act + (seq // 512) * (b * 512 * 4 * 3)
+    other = 2 * 4 + 2 * cfg.num_layers * dh * 4 + 2 * 4
+    return cfg.num_layers * layer + top + other
+
+
+def _optimizer_all_reduce(arch: str, dims) -> int:
+    """The all-reduce bytes of the global norm and of Adafactor's
+    statistics, from the specs: each leaf seen as n local (D, F) matrices
+    (a leaf of ndim >= 2); per leaf, f32, the row sums of the squares over
+    the ranks that cut F (n * D_local), the column sums over those that cut
+    D (n * F_local), the row statistics' sums over those that cut D (n) and
+    the update's squares over every rank that cuts the leaf (one); a 1-D
+    leaf its update's squares alone.  The global norm sums one square per
+    distinct set of axes that cut leaves."""
+    cfg = get_config(arch)
+    ctx = sh.ShardingCtx(abstract_mesh(dims), sh.make_rules("train"))
+    ext = sh.mesh_extents(ctx.mesh)
+    defs = build_model(cfg, device="meta").param_defs()
+    total, groups = 0, set()
+    for d in _port_paths(defs, lambda x: isinstance(x, ParamDef)).values():
+        spec = sh.spec_for(d.shape, d.axes, ctx)
+        cuts = [sh._as_tuple(e) for e in spec]
+        local = [n // math.prod(ext[a] for a in c)
+                 for n, c in zip(d.shape, cuts)]
+        every = {a for c in cuts for a in c}
+        groups.add(frozenset(every))
+        total += 4 * bool(every)
+        if len(d.shape) >= 2:
+            n = math.prod(local[:-2])
+            total += 4 * n * local[-2] * bool(cuts[-1])
+            total += 4 * n * (local[-1] + 1) * bool(cuts[-2])
+    return total + 4 * sum(1 for g in groups if g)
+
+
+def _arctic_all_reduce(dims, batch: int, seq: int) -> int:
+    """Arctic's all-reduce bytes on (data, model) (model = 16), bf16, remat
+    on.  Its 56 heads and 8 kv heads do not divide ``model``: the
+    attention runs whole on every model rank, with no sum.  Per layer, the
+    MoE: the f32 sum over ``model`` of this rank's experts' combine and its
+    block of the dense FFN, in the forward and again in remat's recompute,
+    the aux loss's 2E f32 sums over ``data`` both times, and in the
+    backward the bf16 gradient of the replicated input of the experts and
+    the dense FFN and the f32 gradient of the top-k weights.  Then as for
+    Qwen3: the vocab-parallel lookup's sum, the head's input gradient, per
+    512-token chunk of the CE the max and the two sums, the loss's two
+    sums; and the optimizer's (``_optimizer_all_reduce``)."""
+    cfg = get_config("arctic-480b")
+    d_, m_ = dims
+    assert cfg.num_heads % m_ and cfg.num_kv_heads % m_
+    b = batch // d_
+    t = b * seq
+    act = t * cfg.d_model
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    layer = 2 * 4 * act + 2 * 4 * 2 * e + 2 * act + 4 * t * k
+    top = 2 * act + 2 * act + (seq // 512) * (b * 512 * 4 * 3) + 2 * 4
+    return (cfg.num_layers * layer + top
+            + _optimizer_all_reduce("arctic-480b", dims))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "arctic-480b"])
+def test_train_records_count_their_collectives(arch):
+    """A train record on (16, 16) carries the sharded step's collective
+    bytes by kind (``collective_bytes``, ``scan_compile``) and
+    ``collective_s`` over NVLink; all-gather and reduce-scatter equal the
+    specs' FSDP bytes, the all-reduce each arch's formula, no
+    all-to-all."""
+    rec = dryrun.run_one(arch, "train_4k", False, "", measure_cost=False)
+    assert rec["status"] == "ok", rec.get("error")
+    got = rec["collective_bytes"]
+    shape = SHAPES["train_4k"]
+    gather, scatter = _fsdp_bytes(arch, (16, 16))
+    reduce = (_qwen3_all_reduce if arch == "qwen3-0.6b" else
+              _arctic_all_reduce)((16, 16), shape.global_batch, shape.seq_len)
+    assert got == {"all-gather": gather, "reduce-scatter": scatter,
+                   "all-reduce": reduce, "all-to-all": 0,
+                   "total": gather + scatter + reduce}
+    assert rec["scan_compile"]["collectives"] == got
+    assert rec["roofline"]["collective_s"] == got["total"] / \
+        dryrun.NVLINK_BW
+    assert rec["notes"]["collective_bytes"].startswith("the sharded train")
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-0.6b", "prefill_32k"),
+                                        ("xlstm-1.3b", "train_4k")])
+def test_records_without_a_count_say_why(arch, shape):
+    reason = dryrun.collectives_null_reason(get_config(arch), SHAPES[shape])
+    assert reason and ("serving" in reason or "inner axis" in reason)
+    assert dryrun.collectives_null_reason(get_config("qwen3-0.6b"),
+                                          SHAPES["train_4k"]) is None
 
 
 def test_cli_skips_the_encoders_decode(capsys):
@@ -430,7 +573,12 @@ def test_a_failing_step_fails_the_record(monkeypatch, capsys):
 # ---------------------------------------------------------------------------
 
 def test_production_meshes():
-    one, two = make_production_mesh(), make_production_mesh(multi_pod=True)
+    """The dry run's production meshes are abstract; the real one needs a
+    process group of their size."""
+    one = abstract_production_mesh()
+    two = abstract_production_mesh(multi_pod=True)
+    with pytest.raises(ValueError, match="needs a process group of 256"):
+        make_production_mesh()
     assert sh.mesh_extents(one) == {"data": 16, "model": 16}
     assert sh.mesh_extents(two) == {"pod": 2, "data": 16, "model": 16}
     assert (one.size, two.size) == (256, 512)

@@ -64,7 +64,8 @@ def test_observability_modules_are_scanned(module):
 
 TRAINING_MODULES = ("tree.py", "data/synthetic.py", "training/optimizer.py",
                     "training/loop.py", "checkpoint/io.py", "models/flags.py",
-                    "launch/train.py")
+                    "launch/train.py", "distributed/collectives.py",
+                    "training/sharded.py")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
@@ -79,6 +80,8 @@ def test_training_modules_are_scanned(module):
 
 def test_training_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.train, repro_torch.training, "
+            "repro_torch.training.sharded, "
+            "repro_torch.distributed.collectives, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.bridge; "
             "assert 'jax' not in sys.modules, 'jax was imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
