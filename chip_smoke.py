@@ -274,7 +274,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             (NEW_FLASH_SHAPES (j): 32 heads of 128 on 8 KV heads, bf16);
             jamba-v0.1-52b at full width with one period of 8 layers (7
             Mamba, 1 attention, 4 MoE of 16 experts, 26.6 GB) and
-            xlstm-1.3b at full size (48 layers, 7.45 GB), each on
+            xlstm-1.3b at full width cut to two periods (16 of 48
+            layers; XLSTM), each on
             LLMWorkload's defaults (xLSTM with 2 requests), exact: a fastcache workload comes back
             exact with the reference launcher's line (the decode gate takes
             only period-1 attention stacks), llm_syncs (1 per decode step,
@@ -363,7 +364,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             tokens/s, launches per step, peak memory, train_mfu;
 19b. sharded_train  LLM training on a mesh (training/sharded.py,
             SHARDED_TRAIN): Qwen3-0.6B whole (28 layers, bf16, AdamW,
-            TRAIN_LLM's 8 x 256 stream and seed, 3 steps) on (1, 1) over
+            TRAIN_LLM's 8 x 256 stream and seed, 2 steps) on (1, 1) over
             nccl in this process, bitwise make_train_step on init_model's
             weights (losses, step-0 gradients, final parameters), then on
             two ranks sharing card 0 over gloo as (2, 1) (FSDP) and (1, 2)
@@ -383,10 +384,34 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             for the arch, batch and mesh; per rank ms per step (CUDA
             events), bytes by kind and peak memory (Arctic's beside the
             66-68 GB reckoning).  The two-rank legs share one pair of rank
-            processes.  Then the launcher's ``--mesh 2,1 --steps 3`` prints
+            processes.  Then the launcher's ``--mesh 2,1 --steps 2`` prints
             the reference's lines, its step-0 loss within 1e-3 of (1, 1)'s;
+19c. sharded_ssm  the SSM and hybrid families on a mesh (SHARDED_SSM,
+            legs of 19b's rank pair, after its own): xLSTM-1.3b's period of
+            8 layers at full width (AdamW, 2 x 256, 2 steps) on (1, 1),
+            (1, 2) and (2, 1), and Jamba-v0.1-52b's first four layers at
+            full width (Adafactor, 1 x 512, 2 steps) on (1, 1) and (1, 2),
+            both in f32 (in bf16 their gradients are chaotic at random
+            init); held as 19b's legs, each leaf's step-0 gradient within
+            SHARDED_F32_GRAD_REL_L2 of (1, 1)'s, the (1, 1) step's spread
+            with its products rounded once from f64 beside it;
+19d. sharded_infer  prefill and decode on a mesh (distributed/inference.py,
+            SHARDED_INFER): Qwen3-0.6B whole (bf16, a prefill of 4 x 512
+            into a 1,024-slot cache, 8 teacher-forced decode steps) on
+            (1, 2) and (2, 1), Jamba's and xLSTM's periods (1 x 256, 4
+            steps) on (1, 2), two ranks sharing card 0 over gloo, against
+            the same run on one device in this process: every step's
+            gathered logits within 2e-2 relative L2, or, for the legs of
+            SHARDED_INFER_CHAOTIC (whose one-device logits move past that
+            when its products are rounded once from f32: the floor
+            printed), every layer's update on the one-device run's own
+            inputs and caches within 2e-2; B7 launched once a prefill per
+            attention layer on every rank, on its local heads (8 q / 4 kv
+            for Qwen3-0.6B on (1, 2)), and in no decode step; every call's
+            collective bytes equal to the dry run's count;
 20. train_ssm  the SSM and hybrid families' training (TRAIN_SSM):
-            xLSTM-1.3b at full size (48 layers, AdamW, 4 x 256 tokens) and
+            xLSTM-1.3b at full width, 16 of 48 layers (AdamW, 4 x 256
+            tokens) and
             Jamba-v0.1-52b at full width with one period of 8 layers
             (Adafactor over its 16 x 4,096 x 14,336 expert banks in row
             blocks, 1 x 512 tokens), 3 steps each through launch/train.py's
@@ -408,9 +433,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             FlopCounterMode's count of the same step on the card, the
             card's step ms beside the roofline's compute_s.  Arctic's
             one-layer train_4k argument bytes on (1, 1), a prediction.
-            Each train record of an attention-only family carries the
-            sharded step's collective bytes by kind (counting comms on
-            meta);
+            Every ok record carries its sharded step's collective bytes
+            by kind (counting comms on meta; the train, prefill or decode
+            step), or the run fails; the sweep's seconds beside 300;
 22. examples  each of the port's examples (examples/torch_*.py) at its
             defaults on the card, in process, its printed lines kept,
             counts zeroed just before and read just after: the
@@ -482,12 +507,16 @@ PARITY_LLMS = (dict(arch="yi-9b"), dict(arch="stablelm-3b"),
                dict(arch="kimi-k2-1t-a32b", num_layers=1))
 SHORT_SERVE = dict(requests=2, new_tokens=16, fastcache=True)
 # the hybrid and SSM families: Jamba at full width with one period of its
-# block pattern (8 of 32 layers, 26.6 GB), xLSTM at full size (48 layers)
-# serving 2 requests, not 8: its token-by-token sLSTM prefill is ~85,000
-# launches (1.1-1.3 s a request on the card), and 4 requests already took
-# the phase to 90.8 s, past its 90 s
+# block pattern (8 of 32 layers, 26.6 GB), xLSTM at full width serving 2
+# requests, not 8: its token-by-token sLSTM prefill is ~85,000 launches at
+# 48 layers (1.1-1.3 s a request on the card), and 4 requests already took
+# the phase to 90.8 s, past its 90 s.  Since the mesh phases joined the
+# script (sharded_ssm, sharded_infer) xLSTM runs two of its six periods
+# (16 layers): with 48 here, 48 in train_ssm and 3 steps in sharded_train
+# the script took 1,097.9 s of its 1,200 (xLSTM's serve 82.0 s; an NVIDIA
+# H100 80GB HBM3 at 700 W)
 JAMBA = dict(arch="jamba-v0.1-52b", num_layers=8)
-XLSTM = dict(arch="xlstm-1.3b", requests=2)
+XLSTM = dict(arch="xlstm-1.3b", requests=2, num_layers=16)
 # ssm_consistency: one layer of each mixer at its config's full width in
 # f32, (batch, prefilled, decoded) positions, and the rel-L2 bound
 SSM_MIXERS = (("mamba", "jamba-v0.1-52b"), ("mlstm", "xlstm-1.3b"),
@@ -4146,14 +4175,15 @@ def phase_train_llm(torch, dev, tr, m):
     return launches
 
 
-# the SSM and hybrid families' training at full width: xLSTM-1.3b at full
-# size (48 layers) with its config's AdamW, 4 x 256 tokens; Jamba at full
+# the SSM and hybrid families' training at full width: xLSTM-1.3b cut to
+# two of its six periods (16 layers; at 48 the phase's xLSTM part took 65.8
+# s, see XLSTM) with its config's AdamW, 4 x 256 tokens; Jamba at full
 # width cut to one period of 8 layers (13.30 B parameters) with its
 # config's Adafactor, 1 x 512 tokens; 3 steps each on token_stream batches
 # drawn before the phase (seed 0): step 0 under sync debug "error", step 1
 # timed, step 2 profiled
-TRAIN_SSM = (dict(arch="xlstm-1.3b", batch=4, seq=256, steps=3, lr=3e-4,
-                  warmup=20, seed=0),
+TRAIN_SSM = (dict(arch="xlstm-1.3b", num_layers=16, batch=4, seq=256,
+                  steps=3, lr=3e-4, warmup=20, seed=0),
              dict(arch="jamba-v0.1-52b", num_layers=8, batch=1, seq=512,
                   steps=3, lr=3e-4, warmup=20, seed=0))
 
@@ -4230,14 +4260,14 @@ def phase_train_ssm(torch, dev, tr, m) -> dict:
 
 
 # LLM training on a mesh (training/sharded.py): Qwen3-0.6B whole with
-# TRAIN_LLM's batch, seed and schedule for 3 steps on (1, 1) over nccl in
+# TRAIN_LLM's batch, seed and schedule for 2 steps on (1, 1) over nccl in
 # this process, then on two ranks sharing card 0 over gloo as (2, 1) (FSDP)
 # and (1, 2) (tensor parallel); Arctic-480B at full width with one layer
 # (Adafactor, 1 x 256 tokens) for 2 steps on (1, 1), then on (1, 2) with
 # 64 experts a rank.  The three two-rank legs run in one pair of processes
 # (one spawn and one warm-up of each rank)
 SHARDED_TRAIN = (
-    dict(label="qwen", arch="qwen3-0.6b", batch=8, seq=256, steps=3,
+    dict(label="qwen", arch="qwen3-0.6b", batch=8, seq=256, steps=2,
          lr=3e-4, warmup=20, seed=0, meshes=((2, 1), (1, 2))),
     dict(label="arctic", arch="arctic-480b", num_layers=1, batch=1, seq=256,
          steps=2, lr=3e-4, warmup=20, seed=0, meshes=((1, 2),)))
@@ -4253,6 +4283,55 @@ SHARDED_GRAD_REL_L2 = 5e-2    # its gathered step-0 gradients, bf16
 # on an H100 80GB HBM3 at 700 W: its bound is fixed at about that worst
 # leaf's spread, which each run prints beside it (floor_f32_qkv)
 SHARDED_CHAOTIC_GRAD_REL_L2 = {"arctic": 0.1}
+# the SSM and hybrid families on a mesh (sharded_ssm): xLSTM's period of 8
+# layers (7 mLSTM, 1 sLSTM) at full width, 2 x 256 so that data = 2 splits
+# it, and Jamba at full width, 1 x 512, two steps each; held as
+# SHARDED_TRAIN's legs, in f32.  In bf16 their step-0 gradients are
+# chaotic at random init: xLSTM's period on (1, 2) read 40.7% rel L2 off
+# (1, 1)'s (203% on the first mLSTM's b_igate) where its own (1, 1) step
+# moves 57.1% (172% on its worst leaf) when its products are rounded once
+# from f32 (an NVIDIA H100 80GB HBM3 at 700 W; gradient norm 520 before
+# clipping).  In f32 each leaf is held to SHARDED_F32_GRAD_REL_L2, the
+# (1, 1) step's spread with its products rounded once from f64 printed
+# beside it.  Jamba in f32 holds the first four layers of its period
+# (three Mamba mixers, the attention layer, two MoE layers of 16
+# experts): the eight at f32 are 53 GB of parameters before their
+# gradients
+SHARDED_F32_GRAD_REL_L2 = 1e-2
+SHARDED_SSM = (
+    dict(label="xlstm", arch="xlstm-1.3b", num_layers=8, batch=2, seq=256,
+         steps=2, lr=3e-4, warmup=20, seed=0, meshes=((1, 2), (2, 1)),
+         phase="sharded_ssm", dtype="float32"),
+    dict(label="jamba", arch="jamba-v0.1-52b", num_layers=4, batch=1,
+         seq=512, steps=2, lr=3e-4, warmup=20, seed=0, meshes=((1, 2),),
+         phase="sharded_ssm", dtype="float32"))
+# sharded prefill / decode (sharded_infer): Qwen3-0.6B whole, a prefill of
+# 4 x 512 then 8 teacher-forced decode steps on (1, 2) and (2, 1); Jamba's
+# and xLSTM's periods at full width, 1 x 256 then 4 steps on (1, 2); every
+# step's logits within SHARDED_INFER_REL_L2 (the bf16 prefill bound) of
+# the same run on one device (none of the three is in PREFILL_CHAOTIC)
+SHARDED_INFER = (
+    dict(label="qwen", arch="qwen3-0.6b", batch=4, seq=512, steps=8,
+         window=1024, seed=0, meshes=((1, 2), (2, 1))),
+    dict(label="jamba", arch="jamba-v0.1-52b", num_layers=8, batch=1,
+         seq=256, steps=4, window=1024, seed=0, meshes=((1, 2),)),
+    dict(label="xlstm", arch="xlstm-1.3b", num_layers=8, batch=1, seq=256,
+         steps=4, window=1024, seed=0, meshes=((1, 2),)))
+SHARDED_INFER_REL_L2 = 2e-2
+SHARDED_INFER_TIMEOUT_S = 600
+# the legs whose one-device run is chaotic at random init: its logits move
+# past SHARDED_INFER_REL_L2 when its products are summed in another order
+# (qkv_in_f32(products=True), the floor each run prints).  On an NVIDIA
+# H100 80GB HBM3 at 700 W Jamba's period (no qk-norm, four routers of 16
+# experts, the Mamba states) read a floor of 23.8% on the prefill and 33-50%
+# on the decode steps, xLSTM's (the exponential gates' running maxima)
+# 24.0% and 21-23%, where Qwen3-0.6B reads 0.79%.  These legs are held
+# layer by layer: each layer of the sharded model on the one-device run's
+# own input to that layer (and, in a decode step, its cache before the
+# step), the layer's update (output minus input) within
+# SHARDED_INFER_REL_L2 of the one-device layer's.  Any other leg whose
+# floor reaches the bound fails the run.
+SHARDED_INFER_CHAOTIC = ("jamba", "xlstm")
 SHARDED_TRAIN_TIMEOUT_S = 900  # both ranks, every leg, start to result
 # the reckoning of Arctic's one-layer step on (1, 1) before any card run:
 # parameters, Adafactor's state and the batch (the dry run's 28.18 GB),
@@ -4265,7 +4344,11 @@ LAUNCHER_LINE = (r"\[train\] step +\d+ loss=[\d.]+ lr=[\d.e+-]+ "
 def sharded_cfg(tr, c):
     cfg = tr.get_config(c["arch"])
     if "num_layers" in c:
-        cfg = cfg.replace(num_layers=c["num_layers"])
+        # fewer layers than a period: the period's first ones
+        pattern = cfg.block_pattern[:c["num_layers"]]
+        cfg = cfg.replace(num_layers=c["num_layers"], block_pattern=pattern)
+    if "dtype" in c:
+        cfg = cfg.replace(dtype=c["dtype"])
     return cfg
 
 
@@ -4338,22 +4421,34 @@ def rel_l2_sums(torch, dev, got, want, sl_iter) -> tuple:
 
 
 @contextlib.contextmanager
-def qkv_in_f32(torch, common):
-    """The attention's q, k, v projections computed on f32 operands and
-    rounded once: the same products summed in another order, as a GEMM of
-    another shape (a tensor-parallel rank's, on its heads) sums them."""
-    real = common.feinsum
+def qkv_in_f32(torch, common, products: bool = False):
+    """The attention's q, k, v projections computed on f32 operands (f64
+    for an f32 model) and rounded once: the same products summed in
+    another order, as a GEMM of another shape (a tensor-parallel rank's,
+    on its heads) sums them.  With ``products`` every ``common.fdot`` too
+    (the mixers' projections, which a rank sums as row-parallel partial
+    products)."""
+    real, real_dot = common.feinsum, common.fdot
+
+    def wide(x):
+        return x.to(torch.float64 if x.dtype == torch.float32
+                    else torch.float32)
 
     def feinsum(eq, *xs):
         if eq == "bsd,dhk->bshk":
-            return torch.einsum(eq, *(x.float() for x in xs)).to(xs[0].dtype)
+            return torch.einsum(eq, *map(wide, xs)).to(xs[0].dtype)
         return real(eq, *xs)
 
+    def fdot(a, b):
+        return torch.matmul(wide(a), wide(b.to(a.dtype))).to(a.dtype)
+
     common.feinsum = feinsum
+    if products:
+        common.fdot = fdot
     try:
         yield
     finally:
-        common.feinsum = real
+        common.feinsum, common.fdot = real, real_dot
 
 
 def sharded_leg(torch, dist, rank, world, c, topo, want, m):
@@ -4486,7 +4581,8 @@ def sharded_reference(torch, dev, cfg, c, specs, every, extents,
     out["grad_rel_l2"] = (num / den) ** 0.5
     blocks.clear()
     kept = [g.to("cpu", copy=True) for g in tree_mod.leaves(grads)]
-    with qkv_in_f32(torch, common):
+    with qkv_in_f32(torch, common, products=cfg.family in ("ssm",
+                                                           "hybrid")):
         out["f32_qkv_loss"] = grads_of()
     floor, num, den = {}, 0.0, 0.0
     for path, k, g in zip(paths, kept, tree_mod.leaves(grads)):
@@ -4567,10 +4663,10 @@ def one_by_one_leg(torch, dev, tr, m, c, cfg, plain: bool):
 
 
 def phase_sharded_train(torch, dev, tr, m, dryrun_mod) -> dict:
-    """sharded_train: each of SHARDED_TRAIN on (1, 1) over nccl in this
-    process, then its two-rank meshes over gloo on card 0 (one pair of
-    rank processes for every leg: sharded_train_ranks), then the
-    launcher's --mesh 2,1.  Checks: no kernel launched; Qwen3-0.6B's (1,
+    """sharded_train, then sharded_ssm: each of SHARDED_TRAIN and
+    SHARDED_SSM on (1, 1) over nccl in this process, then its two-rank
+    meshes over gloo on card 0 (one pair of rank processes for every leg:
+    sharded_train_ranks), then the launcher's --mesh 2,1.  Checks: no kernel launched; Qwen3-0.6B's (1,
     1) losses, step-0 gradients and final parameters bitwise
     make_train_step's on init_model's weights; every mesh's step-0 loss
     within SHARDED_LOSS_RTOL of (1, 1)'s and of rank 0's recomputed (1, 1)
@@ -4589,13 +4685,14 @@ def phase_sharded_train(torch, dev, tr, m, dryrun_mod) -> dict:
     free_memory(torch)
     init_ranks(0, 1, port=free_port(), backend="nccl")
     try:
-        for c in SHARDED_TRAIN:
+        for c in SHARDED_TRAIN + SHARDED_SSM:
             t0 = time.perf_counter()
             cfg = sharded_cfg(tr, c)
             c = dict(c, global_batches=sharded_batches(tr, cfg, c))
             one = one_by_one_leg(torch, dev, tr, m, c, cfg, plain=False)
             steps, met0, launches, peak, grads, final = one
-            row = {"phase": "sharded_train", "label": c["label"],
+            row = {"phase": c.get("phase", "sharded_train"),
+                   "label": c["label"],
                    "arch": cfg.name, "num_layers": cfg.num_layers,
                    "mesh": [1, 1], "backend": "nccl", "batch": c["batch"],
                    "seq": c["seq"], "optimizer": cfg.optimizer,
@@ -4616,11 +4713,12 @@ def phase_sharded_train(torch, dev, tr, m, dryrun_mod) -> dict:
                     raise AssertionError(f"sharded_train {c['label']} "
                                          "(1, 1): not bitwise "
                                          "make_train_step")
-            else:
+            elif c["label"] == "arctic":
                 row["peak_reckoning_gb"] = list(ARCTIC_PEAK_RECKONING_GB)
             row["seconds"] = time.perf_counter() - t0
             emit(row)
-            out[f"sharded_train_{c['label']}_1x1"] = launches
+            out[f"{c.get('phase', 'sharded_train')}_{c['label']}_1x1"] = \
+                launches
             base[c["label"]] = steps[0]["loss"]
             legs += [(c, topo, dryrun_mod.collective_bytes(
                 cfg, c["batch"], c["seq"], topo)) for topo in c["meshes"]]
@@ -4635,8 +4733,9 @@ def phase_sharded_train(torch, dev, tr, m, dryrun_mod) -> dict:
     for li, (c, topo, want) in enumerate(legs):
         label = c["label"]
         lead = ranks[0][li]
+        phase = c.get("phase", "sharded_train")
         for r in (rk[li] for rk in ranks):
-            emit({"phase": "sharded_train_rank", "label": label,
+            emit({"phase": f"{phase}_rank", "label": label,
                   "mesh": list(topo), "backend": "gloo (one card)",
                   "rank": r["rank"], "coords": r["coords"],
                   "setup_s": r["setup_s"], "steps": r["steps"],
@@ -4646,8 +4745,10 @@ def phase_sharded_train(torch, dev, tr, m, dryrun_mod) -> dict:
                       r["max_memory_allocated_bytes"] / 1e9})
         loss0 = lead["steps"][0]["loss"]
         floor = lead["floor_f32_qkv"]
-        bound = SHARDED_CHAOTIC_GRAD_REL_L2.get(label, SHARDED_GRAD_REL_L2)
-        emit({"phase": "sharded_train", "label": label, "arch": c["arch"],
+        bound = (SHARDED_F32_GRAD_REL_L2 if c.get("dtype") == "float32"
+                 else SHARDED_CHAOTIC_GRAD_REL_L2.get(label,
+                                                      SHARDED_GRAD_REL_L2))
+        emit({"phase": phase, "label": label, "arch": c["arch"],
               "mesh": list(topo), "loss_step0": loss0,
               "loss_step0_1x1": base[label],
               "reference_loss": lead["reference_loss"],
@@ -4660,28 +4761,387 @@ def phase_sharded_train(torch, dev, tr, m, dryrun_mod) -> dict:
               "dryrun_collective_bytes": want, "card": smi()})
         for loss in (base[label], lead["reference_loss"]):
             if abs(loss0 - loss) > SHARDED_LOSS_RTOL * abs(loss):
-                raise AssertionError(f"sharded_train {label} {topo}: "
+                raise AssertionError(f"{phase} {label} {topo}: "
                                      f"step-0 loss {loss0} vs (1, 1) {loss}")
         bad = {k: v for k, v in lead["grad_rel_l2_by_leaf"].items()
                if not v <= bound}
         if bad:
-            raise AssertionError(f"sharded_train {label} {topo}: gradients "
+            raise AssertionError(f"{phase} {label} {topo}: gradients "
                                  f"off (1, 1)'s past {bound}: {bad}")
-        out[f"sharded_train_{label}_{topo[0]}x{topo[1]}"] = lead["launches"]
-    sharded_train_launcher(base["qwen"])
+        out[f"{phase}_{label}_{topo[0]}x{topo[1]}"] = lead["launches"]
+    if "qwen" in base:
+        sharded_train_launcher(base["qwen"])
+    return out
+
+
+def infer_tokens(tr, cfg, c):
+    """The leg's (B, S + steps) tokens: the prompt, then the teacher-forced
+    decode tokens (token_stream, the leg's seed)."""
+    it = tr.token_stream(cfg.vocab_size, c["batch"], c["seq"] + c["steps"],
+                         seed=c["seed"], device="cpu")
+    return next(it)["tokens"].numpy()
+
+
+def infer_run(torch, dev, model, tokens, c, m, mesh=None, layers=None):
+    """A prefill of the leg's prompt then its teacher-forced decode steps
+    on ``model`` (whole, or cut onto ``mesh``: this rank's rows, under the
+    prefill and the decode rules), every kernel count zeroed just before
+    the prefill and read after it and after the steps.  Returns (logits
+    per step as host f32 arrays, the global ones on a mesh's rank 0 (None
+    on the others), prefill launches, decode launches, prefill ms, ms per
+    decode step, the collective bytes of the prefill and of each step).
+    ``layers`` (a list, one device): each call's per-layer inputs and
+    outputs and, before a decode step, its cache, appended on the host
+    (layer_io)."""
+    from repro_torch.distributed import collectives, inference
+    from repro_torch.training.sharded import gather_tree, shard_tree
+    b, s, w = c["batch"], c["seq"], c["window"]
+    toks = torch.from_numpy(tokens).to(dev)
+    pre = dec = None
+    ctx = contextlib.nullcontext
+    if mesh is not None:
+        pre = inference.infer_mesh(mesh, "prefill", b)
+        dec = inference.infer_mesh(mesh, "decode", b, w)
+        rows = (inference.logits_spec(model, b, pre, "prefill")[0], None)
+        toks = shard_tree(toks, rows, pre)
+
+    def host(logits, sub):
+        if sub is None:
+            return logits.float().cpu().numpy()
+        spec = inference.logits_spec(model, b, sub, "decode" if sub is dec
+                                     else "prefill")
+        got = gather_tree(logits.float(), spec, sub)
+        return None if got is None else got.numpy()
+
+    logits_out, counts = [], []
+    torch.cuda.synchronize()
+    zero_counts(m.kernels)
+    t0 = time.perf_counter()
+    if pre is not None:
+        pre.counter.reset()
+    with (collectives.active(pre) if pre is not None else
+          layer_io(model, layers) if layers is not None else ctx()):
+        logits, cache = model.prefill({"tokens": toks[:, :s]}, w)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches_pre = {n: fn.launches for n, fn in m.kernels.items()}
+    if pre is not None:
+        counts.append(pre.counter.read())
+        cache = inference.decode_layout(cache, model, b, w, dec)
+    logits_out.append(host(logits, pre))
+    zero_counts(m.kernels)
+    step_ms = []
+    for i in range(c["steps"]):
+        t0 = time.perf_counter()
+        if dec is not None:
+            dec.counter.reset()
+        if layers is not None:
+            layers.append({k: t.cpu() for k, t in cache.items()})
+        with (collectives.active(dec) if dec is not None else
+              layer_io(model, layers) if layers is not None else ctx()):
+            logits, cache = model.decode_step(toks[:, s + i], cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if dec is not None:
+            counts.append(dec.counter.read())
+        logits_out.append(host(logits, dec))
+    launches_dec = {n: fn.launches for n, fn in m.kernels.items()}
+    del cache
+    return (logits_out, launches_pre, launches_dec, prefill_ms, step_ms,
+            counts)
+
+
+@contextlib.contextmanager
+def layer_io(model, out: list):
+    """Append each layer's (input, output) hidden states of the calls
+    inside (one list a call) to ``out``, on the host."""
+    real = model.block_apply
+    io = []
+
+    def block_apply(bp, x, **kw):
+        res = real(bp, x, **kw)
+        io.append((x.cpu(), res[0].cpu()))
+        return res
+
+    model.block_apply = block_apply
+    try:
+        yield
+    finally:
+        del model.block_apply
+        out.append(io)
+
+
+def layer_updates(torch, model, mesh, io, cache, rows: int, window: int):
+    """Each layer of a cut ``model`` on the one-device run's inputs ``io``
+    (a call's layer_io list) under ``mesh``: a prefill when ``cache`` is
+    None (a fresh cache for each layer), else a decode step from
+    ``cache`` (the one-device cache before the step, whole, cut here by
+    the decode rules).  Returns each layer's update (output minus input),
+    gathered on rank 0 (None on the others)."""
+    from repro_torch.distributed import collectives, inference
+    from repro_torch.distributed.sharding import ShardingCtx, spec_for
+    from repro_torch.training.sharded import gather_tree, shard_tree
+    dev = next(model.parameters()).device
+    ctx = ShardingCtx(mesh, inference.rules_of("prefill" if cache is None
+                                               else "decode"))
+    spec = spec_for(tuple(io[0][0].shape),
+                    ("act_batch", "act_seq", "act_embed"), ctx)
+    local_cache = None
+    if cache is not None:
+        specs = inference.cache_specs(model, rows, window, mesh, "decode")
+        local_cache = shard_tree({k: t.to(dev) for k, t in cache.items()},
+                                 specs, mesh)
+    out = []
+    with torch.no_grad(), collectives.active(mesh):
+        for l, (x, _) in enumerate(io):
+            bp = model.blocks[l]
+            x = shard_tree(x.to(dev), spec, mesh)
+            if local_cache is None:
+                lc = model.layer_cache(
+                    model.local_cache(x.shape[0], window, mesh), l)
+                y = model.block_apply(bp, x, cache=lc, window=window)[0]
+            else:
+                step = local_cache["step"]
+                y = model.block_apply(
+                    bp, x, positions=step[:, None],
+                    cache=model.layer_cache(local_cache, l),
+                    decode_pos=step if bp.kind == "attn" else None,
+                    decode=True)[0]
+            got = gather_tree((y - x).float(), spec, mesh)
+            out.append(None if got is None else got.numpy())
+    return out
+
+
+def sharded_infer_ranks(rank, world, port, legs):
+    """Two ranks sharing card 0 over gloo (a ``launch.mesh.RankGroup``
+    target), running each of ``legs`` ((c, topo, want, tokens, io) of
+    SHARDED_INFER's meshes; ``want`` the dry run's bytes of the prefill
+    and of a decode step) in turn: this rank's blocks of ``init_model``'s
+    weights (``init_sharded``), its rows of the prompt, the prefill and
+    the decode steps (infer_run), every call's collective bytes equal to
+    ``want``; B7's calls recorded by their (q heads, kv heads); with
+    ``io`` (a chaotic leg: the one-device run's layer_io and caches) each
+    call's layers again on the one-device inputs (layer_updates).
+    Returns this rank's results by leg (rank 0's with the gathered
+    logits)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives, inference
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.training import sharded
+    m = SimpleNamespace(kernels=kernel_wrappers())
+    tr = SimpleNamespace(get_config=get_config)
+    dev = torch.device("cuda", 0)
+    real = attn_mod.flash_attention
+    heads = []
+
+    def recording(q, k, v, **kw):
+        heads.append((q.shape[1], k.shape[1]))
+        return real(q, k, v, **kw)
+
+    attn_mod.flash_attention = recording
+    init_ranks(rank, world, port=port, backend="gloo")
+    out = []
+    try:
+        for c, topo, want, tokens, io in legs:
+            cfg = sharded_cfg(tr, c)
+            mesh = collectives.device_mesh_comms(make_mesh(*topo), "staged")
+            t0 = time.perf_counter()
+            model = sharded.init_sharded(cfg, dev, c["seed"], mesh)
+            setup_s = time.perf_counter() - t0
+            heads.clear()
+            logits, l_pre, l_dec, pre_ms, step_ms, counts = infer_run(
+                torch, dev, model, tokens, c, m, mesh)
+            flash = list(heads)
+            for i, got in enumerate(counts):
+                kind = "prefill" if i == 0 else "decode"
+                if got != want[kind]:
+                    raise AssertionError(
+                        f"sharded_infer {c['label']} {topo} rank {rank} "
+                        f"call {i}: collective bytes {got} != the dry "
+                        f"run's {want[kind]}")
+            updates = None
+            if io is not None:              # layer by layer (chaotic legs)
+                b, w = c["batch"], c["window"]
+                pre = inference.infer_mesh(mesh, "prefill", b)
+                dec = inference.infer_mesh(mesh, "decode", b, w)
+                updates = [layer_updates(torch, model, pre, io[0], None, b,
+                                         w)]
+                for cache, step_io in zip(io[1::2], io[2::2]):
+                    updates.append(layer_updates(torch, model, dec, step_io,
+                                                 cache, b, w))
+            out.append({"rank": rank, "coords": mesh.coords,
+                        "setup_s": setup_s, "logits": logits,
+                        "layer_updates": updates,
+                        "launches_prefill": l_pre, "launches_decode": l_dec,
+                        "flash_heads": sorted(set(flash)),
+                        "flash_calls": len(flash), "prefill_ms": pre_ms,
+                        "step_ms": step_ms, "collective_bytes": counts[:2],
+                        "max_memory_allocated_bytes":
+                            torch.cuda.max_memory_allocated(dev)})
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+        return out
+    finally:
+        attn_mod.flash_attention = real
+        dist.destroy_process_group()
+
+
+def phase_sharded_infer(torch, dev, tr, m, dryrun_mod) -> dict:
+    """sharded_infer: each of SHARDED_INFER on one device in this process
+    (init_model's weights, the whole batch), then on its two-rank meshes
+    over gloo on card 0 (sharded_infer_ranks, one pair of processes for
+    every leg).  Checks: every step's gathered logits (the prefill's last
+    position, then each decode step's) within SHARDED_INFER_REL_L2 of the
+    one-device run's in relative L2; B7 launched once a prefill per
+    attention layer on every rank (28 for Qwen3-0.6B) on the rank's local
+    heads (8 q / 4 kv on (1, 2)) and on the one-device prefill alike, no
+    other kernel and no B7 launch in a decode step; every call's
+    collective bytes equal to the dry run's count
+    (launch/dryrun.collective_bytes).  Prints ms per prefill and decode
+    step per rank and on one device, bytes by kind and peak memory per
+    rank.  Returns the launches by label."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import common
+    out, legs, base, floors, ios = {}, [], {}, {}, {}
+    for c in SHARDED_INFER:
+        t0 = time.perf_counter()
+        cfg = sharded_cfg(tr, c)
+        tokens = infer_tokens(tr, cfg, c)
+        free_memory(torch)
+        model = tr.init_model(cfg, dev, c["seed"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        chaotic = c["label"] in SHARDED_INFER_CHAOTIC
+        io = [] if chaotic else None
+        logits, l_pre, l_dec, pre_ms, step_ms, _ = infer_run(
+            torch, dev, model, tokens, c, m, layers=io)
+        with qkv_in_f32(torch, common, products=True):
+            other = infer_run(torch, dev, model, tokens, c, m)[0]
+        floor = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                 for a, b in zip(other, logits)]
+        n_attn = cfg.layer_kinds.count("attn")
+        emit({"phase": "sharded_infer", "label": c["label"],
+              "chaotic": chaotic, "floor_products_f32": floor,
+              "arch": cfg.name, "num_layers": cfg.num_layers,
+              "mesh": [1, 1], "batch": c["batch"], "seq": c["seq"],
+              "steps": c["steps"], "window": c["window"],
+              "prefill_ms": pre_ms, "step_ms": step_ms,
+              "launches_prefill": l_pre, "launches_decode": l_dec,
+              "max_memory_allocated_gb":
+                  torch.cuda.max_memory_allocated(dev) / 1e9,
+              "seconds": time.perf_counter() - t0, "card": smi()})
+        if l_pre["flash_attention"] != n_attn:
+            raise AssertionError(f"sharded_infer {c['label']} (1, 1): "
+                                 f"{l_pre['flash_attention']} B7 launches, "
+                                 f"{n_attn} attention layers")
+        if max(floor) >= SHARDED_INFER_REL_L2 and not chaotic:
+            raise AssertionError(
+                f"sharded_infer {c['label']}: one device moves {floor} "
+                f"when its products are summed in another order (bound "
+                f"{SHARDED_INFER_REL_L2}), and it is not one of "
+                "SHARDED_INFER_CHAOTIC")
+        out[f"sharded_infer_{c['label']}_1x1"] = l_pre
+        base[c["label"]], floors[c["label"]] = logits, floor
+        ios[c["label"]] = io
+        del model
+        free_memory(torch)
+        for topo in c["meshes"]:
+            want = {kind: dryrun_mod.collective_bytes(
+                        cfg, c["batch"], c["seq"] if kind == "prefill"
+                        else c["window"], topo, kind)
+                    for kind in ("prefill", "decode")}
+            legs.append((c, topo, want, tokens, io))
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_infer_ranks, 2, (legs,),
+                      timeout=SHARDED_INFER_TIMEOUT_S, label="sharded_infer")
+    emit({"phase": "sharded_infer_ranks_seconds",
+          "seconds": time.perf_counter() - t0})
+    for li, (c, topo, want, _, io) in enumerate(legs):
+        cfg = sharded_cfg(tr, c)
+        n_attn = cfg.layer_kinds.count("attn")
+        h = cfg.num_heads // topo[1] if cfg.num_heads % topo[1] == 0 \
+            else cfg.num_heads
+        kvh = (cfg.num_kv_heads // topo[1]
+               if cfg.num_kv_heads % topo[1] == 0 and h != cfg.num_heads
+               else None)
+        lead = ranks[0][li]
+        rel = []
+        for g, w in zip(lead["logits"], base[c["label"]]):
+            rel.append(float(np.linalg.norm(g - w) / np.linalg.norm(w)))
+        for r in (rk[li] for rk in ranks):
+            emit({"phase": "sharded_infer_rank", "label": c["label"],
+                  "mesh": list(topo), "backend": "gloo (one card)",
+                  "rank": r["rank"], "coords": r["coords"],
+                  "setup_s": r["setup_s"], "prefill_ms": r["prefill_ms"],
+                  "step_ms": r["step_ms"],
+                  "launches_prefill": r["launches_prefill"],
+                  "launches_decode": r["launches_decode"],
+                  "flash_heads": r["flash_heads"],
+                  "flash_calls": r["flash_calls"],
+                  "collective_bytes": r["collective_bytes"],
+                  "max_memory_allocated_gb":
+                      r["max_memory_allocated_bytes"] / 1e9})
+            launched = dict(r["launches_prefill"])
+            if launched.pop("flash_attention") != n_attn or any(
+                    launched.values()) or any(r["launches_decode"].values()):
+                raise AssertionError(
+                    f"sharded_infer {c['label']} {topo} rank {r['rank']}: "
+                    f"launches {r['launches_prefill']} / "
+                    f"{r['launches_decode']}; {n_attn} B7 a prefill only")
+            if n_attn and (r["flash_calls"] != n_attn or (
+                    kvh is not None
+                    and r["flash_heads"] != [(h, kvh)])):
+                raise AssertionError(
+                    f"sharded_infer {c['label']} {topo}: B7 on "
+                    f"{r['flash_heads']} x {r['flash_calls']}, not on "
+                    f"({h}, {kvh}) local heads x {n_attn}")
+        per_layer = None
+        if io is not None:        # each call's layers: updates' rel L2
+            wants = [[(y - x).float().numpy() for x, y in call]
+                     for call in [io[0]] + io[2::2]]
+            per_layer = [[float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                          for g, w in zip(gots, ws)]
+                         for gots, ws in zip(lead["layer_updates"], wants)]
+        emit({"phase": "sharded_infer", "label": c["label"],
+              "arch": cfg.name, "mesh": list(topo),
+              "logits_rel_l2": rel, "bound": SHARDED_INFER_REL_L2,
+              "floor_products_f32": floors[c["label"]],
+              "layer_update_rel_l2": per_layer,
+              "dryrun_collective_bytes": want, "card": smi()})
+        if io is not None:
+            worst = max(max(call) for call in per_layer)
+            if not worst <= SHARDED_INFER_REL_L2:
+                raise AssertionError(
+                    f"sharded_infer {c['label']} {topo}: a layer's update "
+                    f"off the one-device layer's: {per_layer}")
+        elif not max(rel) <= SHARDED_INFER_REL_L2:
+            raise AssertionError(f"sharded_infer {c['label']} {topo}: "
+                                 f"logits off the one-device run's: {rel}")
+        out[f"sharded_infer_{c['label']}_{topo[0]}x{topo[1]}"] = \
+            lead["launches_prefill"]
     return out
 
 
 def sharded_train_launcher(base_loss: float) -> None:
     """``python -m repro_torch.launch.train --arch qwen3-0.6b --mesh 2,1
-    --steps 3``: two gloo ranks on the card, rank 0 printing the
+    --steps 2``: two gloo ranks on the card, rank 0 printing the
     reference's lines; its step-0 loss against (1, 1)'s."""
     import os
     import re
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen3-0.6b", "--mesh", "2,1", "--steps", "3"],
+         "qwen3-0.6b", "--mesh", "2,1", "--steps", "2"],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         capture_output=True, text=True, timeout=SHARDED_TRAIN_TIMEOUT_S)
     lines = [l for l in proc.stdout.splitlines() if l.startswith("[train]")]
@@ -4859,11 +5319,16 @@ def phase_dryrun(torch, dev, tr, m, dr, sweep) -> dict:
               "collective_bytes": r["collective_bytes"]})
     emit({"phase": "dryrun", "records": len(recs), "ok": status["ok"],
           "skip": status["skip"], "fail": status["fail"],
-          "seconds": sweep_s})
+          "seconds": sweep_s, "under_300_s": sweep_s < 300})
     if status["fail"]:
         raise AssertionError("dryrun: failed records " + str(
             [(r["arch"], r["shape"], r["error"]) for r in recs
              if r["status"] == "fail"]))
+    uncounted = [(r["arch"], r["shape"]) for r in recs if r["status"] == "ok"
+                 and not (r["collective_bytes"] or {}).get("total")]
+    if uncounted:
+        raise AssertionError(f"dryrun: records without collective bytes "
+                             f"{uncounted}")
     dryrun_tie(torch, dev, tr, m, dr)
     one = ARCTIC_ONE_LAYER
     mesh = dr.abstract_mesh((1, 1))
@@ -5257,6 +5722,12 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_more.update(phase_sharded_train(torch, dev, tr, m, dryrun_mod))
     emit({"phase": "sharded_train_total", "seconds":
+          time.perf_counter() - t0})
+
+    # ---- prefill and decode of the LLMs on a mesh
+    t0 = time.perf_counter()
+    launches_more.update(phase_sharded_infer(torch, dev, tr, m, dryrun_mod))
+    emit({"phase": "sharded_infer_total", "seconds":
           time.perf_counter() - t0})
 
     # ---- the SSM and hybrid families' training at full width

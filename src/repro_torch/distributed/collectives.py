@@ -11,7 +11,8 @@ on a failure:
   CUDA tensors: an all-gather is one broadcast of each rank's block into
   a stack, a reduce-scatter the all-reduce of the whole tensor cut to
   this rank's block (gloo on ranks that share a card, NCCL refusing two
-  ranks on one device; and gloo on the CPU);
+  ranks on one device; and gloo on the CPU), and an all-to-all gloo's
+  own through the host;
 * ``count``: moves nothing, returns tensors of the shapes the collective
   would give (on the ``meta`` device in the dry run) and counts what
   would move.
@@ -22,9 +23,15 @@ convention (``distributed/hlo.py``): the size of each call's result on
 this device, by kind (``all-gather``, ``all-reduce``, ``reduce-scatter``,
 ``all-to-all``) and ``total``.
 
-The autograd functions are the four patterns of a sharded step:
+The autograd functions are the patterns of a sharded step:
 ``gather_forward`` (all-gather over the FSDP axes, reduce-scatter
-backward), ``reduce_forward`` (the sum over the group, identity backward:
+backward: each rank uses its own part of the whole), ``gather_replicated``
+(all-gather, this rank's block of the gradient backward: a weight cut
+over ``model`` for storage only, used whole by a computation replicated
+over ``model``, so each rank's gradient of the whole is already the
+sum), ``all_to_all`` (blocks exchanged, the inverse exchange backward:
+a column-parallel output that another rank's channels need),
+``reduce_forward`` (the sum over the group, identity backward:
 a row-parallel output, or a statistic summed over ``data`` such as the
 loss's token count), ``reduce_backward`` (identity, all-reduce backward:
 a replicated input entering a tensor-parallel region) and
@@ -134,6 +141,27 @@ class Comm:
         self.counter.add("all-gather", out)
         return out
 
+    def all_to_all(self, x: torch.Tensor, dim: int, send: Sequence[int],
+                   recv: Sequence[int]) -> torch.Tensor:
+        """Blocks of ``x`` along ``dim`` to the ranks in order (``send[j]``
+        entries to rank j); the result holds what each rank sent here,
+        rank order (``recv[j]`` entries from rank j)."""
+        xt = x.detach().movedim(dim, 0).contiguous()
+        shape = (sum(recv),) + tuple(xt.shape[1:])
+        if self.transport == "count":
+            out = xt.new_empty(shape)
+        else:
+            import torch.distributed as dist
+            host = self.transport == "staged"
+            src = xt.cpu() if host else xt
+            out = src.new_empty(shape)
+            dist.all_to_all_single(out, src, list(recv), list(send),
+                                   group=self.group)
+            out = out.to(x.device)
+        out = out.movedim(0, dim)
+        self.counter.add("all-to-all", out)
+        return out
+
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block along ``dim`` of the sum over the group."""
         x = x.detach()
@@ -173,6 +201,30 @@ class _GatherForward(torch.autograd.Function):
         return ctx.comm.reduce_scatter(grad, ctx.dim), None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm: Comm, dim: int):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        c = grad.shape[ctx.dim] // ctx.comm.size
+        return grad.narrow(ctx.dim, ctx.comm.rank * c, c), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm: Comm, dim: int, send, recv):
+        ctx.comm, ctx.dim, ctx.send, ctx.recv = comm, dim, send, recv
+        return comm.all_to_all(x, dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.comm.all_to_all(grad, ctx.dim, ctx.recv, ctx.send),
+                None, None, None, None)
+
+
 class _ReduceForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm: Comm):
@@ -202,6 +254,22 @@ def gather_forward(x: torch.Tensor, comm: Optional[Comm],
     return x if comm is None else _GatherForward.apply(x, comm, dim)
 
 
+def gather_replicated(x: torch.Tensor, comm: Optional[Comm],
+                      dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` for a computation that every rank of the
+    group runs whole on the same inputs: the gradient of the whole is then
+    the same on every rank, and this rank keeps its block of it (no
+    collective backward).  ``x`` itself when ``comm`` is None."""
+    return x if comm is None else _GatherReplicated.apply(x, comm, dim)
+
+
+def all_to_all(x: torch.Tensor, comm: Comm, dim: int, send: Sequence[int],
+               recv: Sequence[int]) -> torch.Tensor:
+    """``Comm.all_to_all``; the gradient goes back by the inverse
+    exchange."""
+    return _AllToAll.apply(x, comm, dim, tuple(send), tuple(recv))
+
+
 def reduce_forward(x: torch.Tensor, comm: Optional[Comm]) -> torch.Tensor:
     """The sum over the group; the gradient passes as it is (every rank
     carries the same downstream gradient)."""
@@ -221,7 +289,8 @@ def reduce_backward(x: torch.Tensor, comm: Optional[Comm]) -> torch.Tensor:
 class MeshComms:
     """A mesh as a sharded step sees it: ``extents`` and this rank's
     ``coords`` by axis name (major axis first), ``batch_axes`` (the axes
-    that cut the batch rows) and ``comm(axes)``, the ranks that share this
+    that cut the batch rows), ``kv_axes`` (those that cut a decode
+    cache's slots) and ``comm(axes)``, the ranks that share this
     rank's coordinates off ``axes`` (None when they are this rank alone).
     ``make_comm(axes, size, rank, counter)`` builds a Comm once per set of
     axes; every Comm of the mesh adds its bytes to ``counter``."""
@@ -229,10 +298,12 @@ class MeshComms:
     def __init__(self, extents: Dict[str, int], coords: Dict[str, int],
                  make_comm: Callable[..., Comm],
                  batch_axes: Sequence[str] = (),
-                 counter: Optional[Counter] = None):
+                 counter: Optional[Counter] = None,
+                 kv_axes: Sequence[str] = ()):
         self.extents, self.coords = dict(extents), dict(coords)
         self.axis_names = tuple(extents)
         self.batch_axes = tuple(batch_axes)
+        self.kv_axes = tuple(kv_axes)
         self.counter = Counter() if counter is None else counter
         self._make = make_comm
         self._comms: Dict[Tuple[str, ...], Optional[Comm]] = {}
@@ -257,10 +328,12 @@ class MeshComms:
                                  self._make(axes, size, rank, self.counter))
         return self._comms[axes]
 
-    def with_batch_axes(self, axes: Sequence[str]) -> "MeshComms":
-        """This mesh (its comms and counter) with ``batch_axes``."""
+    def with_batch_axes(self, axes: Sequence[str],
+                        kv_axes: Sequence[str] = ()) -> "MeshComms":
+        """This mesh (its comms and counter) with ``batch_axes`` (and
+        ``kv_axes``)."""
         out = MeshComms(self.extents, self.coords, self._make, axes,
-                        self.counter)
+                        self.counter, kv_axes)
         out._comms = self._comms
         return out
 

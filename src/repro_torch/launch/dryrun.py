@@ -32,16 +32,22 @@ What each part of a record is here, against the reference's compile:
   sums of the local shards of the step's inputs / outputs under their
   specs (``specs.shard_bytes``), exact; there is no compiler, so the
   temporaries and the generated code have no size (``null``).
-* collectives: for a train record of an attention-only family (dense,
-  MoE, VLM, audio), the sharded step (``training/sharded.py``) runs on
-  ``meta`` at the local shard shapes of rank coordinates 0 of the record's
-  mesh, through counting comms (``distributed/collectives.py``: nothing
-  moves, each call's result size is counted), the counterpart of the
-  reference's HLO parse (``distributed/hlo.py``): ``collective_bytes`` by
-  kind per device and step, and ``collective_s`` = total over NVLink's
-  bandwidth.  Prefill and decode records, and the SSM and hybrid
-  families, stay ``null``: the port has no sharded serving of the LLMs,
-  and the sharded step does not cut the mixers' ``inner`` axis yet.
+* collectives: the record's sharded step (the train step of
+  ``training/sharded.py``, or the prefill, encode or decode step under
+  ``distributed/inference.py``'s rules) runs on ``meta`` at the local
+  shard shapes of rank coordinates 0 of the record's mesh, through
+  counting comms (``distributed/collectives.py``: nothing moves, each
+  call's result size is counted), the counterpart of the reference's HLO
+  parse (``distributed/hlo.py``): ``collective_bytes`` by kind per device
+  and step, and ``collective_s`` = total over NVLink's bandwidth.  As the
+  reference's counts, they are measured at depth ``period`` and ``2 *
+  period`` and extrapolated to the full depth (every period's
+  collectives are the same); for the SSM and hybrid families' train and
+  prefill shapes (whose token loops and chunk loops make a long step on
+  ``meta`` slow), each depth is counted at ``COLLECTIVE_SEQS`` and fitted
+  by a line in S (every count is a constant or linear in S: weights,
+  activations, the CE's chunks), and ``notes["collective_fit"]`` says
+  so.
 * roofline: on the H100's peaks (below), per device.
 """
 from __future__ import annotations
@@ -52,7 +58,7 @@ import math
 import os
 import time
 import traceback
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +67,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.configs.shapes import SHAPES
-from repro_torch.distributed.sharding import mesh_extents
+from repro_torch.distributed.sharding import block_view, mesh_extents
 from repro_torch.launch.mesh import abstract_mesh, abstract_production_mesh
 from repro_torch.launch.specs import (batch_specs, build_bundle, model_flops,
                                       resolve_config, shard_bytes,
@@ -70,22 +76,28 @@ from repro_torch.models import flags as model_flags
 from repro_torch.models.transformer import TransformerModel
 from repro_torch.training.loop import param_tree
 from repro_torch.training.optimizer import cosine_schedule, make_optimizer
-from repro_torch.training.sharded import (ATTENTION_ONLY, counting_train_mesh,
-                                          cut_model, make_sharded_train_step)
+from repro_torch.distributed import collectives, inference
+from repro_torch.training.sharded import (counting_train_mesh, cut_model,
+                                          make_sharded_train_step)
 
 # NVIDIA H100 SXM (80 GB HBM3) roofline denominators, per card
 PEAK_FLOPS = 989e12          # bf16 dense tensor-core FLOP/s
 HBM_BW = 3.35e12             # HBM3 bytes/s
 NVLINK_BW = 900e9            # NVLink 4, 18 links: bytes/s, both directions
 
+# the sequences at which an SSM or hybrid train / prefill step's
+# collectives are counted, then fitted by a line in S
+COLLECTIVE_SEQS = (128, 256)
+
 NOTES = {
     "temp_size_in_bytes": "no compiler: an eager step's temporaries have "
                           "no static size",
     "generated_code_size_in_bytes": "no compiler",
     "alias_size_in_bytes": "no compiler",
-    "collective_bytes": "the sharded train step on meta at rank "
-                        "coordinates 0, through counting comms: each "
-                        "call's result bytes on this device, by kind",
+    "collective_bytes": "the sharded step on meta at rank coordinates 0, "
+                        "through counting comms: each call's result bytes "
+                        "on this device, by kind; at depth period and 2 x "
+                        "period, extrapolated to the full depth",
     "per_device": "global FLOPs and bytes over n_chips, an even split",
     "bytes_accessed": "every non-view aten op's input and output bytes "
                       "(eager, unfused)",
@@ -274,35 +286,105 @@ def global_cost(arch: str, shape_name: str, mesh, prefix_groups: int = 1,
     return _extrapolate(c1, c2, period, 2 * period, cfg.num_layers)
 
 
-def collectives_null_reason(cfg, shape) -> Optional[str]:
-    """Why a record has no collective count (None when it has one)."""
-    if shape.kind != "train":
-        return ("the port has no sharded serving of the LLMs (prefill, "
-                "decode): only the train step runs on a mesh")
-    if cfg.family not in ATTENTION_ONLY:
-        return ("the SSM and hybrid families train on one device: the "
-                "sharded step does not cut the mixers' inner axis yet")
-    return None
+def _mesh_names(dims) -> Tuple[str, ...]:
+    return ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
 
 
-def collective_bytes(cfg, global_batch: int, seq: int,
-                     dims: Sequence[int]) -> Dict[str, int]:
-    """The collective bytes of one sharded train step of ``cfg`` (a global
-    batch of ``global_batch`` x ``seq``) on a mesh of ``dims``, per device
-    by kind and ``total``: the step on ``meta`` at rank coordinates 0's
-    shard shapes, through counting comms."""
-    mesh = counting_train_mesh(tuple(dims), global_batch)
+def collective_bytes(cfg, global_batch: int, seq: int, dims: Sequence[int],
+                     kind: str = "train",
+                     long_context: bool = False) -> Dict[str, int]:
+    """The collective bytes of one sharded step of ``cfg`` on a mesh of
+    ``dims``, per device by kind and ``total``: the step on ``meta`` at
+    rank coordinates 0's shard shapes, through counting comms.  ``kind``
+    "train" is the train step on a global batch of ``global_batch`` x
+    ``seq``; "prefill" the prefill of that batch (a cache of ``seq``
+    slots; the encoder's ``apply``); "decode" one decode step against a
+    cache of ``min(seq, cfg.sliding_window)`` slots, under the long
+    context rules with ``long_context``."""
+    if kind == "train":
+        mesh = counting_train_mesh(tuple(dims), global_batch)
+    else:
+        window = seq
+        if kind == "decode" and cfg.sliding_window:
+            window = min(seq, cfg.sliding_window)
+        mesh = inference.infer_mesh(
+            collectives.counting_mesh(dict(zip(_mesh_names(dims), dims))),
+            kind, global_batch, window if kind == "decode" else 0,
+            long_context)
     model = cut_model(TransformerModel(cfg, device="meta"), mesh)
-    params = param_tree(model)
-    opt = make_optimizer(cfg.optimizer)
-    state = opt.init(params)
-    step = make_sharded_train_step(model, opt,
-                                   cosine_schedule(3e-4, 100, 10_000), mesh)
     rows = global_batch // math.prod(mesh.extents[a]
                                      for a in mesh.batch_axes)
-    batch = batch_specs(cfg, rows, seq, train=True)[0]
-    step(params, state, batch)
+    if kind == "train":
+        params = param_tree(model)
+        opt = make_optimizer(cfg.optimizer)
+        state = opt.init(params)
+        step = make_sharded_train_step(
+            model, opt, cosine_schedule(3e-4, 100, 10_000), mesh)
+        batch = batch_specs(cfg, rows, seq, train=True)[0]
+        run = lambda: step(params, state, batch)  # noqa: E731
+    elif kind == "prefill":
+        batch = batch_specs(cfg, rows, seq, train=False)[0]
+        run = ((lambda: model.apply(batch)) if cfg.is_encoder
+               else (lambda: model.prefill(batch, seq)))
+    else:
+        specs = inference.cache_specs(model, global_batch, window, mesh,
+                                      "decode", long_context)
+        cache = {name: torch.empty(block_view(t, specs[name], mesh.coords,
+                                              mesh.extents).shape,
+                                   dtype=t.dtype, device="meta")
+                 for name, t in model.abstract_cache(global_batch,
+                                                     window).items()}
+        tokens = torch.empty((rows,), dtype=torch.int32, device="meta")
+        run = lambda: model.decode_step(tokens, cache)  # noqa: E731
+    with collectives.active(mesh):
+        counted(run)
     return mesh.counter.read()
+
+
+def collective_fit(arch: str, shape_name: str, dims: Sequence[int]
+                   ) -> Tuple[Dict[str, int], Optional[str]]:
+    """A record's collective bytes (``collective_bytes`` of its resolved
+    config and shape) at the full depth by the reference's extrapolation
+    from depth ``period`` and ``2 * period``; where the cost is probed in
+    S (``probe_seqs``: the SSM and hybrid families' train and prefill),
+    each depth counted at ``COLLECTIVE_SEQS`` and fitted by a line in S.
+    Returns (bytes by kind, a note of the fit or None)."""
+    shape = SHAPES[shape_name]
+    cfg = resolve_config(arch, shape)
+    period = len(cfg.block_pattern) or 1
+    seqs = list(COLLECTIVE_SEQS) if probe_seqs(cfg, shape) else None
+
+    def at(depth):
+        c = cfg.replace(num_layers=depth)
+        args = (shape.global_batch,)
+        kw = dict(kind=shape.kind, long_context=shape.name == "long_500k")
+        if not seqs:
+            return collective_bytes(c, *args, shape.seq_len, dims, **kw)
+        probes = [collective_bytes(c, *args, s, dims, **kw) for s in seqs]
+        line = {k: np.polyfit(np.asarray(seqs, dtype=float),
+                              [p[k] for p in probes], 1) for k in probes[0]}
+        return {k: float(np.polyval(v, shape.seq_len))
+                for k, v in line.items()}
+
+    c1, c2 = at(period), at(2 * period)
+    out = {k: int(round(c1[k] + (c2[k] - c1[k])
+                        * (cfg.num_layers - period) / period)) for k in c1}
+    note = None
+    if seqs:
+        note = (f"counted at S = {seqs} and fitted by a line in S (each "
+                f"count is constant or linear in S), evaluated at S = "
+                f"{shape.seq_len}")
+    return out, note
+
+
+def proof_seq(cfg, shape) -> Optional[int]:
+    """The sequence the proof runs at when a full-length step on ``meta``
+    is too slow (a stack with sLSTM and no attention layer, at a probed
+    shape: the largest probe), else None."""
+    seqs = probe_seqs(cfg, shape)
+    kinds = set(cfg.layer_kinds)
+    return (max(seqs) if seqs and "slstm" in kinds and "attn" not in kinds
+            else None)
 
 
 def make_mesh(multi_pod: bool, mesh_shape: str = ""):
@@ -334,10 +416,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         n_chips = mesh.size
         cfg = get_config(arch)
         shape = SHAPES[shape_name]
-        seqs = probe_seqs(cfg, shape)
-        kinds = set(cfg.layer_kinds)
-        proof_seq = (max(seqs) if seqs and "slstm" in kinds
-                     and "attn" not in kinds else None)
+        pseq = proof_seq(cfg, shape)
         key = (arch, shape_name, prefix_groups, attn_seq_shard,
                model_flags.MOE_GATHER_DECODE, model_flags.CE_REMAT)
         t0 = time.perf_counter()
@@ -348,10 +427,10 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         reused = ("proof",) + key in memo
         if not reused:
             run = bundle
-            if proof_seq is not None:
+            if pseq is not None:
                 run = build_bundle(arch, shape_name, mesh,
                                    prefix_groups=prefix_groups,
-                                   seq_override=proof_seq,
+                                   seq_override=pseq,
                                    attn_seq_shard=attn_seq_shard)
             t0 = time.perf_counter()
             out, proof = counted(run.step_fn, *run.args)
@@ -381,34 +460,27 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         t_cost = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        coll, t_coll = None, None
-        why_null = collectives_null_reason(cfg, shape)
-        if why_null is None:
-            ckey = ("collectives", mesh_name) + key
-            if ckey not in memo:
-                memo[ckey] = collective_bytes(
-                    resolve_config(arch, shape), shape.global_batch,
-                    shape.seq_len, tuple(extents.values()))
-            coll = memo[ckey]
-            t_coll = round(time.perf_counter() - t0, 2)
+        ckey = ("collectives", mesh_name) + key
+        if ckey not in memo:
+            memo[ckey] = collective_fit(arch, shape_name,
+                                        tuple(extents.values()))
+        coll, fit_note = memo[ckey]
+        t_coll = round(time.perf_counter() - t0, 2)
 
         notes = dict(NOTES)
-        if why_null is not None:
-            notes["collective_bytes"] = why_null
-        if proof_seq:
+        if fit_note:
+            notes["collective_fit"] = fit_note
+        if pseq:
             notes["proof_seq_len"] = (
                 f"the sLSTM token loop: the proof ran at full depth at "
-                f"S={proof_seq}, the largest probe sequence; the outputs "
+                f"S={pseq}, the largest probe sequence; the outputs "
                 f"of a stack with no attention layer do not depend on S")
         flops, nbytes = exact["flops"] / n_chips, exact["bytes"] / n_chips
         mflops = model_flops(cfg, shape)
         terms = {"compute_s": flops / PEAK_FLOPS,
                  "memory_s": nbytes / HBM_BW,
-                 "collective_s": (None if coll is None
-                                  else coll["total"] / NVLINK_BW)}
-        terms["dominant"] = max((k for k, v in terms.items()
-                                 if v is not None),
-                                key=lambda k: terms[k])
+                 "collective_s": coll["total"] / NVLINK_BW}
+        terms["dominant"] = max(terms, key=lambda k: terms[k])
         rec.update({
             "status": "ok",
             "n_chips": n_chips,
@@ -432,7 +504,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "cost_measure_s": round(t_cost, 2),
             "collective_count_s": t_coll,
             "hlo_bytes": None,
-            "proof_seq_len": proof_seq or shape.seq_len,
+            "proof_seq_len": pseq or shape.seq_len,
             "notes": notes,
         })
         print(f"[dryrun] OK {arch} x {shape_name} x {mesh_name}"
@@ -441,11 +513,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
               f" useful={rec['useful_flops_ratio']:.2f}"
               f" proof={t_proof:.1f}s{' (reused)' if reused else ''}"
               f" cost={t_cost:.1f}s", flush=True)
-        coll_s = ("null" if coll is None
-                  else f"{terms['collective_s']:.4e}")
         print(f"         roofline: compute_s={terms['compute_s']:.4e}"
               f" memory_s={terms['memory_s']:.4e}"
-              f" collective_s={coll_s}"
+              f" collective_s={terms['collective_s']:.4e}"
               f" dominant={terms['dominant']}", flush=True)
     except Exception as e:  # noqa: BLE001 — report, don't crash the sweep
         rec.update({"status": "fail", "error": f"{type(e).__name__}: {e}",

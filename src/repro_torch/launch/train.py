@@ -27,8 +27,8 @@ adaLN-zero modulation and head start at zero, as the reference's
 seed.  ``--save`` writes the trained parameters as the reference's tree
 (``checkpoint.save``, loadable by the reference's ``load`` in f32).
 
-On a mesh (``training/sharded.py``; the attention-only families: dense,
-MoE, VLM, audio):
+On a mesh (``training/sharded.py``; every family, the SSM and hybrid
+ones' mixers on their channels cut over ``model``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --reduced --mesh 2,2 --device cpu --steps 3
@@ -41,8 +41,8 @@ runs as one rank of torchrun's 256 on the reference's (16, 16) mesh and is
 refused in a group of any other size.  Each rank draws its blocks of the
 weights the single-device run draws, takes its rows of the same global
 batches, and rank 0 prints the reference's lines and writes ``--save``
-(the whole tree, gathered).  An SSM or hybrid config, and a batch that
-does not split over ``data``, are refused on a mesh wider than one rank.
+(the whole tree, gathered).  A batch that does not split over ``data``
+is refused on a mesh wider than one rank.
 """
 from __future__ import annotations
 
@@ -133,14 +133,12 @@ def config_of(args):
     return cfg.replace(dtype="float32") if args.reduced else cfg
 
 
-def check_mesh(cfg, args, dims) -> None:
+def check_mesh(args, dims) -> None:
     """Refuse, before any rank starts, what a mesh of ``dims`` cannot run:
-    the SSM and hybrid families, a batch that does not split over the
-    batch axes."""
-    from repro_torch.training.sharded import (batch_axes, check_family,
+    a batch that does not split over the batch axes."""
+    from repro_torch.training.sharded import (batch_axes,
                                               counting_train_mesh)
     try:
-        check_family(cfg, dims[0] * dims[1])
         batch_axes(counting_train_mesh(dims, args.batch), args.batch)
     except ValueError as e:
         raise SystemExit(f"[train] refused: {e}")
@@ -225,7 +223,7 @@ def run_production(args, cfg) -> None:
         raise SystemExit(f"[train] refused: --production-mesh needs "
                          f"{need} ranks (WORLD_SIZE={need}, e.g. under "
                          f"torchrun); this run has WORLD_SIZE={world}")
-    check_mesh(cfg, args, production_shape())
+    check_mesh(args, production_shape())
     device = args.device
     if torch.device(device).type == "cuda":
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
@@ -246,7 +244,7 @@ def main(argv=None) -> None:
         run_production(args, cfg)
         return
     if args.mesh:
-        check_mesh(cfg, args, args.mesh)
+        check_mesh(args, args.mesh)
         run_mesh(args)
         return
     model = init_model(cfg, args.device, args.seed)

@@ -33,6 +33,7 @@ rank.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,8 +46,8 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed.collectives import (reduce_backward,
                                                  reduce_forward)
 from repro_torch.models import common, flags
-from repro_torch.models.attention import (attend_direct, attention,
-                                         decode_attend)
+from repro_torch.models.attention import (NEG_INF, attend_direct,
+                                         attention, decode_attend)
 from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
@@ -172,6 +173,60 @@ def _tp(p, name: str, dim: int) -> Optional[collectives.Comm]:
     return mesh.comm(("model",))
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 tp: Optional[collectives.Comm]) -> torch.Tensor:
+    """``x @ w`` in x's dtype (``common.fdot``).  With ``tp``, w holds this
+    rank's rows (x this rank's columns): the f32 partial product is summed
+    over the model group and rounded once."""
+    if tp is None:
+        return common.fdot(x, w)
+    return reduce_forward(torch.matmul(x.to(F32), w.to(F32)),
+                          tp).to(x.dtype)
+
+
+def fused_halves(x: torch.Tensor, w: torch.Tensor,
+                 tp: Optional[collectives.Comm]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two halves of ``x @ w`` for a fused (D, 2N) projection split
+    right after its product (Mamba's ``w_in``, the mLSTM's ``w_up``).
+    With ``tp`` the 2N columns are cut contiguously over ``model``, so a
+    rank's block is not its block of each half (on two ranks, rank 0 holds
+    the whole first half): each rank takes the product on its columns
+    (x entering through ``reduce_backward``) and an all-to-all over
+    ``model`` hands every column to the rank whose channels it is
+    (``_halves_exchange``).  The halves are this rank's N / model
+    columns of each."""
+    if tp is None:
+        return common.fdot(x, w).chunk(2, dim=-1)
+    y = common.fdot(reduce_backward(x, tp), w)
+    order, send, recv = _halves_exchange(w.shape[1], tp.size, tp.rank)
+    if order is not None:
+        y = y[..., order]
+    return collectives.all_to_all(y, tp, y.ndim - 1, send,
+                                  recv).chunk(2, dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _halves_exchange(block: int, ranks: int, rank: int):
+    """The all-to-all of ``fused_halves`` for a rank holding columns
+    ``rank * block`` on of a fused 2N = ranks * block: global column j is
+    channel j mod N of its half, owned by rank (j mod N) // (N / ranks).
+    Returns (the order that groups this rank's columns by their owner,
+    None when they are grouped already; the counts it sends to each rank;
+    the counts each rank sends to it).  The columns that reach a rank
+    come in global order, so its first half's block, then its second's."""
+    c = block // 2
+    n = c * ranks
+    owner = (torch.arange(2 * n) % n) // c
+    mine = owner[rank * block:(rank + 1) * block]
+    order = torch.argsort(mine, stable=True)
+    send = torch.bincount(mine, minlength=ranks).tolist()
+    recv = (owner.view(ranks, block) == rank).sum(dim=1).tolist()
+    if torch.equal(order, torch.arange(block)):
+        order = None
+    return order, tuple(send), tuple(recv)
+
+
 # --------------------------------------------------------------------------
 # Attention layer
 # --------------------------------------------------------------------------
@@ -203,9 +258,9 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
-         tp: Optional[collectives.Comm] = None):
-    """q, k, v of the normed input x.  With ``tp`` (training, ``wq`` cut
-    over ``model``), on this rank's q heads: ``wq`` column-parallel, and
+         tp: Optional[collectives.Comm] = None, whole_kv: bool = False):
+    """q, k, v of the normed input x.  With ``tp`` (``wq`` cut over
+    ``model``), on this rank's q heads: ``wq`` column-parallel, and
     ``wk`` / ``wv`` alike when the kv heads are cut too; with those
     replicated (they do not divide ``model``), every rank projects all kv
     heads from the replicated input and each local q head takes its own,
@@ -213,7 +268,9 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
     grouping does (the gradient of the whole k and v summed over
     ``model``).  The qk-norm weights then act on local heads, so their
     gradients are summed over ``model`` too.  ``tp`` None is the
-    single-device projection."""
+    single-device projection.  ``whole_kv`` (no gradient: a prefill or a
+    decode step) also returns k and v of every kv head, gathered over
+    ``model`` where they are cut: (q, k, v, k_all, v_all)."""
     kv_cut = tp is None or p.cut("wk", 1)
     hq = reduce_backward(x, tp)
     hk = hq if kv_cut else x
@@ -228,12 +285,17 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions,
                              cfg.mrope_sections)
     k = common.rope_dispatch(k, positions, cfg.rope_kind, cfg.rope_theta,
                              cfg.mrope_sections)
+    k_all, v_all = k, v
+    if tp is not None and kv_cut and whole_kv:
+        k_all, v_all = tp.all_gather(k, 2), tp.all_gather(v, 2)
     if not kv_cut:
         hl = q.shape[2]
         group = cfg.num_heads // cfg.num_kv_heads
         idx = (tp.rank * hl + torch.arange(hl, device=q.device)) // group
         k = reduce_backward(k, tp)[:, :, idx]
         v = reduce_backward(v, tp)[:, :, idx]
+    if whole_kv:
+        return q, k, v, k_all, v_all
     return q, k, v
 
 
@@ -285,28 +347,45 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
       None.
     * decode:       ``cache`` holds K/V; ``decode_pos`` (B,) current
       positions; this position's K/V are written at slot decode_pos % w.
+
+    Under an active mesh whose ``model`` axis cuts the heads, every mode
+    runs on this rank's q heads (``_qkv``) and ``wo`` row-parallel; a
+    prefill fills its cache with every kv head (the prefill rules leave
+    the cache's kv heads and slots whole); a decode step on a cache whose
+    slots are cut (the mesh's ``kv_axes``) runs ``decode_attend_cut``.
     """
     if "norm_b" in p.defs:                          # the audio encoder
         h_in = common.layer_norm(x, p.norm, p.norm_b, cfg.norm_eps)
     else:
         h_in = common.rms_norm(x, p.norm, cfg.norm_eps)
     causal = not cfg.is_encoder
+    tp = _tp(p, "wq", 1)
     if decode_pos is not None:                       # ---- decode (Sq == 1)
         if cache is None:
             raise ValueError("attention decode step (decode_pos set) "
                              "requires a KV cache; got cache=None")
-        q, k, v = _qkv(p, h_in, cfg, positions)
-        write_kv(cache, k, v, decode_pos)
-        out = decode_attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
-                            decode_pos, cache["pos"])
+        mesh = collectives.current()
+        if mesh is None:
+            q, k, v = _qkv(p, h_in, cfg, positions)
+            write_kv(cache, k, v, decode_pos)
+            out = decode_attend(q, cache["k"].to(x.dtype),
+                                cache["v"].to(x.dtype), decode_pos,
+                                cache["pos"])
+        else:
+            q, _, _, k, v = _qkv(p, h_in, cfg, positions, tp, whole_kv=True)
+            out = decode_attend_cut(q, k, v, cache, decode_pos, tp,
+                                    mesh.comm(mesh.kv_axes))
     else:                                            # ---- full sequence
         s = x.shape[1]
         rope_pos = positions
         if rope_pos is None:
             rope_pos = torch.arange(s, device=x.device)[None]    # (1, S)
-        tp = _tp(p, "wq", 1) if train else None
-        q, k, v = _qkv(p, h_in, cfg, rope_pos, tp)
         pos1d = rope_pos[..., 0] if rope_pos.ndim == 3 else rope_pos
+        if cache is not None:
+            q, k, v, k_all, v_all = _qkv(p, h_in, cfg, rope_pos, tp,
+                                         whole_kv=True)
+        else:
+            q, k, v = _qkv(p, h_in, cfg, rope_pos, tp)
         if train:
             out = attend_direct(q, k, v, pos1d, pos1d, causal=causal,
                                 window=window)
@@ -316,13 +395,78 @@ def attn_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                             prefix_groups=prefix_groups)
         if cache is not None:                        # prefill: fill the cache
             pc = pos1d.to(torch.int32).expand(x.shape[0], s)
-            _prefill_fill(cache, k, v, pc)
-        if tp is not None:                           # wo row-parallel
-            proj = reduce_forward(torch.einsum(
-                "bshk,hkd->bsd", out.to(F32), p.wo.to(F32)), tp)
-            return x + proj.to(x.dtype), None
+            _prefill_fill(cache, k_all, v_all, pc)
+    if tp is not None:                               # wo row-parallel
+        proj = reduce_forward(torch.einsum(
+            "bshk,hkd->bsd", out.to(F32), p.wo.to(F32)), tp)
+        return x + proj.to(x.dtype), cache
     proj = common.feinsum("bshk,hkd->bsd", out, p.wo)
     return x + proj, cache
+
+
+def decode_attend_cut(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cache: Dict[str, torch.Tensor],
+                      decode_pos: torch.Tensor,
+                      tp: Optional[collectives.Comm],
+                      kv: Optional[collectives.Comm]) -> torch.Tensor:
+    """One decode step on a mesh.  q (B, 1, H_local, dh) is this rank's q
+    heads (all of them when ``tp`` is None); k, v (B, 1, KVH, dh) the new
+    token's, every kv head.  The layer cache holds every kv head and, when
+    ``kv`` is a group, this rank's block of the slots (the decode rules'
+    ``act_kv_seq``: over ``model``, over ``(data, model)`` for long
+    context).  The rank owning slot ``decode_pos % w`` writes the new
+    entry, the others write nothing.  q is gathered over ``model``, every
+    head attends the rank's slots (``decode_attend``, or
+    ``_merged_decode`` over cut slots), and the rank keeps its own heads'
+    output.  Returns (B, 1, H_local, dh) in q's dtype."""
+    hl = q.shape[2]
+    q_all = q if tp is None else tp.all_gather(q, 2)         # (B,1,H,dh)
+    if kv is None:
+        write_kv(cache, k, v, decode_pos)
+        out = decode_attend(q_all, cache["k"].to(q.dtype),
+                            cache["v"].to(q.dtype), decode_pos, cache["pos"])
+    else:
+        wl = cache["k"].shape[1]
+        slot = decode_pos.long() % (wl * kv.size) - kv.rank * wl
+        mine = (slot >= 0) & (slot < wl)
+        bidx = torch.arange(k.shape[0], device=k.device)
+        at = slot.clamp(0, wl - 1)
+        for name, new in (("k", k[:, 0]), ("v", v[:, 0]),
+                          ("pos", decode_pos)):
+            old = cache[name][bidx, at]
+            sel = mine.view((-1,) + (1,) * (old.ndim - 1))
+            cache[name][bidx, at] = torch.where(
+                sel, new.to(old.dtype), old)
+        out = _merged_decode(q_all, cache, decode_pos, kv)
+    if tp is not None:
+        out = out[:, :, tp.rank * hl:(tp.rank + 1) * hl]
+    return out
+
+
+def _merged_decode(q: torch.Tensor, cache: Dict[str, torch.Tensor],
+                   decode_pos: torch.Tensor,
+                   kv: collectives.Comm) -> torch.Tensor:
+    """``decode_attend`` of q (B, 1, H, dh) over slots cut over ``kv``:
+    every head attends this rank's slots, and the partial softmax terms
+    (the running max, the sum of weights and the weighted values, in f32)
+    are merged over ``kv`` by log-sum-exp."""
+    b, _, h, dh = q.shape
+    kvh = cache["k"].shape[2]
+    kc, vc = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    qg = q.reshape(b, kvh, h // kvh, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(F32), kc.to(F32)) * dh ** -0.5
+    kp = cache["pos"]                                        # (B, w)
+    valid = (kp >= 0) & (kp <= decode_pos[:, None])
+    s = s.masked_fill(~valid[:, None, None], NEG_INF)
+    m = s.amax(dim=-1)                                       # (B,KVH,G)
+    p = torch.exp(s - m[..., None]) * valid[:, None, None]
+    mx = kv.all_reduce(m, op="max")
+    w = torch.exp(m - mx)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(F32), vc.to(F32))
+    tot = kv.all_reduce(torch.cat([o * w[..., None],
+                                   (p.sum(dim=-1) * w)[..., None]], -1))
+    o = tot[..., :dh] / tot[..., dh:]
+    return o.to(q.dtype).reshape(b, 1, h, dh)
 
 
 def write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,

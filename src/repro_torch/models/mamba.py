@@ -26,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import reduce_backward
+from repro_torch.models import common, layers
 from repro_torch.models.layers import ParamGroup
 from repro_torch.models.params import ParamDef
 
@@ -72,11 +74,25 @@ def mamba_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
                              axes=("act_batch", None, "act_inner"))}
 
 
-def _ssm_params(p: ParamGroup, xc: torch.Tensor, cfg: ModelConfig):
-    """xc: (B, L, di) post-conv activations. Returns dA, dBx (B, L, di, ds)
-    and C (B, L, ds), all f32, for the span."""
+def _x_proj(p: ParamGroup, xc: torch.Tensor,
+            tp: Optional[collectives.Comm] = None) -> torch.Tensor:
+    """``dbc = xc @ w_x_proj`` (B, L, dt_rank + 2 d_state), in xc's dtype.
+    With ``tp`` (the channels cut over ``model``) the row-parallel partial
+    products are summed before any nonlinearity, and since each rank then
+    uses ``dbc`` on its own channels only, its gradient is summed over
+    ``model`` too."""
+    if tp is None:
+        return common.fdot(xc, p.w_x_proj)
+    return reduce_backward(layers.row_parallel(xc, p.w_x_proj, tp), tp)
+
+
+def _ssm_params(p: ParamGroup, xc: torch.Tensor, cfg: ModelConfig,
+                tp: Optional[collectives.Comm] = None):
+    """xc: (B, L, di) post-conv activations (this rank's channels under
+    ``tp``).  Returns dA, dBx (B, L, di, ds) and C (B, L, ds), all f32,
+    for the span."""
     _, di, ds, dtr = _dims(cfg)
-    dbc = common.fdot(xc, p.w_x_proj)                        # (B,L,dtr+2ds)
+    dbc = _x_proj(p, xc, tp)                                 # (B,L,dtr+2ds)
     dt_r = dbc[..., :dtr]
     b_mat = dbc[..., dtr:dtr + ds].to(F32)                   # (B,L,ds)
     c_mat = dbc[..., dtr + ds:].to(F32)                      # (B,L,ds)
@@ -114,14 +130,21 @@ def mamba_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                 chunk: int = 256) -> Tuple[torch.Tensor, State]:
     """Pre-norm Mamba block with residual.  Returns (x, state): with
     ``decode`` the one-token step updates ``state``'s tensors in place and
-    returns them; else the state after the sequence is new tensors."""
+    returns them; else the state after the sequence is new tensors.
+
+    Under an active mesh that cuts the ``inner`` channels over ``model``
+    the block runs on this rank's channels: ``w_in`` column-parallel
+    (``layers.fused_halves``), the conv, ``w_dt``, ``b_dt``, ``a_log``,
+    ``d_skip`` and the scan on local channels, ``w_x_proj`` row-parallel
+    (summed before ``softplus``), ``w_out`` row-parallel (summed in f32,
+    rounded once); the state is this rank's channels."""
     res = x
     b, s, _ = x.shape
-    _, di, ds, _ = _dims(cfg)
     kk = cfg.ssm.d_conv
+    tp = layers._tp(p, "conv_w", 1)
     xn = common.rms_norm(x, p.norm, cfg.norm_eps)
-    xz = common.fdot(xn, p.w_in)
-    xi, z = xz.chunk(2, dim=-1)                              # (B,S,di)
+    xi, z = layers.fused_halves(xn, p.w_in, tp)              # (B,S,di)
+    di = xi.shape[-1]                                        # local
 
     conv_state = state["conv"] if state is not None else None
     conv_out = common.causal_conv1d(xi, p.conv_w, conv_state) + p.conv_b
@@ -135,20 +158,21 @@ def mamba_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
             raise ValueError(f"mamba decode step expects seq len 1, got {s}")
         if state is None:
             raise ValueError("mamba decode step requires a state")
-        da, dbx, c_mat = _ssm_params(p, xc, cfg)
+        da, dbx, c_mat = _ssm_params(p, xc, cfg, tp)
         h = state["ssm"].mul_(da[:, 0]).add_(dbx[:, 0])      # in place
         y = torch.matmul(h, c_mat[:, 0, :, None])[..., 0][:, None]
         state["conv"].copy_(new_conv)
         new_state = state
     else:
         h = (state["ssm"] if state is not None
-             else torch.zeros((b, di, ds), dtype=F32, device=x.device))
+             else torch.zeros((b, di, p.a_log.shape[1]), dtype=F32,
+                              device=x.device))
         cs = min(chunk, s)
         while s % cs:                                # largest divisor <= chunk
             cs -= 1
         ys = []
         for i in range(0, s, cs):
-            da, dbx, c_mat = _ssm_params(p, xc[:, i:i + cs], cfg)
+            da, dbx, c_mat = _ssm_params(p, xc[:, i:i + cs], cfg, tp)
             y_c, h = _chunk_scan(da, dbx, c_mat, h)
             ys.append(y_c)
         y = torch.cat(ys, dim=1)
@@ -156,5 +180,5 @@ def mamba_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
 
     y = y + p.d_skip * xc.to(F32)
     y = (y * F.silu(z.to(F32))).to(x.dtype)
-    out = common.fdot(y, p.w_out)
+    out = layers.row_parallel(y, p.w_out, tp)
     return res + out, new_state

@@ -21,7 +21,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import (gather_replicated,
+                                                 reduce_backward)
+from repro_torch.models import common, layers
 from repro_torch.models.layers import ParamGroup
 from repro_torch.models.params import ParamDef
 
@@ -145,36 +148,58 @@ def mlstm_sequence(q, k, v, li, lf, state: MState, chunk: int):
     return torch.cat(hs, dim=2).transpose(1, 2), state
 
 
-def mlstm_step(q, k, v, li, lf, state: MState):
+def mlstm_step(q, k, v, li, lf, state: MState,
+               tp: Optional[collectives.Comm] = None):
     """Single recurrent step. q,k,v: (B,H,dh) f32; li,lf: (B,H).  The
-    state's C, n and m (contiguous) are updated in place and returned."""
+    state's C, n and m (contiguous) are updated in place and returned.
+
+    With ``tp`` the state is cut on the key dim over ``model`` (the decode
+    cache's ``C`` (B, H, dh / model, dh) and ``n`` (B, H, dh / model), ``m``
+    whole; q, k, v and the gates whole on every rank): it takes this
+    rank's key rows of the update, and ``q . C`` and ``q . n``, partial
+    sums over the key dim, are summed over ``model`` in one all-reduce."""
     c0, n0, m0 = state
     b, h, dh = q.shape
+    kl = c0.shape[2]
+    lo = 0 if tp is None else tp.rank * kl
     scale = dh ** -0.5
     m_new = torch.maximum(lf + m0, li)
     fg = torch.exp(lf + m0 - m_new)
     ig = torch.exp(li - m_new)
-    ks = k * scale
+    ks = k[..., lo:lo + kl] * scale
     c1 = c0.mul_(fg[..., None, None])
-    c1.view(b * h, dh, dh).baddbmm_(
-        (ig[..., None] * ks).reshape(b * h, dh, 1),
+    c1.view(b * h, kl, dh).baddbmm_(
+        (ig[..., None] * ks).reshape(b * h, kl, 1),
         v.reshape(b * h, 1, dh))                       # + ig k v^T
     n1 = n0.mul_(fg[..., None]).add_(ig[..., None] * ks)
     m1 = m0.copy_(m_new)
-    denom = torch.maximum((q * n1).sum(dim=-1).abs(), torch.exp(-m_new))
-    out = torch.matmul(q[..., None, :], c1)[..., 0, :] / denom[..., None]
-    return out, (c1, n1, m1)
+    ql = q[..., lo:lo + kl]
+    if tp is None:
+        num, qn = torch.matmul(ql[..., None, :], c1)[..., 0, :], \
+            (ql * n1).sum(dim=-1)
+    else:
+        tot = tp.all_reduce(torch.cat(
+            [torch.matmul(ql[..., None, :], c1)[..., 0, :],
+             (ql * n1).sum(dim=-1, keepdim=True)], dim=-1))  # (B,H,dh+1)
+        num, qn = tot[..., :dh], tot[..., dh]
+    denom = torch.maximum(qn.abs(), torch.exp(-m_new))
+    return num / denom[..., None], (c1, n1, m1)
 
 
 def _mlstm_qkv_gates(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig,
-                     conv_state: Optional[torch.Tensor] = None):
+                     conv_state: Optional[torch.Tensor] = None,
+                     tp: Optional[collectives.Comm] = None):
     """Shared pre-processing: up-proj, conv, heads, gates.
 
     x: (B,S,D). Returns q,k,v (B,S,H,dh), li,lf (B,S,H) f32, z (B,S,inner),
-    new conv state (B,K-1,inner) f32."""
-    inner = p.conv_w.shape[1]
-    up = common.fdot(x, p.w_up)
-    xi, z = up.chunk(2, dim=-1)
+    new conv state (B,K-1,inner) f32.  With ``tp`` (``inner`` cut over
+    ``model``): ``w_up`` column-parallel (``layers.fused_halves``), the
+    conv on this rank's channels (z and the conv state are this rank's),
+    and ``wq``, ``wk``, ``wv`` and the gates row-parallel, summed over
+    ``model``: q, k, v and the gates are whole on every rank."""
+    h = cfg.num_heads
+    inner = int(cfg.ssm.proj_factor * cfg.d_model)
+    xi, z = layers.fused_halves(x, p.w_up, tp)
     kk = cfg.ssm.conv_kernel
     conv_out = common.causal_conv1d(xi, p.conv_w, conv_state)
     prev = (conv_state if conv_state is not None
@@ -182,18 +207,20 @@ def _mlstm_qkv_gates(p: ParamGroup, x: torch.Tensor, cfg: ModelConfig,
                              dtype=F32, device=x.device))
     new_conv = torch.cat([prev, xi.to(F32)], dim=1)[:, -(kk - 1):]
     xc = F.silu(conv_out.to(F32)).to(x.dtype)
-    h = cfg.num_heads
     b, s = x.shape[:2]
 
     def heads(t):
         return t.reshape(b, s, h, inner // h)
 
-    q = heads(common.fdot(xc, p.wq))
-    k = heads(common.fdot(xc, p.wk))
-    v = heads(common.fdot(xi, p.wv))
+    def proj(t, w):
+        return layers.row_parallel(t, w, tp)
+
+    q = heads(proj(xc, p.wq))
+    k = heads(proj(xc, p.wk))
+    v = heads(proj(xi, p.wv))
     xc32 = xc.to(F32)
-    li = torch.matmul(xc32, p.w_igate) + p.b_igate
-    lf = F.logsigmoid(torch.matmul(xc32, p.w_fgate) + p.b_fgate)
+    li = proj(xc32, p.w_igate) + p.b_igate
+    lf = F.logsigmoid(proj(xc32, p.w_fgate) + p.b_fgate)
     return q, k, v, li, lf, z, new_conv
 
 
@@ -202,15 +229,29 @@ def mlstm_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, State]:
     """Pre-norm mLSTM block with residual. state: see mlstm_state_defs.
     With ``decode`` the step updates ``state``'s tensors in place and
-    returns them; else the state after the sequence is new tensors."""
+    returns them; else the state after the sequence is new tensors.
+
+    Under an active mesh that cuts ``inner`` over ``model``, q, k, v and
+    the gates are whole on every rank (``_mlstm_qkv_gates``) and the
+    recurrence runs whole, replicated over ``model``; the state it returns
+    and the decode state it steps are cut as their specs say (``C`` and
+    ``n`` on the key dim: ``mlstm_step(tp=)``, the conv state on the
+    channels).  ``out_norm`` takes its RMS over the whole ``inner`` and
+    the rank keeps its channels (the gradient of the replicated output
+    summed over ``model`` there), and ``w_down`` is row-parallel."""
     res = x
     xn = common.rms_norm(x, p.norm, cfg.norm_eps)
     conv_state = state["conv"] if state is not None else None
-    q, k, v, li, lf, z, new_conv = _mlstm_qkv_gates(p, xn, cfg, conv_state)
+    tp = layers._tp(p, "conv_w", 1)
+    q, k, v, li, lf, z, new_conv = _mlstm_qkv_gates(p, xn, cfg, conv_state,
+                                                    tp)
     b, s = x.shape[:2]
     h = cfg.num_heads
-    inner = p.conv_w.shape[1]
+    inner = int(cfg.ssm.proj_factor * cfg.d_model)
     dh = inner // h
+    # the state's key dim (C's and n's act_inner) is cut over model when
+    # the head dim divides: the rules put act_inner on model with inner
+    cut = tp is not None and dh % tp.size == 0
     if state is not None:
         st = (state["C"], state["n"], state["m"])
     else:
@@ -223,7 +264,8 @@ def mlstm_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
         if state is None:
             raise ValueError("mlstm decode step requires a state")
         hs, st = mlstm_step(q[:, 0].to(F32), k[:, 0].to(F32),
-                            v[:, 0].to(F32), li[:, 0], lf[:, 0], st)
+                            v[:, 0].to(F32), li[:, 0], lf[:, 0], st,
+                            tp if cut else None)
         hs = hs[:, None]                               # (B,1,H,dh)
         state["conv"].copy_(new_conv)
         new_state = state
@@ -232,11 +274,24 @@ def mlstm_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
         while s % chunk:                             # largest divisor <= chunk
             chunk -= 1
         hs, st = mlstm_sequence(q, k, v, li, lf, st, chunk)
-        new_state = {"C": st[0], "n": st[1], "m": st[2], "conv": new_conv}
-    hs = hs.reshape(b, s, inner)
-    hs = common.rms_norm(hs.to(x.dtype), p.out_norm, cfg.norm_eps)
+        c_st, n_st = st[0], st[1]
+        if cut:                                      # the state's key rows
+            kl = dh // tp.size
+            c_st = c_st[:, :, tp.rank * kl:(tp.rank + 1) * kl]
+            n_st = n_st[..., tp.rank * kl:(tp.rank + 1) * kl]
+        new_state = {"C": c_st, "n": n_st, "m": st[2], "conv": new_conv}
+    hs = hs.reshape(b, s, inner).to(x.dtype)
+    if tp is None:
+        hs = common.rms_norm(hs, p.out_norm, cfg.norm_eps)
+    else:
+        hf = hs.to(F32)
+        hf = hf * torch.rsqrt(hf.square().mean(dim=-1, keepdim=True)
+                              + cfg.norm_eps)
+        c = p.out_norm.shape[0]
+        hf = reduce_backward(hf, tp)[..., tp.rank * c:(tp.rank + 1) * c]
+        hs = (hf * p.out_norm.to(F32)).to(x.dtype)
     out = hs * F.silu(z.to(F32)).to(x.dtype)
-    out = common.fdot(out, p.w_down)
+    out = layers.row_parallel(out, p.w_down, tp)
     return res + out, new_state
 
 
@@ -277,12 +332,17 @@ def slstm_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
             for name in ("c", "n", "m", "h")}
 
 
-def _slstm_cell(p: ParamGroup, xw: torch.Tensor, state):
-    """xw: (B, 4D) input contribution (pre-computed). state: (c,n,m,h)."""
+def _slstm_cell(r_gates: torch.Tensor, xw: torch.Tensor, state,
+                tp: Optional[collectives.Comm] = None):
+    """xw: (B, 4D) input contribution (pre-computed); r_gates (H, dh,
+    4 dh), or with ``tp`` this rank's block of its last dim (the
+    recurrent term is then gathered over ``model``). state: (c,n,m,h)."""
     c0, n0, m0, h0 = state
     b = xw.shape[0]
     hh, dh = h0.shape[1], h0.shape[2]
-    rec = torch.matmul(h0.transpose(0, 1), p.r_gates).transpose(0, 1)
+    rec = torch.matmul(h0.transpose(0, 1), r_gates).transpose(0, 1)
+    if tp is not None:
+        rec = tp.all_gather(rec, 2)                    # (B,H,4dh)
     gates = xw.reshape(b, hh, 4 * dh) + rec            # (B,H,4dh)
     z, i_raw, f_raw, o_raw = gates.chunk(4, dim=-1)    # (B,H,dh) each
     z = torch.tanh(z)
@@ -296,17 +356,55 @@ def _slstm_cell(p: ParamGroup, xw: torch.Tensor, state):
     return (c1, n1, m_new, h1)
 
 
+def _slstm_gates(p: ParamGroup, xn: torch.Tensor, decode: bool):
+    """(xw, r_gates, tp): the input contribution ``xn @ w_gates +
+    b_gates`` (B, S, 4D) in f32, whole, and the recurrent weight with the
+    group its ``_slstm_cell`` gathers over.  A sequence takes the weights
+    whole (``_slstm_whole``) before its token loop; a decode step, one
+    token, takes the products on this rank's gate columns and gathers
+    them, (B, 4D) a step where the weights are D x 4D."""
+    if not decode:
+        w_gates, r_gates, b_gates = _slstm_whole(p)
+        return torch.matmul(xn.to(F32), w_gates) + b_gates, r_gates, None
+    xw = torch.matmul(xn.to(F32), p.w_gates) + p.b_gates
+    tp = layers._tp(p, "w_gates", 1)
+    if tp is not None:
+        xw = tp.all_gather(xw, 2)
+    return xw, p.r_gates, layers._tp(p, "r_gates", 2)
+
+
+def _slstm_whole(p: ParamGroup):
+    """The sLSTM's gate weights whole: under an active mesh that cuts
+    their gate columns over ``model`` they are gathered over ``model``
+    (``gather_replicated``: the recurrence runs whole on every rank, so
+    each rank keeps its block of the gradient).  A contiguous cut of the
+    head-major ``w_gates`` / ``b_gates`` columns gives a rank whole heads
+    only when the heads divide ``model``, and ``r_gates``' cut gives it
+    the same gate rows of every head, so the cut is storage only."""
+    tp = layers._tp(p, "w_gates", 1)
+    return (gather_replicated(p.w_gates, tp, 1),
+            gather_replicated(p.r_gates, layers._tp(p, "r_gates", 2), 2),
+            gather_replicated(p.b_gates, layers._tp(p, "b_gates", 0), 0))
+
+
 def slstm_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
                 state: Optional[State] = None, decode: bool = False
                 ) -> Tuple[torch.Tensor, State]:
     """Pre-norm sLSTM block with residual and its post-FFN (tanh GELU).
     With ``decode`` the step writes the new state into ``state``'s tensors
-    and returns them; else the state after the sequence is new tensors."""
+    and returns them; else the state after the sequence is new tensors.
+
+    Under an active mesh the gate weights are gathered before the token
+    loop (``_slstm_whole``) and the recurrence runs whole, replicated over
+    ``model``, with no collective inside the loop; a decode step gathers
+    the gate products instead (``_slstm_gates``); the post-FFN's ``ffn``
+    columns are tensor-parallel (``w_ff_in`` column-, ``w_ff_out``
+    row-parallel)."""
     res = x
     b, s, d = x.shape
     h, dh = cfg.num_heads, d // cfg.num_heads
     xn = common.rms_norm(x, p.norm, cfg.norm_eps)
-    xw = torch.matmul(xn.to(F32), p.w_gates) + p.b_gates    # (B,S,4D)
+    xw, r_gates, tp_r = _slstm_gates(p, xn, decode)         # (B,S,4D)
     if state is not None:
         st = (state["c"], state["n"], state["m"], state["h"])
     else:
@@ -318,7 +416,7 @@ def slstm_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
             raise ValueError(f"slstm decode step expects seq len 1, got {s}")
         if state is None:
             raise ValueError("slstm decode step requires a state")
-        st = _slstm_cell(p, xw[:, 0], st)
+        st = _slstm_cell(r_gates, xw[:, 0], st, tp_r)
         for name, t in zip(("c", "n", "m", "h"), st):
             state[name].copy_(t)
         hs = st[3][:, None]                                  # (B,1,H,dh)
@@ -326,7 +424,7 @@ def slstm_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
     else:
         outs = []
         for t in range(s):
-            st = _slstm_cell(p, xw[:, t], st)
+            st = _slstm_cell(r_gates, xw[:, t], st)
             outs.append(st[3])
         hs = torch.stack(outs, dim=1)                        # (B,S,H,dh)
         new_state = dict(zip(("c", "n", "m", "h"), st))
@@ -336,8 +434,9 @@ def slstm_apply(p: ParamGroup, x: torch.Tensor, *, cfg: ModelConfig,
     out = common.fdot(hs, p.w_out)
     x = res + out
     # post-FFN (GeLU)
-    hf = common.rms_norm(x, p.ffn_norm, cfg.norm_eps)
+    tp = layers._tp(p, "w_ff_in", 1)
+    hf = reduce_backward(common.rms_norm(x, p.ffn_norm, cfg.norm_eps), tp)
     hf = F.gelu(common.fdot(hf, p.w_ff_in).to(F32),
                 approximate="tanh").to(x.dtype)
-    x = x + common.fdot(hf, p.w_ff_out)
+    x = x + layers.row_parallel(hf, p.w_ff_out, tp)
     return x, new_state

@@ -49,6 +49,7 @@ for the audio encoder.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -264,10 +265,14 @@ class TransformerModel(nn.Module):
             x = torch.where(msk[..., None], scattered, x)
         return x
 
-    def unembed(self, hidden: torch.Tensor) -> torch.Tensor:
+    def unembed(self, hidden: torch.Tensor, top=None) -> torch.Tensor:
+        """Logits of ``hidden``; ``top`` stands for ``self.top`` (its
+        gathered view on a mesh, where they are this rank's vocab block
+        when the vocab is cut over ``model``: ``act_vocab``)."""
+        top = self.top if top is None else top
         if self.cfg.tie_embeddings:
-            return common.feinsum("...d,vd->...v", hidden, self.top.embed)
-        return common.fdot(hidden, self.top.lm_head)
+            return common.feinsum("...d,vd->...v", hidden, top.embed)
+        return common.fdot(hidden, top.lm_head)
 
     def _head_matrix(self, top=None) -> torch.Tensor:
         """(V, D) regardless of tie/untie (this rank's vocab rows when the
@@ -283,12 +288,18 @@ class TransformerModel(nn.Module):
             return layers._tp(top, "embed", 0)
         return layers._tp(top, "lm_head", 1)
 
-    def _single_device(self, what: str) -> None:
-        if self.cut_onto is not None:
-            raise NotImplementedError(
-                f"{what} runs on one device; this model is cut onto a "
-                f"{self.cut_onto} mesh (sharded serving of the LLMs is not "
-                "ported)")
+    def _mesh(self, what: str):
+        """The active mesh of a call on a cut model (None on one device);
+        raises when the model is cut and its mesh is not active."""
+        mesh = collectives.current()
+        if self.cut_onto is None:
+            return None
+        if mesh is None or tuple(mesh.extents.items()) != self.cut_onto:
+            raise RuntimeError(
+                f"{what}: this model is cut onto a {self.cut_onto} mesh; "
+                "run it under that mesh (collectives.active, "
+                "distributed.inference.infer_mesh)")
+        return mesh
 
     # ------------------------------------------------------------------
     # Blocks
@@ -319,7 +330,7 @@ class TransformerModel(nn.Module):
                                      prefix_groups=self.prefix_groups)
         else:
             fn = MIXERS[bp.kind][2]
-            p = getattr(bp, bp.kind)
+            p = layers.gathered(getattr(bp, bp.kind))
             if decode:
                 x, c = fn(p, x, cfg=self.cfg, state=cache, decode=True)
             else:
@@ -338,13 +349,17 @@ class TransformerModel(nn.Module):
     @torch.no_grad()
     def apply(self, batch: Batch) -> torch.Tensor:
         """Full-sequence forward (encode): the final-normed hidden states
-        (B, S, D) (the reference's ``apply(...)[0]``)."""
-        self._single_device("apply")
-        x = self.embed(batch)
+        (B, S, D) (the reference's ``apply(...)[0]``).  On a cut model,
+        under its mesh (the prefill rules): this rank's batch rows, the
+        weights gathered over the FSDP axes, heads and ffn over ``model``;
+        the hidden states are whole over ``model``."""
+        self._mesh("apply")
+        top = layers.gathered(self.top)
+        x = self.embed(batch, top)
         positions = _positions(batch)
         for bp in self.blocks:
             x = self.block_apply(bp, x, positions=positions)[0]
-        return common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
+        return common.rms_norm(x, top.final_norm, self.cfg.norm_eps)
 
     def _train_block(self, bp: TransformerBlock, x: torch.Tensor,
                      positions: Optional[torch.Tensor]):
@@ -463,25 +478,56 @@ class TransformerModel(nn.Module):
         return {key[len(pre):]: t[i] for key, t in cache.items()
                 if key.startswith(pre)}
 
+    def local_cache(self, batch: int, window: int, mesh) -> Cache:
+        """An empty cache of this rank's blocks under the prefill rules on
+        ``mesh``: ``batch`` local rows (the mesh's batch axes cut the
+        global batch), every slot and kv head, the mixer states' channels
+        cut as their specs say (``act_inner`` over ``model``)."""
+        from repro_torch.distributed.sharding import (ShardingCtx,
+                                                      block_view, make_rules,
+                                                      param_specs)
+        rows = batch * math.prod(mesh.extents[a] for a in mesh.batch_axes)
+        defs = self.cache_defs(rows, window)
+        specs = param_specs(defs, ShardingCtx(mesh, make_rules("prefill")))
+        out: Cache = {}
+        for name, d in defs.items():
+            shape = block_view(torch.empty(d.shape, device="meta"),
+                               specs[name], mesh.coords, mesh.extents).shape
+            out[name] = torch.zeros(shape,
+                                    dtype=dtype_of(d.dtype or self.dtype),
+                                    device=self.device)
+        if "pos" in out:
+            out["pos"].fill_(-1)
+        return out
+
     @torch.no_grad()
     def prefill(self, batch: Batch, window: int
                 ) -> Tuple[torch.Tensor, Cache]:
         """Full causal forward over the batch's S positions that also
         builds the decode cache of ``window`` slots.  Attention is
         sliding-window with that window.  Returns (last-position logits
-        (B, V), cache)."""
-        self._single_device("prefill")
-        x = self.embed(batch)
+        (B, V), cache).
+
+        On a cut model, under its mesh (``distributed.inference.
+        infer_mesh`` with the prefill rules): the batch is this rank's
+        rows, the logits this rank's vocab block (``act_vocab``), the
+        cache this rank's blocks under the prefill rules (every slot and
+        kv head of its rows; the mixer states' channels over
+        ``model``)."""
+        mesh = self._mesh("prefill")
+        top = layers.gathered(self.top)
+        x = self.embed(batch, top)
         b, s = x.shape[:2]
         positions = _positions(batch)
-        cache = self.init_cache(b, window)
+        cache = (self.init_cache(b, window) if mesh is None
+                 else self.local_cache(b, window, mesh))
         for l, bp in enumerate(self.blocks):
             x = self.block_apply(bp, x, positions=positions,
                                  cache=self.layer_cache(cache, l),
                                  window=window)[0]
-        x = common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
+        x = common.rms_norm(x, top.final_norm, self.cfg.norm_eps)
         cache["step"].fill_(s)
-        return self.unembed(x[:, -1]), cache
+        return self.unembed(x[:, -1], top), cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: Cache,
@@ -490,10 +536,16 @@ class TransformerModel(nn.Module):
         """tokens: (B,) int; ``extra`` joins the one-token batch (a VLM's
         ``vision_embeds`` / ``vision_mask``).  Returns (logits (B, V),
         cache), the cache updated in place (one K/V slot per attention
-        layer and sample, each mixer's state one step on, step + 1)."""
-        self._single_device("decode_step")
+        layer and sample, each mixer's state one step on, step + 1).
+
+        On a cut model, under its mesh (``infer_mesh`` with the decode
+        rules): the tokens are this rank's rows, the cache this rank's
+        blocks under the decode rules (the slots over the mesh's
+        ``kv_axes``), the logits this rank's vocab block."""
+        mesh = self._mesh("decode_step")
+        top = layers.gathered(self.top)
         step = cache["step"]                                 # (B,)
-        x = self.embed({"tokens": tokens[:, None], **(extra or {})})
+        x = self.embed({"tokens": tokens[:, None], **(extra or {})}, top)
         positions = step[:, None]
         if self.cfg.rope_kind == "mrope":          # one position, every axis
             positions = positions[..., None].expand(
@@ -503,8 +555,8 @@ class TransformerModel(nn.Module):
                 bp, x, positions=positions, cache=self.layer_cache(cache, l),
                 decode_pos=step if bp.kind == "attn" else None,
                 decode=True)[0]
-        x = common.rms_norm(x, self.top.final_norm, self.cfg.norm_eps)
-        logits = self.unembed(x[:, 0])
+        x = common.rms_norm(x, top.final_norm, self.cfg.norm_eps)
+        logits = self.unembed(x[:, 0], top)
         step.add_(1)
         return logits, cache
 

@@ -26,9 +26,9 @@ process per rank, each holding its block of every leaf.
 a mesh of one rank (bit for bit), and otherwise its counterpart: the same
 metrics, read back only at log steps, no host sync in a step.
 ``shard_tree`` and ``gather_tree`` move a tree between its global form and
-the ranks' blocks.  The SSM and hybrid families cut their mixers' ``inner``
-axis over ``model``, which this path does not run: ``check_family``
-refuses them on a mesh wider than one rank.
+the ranks' blocks.  Every family runs: the SSM and hybrid families' Mamba,
+mLSTM and sLSTM mixers run on their ``inner`` channels cut over ``model``
+(``models/mamba.py``, ``models/ssm.py``).
 """
 from __future__ import annotations
 
@@ -50,20 +50,6 @@ from repro_torch.models.params import def_leaves
 from repro_torch.training.loop import grad_tree, make_train_step
 from repro_torch.training.optimizer import (Adafactor, LeafShard,
                                             clip_by_global_norm)
-
-ATTENTION_ONLY = ("dense", "moe", "vlm", "audio")
-NEXT_FAMILIES = "ROADMAP A8 (the SSM and hybrid families on a mesh)"
-
-
-def check_family(cfg, mesh_size: int) -> None:
-    """Refuse an SSM or hybrid config on a mesh wider than one rank."""
-    if mesh_size > 1 and cfg.family not in ATTENTION_ONLY:
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family} family trains on one device only;"
-            f" its Mamba / mLSTM / sLSTM mixers cut their inner axis over "
-            f"model, which the sharded step does not run yet "
-            f"({NEXT_FAMILIES})")
-
 
 def train_ctx(mesh: MeshComms) -> ShardingCtx:
     """The train rules on ``mesh``'s extents."""
@@ -118,7 +104,6 @@ def cut_model(model, mesh: MeshComms):
     """Cut every parameter of ``model`` (a ``TransformerModel``) to this
     rank's block, in place; each group keeps its specs.  Returns the
     model."""
-    check_family(model.cfg, mesh.size)
     ctx = train_ctx(mesh)
     for group in _groups(model):
         group.specs = _group_specs(group, ctx)
@@ -138,7 +123,6 @@ def init_sharded(cfg, device, seed: int, mesh: MeshComms):
     blocks and one whole leaf."""
     from repro_torch.device import resolve_device
     from repro_torch.models.transformer import TransformerModel
-    check_family(cfg, mesh.size)
     dev = resolve_device(device)
     model = TransformerModel(cfg, device="meta")
     model.device = dev
@@ -216,7 +200,6 @@ def make_sharded_train_step(model, opt, lr_fn: Callable, mesh: MeshComms,
     blocks (clipped after a step), ``.specs`` its specs."""
     if mesh.size == 1:
         return make_train_step(model, opt, lr_fn, max_grad_norm)
-    check_family(model.cfg, mesh.size)
     if model.cut_onto != tuple(mesh.extents.items()):
         raise ValueError(f"the model is cut onto {model.cut_onto}, not onto "
                          f"this mesh {mesh.extents}")

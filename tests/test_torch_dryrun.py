@@ -392,26 +392,34 @@ def test_cli_small_meshes_are_ok(argv, tmp_path, capsys):
     rec = json.loads(path.read_text())
     assert rec == json.loads(json.dumps(recs[0], default=str))
     assert REF_RECORD_KEYS <= set(rec)
-    # a decode record: no sharded serving of the LLMs, so no count
-    assert rec["collective_bytes"] is None
-    assert rec["roofline"]["collective_s"] is None
-    assert "no sharded serving" in rec["notes"]["collective_bytes"]
+    # a decode record: the sharded decode step's count
+    coll = rec["collective_bytes"]
+    assert coll["total"] == sum(coll[k] for k in (
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all")) > 0
+    assert rec["roofline"]["collective_s"] == coll["total"] / \
+        dryrun.NVLINK_BW
+    roof = rec["roofline"]
+    assert roof["dominant"] == max(("compute_s", "memory_s",
+                                    "collective_s"), key=roof.get)
+    assert rec["notes"]["collective_bytes"].startswith("the sharded step")
     assert rec["memory_analysis"]["temp_size_in_bytes"] is None
-    assert rec["roofline"]["dominant"] in ("compute_s", "memory_s")
     assert rec["n_chips"] == math.prod(int(x) for x in argv[-1].split(","))
     assert rec["meta"]["cache_window"] in (8192, 32768)
 
 
-def _fsdp_bytes(arch: str, dims) -> tuple:
-    """(all-gather, reduce-scatter) bytes of one sharded train step, from
-    the specs alone: each leaf cut over ``data`` is gathered over it, the
-    result its model block (a block leaf twice: remat's recomputed forward
-    gathers again), and its gradient reduce-scattered once to its block;
-    each MoE dispatch (twice a layer) gathers the per-expert counts (int64)
+def _fsdp_bytes(arch: str, dims, kind: str = "train") -> tuple:
+    """(all-gather, reduce-scatter) bytes of one sharded step, from the
+    specs alone: each leaf cut over ``data`` is gathered over it, the
+    result its model block (in a train step a block leaf twice: remat's
+    recomputed forward gathers again), and in a train step its gradient
+    reduce-scattered once to its block; each MoE dispatch (twice a layer
+    in a train step, once otherwise) gathers the per-expert counts (int64)
     over ``data``."""
     cfg = get_config(arch)
-    ctx = sh.ShardingCtx(abstract_mesh(dims), sh.make_rules("train"))
-    defs = build_model(cfg, device="meta").param_defs()
+    train = kind == "train"
+    ctx = sh.ShardingCtx(abstract_mesh(dims), sh.make_rules(kind))
+    model = build_model(cfg, device="meta")
+    defs = model.param_defs()
     ext = sh.mesh_extents(ctx.mesh)
     gather = scatter = 0
     for key, d in _port_paths(defs, lambda x: isinstance(x, ParamDef)
@@ -423,11 +431,12 @@ def _fsdp_bytes(arch: str, dims) -> tuple:
             continue
         item = 4 if (d.dtype or cfg.dtype) == "float32" else 2
         block = math.prod(d.shape) * item // math.prod(split.values())
-        uses = 2 if key.startswith("blocks") and cfg.remat else 1
+        uses = 2 if key.startswith("blocks") and cfg.remat and train else 1
         gather += uses * block * data
-        scatter += block
+        scatter += block * train
     if cfg.moe is not None:
-        gather += 2 * cfg.num_layers * ext["data"] * cfg.moe.num_experts * 8
+        n_moe = sum("moe" in blk.subs for blk in model.blocks)
+        gather += (1 + train) * n_moe * ext["data"] * cfg.moe.num_experts * 8
     return gather, scatter
 
 
@@ -529,16 +538,162 @@ def test_train_records_count_their_collectives(arch):
     assert rec["scan_compile"]["collectives"] == got
     assert rec["roofline"]["collective_s"] == got["total"] / \
         dryrun.NVLINK_BW
-    assert rec["notes"]["collective_bytes"].startswith("the sharded train")
+    assert rec["notes"]["collective_bytes"].startswith("the sharded step")
 
 
 @pytest.mark.parametrize("arch,shape", [("qwen3-0.6b", "prefill_32k"),
                                         ("xlstm-1.3b", "train_4k")])
 def test_records_without_a_count_say_why(arch, shape):
-    reason = dryrun.collectives_null_reason(get_config(arch), SHAPES[shape])
-    assert reason and ("serving" in reason or "inner axis" in reason)
-    assert dryrun.collectives_null_reason(get_config("qwen3-0.6b"),
-                                          SHAPES["train_4k"]) is None
+    """No record lacks a count any more: a prefill record and an SSM train
+    record carry theirs, and their notes say how they were counted (the
+    SSM's fitted in S), not why they are missing."""
+    if shape == "prefill_32k":
+        rec = dryrun.run_one(arch, shape, False, "", measure_cost=False)
+        assert rec["status"] == "ok", rec.get("error")
+        got, notes = rec["collective_bytes"], rec["notes"]
+        assert notes["collective_bytes"].startswith("the sharded step")
+        assert "collective_fit" not in notes
+    else:
+        got, note = dryrun.collective_fit(arch, shape, (16, 16))
+        assert note.startswith(f"counted at S = {list(dryrun.COLLECTIVE_SEQS)}")
+    assert not hasattr(dryrun, "collectives_null_reason")
+    assert got["total"] > 0 and got["all-reduce"] > 0
+
+
+def _every_shape(arch):
+    return [s for s in SHAPES if not specs.skip_reason(arch, s)]
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_every_record_counts_its_collectives(arch):
+    """Every shape of every family on (16, 16): the sharded train,
+    prefill (encode) or decode step's bytes by kind, each kind an integer,
+    their total, all-reduces in every step (the row-parallel sums) and
+    an all-to-all where a Mamba or mLSTM mixer's fused input projection
+    is cut over ``model``."""
+    fused = bool({"mamba", "mlstm"} & set(get_config(arch).layer_kinds))
+    for shape in _every_shape(arch):
+        got, _ = dryrun.collective_fit(arch, shape, (16, 16))
+        kinds = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+        assert set(got) == set(kinds) | {"total"}, shape
+        assert all(isinstance(v, int) and v >= 0 for v in got.values())
+        assert got["total"] == sum(got[k] for k in kinds), shape
+        assert got["all-reduce"] > 0, shape
+        assert (got["all-to-all"] > 0) == fused, shape
+        assert (got["reduce-scatter"] > 0) == (SHAPES[shape].kind ==
+                                               "train"), shape
+
+
+def _qwen3_inference(dims, kind: str) -> dict:
+    """Qwen3-0.6B's prefill_32k or decode_32k bytes on (data, model) with
+    its 16 heads, the ffn and the vocab cut over ``model`` and its 8 kv
+    heads replicated (model = 16), bf16, from the specs and the port's
+    design.  Both gather every weight cut over ``data`` once
+    (``_fsdp_bytes``); per layer the f32 sums of the two row-parallel
+    outputs (``wo``, the FFN's down projection), and the vocab-parallel
+    lookup's bf16 sum.  The prefill's cache takes every kv head, which
+    every rank has (replicated): nothing more.  A decode step gathers q
+    over ``model`` (bf16, every head) and merges its slots' partial
+    softmax over ``model`` (the slots' axis): the f32 running max per
+    head, and the f32 weighted values and weight sums per head."""
+    cfg = get_config("qwen3-0.6b")
+    shape = SHAPES[f"{kind}_32k"]
+    d_, m_ = dims
+    assert cfg.num_heads % m_ == 0 and cfg.num_kv_heads % m_
+    b = shape.global_batch // d_
+    t = b * (shape.seq_len if kind == "prefill" else 1)
+    h, dh, d = cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
+    gather, _ = _fsdp_bytes("qwen3-0.6b", dims, kind)
+    layer = 2 * 4 * t * d
+    if kind == "decode":
+        gather += cfg.num_layers * 2 * b * h * dh
+        layer += 4 * b * h + 4 * b * h * (dh + 1)
+    reduce = cfg.num_layers * layer + 2 * t * d
+    return {"all-gather": gather, "all-reduce": reduce,
+            "reduce-scatter": 0, "all-to-all": 0, "total": gather + reduce}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_qwen3_inference_bytes_follow_the_specs(kind):
+    got, note = dryrun.collective_fit("qwen3-0.6b", f"{kind}_32k", (16, 16))
+    assert note is None
+    assert got == _qwen3_inference((16, 16), kind)
+
+
+def _jamba_all_reduce(dims, batch: int, seq: int) -> int:
+    """Jamba's all-reduce bytes of a train step on (data, model) (model =
+    16), bf16, remat on.  Its Mamba mixers (28 layers), ``inner`` cut over
+    ``model``: per chunk the f32 sum of ``w_x_proj``'s row-parallel
+    product (dt_rank + 2 d_state per token) and the f32 sum of ``w_out``'s,
+    in the forward and again in remat's recompute (the FFN or MoE after
+    them needs both); in the backward the bf16 gradient of ``dbc`` (each
+    rank uses it on its own channels) and of the normed input of ``w_in``.
+    The attention layers (4; 32 heads cut, 8 kv heads replicated) as
+    Qwen3's without qk-norm: ``wo``'s f32 sum twice, the gradients of the
+    replicated input and of the whole k and v.  The 16 FFN layers: the f32
+    sum once (the recompute stops before it) and the input's gradient.
+    The 16 MoE layers (one expert a rank) as Arctic's without a dense
+    branch.  Then the lookup, the head and the CE as for Qwen3, the
+    leaves that ``data`` does not cut (the mixers' ``conv_w``, ``conv_b``,
+    ``w_x_proj``, ``w_dt``, ``b_dt``, ``a_log``, ``d_skip``) whose
+    gradients are summed over it, and the optimizer's
+    (``_optimizer_all_reduce``)."""
+    cfg = get_config("jamba-v0.1-52b")
+    d_, m_ = dims
+    ctx = sh.ShardingCtx(abstract_mesh(dims), sh.make_rules("train"))
+    ext = sh.mesh_extents(ctx.mesh)
+    b = batch // d_
+    t = b * seq
+    act = t * cfg.d_model
+    ssm = cfg.ssm
+    proj = (ssm.dt_rank or math.ceil(cfg.d_model / 16)) + 2 * ssm.d_state
+    assert (ssm.expand * cfg.d_model) % m_ == 0
+    assert cfg.num_heads % m_ == 0 and cfg.num_kv_heads % m_
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    kinds = cfg.layer_kinds
+    n_moe = sum(1 for i in range(cfg.num_layers) if i % 2 == 1)
+    mamba = 2 * (4 * t * proj + 4 * act) + 2 * t * proj + 2 * act
+    attn = 2 * 4 * act + 2 * act + 2 * 2 * t * cfg.num_kv_heads * \
+        cfg.resolved_head_dim
+    ffn = 4 * act + 2 * act
+    moe = 2 * 4 * act + 2 * 4 * 2 * e + 2 * act + 4 * t * k
+    top = 2 * act + 2 * act + (seq // 512) * (b * 512 * 4 * 3) + 2 * 4
+    whole = 0
+    for d in _port_paths(build_model(cfg, device="meta").param_defs(),
+                         lambda x: isinstance(x, ParamDef)).values():
+        cut = {a for e_ in sh.spec_for(d.shape, d.axes, ctx)
+               for a in sh._as_tuple(e_)}
+        if "data" not in cut:
+            item = 4 if (d.dtype or cfg.dtype) == "float32" else 2
+            whole += math.prod(d.shape) * item // math.prod(
+                ext[a] for a in cut)
+    return (kinds.count("mamba") * mamba + kinds.count("attn") * attn
+            + (cfg.num_layers - n_moe) * ffn + n_moe * moe + top + whole
+            + _optimizer_all_reduce("jamba-v0.1-52b", dims))
+
+
+def test_jamba_train_all_reduce_follows_the_specs():
+    """Jamba's train_4k record on (16, 16): the all-reduce bytes of its
+    Mamba mixers, attention, FFN and MoE layers by ``_jamba_all_reduce``,
+    the FSDP bytes by ``_fsdp_bytes``, counted at two sequences and
+    fitted."""
+    shape = SHAPES["train_4k"]
+    got, note = dryrun.collective_fit("jamba-v0.1-52b", "train_4k",
+                                      (16, 16))
+    assert note is not None
+    gather, scatter = _fsdp_bytes("jamba-v0.1-52b", (16, 16))
+    assert got["all-reduce"] == _jamba_all_reduce(
+        (16, 16), shape.global_batch, shape.seq_len)
+    assert got["all-gather"] == gather
+    assert got["reduce-scatter"] == scatter
+    # the Mamba mixers' w_in product, a rank's 2 di / 16 columns of each
+    # token in bf16, goes to the ranks whose channels they are
+    # (fused_halves): in the forward, in remat's recompute, and its
+    # gradient back in the backward
+    cfg = get_config("jamba-v0.1-52b")
+    t = shape.global_batch // 16 * shape.seq_len
+    xz = t * 2 * cfg.ssm.expand * cfg.d_model // 16 * 2
+    assert got["all-to-all"] == cfg.layer_kinds.count("mamba") * 3 * xz
 
 
 def test_cli_skips_the_encoders_decode(capsys):

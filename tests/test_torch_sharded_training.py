@@ -49,11 +49,38 @@ py`` runs it.
   ``reduce_scatter_tensor``, NCCL's, which gloo runs on the CPU) gives the
   staged transport's step bitwise on (2, 2) (sums of two ranks are
   exact either way).
+- The SSM and hybrid families: xlstm-1.3b (mLSTM and sLSTM, AdamW) and
+  jamba-v0.1-52b (Mamba, attention, MoE, Adafactor), two steps on (2, 1),
+  (1, 2), (2, 2) and (1, 4) (on (1, 4) a rank holds half an sLSTM head's
+  gate columns and one of Jamba's 4 experts), against the reference: the
+  losses of its two jitted steps (``METRIC_TOL``); the step-0 metrics
+  (``METRIC_TOL``, the gradient norm ``GRAD_SCALE``) and every clipped
+  gradient leaf of step 0 within ``SSM_SCALE`` of the leaf's scale
+  (``tests/test_torch_ssm_training.py``'s SSM parity: 1e-5 for xLSTM,
+  5e-4 for Jamba), by atol (with rtol 1e-4) and by relative L2; step 1's
+  metrics and gradients likewise, against the reference's step on batch
+  1 at the parameters the ranks' step 0 left, each leaf's tolerance
+  widened by the single-device port's own distance there (two steps of
+  the reference from its own step 0 move step 1's gradients by up to
+  1.2e-4 of a leaf's scale for xLSTM and 1.5e-2 for Jamba: AdamW's and
+  Adafactor's first updates amplify step 0's 1e-5 differences; at the
+  same parameters the ranks land 1.2e-5 and 6.2e-4 from the reference;
+  measured on these inputs); the parameters and optimizer
+  state after each of the two steps equal to the reference's optimizer
+  replayed on that step's gathered gradients, state and parameters
+  (``OPT_TOL``), as the three-step runs.  xLSTM on (1, 4) is held to
+  ``SSM_SCALE_1x4`` = 3e-5: there the row-parallel products of the
+  mLSTM's q, k, v and gates are sums of four f32 partial products, and
+  splitting every f32 product of the single-device port into four partial
+  sums alike moves its own gradients by up to 2.3e-5 in relative L2 (the
+  first mLSTM's ``conv_w``; two partial sums: 1.3e-5; measured), while
+  the (1, 4) ranks land 1.6e-5 from the reference on that leaf.
 - The launcher: ``--mesh 2,1 --reduced --device cpu`` prints the
   reference's lines with the single-device run's numbers, and its
   ``--save`` loads in the reference's ``load`` and equals the (1, 1)
-  run's file within 1e-4 of each leaf's scale; ``--production-mesh``
-  without 256 ranks, an SSM arch on (1, 2) and an odd batch on (2, 1) are
+  run's file within 1e-4 of each leaf's scale; ``--arch xlstm-1.3b
+  --mesh 1,2`` prints the single-device run's step-0 line;
+  ``--production-mesh`` without 256 ranks and an odd batch on (2, 1) are
   refused before any rank starts.
 """
 import tests.torch_threads  # noqa: F401  (first: one thread)
@@ -94,6 +121,12 @@ MOE = "arctic-480b"
 THREE_STEPS = (DENSE, MOE)
 ONE_STEP_MESHES = {(2, 2): ARCHS, (1, 4): ARCHS, (2, 1): (DENSE,),
                    (1, 2): (DENSE,)}
+# the SSM and hybrid families: two steps on every mesh, held to the
+# reference at tests/test_torch_ssm_training.py's parity
+SSM_ARCHS = ("xlstm-1.3b", "jamba-v0.1-52b")
+SSM_MESHES = ((2, 1), (1, 2), (2, 2), (1, 4))
+SSM_SCALE = {"xlstm-1.3b": 1e-5, "jamba-v0.1-52b": 5e-4}
+SSM_SCALE_1x4 = 3e-5      # xLSTM on (1, 4): the docstring
 B, S = 4, 24
 LR = (1e-3, 2, 3)                   # cosine_schedule(base, warmup, total)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -140,12 +173,13 @@ def _job(name, arch, steps, capacity=None, experts=None, **kw):
     return job, (jm, jp)
 
 
-def _reference_step(jm, jp, batch):
-    """The reference's loss, metrics and clipped gradients of one step."""
+def _reference_step(jm, jp, batch, step: int = 0):
+    """The reference's loss, metrics and clipped gradients of step
+    ``step`` at the parameters ``jp``."""
     (loss, met), grads = jax.jit(jax.value_and_grad(
         jm.loss, has_aux=True))(jp, jax.tree.map(jnp.asarray, batch))
     clipped, norm = jopt.clip_by_global_norm(grads, 1.0)
-    lr = float(jopt.cosine_schedule(*LR)(jnp.int32(0)))
+    lr = float(jopt.cosine_schedule(*LR)(jnp.int32(step)))
     metrics = {"loss": float(loss), "grad_norm": float(norm), "lr": lr}
     metrics.update({k: float(v) for k, v in met.items()})
     return metrics, jax.tree.map(np.asarray, clipped)
@@ -160,6 +194,12 @@ def runs(tmp_path_factory):
         for arch in archs:
             steps = 3 if topo == (2, 2) and arch in THREE_STEPS else 1
             job, ref = _job(arch, arch, steps)
+            jobs[topo].append(job)
+            refs[arch] = (ref, job["batches"])
+    for topo in SSM_MESHES:
+        jobs.setdefault(topo, [])
+        for arch in SSM_ARCHS:
+            job, ref = _job(arch, arch, 2)
             jobs[topo].append(job)
             refs[arch] = (ref, job["batches"])
     native, _ = _job("native", DENSE, 1, transport="native")
@@ -183,10 +223,11 @@ def runs(tmp_path_factory):
             "tight": tight}
 
 
-def _single_step(arch, batch, capacity=None, experts=None):
+def _single_step(arch, batch, capacity=None, experts=None, params=None):
     """The single-device port's metrics and clipped gradients of one step
-    (``make_train_step``) on the reference's parameters."""
-    model = _port_model(arch, capacity, experts)
+    (``make_train_step``) on the reference's parameters, or on ``params``
+    (a global numpy tree)."""
+    model = _port_model(arch, capacity, experts, params)
     params = loop.param_tree(model)
     opt = topt.make_optimizer(model.cfg.optimizer)
     step = loop.make_train_step(model, opt, topt.cosine_schedule(*LR))
@@ -255,26 +296,89 @@ def test_one_step_matches_reference(runs, name, arch, topo):
             **_grad_tol(arch, w, float(np.abs(s - w).max())))
 
 
+def _ssm_close(got, want, scale: float, key: str, single=None) -> None:
+    """rtol 1e-4, atol ``scale`` of the leaf's largest element, and the
+    leaf's relative L2 error at most ``scale``; each widened by the
+    single-device port's own distance to ``want`` (``single``, its leaf
+    on the same inputs), where given."""
+    gap = (np.zeros(1) if single is None
+           else (single - want).astype(np.float64))
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=scale * float(np.abs(want).max())
+                               + float(np.abs(gap).max()), err_msg=key)
+    err = np.linalg.norm((got - want).astype(np.float64))
+    assert err <= (scale * np.linalg.norm(want.astype(np.float64))
+                   + np.linalg.norm(gap)), key
+
+
+SSM_CASES = [(arch, topo) for topo in SSM_MESHES for arch in SSM_ARCHS]
+
+
+@pytest.mark.parametrize("arch,topo", SSM_CASES,
+                         ids=[f"{a}-{t[0]}x{t[1]}" for a, t in SSM_CASES])
+def test_ssm_and_hybrid_two_steps_match_reference(runs, arch, topo):
+    """The mixers cut over ``model`` (Mamba's and the mLSTM's fused input
+    projections exchanged by an all-to-all, the sLSTM's gates gathered and
+    its recurrence replicated) and over ``data`` (FSDP): the losses of the
+    reference's two jitted steps; step 0's metrics and gradients, and
+    step 1's at the parameters step 0 left, against the reference's; its
+    optimizer replayed on both steps."""
+    steps = runs["got"][topo][arch]["steps"]
+    (jm, jp), batches = runs["refs"][arch]
+    scale = SSM_SCALE[arch]
+    if arch == "xlstm-1.3b" and topo == (1, 4):
+        scale = SSM_SCALE_1x4
+    for i, loss in enumerate(_reference_losses(runs, arch)):
+        np.testing.assert_allclose(steps[i]["metrics"]["loss"], loss,
+                                   **METRIC_TOL,
+                                   err_msg=f"{arch} {topo} step {i} loss")
+    p0 = steps[0]["params"]
+    ref_p0 = jax.tree.unflatten(jax.tree.structure(jp), tree.leaves(p0))
+    wants = [(runs["want"][arch], None),
+             (_reference_step(jm, ref_p0, batches[1], 1),
+              _single_step(arch, batches[1], params=p0)[1])]
+    for i, ((wmet, wgrads), single) in enumerate(wants):
+        _check_metrics(steps[i]["metrics"], wmet, f"{arch} {topo} step {i}")
+        slack = ([None] * len(jax.tree.leaves(wgrads)) if single is None
+                 else tree.leaves(single))
+        for (path, g), w, s in zip(tree.flatten_with_path(steps[i]["grads"]),
+                                   jax.tree.leaves(wgrads), slack):
+            assert g.shape == w.shape, tree.keystr(path)
+            _ssm_close(g, w, scale,
+                       f"{topo} step {i} grad {tree.keystr(path)}", s)
+    _replay_optimizer(arch, steps, jp)
+
+
+def _reference_losses(runs, arch):
+    """The loss of each of the reference's jitted train steps from its
+    initial parameters, once per arch."""
+    memo = runs.setdefault("losses", {})
+    if arch not in memo:
+        (jm, jp), batches = runs["refs"][arch]
+        jo = jopt.make_optimizer(get_reduced(arch).optimizer)
+        jstep = jax.jit(jloop.make_train_step(jm, jo,
+                                              jopt.cosine_schedule(*LR)))
+        js, memo[arch] = jo.init(jp), []
+        for b in batches:
+            jp, js, jmet = jstep(jp, js, jax.tree.map(jnp.asarray, b))
+            memo[arch].append(float(jmet["loss"]))
+    return memo[arch]
+
+
 def _state_cls(name):
     return jopt.AdamWState if name == "adamw" else jopt.AdafactorState
 
 
-@pytest.mark.parametrize("arch", THREE_STEPS)
-def test_three_steps_match_reference(runs, arch):
-    (jm, jp), batches = runs["refs"][arch]
-    got = runs["got"][(2, 2)][arch]["steps"]
+def _replay_optimizer(arch, got, jp) -> None:
+    """Each step's parameters and optimizer state equal to the reference's
+    optimizer replayed on that step's gathered clipped gradients, state
+    and parameters (``OPT_TOL``); ``jp`` the reference's initial
+    parameters."""
     name = get_reduced(arch).optimizer
     jo = jopt.make_optimizer(name)
-    jstep = jax.jit(jloop.make_train_step(jm, jo,
-                                          jopt.cosine_schedule(*LR)))
     jreplay = jax.jit(jo.update)
-    js = jo.init(jp)
     params, state = jax.tree.map(np.asarray, jp), jo.init(jp)
-    for i, b in enumerate(batches):
-        jp, js, jmet = jstep(jp, js, jax.tree.map(jnp.asarray, b))
-        _check_metrics(got[i]["metrics"],
-                       {k: float(v) for k, v in jmet.items()},
-                       f"{arch} step {i}")
+    for i in range(len(got)):
         rp, rs = jreplay(got[i]["grads"], state, params,
                          jnp.float32(got[i]["metrics"]["lr"]))
         for (path, p), w in zip(tree.flatten_with_path(got[i]["params"]),
@@ -286,6 +390,26 @@ def test_three_steps_match_reference(runs, arch):
                             jax.tree.leaves(getattr(rs, f))):
                 np.testing.assert_allclose(a, np.asarray(w), **OPT_TOL,
                                            err_msg=f"step {i} {f}")
+        params = got[i]["params"]
+        state = _state_cls(name)(jnp.int32(i + 1), *(
+            got[i]["state"][f] for f in _state_cls(name)._fields[1:]))
+
+
+@pytest.mark.parametrize("arch", THREE_STEPS)
+def test_three_steps_match_reference(runs, arch):
+    (jm, jp), batches = runs["refs"][arch]
+    got = runs["got"][(2, 2)][arch]["steps"]
+    name = get_reduced(arch).optimizer
+    jo = jopt.make_optimizer(name)
+    jstep = jax.jit(jloop.make_train_step(jm, jo,
+                                          jopt.cosine_schedule(*LR)))
+    js = jo.init(jp)
+    jp0 = jp
+    for i, b in enumerate(batches):
+        jp, js, jmet = jstep(jp, js, jax.tree.map(jnp.asarray, b))
+        _check_metrics(got[i]["metrics"],
+                       {k: float(v) for k, v in jmet.items()},
+                       f"{arch} step {i}")
         if arch == DENSE:
             for (path, p), w in zip(tree.flatten_with_path(got[i]["params"]),
                                     jax.tree.leaves(jp)):
@@ -293,17 +417,16 @@ def test_three_steps_match_reference(runs, arch):
                 np.testing.assert_allclose(
                     p, w, rtol=0, atol=DENSE_PARAM_SCALE * np.abs(w).max(),
                     err_msg=f"step {i} {tree.keystr(path)}")
-        params = got[i]["params"]
-        state = _state_cls(name)(jnp.int32(i + 1), *(
-            got[i]["state"][f] for f in _state_cls(name)._fields[1:]))
+    _replay_optimizer(arch, got, jp0)
 
 
-def _port_model(arch, capacity=None, experts=None):
+def _port_model(arch, capacity=None, experts=None, params=None):
     jcfg, cfg = _cfgs(arch, capacity, experts)
-    jp = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    if params is None:
+        params = jax.tree.map(np.asarray, jbuild_model(jcfg).init(
+            jax.random.PRNGKey(0)))
     model = TransformerModel(cfg, device="cpu")
-    return bridge.transformer_params_from_jax(jax.tree.map(np.asarray, jp),
-                                              model)
+    return bridge.transformer_params_from_jax(params, model)
 
 
 def test_tight_capacity_drops_the_references_copies(runs):
@@ -331,13 +454,15 @@ def test_tight_capacity_drops_the_references_copies(runs):
     assert not all(w.all() for w in want), "nothing was dropped"
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
 def test_counting_comms_count_the_gloo_ranks_bytes(runs, arch):
     got = runs["got"][(2, 2)][arch]["steps"][0]["counts"]
     want = dryrun.collective_bytes(_cfgs(arch)[1], B, S, (2, 2))
     assert want == got
     assert got["all-gather"] > 0 and got["reduce-scatter"] > 0
-    assert got["all-reduce"] > 0 and got["all-to-all"] == 0
+    assert got["all-reduce"] > 0
+    # Mamba's and the mLSTM's fused input projections: one all-to-all
+    assert (got["all-to-all"] > 0) == (arch in SSM_ARCHS)
 
 
 def test_native_transport_is_bitwise_the_staged(runs):
@@ -399,7 +524,8 @@ def test_init_sharded_draws_the_blocks_of_init_model():
                            tree.leaves(loop.param_tree(cut))):
             assert torch.equal(a, b) and torch.equal(a, c)
         assert model.cut_onto == (("data", 2), ("model", 2))
-        with pytest.raises(NotImplementedError, match="one device"):
+        # a cut model runs only under its mesh
+        with pytest.raises(RuntimeError, match="cut onto"):
             model.prefill({"tokens": torch.zeros((1, 4), dtype=torch.long)},
                           8)
 
@@ -495,9 +621,29 @@ def test_launcher_mesh_prints_the_reference_lines(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--arch", DENSE, "--production-mesh"], "needs 256 ranks"),
-    (["--arch", "xlstm-1.3b", "--mesh", "1,2"], "ROADMAP A8"),
+    (["--arch", "xlstm-1.3b", "--mesh", "1,2", "--steps", "1"], None),
     (["--arch", DENSE, "--mesh", "2,1", "--batch", "3"], "does not split"),
 ], ids=["production_mesh", "ssm_arch", "odd_batch"])
-def test_launcher_refuses(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        train_launcher.main(argv + ["--reduced", "--device", "cpu"])
+def test_launcher_refuses(argv, match, capsys):
+    """What a mesh cannot run is refused before any rank starts.  An SSM
+    arch on (1, 2), refused until its mixers ran on a mesh, trains there
+    (``match`` None) and prints the single-device run's step-0 line."""
+    argv = argv + ["--reduced", "--device", "cpu"]
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            train_launcher.main(argv)
+        return
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    i = argv.index("--mesh")
+    train_launcher.main(argv[:i] + argv[i + 2:])
+    one = capsys.readouterr().out.splitlines()
+    mesh = [l for l in proc.stdout.splitlines() if l.startswith("[train]")]
+    assert mesh[0] == one[0]                      # the params line
+    got, want = (LINE.fullmatch(lines[1]).groups() for lines in (mesh, one))
+    assert got[0] == want[0] == "0"
+    np.testing.assert_allclose([float(x) for x in got[1:]],
+                               [float(x) for x in want[1:]], atol=2e-4)

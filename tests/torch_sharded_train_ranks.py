@@ -78,7 +78,7 @@ def _run(job: Dict, device_mesh) -> Dict:
     return out
 
 
-def _rank_main(rank, world, port, topo, path):
+def _rank_main(rank, world, port, topo, path, run=None):
     torch.set_num_threads(1)
     import pickle
     import torch.distributed as dist
@@ -90,7 +90,7 @@ def _rank_main(rank, world, port, topo, path):
         device_mesh = make_mesh(*topo)
         res = {}
         for job in jobs:
-            got = _run(job, device_mesh)
+            got = (run or _run)(job, device_mesh)
             if job.get("trace"):        # every data rank's kept copies
                 every = [None] * world
                 dist.all_gather_object(every, got["kept"])
@@ -104,10 +104,12 @@ def _rank_main(rank, world, port, topo, path):
 class MeshJobs:
     """Rank processes of several meshes, started at once (each mesh its
     own process group, ``launch.mesh.RankGroup``); ``results()`` waits for
-    them and gives rank 0's answers by mesh and job name."""
+    them and gives rank 0's answers by mesh and job name.  ``run(job,
+    device_mesh)`` (a module-level function) runs a job; the train step's
+    by default."""
 
     def __init__(self, jobs: Dict[Tuple[int, int], List[Dict]], workdir,
-                 timeout: float = 300.0):
+                 timeout: float = 300.0, run=None):
         import pickle
         from pathlib import Path
         from repro_torch.launch.mesh import RankGroup
@@ -120,7 +122,7 @@ class MeshJobs:
             with open(path, "wb") as f:
                 pickle.dump(list(js), f)
             self.groups[topo] = RankGroup(
-                _rank_main, topo[0] * topo[1], (tuple(topo), str(path)),
+                _rank_main, topo[0] * topo[1], (tuple(topo), str(path), run),
                 timeout=timeout, label=f"mesh {tuple(topo)}")
 
     def results(self) -> Dict[Tuple[int, int], Dict]:
