@@ -13,16 +13,21 @@ later tokens attend to an approximated-but-present entry; when any sample
 recomputes, the block writes the same K/V for every sample.
 
 The reference's ``lax.cond(jnp.all(do_cache), all_skip, mixed)`` is a real
-skip here, decided on the host: one host sync per layer per decode step
-(``bool(do_cache.all())``), counted in ``host_syncs``; ``skipped_layers``
-counts the layers where every sample skipped.  Both branches give
-the same per-row results, so either way is exact.  The mixed branch runs
-the block on the whole batch, cached slots included, and keeps the
-approximation for those slots, as the reference does; in an MoE block the
-cached slots' tokens therefore take part in the routing and share the
-experts' capacity.  The all-skip branch writes K/V only.  ``gate_mode="global"``
-reduces the statistic over the batch into one decision per layer.  The
-cache is updated in place; the state comes back as a new dict.
+skip here, through ``step_graph.branch``: in a captured decode step (the
+serving engine's default on the card) its two sides are IF nodes and
+nothing crosses to the host; eagerly, one host sync per layer per decode
+step reads ``all(do_cache)``, counted in ``host_syncs``.  The state's
+``stats["layers_skipped"]`` counts the layers where every sample skipped,
+on the device (the skip side adds one).  Both branches give the same
+per-row results, so either way is exact.  The mixed branch runs the block
+on the whole batch, cached slots included, and keeps the approximation
+for those slots, as the reference does; in an MoE block the cached slots'
+tokens therefore take part in the routing and share the experts'
+capacity.  The all-skip branch writes K/V only, indexed by the device
+``step`` tensor as the block does.  ``gate_mode="global"`` reduces the
+statistic over the batch into one decision per layer.  The cache and the
+state are updated in place (layer l reads and then writes slot l of
+``prev_hidden``); the same dicts come back.
 
 Kernels per decode step, in every layer: ``saliency_delta`` on the (B, 1, D)
 block input against the previous step's (its per-sample totals are the
@@ -39,6 +44,7 @@ import torch
 from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core import linear_approx, statcache
 from repro_torch.core.statcache import GATE_MODES
+from repro_torch.core.step_graph import branch
 from repro_torch.cuda_kernels import route
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
@@ -71,7 +77,6 @@ class CachedDecoder:
             self.fc_params["W_l"], model.dtype, model.device)
             if self.gemm is None else [None] * self.L)
         self.host_syncs = 0
-        self.skipped_layers = 0
 
     def init_state(self, batch: int) -> Dict:
         m = self.model
@@ -84,6 +89,8 @@ class CachedDecoder:
             "stats": {"blocks_computed": torch.zeros((batch,), dtype=F32,
                                                      device=dev),
                       "blocks_skipped": torch.zeros((batch,), dtype=F32,
+                                                    device=dev),
+                      "layers_skipped": torch.zeros((), dtype=F32,
                                                     device=dev),
                       "steps": torch.zeros((), dtype=F32, device=dev)},
         }
@@ -113,7 +120,8 @@ class CachedDecoder:
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: Cache, state: Dict
                     ) -> Tuple[torch.Tensor, Cache, Dict]:
-        """tokens (B,). Returns (logits, cache, state)."""
+        """tokens (B,). Returns (logits, cache, state), the cache and the
+        state written in place."""
         m = self.model
         cfg = m.cfg
         fc = self.fc
@@ -128,16 +136,15 @@ class CachedDecoder:
             threshold_g = statcache.make_threshold(fc.alpha, nd * b)
         gate = state["gate"]
         have = state["have_cache"]
-        sig = gate.sigma2.clone()
-        ini = gate.initialized.clone()
+        hidden = state["prev_hidden"]
+        stats = state["stats"]
+        sig, ini = gate.sigma2, gate.initialized
         comp = torch.zeros((b,), dtype=F32, device=x.device)
         skip = torch.zeros((b,), dtype=F32, device=x.device)
-        inputs = []
         for l, bp in enumerate(m.blocks):
             # (B, 1, D) rows: the kernel's per-sample totals are the
             # reference's delta_stats_per_sample(x[:, 0], prev_in)
-            _, diff, prevsq = saliency_delta(
-                x, state["prev_hidden"][l][:, None])
+            _, diff, prevsq = saliency_delta(x, hidden[l][:, None])
             eligible = ini[l] & have
             if not fc.use_sc:
                 eligible = torch.zeros_like(eligible)
@@ -149,43 +156,42 @@ class CachedDecoder:
                 do_cache = statcache.gate_decision(diff, prevsq, sig[l], nd,
                                                    threshold) & eligible
             flat = x[:, 0]
-            approx = linear_blend(flat, fcp["W_l"][l], fcp["b_l"][l], flat,
-                                  gamma=1.0, w_bf16=self.w_l_bf16[l],
-                                  gemm=self.gemm)[:, None]
+            # the carry: the approximation, every sample's on the skip side
+            out = linear_blend(flat, fcp["W_l"][l], fcp["b_l"][l], flat,
+                               gamma=1.0, w_bf16=self.w_l_bf16[l],
+                               gemm=self.gemm)[:, None]
             lc = m.layer_cache(cache, l)
-            self.host_syncs += 1
-            if bool(do_cache.all()):                       # every sample skips
-                self.skipped_layers += 1
+
+            def skip_side(x=x, bp=bp, lc=lc):
                 self._kv_write(bp.attn, x, lc, step)
-                x_new = approx
-            else:
+                stats["layers_skipped"].add_(1.0)
+
+            def compute(x=x, bp=bp, lc=lc, out=out, do_cache=do_cache):
                 x_blk = m.block_apply(bp, x, positions=positions, cache=lc,
                                       decode_pos=step)[0]
-                x_new = torch.where(do_cache[:, None, None], approx, x_blk)
+                out.copy_(torch.where(do_cache[:, None, None], out, x_blk))
+
+            self.host_syncs += branch(do_cache, compute, skip_side)
             # only observe deltas taken against a REAL previous hidden: after
             # a slot reset prev_hidden is zeroed and ||h - 0||^2 would poison
             # the no-change variance into an always-skip gate
             observe = ~do_cache & have
             new_sig, _ = statcache.update_sigma(sig[l], ini[l], diff, nd,
                                                 fc.background_momentum)
-            sig[l] = torch.where(observe, new_sig, sig[l])
-            ini[l] = ini[l] | observe
+            sig[l].copy_(torch.where(observe, new_sig, sig[l]))
+            ini[l].copy_(ini[l] | observe)
             dc = do_cache.to(F32)
             comp = comp + (1.0 - dc)
             skip = skip + dc
-            inputs.append(x[:, 0])
-            x = x_new
+            hidden[l].copy_(x[:, 0])
+            x = out
         x = common.rms_norm(x, m.top.final_norm, cfg.norm_eps)
         logits = m.unembed(x[:, 0])
         step.add_(1)
 
-        st = dict(state)
-        st["prev_hidden"] = torch.stack(inputs + [x[:, 0]], dim=0)
-        st["gate"] = statcache.GateState(sigma2=sig, initialized=ini)
-        st["have_cache"] = torch.ones_like(have)
-        stats = dict(st["stats"])
-        stats["blocks_computed"] = stats["blocks_computed"] + comp
-        stats["blocks_skipped"] = stats["blocks_skipped"] + skip
-        stats["steps"] = stats["steps"] + 1.0
-        st["stats"] = stats
-        return logits, cache, st
+        hidden[-1].copy_(x[:, 0])
+        have.fill_(True)
+        stats["blocks_computed"].add_(comp)
+        stats["blocks_skipped"].add_(skip)
+        stats["steps"].add_(1.0)
+        return logits, cache, state

@@ -20,6 +20,8 @@ I32 = torch.int32
 
 @register("adacache")
 class AdaCache(CachePolicy):
+    MIRRORED = ("have_cache",)
+
     def __init__(self, model, fc, fc_params, *,
                  ada_thresholds: Tuple[float, float] = (0.05, 0.15), **kw):
         super().__init__(model, fc, fc_params, **kw)
@@ -44,19 +46,19 @@ class AdaCache(CachePolicy):
             state["prev_eps"][r].fill_(0.0)
             state["ada_skip_left"][r].fill_(0)
             state["have_cache"][r].fill_(False)
-        return state
+        return super().reset_rows(state, rows)
 
-    def step(self, state, x_in, c):
-        rel = self._rel_change(x_in, state["prev_tokens_in"])
+    def device_step(self, state, x_in, c, kind):
+        prev_in = state["prev_tokens_in"]
+        rel = self._rel_change(x_in, prev_in)
         lo, hi = self.thresholds
         budget = torch.where(rel < lo, 3, torch.where(rel < hi, 1, 0)).to(I32)
         left = state["ada_skip_left"]
         skip = (left > 0) & state["have_cache"]
 
-        def store(out, st, inputs, x_out):
-            out["prev_tokens_in"] = torch.where(skip[:, None, None],
-                                                st["prev_tokens_in"], x_in)
+        def store(inputs, x_out):
+            prev_in.copy_(torch.where(skip[:, None, None], prev_in, x_in))
 
-        eps, st = self.masked_step(state, x_in, c, skip, store=store)
-        st["ada_skip_left"] = torch.where(skip, left - 1, budget).to(I32)
-        return eps, st
+        eps = self.masked_step(state, x_in, c, skip, store=store)
+        left.copy_(torch.where(skip, left - 1, budget).to(I32))
+        return eps

@@ -8,9 +8,28 @@ full contract).  The port's protocol:
   reset_rows(state, rows)       re-arm sample rows (a list of ints) in place
   snapshot_rows(state, rows)    copy the rows out (a preemption checkpoint)
   restore_rows(state, snap, rows)  write a checkpoint back into rows, in place
-  step(state, x_in, c)          one model evaluation -> (eps, new state); the
-                                input state's tensors are not modified
+  step(state, x_in, c)          one model evaluation -> (eps, state): the
+                                state's tensors are updated in place and the
+                                same dict comes back
   stats(state)                  host-side summary (``summarize_stats``)
+
+``step`` is ``step_kind`` (cold, mixed or warm, from the host mirror below),
+then ``device_step`` (the device work, which reads nothing on the host but
+through ``branch``) and ``host_step`` (the host's bookkeeping).  The state's
+tensors keep their storage from step to step, so a captured warm step
+(``core/step_graph.py``) replays on them.
+
+**Host mirror.**  Some state leaves are written only at points the host
+controls: ``have_cache`` turns all-True after every step and is cleared by
+``reset_rows`` and rewritten by ``restore_rows``; a step counter
+(``step_count``, fora's and smoothcache's) advances by one a step and is
+zeroed on reset.  A policy lists them in ``MIRRORED`` and keeps a host copy
+beside the device tensors, updated at those same points, so its branch
+choices read nothing from the device.  The mirror is bound to one state
+(its tensors' identity); a state it is not bound to is read once (one
+counted host sync) and the mirror binds to it.  A snapshot carries its
+rows' mirror values (``Snapshot.host``); a restore from a snapshot without
+them leaves the mirror to be read again at the next step.
 
 and for the audit plane (``obs/audit.py``): ``audit_forward`` (the uncached
 full forward of the same inputs, with its hidden stack), ``audit_hidden``
@@ -28,23 +47,25 @@ policy receives the whole set and keeps the ones it knows.
 
 The step-level policies (fora, teacache, adacache, fbcache) share
 ``masked_step``; the reference's ``lax.cond(all(skip))`` there is a real
-skip that reads the (B,) skip mask once per step, one host sync, counted in
+skip through ``branch``: an IF node in a captured step, else a host
+decision, known from the mirror where it can be (a cold row never reuses;
+fora's schedule) and otherwise one read of the (B,) skip mask, counted in
 ``host_syncs``.
 """
 from __future__ import annotations
 
-from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
-                    Sequence, Tuple, Type, Union)
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, NamedTuple,
+                    Optional, Sequence, Tuple, Type, Union)
 
 import numpy as np
 import torch
 
 from repro_torch.core import linear_approx
+from repro_torch.core.step_graph import branch
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.device import to_device
 # the slot-axis rank rule is the sharding rules' own
 from repro_torch.distributed.sharding import _slot_axis as slot_axis
-from repro_torch.distributed.sharding import agree_all
 from repro_torch.models.dit import DiTModel
 
 if TYPE_CHECKING:
@@ -52,7 +73,17 @@ if TYPE_CHECKING:
 
 F32 = torch.float32
 
-Rows = Union[Sequence[int], torch.Tensor]
+
+class RowSet(NamedTuple):
+    """Sample rows as an int64 index tensor on the state's device and as
+    the same rows on the host (the engine makes one per slot, once)."""
+    idx: torch.Tensor
+    host: Tuple[int, ...]
+
+
+Rows = Union[Sequence[int], torch.Tensor, RowSet]
+
+STEP_KINDS = ("cold", "mixed", "warm")
 
 _REGISTRY: Dict[str, Type["CachePolicy"]] = {}
 
@@ -112,6 +143,16 @@ class CachePolicy:
         self.device = model.device
         # host syncs this policy forced (one per `.item()`-like read)
         self.host_syncs = 0
+        # model steps by kind (from the host mirror: see the module
+        # docstring); a policy without cache flags steps warm every time
+        self.step_kinds = dict.fromkeys(STEP_KINDS, 0)
+        # the host mirror: (the mirrored device leaves, their host copies)
+        self._mirror: Optional[Tuple[Tuple[torch.Tensor, ...],
+                                     Dict[str, np.ndarray]]] = None
+
+    # state leaves written only at host-controlled points (see the module
+    # docstring); each is 0 / False in a fresh state
+    MIRRORED: Tuple[str, ...] = ()
 
     def map_copies(self, w: torch.Tensor) -> List[Optional[torch.Tensor]]:
         """The bf16 copies of the maps ``w`` ((D, F) or (L, D, F)) that the
@@ -125,8 +166,47 @@ class CachePolicy:
         raise NotImplementedError
 
     def reset_rows(self, state: Dict, rows: Sequence[int]) -> Dict:
-        """Default: nothing policy-specific to re-arm."""
+        """The mirror's rows to 0 (a policy re-arms its own leaves, then
+        calls this)."""
+        host = self.mirror_of(state)
+        if host is not None:
+            for v in host.values():
+                v[list(rows)] = 0
         return state
+
+    # -- host mirror -----------------------------------------------------
+
+    def bind_mirror(self, state: Dict) -> None:
+        """Mirror a fresh state (every mirrored leaf 0 / False)."""
+        if self.MIRRORED:
+            b = self._state_batch(state)
+            self._mirror = (tuple(state[k] for k in self.MIRRORED),
+                            {k: np.zeros((b,), _NP[state[k].dtype])
+                             for k in self.MIRRORED})
+
+    def mirror_of(self, state: Dict) -> Optional[Dict[str, np.ndarray]]:
+        """The host copies of ``state``'s mirrored leaves, or None when the
+        mirror is bound to another state or waits for a read."""
+        if self._mirror is None or not self.MIRRORED:
+            return None
+        leaves, host = self._mirror
+        if all(a is state[k] for a, k in zip(leaves, self.MIRRORED)):
+            return host
+        return None
+
+    def host_flags(self, state: Dict) -> Dict[str, np.ndarray]:
+        """The mirror of ``state``; where it holds none, the leaves are read
+        (one counted host sync) and the mirror binds to them."""
+        host = self.mirror_of(state)
+        if host is None:
+            flat = torch.cat([state[k].to(torch.int64)
+                              for k in self.MIRRORED]).cpu().numpy()
+            self.host_syncs += 1
+            b = state[self.MIRRORED[0]].shape[0]
+            host = {k: flat[i * b:(i + 1) * b].astype(
+                _NP[state[k].dtype]) for i, k in enumerate(self.MIRRORED)}
+            self._mirror = (tuple(state[k] for k in self.MIRRORED), host)
+        return host
 
     def snapshot_rows(self, state: Dict, rows: Rows) -> Dict:
         """Copy ``rows`` out of ``state`` into a snapshot of the same
@@ -134,17 +214,23 @@ class CachePolicy:
         sample batch under the ``slot_axis`` rank rule is row-copied along
         that axis (``index_select``: the snapshot owns its memory, so later
         writes into the donor rows never reach it); replicated leaves (the
-        scalar ``steps``) pass through.  ``rows`` is a list of ints or an
-        int64 index tensor on the state's device (the engine keeps one per
-        slot, so a CUDA snapshot makes no host copy)."""
+        scalar ``steps``, which a step advances in place) are copied whole.
+        ``rows`` is a list of ints, an int64 index tensor on the state's
+        device, or a ``RowSet`` of both (the engine keeps one per slot, so a
+        CUDA snapshot makes no host copy and the mirror knows the rows)."""
         batch = self._state_batch(state)
         idx = row_index(rows, self.device)
 
         def take(leaf):
             axis = slot_axis(tuple(leaf.shape), batch, self.L)
-            return leaf if axis is None else leaf.index_select(axis, idx)
+            return leaf.clone() if axis is None else leaf.index_select(axis,
+                                                                       idx)
 
-        return map_tree(take, state)
+        snap = Snapshot(map_tree(take, state))
+        host, on_host = self.mirror_of(state), host_rows(rows)
+        if host is not None and on_host is not None:
+            snap.host = {k: v[list(on_host)].copy() for k, v in host.items()}
+        return snap
 
     def restore_rows(self, state: Dict, snap: Dict, rows: Rows) -> Dict:
         """Write a ``snapshot_rows`` checkpoint into ``rows`` of a live
@@ -160,7 +246,16 @@ class CachePolicy:
                 leaf.index_copy_(axis, idx, sleaf)
             return leaf
 
-        return map_tree(put, state, snap)
+        out = map_tree(put, state, snap)
+        host, on_host = self.mirror_of(state), host_rows(rows)
+        if host is not None:
+            kept = getattr(snap, "host", None)
+            if kept is None or on_host is None:
+                self._mirror = None           # read again at the next step
+            else:
+                for k, v in host.items():
+                    v[list(on_host)] = kept[k]
+        return out
 
     def _state_batch(self, state: Dict) -> int:
         """The state's sample-row count, read off the first (B,) counter of
@@ -176,7 +271,46 @@ class CachePolicy:
 
     def step(self, state: Dict, x_in: torch.Tensor, c: torch.Tensor
              ) -> Tuple[torch.Tensor, Dict]:
+        """One model evaluation, in place: ``step_kind``, ``device_step``,
+        ``host_step``.  Returns (eps, state)."""
+        kind = self.step_kind(state)
+        eps = self.device_step(state, x_in, c, kind)
+        self.host_step(state, kind)
+        return eps, state
+
+    def step_kind(self, state: Dict) -> str:
+        """"warm" when every row holds a cache, "mixed" when some do,
+        "cold" when none does, from the mirror (a policy without the flag
+        is always warm)."""
+        if "have_cache" not in self.MIRRORED:
+            return "warm"
+        have = self.host_flags(state)["have_cache"]
+        return "warm" if have.all() else "mixed" if have.any() else "cold"
+
+    def device_step(self, state: Dict, x_in: torch.Tensor, c: torch.Tensor,
+                    kind: str) -> torch.Tensor:
+        """The step's device work for a step of ``kind``, writing the state
+        in place; returns eps.  It reads nothing on the host but through
+        ``branch``."""
         raise NotImplementedError
+
+    def host_step(self, state: Dict, kind: str) -> None:
+        """The host's side of a step: its kind counted, the mirror moved as
+        the step moved the device leaves (every row warm, counters + 1)."""
+        self.step_kinds[kind] += 1
+        host = self.mirror_of(state)
+        if host is None:
+            return
+        if "have_cache" in host:
+            host["have_cache"][:] = True
+        if "step_count" in host:
+            host["step_count"] += 1
+
+    def branch(self, every: torch.Tensor, compute: Callable[[], None],
+               skip: Optional[Callable[[], None]] = None,
+               known: Optional[bool] = None) -> None:
+        """``step_graph.branch``, its host reads counted in ``host_syncs``."""
+        self.host_syncs += branch(every, compute, skip, known)
 
     def stats(self, state: Dict) -> Dict[str, float]:
         return summarize_stats(state)
@@ -258,52 +392,74 @@ class CachePolicy:
 
     def masked_step(self, state: Dict, x_in: torch.Tensor, c: torch.Tensor,
                     skip: torch.Tensor, *, computed_on_skip: float = 0.0,
-                    store: Optional[Callable] = None
-                    ) -> Tuple[torch.Tensor, Dict]:
+                    store: Optional[Callable] = None,
+                    known: Optional[bool] = None) -> torch.Tensor:
         """One step under a per-sample step-level gate, for policies that
         reuse the previous step's model output (``state["prev_eps"]``).
         ``skip`` (B,) bool: True reuses that sample's cached eps and leaves
         its cache payload untouched; False recomputes and refreshes it.  The
-        block stack runs only when at least one sample recomputes (one host
-        sync reads that).  ``computed_on_skip`` counts probe blocks
-        (fbcache's block 0) charged to skipped samples.  ``store(out, st,
-        inputs, x_out)`` writes the policy's own payloads into ``out`` on
-        the recompute path (masking with ``skip`` itself)."""
-        self.host_syncs += 1
-        # one host sync per step, agreed over the model group when the
-        # blocks' weights are sharded (the stack holds all-reduces)
-        if bool(agree_all(skip.all())):
-            eps = state["prev_eps"].to(F32).to(x_in.dtype)
-            st = dict(state)
-        else:
+        block stack runs only when at least one sample recomputes
+        (``branch``; ``known`` is the host's answer to "every sample
+        reuses" where it has one, and a cold row never reuses).
+        ``computed_on_skip`` counts probe blocks (fbcache's block 0) charged
+        to skipped samples.  ``store(inputs, x_out)`` writes the policy's
+        own payloads into the state on the recompute path (masking with
+        ``skip`` itself).  The state is written in place; returns eps."""
+        if known is None and "have_cache" in self.MIRRORED:
+            if not self.host_flags(state)["have_cache"].all():
+                known = False
+        prev = state["prev_eps"]
+        # the carry holds the all-reuse side; the recompute side rewrites it
+        eps = prev.to(F32).to(x_in.dtype, copy=True)
+
+        def compute():
             x_out, inputs = self._full_forward(x_in, c)
-            eps = self._eps(x_out, c)
-            st = dict(state)
+            fresh = self._eps(x_out, c)
             if store is not None:
-                store(st, state, inputs, x_out)
-            eps = torch.where(skip[:, None, None, None],
-                              state["prev_eps"].to(eps.dtype), eps)
-            st["prev_eps"] = eps.to(state["prev_eps"].dtype)
-        st["have_cache"] = torch.ones_like(state["have_cache"])
+                store(inputs, x_out)
+            eps.copy_(torch.where(skip[:, None, None, None],
+                                  prev.to(fresh.dtype), fresh))
+            prev.copy_(eps)
+
+        self.branch(skip, compute, known=known)
+        state["have_cache"].fill_(True)
         skf = skip.to(F32)
-        stats = dict(st["stats"])
-        stats["blocks_computed"] = (stats["blocks_computed"]
-                                    + (1.0 - skf) * self.L
-                                    + skf * computed_on_skip)
-        stats["blocks_skipped"] = (stats["blocks_skipped"]
-                                   + skf * (self.L - computed_on_skip))
-        stats["steps_reused"] = stats["steps_reused"] + skf
-        stats["motion_frac_sum"] = stats["motion_frac_sum"] + (1.0 - skf)
-        st["stats"] = stats
-        return eps, st
+        stats = state["stats"]
+        stats["blocks_computed"].add_((1.0 - skf) * self.L
+                                      + skf * computed_on_skip)
+        stats["blocks_skipped"].add_(skf * (self.L - computed_on_skip))
+        stats["steps_reused"].add_(skf)
+        stats["motion_frac_sum"].add_(1.0 - skf)
+        return eps
+
+
+_NP = {torch.bool: np.bool_, torch.int32: np.int32, torch.int64: np.int64,
+       torch.float32: np.float32}
 
 
 def row_index(rows: Rows, device: torch.device) -> torch.Tensor:
     """``rows`` as an int64 index tensor on ``device``; a list goes through
     ``to_device`` (pinned, non-blocking), never a pageable copy."""
+    if isinstance(rows, RowSet):
+        return rows.idx
     if isinstance(rows, torch.Tensor):
         return rows
     return to_device(np.asarray(rows, np.int64), device)
+
+
+def host_rows(rows: Rows) -> Optional[Tuple[int, ...]]:
+    """``rows`` on the host, or None for a bare index tensor."""
+    if isinstance(rows, RowSet):
+        return rows.host
+    if isinstance(rows, torch.Tensor):
+        return None
+    return tuple(int(r) for r in rows)
+
+
+class Snapshot(dict):
+    """A ``snapshot_rows`` checkpoint: the state's structure, plus
+    ``host``, its rows' mirror values where the mirror knew them."""
+    host: Optional[Dict[str, np.ndarray]] = None
 
 
 def map_tree(fn: Callable, tree: Any, *others: Any) -> Any:

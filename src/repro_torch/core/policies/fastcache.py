@@ -9,11 +9,16 @@ blend against, the chi^2 variance trackers, and the warm-up flag.
 The reference branches on device values with ``lax.cond`` in two places:
 the cold / mixed / warm dispatch of ``step`` and the "every sample caches:
 skip the block" test in each layer.  Both branches give identical per-row
-results, so either way is exact; the port keeps the real skip and pays one
-host sync per decision: one per step (``have_cache`` read once, serving
-both the all- and the any-test) plus one per layer on an all-warm step.  A
-mixed step skips the per-layer test: its cold rows are never eligible, so
-the block always runs.  ``host_syncs`` counts them.
+results, so either way is exact.  The dispatch reads the host mirror of
+``have_cache`` (``CachePolicy.step_kind``): nothing crosses.  The
+per-layer skip goes through ``branch``: an IF node of the captured warm
+step on the card (nothing crosses), else one host read per layer on an
+all-warm step, counted in ``host_syncs``.  A mixed step skips the
+per-layer test: its cold rows are never eligible, so the block always runs.
+
+The state is written in place.  Layer l reads slots l and l + 1 of the
+hidden stack ``prev_hidden`` and writes slot l only after both reads, so no
+second stack is needed; slot L (the final hidden) is written last.
 
 Kernels per gated (warm or mixed) step: ``saliency_delta`` once (the STR
 saliency), ``linear_blend`` once (the static bypass) and ``fused_gate`` in
@@ -33,11 +38,13 @@ from repro_torch.core.policies.base import F32, CachePolicy, register
 from repro_torch.cuda_kernels.fused_gate import fused_gate
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
-from repro_torch.distributed.sharding import agree_all, constrain
+from repro_torch.distributed.sharding import constrain
 
 
 @register("fastcache")
 class FastCache(CachePolicy):
+    MIRRORED = ("have_cache",)
+
     def __init__(self, model, fc, fc_params, **kw):
         super().__init__(model, fc, fc_params, **kw)
         # the bf16 copies of W_c and each W_l[l] that the wgmma route
@@ -46,8 +53,6 @@ class FastCache(CachePolicy):
         self.w_l_bf16 = self.map_copies(fc_params["W_l"])
         # n_tokens is the reduced grid when token compression is on
         self.capacity = max(1, int(round(fc.motion_capacity * self.n_tokens)))
-        # model steps by branch taken
-        self.step_kinds = {"cold": 0, "mixed": 0, "warm": 0}
 
     def init_state(self, batch: int) -> Dict:
         n, d = self.n_tokens, self.model.cfg.d_model
@@ -83,35 +88,29 @@ class FastCache(CachePolicy):
             state["prev_hidden"][:, r].fill_(0.0)
             state["have_cache"][r].fill_(False)
         statcache.reset_gate_slot(state["gate"], rows)
-        return state
+        return super().reset_rows(state, rows)
 
     # ------------------------------------------------------------------
 
-    def step(self, state, x_in, c):
-        have = state["have_cache"].cpu()          # one host sync per step
-        self.host_syncs += 1
-        if bool(have.all()):
-            self.step_kinds["warm"] += 1
+    def device_step(self, state, x_in, c, kind):
+        if kind == "warm":
             return self._gated_step(state, x_in, c, can_skip=True)
-        if bool(have.any()):
-            self.step_kinds["mixed"] += 1
+        if kind == "mixed":
             return self._mixed_step(state, x_in, c)
-        self.step_kinds["cold"] += 1
         return self._cold_step(state, x_in, c)
 
     def _cold_step(self, state, x_in, c):
         """Warm-up: one full forward installing the cache payload."""
         x_out, inputs = self._full_forward(x_in, c)
         eps = self._eps(x_out, c)
-        st = dict(state)
-        st["prev_tokens_in"] = x_in
-        st["prev_hidden"] = torch.cat([inputs, x_out[None]], dim=0)
-        st["have_cache"] = torch.ones_like(state["have_cache"])
-        stats = dict(st["stats"])
-        stats["blocks_computed"] = stats["blocks_computed"] + float(self.L)
-        stats["motion_frac_sum"] = stats["motion_frac_sum"] + 1.0
-        st["stats"] = stats
-        return eps, st
+        state["prev_tokens_in"].copy_(x_in)
+        state["prev_hidden"][:-1].copy_(inputs)
+        state["prev_hidden"][-1].copy_(x_out)
+        state["have_cache"].fill_(True)
+        stats = state["stats"]
+        stats["blocks_computed"].add_(float(self.L))
+        stats["motion_frac_sum"].add_(1.0)
+        return eps
 
     # ------------------------------------------------------------------
     # FastCache proper (Alg. 1), per-sample block gates
@@ -121,6 +120,7 @@ class FastCache(CachePolicy):
         fc = self.fc
         fcp = self.fc_params
         b, n, d = x_in.shape
+        hidden = state["prev_hidden"]
 
         # ---- STR: token partition (Eqs. 1-2), per-sample
         if fc.use_str:
@@ -142,7 +142,7 @@ class FastCache(CachePolicy):
                                 gemm=self.gemm
                                 ).reshape(b, n, d)
         if fc.use_mb:
-            h_static = linear_approx.blend(h_static, state["prev_hidden"][-1],
+            h_static = linear_approx.blend(h_static, hidden[-1],
                                            fc.blend_gamma)
 
         # ---- motion stream through gated blocks
@@ -152,16 +152,13 @@ class FastCache(CachePolicy):
         threshold = statcache.make_threshold(fc.alpha, nd)
         if self.gate_mode == "global":
             threshold_g = statcache.make_threshold(fc.alpha, nd * b)
-        sig = gate.sigma2.clone()
-        ini = gate.initialized.clone()
+        sig, ini = gate.sigma2, gate.initialized
         comp = torch.zeros((b,), dtype=F32, device=x_in.device)
         skip = torch.zeros((b,), dtype=F32, device=x_in.device)
-        new_prev_in = []
         for lidx, bp in enumerate(self.model.blocks):
-            prev_in = state["prev_hidden"][lidx]
-            prev_out = state["prev_hidden"][lidx + 1]
+            prev_in = hidden[lidx]
             prev_m = saliency.gather_motion(prev_in, part)
-            prev_om = saliency.gather_motion(prev_out, part)
+            prev_om = saliency.gather_motion(hidden[lidx + 1], part)
             eligible = ini[lidx] & bool(fc.use_sc)
             if self.gate_mode == "global":
                 out, do_cache, diff = self._global_gate(
@@ -174,47 +171,44 @@ class FastCache(CachePolicy):
                     gamma=fc.blend_gamma, use_blend=fc.use_mb,
                     w_bf16=self.w_l_bf16[lidx], gemm=self.gemm)
 
-            # skip the block entirely when every sample caches; otherwise
-            # compute it once for the batch and keep cached samples' approx
-            # (agreed over the model group when the block's weights are
-            # sharded: every rank of the group enters its all-reduce or none)
+            # ``out`` holds the skip side (every sample caches); otherwise
+            # the block runs once for the batch and the cached samples keep
+            # their approximation (agreed over the model group when the
+            # block's weights are sharded: every rank of the group enters
+            # its all-reduce or none)
+            def compute(xm=xm, bp=bp, out=out, do_cache=do_cache):
+                out.copy_(torch.where(do_cache[:, None, None], out,
+                                      self.model.block_apply(bp, xm, c)))
+
             if can_skip:
-                self.host_syncs += 1
-                all_cache = bool(agree_all(do_cache.all()))
+                self.branch(do_cache, compute)
             else:
-                all_cache = False
-            if all_cache:
-                xm_new = out
-            else:
-                xm_new = torch.where(do_cache[:, None, None], out,
-                                     self.model.block_apply(bp, xm, c))
-            xm_new = constrain(xm_new, "act_batch", "act_seq", "act_embed")
+                compute()
+            xm_new = constrain(out, "act_batch", "act_seq", "act_embed")
             # sliding-window variance tracker updates on recompute
             new_sig, _ = statcache.update_sigma(
                 sig[lidx], ini[lidx], diff, nd, fc.background_momentum)
-            sig[lidx] = torch.where(do_cache, sig[lidx], new_sig)
-            ini[lidx] = True
+            sig[lidx].copy_(torch.where(do_cache, sig[lidx], new_sig))
+            ini[lidx].fill_(True)
             dc = do_cache.to(F32)
             comp = comp + (1.0 - dc)
             skip = skip + dc
-            # cache payload: this block's input scattered over prev grid
-            new_prev_in.append(saliency.scatter_motion(prev_in, xm, part))
+            # cache payload: this block's input scattered over prev grid,
+            # into slot lidx once slots lidx and lidx + 1 have been read
+            prev_in.copy_(saliency.scatter_motion(prev_in, xm, part))
             xm = xm_new
 
         # ---- reassemble full grid (concat of Eq. 2 sets)
         h_final = saliency.scatter_motion(h_static, xm, part)
         eps = self._eps(h_final, c)
 
-        st = dict(state)
-        st["prev_tokens_in"] = x_in
-        st["prev_hidden"] = torch.stack(new_prev_in + [h_final])
-        st["gate"] = statcache.GateState(sigma2=sig, initialized=ini)
-        stats = dict(st["stats"])
-        stats["blocks_computed"] = stats["blocks_computed"] + comp
-        stats["blocks_skipped"] = stats["blocks_skipped"] + skip
-        stats["motion_frac_sum"] = stats["motion_frac_sum"] + mfrac
-        st["stats"] = stats
-        return eps, st
+        state["prev_tokens_in"].copy_(x_in)
+        hidden[-1].copy_(h_final)
+        stats = state["stats"]
+        stats["blocks_computed"].add_(comp)
+        stats["blocks_skipped"].add_(skip)
+        stats["motion_frac_sum"].add_(mfrac)
+        return eps
 
     def _global_gate(self, lidx, xm, prev_m, prev_om, sig, eligible,
                      n_total, threshold_g):
@@ -250,30 +244,29 @@ class FastCache(CachePolicy):
         x_out, inputs = self._full_forward(x_in, c)
         hidden = torch.cat([inputs, x_out[None]], dim=0)
         eps_full = self._eps(x_out, c)
-        eps_fc, st_fc = self._gated_step(state, x_in, c, can_skip=False)
+        # what the gated step overwrites and the cold rows keep
+        gate, stats = state["gate"], state["stats"]
+        old_gate = statcache.GateState(sigma2=gate.sigma2.clone(),
+                                       initialized=gate.initialized.clone())
+        old = {k: stats[k].clone() for k in ("blocks_computed",
+                                             "blocks_skipped",
+                                             "steps_reused",
+                                             "motion_frac_sum")}
+        eps_fc = self._gated_step(state, x_in, c, can_skip=False)
 
-        w3 = warm[:, None, None]
         eps = torch.where(warm[:, None, None, None], eps_fc,
                           eps_full.to(eps_fc.dtype))
-        st = dict(st_fc)
-        st["prev_tokens_in"] = torch.where(w3, st_fc["prev_tokens_in"], x_in)
-        st["prev_hidden"] = torch.where(
-            warm[None, :, None, None], st_fc["prev_hidden"],
-            hidden.to(st_fc["prev_hidden"].dtype))
+        prev = state["prev_hidden"]
+        prev.copy_(torch.where(warm[None, :, None, None], prev,
+                               hidden.to(prev.dtype)))
         # cold samples' warm-up leaves the gate untouched (as _cold_step)
-        st["gate"] = statcache.GateState(
-            sigma2=torch.where(warm[None, :], st_fc["gate"].sigma2,
-                               state["gate"].sigma2),
-            initialized=torch.where(warm[None, :], st_fc["gate"].initialized,
-                                    state["gate"].initialized))
-        st["have_cache"] = torch.ones_like(warm)
-        old = state["stats"]
-        stats = dict(st_fc["stats"])
-        stats["blocks_computed"] = torch.where(
-            warm, stats["blocks_computed"], old["blocks_computed"] + self.L)
+        for now, before in zip(gate, old_gate):
+            now.copy_(torch.where(warm[None, :], now, before))
+        stats["blocks_computed"].copy_(torch.where(
+            warm, stats["blocks_computed"], old["blocks_computed"] + self.L))
         for k in ("blocks_skipped", "steps_reused"):
-            stats[k] = torch.where(warm, stats[k], old[k])
-        stats["motion_frac_sum"] = torch.where(
-            warm, stats["motion_frac_sum"], old["motion_frac_sum"] + 1.0)
-        st["stats"] = stats
-        return eps, st
+            stats[k].copy_(torch.where(warm, stats[k], old[k]))
+        stats["motion_frac_sum"].copy_(torch.where(
+            warm, stats["motion_frac_sum"], old["motion_frac_sum"] + 1.0))
+        state["have_cache"].fill_(True)
+        return eps

@@ -18,6 +18,8 @@ from repro_torch.core.policies.base import CachePolicy, register
 
 @register("fbcache")
 class FirstBlockCache(CachePolicy):
+    MIRRORED = ("have_cache",)
+
     def __init__(self, model, fc, fc_params, *, fb_rdt: float = 0.08, **kw):
         super().__init__(model, fc, fc_params, **kw)
         self.rdt = fb_rdt
@@ -39,19 +41,19 @@ class FirstBlockCache(CachePolicy):
             state["prev_h1"][r].fill_(0.0)
             state["prev_eps"][r].fill_(0.0)
             state["have_cache"][r].fill_(False)
-        return state
+        return super().reset_rows(state, rows)
 
-    def step(self, state, x_in, c):
+    def device_step(self, state, x_in, c, kind):
+        prev_h1 = state["prev_h1"]
         h1 = self.model.block_apply(self.model.blocks[0], x_in, c)
-        rel = self._rel_change(h1, state["prev_h1"])
+        rel = self._rel_change(h1, prev_h1)
         skip = (rel < self.rdt) & state["have_cache"]
 
-        def store(out, st, inputs, x_out):
+        def store(inputs, x_out):
             # block 0's output = block 1's input (or the final output when
             # the stack is a single block)
             h1_new = inputs[1] if self.L > 1 else x_out
-            out["prev_h1"] = torch.where(skip[:, None, None], st["prev_h1"],
-                                         h1_new)
+            prev_h1.copy_(torch.where(skip[:, None, None], prev_h1, h1_new))
 
         return self.masked_step(state, x_in, c, skip, computed_on_skip=1.0,
                                 store=store)

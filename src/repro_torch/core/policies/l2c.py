@@ -46,7 +46,7 @@ class LearnedLayerCache(CachePolicy):
     def init_state(self, batch: int) -> Dict:
         return {"stats": self.init_stats(batch)}
 
-    def step(self, state, x_in, c):
+    def device_step(self, state, x_in, c, kind):
         fcp = self.fc_params
         x = x_in
         for lidx, bp in enumerate(self.model.blocks):
@@ -62,14 +62,11 @@ class LearnedLayerCache(CachePolicy):
             x = constrain(x, "act_batch", "act_seq", "act_embed")
         eps = self._eps(x, c)
         skipped = float(sum(self.mask))
-        st = dict(state)
-        stats = dict(st["stats"])
-        stats["blocks_computed"] = (stats["blocks_computed"]
-                                    + (self.L - skipped))
-        stats["blocks_skipped"] = stats["blocks_skipped"] + skipped
-        stats["motion_frac_sum"] = stats["motion_frac_sum"] + 1.0
-        st["stats"] = stats
-        return eps, st
+        stats = state["stats"]
+        stats["blocks_computed"].add_(self.L - skipped)
+        stats["blocks_skipped"].add_(skipped)
+        stats["motion_frac_sum"].add_(1.0)
+        return eps
 
 
 def l2c_mask_from_deltas(deltas: MaskLike, n_skip: int) -> torch.Tensor:

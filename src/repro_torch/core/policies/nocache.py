@@ -11,10 +11,10 @@ class NoCache(CachePolicy):
     def init_state(self, batch: int) -> Dict:
         return {"stats": self.init_stats(batch)}
 
-    def step(self, state, x_in, c):
+    def device_step(self, state, x_in, c, kind):
         x_out, _ = self._full_forward(x_in, c)
         eps = self._eps(x_out, c)
-        stats = dict(state["stats"])
-        stats["blocks_computed"] = stats["blocks_computed"] + float(self.L)
-        stats["motion_frac_sum"] = stats["motion_frac_sum"] + 1.0
-        return eps, {**state, "stats": stats}
+        stats = state["stats"]
+        stats["blocks_computed"].add_(float(self.L))
+        stats["motion_frac_sum"].add_(1.0)
+        return eps

@@ -18,10 +18,11 @@ other step (a 50% block-cache ratio), SmoothCache's uniform-interval
 baseline.
 
 The reference decides "every sample reuses: skip the block" per layer with
-``lax.cond``.  The port reads the step counters and warm-up flags once per
-step (one host sync, counted in ``host_syncs``) and builds the (L, B) mask
-on the host from its own copy of the schedule, so the per-layer decisions
-cost nothing more.
+``lax.cond``.  The (L, B) mask is looked up on the device from a copy of
+the schedule there; the host knows the same mask from its mirror of the
+step counters and warm-up flags and its own copy of the schedule, so an
+eager step decides every layer without a read, and a captured step takes
+each layer's branch on the device (``branch``).
 """
 from __future__ import annotations
 
@@ -75,6 +76,9 @@ class SmoothCache(CachePolicy):
             raise ValueError(
                 f"smooth_schedule has {self.schedule.shape[0]} layer rows; "
                 f"model has {self.L} layers")
+        self.schedule_dev = to_device(self.schedule, self.device)
+
+    MIRRORED = ("have_cache", "step_count")
 
     def init_state(self, batch: int) -> Dict:
         dev = self.device
@@ -93,50 +97,46 @@ class SmoothCache(CachePolicy):
             state["prev_delta"][:, r].fill_(0.0)
             state["step_count"][r].fill_(0)
             state["have_cache"][r].fill_(False)
-        return state
+        return super().reset_rows(state, rows)
 
-    def step(self, state, x_in, c):
+    def device_step(self, state, x_in, c, kind):
         b = x_in.shape[0]
         dev = x_in.device
-        # one host sync: every sample's schedule position and warm-up flag
-        host = torch.cat([state["step_count"],
-                          state["have_cache"].to(torch.int32)]).cpu().numpy()
-        self.host_syncs += 1
-        pos = np.clip(host[:b], 0, self.schedule.shape[1] - 1)
-        skip = self.schedule[:, pos] & (host[b:] != 0)[None, :]     # (L, B)
-        skip_dev = to_device(skip, dev)               # no sync: pinned copy
+        last = self.schedule.shape[1] - 1
+        # the (L, B) mask on the device, and the host's copy from its mirror
+        pos = state["step_count"].clamp(0, last).to(torch.int64)
+        skip_dev = self.schedule_dev[:, pos] & state["have_cache"][None, :]
+        host = self.host_flags(state)
+        skip = (self.schedule[:, np.clip(host["step_count"], 0, last)]
+                & host["have_cache"][None, :])
         x = x_in
         comp = torch.zeros((b,), dtype=F32, device=dev)
         skipped = torch.zeros((b,), dtype=F32, device=dev)
-        new_delta = []
         for lidx, bp in enumerate(self.model.blocks):
             skip_l = skip_dev[lidx]
-            delta_prev = state["prev_delta"][lidx]
-            reuse = x + delta_prev
-            # every sample reuses: skip the block; a mixed batch computes it
-            # once and keeps the reusing samples' residual sum (the same
-            # bits as the all-reuse branch for those samples)
-            if skip[lidx].all():
-                x_new = reuse
-            else:
-                x_new = torch.where(skip_l[:, None, None], reuse,
-                                    self.model.block_apply(bp, x, c))
-            x_new = constrain(x_new, "act_batch", "act_seq", "act_embed")
-            new_delta.append(torch.where(skip_l[:, None, None], delta_prev,
-                                         x_new - x))
+            delta = state["prev_delta"][lidx]
+            # the carry holds the all-reuse side; a batch where some sample
+            # recomputes runs the block once and keeps the reusing samples'
+            # residual sum (the same bits as the all-reuse side for them)
+            carry = x + delta
+
+            def compute(x=x, bp=bp, carry=carry, skip_l=skip_l):
+                carry.copy_(torch.where(skip_l[:, None, None], carry,
+                                        self.model.block_apply(bp, x, c)))
+
+            self.branch(skip_l, compute, known=bool(skip[lidx].all()))
+            x_new = constrain(carry, "act_batch", "act_seq", "act_embed")
+            delta.copy_(torch.where(skip_l[:, None, None], delta, x_new - x))
             sk = skip_l.to(F32)
             comp = comp + (1.0 - sk)
             skipped = skipped + sk
             x = x_new
         eps = self._eps(x, c)
 
-        st = dict(state)
-        st["prev_delta"] = torch.stack(new_delta)
-        st["step_count"] = state["step_count"] + 1
-        st["have_cache"] = torch.ones_like(state["have_cache"])
-        stats = dict(st["stats"])
-        stats["blocks_computed"] = stats["blocks_computed"] + comp
-        stats["blocks_skipped"] = stats["blocks_skipped"] + skipped
-        stats["motion_frac_sum"] = stats["motion_frac_sum"] + 1.0
-        st["stats"] = stats
-        return eps, st
+        state["step_count"].add_(1)
+        state["have_cache"].fill_(True)
+        stats = state["stats"]
+        stats["blocks_computed"].add_(comp)
+        stats["blocks_skipped"].add_(skipped)
+        stats["motion_frac_sum"].add_(1.0)
+        return eps

@@ -18,6 +18,8 @@ from repro_torch.core.policies.base import F32, CachePolicy, register
 
 @register("teacache")
 class TeaCache(CachePolicy):
+    MIRRORED = ("have_cache",)
+
     def __init__(self, model, fc, fc_params, *, tea_threshold: float = 0.15,
                  **kw):
         super().__init__(model, fc, fc_params, **kw)
@@ -42,17 +44,17 @@ class TeaCache(CachePolicy):
             state["prev_eps"][r].fill_(0.0)
             state["tea_acc"][r].fill_(0.0)
             state["have_cache"][r].fill_(False)
-        return state
+        return super().reset_rows(state, rows)
 
-    def step(self, state, x_in, c):
-        rel = self._rel_change(x_in, state["prev_tokens_in"])
+    def device_step(self, state, x_in, c, kind):
+        prev_in = state["prev_tokens_in"]
+        rel = self._rel_change(x_in, prev_in)
         acc = state["tea_acc"] + rel
         skip = (acc < self.threshold) & state["have_cache"]
 
-        def store(out, st, inputs, x_out):
-            out["prev_tokens_in"] = torch.where(skip[:, None, None],
-                                                st["prev_tokens_in"], x_in)
+        def store(inputs, x_out):
+            prev_in.copy_(torch.where(skip[:, None, None], prev_in, x_in))
 
-        eps, st = self.masked_step(state, x_in, c, skip, store=store)
-        st["tea_acc"] = torch.where(skip, acc, torch.zeros_like(acc))
-        return eps, st
+        eps = self.masked_step(state, x_in, c, skip, store=store)
+        state["tea_acc"].copy_(torch.where(skip, acc, torch.zeros_like(acc)))
+        return eps

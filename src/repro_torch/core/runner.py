@@ -8,8 +8,9 @@
   restore_slot(state, snap, rows)
                               -> policy.restore_rows (write it back, in place)
   step(state, latents, t, labels)
-                              -> tokens_in + conditioning, then
-                                 policy.step(state, x, c)
+                              -> tokens_in + conditioning, then the
+                                 policy's step; the state is written in
+                                 place and comes back as the same dict
   stats(state)                -> policy.stats
 
 Gating is per sample: one moving sample never invalidates its batchmates'
@@ -21,6 +22,16 @@ Token compression (``core/token_reduce.py``) runs between ``tokens_in`` and
 the policy when ``fc.merge_enabled`` asks for it: the policy sees the
 reduced grid and unmerges inside ``_eps``.  Every registered policy composes
 with it.
+
+**Step graphs.**  With ``step_graph=True`` (on the card; the serving
+engines turn it on there) a warm step, one whose rows all hold a cache by
+the policy's host mirror, is ``tokens_in``, ``conditioning``, the reducer
+and the policy's device step captured once as a CUDA graph and replayed
+(``core/step_graph.py``): the latents, ``t`` and labels are copied into
+the graph's buffers, the graph is replayed, and the policy's skipped
+blocks are IF nodes, so the step launches one graph and reads nothing.
+Cold and mixed steps (admissions) stay eager.  The eps a replay returns is
+the graph's buffer, overwritten by the next replay.
 
 The audit plane (``obs/audit.py``) reads three more: ``audit_eval`` (the
 uncached full forward of the same inputs), ``audit_hidden`` (the cached
@@ -38,6 +49,7 @@ from repro_torch.core import policies as _policies  # noqa: F401 (registers)
 from repro_torch.core.policies.base import Rows, get_policy_class, row_index
 from repro_torch.core.policies.l2c import l2c_mask_from_deltas  # noqa: F401
 from repro_torch.core.statcache import GATE_MODES
+from repro_torch.core.step_graph import StepGraphs
 from repro_torch.core.token_reduce import STATE_KEY as TOKRED_KEY
 from repro_torch.core.token_reduce import TokenReducer
 from repro_torch.cuda_kernels import route
@@ -55,11 +67,14 @@ class CachedDiT:
                  ada_thresholds: Tuple[float, float] = (0.05, 0.15),
                  fb_rdt: float = 0.08,
                  l2c_mask=None,
+                 step_graph: bool = False,
                  **policy_kwargs):
         """The per-policy knobs are the reference's front-door keywords;
         with ``**policy_kwargs`` (e.g. smoothcache's ``smooth_schedule``)
         the whole set goes to the resolved policy, which keeps the ones it
-        knows.  Masks and schedules may be numpy or torch bool arrays."""
+        knows.  Masks and schedules may be numpy or torch bool arrays.
+        ``step_graph`` replays warm steps as CUDA graphs (the card only;
+        see the module docstring)."""
         cls = get_policy_class(policy)     # ValueError on unknown names
         if fc.gate_mode not in GATE_MODES:
             raise ValueError(f"unknown gate_mode {fc.gate_mode!r}; "
@@ -91,11 +106,25 @@ class CachedDiT:
                         tea_threshold=tea_threshold,
                         ada_thresholds=ada_thresholds, fb_rdt=fb_rdt,
                         l2c_mask=l2c_mask, **policy_kwargs)
+        self.graphs = StepGraphs()
+        self.step_graph = step_graph
+
+    @property
+    def step_graph(self) -> bool:
+        return self._step_graph
+
+    @step_graph.setter
+    def step_graph(self, on: bool) -> None:
+        if on and self.device.type != "cuda":
+            raise ValueError("step graphs are CUDA graphs: the runner's "
+                             f"model is on {self.device}")
+        self._step_graph = bool(on)
 
     def init_state(self, batch: int) -> Dict:
         """The policy's state for ``batch`` samples; with token compression
         on, the reducer's per-sample rows ride it under ``tokred``."""
         state = self.impl.init_state(batch)
+        self.impl.bind_mirror(state)
         if self.reducer is not None:
             state[TOKRED_KEY] = self.reducer.init_rows(batch)
         return state
@@ -115,7 +144,7 @@ class CachedDiT:
         token compression is on.  The snapshot owns its memory."""
         idx = row_index(rows, self.device)
         snap = self.impl.snapshot_rows(
-            {k: v for k, v in state.items() if k != TOKRED_KEY}, idx)
+            {k: v for k, v in state.items() if k != TOKRED_KEY}, rows)
         if self.reducer is not None:
             snap[TOKRED_KEY] = self.reducer.snapshot_rows(state[TOKRED_KEY],
                                                           idx)
@@ -126,9 +155,10 @@ class CachedDiT:
         state, in place and bitwise; ``rows`` may differ from the donor
         slot's."""
         idx = row_index(rows, self.device)
+        # the policy's walk follows the state's keys: ``snap`` goes whole,
+        # its mirror values with it
         out = self.impl.restore_rows(
-            {k: v for k, v in state.items() if k != TOKRED_KEY},
-            {k: v for k, v in snap.items() if k != TOKRED_KEY}, idx)
+            {k: v for k, v in state.items() if k != TOKRED_KEY}, snap, rows)
         if self.reducer is not None:
             out[TOKRED_KEY] = self.reducer.restore_rows(
                 state[TOKRED_KEY], snap[TOKRED_KEY], idx)
@@ -138,25 +168,42 @@ class CachedDiT:
     def step(self, state: Dict, latents: torch.Tensor, t: torch.Tensor,
              labels: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """One denoising-model evaluation under the cache policy.  ``t`` and
-        ``labels`` are (B,).  Returns (eps, new_state)."""
+        ``labels`` are (B,).  Returns (eps, state), the state written in
+        place."""
+        kind = self.impl.step_kind(state)
+        if self._step_graph and kind == "warm":
+            key = (self.policy, self.impl.gemm, self.impl.n_tokens,
+                   tuple(latents.shape), latents.dtype, t.dtype,
+                   labels.dtype, self.model.dtype)
+            eps = self.graphs.run(
+                key, lambda x, tt, lab: self._device_step(state, x, tt, lab,
+                                                          kind),
+                (latents, t, labels), state)
+        else:
+            eps = self._device_step(state, latents, t, labels, kind)
+        self.impl.host_step(state, kind)
+        return eps, state
+
+    def _device_step(self, state: Dict, latents: torch.Tensor,
+                     t: torch.Tensor, labels: torch.Tensor,
+                     kind: str) -> torch.Tensor:
+        """The step's device work (what a step graph captures)."""
         x_in = self.model.tokens_in(latents)
         c = self.model.conditioning(t, labels)
         if self.reducer is not None:
-            x_in, tokred = self.reducer.reduce(x_in, state[TOKRED_KEY])
-            state = {**state, TOKRED_KEY: tokred}
+            x_in = self.reducer.reduce(x_in, state[TOKRED_KEY])
         try:
-            eps, state = self.impl.step(state, x_in, c)
+            eps = self.impl.device_step(state, x_in, c, kind)
         finally:
             if self.reducer is not None:
                 self.reducer._mm = None      # the MergeMap is per step only
-        stats = dict(state["stats"])
-        stats["steps"] = stats["steps"] + 1.0
+        stats = state["stats"]
+        stats["steps"].add_(1.0)
         if self.reducer is not None:
             kept = float(self.reducer.reduced_tokens)
-            stats["tokens_kept"] = stats["tokens_kept"] + kept
-            stats["tokens_merged"] = (stats["tokens_merged"]
-                                      + (self.model.num_tokens - kept))
-        return eps, {**state, "stats": stats}
+            stats["tokens_kept"].add_(kept)
+            stats["tokens_merged"].add_(self.model.num_tokens - kept)
+        return eps
 
     def stats(self, state: Dict) -> Dict[str, float]:
         return self.impl.stats(state)

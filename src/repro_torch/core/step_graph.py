@@ -1,0 +1,181 @@
+"""A warm model evaluation as one CUDA graph, and the block-skip branch.
+
+The reference jits a whole denoising step (or decode step) and skips a
+cached block with ``lax.cond`` on the device: the host launches one
+program and reads nothing.  Eagerly, the port launches every op from the
+host and can only branch on the host, reading the mask.  This module gives
+it the reference's shape on the card:
+
+``branch(every, compute, skip=None, known=None)``
+    The "every sample caches: skip the block" decision.  ``every`` is the
+    (B,) bool mask of the samples that cache.  While a graph is being
+    captured on the card, ``compute`` (and ``skip``, where given) become
+    IF nodes of the graph (``cuda_kernels/cond_node.py``), so the branch
+    is taken on the device at each replay; otherwise the host decides:
+    ``known`` where the caller already knows the answer (its host mirror),
+    else one read of ``all(every)``, agreed over the model group when the
+    block's weights are sharded.  Returns the host reads it made (0 or 1).
+    Both sides write the same carry: ``compute`` keeps the cached samples'
+    values with a ``torch.where``, so either side gives a cached sample the
+    same bits, which is what lets the IF node stand in for ``lax.cond``.
+
+``StepGraphs``
+    Captured steps by key.  ``run(key, fn, inputs, bound)`` calls ``fn``
+    eagerly for the key's first ``WARMUP_CALLS`` calls in the process (a key
+    warmed once, by any ``StepGraphs``, is not warmed again), then
+    captures it once (``torch.cuda.CUDAGraph``) and replays it: each call
+    copies ``inputs`` into the graph's static buffers and replays.  ``bound`` is the state
+    the step reads and writes in place; a graph is bound to its tensors,
+    and a call with other tensors captures anew.  The capture records
+    which kernel wrappers it called (``read_counts``); each replay adds
+    that to their launch counts, so a replayed step counts the
+    launches an eager one would.  A capture that fails raises: nothing
+    falls back to the eager step.  The outputs are the graph's static
+    tensors, overwritten by the next replay.
+
+No kernel wrapper may launch inside an IF node's body: a replay cannot
+know whether the body ran, so ``branch`` raises at capture if one did.
+"""
+from __future__ import annotations
+
+import collections
+import gc
+from typing import (Any, Callable, Counter, Dict, Hashable, List, Optional,
+                    Sequence)
+
+import torch
+
+from repro_torch.cuda_kernels import add_counts, counts_since, read_counts
+from repro_torch.cuda_kernels.cond_node import if_all, prepare
+from repro_torch.distributed.sharding import agree_all, current_ctx
+
+# eager calls of a key before its capture: the first warm steps run the
+# lazy set-up (kernel libraries, cuBLAS handles, routes) outside a capture
+WARMUP_CALLS = 2
+# eager calls made so far of each key, in this process
+_EAGER_CALLS: Counter[Hashable] = collections.Counter()
+
+
+def branch(every: torch.Tensor, compute: Callable[[], None],
+           skip: Optional[Callable[[], None]] = None,
+           known: Optional[bool] = None) -> int:
+    """Run ``compute`` unless every sample caches, else ``skip`` (see the
+    module docstring).  Returns the number of host reads made (0 or 1)."""
+    if every.is_cuda and torch.cuda.is_current_stream_capturing():
+        ctx = current_ctx()
+        if ctx is not None and ctx.group("model") is not None:
+            raise RuntimeError("a step graph cannot hold the block skip of a "
+                               "model-sharded block: its ranks agree on the "
+                               "host")
+        mask = every.contiguous()
+        before = read_counts()
+        if skip is not None:
+            if_all(mask, skip, when_all=True)
+        if_all(mask, compute, when_all=False)
+        inside = [k for k in counts_since(before) if k[0] != "if_all"]
+        if inside:
+            raise RuntimeError(f"kernel wrappers launched inside an IF node "
+                               f"({sorted({k[0] for k in inside})}): a replay "
+                               "cannot count them")
+        return 0
+    reads = 0
+    if known is None:
+        known = bool(agree_all(every.all()))
+        reads = 1
+    if known:
+        if skip is not None:
+            skip()
+    else:
+        compute()
+    return reads
+
+
+def _tensors(tree: Any) -> List[torch.Tensor]:
+    """The tensor leaves of nested dicts, tuples and lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _release_capture(dev: torch.device, pool: tuple) -> None:
+    """After a failed capture: the allocator's routing of the graph's pool,
+    where the capture's end did not take it back (an invalidated capture
+    can raise before it does).  A routing left behind makes the allocator
+    refuse to empty any pool later in the process."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:
+        pass                               # the capture's end took it back
+
+
+class StepGraph:
+    """One captured step: its static inputs, the graph, its outputs, the
+    state tensors it is bound to and the launches its capture recorded."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
+                 bound: Sequence[torch.Tensor]):
+        dev = inputs[0].device
+        prepare(dev)
+        self.bound = tuple(bound)
+        self.static = [t.clone() for t in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        before = read_counts()
+        # no garbage collection inside the capture: a graph freed there (a
+        # finished engine's, held in a reference cycle) resets, which is not
+        # permitted while a stream captures and invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.out = fn(*self.static)
+        except Exception as e:
+            _release_capture(dev, pool)
+            raise RuntimeError(f"capturing the step graph failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
+            # a capture runs nothing: its wrapper calls launched no kernel
+            self.recorded = counts_since(before)
+            add_counts(self.recorded, -1)
+
+    def bound_to(self, bound: Sequence[torch.Tensor]) -> bool:
+        return (len(bound) == len(self.bound)
+                and all(a is b for a, b in zip(bound, self.bound)))
+
+    def replay(self, inputs: Sequence[torch.Tensor]) -> Any:
+        for s, t in zip(self.static, inputs):
+            s.copy_(t)
+        self.graph.replay()
+        add_counts(self.recorded)
+        return self.out
+
+
+class StepGraphs:
+    """Captured steps by key (see the module docstring)."""
+
+    def __init__(self):
+        self.graphs: Dict[Hashable, StepGraph] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, key: Hashable, fn: Callable,
+            inputs: Sequence[torch.Tensor], bound: Any) -> Any:
+        leaves = _tensors(bound)
+        g = self.graphs.get(key)
+        if g is not None and not g.bound_to(leaves):
+            del self.graphs[key]
+            g = None
+        if g is None:
+            if _EAGER_CALLS[key] < WARMUP_CALLS:
+                _EAGER_CALLS[key] += 1
+                return fn(*inputs)
+            g = self.graphs[key] = StepGraph(fn, inputs, leaves)
+            self.captures += 1
+        self.replays += 1
+        return g.replay(inputs)

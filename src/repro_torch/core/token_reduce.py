@@ -23,7 +23,7 @@ keeping every row's merge independent of its batchmates.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -103,21 +103,22 @@ class TokenReducer:
     # -- the stage -------------------------------------------------------
 
     def reduce(self, x_full: torch.Tensor, tr: Dict[str, torch.Tensor]
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(B, N, D) full-resolution tokens -> (B, M_total, D) merged grid
-        and fresh reducer rows (``tr`` is not modified).  The MergeMap is
-        kept on the reducer for this step only: ``unmerge`` (called from
-        the policy's ``_eps`` later in the same step) reads it, and the
-        runner clears it when the step returns."""
+               ) -> torch.Tensor:
+        """(B, N, D) full-resolution tokens -> (B, M_total, D) merged grid;
+        the reducer rows ``tr`` are updated in place (this step's tokens
+        become the next one's reference).  The MergeMap is kept on the
+        reducer for this step only: ``unmerge`` (called from the policy's
+        ``_eps`` later in the same step) reads it, and the runner clears it
+        when the step returns."""
         prev = torch.where(tr["have_prev"][:, None, None],
                            tr["prev_full"].to(x_full.dtype), x_full)
         merged, mm = token_merge.merge_tokens(
             x_full, prev, window=self.window, keep_ratio=self.keep_ratio,
             k=self.k, lam=self.lam)
         self._mm = mm
-        new_tr = {"prev_full": x_full.to(self.dtype),
-                  "have_prev": torch.ones_like(tr["have_prev"])}
-        return merged, new_tr
+        tr["prev_full"].copy_(x_full)
+        tr["have_prev"].fill_(True)
+        return merged
 
     def unmerge(self, hidden: torch.Tensor) -> torch.Tensor:
         """(B, M_total, D) reduced hidden -> (B, N, D) through this step's

@@ -153,3 +153,10 @@ def unmerge_scatter(merged: torch.Tensor, assign: torch.Tensor
     each token's cluster representative."""
     idx = assign.to(torch.int64)[..., None].expand(-1, -1, merged.shape[-1])
     return torch.gather(merged, 1, idx)
+
+
+def if_all(mask: torch.Tensor, when_all: bool) -> torch.Tensor:
+    """The condition ``cond_node``'s kernel sets on its IF node: all(mask)
+    when ``when_all``, else not all(mask), as a 0-dim bool."""
+    every = mask.to(torch.bool).all()
+    return every if when_all else ~every

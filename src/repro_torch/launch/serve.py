@@ -65,6 +65,9 @@ class LLMWorkload:
     fastcache: bool = False         # the FastCache decode gate
     greedy: bool = True             # False: sample each first token
     seed: int = 0                   # weights and prompts
+    # the gated decode step as a CUDA graph: None is the engine's default
+    # (on the card), False its eager path
+    step_graph: Optional[bool] = None
 
     def config(self) -> ModelConfig:
         cfg = get_reduced(self.arch) if self.reduced else get_config(self.arch)
@@ -83,7 +86,7 @@ class LLMWorkload:
         return ServingEngine(
             model, max_batch=self.max_batch, window=self.window,
             fastcache=FastCacheConfig() if self.fastcache else None,
-            greedy=self.greedy)
+            greedy=self.greedy, step_graph=self.step_graph)
 
     def build_requests(self, model: TransformerModel) -> List[Request]:
         rng = np.random.default_rng(self.seed)
@@ -159,7 +162,8 @@ def serve(wl: LLMWorkload, model: TransformerModel
         out["block_cache_ratio"] = stats["block_cache_ratio"]
         out["blocks_skipped"] = stats["blocks_skipped"]
         out["layers_all_skipped_per_decode_step"] = (
-            eng.decoder.skipped_layers / eng.decode_steps)
+            float(eng.fc_state["stats"]["layers_skipped"])
+            / eng.decode_steps)
     return out, eng, done
 
 
@@ -192,7 +196,8 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     args = parse_args(argv)
     wl = LLMWorkload(**{f.name: getattr(args, f.name)
-                        for f in dataclasses.fields(LLMWorkload)})
+                        for f in dataclasses.fields(LLMWorkload)
+                        if hasattr(args, f.name)})
     cfg = wl.config()
     if cfg.is_encoder:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")

@@ -112,6 +112,9 @@ class Workload:
     cfg_rows: bool = True           # False: the no-CFG fast path (g = 1)
     audit_fraction: float = 0.0     # shadow-audited share of serve steps
     audit_seed: int = 0
+    # warm steps as CUDA graphs: None is the engine's default (on the
+    # card), False its eager path; a sharded engine is always eager
+    step_graph: Optional[bool] = None
     # traffic for the SLO plane: classes and deadline slacks drawn per
     # request (empty: all class 0, no deadlines), a burst of burst_rate
     # over [burst_start, burst_start + burst_len) (0: no burst), and the
@@ -169,7 +172,8 @@ class Workload:
                   audit_fraction=self.audit_fraction,
                   audit_seed=self.audit_seed)
         if mesh is None:
-            return runner, DiffusionServingEngine(runner, **kw)
+            return runner, DiffusionServingEngine(
+                runner, step_graph=self.step_graph, **kw)
         return runner, ShardedDiffusionEngine(
             runner, mesh=mesh, async_admission=async_admission,
             numerics_check=numerics_check, **kw)

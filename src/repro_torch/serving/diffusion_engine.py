@@ -45,6 +45,13 @@ would lay them out.  This engine's window is every slot; the sharded
 engine (``serving/sharded_engine.py``) gives each data rank its own share
 and leaves the rest of this class as it is.
 
+**Step graphs.**  On the card the runner replays every warm step (no
+slot just admitted) as one CUDA graph whose skipped blocks are IF nodes
+(``core/step_graph.py``), so a warm step launches one graph and reads
+nothing on the host, like the reference's jitted step.  ``step_graph=
+False`` keeps the eager step (the card's eager path, for comparison); the
+CPU has no graphs.
+
 **Observability** (``obs/``).  With ``enable_metrics`` (the default) the
 device metrics (``obs.metrics.init_device_metrics``) take one batched
 update per step (``DeviceUpdate``: one copy of the host-known increments,
@@ -66,6 +73,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.policies.base import RowSet
 from repro_torch.core.runner import CachedDiT
 from repro_torch.device import to_device
 from repro_torch.diffusion import sampler
@@ -98,7 +106,8 @@ class DiffusionServingEngine:
                  tracer: Optional[TraceRecorder] = None,
                  enable_metrics: bool = True,
                  audit_fraction: float = 0.0,
-                 audit_seed: int = 0):
+                 audit_seed: int = 0,
+                 step_graph: Optional[bool] = None):
         # admission invariance needs per-sample gates: a global decision
         # would let an admission move the residents' gates
         if runner.gate_mode != "per_sample":
@@ -118,6 +127,9 @@ class DiffusionServingEngine:
                              "accumulate audit error")
         self.runner = runner
         self.device = runner.device
+        # warm steps as CUDA graphs: the card's default, never on the CPU
+        runner.step_graph = (self.device.type == "cuda" if step_graph is None
+                             else step_graph)
         self.S = max_slots
         # the device slots: global slots [_lo, _lo + S_dev)
         self._lo, self.S_dev = self._slot_window()
@@ -189,10 +201,12 @@ class DiffusionServingEngine:
         if collector is not None and self._audit_on:
             collector.set_audit_context(bound=self._audit_bound,
                                         fraction=self.audit_fraction)
-        # each device slot's state rows as an index tensor, made once: the
-        # preemption pair's copies then need no host-to-device copy
-        self._rows_idx = [to_device(np.asarray(self._slot_rows(s), np.int64),
-                                    dev)
+        # each device slot's state rows as an index tensor (with its host
+        # rows), made once: the preemption pair's copies then need no
+        # host-to-device copy
+        self._rows_idx = [RowSet(to_device(np.asarray(self._slot_rows(s),
+                                                      np.int64), dev),
+                                 tuple(self._slot_rows(s)))
                           for s in range(self._lo, self._lo + n_dev)]
 
     def _slot_window(self) -> Tuple[int, int]:
@@ -229,7 +243,10 @@ class DiffusionServingEngine:
         idx = step_idx.clamp(0, self.max_steps - 1)[:, None]
         t = torch.gather(self.plan["ts"], 1, idx)[:, 0]
         t_prev = torch.gather(self.plan["ts_prev"], 1, idx)[:, 0]
-        before = self.state["stats"]
+        keys = self._acc_keys
+        # the step writes the counters in place: stack a copy first
+        stats = self.state["stats"]
+        before = torch.stack([stats[k] for k in keys])
         guidance = self.plan["guidance"] if self.cfg_rows else 1.0
         ranges = self.tracer is not None
         out = sampler.denoise_step(
@@ -242,9 +259,7 @@ class DiffusionServingEngine:
         act_rows = (torch.cat([active, active]) if self.cfg_rows
                     else active).to(F32)
         after = self.state["stats"]
-        keys = self._acc_keys
-        delta = (torch.stack([after[k] for k in keys])
-                 - torch.stack([before[k] for k in keys])) * act_rows
+        delta = (torch.stack([after[k] for k in keys]) - before) * act_rows
         dsum = delta.sum(dim=1)                     # (K,) active rows
         dfold = self._fold(delta)                   # (K, S)
         self._acc_vec.add_(dsum)

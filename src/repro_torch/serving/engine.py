@@ -14,11 +14,14 @@ the port cannot reproduce; a parity test hands JAX's draw in).  Decode
 steps stay greedy, as the reference's do.
 
 Host syncs: one per admission and one per decode step (the greedy tokens),
-counted in ``host_syncs``; the FastCache gate adds the decoder's own
-(``decoder.host_syncs``).  The active-slot cache counters accumulate on the
-device and are read only by ``cache_stats`` and, with a ``collector``, at
-``run``'s end, where they join the collector's harvest as its device
-counters.  Every other metric of this engine is a host value the loop
+counted in ``host_syncs``.  With the FastCache gate on the card, the
+decode step is replayed as one CUDA graph (``core/step_graph.py``) on the
+engine's fixed (B,) slots, its per-layer skips IF nodes, so the gate reads
+nothing on the host; eagerly (the CPU, or ``step_graph=False``) it adds
+one read per layer (``decoder.host_syncs``).  The active-slot cache
+counters accumulate on the device and are read only by ``cache_stats``
+and, with a ``collector``, at ``run``'s end, where they join the
+collector's harvest as its device counters.  Every other metric of this engine is a host value the loop
 already holds (admissions, tokens, active slots, latencies), so the
 metrics plane adds no device work and no sync.
 """
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core.decode_runner import CachedDecoder
+from repro_torch.core.step_graph import StepGraphs
 from repro_torch.device import to_device
 from repro_torch.models.transformer import TransformerModel
 from repro_torch.obs import metrics as obs_metrics
@@ -58,9 +62,16 @@ class ServingEngine:
                  fastcache: Optional[FastCacheConfig] = None,
                  greedy: bool = True,
                  collector: Optional[MetricsCollector] = None,
-                 sample_fn: Optional[SampleFn] = None):
+                 sample_fn: Optional[SampleFn] = None,
+                 step_graph: Optional[bool] = None):
+        """``step_graph``: replay the gated decode step as a CUDA graph (the
+        card's default with the gate on; the CPU has no graphs)."""
         self.model = model
         self.device = model.device
+        on_card = self.device.type == "cuda"
+        if step_graph and not on_card:
+            raise ValueError("step graphs are CUDA graphs: the model is on "
+                             f"{self.device}")
         self.greedy = greedy
         self.sample_fn = None if greedy else (sample_fn or self.sample_token)
         self.collector = collector
@@ -81,6 +92,9 @@ class ServingEngine:
                                                      device=self.device)
             self.active_blocks_computed = torch.zeros((), dtype=F64,
                                                       device=self.device)
+        self.graphs = (StepGraphs() if self.decoder is not None
+                       and (on_card if step_graph is None else step_graph)
+                       else None)
         self.host_syncs = 0
         self.decode_steps = 0
         self.prefills = 0
@@ -145,14 +159,15 @@ class ServingEngine:
             active = to_device(np.array(
                 [r is not None and not r.done for r in self.slots]),
                 self.device)
-            before = self.fc_state["stats"]
-            logits, self.cache, self.fc_state = self.decoder.decode_step(
-                tokens, self.cache, self.fc_state)
-            after = self.fc_state["stats"]
-            for key, acc in (("blocks_skipped", self.active_blocks_skipped),
-                             ("blocks_computed",
-                              self.active_blocks_computed)):
-                acc.add_(((after[key] - before[key]) * active).sum(dtype=F64))
+            keys = ("blocks_skipped", "blocks_computed")
+            # the step writes the counters in place: stack a copy first
+            stats = self.fc_state["stats"]
+            before = torch.stack([stats[k] for k in keys])
+            logits = self._gated_decode(tokens)
+            delta = ((torch.stack([stats[k] for k in keys]) - before)
+                     * active).sum(dim=1, dtype=F64)
+            self.active_blocks_skipped.add_(delta[0])
+            self.active_blocks_computed.add_(delta[1])
         if self.collector is not None:
             self.collector.inc(obs_metrics.SERVE_STEPS)
             self.collector.inc(obs_metrics.ACTIVE_SLOT_STEPS, n_active)
@@ -175,6 +190,21 @@ class ServingEngine:
                     self.collector.inc(obs_metrics.REQUESTS_FINISHED)
                     self.collector.observe(obs_metrics.REQUEST_LATENCY,
                                            len(req.generated))
+
+    def _gated_decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The decode gate's step on every slot, replayed as a graph where
+        the engine has them; returns the logits (a graph's buffer)."""
+        if self.graphs is None:
+            logits, _, _ = self.decoder.decode_step(tokens, self.cache,
+                                                    self.fc_state)
+            return logits
+        cfg = self.model.cfg
+        return self.graphs.run(
+            ("decode", cfg.name, cfg.num_layers, self.decoder.gemm,
+             tuple(tokens.shape), tokens.dtype, self.window),
+            lambda tok: self.decoder.decode_step(tok, self.cache,
+                                                 self.fc_state)[0],
+            (tokens,), (self.cache, self.fc_state))
 
     def run(self, requests: List[Request], max_steps: int = 1024
             ) -> List[Request]:

@@ -136,7 +136,7 @@ class ShardedDiffusionEngine(DiffusionServingEngine):
                          cfg_rows=cfg_rows, collector=collector,
                          tracer=tracer, enable_metrics=enable_metrics,
                          audit_fraction=audit_fraction,
-                         audit_seed=audit_seed)
+                         audit_seed=audit_seed, step_graph=False)
         self._place_metrics()
         self._full_blocks = self._shard_weights()
         if numerics_check is None:
@@ -404,7 +404,7 @@ class ShardedDiffusionEngine(DiffusionServingEngine):
                 max_steps=self.max_steps, cfg_rows=self.cfg_rows,
                 enable_metrics=bool(self.metrics),
                 audit_fraction=self.audit_fraction,
-                audit_seed=self.audit_seed)
+                audit_seed=self.audit_seed, step_graph=False)
             ref.x.copy_(x0)
             refs = []
             for step in range(2):

@@ -34,6 +34,7 @@ order, so on the same bf16 windows they give the same centers and
 assignments, bitwise merged tokens, and rho within 1e-4 (bitwise on
 integer-valued windows, whose Gram is exact in any order).
 """
+import dataclasses
 import importlib
 import math
 
@@ -972,11 +973,12 @@ def test_moe_capacity_and_gather_paths_agree_on_the_card(cuda_device, arch):
 
 
 @pytest.mark.cuda
-def test_moe_gated_decode_makes_l_plus_one_syncs(cuda_device):
-    """The reduced arctic-480b (bf16) served with the decode gate: every
-    decode step makes L + 1 host syncs (one gate decision per layer and
-    the greedy tokens), all in the port's counted places; the MoE blocks
-    add none."""
+def test_moe_gated_decode_makes_one_sync_a_step(cuda_device):
+    """The reduced arctic-480b (bf16) served with the decode gate: after
+    the eager warm-up steps and the capture, every decode step is a replay
+    of the step graph and makes one host sync (the greedy tokens), in the
+    port's counted place; the gate's per-layer skips are IF nodes and the
+    MoE blocks inside them add none."""
     import warnings
     from repro_torch.configs.base import FastCacheConfig
     from repro_torch.serving.engine import Request, ServingEngine
@@ -989,7 +991,8 @@ def test_moe_gated_decode_makes_l_plus_one_syncs(cuda_device):
             0, model.cfg.vocab_size, (24,), generator=gen).numpy(),
             max_new_tokens=12))
     for _ in range(3):
-        eng.step()                                 # first calls, trackers
+        eng.step()                         # first calls, trackers, capture
+    assert eng.graphs.captures == 1
     torch.cuda.synchronize(cuda_device)
     counted = eng.host_syncs + eng.decoder.host_syncs
     with warnings.catch_warnings(record=True) as caught:
@@ -1000,8 +1003,12 @@ def test_moe_gated_decode_makes_l_plus_one_syncs(cuda_device):
                 eng.step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    flagged = [w for w in caught if "synchroniz" in str(w.message)]
-    want = 4 * (model.cfg.num_layers + 1)
+    # the process's first set_sync_debug_mode also warns that the mode is
+    # a prototype: not a synchronization
+    flagged = [w for w in caught if "synchroniz" in str(w.message)
+               and "prototype" not in str(w.message)]
+    want = 4
+    assert eng.graphs.replays == 5
     assert eng.host_syncs + eng.decoder.host_syncs - counted == want
     assert len(flagged) == want, [f"{w.filename}:{w.lineno}"
                                   for w in flagged]
@@ -1885,3 +1892,172 @@ def test_vlm_and_audio_make_no_host_sync(cuda_device):
     h2 = enc.apply({"features": moved})
     assert not torch.allclose(h1[:, :10].float(), h2[:, :10].float(),
                               atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# step graphs: the warm DiT step and the gated decode step, IF nodes for
+# the skipped blocks (core/step_graph.py, csrc/cond_node.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [[True] * 8, [True] * 7 + [False],
+                                  [False] * 8, [True], [False] * 300])
+@pytest.mark.parametrize("when_all", [True, False])
+def test_cond_node_condition_matches_plain(cuda_device, mask, when_all):
+    """A graph of one IF node whose body writes a flag: the body runs at a
+    replay exactly when the plain condition holds, for the mask the graph
+    reads at that replay."""
+    from repro_torch.cuda_kernels import cond_node
+    cond_node.prepare(cuda_device)
+    m = torch.tensor(mask, device=cuda_device)
+    flag = torch.zeros((), device=cuda_device)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        cond_node.if_all(m, lambda: flag.add_(1.0), when_all=when_all)
+    for flip in (False, True, False):
+        if flip:
+            m.logical_not_()
+        flag.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        want = ref.if_all(m, when_all).float()
+        assert float(flag) == float(want), (mask, when_all, flip)
+    with pytest.raises(RuntimeError, match="capture"):
+        cond_node.if_all(m, lambda: None, when_all=when_all)
+
+
+def _dit_graph_serve(wl, model, step_graph, sync_steps=()):
+    """Two 10-step requests admitted at once, then a third after step 2:
+    cold, mixed and warm steps.  Engine steps in ``sync_steps`` run under
+    sync debug "error" (warm steps after the capture).  Returns the
+    finished requests, the engine's per-row stats and the runner."""
+    from repro_torch.serving.scheduler import DiffusionRequest
+    runner, eng = dataclasses.replace(wl, step_graph=step_graph
+                                      ).build_engine(model)
+    reqs = [DiffusionRequest(rid=i, label=i + 1, seed=30 + i, num_steps=10,
+                             guidance_scale=4.0) for i in range(3)]
+    assert eng.add_request(reqs[0]) and eng.add_request(reqs[1])
+    done, step = [], 0
+    while len(done) < 3:
+        if step == 2:
+            assert eng.add_request(reqs[2])
+        step += 1
+        if step in sync_steps:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                done += eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            done += eng.step()
+    stats = {k: v.clone() for k, v in eng.state["stats"].items()}
+    return sorted(done, key=lambda r: r.rid), stats, runner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,merge", [("fastcache", 1.0),
+                                          ("fastcache", 0.5),
+                                          ("teacache", 1.0)])
+def test_step_graph_dit_serve_matches_eager(cuda_device, policy, merge):
+    """A 2-layer DiT serve whose warm steps are graph replays against the
+    same serve stepped eagerly: latents bitwise, every request's counters
+    and every row's stats (the gate's decisions) equal; the replayed warm
+    steps make no host sync (sync debug "error"), and the policy counted
+    none."""
+    from repro_torch.launch.serve_diffusion import Workload
+    wl = Workload(reduced=True, slots=3, steps=10, policy=policy,
+                  merge_ratio=merge, merge_window=8)
+    model = wl.build_model(cuda_device)
+    want, want_stats, eager = _dit_graph_serve(wl, model, False)
+    assert eager.graphs.replays == 0
+    # steps 1 (cold), 3 (mixed) eager, then warm-up, capture, replays;
+    # steps 6..9 are replays and complete nothing
+    got, got_stats, runner = _dit_graph_serve(wl, model, None,
+                                              sync_steps=range(6, 10))
+    assert runner.graphs.captures == 1 and runner.graphs.replays > 4
+    for r, w in zip(got, want):
+        assert torch.equal(torch.from_numpy(r.latents),
+                           torch.from_numpy(w.latents)), r.rid
+        assert r.cache == w.cache, r.rid
+    for k in want_stats:
+        assert torch.equal(got_stats[k], want_stats[k]), k
+    # an eager warm step reads L decisions (fastcache) or 1 (teacache); a
+    # replay reads none, and cold and mixed steps none (the host mirror)
+    reads = runner.L if policy == "fastcache" else 1
+    kinds = runner.impl.step_kinds
+    assert runner.impl.host_syncs == reads * (kinds["warm"]
+                                              - runner.graphs.replays)
+
+
+@pytest.mark.cuda
+def test_step_graph_gated_decode_matches_eager(cuda_device):
+    """A 2-layer gated decode serve replayed as a graph against the same
+    serve stepped eagerly: tokens and K/V caches bitwise, the gate state
+    equal; after the capture a decode step makes one sync (the tokens)."""
+    import warnings
+    from repro_torch.launch.serve import LLMWorkload
+    outs = []
+    for step_graph in (False, None):
+        wl = LLMWorkload(reduced=True, requests=3, prompt_len=24,
+                         new_tokens=10, max_batch=2, window=64,
+                         fastcache=True, step_graph=step_graph)
+        model = wl.build_model(cuda_device)
+        eng = wl.build_engine(model)
+        reqs = wl.build_requests(model)
+        for r in reqs[:2]:
+            assert eng.add_request(r)
+        for _ in range(4):
+            eng.step()
+        counted = eng.host_syncs + eng.decoder.host_syncs
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(3):
+                    eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        flagged = [w for w in caught if "synchroniz" in str(w.message)
+                   and "prototype" not in str(w.message)]
+        per_step = (eng.host_syncs + eng.decoder.host_syncs - counted) / 3
+        assert len(flagged) == 3 * per_step
+        eng.run(reqs[2:])
+        outs.append(([list(r.generated) for r in reqs],
+                     {k: v.clone() for k, v in eng.cache.items()},
+                     [t.clone() for t in (eng.fc_state["gate"].sigma2,
+                                          eng.fc_state["gate"].initialized,
+                                          eng.fc_state["prev_hidden"])],
+                     per_step, eng.graphs))
+    (tok_e, kv_e, st_e, sync_e, g_e), (tok_g, kv_g, st_g, sync_g, g_g) = outs
+    assert g_e is None and g_g.captures == 1 and g_g.replays > 3
+    assert sync_e == model.cfg.num_layers + 1 and sync_g == 1
+    assert tok_e == tok_g
+    for k in kv_e:
+        assert torch.equal(kv_e[k], kv_g[k]), k
+    for a, b in zip(st_e, st_g):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_step_graph_capture_failure_raises(cuda_device):
+    """A step that cannot be captured (it reads a value on the host) makes
+    the capture raise; nothing falls back to the eager step, and the
+    kernels' launch counts are left as they were."""
+    from repro_torch import cuda_kernels
+    from repro_torch.core import step_graph
+    graphs = step_graph.StepGraphs()
+    x = torch.ones(4, device=cuda_device)
+
+    def bad(t):
+        saliency_delta(t[None, None], t[None, None])
+        return t * float(t.sum())           # a host read: not capturable
+
+    for _ in range(step_graph.WARMUP_CALLS):    # the eager warm-up
+        graphs.run(("bad", 0), bad, (x,), {})
+    before = cuda_kernels.read_counts()
+    with pytest.raises(RuntimeError, match="capturing the step graph"):
+        graphs.run(("bad", 0), bad, (x,), {})
+    assert cuda_kernels.counts_since(before) == {}
+    assert graphs.replays == 0

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import pytest
 
+from repro_torch import cuda_kernels
 from repro_torch.cuda_kernels import ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,9 +44,20 @@ def test_every_kernel_module_has_a_counted_wrapper(module_name):
 
 
 def test_the_seven_wrappers():
+    """The seven ports of the Pallas kernels, and ``if_all``, the IF node
+    of the step graphs (the reference's ``lax.cond``, not a Pallas
+    kernel)."""
     assert sorted(name for _, name in WRAPPERS) == sorted([
         "flash_attention", "fused_gate", "knn_density", "linear_blend",
-        "merge_assign", "saliency_delta", "unmerge_scatter"])
+        "merge_assign", "saliency_delta", "unmerge_scatter", "if_all"])
+
+
+def test_the_registry_holds_every_wrapper():
+    """``cuda_kernels.wrappers()``, which the launch counts are read and
+    added through, names each wrapper that the modules define."""
+    found = {name: getattr(importlib.import_module(
+        f"repro_torch.cuda_kernels.{m}"), name) for m, name in WRAPPERS}
+    assert cuda_kernels.wrappers() == found
 
 
 @pytest.mark.parametrize("module_name,name", WRAPPERS,

@@ -278,9 +278,10 @@ def test_smoothcache_default_schedule_and_row_check(pair):
 
 @pytest.mark.parametrize("policy", NEW)
 def test_host_syncs_per_step(pair, policy):
-    """One host sync per model step for every step-level policy (the skip
-    mask; smoothcache's step counters), none for l2c; a reset row changes
-    nothing."""
+    """The host mirror of the warm-up flags and step counters decides what
+    it can: fora's and smoothcache's schedules and every cold or mixed step
+    read nothing; teacache, adacache and fbcache read their skip mask once
+    per all-warm eager step (steps 1 and 3 here); l2c reads nothing."""
     jcfg, _, _, model = pair
     runner = CachedDiT(model, FastCacheConfig(), policy=policy,
                        **_kwargs(policy, jcfg.num_layers))
@@ -292,7 +293,11 @@ def test_host_syncs_per_step(pair, policy):
         if i == 2:
             state = runner.reset_slot(state, [1])
         _, state = runner.step(state, x, t, labels)
-    assert runner.impl.host_syncs == (0 if policy == "l2c" else 4)
+    reads = 2 if policy in ("teacache", "adacache", "fbcache") else 0
+    assert runner.impl.host_syncs == reads
+    assert runner.impl.step_kinds == (
+        {"cold": 0, "mixed": 0, "warm": 4} if policy == "l2c"
+        else {"cold": 1, "mixed": 1, "warm": 2})
 
 
 def _spy(monkeypatch, module, name, fn, calls):

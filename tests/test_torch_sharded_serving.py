@@ -195,15 +195,15 @@ def test_one_by_one_async_admission_is_sync(world):
 
 
 def test_one_by_one_host_syncs(world):
-    """1 + L host reads per warm fastcache step (the step kind, then one
-    all-cache test per layer), one per cold or mixed step, and one
-    completion fetch per run with async admission; sync admission fetches
-    at each completion step."""
+    """L host reads per warm fastcache step (one all-cache test per layer:
+    the sharded engine stays eager), none per cold or mixed step (the step
+    kind comes from the host mirror), and one completion fetch per run with
+    async admission; sync admission fetches at each completion step."""
     res = world[3][(1, 1)][0]
     long_ = res["long"]
     kinds, L = long_["step_kinds"], world[0].cfg.num_layers
     assert kinds["warm"] > 0 and long_["stats"]["blocks_skipped"] > 0
-    assert long_["policy_syncs"] == long_["model_steps"] + L * kinds["warm"]
+    assert long_["policy_syncs"] == L * kinds["warm"]
     assert long_["engine_syncs"] == 1
     finishes = {r["finish"] for r in res["sync"]["requests"].values()}
     assert res["sync"]["engine_syncs"] == len(finishes)

@@ -157,11 +157,12 @@ def test_reducer_statics_and_state_rows(smoke):
     rows = red.init_rows(3)
     assert rows["prev_full"].shape == (3, model.num_tokens, jcfg.d_model)
     assert not bool(rows["have_prev"].any())
-    _, warm = red.reduce(torch.ones((3, model.num_tokens, jcfg.d_model)),
-                         rows)
-    assert bool(warm["have_prev"].all())
-    assert not bool(rows["have_prev"].any())     # reduce leaves tr alone
-    cold = red.reset_rows(warm, [1])
+    merged = red.reduce(torch.ones((3, model.num_tokens, jcfg.d_model)),
+                        rows)
+    assert merged.shape == (3, red.reduced_tokens, jcfg.d_model)
+    assert bool(rows["have_prev"].all())         # reduce writes tr in place
+    assert bool((rows["prev_full"] == 1.0).all())
+    cold = red.reset_rows(rows, [1])
     assert [bool(v) for v in cold["have_prev"]] == [True, False, True]
     assert not bool(cold["prev_full"][1].any())
 
