@@ -202,16 +202,21 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             step both serves' wall time and CUDA-event span;
 9h. sharded_serve  the serve phase's workload through
             ShardedDiffusionEngine (launch.serve_diffusion.Workload.
-            build_engine(mesh=...)).  (1, 1) on nccl with world size 1 in
-            this process, through timed_run in the order plain engine,
-            sharded, sharded, plain, sharded with sync admission: the
-            sharded serves' latents bitwise the serve phase's, the block
-            cache ratio PARENT_BLOCK_CACHE_RATIO, L host syncs per warm
-            model step (the sharded engine stays eager: a model group agrees
-            on every skip on the host), one completion fetch per run
-            (async),
-            launches exact on every serve, wall time and CUDA-event span
-            per engine step of each.  The launcher's own --mesh path
+            build_engine(mesh=...)), on the graph path wherever the mesh's
+            collectives can be captured (model = 1).  (1, 1) on nccl with
+            world size 1 in this process, through timed_run in the order
+            plain engine, sharded, sharded, plain, sharded with sync
+            admission, sharded eager (step_graph=False, the yardstick):
+            every sharded serve's latents and request counters bitwise the
+            serve phase's, the block cache ratio PARENT_BLOCK_CACHE_RATIO,
+            0 policy syncs per warm model step on the graph path (every
+            warm step a replay) and L eager, one completion fetch per
+            async run, launches exact on every serve, wall time and
+            CUDA-event span per engine step of each; then one more graph
+            serve with GRAPH_PROFILED_STEPS warm steps under torch.profiler
+            (path_serve): each wrapper's replayed launch count held to the
+            kernels the card ran, by name (CountedStep, hold_counts).  The
+            launcher's own --mesh path
             (serve_diffusion.serve_mesh, LAUNCHER_MESH_RUNS: 2,1 with a
             steps and guidance mix on gloo ranks sharing the card, 1,1
             lockstep on nccl), its rank-0 summary equal on LAUNCHER_EXACT
@@ -220,10 +225,16 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             for.  Then two ranks sharing the card over gloo
             (launch.mesh.RankGroup, SHARDED_SCENARIOS), each rank's
             launches exactly expected_launches for its slots and per rank
-            the wall time and CUDA-event span per engine step: data = 2:
-            the same (admit, finish) schedule and latents within
+            the wall time and CUDA-event span per engine step, whether it
+            ran the graph path (and why not), its policy syncs per warm
+            step and _batch_sum's host round trips per engine step: data
+            = 2 on the graph path (the trace served once before, so every
+            timed warm step is a replay: 0 syncs; gloo's all-reduce of the
+            skip-fraction partial goes through the host once an engine
+            step): the same (admit, finish) schedule and latents within
             LATENT_REL (1e-4 of their scale) of the serve phase's; model =
-            2 (18 heads and 4,608 ffn columns halve): one block on its
+            2 eager (gloo cannot be captured: L syncs a warm step), 18
+            heads and 4,608 ffn columns halved: one block on its
             shards within BLOCK_TP_BOUND of the unsharded block (f32, bf16)
             and off by more than BLOCK_TP_FAULT without its all-reduce;
             the numerics self-check (TP_SELF_CHECK: f32, one layer, atol
@@ -238,6 +249,20 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             far the single-device serve's latents move when its initial
             noise moves by one part in 2^23 (noise_spread); a rank's
             failure fails the phase;
+9i. model_group_probe  the block skip under a model group inside a
+            capture, on what one card allows (model_group_probe): a
+            one-rank nccl world in this process stands in as a
+            ShardingCtx's model group; a toy stack of PROBE_LAYERS
+            integer-valued (PROBE_ROWS, 256, 1152) f32 blocks, each an
+            all-reduced product behind step_graph.branch (the agreement
+            all-reduce on the capturing stream, the IF node, the body's
+            all-reduce), captured with and without the bodies'
+            all-reduce: the bodies' node counts by type, every PROBE_MASKS
+            replay bitwise the eager step under sync debug "error", the
+            kernels a replay ran by name (nccl's among them); a capture
+            that fails is recorded with its error, and the construction
+            rule (step_graph.capture_refusal) must refuse an nccl model
+            group exactly when it does;
 10. kernel  flash_attention against its plain version at four shapes: (a)
             the LLM serve's prefill, B=1, H=16, KVH=8, S=512, dh=128,
             causal, window 1024, bf16; (b) S=2048, window 512 (tiles
@@ -3652,13 +3677,20 @@ def rank_serve(torch, wl, model, mesh, m, label) -> dict:
     """Serve ``wl`` on this rank through the sharded engine with the
     self-check off, every kernel's count zeroed just before and read just
     after; the launches held to expected_launches (and the routes to
-    ROUTE_OF_SERVE in bf16).  Returns its record, latents included."""
+    ROUTE_OF_SERVE in bf16).  On the graph path (the engine's default
+    where it can capture: model = 1) the trace is served once before, so
+    that every warm step of the timed serve is a replay (a key's first
+    warm steps in a process run eagerly); there a warm step makes no
+    policy sync, eagerly L.  Returns its record, latents included."""
     wl.warm_up(model)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runner, eng = wl.build_engine(model, mesh=mesh, numerics_check=False)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    if runner.step_graph:
+        eng.run(wl.build_trace(model))
+        runner, eng = wl.build_engine(model, mesh=mesh, numerics_check=False)
     trace = wl.build_trace(model)
     zero_counts()                         # the path starts here
     done, wall, span_ms = timed_run(torch, m, eng, trace)
@@ -3668,7 +3700,18 @@ def rank_serve(torch, wl, model, mesh, m, label) -> dict:
         check_path(label, wl, runner, eng, m, launches)
     elif launches != expected_launches(wl, runner, eng, launches):
         raise AssertionError(f"{label}: launches {launches}")
+    warm = runner.impl.step_kinds["warm"]
+    syncs = runner.impl.host_syncs / warm if warm else None
+    if warm and syncs != (0.0 if runner.step_graph else float(runner.L)):
+        raise AssertionError(f"{label}: {syncs} policy syncs per warm step "
+                             f"(step_graph {runner.step_graph})")
     return {
+        "step_graph": runner.step_graph,
+        "step_graph_refusal": eng.graph_refusal,
+        "graph_replays": runner.graphs.replays,
+        "policy_syncs_per_warm_step": syncs,
+        "batch_sum_round_trips_per_engine_step":
+            eng.batch_sum_round_trips / eng.clock,
         "rank": torch.distributed.get_rank(), "topology": eng.topology(),
         "dtype": str(model.dtype), "layers": model.cfg.num_layers,
         "steps": wl.steps, "window": [eng._lo, eng.S_dev],
@@ -3770,78 +3813,115 @@ def chaos_probe(torch, wl) -> list:
 
 def sharded_one_by_one(torch, wl, model, m, base) -> dict:
     """(1, 1) on nccl in this process, each serve through timed_run in one
-    order, plain / sharded / sharded / plain / sharded with sync
-    admission: every sharded serve's latents bitwise the serve phase's,
-    ratio PARENT_BLOCK_CACHE_RATIO, L syncs per warm model step (the
-    sharded engine is eager), one completion fetch a run (async); launches
-    exact on every serve.
-    Returns the launches by label."""
+    order, plain / sharded / sharded / plain / sharded with sync admission
+    / sharded eager (``step_graph=False``, the yardstick): every sharded
+    serve's latents and request counters bitwise the serve phase's (the
+    graph path), ratio PARENT_BLOCK_CACHE_RATIO, 0 policy syncs per warm
+    model step on the graph path (every warm step a replay) and L eager,
+    one completion fetch a run (async); launches exact on every serve.
+    Then a sharded graph serve with GRAPH_PROFILED_STEPS warm steps
+    profiled (path_serve): each wrapper's replayed count held to the
+    kernels the card ran by name.  Returns the launches by label."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import (free_port, init_ranks,
                                          make_serving_mesh)
     want = {r.rid: r for r in base.done}
-    order = ("plain", "sharded", "sharded", "plain", "sharded_sync")
+    order = ("plain", "sharded", "sharded", "plain", "sharded_sync",
+             "sharded_eager")
     runs, out = [], {}
     init_ranks(0, 1, port=free_port(), backend="nccl")
     try:
         mesh = make_serving_mesh(1, 1)
         for kind in order:
-            runner, eng = (wl.build_engine(model) if kind == "plain" else
-                           wl.build_engine(model, mesh=mesh,
-                                           async_admission=kind == "sharded"))
-            trace = wl.build_trace(model)
+            w = dataclasses.replace(wl, step_graph=(
+                False if kind == "sharded_eager" else None))
+            runner, eng = (w.build_engine(model) if kind == "plain" else
+                           w.build_engine(
+                               model, mesh=mesh,
+                               async_admission=kind != "sharded_sync"))
+            trace = w.build_trace(model)
             zero_counts()                 # the path starts here
             done, wall, span_ms = timed_run(torch, m, eng, trace)
             launches = {name: fn.launches          # ... and ends here
                         for name, fn in m.kernels.items()}
             label = f"sharded_serve_1x1_{kind}"
-            check_path(label, wl, runner, eng, m, launches)
+            check_path(label, w, runner, eng, m, launches)
+            syncs = syncs_per_warm_step(runner)
             if kind != "plain":
                 out["sharded_serve_1x1" + kind[len("sharded"):]] = launches
                 topo = eng.topology()
-                for r in done:
-                    if not np.array_equal(r.latents, want[r.rid].latents):
-                        raise AssertionError(f"{label} rid={r.rid}: latents "
-                                             "differ from the serve phase's")
-                    if r.cache != want[r.rid].cache:
-                        raise AssertionError(f"{label} rid={r.rid}: request "
-                                             f"counters {r.cache}")
+                same_served(label, done, want)
                 ratio = eng.cache_stats()["block_cache_ratio"]
                 if ratio != PARENT_BLOCK_CACHE_RATIO:
                     raise AssertionError(f"{label}: block cache ratio {ratio}")
-                syncs = syncs_per_warm_step(runner)
-                if syncs != float(runner.L):
-                    raise AssertionError(f"{label}: {syncs} syncs per warm "
-                                         "model step")
-                if kind == "sharded" and eng.host_syncs != 1:
+                graph = kind != "sharded_eager"
+                if (runner.step_graph != graph
+                        or syncs != (0.0 if graph else float(runner.L))
+                        or graph and runner.graphs.replays
+                        != runner.impl.step_kinds["warm"]):
+                    raise AssertionError(
+                        f"{label}: step_graph {runner.step_graph}, {syncs} "
+                        f"syncs per warm model step, {runner.graphs.replays}"
+                        f" replays of {runner.impl.step_kinds['warm']} warm "
+                        "steps")
+                if kind != "sharded_sync" and eng.host_syncs != 1:
                     raise AssertionError(f"{label}: {eng.host_syncs} "
                                          "completion fetches in one run")
             runs.append({"kind": kind, "engine_steps": eng.clock,
+                         "step_graph": runner.step_graph,
+                         "graph_replays": runner.graphs.replays,
+                         "policy_syncs_per_warm_model_step": syncs,
                          "wall_ms_per_engine_step": wall / eng.clock * 1e3,
                          "event_ms_per_engine_step": span_ms,
                          "completion_fetches": eng.host_syncs})
             del runner, eng
+        prof = path_serve(torch, wl, model, m, None,
+                          "sharded_serve_1x1_profiled", mesh=mesh)
+        same_served("sharded_serve_1x1_profiled", prof.done, want)
+        out["sharded_serve_1x1_profiled"] = prof.launches
     finally:
         dist.destroy_process_group()
     mean = {kind: {k: float(np.mean([r[k] for r in runs
                                      if r["kind"] == kind]))
                    for k in ("wall_ms_per_engine_step",
                              "event_ms_per_engine_step")}
-            for kind in ("plain", "sharded")}
+            for kind in ("plain", "sharded", "sharded_eager")}
     emit({"phase": "sharded_serve", "mesh": [1, 1], "topology": topo,
           "requests": len(want), "bitwise_serve": True,
           "async_bitwise_sync": True,
           "block_cache_ratio": PARENT_BLOCK_CACHE_RATIO,
-          "syncs_per_warm_model_step": float(base.runner.L),
+          "policy_syncs_per_warm_model_step": {"graph": 0.0,
+                                               "eager": float(base.runner.L)},
           "launches": out["sharded_serve_1x1"], "runs_in_order": runs,
           "mean": mean,
           "sharded_over_plain_wall": (mean["sharded"]["wall_ms_per_engine_step"]
                                       / mean["plain"]
                                       ["wall_ms_per_engine_step"]),
+          "eager_over_graph_wall": (
+              mean["sharded_eager"]["wall_ms_per_engine_step"]
+              / mean["sharded"]["wall_ms_per_engine_step"]),
+          "profiled_graph_serve": {
+              "wrapper_counts_held": prof.held,
+              "launches_per_warm_step": mean_counts(prof.prof),
+              "wall_ms_per_warm_step": 1e3 * float(np.mean(prof.walls)),
+              "wall_ms_per_warm_step_p50": 1e3 * float(np.median(prof.walls)),
+              "graph_replays": prof.runner.graphs.replays},
           "serve_phase_wall_ms_per_engine_step":
               base.wall / base.eng.clock * 1e3, "card": smi()})
     torch.cuda.empty_cache()
     return out
+
+
+def same_served(label, done, want) -> None:
+    """Each finished request's latents and counters bitwise ``want``'s (by
+    rid)."""
+    for r in done:
+        if not np.array_equal(r.latents, want[r.rid].latents):
+            raise AssertionError(f"{label} rid={r.rid}: latents differ from "
+                                 "the serve phase's")
+        if r.cache != want[r.rid].cache:
+            raise AssertionError(f"{label} rid={r.rid}: request counters "
+                                 f"{r.cache}")
 
 
 def sharded_launcher(torch) -> None:
@@ -3982,6 +4062,16 @@ def phase_sharded_serve(torch, dev, wl, model, m, base):
                 "ranks": [{k: v for k, v in res[name].items()
                            if k not in ("latents", "schedule")}
                           for res in ranks]}
+            # the graph path where the mesh's collectives can be captured:
+            # model = 1; model = 2 over gloo stays eager
+            paths = {(res[name]["step_graph"], res[name]["step_graph_refusal"])
+                     for res in ranks}
+            graph, why = paths.pop()
+            if paths or graph != (topo[1] == 1) or (
+                    not graph and "gloo" not in why):
+                raise AssertionError(f"mesh {topo} {name}: step_graph "
+                                     f"{graph} ({why}) on some rank")
+            row["step_graph"], row["step_graph_refusal"] = graph, why
         if topo[1] > 1:
             row["chaos_f32_per_layer"] = chaos
         row["serve_phase_wall_ms_per_engine_step"] = \
@@ -3989,6 +4079,133 @@ def phase_sharded_serve(torch, dev, wl, model, m, base):
         row["card"] = smi()
         emit(row)
     return out
+
+
+# the (b) probe: a toy stack of PROBE_LAYERS blocks, each a (PROBE_ROWS,
+# 256, 1152) f32 product all-reduced over the model group, skipped when
+# every row caches; integer-valued inputs keep every sum exact, so a
+# replay must equal the eager step bitwise whatever kernels the capture
+# chooses.  The masks: every row caching in every layer, one layer
+# computed (its mask mixed), every layer computed
+PROBE_LAYERS = 2
+PROBE_ROWS = 8
+PROBE_MASKS = {"all_cache": [[True] * PROBE_ROWS] * PROBE_LAYERS,
+               "mixed": [[True] * PROBE_ROWS,
+                         [True] * (PROBE_ROWS - 1) + [False]],
+               "none_cache": [[False] * PROBE_ROWS] * PROBE_LAYERS}
+
+
+def model_group_probe(torch) -> dict:
+    """A one-rank nccl world on the card in this process: it stands in,
+    here only, as a ``ShardingCtx``'s model group, so that
+    ``step_graph.branch`` takes its model-group path: the
+    agreement all-reduce on the capturing stream feeding the IF nodes,
+    whose bodies all-reduce (``models.dit.tp_all_reduce``).  The toy stack
+    (PROBE_*) is stepped eagerly and captured (``StepGraph``), twice: with
+    the bodies' all-reduce and without, whose bodies' node counts by type
+    differ by what NCCL put in a body.  Each mask is replayed under sync
+    debug "error" and held to the eager step bitwise.  A capture that
+    fails is this probe's finding: its error text is returned."""
+    import torch.distributed as dist
+    from repro_torch.core import step_graph
+    from repro_torch.cuda_kernels.cond_node import if_all
+    from repro_torch.distributed.sharding import (ShardingCtx, make_rules,
+                                                  use_sharding)
+    from repro_torch.launch.mesh import (free_port, init_ranks,
+                                         make_serving_mesh)
+    from repro_torch.models.dit import tp_all_reduce
+    init_ranks(0, 1, port=free_port(), backend="nccl")
+
+    class OneRankModelGroup(ShardingCtx):
+        def group(self, axis):
+            return dist.group.WORLD if axis == "model" else super().group(axis)
+
+    ctx = OneRankModelGroup(make_serving_mesh(1, 1), make_rules("serve"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.randint(-4, 5, (PROBE_ROWS, 256, 1152), generator=gen,
+                      device=dev).float()
+    ws = [torch.randint(-1, 2, (1152, 1152), generator=gen,
+                        device=dev).float() for _ in range(PROBE_LAYERS)]
+    masks = {k: torch.tensor(v, device=dev) for k, v in PROBE_MASKS.items()}
+    reads = []
+
+    def stack(reduce):
+        def step(xin, every):
+            y = xin.clone()
+            for i, w in enumerate(ws):
+                def compute(w=w, m=every[i]):
+                    h = torch.matmul(y, w)
+                    if reduce:
+                        h = tp_all_reduce(h)
+                    y.copy_(torch.where(m[:, None, None], y, y + h))
+                reads.append(step_graph.branch(every[i], compute))
+            return y
+        return step
+
+    out = {"refusal": step_graph.capture_refusal(ctx, dev),
+           "backend": dist.get_backend(), "body_nodes": {},
+           "capture_reads": 0}
+    with use_sharding(ctx=ctx):
+        eager = {k: stack(True)(x, m).clone() for k, m in masks.items()}
+        out["eager_reads_per_step"] = sum(reads) / len(masks)
+        for reduce in (False, True):
+            del reads[:]
+            try:
+                g = step_graph.StepGraph(stack(reduce), (x, masks["mixed"]),
+                                         ())
+            except RuntimeError as e:
+                # the communicator is left as the failed capture left it:
+                # no teardown that could wait on it
+                out.update(captured=False, error=str(e),
+                           with_all_reduce=reduce)
+                return out
+            out["body_nodes"][f"all_reduce_{reduce}"] = dict(
+                if_all.body_nodes)
+            out["capture_reads"] += sum(reads)
+        same, worst = {}, {}
+        for k, m in masks.items():
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = g.replay((x, m))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            same[k] = bool(torch.equal(got, eager[k]))
+            worst[k] = float((got - eager[k]).abs().max())
+        _, names, counts = host_launches(torch, lambda: g.replay(
+            (x, masks["none_cache"])))
+    out.update(captured=True, replays_bitwise=same,
+               replay_max_abs_diff=worst, replay_kernels=dict(names),
+               nccl_kernels_in_replay=sum(n for k, n in names.items()
+                                          if "nccl" in k),
+               replay_host_launches=counts)
+    dist.destroy_process_group()
+    return out
+
+
+def phase_model_group_probe(torch) -> dict:
+    """C2(b) on the one card (model_group_probe).  The capture either
+    holds (every mask's replay bitwise the eager step, no host read) and
+    the construction rule admits an nccl model group, or it fails and the
+    rule refuses it; anything else fails."""
+    t0 = time.perf_counter()
+    res = model_group_probe(torch)
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "model_group_probe", "layers": PROBE_LAYERS,
+          "rows": PROBE_ROWS, **res, "card": smi()})
+    if res["captured"]:
+        if (not all(res["replays_bitwise"].values())
+                or res["capture_reads"] != 0
+                or res["eager_reads_per_step"] != PROBE_LAYERS):
+            raise AssertionError(f"model group probe: {res}")
+        if res["refusal"] is not None:
+            raise AssertionError("model group probe: the capture holds but "
+                                 f"the rule refuses nccl: {res['refusal']}")
+    elif res["refusal"] is None:
+        raise AssertionError("model group probe: the capture failed "
+                             f"({res['error']}) but the rule admits nccl")
+    return res
 
 
 def phase_llm_sampled(torch, dev, wl, model, serve):
@@ -5672,9 +5889,10 @@ def mean_counts(rows) -> dict:
         if rows else {}
 
 
-def path_serve(torch, wl, model, m, step_graph, label):
+def path_serve(torch, wl, model, m, step_graph, label, mesh=None):
     """A serve of ``wl`` on the graph path or the eager one (``step_graph``
-    None / False), its counts zeroed just before and checked just after
+    None / False), through the sharded engine on ``mesh`` when one is
+    given, its counts zeroed just before and checked just after
     (check_path).  Each engine step that runs the model ends in a
     synchronize, its wall kept when the step was warm;
     GRAPH_PROFILED_STEPS warm steps from engine step GRAPH_PROFILE_FROM on
@@ -5682,7 +5900,7 @@ def path_serve(torch, wl, model, m, step_graph, label):
     out), their wrappers' launch counts held to the kernels the card ran
     (CountedStep, hold_counts)."""
     wl = dataclasses.replace(wl, step_graph=step_graph)
-    runner, eng = wl.build_engine(model)
+    runner, eng = wl.build_engine(model, mesh=mesh)
     trace = wl.build_trace(model)
     step = eng.step
     walls, prof, names, ran = [], [], [], []
@@ -6168,6 +6386,7 @@ def main() -> int:
     # ranks sharing the card
     t0 = time.perf_counter()
     launches_sharded = phase_sharded_serve(torch, dev, wl, model, m, base)
+    phase_model_group_probe(torch)
     emit({"phase": "sharded", "seconds": time.perf_counter() - t0})
 
     # ---- the LLM path: qwen3-0.6b served with the FastCache decode gate

@@ -39,6 +39,7 @@ path's hidden stack) and ``audit_bound`` (the policy's claimed bound).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -119,6 +120,16 @@ class CachedDiT:
             raise ValueError("step graphs are CUDA graphs: the runner's "
                              f"model is on {self.device}")
         self._step_graph = bool(on)
+
+    @contextlib.contextmanager
+    def eager(self):
+        """Every step eager inside the block, whatever sets ``step_graph``
+        there; the setting as it was after it."""
+        on, self._step_graph = self._step_graph, False
+        try:
+            yield
+        finally:
+            self._step_graph = on
 
     def init_state(self, batch: int) -> Dict:
         """The policy's state for ``batch`` samples; with token compression

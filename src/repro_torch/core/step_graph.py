@@ -15,6 +15,12 @@ it the reference's shape on the card:
     ``known`` where the caller already knows the answer (its host mirror),
     else one read of ``all(every)``, agreed over the model group when the
     block's weights are sharded.  Returns the host reads it made (0 or 1).
+    Under a model group the capture makes that agreement on the device
+    (``agreed_mask``: ``all(every)`` all-reduced with MIN over the group on
+    the capturing stream), and the IF nodes read it, so every rank of the
+    group takes the same side at each replay and the body's collectives
+    run on all of them or on none.  Only nccl collectives can be captured
+    (``capture_refusal``).
     Both sides write the same carry: ``compute`` keeps the cached samples'
     values with a ``torch.where``, so either side gives a cached sample the
     same bits, which is what lets the IF node stand in for ``lax.cond``.
@@ -44,10 +50,12 @@ from typing import (Any, Callable, Counter, Dict, Hashable, List, Optional,
                     Sequence)
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.cuda_kernels import add_counts, counts_since, read_counts
 from repro_torch.cuda_kernels.cond_node import if_all, prepare
-from repro_torch.distributed.sharding import agree_all, current_ctx
+from repro_torch.distributed.sharding import (ShardingCtx, agree_all,
+                                              current_ctx)
 
 # eager calls of a key before its capture: the first warm steps run the
 # lazy set-up (kernel libraries, cuBLAS handles, routes) outside a capture
@@ -56,18 +64,44 @@ WARMUP_CALLS = 2
 _EAGER_CALLS: Counter[Hashable] = collections.Counter()
 
 
+def capture_refusal(ctx: Optional[ShardingCtx],
+                    device: torch.device) -> Optional[str]:
+    """Why a step graph cannot hold a step on ``device`` under ``ctx``
+    (the sharding context its blocks read), or None when it can: a CUDA
+    graph needs the card, and captures the model group's collectives only
+    when nccl runs them (gloo moves a CUDA tensor through the host)."""
+    if torch.device(device).type != "cuda":
+        return f"step graphs are CUDA graphs: the model is on {device}"
+    group = ctx.group("model") if ctx is not None else None
+    if group is not None:
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            return (f"the model group's collectives run on {backend}, which "
+                    "a CUDA graph cannot capture (nccl only)")
+    return None
+
+
+def agreed_mask(every: torch.Tensor) -> torch.Tensor:
+    """The mask an IF node reads for ``every``: ``every`` itself, or under
+    a model group its (1,) agreement, ``all(every)`` AND-reduced over the
+    group on the device (``agree_all``); no host read."""
+    ctx = current_ctx()
+    if ctx is None or ctx.group("model") is None:
+        return every.contiguous()
+    return agree_all(every.all().reshape(1))
+
+
 def branch(every: torch.Tensor, compute: Callable[[], None],
            skip: Optional[Callable[[], None]] = None,
            known: Optional[bool] = None) -> int:
     """Run ``compute`` unless every sample caches, else ``skip`` (see the
     module docstring).  Returns the number of host reads made (0 or 1)."""
     if every.is_cuda and torch.cuda.is_current_stream_capturing():
-        ctx = current_ctx()
-        if ctx is not None and ctx.group("model") is not None:
-            raise RuntimeError("a step graph cannot hold the block skip of a "
-                               "model-sharded block: its ranks agree on the "
-                               "host")
-        mask = every.contiguous()
+        why = capture_refusal(current_ctx(), every.device)
+        if why is not None:
+            raise RuntimeError(f"a step graph cannot hold this block skip: "
+                               f"{why}")
+        mask = agreed_mask(every)
         before = read_counts()
         if skip is not None:
             if_all(mask, skip, when_all=True)

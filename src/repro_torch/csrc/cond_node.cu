@@ -16,7 +16,10 @@
 // condition kernel (value = all(mask) when `when_all`, else !all(mask)) and
 // an IF node depending on it, moves the stream's capture dependencies onto
 // the node, and starts capturing `body` (another stream) into the node's
-// body graph in relaxed mode; cond_if_end ends that capture.  IF nodes need
+// body graph in relaxed mode; cond_if_end ends that capture and counts the
+// body's nodes by type (a collective captured into a body may bring nodes
+// of its own, and a body takes kernel, memcpy, memset, empty, child-graph
+// and conditional nodes only).  IF nodes need
 // CUDA 12.4; IF / ELSE pairs need 12.8, so a two-sided branch is two IF
 // nodes on the same mask, one with when_all set.
 //
@@ -25,6 +28,8 @@
 // block of 128 threads; B is the serving batch, at most a few hundred).
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 namespace {
 
@@ -86,8 +91,23 @@ extern "C" int cond_if_begin(const void* mask, int n, int when_all,
       cudaStreamCaptureModeRelaxed));
 }
 
-extern "C" int cond_if_end(void* body_ptr) {
+extern "C" int cond_if_end(void* body_ptr, int* counts, int n_types) {
   cudaGraph_t body_graph;
-  return static_cast<int>(
-      cudaStreamEndCapture(static_cast<cudaStream_t>(body_ptr), &body_graph));
+  cudaError_t err =
+      cudaStreamEndCapture(static_cast<cudaStream_t>(body_ptr), &body_graph);
+  if (err != cudaSuccess || counts == nullptr) return static_cast<int>(err);
+  size_t n = 0;
+  err = cudaGraphGetNodes(body_graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(body_graph, nodes.data(), &n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int t = static_cast<int>(type);
+    counts[t < n_types ? t : n_types - 1] += 1;
+  }
+  return 0;
 }

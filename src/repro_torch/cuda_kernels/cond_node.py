@@ -25,7 +25,8 @@ lives as long as the process, so a body's addresses are never handed to
 work outside the graphs, and graphs replayed one after another on one
 stream may share them.  Each captured IF node adds one to
 ``if_all.launches`` (its condition kernel); a graph's replays add what its
-capture recorded (``core/step_graph.py``).
+capture recorded (``core/step_graph.py``).  ``if_all.body_nodes`` holds
+the last captured body's nodes by type (``NODE_TYPES``).
 """
 from __future__ import annotations
 
@@ -38,7 +39,12 @@ from repro_torch.cuda_kernels import build, ref
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"cond_if_begin": [_vp, _int, _int, _vp, _vp],
-             "cond_if_end": [_vp]}
+             "cond_if_end": [_vp, _vp, _int]}
+# cudaGraphNodeType by value; the last slot gathers the kinds not named
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "type_12",
+              "conditional", "other")
 _FNS: Dict[str, Callable] = {}
 # per device index: (body stream, body pool)
 _BODY: Dict[int, tuple] = {}
@@ -113,15 +119,19 @@ def if_all(mask: torch.Tensor, body: Callable[[], None], *,
         raise RuntimeError(f"cond_node: adding the IF node failed: CUDA "
                            f"error {err}")
     if_all.launches += 1
+    counts = (_int * len(NODE_TYPES))()
     try:
         with torch.cuda.stream(body_stream), torch.cuda.use_mem_pool(pool):
             body()
     finally:
-        err = _kernel("cond_if_end")(body_stream.cuda_stream)
+        err = _kernel("cond_if_end")(body_stream.cuda_stream, counts,
+                                     len(NODE_TYPES))
     if err != 0:
         raise RuntimeError(f"cond_node: ending the IF node's body capture "
                            f"failed: CUDA error {err}")
+    if_all.body_nodes = {t: n for t, n in zip(NODE_TYPES, counts) if n}
     return False
 
 
 if_all.launches = 0
+if_all.body_nodes = {}

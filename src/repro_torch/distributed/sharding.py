@@ -18,8 +18,9 @@ is no compiler to apply a spec: the serving engine
 (``serving/sharded_engine.py``) cuts each weight by its spec
 (``local_slice``) and lays out the slot rows it owns, ``constrain`` is the
 identity on a local shard (it checks the rank of the logical axes), and
-``agree_all`` makes the host branches that guard a collective the same on
-every rank of the model group.
+``agree_all`` makes the branches that guard a collective the same on
+every rank of the model group (on the host, or on the device inside a
+step graph).
 """
 from __future__ import annotations
 
@@ -215,7 +216,9 @@ def agree_all(flag: torch.Tensor) -> torch.Tensor:
     this rank's model group under a context whose model axis is wider than
     one device, else ``flag`` itself.  A branch that skips a block holding
     a collective must be taken by every rank of the group or none, so the
-    caller reads this once on the host in place of ``flag``."""
+    caller reads this once on the host in place of ``flag``; inside a step
+    graph's capture it feeds the IF node instead, unread
+    (``core/step_graph.agreed_mask``)."""
     ctx = current_ctx()
     group = ctx.group("model") if ctx is not None else None
     if group is None:

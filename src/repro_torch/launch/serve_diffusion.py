@@ -113,7 +113,8 @@ class Workload:
     audit_fraction: float = 0.0     # shadow-audited share of serve steps
     audit_seed: int = 0
     # warm steps as CUDA graphs: None is the engine's default (on the
-    # card), False its eager path; a sharded engine is always eager
+    # card; on a mesh, where its collectives can be captured), False its
+    # eager path
     step_graph: Optional[bool] = None
     # traffic for the SLO plane: classes and deadline slacks drawn per
     # request (empty: all class 0, no deadlines), a burst of burst_rate
@@ -176,7 +177,7 @@ class Workload:
                 runner, step_graph=self.step_graph, **kw)
         return runner, ShardedDiffusionEngine(
             runner, mesh=mesh, async_admission=async_admission,
-            numerics_check=numerics_check, **kw)
+            numerics_check=numerics_check, step_graph=self.step_graph, **kw)
 
     def rate_fn(self) -> Optional[Callable[[float], float]]:
         """The calm -> burst -> calm arrival rate, or None (constant)."""

@@ -19,9 +19,22 @@ the device runtime on a ``(data, model)`` mesh of ranks, one process each:
 - **weights over model.**  Each rank cuts the DiT blocks' weights by
   ``param_specs`` of the model's ``param_defs`` (heads and ffn columns over
   ``model``, where they divide) into local shards; ``DiTModel.block_apply``
-  all-reduces its sharded products over the model group.  The host
-  branches that skip a block agree over the group first
-  (``sharding.agree_all``).
+  all-reduces its sharded products over the model group.  The branches
+  that skip a block agree over the group first (``sharding.agree_all``).
+
+**Step graphs.**  As on one device, a warm step is one CUDA graph whose
+skipped blocks are IF nodes (``core/step_graph.py``), so it reads nothing
+on the host.  The graph holds ``CachedDiT.step``'s device work only, which
+crosses no ``data`` rank; the engine's reductions over ``data``
+(``_batch_sum``, completion, ``cache_stats``, ``harvest_metrics``) and the
+snapshot's broadcast stay outside it.  Under a model group the skip is
+agreed on the device inside the graph, which only nccl can capture
+(``step_graph.capture_refusal``): ``step_graph=None`` turns graphs on
+wherever they can hold the step (the card, and nccl when ``model > 1``),
+``step_graph=True`` where they cannot raises ``ValueError`` naming why,
+and ``False`` keeps the eager step, whose every skip is a host read.
+Over gloo with ``data > 1``, ``_batch_sum``'s all-reduce of a CUDA tensor
+goes through the host once per engine step (``batch_sum_round_trips``).
 
 Every rank runs the same host loop.  Admission depends only on host
 bookkeeping, so every rank schedules the same (request, slot, step)
@@ -65,6 +78,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from repro_torch.core.runner import CachedDiT
+from repro_torch.core.step_graph import capture_refusal
 from repro_torch.distributed.sharding import (ShardingCtx, _slot_axis,
                                               local_slice, make_rules,
                                               param_specs, spec_for,
@@ -112,11 +126,16 @@ class ShardedDiffusionEngine(DiffusionServingEngine):
                  numerics_check: Optional[bool] = None,
                  noise_fn=None, cfg_rows: bool = True, collector=None,
                  tracer=None, enable_metrics: bool = True,
-                 audit_fraction: float = 0.0, audit_seed: int = 0):
+                 audit_fraction: float = 0.0, audit_seed: int = 0,
+                 step_graph: Optional[bool] = None):
         self.mesh = mesh if mesh is not None else make_serving_mesh()
         self.rules = make_rules("serve")
         self._ctx = ShardingCtx(self.mesh, self.rules)
         self.async_admission = async_admission
+        # why a step graph cannot hold this mesh's step (None: it can)
+        self.graph_refusal = why = capture_refusal(self._ctx, runner.device)
+        if step_graph and why is not None:
+            raise ValueError(f"step_graph=True on this mesh: {why}")
         ext = self._ctx.extents
         self._coords = dict(zip(self.mesh.mesh_dim_names,
                                 self.mesh.get_coordinate()))
@@ -128,6 +147,10 @@ class ShardedDiffusionEngine(DiffusionServingEngine):
         # slots sharded over data: each data rank owns a window of them;
         # else every rank runs every slot and no counter is summed
         self._split = x_spec[0] is not None and ext["data"] > 1
+        # gloo reduces a CUDA tensor through the host
+        self._via_host = (self._split and runner.device.type == "cuda"
+                          and dist.get_backend(self._data_group) == "gloo")
+        self.batch_sum_round_trips = 0
         self._pending: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         super().__init__(runner, max_slots=max_slots, num_steps=num_steps,
                          guidance_scale=guidance_scale,
@@ -136,7 +159,9 @@ class ShardedDiffusionEngine(DiffusionServingEngine):
                          cfg_rows=cfg_rows, collector=collector,
                          tracer=tracer, enable_metrics=enable_metrics,
                          audit_fraction=audit_fraction,
-                         audit_seed=audit_seed, step_graph=False)
+                         audit_seed=audit_seed,
+                         step_graph=(why is None if step_graph is None
+                                     else step_graph))
         self._place_metrics()
         self._full_blocks = self._shard_weights()
         if numerics_check is None:
@@ -245,6 +270,7 @@ class ShardedDiffusionEngine(DiffusionServingEngine):
     def _batch_sum(self, v: torch.Tensor) -> torch.Tensor:
         if not self._split:
             return v
+        self.batch_sum_round_trips += int(self._via_host)
         return self._sum_data(v.reshape(1).clone())[0]
 
     # -- preemption -------------------------------------------------------
@@ -383,8 +409,15 @@ class ShardedDiffusionEngine(DiffusionServingEngine):
         """Run two synthetic serve steps here and on a single-device engine
         over the unsharded weights, and compare every output leaf (this
         rank's rows; counters summed over ``data``).  Raises
-        ``RuntimeError`` on every rank if any rank disagrees.  Leaves the
-        engine's device state as constructed."""
+        ``RuntimeError`` on every rank if any rank disagrees.  Both engines
+        step eagerly (``CachedDiT.eager``): no graph is captured on the
+        unsharded weights, whose pointers a replay would keep, and the
+        runner's graph setting is left as it was.  Leaves the engine's
+        device state as constructed."""
+        with self.runner.eager():
+            self._check_step_numerics(rtol, atol)
+
+    def _check_step_numerics(self, rtol: float, atol: float) -> None:
         impl = self.runner.impl
         saved = (impl.host_syncs, copy.deepcopy(getattr(impl, "step_kinds",
                                                         None)))

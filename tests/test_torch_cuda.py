@@ -2061,3 +2061,170 @@ def test_step_graph_capture_failure_raises(cuda_device):
         graphs.run(("bad", 0), bad, (x,), {})
     assert cuda_kernels.counts_since(before) == {}
     assert graphs.replays == 0
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine's step graphs on a one-rank nccl world
+# (serving/sharded_engine.py, core/step_graph.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world(cuda_device):
+    """A one-rank nccl process group on the card for the test's span."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import free_port, init_ranks
+    init_ranks(0, 1, port=free_port(), backend="nccl")
+    yield cuda_device
+    dist.destroy_process_group()
+
+
+def _sharded_serve(wl, model, mesh, step_graph):
+    """A serve of ``wl`` on a fresh (1, 1) sharded engine; the runner,
+    the engine and the finished requests by rid."""
+    runner, eng = dataclasses.replace(wl, step_graph=step_graph
+                                      ).build_engine(model, mesh=mesh)
+    done = eng.run(wl.build_trace(model))
+    return runner, eng, {r.rid: r for r in done}
+
+
+@pytest.mark.cuda
+def test_sharded_graph_serve_matches_eager(nccl_world):
+    """The (1, 1) sharded engine on nccl takes the graph path by default:
+    once its key is warm, every warm step is a replay with no policy sync,
+    and the latents and request counters are bitwise the eager sharded
+    serve's (L syncs a warm step) and the single-device graph serve's."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve_diffusion import Workload
+    wl = Workload(reduced=True, slots=3, steps=10, requests=5)
+    model = wl.build_model(nccl_world)
+    mesh = make_serving_mesh(1, 1)
+    eager_runner, _, want = _sharded_serve(wl, model, mesh, False)
+    assert not eager_runner.step_graph and eager_runner.graphs.replays == 0
+    kinds = eager_runner.impl.step_kinds
+    assert eager_runner.impl.host_syncs == eager_runner.L * kinds["warm"] > 0
+    _sharded_serve(wl, model, mesh, None)         # the key's eager warm-up
+    runner, eng, got = _sharded_serve(wl, model, mesh, None)
+    _, plain = wl.build_engine(model)
+    single = {r.rid: r for r in plain.run(wl.build_trace(model))}
+    assert runner.step_graph and eng.graph_refusal is None
+    assert runner.graphs.replays == runner.impl.step_kinds["warm"] > 0
+    assert runner.impl.host_syncs == 0 and eng.host_syncs == 1
+    for other in (want, single):
+        assert sorted(got) == sorted(other)
+        for rid, r in got.items():
+            assert torch.equal(torch.from_numpy(r.latents),
+                               torch.from_numpy(other[rid].latents)), rid
+            assert r.cache == other[rid].cache, rid
+
+
+@pytest.mark.cuda
+def test_sharded_graph_slo_serve(nccl_world):
+    """The SLO plane (EDF, deadline-aware admission, the shed ladder,
+    preemption) over the (1, 1) sharded engine on the graph path decides
+    as over the single-device engine on it, with at least one preemption
+    and warm steps replayed: the same admissions, finishes, rejections and
+    preemptions, latents and request counters bitwise."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve_diffusion import Workload
+    from repro_torch.obs.metrics import MetricsCollector
+    from repro_torch.serving.scheduler import piecewise_rate, poisson_trace
+    from repro_torch.serving.slo import (AdmissionController,
+                                         DegradationController, SLOScheduler)
+    wl = Workload(reduced=True, slots=4, steps=6)
+    model = wl.build_model(nccl_world)
+    mesh = make_serving_mesh(1, 1)
+    out = []
+    for sharded in (False, True):
+        runner, eng = wl.build_engine(model, collector=MetricsCollector(),
+                                      mesh=mesh if sharded else None)
+        # tests/test_torch_sharded_serving.py's SLO plane and trace
+        sched = SLOScheduler(
+            eng, sched_policy="edf",
+            admission=AdmissionController(eng, on_miss="reject",
+                                          defer_steps=2,
+                                          collector=eng.collector),
+            controller=DegradationController(high_watermark=4,
+                                             low_watermark=1, patience=2,
+                                             collector=eng.collector))
+        done = sched.run(poisson_trace(
+            14, 0.3, seed=0, num_classes=10,
+            rate_fn=piecewise_rate([(4, 0.3), (12, 2.0), (10 ** 9, 0.3)]),
+            priority_mix=[0, 1, 1, 2], deadline_slack_mix=[6, 12, 30]))
+        assert runner.step_graph and runner.graphs.replays > 0
+        out.append(({r.rid: r for r in done},
+                    [(r.rid, r.reject_reason) for r in sched.rejected],
+                    (eng.clock, eng.model_steps)))
+    (want, want_rej, want_clock), (got, got_rej, got_clock) = out
+    assert sum(r.preemptions for r in want.values()) >= 1
+    assert got_rej == want_rej and got_clock == want_clock
+    assert sorted(got) == sorted(want)
+    for rid, r in got.items():
+        w = want[rid]
+        assert (r.admit_step, r.finish_step, r.preemptions) == \
+            (w.admit_step, w.finish_step, w.preemptions), rid
+        assert torch.equal(torch.from_numpy(r.latents),
+                           torch.from_numpy(w.latents)), rid
+        assert r.cache == w.cache, rid
+
+
+def _one_rank_model_group():
+    """The (1, 1) mesh's sharding context with the one-rank world as its
+    model group: it stands in, in this test only, for a group of ranks on
+    cards of their own, which one card cannot hold (NCCL refuses two ranks
+    on a card)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ShardingCtx, make_rules
+    from repro_torch.launch.mesh import make_serving_mesh
+    ctx = ShardingCtx(make_serving_mesh(1, 1), make_rules("serve"))
+    ctx.group = lambda axis: dist.group.WORLD if axis == "model" else None
+    return ctx
+
+
+@pytest.mark.cuda
+def test_sharded_graph_model_group_branch(nccl_world):
+    """The block skip under a model group inside a capture: the agreement
+    all-reduce on the capturing stream feeds the IF nodes, whose bodies
+    all-reduce over the group.  Two integer-valued blocks (exact sums): for
+    a mask of every row caching, one layer mixed, and none caching, the
+    replay equals the eager step bitwise and reads nothing on the host
+    (sync debug "error"); the eager step reads once a layer."""
+    from repro_torch.core import step_graph
+    from repro_torch.distributed.sharding import use_sharding
+    from repro_torch.models.dit import tp_all_reduce
+    dev = nccl_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = _one_rank_model_group()
+    assert step_graph.capture_refusal(ctx, dev) is None
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.randint(-4, 5, (4, 16, 64), generator=gen, device=dev).float()
+    ws = [torch.randint(-1, 2, (64, 64), generator=gen, device=dev).float()
+          for _ in range(2)]
+    masks = {"all": [[True] * 4] * 2,
+             "mixed": [[True] * 4, [True, True, False, True]],
+             "none": [[False] * 4] * 2}
+    masks = {k: torch.tensor(v, device=dev) for k, v in masks.items()}
+    reads = []
+
+    def step(xin, every):
+        y = xin.clone()
+        for i, w in enumerate(ws):
+            def compute(w=w, m=every[i]):
+                h = tp_all_reduce(torch.matmul(y, w))
+                y.copy_(torch.where(m[:, None, None], y, y + h))
+            reads.append(step_graph.branch(every[i], compute))
+        return y
+
+    with use_sharding(ctx=ctx):
+        eager = {k: step(x, m).clone() for k, m in masks.items()}
+        assert reads == [1] * 2 * len(masks)
+        del reads[:]
+        g = step_graph.StepGraph(step, (x, masks["mixed"]), ())
+        assert reads == [0, 0]
+    for k, m in masks.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = g.replay((x, m))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(got, eager[k]), k

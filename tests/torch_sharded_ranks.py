@@ -1,4 +1,5 @@
-"""Rank processes for ``tests/test_torch_sharded_serving.py``.
+"""Rank processes for ``tests/test_torch_sharded_serving.py`` (and
+``graph_rule_rank`` for ``tests/test_torch_sharded_graph.py``).
 
 ``MeshRun({(data, model): scenarios}, weights, noise)`` (``weights``:
 the port config under ``cfg`` and a state dict of numpy arrays under
@@ -267,3 +268,111 @@ class MeshRun:
         finally:
             for g in self.groups.values():
                 g.close()
+
+
+# each rank's masks for the device agreement, and their AND over the two
+# ranks: every sample caches on both / on one rank only / on neither
+AGREE_MASKS = {0: [[True, True], [True, True], [True, False], [False, False]],
+               1: [[True, True], [True, False], [True, True], [True, True]]}
+AGREED = [True, False, False, False]
+
+
+class _NoHostReads:
+    """Inside the block a tensor read on the host (``item``, ``bool``,
+    ``tolist``, ``numpy``, ``int``, ``float``) raises."""
+    _NAMES = ("item", "__bool__", "tolist", "numpy", "__int__", "__float__")
+
+    def __enter__(self):
+        self.saved = {n: getattr(torch.Tensor, n) for n in self._NAMES}
+
+        def refuse(*_a, **_k):
+            raise AssertionError("a host read inside the agreement")
+        for n in self._NAMES:
+            setattr(torch.Tensor, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(torch.Tensor, n, fn)
+        return False
+
+
+def graph_rule_rank(rank, world, port):
+    """A ``RankGroup`` target for ``tests/test_torch_sharded_graph.py`` on
+    two gloo ranks of the CPU: the step graphs' device agreement over the
+    (1, 2) mesh's model group (and the identity on (2, 1)) with host reads
+    refused, the capture rule for a card on both meshes, and what the
+    sharded engine and ``Workload.build_engine`` do with ``step_graph`` on
+    the CPU, the self-check's handling of the runner's graph setting
+    included."""
+    torch.set_num_threads(1)
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import FastCacheConfig
+    from repro_torch.core import step_graph
+    from repro_torch.core.runner import CachedDiT
+    from repro_torch.distributed.sharding import (ShardingCtx, make_rules,
+                                                  use_sharding)
+    from repro_torch.launch.mesh import init_ranks, make_serving_mesh
+    from repro_torch.launch.serve_diffusion import Workload
+    from repro_torch.models.dit import DiTModel
+    from repro_torch.serving.sharded_engine import ShardedDiffusionEngine
+    init_ranks(rank, world, port=port, backend="gloo")
+    meshes = {(2, 1): make_serving_mesh(2, 1),
+              (1, 2): make_serving_mesh(1, 2)}
+    ctxs = {t: ShardingCtx(m, make_rules("serve")) for t, m in meshes.items()}
+    out = {"agreed": {}, "refusal": {}, "default": {}, "explicit": {},
+           "build_engine": {}}
+    for topo, ctx in ctxs.items():
+        masks = [torch.tensor(m) for m in AGREE_MASKS[rank]]
+        with use_sharding(ctx=ctx), _NoHostReads():
+            got = [step_graph.agreed_mask(m) for m in masks]
+        out["agreed"][topo] = [(tuple(g.shape), str(g.dtype), g.tolist(),
+                                g is m or g.data_ptr() == m.data_ptr())
+                               for g, m in zip(got, masks)]
+        out["refusal"][topo] = {
+            dev: step_graph.capture_refusal(ctx, torch.device(dev))
+            for dev in ("cpu", "cuda")}
+    wl = Workload(reduced=True, slots=4, steps=4)
+
+    def model():
+        # f32: the self-check's atol 1e-2 is an f32 tolerance
+        cfg = get_reduced(wl.arch).replace(dtype="float32")
+        return DiTModel(cfg, device="cpu").init(
+            torch.Generator().manual_seed(wl.seed))
+    checks = []
+    real = ShardedDiffusionEngine._verify_step_numerics
+
+    def on_card_flag(self, **kw):
+        # the runner's setting as the card's default leaves it
+        self.runner._step_graph = True
+        captures = self.runner.graphs.captures
+        real(self, **kw)
+        checks.append({"after": self.runner._step_graph,
+                       "captures": self.runner.graphs.captures - captures,
+                       "graphs": len(self.runner.graphs.graphs)})
+        self.runner._step_graph = False
+    ShardedDiffusionEngine._verify_step_numerics = on_card_flag
+    try:
+        for topo, mesh in meshes.items():
+            runner, eng = wl.build_engine(model(), mesh=mesh)
+            out["default"][topo] = runner.step_graph
+            try:
+                dataclasses.replace(wl, step_graph=True).build_engine(
+                    model(), mesh=mesh)
+                out["build_engine"][topo] = None
+            except ValueError as e:
+                out["build_engine"][topo] = str(e)
+            try:
+                ShardedDiffusionEngine(
+                    CachedDiT(model(), FastCacheConfig()),
+                    mesh=mesh, max_slots=4, num_steps=4, step_graph=True)
+                out["explicit"][topo] = None
+            except ValueError as e:
+                out["explicit"][topo] = str(e)
+    finally:
+        ShardedDiffusionEngine._verify_step_numerics = real
+    out["self_check"] = checks
+    dist.destroy_process_group()
+    return out
