@@ -22,12 +22,19 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               the wgmma route (bf16 X against the bf16 copy of W): gate
               bits exact, diff/prevsq within rtol 1e-4, out within 2e-2,
               repeated calls bitwise; the same inputs on the SIMT route
-              (``gemm="simt"``, bf16 X against the f32 W, as fitted maps
-              are served) within 2e-2, gate bits exact, timed
-              (``simt_bf16_*``); library: torch.addmm of (B*C, D)x(D,
-              D) in f32, the same in bf16 (X and the bf16 W: the kernel's
-              operand precision), and in bf16 over the gated samples' rows
-              only (the rows the kernel multiplies);
+              (``gemm="simt"``, bf16 X against the f32 W) within 2e-2,
+              gate bits exact, timed (``simt_bf16_*``); and on the
+              wgmma_split route (bf16 X against W split into three bf16
+              terms, as fitted maps are served): gate bits, diff and prevsq
+              exactly the SIMT route's, out within 2e-2 and 1e-3 rel-L2,
+              repeated calls bitwise, and on a planted copy whose three
+              terms are independent (``planted_split``: dropping a term
+              would read ~0.5 rel-L2) within 2e-2 and 1e-3 rel-L2 of the
+              plain version on their sum, timed (``split_*``) in a row of
+              its own; library: torch.addmm of (B*C, D)x(D, D) in f32, the
+              same in bf16 (X and the bf16 W: the kernel's operand
+              precision), and in bf16 over the gated samples' rows only
+              (the rows the kernel multiplies);
             - knn_density, merge_assign and unmerge_scatter at the merged
               slice's shapes (W=128 windows of w=16, D=1152, K=5, M=8, f32
               scores): knn_density and merge_assign in bf16 on the mma route
@@ -57,13 +64,21 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               1 and 0.5, at M=1024, and at the decode gate's M=4 and 1,
               D=F=1024, gamma 1 (these five on the wgmma route), and
               ragged at M=D=F=1000 in f32 (the SIMT route): within 2e-2 in
-              bf16 and 1e-4 in f32, repeated calls bitwise; library:
-              torch.addmm in f32 with alpha=gamma, bias and blend folded
-              into its input, and the same in bf16 with the bf16 W;
+              bf16 and 1e-4 in f32, repeated calls bitwise; on the
+              wgmma_split route at SPLIT_BLEND_SHAPES (the bypass, K = 1000
+              and the decode gate's M = 4) with a cancelling W that one
+              bf16 copy misses by more than 2e-2 (its rel-L2 printed):
+              within 2e-2 and 1e-3 rel-L2, and so on planted terms;
+              library: torch.addmm in f32
+              with alpha=gamma, bias and blend folded into its input, and
+              the same in bf16 with the bf16 W;
             each fused_gate / linear_blend row names its GEMM route
             (``gemm_route``) and that kernel's ptxas lines, and its bound
-            is the route's: bf16 W bytes and the bf16 tensor-core rate for
-            wgmma;
+            is the function's on the route's operands: bf16 W bytes and
+            the bf16 tensor-core rate for wgmma; for wgmma_split the f32
+            W's bytes and one GEMM at the bf16 tensor-core rate, with the
+            split's own work (every term read, a pass per term) bounded
+            apart (``passes_bound_ms``);
 4. syncs    an untimed warm-up serve (Workload.warm_up: two short requests
             on a fresh engine, whose first warm steps run eagerly), then
             the same serve under torch.cuda's sync-debug mode: its warm
@@ -163,15 +178,20 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 9c. calibrate  record_calibration over 50 steps at batch 2 (50
             saliency_delta launches, all onepass, no other kernel);
             calibrate_dit on 4 batches of 8 latents (seed 0); the
-            fastcache serve with the fitted maps, maps handed in, whose
-            every fused_gate and linear_blend call names the SIMT route
-            (the f32 W; ratio printed), then the identity maps' serve for
-            the pair's wall times (calibrated_cost);
-            calibrated_parity: its first 4 calls of each held against the
-            plain version in f32 with the fitted W (gate bits exact,
-            totals at 1e-4, outputs within 2e-2 elementwise and in
-            rel-L2) and re-run on the wgmma route with a bf16 copy of the
-            map (its rel-L2 printed: why fitted maps are not copied);
+            fastcache serve with the fitted maps, maps handed in, eager,
+            every fused_gate and linear_blend launch on the wgmma_split
+            route (ratio printed); calibrated_parity: its first 4 calls of
+            each held against the plain version in f32 with the fitted W
+            (gate bits exact, totals at 1e-4, outputs within 2e-2
+            elementwise and SPLIT_REL_L2 in rel-L2), re-run on the SIMT
+            route and on the wgmma route with a bf16 copy of the map
+            (their rel-L2 printed: the yardstick, and why fitted maps are
+            split); the same maps served eager on the named SIMT route
+            (every launch there; ratio and latents against the split
+            serve's); on the graph path (latents bitwise the eager split
+            serve's; 0 policy syncs a warm step, dit_path_syncs); then the
+            identity maps' serve on the graph path, for the pair's wall
+            times (calibrated_cost);
 9d. serve_g1 / serve_nocfg  guidance 1.0 served with CFG rows and by the
             cfg_rows=False engine: latents bitwise equal, fused_gate
             launches exact;
@@ -656,9 +676,19 @@ COND_NODES = 64            # IF nodes in the graph that times one
 GRAPH_PROFILED_STEPS = 5   # warm steps profiled on each path (step_graph)
 GRAPH_PROFILE_FROM = 12    # engine step from which they are taken
 # the fitted serve's outputs against the plain version in f32, rel-L2: bf16
-# outputs' tolerance (a bf16 copy of the fitted maps missed it, so they are
-# served without one, on the SIMT route)
+# outputs' tolerance (a bf16 copy of the fitted maps missed it by up to 4x);
+# and the bound on the wgmma_split route that serves them (W split into
+# three bf16 terms, 2^-24 of |W| from W): no more than the bf16 output
+# rounding of values the f32 sums moved
 CALIBRATED_REL_L2 = 2e-2
+SPLIT_REL_L2 = 1e-3
+ROUTE_OF_FITTED = {"fused_gate": "wgmma_split",
+                   "linear_blend": "wgmma_split"}   # every fitted launch's
+# linear_blend on the wgmma_split route (M, D, F): the fitted bypass, K not a
+# multiple of 64 (the padded terms), the decode gate's M = 4; gamma 1, bf16;
+# square, so that the cancelling W's diagonal meets every column
+SPLIT_BLEND_SHAPES = ((2048, 1152, 1152), (2048, 1000, 1000),
+                      (4, 1024, 1024))
 FLUSH_BYTES = 64 << 20     # the buffer written to push inputs out of L2
 # the six baseline policies served at full width, and l2c's layer count
 BASELINES = ("fora", "teacache", "adacache", "fbcache", "l2c", "smoothcache")
@@ -830,7 +860,44 @@ def phase_build(build):
           "wall_s": round(wall, 3)})
 
 
+def planted_split(torch, gen, d, f, dev):
+    """A split copy of a (D, F) map whose SPLIT_TERMS terms are independent
+    N(0, 1) bf16 matrices, each followed by its zero padding rows: (copy,
+    the f32 sum of the terms, the last term in f32).  A kernel that drops a
+    term, or reads one a row off (the padding), misses X times the sum by
+    that term's whole share of the product."""
+    from repro_torch.cuda_kernels.route import SPLIT_TERMS, split_rows
+    kp = split_rows(d)
+    copy = torch.zeros((SPLIT_TERMS * kp, f), dtype=torch.bfloat16,
+                       device=dev)
+    for t in range(SPLIT_TERMS):
+        copy[t * kp:t * kp + d] = torch.randn((d, f), generator=gen,
+                                              device=dev)
+    terms = copy.float().reshape(SPLIT_TERMS, kp, f)[:, :d]
+    return copy, terms.sum(0), terms[-1].contiguous()
+
+
+def check_planted(torch, what, got, want, without_last):
+    """The split route's output ``got`` on planted terms against the plain
+    version on their sum (``want``): within BLEND_TOL elementwise and
+    SPLIT_REL_L2 in rel-L2.  ``without_last``, the plain version without
+    the last term, shows what a kernel that dropped it would read."""
+    tol = BLEND_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rel = rel_l2(torch, got, want)
+    drop = rel_l2(torch, without_last, want)
+    if rel > SPLIT_REL_L2 or drop <= SPLIT_REL_L2:
+        raise AssertionError(f"{what}, planted terms: rel-L2 {rel}, "
+                             f"without the last term {drop}")
+    return {"rel_l2": rel, "drop_term_rel_l2": drop}
+
+
 def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
+    """fused_gate against its plain version at (8, c, 1152) (see 3. in the
+    module docstring).  Returns the wgmma route's row and the wgmma_split
+    route's."""
+    from repro_torch.core.linear_approx import split_copies
+    from repro_torch.cuda_kernels.route import SPLIT_TERMS
     gen = torch.Generator(dev).manual_seed(0)
     b, d = 8, 1152
     bf16, f32 = torch.bfloat16, torch.float32
@@ -842,7 +909,8 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
     prev = (x.float() + randn(b, c, d, scale=0.01)).to(bf16)
     po = randn(b, c, d).to(bf16)
     w = torch.eye(d, device=dev) + randn(d, d, scale=0.01)
-    w_bf16 = w.to(bf16)                  # the copy a policy makes once
+    w_bf16 = w.to(bf16)                  # the copies a policy makes once
+    (w_split,) = split_copies(w, bf16, dev)
     bias = randn(d, scale=0.1)
     nd = c * d
     thr = statcache.make_threshold(0.05, nd)
@@ -852,8 +920,10 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
     sigma2 = (diff64 / (nd * thr) * factor).to(f32)
     eligible = torch.ones(b, dtype=torch.bool, device=dev)
     args = (x, prev, po, w, bias, sigma2, eligible)
+    planted, planted_w, planted_last = planted_split(torch, gen, d, d, dev)
 
-    worst, out, gates = 0.0, {}, {}
+    worst, out, gates, split_worst, split_rel = 0.0, {}, {}, 0.0, []
+    planted_rel = []
     for use_blend in (True, False):
         kw = dict(threshold=thr, gamma=0.5, use_blend=use_blend)
         wgmma_before = fused_gate.launches_by_route["wgmma"]
@@ -889,12 +959,50 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
             raise AssertionError("SIMT route, bf16 X: gate bits differ")
         torch.testing.assert_close(simt[0].float(), want[0].float(),
                                    rtol=2e-2, atol=2e-2)
+        # the wgmma_split route (fitted maps) on the same inputs: the gate
+        # and its totals are the SIMT route's bits (one gate_partials)
+        split_before = fused_gate.launches_by_route["wgmma_split"]
+        split = fused_gate(*args, **kw, w_bf16=w_split)
+        torch.cuda.synchronize()
+        if fused_gate.launches_by_route["wgmma_split"] != split_before + 1:
+            raise AssertionError("a split copy did not take the wgmma_split "
+                                 "route")
+        if not all(torch.equal(a, b) for a, b in zip(split[1:], simt[1:])):
+            raise AssertionError("wgmma_split route: gate bits or totals "
+                                 "differ from the SIMT route's")
+        torch.testing.assert_close(split[0].float(), want[0].float(),
+                                   rtol=2e-2, atol=2e-2)
+        split_rel.append(rel_l2(torch, split[0], want[0]))
+        if split_rel[-1] > SPLIT_REL_L2:
+            raise AssertionError(f"wgmma_split route: rel-L2 "
+                                 f"{split_rel[-1]} > {SPLIT_REL_L2}")
+        if not all(torch.equal(g, a) for g, a in
+                   zip(split, fused_gate(*args, **kw, w_bf16=w_split))):
+            raise AssertionError("wgmma_split route does not repeat "
+                                 "bitwise")
+        split_worst = max(split_worst, float(
+            (split[0].float() - want[0].float()).abs().max()))
+        # every term read and summed: a copy whose terms are independent
+        pargs = (x, prev, po, planted_w, bias, sigma2, eligible)
+        pwant = ref.fused_gate(*pargs, **kw)
+        pgot = fused_gate(*pargs, **kw, w_bf16=planted)
+        torch.cuda.synchronize()
+        if not torch.equal(pgot[1], pwant[1]):
+            raise AssertionError("wgmma_split route, planted terms: gate "
+                                 "bits differ")
+        planted_rel.append(check_planted(torch, "fused_gate", pgot[0],
+                                          pwant[0], ref.fused_gate(
+            x, prev, po, planted_w - planted_last, bias, sigma2, eligible,
+            **kw)[0]))
         out[use_blend] = {
             **timed(torch, "kernel",
                     lambda: fused_gate(*args, **kw, w_bf16=w_bf16)),
             **timed(torch, "plain", lambda: ref.fused_gate(*args, **kw)),
             **timed(torch, "simt_bf16",
                     lambda: fused_gate(*args, **kw, gemm="simt")),
+            **timed(torch, "split",
+                    lambda: fused_gate(*args, **kw, w_bf16=w_split)),
+            "split_rel_l2": split_rel[-1],
             "simt_bf16_max_abs_err": float(
                 (simt[0].float() - want[0].float()).abs().max())}
         emit({"phase": "kernel", "name": "fused_gate", "shape": [b, c, d],
@@ -944,7 +1052,44 @@ def phase_fused_gate(torch, dev, fused_gate, ref, statcache, c, build):
                      + instance_ptxas(ptxas,
                                       "13gate_partialsI13__nv_bfloat16E"))}
     emit({"phase": "kernel_summary", **row})
-    return row
+    # the wgmma_split route's row.  Its bound is the function's: the bytes
+    # above with the f32 W in place of the bf16 copy, the same operations
+    # (one GEMM at the bf16 tensor-core rate).  The split's own work, every
+    # term of W read and the GEMM's passes over the gated samples once per
+    # term, is bounded apart (``passes_*``)
+    split_bytes = nbytes + d * d * 2
+    split_bound, split_by = bound(split_bytes, gemm / BF16_TC_FLOPS_PER_S
+                                  + simd / F32_FLOPS_PER_S)
+    passes_bytes = nbytes + (w_split.numel() - d * d) * 2
+    passes_gemm = gemm * SPLIT_TERMS
+    passes_bound, passes_by = bound(passes_bytes, passes_gemm
+                                    / BF16_TC_FLOPS_PER_S
+                                    + simd / F32_FLOPS_PER_S)
+    split_row = {"name": "fused_gate", "route": "cuda",
+                 "gemm_route": "wgmma_split", "source": row["source"],
+                 "replaces": row["replaces"], "shape": [b, c, d],
+                 "dtype": "bfloat16", "max_abs_err": split_worst,
+                 "rel_l2": split_rel, "ms": out[True]["split_ms"],
+                 "kernel_ms": out[True]["split_ms"],
+                 "kernel_device_ms": out[True]["split_device_ms"],
+                 **{k: out[True][k] for k in ("plain_ms", "plain_device_ms",
+                                              "simt_bf16_ms",
+                                              "simt_bf16_device_ms")},
+                 **{k: lib[k] for k in ("library_ms", "library_device_ms")},
+                 "library_call": ("torch.addmm (B*C,D)x(D,D) f32: the GEMM "
+                                  "alone, with the f32 W the split stands "
+                                  "for"),
+                 "bound_ms": split_bound, "bound_by": split_by,
+                 "bytes": split_bytes, "operations": gemm + simd,
+                 "passes_bound_ms": passes_bound,
+                 "passes_bound_by": passes_by, "passes_bytes": passes_bytes,
+                 "passes_operations": passes_gemm + simd,
+                 "planted_rel_l2": [r["rel_l2"] for r in planted_rel],
+                 "planted_drop_term_rel_l2": [r["drop_term_rel_l2"]
+                                              for r in planted_rel],
+                 "ptxas": row["ptxas"]}
+    emit({"phase": "kernel_summary", **split_row})
+    return row, split_row
 
 
 def assign_gaps(hf, centers, assign, want):
@@ -1400,6 +1545,98 @@ def phase_linear_blend(torch, dev, ref, linear_blend, build):
                "ptxas": instance_ptxas(
                    ptxas, "25linear_blend_kernel_wgmmaE" if which == "wgmma"
                    else "19linear_blend_kernelIfE")}
+        row["ms"] = row["kernel_ms"]
+        emit({"phase": "kernel", **row})
+        rows.append(row)
+    return rows
+
+
+def phase_linear_blend_split(torch, dev, ref, linear_blend, lb_mod, build):
+    """linear_blend on the wgmma_split route at SPLIT_BLEND_SHAPES, gamma
+    1, bf16, with a cancelling W (a fitted map's: 600 (I - 1 1^T / D) plus
+    noise, met by inputs with a large common part) that one bf16 copy
+    misses by more than CALIBRATED_REL_L2: within BLEND_TOL elementwise and
+    SPLIT_REL_L2 in rel-L2, repeated calls bitwise.  Returns the rows by
+    shape (the first: the fitted bypass)."""
+    from repro_torch.core.linear_approx import split_copies
+    from repro_torch.cuda_kernels.route import SPLIT_TERMS
+    ptxas = build.ptxas_lines(build.load_library("linear_blend").log)
+    bf16, rows = torch.bfloat16, []
+    for i, (m, d, f) in enumerate(SPLIT_BLEND_SHAPES):
+        gen = torch.Generator(dev).manual_seed(40 + i)
+        x = (3.0 + 0.05 * torch.randn((m, d), generator=gen,
+                                      device=dev)).to(bf16)
+        w = (600.0 * (torch.eye(d, f, device=dev) - 1.0 / d)
+             + torch.randn((d, f), generator=gen, device=dev))
+        (w_split,) = split_copies(w, bf16, dev)
+        b = 0.1 * torch.randn((f,), generator=gen, device=dev)
+        prev = torch.randn((m, f), generator=gen, device=dev).to(bf16)
+        before = linear_blend.launches_by_route["wgmma_split"]
+        got = linear_blend(x, w, b, prev, gamma=1.0, w_bf16=w_split)
+        torch.cuda.synchronize()
+        if linear_blend.launches_by_route["wgmma_split"] != before + 1:
+            raise AssertionError(f"linear_blend ({m}, {d}, {f}) with a "
+                                 "split copy did not take wgmma_split")
+        want = ref.linear_blend(x, w, b, prev, 1.0)
+        tol = BLEND_TOL["bfloat16"]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        rel = rel_l2(torch, got, want)
+        single = rel_l2(torch, lb_mod._launch("wgmma", x, w, b, prev, 1.0,
+                                              w.to(bf16)), want)
+        if rel > SPLIT_REL_L2 or single <= CALIBRATED_REL_L2:
+            raise AssertionError(f"linear_blend ({m}, {d}, {f}): split "
+                                 f"rel-L2 {rel}, one bf16 copy {single}")
+        if not torch.equal(got, linear_blend(x, w, b, prev, gamma=1.0,
+                                             w_bf16=w_split)):
+            raise AssertionError("wgmma_split route does not repeat "
+                                 "bitwise")
+        # every term read and summed: a copy whose terms are independent
+        planted, planted_w, planted_last = planted_split(torch, gen, d, f,
+                                                         dev)
+        planted_rel = check_planted(
+            torch, f"linear_blend ({m}, {d}, {f})",
+            linear_blend(x, planted_w, b, prev, gamma=1.0, w_bf16=planted),
+            ref.linear_blend(x, planted_w, b, prev, 1.0),
+            ref.linear_blend(x, planted_w - planted_last, b, prev, 1.0))
+        xf, folded = x.float(), b.expand(m, f).contiguous()
+        # the function's bound: X and out in bf16, the f32 W and bias read
+        # once; one GEMM on the bf16 tensor cores.  The split's own work
+        # (``passes_*``): the split copy read (every term, padding rows
+        # included: the kernel reads them), one pass of the GEMM per term
+        nbytes = m * d * 2 + d * f * 4 + f * 4 + m * f * 2
+        gemm = 2 * m * d * f
+        bound_ms, bound_by = bound(nbytes, gemm / BF16_TC_FLOPS_PER_S
+                                   + m * f / F32_FLOPS_PER_S)
+        passes_bytes = m * d * 2 + w_split.numel() * 2 + f * 4 + m * f * 2
+        passes_bound, passes_by = bound(passes_bytes,
+                                        gemm * SPLIT_TERMS
+                                        / BF16_TC_FLOPS_PER_S
+                                        + m * f / F32_FLOPS_PER_S)
+        row = {"name": "linear_blend", "route": "cuda",
+               "gemm_route": "wgmma_split",
+               "source": "src/repro_torch/csrc/linear_blend.cu",
+               "replaces": "src/repro/kernels/linear_blend.py:41",
+               "shape": [m, d, f], "dtype": "bfloat16", "gamma": 1.0,
+               "w": "600 (I - 1 1^T / D) + N(0, 1), X = 3 + 0.05 N(0, 1)",
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "rel_l2": rel, "bf16_copy_rel_l2": single,
+               **timed(torch, "kernel",
+                       lambda: linear_blend(x, w, b, prev, gamma=1.0,
+                                            w_bf16=w_split)),
+               **timed(torch, "plain",
+                       lambda: ref.linear_blend(x, w, b, prev, 1.0)),
+               **timed(torch, "library",
+                       lambda: torch.addmm(folded, xf, w)),
+               "library_call": "torch.addmm f32, the bias folded",
+               "bytes": nbytes, "operations": gemm + m * f,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "passes_bytes": passes_bytes,
+               "passes_operations": gemm * SPLIT_TERMS + m * f,
+               "passes_bound_ms": passes_bound, "passes_bound_by": passes_by,
+               "planted_rel_l2": planted_rel["rel_l2"],
+               "planted_drop_term_rel_l2": planted_rel["drop_term_rel_l2"],
+               "ptxas": instance_ptxas(ptxas, "25linear_blend_kernel_wgmmaE")}
         row["ms"] = row["kernel_ms"]
         emit({"phase": "kernel", **row})
         rows.append(row)
@@ -1868,7 +2105,8 @@ def phase_llm_serve(torch, dev, wl, model, m, serve, label="llm_serve"):
         if by_route != {
                 "saliency_delta": {"onepass": want["saliency_delta"],
                                    "simt": 0},
-                "linear_blend": {"wgmma": want["linear_blend"], "simt": 0}}:
+                "linear_blend": {"wgmma": want["linear_blend"],
+                                 "wgmma_split": 0, "simt": 0}}:
             raise AssertionError(f"decode gate launches by route {by_route}")
     if eng.prefills != wl.requests or launches != want:
         raise AssertionError(f"LLM launches {launches} != {want} "
@@ -3051,17 +3289,18 @@ def rel_l2(torch, a, b) -> float:
 
 def phase_calibrated_parity(torch, captured, fg_mod, lb_mod, ref):
     """The fitted serve's first fused_gate and linear_blend calls (bf16 X,
-    the fitted f32 maps, served on the SIMT route the runner names for maps
-    handed in) held against the plain version computed in f32 with the
-    same maps: gate bits exact, the totals at 1e-4, the outputs at the
-    kernel phase's bf16 tolerance elementwise (BLEND_TOL) and within
-    CALIBRATED_REL_L2 rel-L2.  Beside it, a finding: what the wgmma route
-    gives with a bf16 copy of each map (rel-L2 against the plain version),
-    as served and with every sample forced to gate (eligible all,
-    threshold infinite: the approximation alone), the reason the runners
-    serve fitted maps on SIMT."""
+    the fitted f32 maps, served on the wgmma_split route with the split
+    copies the runner makes for maps handed in) held against the plain
+    version computed in f32 with the same maps: gate bits exact, the
+    totals at 1e-4, the outputs at the kernel phase's bf16 tolerance
+    elementwise (BLEND_TOL) and within SPLIT_REL_L2 rel-L2.  Beside it, the
+    same inputs on the SIMT route (the f32 W: the yardstick) and on the
+    wgmma route with a single bf16 copy of each map (rel-L2 against the
+    plain version; for fused_gate also with every sample forced to gate:
+    the approximation alone), the reason fitted maps are split."""
     tol = BLEND_TOL["bfloat16"]
     served, worst = [], 0.0
+    simt_gate, simt_blend = [], []
     bf16_gate, bf16_forced, bf16_blend = [], [], []
 
     def hold(got, want):
@@ -3071,11 +3310,16 @@ def phase_calibrated_parity(torch, captured, fg_mod, lb_mod, ref):
         worst = max(worst, float((got.float() - want.float()).abs().max()))
         served.append(rel_l2(torch, got, want))
 
+    def split_call(kw, d):
+        if (not route.is_split(kw.get("w_bf16"), d)
+                or kw.get("gemm") is not None):
+            raise AssertionError("a fitted map was not served with its "
+                                 "split copy on the wrappers' rule")
+
+    from repro_torch.cuda_kernels import route
     for args, kw, outs in captured["fused_gate"]:
+        split_call(kw, args[0].shape[-1])
         x, prev_in, prev_out, w, b, sigma2, eligible = args
-        if kw.get("gemm") != "simt" or kw.get("w_bf16") is not None:
-            raise AssertionError("a fitted map was not served on the named "
-                                 "SIMT route")
         gkw = dict(threshold=kw["threshold"], gamma=kw["gamma"],
                    use_blend=kw["use_blend"])
         want = ref.fused_gate(*args, **gkw)
@@ -3085,6 +3329,9 @@ def phase_calibrated_parity(torch, captured, fg_mod, lb_mod, ref):
         torch.testing.assert_close(outs[2], want[2], rtol=1e-4, atol=0)
         torch.testing.assert_close(outs[3], want[3], rtol=1e-4, atol=0)
         hold(outs[0], want[0])
+        simt = fg_mod._launch("simt", *args, gkw["threshold"], gkw["gamma"],
+                              gkw["use_blend"], None)
+        simt_gate.append(rel_l2(torch, simt[0], want[0]))
         copy = w.to(torch.bfloat16)
         tc = fg_mod._launch("wgmma", *args, gkw["threshold"], gkw["gamma"],
                             gkw["use_blend"], copy)
@@ -3099,34 +3346,41 @@ def phase_calibrated_parity(torch, captured, fg_mod, lb_mod, ref):
         bf16_forced.append(rel_l2(torch, tc[0],
                                   ref.fused_gate(*forced, **fkw)[0]))
     for args, kw, outs in captured["linear_blend"]:
+        split_call(kw, args[0].shape[-1])
         x, w, b, prev = args
-        if kw.get("gemm") != "simt" or kw.get("w_bf16") is not None:
-            raise AssertionError("a fitted map was not served on the named "
-                                 "SIMT route")
         want = ref.linear_blend(x, w, b, prev, kw["gamma"])
         hold(outs[0], want)
+        simt_blend.append(rel_l2(torch, lb_mod._launch(
+            "simt", x, w, b, prev, kw["gamma"], None), want))
         tc = lb_mod._launch("wgmma", x, w, b, prev, kw["gamma"],
                             w.to(torch.bfloat16))
         bf16_blend.append(rel_l2(torch, tc, want))
     emit({"phase": "calibrated_parity", "calls": PARITY_CALLS,
+          "route": "wgmma_split",
           "against": "ref.fused_gate / ref.linear_blend in f32, fitted W",
           "served_rel_l2": served, "served_max_abs_err": worst,
-          "tol": tol, "bound": CALIBRATED_REL_L2, "gate_bits_exact": True,
+          "tol": tol, "bound": SPLIT_REL_L2, "gate_bits_exact": True,
+          "simt_fused_gate_rel_l2": simt_gate,
+          "simt_linear_blend_rel_l2": simt_blend,
           "bf16_copy_fused_gate_rel_l2": bf16_gate,
           "bf16_copy_fused_gate_rel_l2_forced_gating": bf16_forced,
           "bf16_copy_linear_blend_rel_l2": bf16_blend})
-    if not max(served) <= CALIBRATED_REL_L2:
+    if not max(served) <= SPLIT_REL_L2:
         raise AssertionError(f"calibrated serve: rel-L2 {max(served)} > "
-                             f"{CALIBRATED_REL_L2}")
+                             f"{SPLIT_REL_L2}")
 
 
 def phase_calibrate(torch, dev, wl, model, m, fg_mod, lb_mod, ref):
     """record_calibration over 50 steps at batch 2 (one saliency_delta
     launch per step, all on onepass, no other kernel); calibrate_dit on 4
-    batches of 8 latents (seed 0); a fastcache serve with the fitted maps
-    (its cache ratio printed, not held to the parent's), whose first
-    served fused_gate / linear_blend calls phase_calibrated_parity re-runs.
-    Returns (recorder launches, calibrated serve launches)."""
+    batches of 8 latents (seed 0); fastcache serves with the fitted maps
+    (their cache ratio printed, not held to the parent's): eager on the
+    wgmma_split route, whose first served fused_gate / linear_blend calls
+    phase_calibrated_parity re-runs; eager on the named SIMT route, the
+    yardstick; on the graph path (latents bitwise the eager split serve's,
+    every warm step a replay, 0 policy syncs); then the identity maps'
+    serve on the graph path.  Returns (recorder launches, every serve's launches by
+    label)."""
     runner = m.CachedDiT(model, m.FastCacheConfig(), policy="nocache")
     torch.cuda.synchronize()
     zero_counts()
@@ -3171,24 +3425,77 @@ def phase_calibrate(torch, dev, wl, model, m, fg_mod, lb_mod, ref):
           "w_c_rel_dist_from_identity":
               float((fitted["W_c"] - eye).norm() / eye.norm())})
     captured = {"fused_gate": [], "linear_blend": []}
-    # maps handed in: no bf16 copy, every call names the SIMT route
-    # both serves eager: the recorder copies the calls as they run, and
-    # the pair's wall times compare the two routes on one path
-    wl = dataclasses.replace(wl, step_graph=False)
+    fitted_kw = {"fc_params": fitted}
+    # maps handed in: split copies, every call on the wgmma_split route.
+    # The parity serve is eager: the recorder copies the calls as they run
+    eager = dataclasses.replace(wl, step_graph=False)
     with capture_gemms(m.fastcache_mod, captured, skip=model.cfg.num_layers):
-        res = phase_serve(torch, dev, wl, model, m, label="serve_calibrated",
-                          engine_kwargs={"fc_params": fitted},
-                          parent_ratio=False,
-                          routes={"fused_gate": "simt",
-                                  "linear_blend": "simt"})
+        res = phase_serve(torch, dev, eager, model, m,
+                          label="serve_calibrated", engine_kwargs=fitted_kw,
+                          parent_ratio=False, routes=ROUTE_OF_FITTED)
     phase_calibrated_parity(torch, captured, fg_mod, lb_mod, ref)
-    # the identity maps' serve right after, for the pair's wall times
-    ident = phase_serve(torch, dev, wl, model, m, label="serve_identity")
-    emit({"phase": "calibrated_cost", "calibrated_wall_s": res.wall,
-          "identity_wall_s": ident.wall,
-          "calibrated_fused_gate_route": "simt",
-          "identity_fused_gate_route": "wgmma"})
-    return rec_launches, res.launches
+    # the yardstick: the same maps on the named SIMT route (the f32 W)
+    simt = phase_serve(torch, dev, eager, model, m,
+                       label="serve_calibrated_simt",
+                       engine_kwargs={**fitted_kw, "simt_maps": True},
+                       parent_ratio=False,
+                       routes={"fused_gate": "simt", "linear_blend": "simt"})
+    # the graph path (the engine's default on the card): two short serves
+    # under sync debug first; the first takes the fitted maps' step key
+    # past its eager warm-up calls (step_graph.WARMUP_CALLS), so that the
+    # second's warm steps, and every warm step of the timed serve, run in
+    # a graph (each engine's first captures it), as the identity serve's do
+    graph_wl = dataclasses.replace(wl, step_graph=None)
+    first_use = dit_path_syncs(torch, graph_wl, model, m, None, **fitted_kw)
+    syncs = dit_path_syncs(torch, graph_wl, model, m, None, **fitted_kw)
+    graph = phase_serve(torch, dev, graph_wl, model, m,
+                        label="serve_calibrated_graph",
+                        engine_kwargs=fitted_kw, parent_ratio=False,
+                        routes=ROUTE_OF_FITTED)
+    bitwise = same_latents(graph.done, res.done)
+    simt_by_rid = {r.rid: r.latents for r in simt.done}
+    split_by_rid = {r.rid: r for r in res.done}
+    # the identity maps' serve right after, on the graph path, for the
+    # pair's wall times
+    ident = phase_serve(torch, dev, graph_wl, model, m,
+                        label="serve_identity")
+    warm = graph.runner.impl.step_kinds["warm"]
+    emit({"phase": "calibrated_cost",
+          "block_cache_ratio": {"split": res.stats["block_cache_ratio"],
+                                "simt": simt.stats["block_cache_ratio"],
+                                "split_graph":
+                                    graph.stats["block_cache_ratio"]},
+          "simt_latent_distance_of_scale": latent_distance(simt_by_rid,
+                                                           split_by_rid),
+          "graph_latents_bitwise_eager": bitwise,
+          "graph_replays": graph.runner.graphs.replays,
+          "graph_warm_steps": warm,
+          "graph_policy_host_syncs": graph.runner.impl.host_syncs,
+          "graph_syncs": syncs, "graph_syncs_first_use": first_use,
+          "wall_s": {"split_eager": res.wall, "simt_eager": simt.wall,
+                     "split_graph": graph.wall, "identity_graph": ident.wall},
+          "engine_steps_per_s": {
+              "split_eager": res.eng.clock / res.wall,
+              "simt_eager": simt.eng.clock / simt.wall,
+              "split_graph": graph.eng.clock / graph.wall,
+              "identity_graph": ident.eng.clock / ident.wall},
+          "calibrated_fused_gate_route": "wgmma_split",
+          "identity_fused_gate_route": "wgmma", "card": smi()})
+    if not bitwise:
+        raise AssertionError("the fitted serve's latents on the graph path "
+                             "differ from the eager path's")
+    if (syncs["flagged_in_port_per_warm_step"],
+            syncs["counted_per_warm_step"]) != (0.0, 0.0) \
+            or graph.runner.impl.host_syncs != 0 \
+            or graph.runner.graphs.replays != warm:
+        raise AssertionError(f"fitted graph path: syncs {syncs}, "
+                             f"{graph.runner.impl.host_syncs} in the serve, "
+                             f"{graph.runner.graphs.replays} replays of "
+                             f"{warm} warm steps")
+    return rec_launches, {"serve_calibrated": res.launches,
+                          "serve_calibrated_simt": simt.launches,
+                          "serve_calibrated_graph": graph.launches,
+                          "serve_identity": ident.launches}
 
 
 def phase_serve_nocfg(torch, dev, wl, model, m):
@@ -5946,14 +6253,15 @@ def path_serve(torch, wl, model, m, step_graph, label, mesh=None):
                            stats=eng.cache_stats())
 
 
-def dit_path_syncs(torch, wl, model, m, step_graph):
-    """Two requests of 8 steps on a fresh engine: the cold step, then five
-    warm steps under sync debug "warn" (the graph path's first one
-    captures), then on the graph path one more warm step under "error";
-    drained.  Returns the flagged syncs by where they were made."""
+def dit_path_syncs(torch, wl, model, m, step_graph, **engine_kwargs):
+    """Two requests of 8 steps on a fresh engine (built with
+    ``engine_kwargs``, e.g. ``fc_params``): the cold step, then five warm
+    steps under sync debug "warn" (the graph path's first one captures),
+    then on the graph path one more warm step under "error"; drained.
+    Returns the flagged syncs by where they were made."""
     short = dataclasses.replace(wl, requests=2, steps=8, steps_mix=(),
                                 guidance_mix=(), step_graph=step_graph)
-    runner, eng = short.build_engine(model)
+    runner, eng = short.build_engine(model, **engine_kwargs)
     for i in range(2):
         eng.add_request(m.DiffusionRequest(rid=i, label=i + 1, seed=40 + i,
                                            num_steps=8,
@@ -6296,8 +6604,8 @@ def main() -> int:
     sweep = start_dryrun_sweep()
     phase_build(build)
     dev = torch.device("cuda")
-    gate_row = phase_fused_gate(torch, dev, fused_gate, ref, statcache, 128,
-                                build)
+    gate_row, gate_split_row = phase_fused_gate(torch, dev, fused_gate, ref,
+                                                statcache, 128, build)
     phase_fused_gate(torch, dev, fused_gate, ref, statcache, 64, build)
     k = SimpleNamespace(ref=ref, knn_density=knn_density,
                         merge_assign=merge_assign,
@@ -6305,6 +6613,8 @@ def main() -> int:
     merge_rows = phase_token_merge(torch, dev, k, build)
     sal_rows = phase_saliency_delta(torch, dev, ref, sal_mod, build)
     blend_rows = phase_linear_blend(torch, dev, ref, linear_blend, build)
+    blend_split_row = phase_linear_blend_split(torch, dev, ref, linear_blend,
+                                               lb_mod, build)[0]
     cond_row = phase_cond_node(torch, dev, ref, cond_mod, build)
     sal_row, blend_row = sal_rows[0], blend_rows[0]
 
@@ -6367,7 +6677,7 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_audit = phase_audit(torch, dev, wl, model, m, base, syncs_off)
     launches_metrics = phase_metrics(torch, dev, wl, model, m, base)
-    launches_record, launches_calibrated = phase_calibrate(
+    launches_record, launches_fitted = phase_calibrate(
         torch, dev, wl, model, m, fg_mod, lb_mod, ref)
     launches_nocfg = phase_serve_nocfg(torch, dev, wl, model, m)
     phase_trace(torch, dev, wl, model, m)
@@ -6518,6 +6828,11 @@ def main() -> int:
     flash_row["launches"] = launches_llm["flash_attention"]
     sal_row["launches"] = launches["saliency_delta"]
     blend_row["launches"] = launches["linear_blend"]
+    # the split route's rows: the fitted serve on the graph path
+    gate_split_row["launches"] = launches_fitted[
+        "serve_calibrated_graph"]["fused_gate"]
+    blend_split_row["launches"] = launches_fitted[
+        "serve_calibrated_graph"]["linear_blend"]
     # the IF nodes of the main serve's replayed warm steps
     cond_row["launches"] = launches["if_all"]
     # the new head dims' bf16 rows: flash_attention on the serve of the
@@ -6548,10 +6863,10 @@ def main() -> int:
     # (vlm_positions: every attention layer's launch)
     pos_flash["p"]["launches"] = launches_more["vlm_positions"][
         "flash_attention"]
-    rows = [gate_row] + merge_rows + [sal_row, blend_row, flash_row,
-                                      new_flash["e"], new_flash["g"],
-                                      new_flash["j"]] + vlm_rows + [
-                                          pos_flash["p"], cond_row]
+    rows = ([gate_row, gate_split_row] + merge_rows
+            + [sal_row, blend_row, blend_split_row, flash_row,
+               new_flash["e"], new_flash["g"], new_flash["j"]]
+            + vlm_rows + [pos_flash["p"], cond_row])
     for row in rows:
         row["serve_launches"] = {
             "serve": launches[row["name"]],
@@ -6563,7 +6878,8 @@ def main() -> int:
             "serve_audit_1": launches_audit[1.0][row["name"]],
             "serve_metrics": launches_metrics[row["name"]],
             "calibrate_record": launches_record[row["name"]],
-            "serve_calibrated": launches_calibrated[row["name"]],
+            **{label: n[row["name"]]
+               for label, n in launches_fitted.items()},
             "serve_nocfg": launches_nocfg[row["name"]],
             "preempt_resume": launches_preempt[row["name"]],
             "preempt_resume_merge": launches_preempt_merge[row["name"]],

@@ -33,7 +33,8 @@ Kernels per decode step, in every layer: ``saliency_delta`` on the (B, 1, D)
 block input against the previous step's (its per-sample totals are the
 gate's ||dH||^2 and ||H_prev||^2) and ``linear_blend`` at gamma 1 for the
 approximation W_l x + b_l (on the wgmma route it multiplies the bf16 copies
-of W_l, made once in the constructor).
+of W_l, on the wgmma_split route the split copies of maps handed in, made
+once in the constructor).
 """
 from __future__ import annotations
 
@@ -45,7 +46,6 @@ from repro_torch.configs.base import FastCacheConfig
 from repro_torch.core import linear_approx, statcache
 from repro_torch.core.statcache import GATE_MODES
 from repro_torch.core.step_graph import branch
-from repro_torch.cuda_kernels import route
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
 from repro_torch.models import common, layers
@@ -68,14 +68,15 @@ class CachedDecoder:
         self.gate_mode = fc.gate_mode
         self.L = model.cfg.num_layers
         # as CachedDiT's: the identity maps get the bf16 copies of W_l[l]
-        # the wgmma route multiplies, made once (None each off a bf16 model
-        # on CUDA); maps handed in name the SIMT route and the f32 W
-        self.gemm = None if fc_params is None else route.SIMT
+        # the wgmma route multiplies, maps handed in the split copies the
+        # wgmma_split route multiplies, made once (None each off a bf16
+        # model on CUDA)
+        self.split_maps = fc_params is not None
         self.fc_params = fc_params or linear_approx.init_linear_params(
             self.L, model.cfg.d_model, device=model.device)
-        self.w_l_bf16 = (linear_approx.bf16_copies(
+        self.w_l_bf16 = (linear_approx.split_copies if self.split_maps
+                         else linear_approx.bf16_copies)(
             self.fc_params["W_l"], model.dtype, model.device)
-            if self.gemm is None else [None] * self.L)
         self.host_syncs = 0
 
     def init_state(self, batch: int) -> Dict:
@@ -158,8 +159,7 @@ class CachedDecoder:
             flat = x[:, 0]
             # the carry: the approximation, every sample's on the skip side
             out = linear_blend(flat, fcp["W_l"][l], fcp["b_l"][l], flat,
-                               gamma=1.0, w_bf16=self.w_l_bf16[l],
-                               gemm=self.gemm)[:, None]
+                               gamma=1.0, w_bf16=self.w_l_bf16[l])[:, None]
             lc = m.layer_cache(cache, l)
 
             def skip_side(x=x, bp=bp, lc=lc):

@@ -15,6 +15,7 @@ from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.cuda_kernels import route
 from repro_torch.device import DeviceLike, resolve_device
 
 F32 = torch.float32
@@ -58,6 +59,31 @@ def bf16_copies(w: torch.Tensor, dtype: torch.dtype,
     return list(stack.to(torch.bfloat16).contiguous().unbind(0))
 
 
+def split_copies(w: torch.Tensor, dtype: torch.dtype,
+                 device: torch.device) -> List[Optional[torch.Tensor]]:
+    """The matrices of ``w`` ((D, F), or a stack (L, D, F)) each split once
+    into ``route.SPLIT_TERMS`` bf16 terms, each the bf16 rounding of what
+    the terms before it leave of W (W_hi = bf16(W), W_mid = bf16(W - W_hi),
+    ...; each difference is exact in f32), as the wgmma_split route of
+    ``linear_blend`` / ``fused_gate`` multiplies them: one contiguous
+    (SPLIT_TERMS Kp, F) tensor per matrix, term t in rows [t Kp, t Kp + D),
+    the rest zero, Kp = ``route.split_rows(D)``, for a bf16 model on CUDA;
+    else None per matrix.  The terms' sum misses W by at most
+    2^(-8 SPLIT_TERMS) of |W|."""
+    stack = w.reshape(-1, *w.shape[-2:]).to(F32)
+    if dtype != torch.bfloat16 or torch.device(device).type != "cuda":
+        return [None] * stack.shape[0]
+    n, d, f = stack.shape
+    kp = route.split_rows(d)
+    out = torch.zeros((n, route.SPLIT_TERMS * kp, f), dtype=torch.bfloat16,
+                      device=stack.device)
+    rest = stack
+    for t in range(route.SPLIT_TERMS):
+        out[:, t * kp:t * kp + d] = rest.to(torch.bfloat16)
+        rest = rest - out[:, t * kp:t * kp + d].to(F32)
+    return list(out.unbind(0))
+
+
 def fit_linear(x: torch.Tensor, y: torch.Tensor, ridge: float = 1e-4
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ridge least-squares fit of y ~ x W + b in f32, centred, with the
@@ -87,8 +113,8 @@ def calibrate_dit(model, sample_batches: Iterable[Mapping[str, torch.Tensor]],
     ``labels``), and the token-bypass map W_c from (token embedding, final
     hidden) pairs: the bypass approximates the whole stack for static
     tokens (Eq. 3).  Returns a new fastcache parameter dict (f32) for
-    ``CachedDiT(fc_params=...)``, which serves maps handed in with the f32
-    W on the SIMT route (no bf16 copy, ``core/runner.py``).
+    ``CachedDiT(fc_params=...)``, which serves maps handed in on the
+    wgmma_split route (``split_copies``, ``core/runner.py``).
 
     Block l's output is block l+1's input, so each layer's activations are
     kept once (the reference stores both sides of every pair)."""

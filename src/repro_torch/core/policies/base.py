@@ -122,16 +122,20 @@ class CachePolicy:
 
     def __init__(self, model: DiTModel, fc, fc_params, *,
                  gate_mode: str = "per_sample", gemm: Optional[str] = None,
+                 split_maps: bool = False,
                  token_reducer: Optional["TokenReducer"] = None, **_unused):
         self.model = model
         self.fc = fc
         self.fc_params = fc_params
         self.gate_mode = gate_mode
         # the GEMM route every linear_blend / fused_gate call on the maps
-        # names: None for the wrappers' rule (wgmma on a bf16 model on CUDA,
-        # with the copies of ``map_copies``), route.SIMT for the f32 maps
-        # (the runner's choice for maps handed in)
+        # names: None for the wrappers' rule (on a bf16 model on CUDA
+        # wgmma, or wgmma_split with split copies: ``map_copies``),
+        # route.SIMT for the f32 maps
         self.gemm = gemm
+        # split copies of the maps in place of single bf16 ones (the
+        # runner's choice for maps handed in, which bf16 does not hold)
+        self.split_maps = split_maps
         self.L = model.cfg.num_layers
         # token-compression stage (core/token_reduce.py): with a reducer the
         # policy's whole transformer path runs on the statically reduced
@@ -155,12 +159,16 @@ class CachePolicy:
     MIRRORED: Tuple[str, ...] = ()
 
     def map_copies(self, w: torch.Tensor) -> List[Optional[torch.Tensor]]:
-        """The bf16 copies of the maps ``w`` ((D, F) or (L, D, F)) that the
-        wgmma route multiplies, made once (``linear_approx.bf16_copies``);
-        None each where the calls name a route."""
+        """The tensor-core copies of the maps ``w`` ((D, F) or (L, D, F)),
+        made once: single bf16 ones for the wgmma route
+        (``linear_approx.bf16_copies``), or with ``split_maps`` split ones
+        for the wgmma_split route (``linear_approx.split_copies``); None
+        each off a bf16 model on CUDA and where the calls name a route."""
         if self.gemm is not None:
             return [None] * w.reshape(-1, *w.shape[-2:]).shape[0]
-        return linear_approx.bf16_copies(w, self.model.dtype, self.device)
+        make = (linear_approx.split_copies if self.split_maps
+                else linear_approx.bf16_copies)
+        return make(w, self.model.dtype, self.device)
 
     def init_state(self, batch: int) -> Dict:
         raise NotImplementedError

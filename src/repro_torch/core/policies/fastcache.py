@@ -47,8 +47,8 @@ class FastCache(CachePolicy):
 
     def __init__(self, model, fc, fc_params, **kw):
         super().__init__(model, fc, fc_params, **kw)
-        # the bf16 copies of W_c and each W_l[l] that the wgmma route
-        # multiplies, made once (None each off a bf16 model on CUDA)
+        # the tensor-core copies of W_c and each W_l[l], single or split,
+        # made once (None each off a bf16 model on CUDA)
         (self.w_c_bf16,) = self.map_copies(fc_params["W_c"])
         self.w_l_bf16 = self.map_copies(fc_params["W_l"])
         # n_tokens is the reduced grid when token compression is on

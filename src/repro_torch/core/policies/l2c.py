@@ -39,8 +39,8 @@ class LearnedLayerCache(CachePolicy):
         if len(self.mask) != self.L:
             raise ValueError(f"l2c_mask has {len(self.mask)} entries; model "
                              f"has {self.L} layers")
-        # the bf16 copy of each W_l[l] that the wgmma route multiplies, made
-        # once (None each off a bf16 model on CUDA)
+        # the tensor-core copy of each W_l[l], single or split, made once
+        # (None each off a bf16 model on CUDA)
         self.w_l_bf16 = self.map_copies(fc_params["W_l"])
 
     def init_state(self, batch: int) -> Dict:

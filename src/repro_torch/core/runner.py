@@ -69,13 +69,16 @@ class CachedDiT:
                  fb_rdt: float = 0.08,
                  l2c_mask=None,
                  step_graph: bool = False,
+                 simt_maps: bool = False,
                  **policy_kwargs):
         """The per-policy knobs are the reference's front-door keywords;
         with ``**policy_kwargs`` (e.g. smoothcache's ``smooth_schedule``)
         the whole set goes to the resolved policy, which keeps the ones it
         knows.  Masks and schedules may be numpy or torch bool arrays.
         ``step_graph`` replays warm steps as CUDA graphs (the card only;
-        see the module docstring)."""
+        see the module docstring).  ``simt_maps`` names the SIMT route (the
+        f32 maps) for every ``linear_blend`` / ``fused_gate`` call on the
+        maps, a yardstick; by default the wrappers' rule picks."""
         cls = get_policy_class(policy)     # ValueError on unknown names
         if fc.gate_mode not in GATE_MODES:
             raise ValueError(f"unknown gate_mode {fc.gate_mode!r}; "
@@ -88,10 +91,10 @@ class CachedDiT:
         self.L = model.cfg.num_layers
         # the identity maps of init_linear_params, which bf16 holds exactly,
         # get bf16 copies for the wgmma route; maps handed in (fitted by
-        # calibrate_dit) get none, and every call on them names the SIMT
-        # route, which multiplies the f32 W: a bf16 copy of fitted maps
-        # moved the static bypass by up to 8% rel-L2 on the card (PERF.md)
-        gemm = None if fc_params is None else route.SIMT
+        # calibrate_dit) get split copies, W as three bf16 terms, for the
+        # wgmma_split route: a single bf16 copy of fitted maps moved the
+        # static bypass by up to 8% rel-L2 on the card (PERF.md)
+        split_maps = fc_params is not None
         self.fc_params = fc_params or linear_approx.init_linear_params(
             self.L, model.cfg.d_model, model.device)
         # a ratio whose static M fills the window leaves the reducer inert
@@ -102,7 +105,9 @@ class CachedDiT:
             if red.active:
                 self.reducer = red
         self.impl = cls(model, fc, self.fc_params, gate_mode=self.gate_mode,
-                        gemm=gemm, token_reducer=self.reducer,
+                        gemm=route.SIMT if simt_maps else None,
+                        split_maps=split_maps,
+                        token_reducer=self.reducer,
                         fora_interval=fora_interval,
                         tea_threshold=tea_threshold,
                         ada_thresholds=ada_thresholds, fb_rdt=fb_rdt,
@@ -183,7 +188,8 @@ class CachedDiT:
         place."""
         kind = self.impl.step_kind(state)
         if self._step_graph and kind == "warm":
-            key = (self.policy, self.impl.gemm, self.impl.n_tokens,
+            key = (self.policy, self.impl.gemm, self.impl.split_maps,
+                   self.impl.n_tokens,
                    tuple(latents.shape), latents.dtype, t.dtype,
                    labels.dtype, self.model.dtype)
             eps = self.graphs.run(

@@ -37,7 +37,12 @@
 //        blocks multiply, one per SM and a few over; at C=64 (merged), 72.
 //        The other blocks copy 8 KB and exit.  Rounding W to bf16 departs
 //        from the TPU kernel's f32 product (see linear_blend.cu); the served
-//        W is the identity, exact in bf16, so there both routes agree bitwise.
+//        identity maps are exact in bf16, so there both routes agree bitwise.
+//      - the same kernel over a split W (wgmma_split: bf16 X against [W_hi;
+//        W_mid; W_lo], three bf16 terms stacked along K, tc_gemm.cuh), for
+//        maps bf16 does not hold, such as fitted ones: the terms miss W by
+//        2^-24 of |W|, so the product keeps f32-level accuracy for three
+//        times the tensor-core work and two more bf16 copies of W read.
 //      - gate_gemm (f32, held to 1e-4, and the bf16 shapes the wgmma route
 //        does not take): a 64x64x16 shared-memory-tiled f32 FMA GEMM (4x4
 //        outputs per thread).
@@ -51,6 +56,10 @@
 // 2*4*128*1152*1152 = 1.36 GFLOP, 1.37 us at 989 TFLOP/s of bf16 tensor
 // cores.  The wgmma route is bound by bytes (2.03 us at C=64); the SIMT
 // route, at 67 TFLOP/s of f32 outside the tensor cores, by operations.
+// The split route computes the same function with the f32 W, whose bound is
+// 13.6 MB (the f32 W is 5.31 MB), 4.05 us, by bytes; its own work, W_mid and
+// W_lo read too (16.2 MB, 4.84 us) and the GEMM tripled (4.12 us), is 1.2x
+// that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -265,7 +274,7 @@ gate_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
                 __nv_bfloat16* __restrict__ out, uint8_t* __restrict__ gate_out,
                 float* __restrict__ diff_out, float* __restrict__ prevsq_out,
                 int C, int D, float thr, float nd, float gamma,
-                float one_minus_gamma, int use_blend) {
+                float one_minus_gamma, int use_blend, int w_passes) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ int s_gate;
   const TcRing ring = tc_ring<1, 64, 4>(smem_raw);
@@ -292,29 +301,34 @@ gate_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
     return;
   }
 
-  const int nk = (D + kTcChunk - 1) / kTcChunk;
+  const int nk = (D + kTcChunk - 1) / kTcChunk;  // A's chunks
   if (threadIdx.x >= 128) {  // the producer warp
     if (threadIdx.x == 128)
-      tc_produce<1, 64, 4>(ring, &xmap, &wmap, m0, b, n0, D, nk);
+      tc_produce<1, 64, 4>(ring, &xmap, &wmap, m0, b, n0, D, w_passes * nk,
+                           nk);
     return;
   }
   float acc[GateGemm::kAcc];
-  tc_consume<1, 64, 4>(ring, acc, 0, threadIdx.x, nk);
+  tc_consume<1, 64, 4>(ring, acc, 0, threadIdx.x, w_passes * nk);
   tc_store<64>(acc, out + base, prev_out + base, bias, m0, C, n0, D, gamma,
                one_minus_gamma, use_blend, threadIdx.x);
 }
 
+// w_passes = 1: w is the (D, D) bf16 copy; t > 1: the (t Kp, D) split copy.
 int launch_wgmma(const void* x, const void* prev_in, const void* prev_out,
-                 const void* w_bf16, const void* bias, const void* sigma2,
+                 const void* w, const void* bias, const void* sigma2,
                  const void* eligible, void* out, void* gate, void* diff,
                  void* prevsq, void* partials, int n_parts, int B, int C,
                  int D, float thr, float nd, float gamma,
-                 float one_minus_gamma, int use_blend, cudaStream_t stream) {
+                 float one_minus_gamma, int use_blend, int w_passes,
+                 cudaStream_t stream) {
   static bool opted_in = false;
   int err = tc_opt_in(gate_gemm_wgmma, GateGemm::kSmem, opted_in);
   if (err != 0) return err;
+  const int kp = (D + kTcChunk - 1) / kTcChunk * kTcChunk;
   CUtensorMap xmap, wmap;
-  if (!tc_map_3d(&xmap, x, D, C, B, 64) || !tc_map_2d(&wmap, w_bf16, D, D))
+  if (!tc_map_3d(&xmap, x, D, C, B, 64) ||
+      !tc_map_2d(&wmap, w, D, w_passes > 1 ? w_passes * kp : D))
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)C * D;
   gate_partials<__nv_bfloat16><<<dim3(n_parts, B), kRedThreads, 0, stream>>>(
@@ -332,8 +346,13 @@ int launch_wgmma(const void* x, const void* prev_in, const void* prev_out,
       static_cast<const float*>(partials), n_parts,
       static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(gate),
       static_cast<float*>(diff), static_cast<float*>(prevsq), C, D, thr, nd,
-      gamma, one_minus_gamma, use_blend);
+      gamma, one_minus_gamma, use_blend, w_passes);
   return (int)cudaGetLastError();
+}
+
+bool wgmma_takes(int B, int C, int D) {
+  return B >= 1 && C >= 1 && D >= 8 && D % 8 == 0 && B <= 65535 &&
+         (C + 63) / 64 <= 65535;
 }
 
 }  // namespace
@@ -377,11 +396,26 @@ extern "C" int fused_gate_wgmma_launch(const void* x, const void* prev_in,
                                        int C, int D, float thr, float nd,
                                        float gamma, float one_minus_gamma,
                                        int use_blend, void* stream) {
-  if (B < 1 || C < 1 || D < 8 || D % 8 != 0 || B > 65535 ||
-      (C + 63) / 64 > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!wgmma_takes(B, C, D)) return (int)cudaErrorInvalidValue;
   return launch_wgmma(x, prev_in, prev_out, w_bf16, bias, sigma2, eligible,
                       out, gate, diff, prevsq, partials, n_parts, B, C, D,
-                      thr, nd, gamma, one_minus_gamma, use_blend,
+                      thr, nd, gamma, one_minus_gamma, use_blend, 1,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma_split route: as fused_gate_wgmma_launch, with w_split the
+// (terms Kp, D) bf16 stack of W's terms, [W_hi; 0; W_mid; 0; ...], Kp = D
+// rounded up to a multiple of 64, 16-byte aligned.
+extern "C" int fused_gate_wgmma_split_launch(
+    const void* x, const void* prev_in, const void* prev_out,
+    const void* w_split, const void* bias, const void* sigma2,
+    const void* eligible, void* out, void* gate, void* diff, void* prevsq,
+    void* partials, int n_parts, int B, int C, int D, float thr, float nd,
+    float gamma, float one_minus_gamma, int use_blend, int terms,
+    void* stream) {
+  if (!wgmma_takes(B, C, D) || terms < 2) return (int)cudaErrorInvalidValue;
+  return launch_wgmma(x, prev_in, prev_out, w_split, bias, sigma2, eligible,
+                      out, gate, diff, prevsq, partials, n_parts, B, C, D,
+                      thr, nd, gamma, one_minus_gamma, use_blend, terms,
                       static_cast<cudaStream_t>(stream));
 }

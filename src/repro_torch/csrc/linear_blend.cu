@@ -29,6 +29,18 @@
 // the blend (prev unread at gamma = 1) and the bf16 rounding are the
 // epilogue, in the SIMT kernel's operation order.
 //
+// wgmma_split route (the wgmma route's rule, for maps bf16 does not hold,
+// such as fitted ones; a bf16 copy of those moved the served bypass by up to
+// 8% rel-L2): the same kernel over W split into three bf16 terms stacked
+// along K, [W_hi; W_mid; W_lo] with W_hi = bf16(W), W_mid = bf16(W - W_hi),
+// W_lo = bf16(W - W_hi - W_mid), each padded to whole 64-row chunks
+// (tc_gemm.cuh).  The terms miss W by at most 2^-24 of |W|, and bf16 X times
+// any term is exact in f32, so only that residual and the f32 summation
+// order part it from the TPU kernel's f32 product; the cost is three times
+// the K walk (three passes of the tensor cores over X) and two more bf16
+// copies of W read.  Two terms (2^-16) left the fitted bypass at up to
+// 8.6e-4 rel-L2 on the card, with outputs near 0 past bf16's 2e-2.
+//
 // SIMT route (f32, and bf16 shapes the wgmma route does not take): f32 is
 // held to 1e-4, which neither bf16 nor TF32 operands meet at K = 1152.  One
 // block of 256 threads owns a 128x128 output tile and walks K in steps of 8:
@@ -46,7 +58,10 @@
 // the GEMM is 2*2048*1152*1152 = 5.44 GFLOP, 5.50 us at 989 TFLOP/s of bf16
 // tensor cores (81 us at 67 TFLOP/s of f32 outside them, the SIMT route's
 // bound); X, the bf16 W and out are 12.1 MB, 3.61 us at 3.35 TB/s.  So the
-// wgmma route is bound by operations.
+// wgmma route is bound by operations.  The split route computes the same
+// function with the f32 W (X, the f32 W and out are 14.7 MB, 4.40 us), so
+// its bound is the same 5.50 us; its own three passes are 16.3 GFLOP,
+// 16.5 us, 3x that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -190,36 +205,42 @@ linear_blend_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
                           const __nv_bfloat16* __restrict__ prev,
                           __nv_bfloat16* __restrict__ out, int M, int D,
                           int F, float gamma, float one_minus_gamma,
-                          int use_prev) {
+                          int use_prev, int w_passes) {
   extern __shared__ uint8_t smem_raw[];
   const TcRing ring = tc_ring<2, 192, 4>(smem_raw);
   const int m0 = blockIdx.y * LbGemm::BM;
   const int n0 = blockIdx.x * 192;
-  const int nk = (D + kTcChunk - 1) / kTcChunk;
+  const int nk = (D + kTcChunk - 1) / kTcChunk;  // A's chunks
   if (threadIdx.x == 0) tc_init<2, 4>(ring);
   __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == 2) {  // the producer warp
     if (threadIdx.x == 256)
-      tc_produce<2, 192, 4>(ring, &xmap, &wmap, m0, 0, n0, F, nk);
+      tc_produce<2, 192, 4>(ring, &xmap, &wmap, m0, 0, n0, F, w_passes * nk,
+                            nk);
     return;
   }
   float acc[LbGemm::kAcc];
-  tc_consume<2, 192, 4>(ring, acc, wg, threadIdx.x % 128, nk);
+  tc_consume<2, 192, 4>(ring, acc, wg, threadIdx.x % 128, w_passes * nk);
   tc_store<192>(acc, out, prev, bias, m0 + 64 * wg, M, n0, F, gamma,
                 one_minus_gamma, use_prev, threadIdx.x % 128);
 }
 
-int launch_wgmma(const void* x, const void* w_bf16, const void* bias,
+// w_passes = 1: w is the (D, F) bf16 copy; t > 1: the (t Kp, F) split copy.
+int launch_wgmma(const void* x, const void* w, const void* bias,
                  const void* prev, void* out, int M, int D, int F, float gamma,
-                 float one_minus_gamma, int use_prev, cudaStream_t stream) {
+                 float one_minus_gamma, int use_prev, int w_passes,
+                 cudaStream_t stream) {
+  if (M < 1 || D < 8 || F < 8 || D % 8 != 0 || F % 8 != 0 || w_passes < 1)
+    return (int)cudaErrorInvalidValue;
   static bool opted_in = false;
   const int err = tc_opt_in(linear_blend_kernel_wgmma, LbGemm::kSmem,
                             opted_in);
   if (err != 0) return err;
+  const int kp = (D + kTcChunk - 1) / kTcChunk * kTcChunk;
   CUtensorMap xmap, wmap;
   if (!tc_map_3d(&xmap, x, D, M, 1, LbGemm::BM) ||
-      !tc_map_2d(&wmap, w_bf16, F, D))
+      !tc_map_2d(&wmap, w, F, w_passes > 1 ? w_passes * kp : D))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((F + 191) / 192, (M + LbGemm::BM - 1) / LbGemm::BM);
   linear_blend_kernel_wgmma<<<grid, LbGemm::kThreads, LbGemm::kSmem,
@@ -227,7 +248,7 @@ int launch_wgmma(const void* x, const void* w_bf16, const void* bias,
       xmap, wmap, static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(prev),
       static_cast<__nv_bfloat16*>(out), M, D, F, gamma, one_minus_gamma,
-      use_prev);
+      use_prev, w_passes);
   return (int)cudaGetLastError();
 }
 
@@ -262,9 +283,20 @@ extern "C" int linear_blend_wgmma_launch(const void* x, const void* w_bf16,
                                          void* out, int M, int D, int F,
                                          float gamma, float one_minus_gamma,
                                          int use_prev, void* stream) {
-  if (M < 1 || D < 8 || F < 8 || D % 8 != 0 || F % 8 != 0)
-    return (int)cudaErrorInvalidValue;
   return launch_wgmma(x, w_bf16, bias, prev, out, M, D, F, gamma,
-                      one_minus_gamma, use_prev,
+                      one_minus_gamma, use_prev, 1,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma_split route: as linear_blend_wgmma_launch, with w_split the
+// (terms Kp, F) bf16 stack of W's terms, [W_hi; 0; W_mid; 0; ...], Kp = D
+// rounded up to a multiple of 64, 16-byte aligned.
+extern "C" int linear_blend_wgmma_split_launch(
+    const void* x, const void* w_split, const void* bias, const void* prev,
+    void* out, int M, int D, int F, float gamma, float one_minus_gamma,
+    int use_prev, int terms, void* stream) {
+  if (terms < 2) return (int)cudaErrorInvalidValue;
+  return launch_wgmma(x, w_split, bias, prev, out, M, D, F, gamma,
+                      one_minus_gamma, use_prev, terms,
                       static_cast<cudaStream_t>(stream));
 }

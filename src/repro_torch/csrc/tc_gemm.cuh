@@ -24,6 +24,15 @@
 // column of W alone).  The epilogue adds the f32 bias, blends with prev when
 // asked (prev is not read otherwise) and rounds to bf16 with
 // __float2bfloat16_rn semantics, element by element as the SIMT kernels do.
+//
+// The split routes (wgmma_split) run the same core over W split into bf16
+// terms stacked along K, [W_hi; W_mid; W_lo], each padded with zero rows to
+// Kp = nk * 64 rows (cuda_kernels/route.py: split_rows): the producer walks
+// terms * nk chunks of W and meets chunk i with A's chunk i % nk, so the
+// consumers sum X W_hi, then X W_mid, then X W_lo into the same
+// accumulators, in one fixed order.  Without the padding, a K that is not a
+// multiple of 64 would put a term's first rows into the last chunk of the
+// term before it.
 #pragma once
 
 #include "sm90.cuh"
@@ -73,15 +82,16 @@ __device__ __forceinline__ void tc_init(const TcRing& r) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// The producer thread: nk chunks of A rows [a_row, a_row + BM) of slab
-// a_batch (a 3-d map: K, rows, slabs) and of W columns [n0, n0 + BN) (a 2-d
-// map: N, K), with n_cols the extent of N.
+// The producer thread: nk chunks of W columns [n0, n0 + BN) (a 2-d map: N,
+// K), with n_cols the extent of N, chunk i of W beside chunk i % a_chunks of
+// A rows [a_row, a_row + BM) of slab a_batch (a 3-d map: K, rows, slabs):
+// a_chunks = nk, or nk / terms for a split W.
 template <int kWG, int BN, int kStages>
 __device__ __forceinline__ void tc_produce(const TcRing& r,
                                            const CUtensorMap* amap,
                                            const CUtensorMap* wmap, int a_row,
                                            int a_batch, int n0, int n_cols,
-                                           int nk) {
+                                           int nk, int a_chunks) {
   using G = TcGemm<kWG, BN, kStages>;
   const int boxes = min(BN / 64, (n_cols - n0 + 63) / 64);
   const uint32_t bytes = G::kABytes + boxes * kTcBox;
@@ -91,7 +101,7 @@ __device__ __forceinline__ void tc_produce(const TcRing& r,
     const uint32_t a = r.base + s * G::kStageBytes;
     const uint32_t bar = r.full + 8 * s;
     mbar_expect_tx(bar, bytes);
-    tma_load_3d(a, amap, bar, i * kTcChunk, a_row, a_batch);
+    tma_load_3d(a, amap, bar, (i % a_chunks) * kTcChunk, a_row, a_batch);
     for (int c = 0; c < boxes; ++c)
       tma_load_2d(a + G::kABytes + c * kTcBox, wmap, bar, n0 + 64 * c,
                   i * kTcChunk);

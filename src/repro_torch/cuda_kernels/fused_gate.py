@@ -2,14 +2,14 @@
 
 Replaces the reference's Pallas kernel ``repro/kernels/fused_gate.py:
 fused_gate``.  CPU tensors go to the plain version (``ref.fused_gate``),
-which ignores ``w_bf16``; CUDA tensors launch a kernel or raise — there is
-no fallback.  The GEMM is the one of the route ``route.gemm_route`` picks:
-``"wgmma"`` (bf16 X against the caller's bf16 copy of W, ``w_bf16=``,
-required there) or ``"simt"`` (f32 W), unless the call names one
-(``gemm=``: the runners name ``"simt"`` for maps handed in, which have no
-bf16 copy).  Each call (the partial sums and
-the GEMM, two kernels on the stream) adds one to ``fused_gate.launches``
-and to ``fused_gate.launches_by_route[route]``.
+which ignores the copies of W; CUDA tensors launch a kernel or raise —
+there is no fallback.  The GEMM is the one of the route ``route.gemm_route``
+picks: ``"wgmma"`` (bf16 X against the caller's bf16 copy of W,
+``w_bf16=``, required there), ``"wgmma_split"`` (the same kernel, where
+that copy is a split one, W as bf16 terms) or ``"simt"`` (f32 W), unless
+the call names one (``gemm=``).  Each call (the partial sums and the GEMM, two kernels on the
+stream) adds one to ``fused_gate.launches`` and to
+``fused_gate.launches_by_route[route]``.
 """
 from __future__ import annotations
 
@@ -26,12 +26,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _kernel(name: str):
-    fn = getattr(build.load_library("fused_gate").lib, name)
+# the launcher of each route
+_LAUNCHERS = {route.WGMMA: "fused_gate_wgmma_launch",
+              route.WGMMA_SPLIT: "fused_gate_wgmma_split_launch",
+              route.SIMT: "fused_gate_launch"}
+
+
+def _kernel(which: str):
+    """The launcher of route ``which``: the SIMT one takes a dtype code
+    after D, the split one the number of W's terms after use_blend."""
+    fn = getattr(build.load_library("fused_gate").lib, _LAUNCHERS[which])
     if fn.argtypes is None:
-        # the SIMT launcher takes a dtype code after D, the wgmma one not
-        n_int = 5 if name == "fused_gate_launch" else 4
-        fn.argtypes = [_vp] * 12 + [_int] * n_int + [_flt] * 4 + [_int, _vp]
+        n_int = 5 if which == route.SIMT else 4
+        tail = [_int] * (2 if which == route.WGMMA_SPLIT else 1)
+        fn.argtypes = [_vp] * 12 + [_int] * n_int + [_flt] * 4 + tail + [_vp]
         fn.restype = _int
     return fn
 
@@ -76,11 +84,13 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """x, prev_in, prev_out: (B, C, D) float32 or bfloat16; w: (D, D) and
-    b: (D,) float32; sigma2: (B,) float32; eligible: (B,) bool; w_bf16: w
-    rounded to bfloat16, made once by the caller, which the wgmma route
-    multiplies (on the CPU and on the SIMT route it is not read); gemm: the
-    route to launch on CUDA (``route.ROUTES``), None for the rule's pick
-    (ignored on the CPU).  Returns
+    b: (D,) float32; sigma2: (B,) float32; eligible: (B,) bool; w_bf16: the
+    tensor-core copy of w, made once by the caller: w rounded to bfloat16,
+    which the wgmma route multiplies, or w split into bfloat16 terms
+    (``route.check_w_split``), which the wgmma_split route multiplies (not
+    read on the CPU or on the SIMT route); gemm: the route to launch on
+    CUDA (``route.ROUTES``), None for the rule's pick (ignored on the
+    CPU).  Returns
     (out (B,C,D) in x.dtype, gate (B,) bool, diff_sq (B,) f32,
     prev_sq (B,) f32), as ``ref.fused_gate``."""
     _check(x, prev_in, prev_out, w, b, sigma2, eligible)
@@ -91,7 +101,8 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_gate runs on CPU or CUDA, not {x.device}")
     d = x.shape[2]
-    which = gemm or route.gemm_route(x.dtype, d, d, _aligned(x, prev_out, b))
+    which = gemm or route.gemm_route(x.dtype, d, d, _aligned(x, prev_out, b),
+                                     w_bf16)
     return _launch(which, x, prev_in, prev_out, w, b, sigma2, eligible,
                    float(threshold), float(gamma), bool(use_blend), w_bf16)
 
@@ -104,18 +115,21 @@ def _aligned(x, prev_out, b):
 
 def _launch(which: str, x, prev_in, prev_out, w, b, sigma2, eligible,
             threshold: float, gamma: float, use_blend: bool,
-            w_bf16: Optional[torch.Tensor]):
-    """Launch route ``which`` on CUDA tensors that passed ``_check``; raises
-    if the route does not take them."""
+            copy: Optional[torch.Tensor]):
+    """Launch route ``which`` on CUDA tensors that passed ``_check``, with
+    ``copy`` the tensor-core copy of W it multiplies (single for wgmma,
+    split for wgmma_split; not read on SIMT); raises if the route does not
+    take them."""
     bsz, c, d = x.shape
     if which not in route.ROUTES:
         raise ValueError(f"unknown route {which!r}")
-    if which == route.WGMMA:
-        if route.gemm_route(x.dtype, d, d,
-                            _aligned(x, prev_out, b)) != route.WGMMA:
-            raise ValueError(f"the wgmma route does not take {x.dtype} "
+    if which != route.SIMT:
+        if route.gemm_route(x.dtype, d, d, _aligned(x, prev_out, b)) \
+                == route.SIMT:
+            raise ValueError(f"the {which} route does not take {x.dtype} "
                              f"{tuple(x.shape)} at these addresses")
-        route.check_w_bf16(w_bf16, w)
+        (route.check_w_split if which == route.WGMMA_SPLIT
+         else route.check_w_bf16)(copy, w)
     dev = x.device
     out = torch.empty_like(x)
     gate = torch.empty((bsz,), dtype=torch.bool, device=dev)
@@ -123,18 +137,18 @@ def _launch(which: str, x, prev_in, prev_out, w, b, sigma2, eligible,
     prevsq = torch.empty((bsz,), dtype=F32, device=dev)
     partials = torch.empty((bsz, REDUCTION_PARTS, 2), dtype=F32, device=dev)
     ptrs = [x.data_ptr(), prev_in.data_ptr(), prev_out.data_ptr(),
-            (w_bf16 if which == route.WGMMA else w).data_ptr(),
+            (w if which == route.SIMT else copy).data_ptr(),
             b.data_ptr(), sigma2.data_ptr(), eligible.data_ptr(),
             out.data_ptr(), gate.data_ptr(), diff.data_ptr(),
             prevsq.data_ptr(), partials.data_ptr()]
-    dtype_code = [] if which == route.WGMMA else [_DTYPE_CODE[x.dtype]]
-    name = ("fused_gate_wgmma_launch" if which == route.WGMMA
-            else "fused_gate_launch")
+    dtype_code = [_DTYPE_CODE[x.dtype]] if which == route.SIMT else []
+    terms = [route.SPLIT_TERMS] if which == route.WGMMA_SPLIT else []
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel(name)(
+        err = _kernel(which)(
             *ptrs, REDUCTION_PARTS, bsz, c, d, *dtype_code, threshold,
-            float(c * d), gamma, 1.0 - gamma, int(use_blend), stream)
+            float(c * d), gamma, 1.0 - gamma, int(use_blend), *terms,
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_gate kernel ({which}) launch failed: "
                            f"CUDA error {err}")

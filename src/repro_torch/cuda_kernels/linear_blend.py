@@ -2,14 +2,13 @@
 
 Replaces the reference's Pallas kernel ``repro/kernels/linear_blend.py:
 linear_blend``.  CPU tensors go to the plain version
-(``ref.linear_blend``), which ignores ``w_bf16``; CUDA tensors launch a
-kernel or raise — there is no fallback.  The kernel is the one of the route
-``route.gemm_route`` picks: ``"wgmma"`` (bf16 X against the caller's bf16
-copy of W, ``w_bf16=``, required there) or ``"simt"`` (f32 W), unless the
-call names one (``gemm=``: the runners name ``"simt"`` for maps handed in,
-which have no bf16 copy).  Each launch
-adds one to ``linear_blend.launches`` and to
-``linear_blend.launches_by_route[route]``.
+(``ref.linear_blend``), which ignores the copies of W; CUDA tensors launch
+a kernel or raise — there is no fallback.  The kernel is the one of the
+route ``route.gemm_route`` picks: ``"wgmma"`` (bf16 X against the caller's
+bf16 copy of W, ``w_bf16=``, required there), ``"wgmma_split"`` (the same
+kernel, where that copy is a split one, W as bf16 terms) or ``"simt"`` (f32
+W), unless the call names one (``gemm=``).  Each launch adds one to ``linear_blend.launches``
+and to ``linear_blend.launches_by_route[route]``.
 """
 from __future__ import annotations
 
@@ -26,14 +25,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _kernel(name: str):
+def _kernel(which: str):
+    """The launcher of route ``which``: the SIMT one takes a dtype code
+    after F, the split one the number of W's terms after use_prev."""
+    name = {route.WGMMA: "linear_blend_wgmma_launch",
+            route.WGMMA_SPLIT: "linear_blend_wgmma_split_launch",
+            route.SIMT: "linear_blend_launch"}[which]
     fn = getattr(build.load_library("linear_blend").lib, name)
     if fn.argtypes is None:
-        fn.argtypes = {
-            "linear_blend_launch":
-                [_vp] * 5 + [_int] * 4 + [_flt] * 2 + [_int, _vp],
-            "linear_blend_wgmma_launch":
-                [_vp] * 5 + [_int] * 3 + [_flt] * 2 + [_int, _vp]}[name]
+        n_int = 4 if which == route.SIMT else 3
+        tail = [_int] * (2 if which == route.WGMMA_SPLIT else 1)
+        fn.argtypes = [_vp] * 5 + [_int] * n_int + [_flt] * 2 + tail + [_vp]
         fn.restype = _int
     return fn
 
@@ -68,10 +70,12 @@ def linear_blend(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  w_bf16: Optional[torch.Tensor] = None,
                  gemm: Optional[str] = None) -> torch.Tensor:
     """x: (M, D) and prev: (M, F) float32 or bfloat16 (one dtype); w: (D, F)
-    and b: (F,) float32; w_bf16: w rounded to bfloat16, made once by the
-    caller, which the wgmma route multiplies (on the CPU and on the SIMT
-    route it is not read); gemm: the route to launch on CUDA
-    (``route.ROUTES``), None for the rule's pick (ignored on the CPU).
+    and b: (F,) float32; w_bf16: the tensor-core copy of w, made once by
+    the caller: w rounded to bfloat16, which the wgmma route multiplies, or
+    w split into bfloat16 terms (``route.check_w_split``), which the
+    wgmma_split route multiplies (not read on the CPU or on the SIMT
+    route); gemm: the route to launch on CUDA (``route.ROUTES``), None for
+    the rule's pick (ignored on the CPU).
     Returns gamma * (x @ w + b) + (1-gamma) * prev,
     (M, F) in x.dtype, as ``ref.linear_blend``; at gamma = 1 the kernel
     does not read prev."""
@@ -82,41 +86,42 @@ def linear_blend(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"linear_blend runs on CPU or CUDA, not {x.device}")
     which = gemm or route.gemm_route(x.dtype, x.shape[1], w.shape[1],
-                                     (t.data_ptr() for t in (x, b, prev)))
+                                     (t.data_ptr() for t in (x, b, prev)),
+                                     w_bf16)
     return _launch(which, x, w, b, prev, gamma, w_bf16)
 
 
 def _launch(which: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             prev: torch.Tensor, gamma: float,
-            w_bf16: Optional[torch.Tensor]) -> torch.Tensor:
+            copy: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch the kernel of route ``which`` on CUDA tensors that passed
-    ``_check``; raises if the route does not take them."""
+    ``_check``, with ``copy`` the tensor-core copy of W it multiplies
+    (single for wgmma, split for wgmma_split; not read on SIMT); raises if
+    the route does not take them."""
     m, d = x.shape
     f = w.shape[1]
     if which not in route.ROUTES:
         raise ValueError(f"unknown route {which!r}")
-    if which == route.WGMMA:
+    if which != route.SIMT:
         if route.gemm_route(x.dtype, d, f, (t.data_ptr() for t in
-                                            (x, b, prev))) != route.WGMMA:
-            raise ValueError(f"the wgmma route does not take {x.dtype} "
+                                            (x, b, prev))) == route.SIMT:
+            raise ValueError(f"the {which} route does not take {x.dtype} "
                              f"({m}, {d}) x ({d}, {f}) at these addresses")
-        route.check_w_bf16(w_bf16, w)
+        (route.check_w_split if which == route.WGMMA_SPLIT
+         else route.check_w_bf16)(copy, w)
     if (m + 127) // 128 > MAX_ROW_TILES:
         raise ValueError(f"the linear_blend kernel takes at most "
                          f"{128 * MAX_ROW_TILES} rows, got {m}")
     out = torch.empty((m, f), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if which == route.WGMMA:
-            err = _kernel("linear_blend_wgmma_launch")(
-                x.data_ptr(), w_bf16.data_ptr(), b.data_ptr(),
-                prev.data_ptr(), out.data_ptr(), m, d, f, gamma,
-                1.0 - gamma, int(gamma != 1.0), stream)
-        else:
-            err = _kernel("linear_blend_launch")(
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), prev.data_ptr(),
-                out.data_ptr(), m, d, f, _DTYPE_CODE[x.dtype], gamma,
-                1.0 - gamma, int(gamma != 1.0), stream)
+        dtype_code = [_DTYPE_CODE[x.dtype]] if which == route.SIMT else []
+        terms = [route.SPLIT_TERMS] if which == route.WGMMA_SPLIT else []
+        err = _kernel(which)(
+            x.data_ptr(), (w if which == route.SIMT else copy).data_ptr(),
+            b.data_ptr(), prev.data_ptr(), out.data_ptr(), m, d, f,
+            *dtype_code, gamma, 1.0 - gamma, int(gamma != 1.0), *terms,
+            stream)
     if err != 0:
         raise RuntimeError(f"linear_blend kernel ({which}) launch failed: "
                            f"CUDA error {err}")

@@ -1,19 +1,27 @@
 """Which kernel a CUDA call of a two-route wrapper launches.
 
-``linear_blend`` and ``fused_gate`` have two routes on the card
+``linear_blend`` and ``fused_gate`` have three routes on the card
 (``csrc/linear_blend.cu``, ``csrc/fused_gate.cu``), by ``gemm_route``:
 
 - ``"wgmma"``: bf16 X against a bf16 copy of W on the tensor cores (wgmma
   fed by TMA, ``csrc/tc_gemm.cuh``).  TMA needs 16-byte row strides and
   16-byte aligned bases, and the epilogue stores column pairs, so it takes
   bf16 inputs with D % 8 == 0 and F % 8 == 0 whose every base is 16-byte
-  aligned.  It multiplies the caller's bf16 copy of W (``check_w_bf16``
-  raises without one).
+  aligned.  It multiplies the caller's tensor-core copy of W (``w_bf16=``,
+  ``check_w_bf16`` raises without one): for the identity maps, which bf16
+  holds exactly, one bf16 copy.
+- ``"wgmma_split"``: the same kernel and the same rule, for a call whose
+  copy is split (``is_split``: its row count): W as SPLIT_TERMS bf16 terms,
+  W_hi = bf16(W), W_mid = bf16(W - W_hi) and W_lo = bf16(W - W_hi -
+  W_mid), stacked along K (``check_w_split``;
+  ``core/linear_approx.py:split_copies``).  Their products with X miss X W
+  by at most 2^-24 of |X| |W|, where one bf16 copy misses it by 2^-8.  Two
+  terms (2^-16) left the fitted bypass at up to 8.6e-4 rel-L2 on the card,
+  with outputs near 0 off by more than bf16's 2e-2, so there are three.
+  The runners hand maps handed in, such as fitted ones, these copies.
 - ``"simt"``: the f32 FMA kernels, for everything else (f32 inputs are held
   to 1e-4, which bf16 operands do not meet; ragged bf16 shapes), and for a
-  call that names it (``gemm="simt"``): the runners name it for maps handed
-  in, such as fitted ones, whose bf16 copy would move the outputs
-  (``core/runner.py``), and multiply the f32 W there.
+  call that names it (``gemm="simt"``), which multiplies the f32 W.
 
 ``knn_density`` and ``merge_assign`` have two routes too
 (``csrc/knn_density.cu``, ``csrc/token_merge.cu``), by ``window_route``:
@@ -55,10 +63,13 @@ from typing import Iterable, NamedTuple, Optional
 import torch
 
 WGMMA = "wgmma"
+WGMMA_SPLIT = "wgmma_split"
 SIMT = "simt"
 MMA = "mma"
 ONEPASS = "onepass"
-ROUTES = (WGMMA, SIMT)        # linear_blend, fused_gate
+ROUTES = (WGMMA, WGMMA_SPLIT, SIMT)   # linear_blend, fused_gate
+TC_CHUNK = 64                 # rows of K a wgmma stage holds (tc_gemm.cuh)
+SPLIT_TERMS = 3               # bf16 terms of a split copy: hi, mid, lo
 WINDOW_ROUTES = (MMA, SIMT)   # knn_density, merge_assign
 SAL_ROUTES = (ONEPASS, SIMT)  # saliency_delta
 ALIGN = 16                    # bytes: TMA's and bulk copies' alignment
@@ -72,13 +83,29 @@ SAL_MAX_ONEPASS_ROWS = 256    # the longest N the onepass route is picked for
 
 
 def gemm_route(dtype: torch.dtype, d: int, f: int,
-               addresses: Iterable[int]) -> str:
+               addresses: Iterable[int],
+               w_bf16: Optional[torch.Tensor] = None) -> str:
     """The route of a (M, D) x (D, F) call with inputs of ``dtype`` whose
-    base addresses are ``addresses``."""
+    base addresses are ``addresses``, bringing ``w_bf16``, its tensor-core
+    copy of W: wgmma_split for a split copy, else wgmma, where the tensor
+    cores take the call."""
     if (dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
             and all(a % ALIGN == 0 for a in addresses)):
-        return WGMMA
+        return WGMMA_SPLIT if is_split(w_bf16, d) else WGMMA
     return SIMT
+
+
+def split_rows(d: int) -> int:
+    """Rows of each term of a split copy of a (D, F) map: D padded to whole
+    K chunks, so each term's first row starts a chunk."""
+    return -(-d // TC_CHUNK) * TC_CHUNK
+
+
+def is_split(w_bf16: Optional[torch.Tensor], d: int) -> bool:
+    """Whether ``w_bf16`` is a split copy of a map of D rows, by its row
+    count: SPLIT_TERMS * split_rows(D), where a single copy has D."""
+    return (w_bf16 is not None and w_bf16.dim() == 2
+            and w_bf16.shape[0] == SPLIT_TERMS * split_rows(d))
 
 
 def window_pitch(d: int) -> int:
@@ -155,3 +182,25 @@ def check_w_bf16(w_bf16: Optional[torch.Tensor], w: torch.Tensor) -> None:
                          f"{w_bf16.dtype} on {w_bf16.device}")
     if not w_bf16.is_contiguous() or w_bf16.data_ptr() % ALIGN:
         raise ValueError("w_bf16 must be contiguous and 16-byte aligned")
+
+
+def check_w_split(w_bf16: Optional[torch.Tensor], w: torch.Tensor) -> None:
+    """The split copy of ``w`` (D, F) that the wgmma_split route
+    multiplies: given, (SPLIT_TERMS * split_rows(D), F) bfloat16 on ``w``'s
+    device, contiguous, 16-byte aligned.  That its rows hold the terms,
+    each followed by zero rows up to split_rows(D), is the caller's
+    contract (``linear_approx.split_copies``, made once, at construction);
+    no call converts ``w`` itself."""
+    if w_bf16 is None:
+        raise ValueError("the wgmma_split route needs w_bf16= (w split "
+                         "into bfloat16 terms, made once by the caller)")
+    d, f = w.shape
+    shape = (SPLIT_TERMS * split_rows(d), f)
+    if (w_bf16.dtype != torch.bfloat16 or tuple(w_bf16.shape) != shape
+            or w_bf16.device != w.device):
+        raise ValueError(f"a split w_bf16 must be {shape} bfloat16 on "
+                         f"{w.device}, got {tuple(w_bf16.shape)} "
+                         f"{w_bf16.dtype} on {w_bf16.device}")
+    if not w_bf16.is_contiguous() or w_bf16.data_ptr() % ALIGN:
+        raise ValueError("a split w_bf16 must be contiguous and 16-byte "
+                         "aligned")

@@ -19,8 +19,10 @@ attributed to it raises, so a renamed kernel never reads as 0 ms.
 ``--no-metrics`` serves with the device metrics plane off (on by default,
 as in the engine), and ``--audit-fraction`` turns the audit plane on, so
 two runs give the planes' launches and time per step.  ``--fit-maps``
-serves fitted maps (``calibrate_dit``), whose calls run on the SIMT route,
-in place of the identity maps, whose calls run on wgmma.
+serves fitted maps (``calibrate_dit``), whose calls run on the wgmma_split
+route (W split into three bf16 terms), in place of the identity maps, whose
+calls run on wgmma; ``--simt-maps`` names the SIMT route (the f32 W) for
+every call on the maps, a yardstick.
 """
 from __future__ import annotations
 
@@ -121,7 +123,11 @@ def main(argv=None) -> None:
     ap.add_argument("--fit-maps", action="store_true",
                     help="serve the maps calibrate_dit fits on 4 batches "
                          "of 8 random latents (seed 0) in place of the "
-                         "identity maps (their calls name the SIMT route)")
+                         "identity maps (their calls take the wgmma_split "
+                         "route)")
+    ap.add_argument("--simt-maps", action="store_true",
+                    help="every call on the maps names the SIMT route (the "
+                         "f32 W), a yardstick (default: the wrappers' rule)")
     add_merge_args(ap)
     args = check_merge_args(ap.parse_args(argv))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -137,7 +143,7 @@ def main(argv=None) -> None:
     fitted = ({"fc_params": calibrate_dit(model, fit_batches(model))}
               if args.fit_maps else {})
     runner, eng = wl.build_engine(model, enable_metrics=args.metrics,
-                                  **fitted)
+                                  simt_maps=args.simt_maps, **fitted)
     queue = RequestQueue(wl.build_trace(model))
 
     # eng.run stops at the clock given and resumes from the queue's rest
@@ -179,6 +185,7 @@ def main(argv=None) -> None:
                         "active": runner.reducer is not None},
         "metrics_plane": args.metrics,
         "audit_fraction": args.audit_fraction, "fit_maps": args.fit_maps,
+        "simt_maps": args.simt_maps,
         "audited_steps": eng.audited_steps - audited0,
         "window_engine_steps": window,
         "kernel_launches_per_engine_step": len(kernels) / window,

@@ -200,7 +200,7 @@ class ServingEngine:
             return logits
         cfg = self.model.cfg
         return self.graphs.run(
-            ("decode", cfg.name, cfg.num_layers, self.decoder.gemm,
+            ("decode", cfg.name, cfg.num_layers, self.decoder.split_maps,
              tuple(tokens.shape), tokens.dtype, self.window),
             lambda tok: self.decoder.decode_step(tok, self.cache,
                                                  self.fc_state)[0],

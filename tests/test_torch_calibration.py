@@ -233,39 +233,56 @@ def test_fitted_serve_matches_reference(dit, fitted):
 
 
 # ---------------------------------------------------------------------------
-# fitted maps take the f32 route on the card
+# fitted maps take the split route on the card
 # ---------------------------------------------------------------------------
 
 def test_only_bf16_exact_maps_get_a_bf16_copy(dit, fitted):
-    """The wgmma route multiplies a bf16 copy of W.  Only the identity maps
-    of ``init_linear_params`` (the default, which bf16 holds exactly) get
-    copies; maps handed in, such as fitted ones (a bf16 copy moved the
-    static bypass by up to 8% rel-L2 on the card), get none, and every
-    call on them names the SIMT route, which multiplies the f32 W.  The
-    runners decide from where the maps came: no value is read."""
+    """The wgmma route multiplies a single bf16 copy of W.  Only the
+    identity maps of ``init_linear_params`` (the default, which bf16 holds
+    exactly) get such copies; maps handed in, such as fitted ones (a bf16
+    copy moved the static bypass by up to 8% rel-L2 on the card), get none:
+    they get split copies, W as bf16 terms, which the wgmma_split route
+    multiplies.  No call names a route either way, and the runners decide
+    from where the maps came: no value is read."""
     from types import SimpleNamespace
     from repro_torch.core.policies.base import get_policy_class
     from repro_torch.cuda_kernels import route
     bf16, cuda = torch.bfloat16, torch.device("cuda")
     *_, model = dit
     _, _, mine = fitted
-    assert CachedDiT(model, FastCacheConfig()).impl.gemm is None
+    ident = CachedDiT(model, FastCacheConfig()).impl
     served = CachedDiT(model, FastCacheConfig(), fc_params=mine).impl
-    assert served.gemm == route.SIMT
-    # a bf16 CUDA model's fastcache: copies under the rule, none when the
+    assert ident.gemm is None and served.gemm is None
+    assert not ident.split_maps and served.split_maps
+    # a bf16 CUDA model's fastcache: single copies for the identity maps,
+    # split copies and no single one for maps handed in, none when the
     # calls name SIMT
     stub = SimpleNamespace(cfg=SimpleNamespace(num_layers=2, d_model=128),
                            device=cuda, dtype=bf16, num_tokens=16)
     cls = get_policy_class("fastcache")
-    ruled = cls(stub, FastCacheConfig(), mine)
-    assert ruled.w_c_bf16 is not None
+    single = cls(stub, FastCacheConfig(), mine)
     assert all(torch.equal(c, w.to(bf16))
-               for c, w in zip(ruled.w_l_bf16, mine["W_l"]))
-    named = cls(stub, FastCacheConfig(), mine, gemm=route.SIMT)
+               for c, w in zip([single.w_c_bf16] + single.w_l_bf16,
+                               [mine["W_c"]] + list(mine["W_l"])))
+    split = cls(stub, FastCacheConfig(), mine, split_maps=True)
+    for c, w in zip([split.w_c_bf16] + split.w_l_bf16,
+                    [mine["W_c"]] + list(mine["W_l"])):
+        assert c.shape != w.shape and route.is_split(c, w.shape[0])
+        route.check_w_split(c, w)
+        d, kp = w.shape[0], route.split_rows(w.shape[0])
+        hi, mid = c[:d].float(), c[kp:kp + d].float()
+        assert torch.equal(hi, w.to(bf16).float())
+        assert torch.equal(mid, (w - hi).to(bf16).float())
+    named = cls(stub, FastCacheConfig(), mine, split_maps=True,
+                gemm=route.SIMT)
     assert named.w_c_bf16 is None and named.w_l_bf16 == [None, None]
-    # ... so the served shape, bf16 and aligned, is wgmma by the rule,
-    # which raises without a copy, and SIMT only when a call names it
+    # ... so the served shape, bf16 and aligned, is wgmma_split by the rule
+    # for a call that brings the split copy, wgmma for a single one, and
+    # the split route raises without its copy
     aligned = (0, 4096, 1 << 20)
-    assert route.gemm_route(bf16, 1152, 1152, aligned) == "wgmma"
-    with pytest.raises(ValueError, match="w_bf16"):
-        route.check_w_bf16(named.w_c_bf16, mine["W_c"])
+    assert route.gemm_route(bf16, 128, 128, aligned,
+                            single.w_c_bf16) == "wgmma"
+    assert route.gemm_route(bf16, 128, 128, aligned,
+                            split.w_c_bf16) == "wgmma_split"
+    with pytest.raises(ValueError, match="split"):
+        route.check_w_split(named.w_c_bf16, mine["W_c"])

@@ -20,13 +20,19 @@ SIMT route's order, so wherever it takes an input the two agree bitwise.
 linear_blend: rtol/atol 1e-4 in f32 (the same products summed in another
 order over K up to 1152), 2e-2 in bf16 (one bf16 rounding of values up to
 ~4); repeats bitwise.
-fused_gate and linear_blend have two routes (cuda_kernels/route.py): bf16
+fused_gate and linear_blend have three routes (cuda_kernels/route.py): bf16
 inputs of eligible shape take the wgmma route, which multiplies a bf16 copy
 of W (``w_bf16=``, W = I + 0.01 noise rounded by at most 2^-9 relative:
-~1e-3 in the outputs, inside 2e-2); the rest, and calls that name it
+~1e-3 in the outputs, inside 2e-2), or, where that copy is a split one
+(three bf16 terms of W, the fitted maps' route), the wgmma_split route,
+held to the plain version at 2e-2 elementwise and 1e-3 rel-L2 (``-k
+split``: the terms miss W by 2^-24 of |W|, so only the f32 summation order
+and the bf16 output rounding of the values it moved are left; a copy of
+three independent planted terms shows every term is read); the rest, and
+calls that name it
 (``gemm="simt"``), the SIMT route.  Each route is
 also reached through the module's launcher for a named route (``_launch``),
-and at W = I (exact in bf16) the two agree bitwise.
+and at W = I (exact in bf16) wgmma and SIMT agree bitwise.
 knn_density and merge_assign have two routes too (``route.window_route``):
 bf16 windows of eligible shape take the mma route (the Gram on the tensor
 cores), the rest the SIMT route; the two differ only in the Gram's summation
@@ -1538,6 +1544,293 @@ def test_simt_route_bf16_x_far_from_identity(cuda_device, kernel):
     torch.cuda.synchronize(cuda_device)
     rel = float((got.float() - want.float()).norm() / want.float().norm())
     assert rel <= 2e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# the wgmma_split route of linear_blend and fused_gate (fitted maps)
+# ---------------------------------------------------------------------------
+
+SPLIT_REL_L2 = 1e-3        # the split route against the plain version
+# fused_gate (B, C, D): the served slice merge off and on, and D % 64 != 0
+SPLIT_GATE_SHAPES = [(8, 128, 1152), (8, 64, 1152), (8, 128, 1000)]
+# linear_blend (M, D, F): the bypass, D % 64 != 0 (the padding), the
+# decode gate's M = 4, ragged rows and columns
+SPLIT_BLEND_SHAPES = [(2048, 1152, 1152), (2048, 1000, 1152),
+                      (4, 1024, 1024), (130, 1000, 1000)]
+
+
+def _split(w):
+    from repro_torch.core.linear_approx import split_copies
+    return split_copies(w, BF16, w.device)[0]
+
+
+def _cancelling_w(dev, d, f, seed=0):
+    """A fitted map's cancellation: 600 (I - 1 1^T / D) plus noise, whose
+    columns sum to about 0, met by inputs with a large common part
+    (``_cancelling_x``): X W is far smaller than |X| |W|, and one bf16 copy
+    of W misses it by more than 2e-2 rel-L2."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    return (600.0 * (torch.eye(d, f, device=dev) - 1.0 / d)
+            + torch.randn((d, f), generator=gen, device=dev))
+
+
+def _cancelling_x(dev, shape, seed=1):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return (3.0 + 0.05 * torch.randn(shape, generator=gen,
+                                     device=dev)).to(BF16)
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _split_gate_args(dev, shape, w_kind):
+    """``_gate_pattern``'s inputs at ``shape`` (every sample eligible,
+    samples 0, 2, 4, 6 gating) with W near the identity ("near") or
+    cancelling ("cancel", X moved onto a large common part)."""
+    b, c, d = shape
+    (x, prev, po, w, bias, _, eligible), thr = _gate_inputs(dev, BF16, b, c,
+                                                            d)
+    if w_kind == "cancel":
+        x = _cancelling_x(dev, (b, c, d))
+        prev = (x.float() + 0.01 * torch.randn_like(x.float())).to(BF16)
+        w = _cancelling_w(dev, d, d)
+    diff = (x.double() - prev.double()).square().sum(dim=(1, 2))
+    factor = torch.tensor([2.0, 0.5] * (b // 2), device=dev,
+                          dtype=torch.float64)
+    sigma2 = (diff / (c * d * thr) * factor).float()
+    eligible = torch.ones(b, dtype=torch.bool, device=dev)
+    return (x, prev, po, w, bias, sigma2, eligible), thr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_kind", ["near", "cancel"])
+@pytest.mark.parametrize("use_blend", [True, False])
+@pytest.mark.parametrize("shape", SPLIT_GATE_SHAPES)
+def test_fused_gate_split_route_matches_plain(cuda_device, shape, use_blend,
+                                              w_kind):
+    """The split route against the plain version in f32: gate bits,
+    diff_sq and prev_sq exactly the SIMT route's (gate_partials is shared),
+    gate bits the plain version's, outputs within 2e-2 elementwise and
+    1e-3 rel-L2, pass-through exact, bitwise repeatable."""
+    args, thr = _split_gate_args(cuda_device, shape, w_kind)
+    copy = _split(args[3])
+    launches, by_route = _counts(fused_gate)
+    got = fused_gate(*args, threshold=thr, gamma=0.5, use_blend=use_blend,
+                     w_bf16=copy)
+    torch.cuda.synchronize(cuda_device)
+    by_route["wgmma_split"] += 1
+    assert fused_gate.launches == launches + 1
+    assert fused_gate.launches_by_route == by_route
+    simt = fg_mod._launch("simt", *args, thr, 0.5, use_blend, None)
+    want = ref.fused_gate(*args, threshold=thr, gamma=0.5,
+                          use_blend=use_blend)
+    for g, s in zip(got[1:], simt[1:]):
+        assert torch.equal(g, s)
+    assert torch.equal(got[1], want[1])
+    assert got[1].tolist() == [i % 2 == 0 for i in range(shape[0])]
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_l2(got[0], want[0]) <= SPLIT_REL_L2
+    for i, g in enumerate(got[1].tolist()):
+        if not g:
+            assert torch.equal(got[0][i], args[0][i])
+    again = fused_gate(*args, threshold=thr, gamma=0.5, use_blend=use_blend,
+                       w_bf16=copy)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_kind", ["near", "cancel"])
+@pytest.mark.parametrize("gamma", [1.0, 0.5])
+@pytest.mark.parametrize("shape", SPLIT_BLEND_SHAPES)
+def test_linear_blend_split_route_matches_plain(cuda_device, shape, gamma,
+                                                w_kind):
+    """The split route against the plain version in f32: within 2e-2
+    elementwise and 1e-3 rel-L2, bitwise repeatable; D = 1000 reads the
+    padded terms (without the padding, a term's first rows would land in
+    the last chunk of the term before it)."""
+    m, d, f = shape
+    x, w, b, prev = _blend_args(cuda_device, BF16, m, d, f)
+    if w_kind == "cancel":
+        x, w = _cancelling_x(cuda_device, (m, d)), _cancelling_w(
+            cuda_device, d, f)
+    copy = _split(w)
+    launches, by_route = _counts(linear_blend)
+    got = linear_blend(x, w, b, prev, gamma=gamma, w_bf16=copy)
+    torch.cuda.synchronize(cuda_device)
+    by_route["wgmma_split"] += 1
+    assert linear_blend.launches == launches + 1
+    assert linear_blend.launches_by_route == by_route
+    want = ref.linear_blend(x, w, b, prev, gamma)
+    assert got.dtype == BF16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_l2(got, want) <= SPLIT_REL_L2
+    assert torch.equal(got, linear_blend(x, w, b, prev, gamma=gamma,
+                                         w_bf16=copy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_gate", "linear_blend"])
+def test_split_route_holds_a_map_one_bf16_copy_misses(cuda_device, kernel):
+    """At the cancelling W, the wgmma route with one bf16 copy misses the
+    plain version by more than 2e-2 rel-L2 and the split route stays
+    within 1e-3."""
+    d = 1152
+    if kernel == "fused_gate":
+        args, thr = _split_gate_args(cuda_device, (8, 128, d), "cancel")
+        w = args[3]
+        want = ref.fused_gate(*args, threshold=thr)[0]
+        single = fg_mod._launch("wgmma", *args, thr, 0.5, True,
+                                w.to(BF16))[0]
+        split = fg_mod._launch("wgmma_split", *args, thr, 0.5, True,
+                               _split(w))[0]
+    else:
+        x = _cancelling_x(cuda_device, (2048, d))
+        w = _cancelling_w(cuda_device, d, d)
+        _, _, b, prev = _blend_args(cuda_device, BF16, 2048, d, d)
+        want = ref.linear_blend(x, w, b, prev, 1.0)
+        single = lb_mod._launch("wgmma", x, w, b, prev, 1.0, w.to(BF16))
+        split = lb_mod._launch("wgmma_split", x, w, b, prev, 1.0, _split(w))
+    torch.cuda.synchronize(cuda_device)
+    assert _rel_l2(single, want) > 2e-2
+    assert _rel_l2(split, want) <= SPLIT_REL_L2
+
+
+def _planted(dev, d, f, seed=7):
+    """A split copy of a (D, F) map whose terms are independent N(0, 1)
+    bf16 matrices, each followed by its zero padding rows: (copy, the f32
+    sum of the terms, the sum without the last term).  Against their sum, a
+    kernel that drops a term, or reads one a row off, misses by that
+    term's whole share of the product (about 0.58 rel-L2)."""
+    from repro_torch.cuda_kernels import route
+    kp = route.split_rows(d)
+    gen = torch.Generator(dev).manual_seed(seed)
+    copy = torch.zeros((route.SPLIT_TERMS * kp, f), dtype=BF16, device=dev)
+    for t in range(route.SPLIT_TERMS):
+        copy[t * kp:t * kp + d] = torch.randn((d, f), generator=gen,
+                                              device=dev)
+    terms = copy.float().reshape(route.SPLIT_TERMS, kp, f)[:, :d]
+    return copy, terms.sum(0), terms[:-1].sum(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SPLIT_BLEND_SHAPES)
+def test_linear_blend_split_route_reads_every_planted_term(cuda_device,
+                                                           shape):
+    """On a copy of three independent terms the kernel is within 2e-2
+    elementwise and 1e-3 rel-L2 of the plain version on their sum, which
+    the plain version without the last term misses by more than 0.1: a
+    kernel that dropped or misplaced a term (D = 1000: the padding) would
+    fail, where the fitted maps' tiny last term would not show it."""
+    m, d, f = shape
+    x, _, b, prev = _blend_args(cuda_device, BF16, m, d, f)
+    copy, w, two = _planted(cuda_device, d, f)
+    got = linear_blend(x, w, b, prev, gamma=1.0, w_bf16=copy)
+    torch.cuda.synchronize(cuda_device)
+    want = ref.linear_blend(x, w, b, prev, 1.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_l2(got, want) <= SPLIT_REL_L2
+    assert _rel_l2(ref.linear_blend(x, two, b, prev, 1.0), want) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_blend", [True, False])
+@pytest.mark.parametrize("shape", SPLIT_GATE_SHAPES)
+def test_fused_gate_split_route_reads_every_planted_term(cuda_device, shape,
+                                                         use_blend):
+    """As for linear_blend: gate bits the plain version's, outputs within
+    2e-2 and 1e-3 rel-L2 of it on the terms' sum, which the plain version
+    without the last term misses by more than 0.1."""
+    args, thr = _split_gate_args(cuda_device, shape, "near")
+    copy, w, two = _planted(cuda_device, shape[2], shape[2])
+    args = args[:3] + (w,) + args[4:]
+    kw = dict(threshold=thr, gamma=0.5, use_blend=use_blend)
+    got = fused_gate(*args, **kw, w_bf16=copy)
+    torch.cuda.synchronize(cuda_device)
+    want = ref.fused_gate(*args, **kw)
+    assert torch.equal(got[1], want[1]) and bool(want[1].any())
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_l2(got[0], want[0]) <= SPLIT_REL_L2
+    dropped = ref.fused_gate(*args[:3], two, *args[4:], **kw)[0]
+    assert _rel_l2(dropped, want[0]) > 0.1
+
+
+@pytest.mark.cuda
+def test_split_route_replays_bitwise_in_a_cuda_graph(cuda_device):
+    """Both kernels captured with their split copies: every replay gives
+    the eager calls' bits, also after the inputs are rewritten in place."""
+    args, thr = _split_gate_args(cuda_device, (8, 128, 1152), "cancel")
+    gate_copy = _split(args[3])
+    x, w, b, prev = _blend_args(cuda_device, BF16, 2048, 1152, 1152)
+    w = _cancelling_w(cuda_device, 1152, 1152)
+    blend_copy = _split(w)
+
+    def run():
+        return (fused_gate(*args, threshold=thr, w_bf16=gate_copy),
+                linear_blend(x, w, b, prev, gamma=1.0, w_bf16=blend_copy))
+
+    run()                                    # built and opted in eagerly
+    torch.cuda.synchronize(cuda_device)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = run()
+    for scale in (1.0, 0.5, 1.0):
+        args[0].mul_(scale)
+        x.mul_(scale)
+        g.replay()
+        torch.cuda.synchronize(cuda_device)
+        eager = run()
+        for a, e in zip(captured[0] + (captured[1],), eager[0] + (eager[1],)):
+            assert torch.equal(a, e), scale
+
+
+@pytest.mark.cuda
+def test_split_wrappers_pick_the_route(cuda_device):
+    """A call that brings a split copy takes wgmma_split where the wgmma
+    rule holds and SIMT elsewhere (f32, ragged bf16); the split route named
+    on a shape it does not take, without its copy or with a malformed one,
+    raises."""
+    args, thr = _gate_inputs(cuda_device, BF16, 8, 128, 1152)
+    copy = _split(args[3])
+    x, w, b, prev = _blend_args(cuda_device, BF16, 2048, 1152, 1152)
+    gate_before, blend_before = (dict(fused_gate.launches_by_route),
+                                 dict(linear_blend.launches_by_route))
+    fused_gate(*args, threshold=thr, w_bf16=copy)
+    linear_blend(x, w, b, prev, gamma=1.0, w_bf16=_split(w))
+    f32, thr_f32 = _gate_inputs(cuda_device, torch.float32, 8, 128, 1152)
+    fused_gate(*f32, threshold=thr_f32, w_bf16=copy)
+    small, thr_small = _gate_inputs(cuda_device, BF16, 3, 40, 100)
+    fused_gate(*small, threshold=thr_small, w_bf16=_split(small[3]))
+    ragged = _blend_args(cuda_device, BF16, 130, 257, 129)
+    linear_blend(*ragged, gamma=1.0, w_bf16=_split(ragged[1]))
+    torch.cuda.synchronize(cuda_device)
+    assert fused_gate.launches_by_route == dict(
+        gate_before, wgmma_split=gate_before["wgmma_split"] + 1,
+        simt=gate_before["simt"] + 2)
+    assert linear_blend.launches_by_route == dict(
+        blend_before, wgmma_split=blend_before["wgmma_split"] + 1,
+        simt=blend_before["simt"] + 1)
+    with pytest.raises(ValueError, match="wgmma_split route does not take"):
+        fg_mod._launch("wgmma_split", *small, thr_small, 0.5, True,
+                       _split(small[3]))
+    with pytest.raises(ValueError, match="wgmma_split route does not take"):
+        lb_mod._launch("wgmma_split", *ragged, 1.0, _split(ragged[1]))
+    with pytest.raises(ValueError, match="needs w_bf16"):
+        fused_gate(*args, threshold=thr, gemm="wgmma_split")
+    with pytest.raises(ValueError, match="split w_bf16"):
+        linear_blend(x, w, b, prev, gamma=1.0, w_bf16=w.to(BF16),
+                     gemm="wgmma_split")
+    with pytest.raises(ValueError, match="split w_bf16"):
+        fused_gate(*args, threshold=thr, w_bf16=copy[:, :8].contiguous())
+    with pytest.raises(ValueError, match="w_bf16 must be"):
+        fused_gate(*args, threshold=thr, gemm="wgmma", w_bf16=copy)
 
 
 # ---------------------------------------------------------------------------
