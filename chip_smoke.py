@@ -61,10 +61,16 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
               blocks fit on the card at once; library: torch.sum(d*d, -1)
               on the f32 difference, a yardstick;
             - linear_blend at M=2048, D=F=1152, bf16 X/prev, f32 W/b, gamma
-              1 and 0.5, at M=1024, and at the decode gate's M=4 and 1,
-              D=F=1024, gamma 1 (these five on the wgmma route), and
-              ragged at M=D=F=1000 in f32 (the SIMT route): within 2e-2 in
-              bf16 and 1e-4 in f32, repeated calls bitwise; on the
+              1 and 0.5, and at M=1024 (these three on the wgmma route), at
+              the decode gates' M=4 (and 1 at D=1024) and D=F=1024, 5120,
+              7168, 4096, 2560, 1536, gamma 1, on the gemv route (split K
+              over every SM) with the wgmma route timed beside it
+              (``wgmma_device_ms``), and ragged at M=D=F=1000 in f32 (the
+              SIMT route): within 2e-2 in bf16 and 1e-4 in f32, repeated
+              calls bitwise; gemv_crossover: the gemv and wgmma routes at
+              the six decode widths and M = 1 ... 64, the gemv route
+              faster at every M <= route.GEMV_MAX_ROWS, else the run
+              fails; on the
               wgmma_split route at SPLIT_BLEND_SHAPES (the bypass, K = 1000
               and the decode gate's M = 4) with a cancelling W that one
               bf16 copy misses by more than 2e-2 (its rel-L2 printed):
@@ -75,7 +81,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             each fused_gate / linear_blend row names its GEMM route
             (``gemm_route``) and that kernel's ptxas lines, and its bound
             is the function's on the route's operands: bf16 W bytes and
-            the bf16 tensor-core rate for wgmma; for wgmma_split the f32
+            the bf16 tensor-core rate for wgmma and gemv; for wgmma_split
+            the f32
             W's bytes and one GEMM at the bf16 tensor-core rate, with the
             split's own work (every term read, a pass per term) bounded
             apart (``passes_bound_ms``);
@@ -93,7 +100,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             FastCacheConfig, 4 slots, 8 Poisson requests (rate 0.5, seed 0),
             50 DDIM steps, guidance 4.0, through DiffusionServingEngine.run
             (every warm step a replay of the step graph, its skipped blocks
-            IF nodes of csrc/cond_node.cu: if_all once per layer a replay),
+            IF nodes of csrc/cond_node.cu, one per layer a replay, whose
+            conditions fused_gate's GEMM sets: no condition kernel),
             timed with sync debug off; the kernels' launch counts are zeroed
             just before and read just after: fused_gate must have
             launched 28 times, saliency_delta and linear_blend once, per
@@ -156,7 +164,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             defaults), eager and graph: tokens equal, syncs flagged per
             decode step (L + 1 and 1), host launches and device kernels
             per decode step (their counts held to the wrappers' as above),
-            decode steps/s;
+            decode steps/s; on the graph path the profiler's set_if_all
+            kernels and the IF nodes a step: fastcache 0 and L, teacache 1
+            and 1, the decode step L and 2L (one condition kernel a
+            two-sided branch);
 9. quality  relative L2 of fastcache eps, of fastcache + merge eps, and of
             each baseline policy's eps against nocache eps (merge off) on
             the same inputs for 6 DDIM steps;
@@ -309,7 +320,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
             just after; flash_attention must have launched 28 times per
             prefill, exact decoding no other kernel, the decode gate
             exactly 28 saliency_delta (onepass) and 28 linear_blend
-            (wgmma) launches per decode step; greedy-token agreement of
+            (gemv) launches per decode step, and per replay of its graph
+            28 condition kernels and 56 IF nodes; greedy-token agreement of
             fastcache against exact;
 14. llm_prefill_parity  the last-position logits of one full-width
             512-token prefill through the kernel against the same prefill
@@ -520,7 +532,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 Then the total seconds, the kernels line (the seven kernels' rows, and
 flash_attention's at dh 80 and 112, at Jamba's prefill, bidirectional at
 HuBERT's heads, at Qwen2-VL's prefill in bf16 and in position mode at its
-image prompt, and saliency_delta and linear_blend at Qwen2-VL's d 1536),
+image prompt, saliency_delta and linear_blend at Qwen2-VL's d 1536,
+linear_blend's gemv route at the decode gate's (4, 1024, 1024), and the IF
+node three ways: with its condition kernel, fed by fused_gate, and a
+two-sided pair on one kernel),
 the card's name and
 power limit, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
@@ -673,6 +688,12 @@ ROUTE_OF_SERVE = {"fused_gate": "wgmma", "linear_blend": "wgmma",
 PARITY_CALLS = 4           # served calls whose inputs both routes re-run
 COND_MASK_ROWS = 8         # the served skip mask: 4 slots x the CFG pair
 COND_NODES = 64            # IF nodes in the graph that times one
+COND_FED_SHAPE = (8, 128, 1152)   # fused_gate feeding an IF node: the serve's
+COND_FED_NODES = 32        # fused_gate calls in the graph that times one
+# linear_blend's gemv route against the wgmma route: the decode gates'
+# widths (D = F) by rows
+GEMV_WIDTHS = (1024, 5120, 7168, 4096, 2560, 1536)
+GEMV_CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)
 GRAPH_PROFILED_STEPS = 5   # warm steps profiled on each path (step_graph)
 GRAPH_PROFILE_FROM = 12    # engine step from which they are taken
 # the fitted serve's outputs against the plain version in f32, rel-L2: bf16
@@ -1479,8 +1500,15 @@ def phase_saliency_parity(torch, policy, captured, sal_mod):
 
 def phase_linear_blend(torch, dev, ref, linear_blend, build):
     """linear_blend against its plain version at BLEND_SHAPES; returns the
-    rows by shape (the first shape's: the callers', gamma 1 at 4 slots)."""
+    rows by shape (the first shape's: the callers', gamma 1 at 4 slots).
+    The rows on the gemv route (the decode gates') also time the wgmma
+    route on the same inputs and read the tickets back at zero."""
+    from repro_torch.cuda_kernels import route
+    lb_mod = importlib.import_module("repro_torch.cuda_kernels.linear_blend")
     ptxas = build.ptxas_lines(build.load_library("linear_blend").log)
+    fragment = {"wgmma": "25linear_blend_kernel_wgmmaE",
+                "gemv": "24linear_blend_kernel_gemvE",
+                "simt": "19linear_blend_kernelIfE"}
     rows = []
     for i, (m, d, f, dt, gamma) in enumerate(BLEND_SHAPES):
         dtype = getattr(torch, dt)
@@ -1494,7 +1522,8 @@ def phase_linear_blend(torch, dev, ref, linear_blend, build):
         before = dict(linear_blend.launches_by_route)
         got = linear_blend(x, w, b, prev, gamma=gamma, w_bf16=w_bf16)
         torch.cuda.synchronize()
-        which = "wgmma" if dt == "bfloat16" else "simt"
+        which = ("simt" if dt != "bfloat16" else "gemv"
+                 if m <= route.GEMV_MAX_ROWS else "wgmma")
         if linear_blend.launches_by_route[which] != before[which] + 1:
             raise AssertionError(f"linear_blend {dt} ({m}, {d}, {f}) did not "
                                  f"take the {which} route")
@@ -1513,12 +1542,12 @@ def phase_linear_blend(torch, dev, ref, linear_blend, build):
         folded_bf16 = folded.to(torch.bfloat16)
         x_bf16 = x.to(torch.bfloat16)
         esize = x.element_size()
-        wsize = 2 if which == "wgmma" else 4
+        wsize = 4 if which == "simt" else 2
         nbytes = (m * d * esize + d * f * wsize + f * 4 + m * f * esize
                   + (m * f * esize if gamma != 1.0 else 0))
         gemm = 2 * m * d * f
         simd = m * f * (1 if gamma == 1.0 else 4)
-        peak = BF16_TC_FLOPS_PER_S if which == "wgmma" else F32_FLOPS_PER_S
+        peak = F32_FLOPS_PER_S if which == "simt" else BF16_TC_FLOPS_PER_S
         bound_ms, bound_by = bound(nbytes, gemm / peak
                                    + simd / F32_FLOPS_PER_S)
         row = {"name": "linear_blend", "route": "cuda", "gemm_route": which,
@@ -1542,9 +1571,18 @@ def phase_linear_blend(torch, dev, ref, linear_blend, build):
                                      "alpha=gamma, bias and blend folded"),
                "bytes": nbytes, "operations": gemm + simd,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "ptxas": instance_ptxas(
-                   ptxas, "25linear_blend_kernel_wgmmaE" if which == "wgmma"
-                   else "19linear_blend_kernelIfE")}
+               "ptxas": instance_ptxas(ptxas, fragment[which])}
+        if which == "gemv":
+            plan = route.gemv_plan(m, d, f)
+            tickets = lb_mod.gemv_tickets(plan.tiles * plan.groups)
+            if any(tickets):
+                raise AssertionError(f"gemv tickets left at {tickets}")
+            row.update(
+                plan=plan._asdict(), blocks=plan.tiles * plan.splits,
+                **timed(torch, "wgmma", lambda: lb_mod._launch(
+                    "wgmma", x, w, b, prev, gamma, w_bf16)),
+                wgmma_is="the wgmma route (the decode gate's route until "
+                         "the gemv route) on the same inputs")
         row["ms"] = row["kernel_ms"]
         emit({"phase": "kernel", **row})
         rows.append(row)
@@ -1699,13 +1737,27 @@ def phase_syncs(torch, wl, model, label="syncs"):
     return counted / steps, in_port / steps
 
 
-def ifs_per_step(policy: str, layers: int) -> int:
-    """IF nodes in one replayed warm step: one per layer for the per-layer
-    skips (fastcache, smoothcache), one for the step-level policies' whole
-    stack, none for l2c (a static mask) and nocache."""
-    if policy in ("fastcache", "smoothcache"):
-        return layers
-    return 0 if policy in ("l2c", "nocache") else 1
+def ifs_per_step(policy: str, layers: int):
+    """(IF nodes, condition kernels) in one replayed warm step: a node per
+    layer for the per-layer skips, fastcache's conditions set by
+    fused_gate's GEMM (no kernel; the serves here have no model group) and
+    smoothcache's by a kernel each; one node and one kernel for the
+    step-level policies' whole stack; none for l2c (a static mask) and
+    nocache."""
+    if policy == "fastcache":
+        return layers, 0
+    if policy == "smoothcache":
+        return layers, layers
+    return (0, 0) if policy in ("l2c", "nocache") else (1, 1)
+
+
+def check_if_nodes(label, wl, runner, m) -> None:
+    """The IF nodes a serve's replays added (``if_all.nodes``, read just
+    after the serve, zeroed just before it) against ifs_per_step."""
+    want = ifs_per_step(wl.policy, runner.L)[0] * runner.graphs.replays
+    if m.kernels["if_all"].nodes != want:
+        raise AssertionError(f"{label}: {m.kernels['if_all'].nodes} IF "
+                             f"nodes, expected {want}")
 
 
 def expected_launches(wl, runner, eng, names):
@@ -1716,11 +1768,12 @@ def expected_launches(wl, runner, eng, names):
     teacache, adacache and fbcache run saliency_delta once per model step,
     l2c linear_blend once per masked layer and model step; fora and
     smoothcache, and nocache, run none.  Every replayed warm step also
-    runs if_all's condition kernel once per IF node (ifs_per_step)."""
+    runs if_all's condition kernels (ifs_per_step)."""
     want = dict.fromkeys(names, 0)
     steps = eng.model_steps
-    # the condition kernel of every IF node, once per replay
-    want["if_all"] = ifs_per_step(wl.policy, runner.L) * runner.graphs.replays
+    # the condition kernels of the IF nodes, each replay
+    want["if_all"] = (ifs_per_step(wl.policy, runner.L)[1]
+                      * runner.graphs.replays)
     if wl.policy == "fastcache":
         kinds = runner.impl.step_kinds
         gated = kinds["warm"] + kinds["mixed"]
@@ -1788,6 +1841,7 @@ def phase_serve(torch, dev, wl, model, m, label="serve", engine_kwargs=None,
         raise AssertionError(f"{wl.policy}: launches {launches} != "
                              f"{want} ({kinds}, {eng.model_steps} model "
                              "steps)")
+    check_if_nodes(label, wl, runner, m)
     if wl.policy == "fastcache" and launches["fused_gate"] <= 0:
         raise AssertionError("fused_gate never launched: no gated step")
     for name, which in {**ROUTE_OF_SERVE, **(routes or {})}.items():
@@ -1839,6 +1893,7 @@ def phase_serve(torch, dev, wl, model, m, label="serve", engine_kwargs=None,
           "metrics_plane": bool(eng.metrics), **(extra or {}),
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)})
     return SimpleNamespace(launches=launches, done=done, wall=wall,
+                           if_nodes=m.kernels["if_all"].nodes,
                            runner=runner, eng=eng, stats=stats)
 
 
@@ -2091,10 +2146,15 @@ def phase_llm_serve(torch, dev, wl, model, m, serve, label="llm_serve"):
     want = dict.fromkeys(launches, 0)
     want["flash_attention"] = model.kind_counts.get("attn", 0) * eng.prefills
     by_route = {}
+    nodes = 0
     if wl.fastcache and eng.graphs is not None:
-        # two IF nodes a layer (the skip side's K/V write, the block), each
-        # replay of the gated decode step
-        want["if_all"] = 2 * n_layers * eng.graphs.replays
+        # two IF nodes a layer (the skip side's K/V write, the block) on
+        # one condition kernel, each replay of the gated decode step
+        want["if_all"] = n_layers * eng.graphs.replays
+        nodes = 2 * n_layers * eng.graphs.replays
+    if m.kernels["if_all"].nodes != nodes:
+        raise AssertionError(f"{label}: {m.kernels['if_all'].nodes} IF "
+                             f"nodes, expected {nodes}")
     if wl.fastcache:
         # the decode gate: saliency_delta on the (B, 1, D) rows and
         # linear_blend at gamma 1, once per layer per decode step
@@ -2105,7 +2165,7 @@ def phase_llm_serve(torch, dev, wl, model, m, serve, label="llm_serve"):
         if by_route != {
                 "saliency_delta": {"onepass": want["saliency_delta"],
                                    "simt": 0},
-                "linear_blend": {"wgmma": want["linear_blend"],
+                "linear_blend": {"gemv": want["linear_blend"], "wgmma": 0,
                                  "wgmma_split": 0, "simt": 0}}:
             raise AssertionError(f"decode gate launches by route {by_route}")
     if eng.prefills != wl.requests or launches != want:
@@ -3571,6 +3631,7 @@ def check_path(label, wl, runner, eng, m, launches):
     want = expected_launches(wl, runner, eng, launches)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want}")
+    check_if_nodes(label, wl, runner, m)
     if wl.policy != "fastcache":
         return
     for name in path_kernels(runner):
@@ -6005,64 +6066,243 @@ def phase_examples(torch, m) -> dict:
     return out
 
 
-def phase_cond_node(torch, dev, ref, cond_mod, build):
-    """The IF-node kernel (csrc/cond_node.cu) against its plain version on
-    the served skip mask (COND_MASK_ROWS rows): for a mask of all, one and
-    no rows caching, on both sides (when_all), a graph of one IF node whose
-    body writes a flag, replayed: the flag is the plain condition.  Timed:
-    a graph of COND_NODES IF nodes in a row (the condition kernel and the
-    node each, the bodies one add), per node, bodies taken and not; the
-    plain version and torch.all on the same mask.  Returns the row."""
+def cond_gate_args(torch, dev, statcache, pattern):
+    """fused_gate's inputs at COND_FED_SHAPE, bf16, every sample eligible,
+    the gating samples chosen: "all", "one" (sample 3) or "none"; and its
+    threshold."""
+    gen = torch.Generator(dev).manual_seed(5)
+    b, c, d = COND_FED_SHAPE
+    x = torch.randn((b, c, d), generator=gen, device=dev).to(torch.bfloat16)
+    prev = (x.float() + 0.01 * torch.randn(
+        (b, c, d), generator=gen, device=dev)).to(torch.bfloat16)
+    po = torch.randn((b, c, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.eye(d, device=dev) + 0.01 * torch.randn(
+        (d, d), generator=gen, device=dev)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=dev)
+    thr = statcache.make_threshold(0.05, c * d)
+    diff = (x.double() - prev.double()).square().sum(dim=(1, 2))
+    gates = {"all": [True] * b, "none": [False] * b,
+             "one": [i == 3 for i in range(b)]}[pattern]
+    factor = torch.tensor([2.0 if g else 0.5 for g in gates], device=dev,
+                          dtype=torch.float64)
+    sigma2 = (diff / (c * d * thr) * factor).float()
+    eligible = torch.ones(b, dtype=torch.bool, device=dev)
+    return (x, prev, po, w, bias, sigma2, eligible), thr
+
+
+def phase_cond_node(torch, dev, ref, cond_mod, fg_mod, statcache, build):
+    """The IF nodes (csrc/cond_node.cu) against the plain condition on the
+    served skip mask (COND_MASK_ROWS rows), for a mask of all, one and no
+    rows caching, in graphs replayed: one node with its own condition
+    kernel on either side (when_all), a two-sided pair on one condition
+    kernel (exactly the side the plain condition picks runs), and a node
+    on the condition fused_gate's GEMM sets at COND_FED_SHAPE on the wgmma
+    route (the body runs exactly when the plain !all(gate) says).  Timed,
+    per node in a graph of COND_NODES: a node with its condition kernel,
+    its body taken and not (the row "if_all"); fed by B1, the graph of B1
+    calls with a node each less the graph of B1 calls alone, beside the
+    same with a condition kernel reading B1's gate (the row
+    "if_all_fed"); a pair on one kernel beside two nodes on a kernel each
+    (the row "if_all_pair").  Returns the three rows."""
     ptxas = build.ptxas_lines(build.load_library("cond_node").log)
     cond_mod.prepare(dev)
     b = COND_MASK_ROWS
     masks = {"all": torch.ones(b, dtype=torch.bool, device=dev),
              "one_not": torch.arange(b, device=dev) != 3,
              "none": torch.zeros(b, dtype=torch.bool, device=dev)}
-    worst = 0.0
-    for mask in masks.values():
-        for when_all in (True, False):
-            flag = torch.zeros((), device=dev)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                cond_mod.if_all(mask, lambda: flag.add_(1.0),
-                                when_all=when_all)
-            g.replay()
-            torch.cuda.synchronize()
-            want = ref.if_all(mask, when_all).float()
-            worst = max(worst, float((flag - want).abs()))
-    if worst != 0.0:
-        raise AssertionError(f"if_all's IF node disagrees with the plain "
-                             f"condition by {worst}")
-    times = {}
-    for taken, when_all in (("taken", False), ("not_taken", True)):
-        flag = torch.zeros((), device=dev)
+
+    def replayed(capture, flags):
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
-            for _ in range(COND_NODES):
-                cond_mod.if_all(masks["one_not"], lambda: flag.add_(1.0),
-                                when_all=when_all)
-        times[taken] = device_ms(torch, g.replay) / COND_NODES
-    mask = masks["one_not"]
-    nbytes = b + 4                      # the mask read, the condition set
-    bound_ms, bound_by = bound(nbytes, 0.0)
-    row = {"name": "if_all", "route": "cuda",
-           "source": "src/repro_torch/csrc/cond_node.cu",
-           "replaces": "src/repro/core/policies/fastcache.py:176",
-           "replaces_what": "jax.lax.cond(jnp.all(do_cache), ...): a branch "
-                            "on the device, not a Pallas kernel",
-           "shape": [b], "max_abs_err": worst,
-           "ms": times["taken"], "node_not_taken_ms": times["not_taken"],
-           "ms_is": "per IF node inside a graph of COND_NODES (condition "
-                    "kernel + conditional node + a one-add body)",
-           **timed(torch, "plain", lambda: ref.if_all(mask, False)),
-           **timed(torch, "library", lambda: torch.all(mask)),
-           "library_call": "torch.all of the mask (a 0-dim bool; branching "
-                           "on it on the host needs a sync)",
-           "bytes": nbytes, "operations": b,
-           "bound_ms": bound_ms, "bound_by": bound_by, "ptxas": ptxas}
-    emit({"phase": "kernel", **row})
-    return row
+            capture()
+        flags.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        return flags.clone()
+
+    worst = {"own": 0.0, "pair": 0.0, "fed": 0.0}
+    for mask in masks.values():
+        every = float(ref.if_all(mask, True))
+        for when_all in (True, False):
+            flag = torch.zeros((), device=dev)
+            got = replayed(lambda: cond_mod.if_all(
+                mask, lambda: flag.add_(1.0), when_all=when_all), flag)
+            want = ref.if_all(mask, when_all).float()
+            worst["own"] = max(worst["own"], float((got - want).abs()))
+        flags = torch.zeros(2, device=dev)
+        got = replayed(lambda: cond_mod.if_all_sides(
+            mask, [(lambda: flags[0].add_(1.0), True),
+                   (lambda: flags[1].add_(1.0), False)]), flags)
+        want = torch.tensor([every, 1.0 - every], device=dev)
+        worst["pair"] = max(worst["pair"], float((got - want).abs().max()))
+    fed_args = {}
+    for pattern in ("all", "one", "none"):
+        args, thr = cond_gate_args(torch, dev, statcache, pattern)
+        copy = args[3].to(torch.bfloat16)
+        fed_args[pattern] = (args, thr, copy)
+        plain = ref.fused_gate(*args, threshold=thr, gamma=0.5)[1]
+        flag = torch.zeros((), device=dev)
+
+        def fed(args=args, thr=thr, copy=copy, flag=flag):
+            handle = cond_mod.condition(dev)
+            fg_mod._launch("wgmma", *args, thr, 0.5, True, copy, handle)
+            cond_mod.if_set(handle, lambda: flag.add_(1.0), dev)
+
+        got = replayed(fed, flag)
+        worst["fed"] = max(worst["fed"],
+                           abs(float(got) - float(not bool(plain.all()))))
+    if any(worst.values()):
+        raise AssertionError(f"the IF nodes disagree with the plain "
+                             f"condition: {worst}")
+
+    def per_node(capture, n=COND_NODES):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                capture()
+        return device_ms(torch, g.replay) / n
+
+    flag = torch.zeros((), device=dev)
+    one_not = masks["one_not"]
+    times = {}
+    for taken, when_all in (("taken", False), ("not_taken", True)):
+        times[taken] = per_node(lambda: cond_mod.if_all(
+            one_not, lambda: flag.add_(1.0), when_all=when_all))
+    # two-sided: one side taken, on one kernel and on a kernel each
+    pair = per_node(lambda: cond_mod.if_all_sides(
+        one_not, [(lambda: flag.add_(1.0), True),
+                  (lambda: flag.add_(1.0), False)]))
+    pair_two = per_node(lambda: (
+        cond_mod.if_all(one_not, lambda: flag.add_(1.0), when_all=True),
+        cond_mod.if_all(one_not, lambda: flag.add_(1.0), when_all=False)))
+    # fed by B1 (one sample gating: the body runs), against B1 alone and
+    # B1 with a condition kernel reading its gate
+    args, thr, copy = fed_args["one"]
+
+    def b1(handle=None):
+        return fg_mod._launch("wgmma", *args, thr, 0.5, True, copy, handle)
+
+    def b1_fed():
+        handle = cond_mod.condition(dev)
+        b1(handle)
+        cond_mod.if_set(handle, lambda: flag.add_(1.0), dev)
+
+    def b1_own():
+        gate = b1()[1]
+        cond_mod.if_all(gate, lambda: flag.add_(1.0), when_all=False)
+
+    n_fed = COND_FED_NODES
+    b1_alone = per_node(b1, n_fed)
+    b1_with_fed = per_node(b1_fed, n_fed)
+    b1_with_own = per_node(b1_own, n_fed)
+    plain = timed(torch, "plain", lambda: ref.if_all(one_not, False))
+    library = timed(torch, "library", lambda: torch.all(one_not))
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/cond_node.cu",
+              "replaces": "src/repro/core/policies/fastcache.py:176",
+              "replaces_what": "jax.lax.cond(jnp.all(do_cache), ...): a "
+                               "branch on the device, not a Pallas kernel",
+              "shape": [b], **plain, **library,
+              "library_call": "torch.all of the mask (a 0-dim bool; "
+                              "branching on it on the host needs a sync)",
+              "ptxas": ptxas}
+    own_bytes = b + 4                   # the mask read, the condition set
+    rows = [{"name": "if_all", **common, "max_abs_err": worst["own"],
+             "ms": times["taken"], "node_not_taken_ms": times["not_taken"],
+             "ms_is": "per IF node inside a graph of COND_NODES, its own "
+                      "condition kernel (set_if_all) and a one-add body, "
+                      "taken",
+             "bytes": own_bytes, "operations": b,
+             **dict(zip(("bound_ms", "bound_by"), bound(own_bytes, 0.0)))}]
+    # fed: the condition warp's reads (each sample's partials, sigma2,
+    # eligible) and the condition set
+    fed_bytes = b * (fg_mod.REDUCTION_PARTS * 4 + 4 + 1) + 4
+    rows.append({"name": "if_all_fed", "wrapper": "if_all", **common,
+                 "source": "src/repro_torch/csrc/fused_gate.cu",
+                 "shape": list(COND_FED_SHAPE),
+                 "max_abs_err": worst["fed"],
+                 "ms": b1_with_fed - b1_alone,
+                 "ms_is": "per IF node on the condition fused_gate's GEMM "
+                          "sets (wgmma route, one sample of 8 gating, the "
+                          "body taken): a graph of COND_FED_NODES B1 calls "
+                          "with a node each less the graph of B1 calls "
+                          "alone",
+                 "own_kernel_node_ms": b1_with_own - b1_alone,
+                 "own_kernel_node_is": "the same with a condition kernel "
+                                       "reading B1's gate (the parent's "
+                                       "IF node)",
+                 "b1_graph_ms": b1_alone, "b1_fed_graph_ms": b1_with_fed,
+                 "b1_own_kernel_graph_ms": b1_with_own,
+                 "bytes": fed_bytes, "operations": b * fg_mod.REDUCTION_PARTS,
+                 **dict(zip(("bound_ms", "bound_by"),
+                            bound(fed_bytes, 0.0)))})
+    pair_bytes = b + 8
+    rows.append({"name": "if_all_pair", "wrapper": "if_all", **common,
+                 "max_abs_err": worst["pair"], "ms": pair,
+                 "ms_is": "per two-sided branch (two IF nodes, one side "
+                          "taken) on one condition kernel, in a graph of "
+                          "COND_NODES",
+                 "two_kernels_ms": pair_two,
+                 "two_kernels_is": "the same branch on a condition kernel "
+                                   "a side (the parent's)",
+                 "bytes": pair_bytes, "operations": b,
+                 **dict(zip(("bound_ms", "bound_by"),
+                            bound(pair_bytes, 0.0)))})
+    for row in rows:
+        emit({"phase": "kernel", **row})
+    return rows
+
+
+def phase_gemv_crossover(torch, dev, lb_mod, route):
+    """linear_blend's gemv and wgmma routes, named, at the decode gates'
+    widths (GEMV_WIDTHS, D = F) and M in GEMV_CROSSOVER_M, bf16, gamma 1,
+    device ms each (L2-warm): the gemv route must be the faster at every M
+    <= route.GEMV_MAX_ROWS, the rows the rule gives it, or the run
+    fails.  Prints, per width, the largest M at which it was faster, and
+    at M = 4 the plan's split of K beside the splits aiming at one block
+    an SM and at two."""
+    rows, split_rows = [], []
+    for d in GEMV_WIDTHS:
+        gen = torch.Generator(dev).manual_seed(d)
+        w = torch.eye(d, device=dev) + 0.01 * torch.randn(
+            (d, d), generator=gen, device=dev)
+        copy = w.to(torch.bfloat16)
+        b = 0.1 * torch.randn((d,), generator=gen, device=dev)
+        for m in GEMV_CROSSOVER_M:
+            x = torch.randn((m, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            prev = torch.randn((m, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            rows.append({"d": d, "m": m, **{
+                f"{which}_device_ms": device_ms(
+                    torch, lambda which=which: lb_mod._launch(
+                        which, x, w, b, prev, 1.0, copy))
+                for which in ("gemv", "wgmma")}})
+        # the plan's split of K beside one block an SM and two, at M = 4
+        x = torch.randn((4, d), generator=gen, device=dev).to(torch.bfloat16)
+        prev = torch.randn((4, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        plans = {"plan": route.gemv_plan(4, d, d), **{
+            f"target_{blocks}_blocks": route.gemv_plan(4, d, d, blocks)
+            for blocks in (route.GEMV_SMS, route.GEMV_BLOCKS)}}
+        split_rows.append({"d": d, **{
+            name: {"blocks": p.tiles * p.splits, "splits": p.splits,
+                   "device_ms": device_ms(torch, lambda p=p: lb_mod._gemv(
+                       x, copy, b, prev, 1.0, p))}
+            for name, p in plans.items()}})
+        del w, copy
+    faster = {d: max([r["m"] for r in rows if r["d"] == d
+                      and r["gemv_device_ms"] < r["wgmma_device_ms"]],
+                     default=0) for d in GEMV_WIDTHS}
+    emit({"phase": "gemv_crossover", "rows": rows,
+          "gemv_max_rows": route.GEMV_MAX_ROWS,
+          "largest_m_gemv_faster": faster, "splits_of_k": split_rows,
+          "card": smi()})
+    losing = [r for r in rows if r["m"] <= route.GEMV_MAX_ROWS
+              and r["gemv_device_ms"] >= r["wgmma_device_ms"]]
+    if losing:
+        raise AssertionError(f"the gemv route lost to the wgmma route at "
+                             f"rows the rule gives it: {losing}")
+    return rows
 
 
 LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel")
@@ -6111,11 +6351,15 @@ class CountedStep:
 
     def read(self, names) -> dict:
         added = dict.fromkeys(WRAPPER_KERNEL_NAMES, 0)
+        nodes = 0
         for (w, attr, _), n in self.kernels.counts_since(
                 self.before).items():
             if attr == "launches":
                 added[w] += n
-        return {"added": added, "ran": wrapper_kernels_ran(names)}
+            elif attr == "nodes":
+                nodes += n
+        return {"added": added, "ran": wrapper_kernels_ran(names),
+                "if_nodes": nodes}
 
 
 def hold_counts(label, rows) -> dict:
@@ -6128,12 +6372,19 @@ def hold_counts(label, rows) -> dict:
     over = [r for r in rows
             if any(r["ran"][w] > r["added"][w] for w in r["added"])]
     whole = [r for r in rows if r["ran"] == r["added"]]
+    nodes = {r["if_nodes"] for r in rows}
     if over or not whole:
         raise AssertionError(f"{label}: the launch counters' gain against "
                              f"the kernels the card ran, by profiled step: "
                              f"{rows}")
+    if len(nodes) != 1:
+        raise AssertionError(f"{label}: IF nodes by profiled step {nodes}")
     return {"profiled_steps": len(rows), "steps_counted_whole": len(whole),
             "added_per_step": mean_counts([r["added"] for r in rows]),
+            "if_nodes_per_step": nodes.pop(),
+            # the profiler's set_if_all kernels in the steps it saw whole
+            "set_if_all_ran_per_step": float(np.mean(
+                [r["ran"]["if_all"] for r in whole])),
             "records_short": {w: sum(r["added"][w] - r["ran"][w]
                                      for r in rows) for w in rows[0]["added"]
                               if any(r["added"][w] != r["ran"][w]
@@ -6376,6 +6627,18 @@ def phase_step_graph_dit(torch, dev, wl, model, m, sal_mod, knn_mod, tm_mod,
         if label == "fastcache" and set(ratio.values()) != {
                 PARENT_BLOCK_CACHE_RATIO}:
             raise AssertionError(f"cache ratio {ratio}")
+        # IF nodes and the profiler's condition kernels a replayed step
+        # (fastcache's set by fused_gate: none), none eagerly
+        conds = {"eager": (eager.held["if_nodes_per_step"],
+                           eager.held["set_if_all_ran_per_step"]),
+                 "graph": (graph.held["if_nodes_per_step"],
+                           graph.held["set_if_all_ran_per_step"])}
+        emit({"phase": "step_graph_if_nodes", "case": label,
+              "if_nodes_and_set_if_all_per_warm_step": conds})
+        if conds != {"eager": (0, 0.0), "graph": tuple(
+                float(n) for n in ifs_per_step(w.policy, model.cfg.num_layers))}:
+            raise AssertionError(f"{label}: IF nodes and set_if_all kernels "
+                                 f"a warm step {conds}")
         g, e = syncs["graph"], syncs["eager"]
         if (g["flagged_in_port_per_warm_step"], g["counted_per_warm_step"]) \
                 != (0.0, 0.0):
@@ -6469,7 +6732,17 @@ def phase_step_graph_llm(torch, wl, model):
           "graph_replays": graph.eng.graphs.replays,
           "decode_steps": graph.eng.decode_steps,
           "seconds": time.perf_counter() - t0, "card": smi()})
-    want = {"eager": [model.cfg.num_layers + 1] * 3, "graph": [1] * 3}
+    layers = model.cfg.num_layers
+    conds = {"eager": (eager.held["if_nodes_per_step"],
+                       eager.held["set_if_all_ran_per_step"]),
+             "graph": (graph.held["if_nodes_per_step"],
+                       graph.held["set_if_all_ran_per_step"])}
+    emit({"phase": "step_graph_llm_if_nodes",
+          "if_nodes_and_set_if_all_per_decode_step": conds})
+    if conds != {"eager": (0, 0.0), "graph": (2 * layers, float(layers))}:
+        raise AssertionError(f"decode step IF nodes and set_if_all kernels "
+                             f"{conds}")
+    want = {"eager": [layers + 1] * 3, "graph": [1] * 3}
     if per != want or counted != want:
         raise AssertionError(f"decode step syncs flagged {per}, counted "
                              f"{counted}, expected {want}")
@@ -6531,7 +6804,7 @@ def main() -> int:
     from repro_torch.core.runner import CachedDiT
     from repro_torch.diffusion.schedule import (ddim_step, ddim_timesteps,
                                                 linear_schedule)
-    from repro_torch.cuda_kernels import build, ref
+    from repro_torch.cuda_kernels import build, ref, route
     from repro_torch.cuda_kernels.fused_gate import fused_gate
     from repro_torch.cuda_kernels.knn_density import knn_density
     from repro_torch.cuda_kernels.token_merge import (merge_assign,
@@ -6613,10 +6886,13 @@ def main() -> int:
     merge_rows = phase_token_merge(torch, dev, k, build)
     sal_rows = phase_saliency_delta(torch, dev, ref, sal_mod, build)
     blend_rows = phase_linear_blend(torch, dev, ref, linear_blend, build)
+    phase_gemv_crossover(torch, dev, lb_mod, route)
     blend_split_row = phase_linear_blend_split(torch, dev, ref, linear_blend,
                                                lb_mod, build)[0]
-    cond_row = phase_cond_node(torch, dev, ref, cond_mod, build)
+    cond_rows = phase_cond_node(torch, dev, ref, cond_mod, fg_mod, statcache,
+                                build)
     sal_row, blend_row = sal_rows[0], blend_rows[0]
+    (gemv_row,) = [r for r in blend_rows if r["shape"] == [4, 1024, 1024]]
 
     m = SimpleNamespace(
         CachedDiT=CachedDiT, FastCacheConfig=FastCacheConfig,
@@ -6833,8 +7109,20 @@ def main() -> int:
         "serve_calibrated_graph"]["fused_gate"]
     blend_split_row["launches"] = launches_fitted[
         "serve_calibrated_graph"]["linear_blend"]
-    # the IF nodes of the main serve's replayed warm steps
-    cond_row["launches"] = launches["if_all"]
+    # the IF nodes: with a condition kernel of their own, on the teacache
+    # serve's replays (its whole-stack skip); fed by fused_gate, the main
+    # serve's replays' nodes (no kernel); two-sided pairs, the gated LLM
+    # serve's condition kernels (one a pair)
+    cond_rows[0]["launches"] = launches_policy["teacache"]["if_all"]
+    cond_rows[0]["launches_are"] = "serve_teacache's condition kernels"
+    cond_rows[1]["launches"] = base.if_nodes
+    cond_rows[1]["launches_are"] = ("the main serve's IF nodes, each set by "
+                                    "fused_gate: no kernel of their own")
+    cond_rows[2]["launches"] = launches_llm["if_all"]
+    cond_rows[2]["launches_are"] = ("llm_serve_fastcache's condition "
+                                    "kernels, two IF nodes each")
+    # the decode gate's linear_blend, on the gemv route
+    gemv_row["launches"] = launches_llm["linear_blend"]
     # the new head dims' bf16 rows: flash_attention on the serve of the
     # config that has the head dim (stablelm-3b: 80, kimi: 112)
     new_flash["e"]["launches"] = launches_more[
@@ -6866,32 +7154,33 @@ def main() -> int:
     rows = ([gate_row, gate_split_row] + merge_rows
             + [sal_row, blend_row, blend_split_row, flash_row,
                new_flash["e"], new_flash["g"], new_flash["j"]]
-            + vlm_rows + [pos_flash["p"], cond_row])
+            + vlm_rows + [pos_flash["p"], gemv_row] + cond_rows)
     for row in rows:
+        key = row.get("wrapper", row["name"])
         row["serve_launches"] = {
-            "serve": launches[row["name"]],
-            "serve_merge": launches_merge[row["name"]],
-            **{f"serve_{p}": n[row["name"]]
+            "serve": launches[key],
+            "serve_merge": launches_merge[key],
+            **{f"serve_{p}": n[key]
                for p, n in launches_policy.items()},
             "serve_audit_1_32": launches_audit[DEFAULT_AUDIT_FRACTION][
-                row["name"]],
-            "serve_audit_1": launches_audit[1.0][row["name"]],
-            "serve_metrics": launches_metrics[row["name"]],
-            "calibrate_record": launches_record[row["name"]],
-            **{label: n[row["name"]]
+                key],
+            "serve_audit_1": launches_audit[1.0][key],
+            "serve_metrics": launches_metrics[key],
+            "calibrate_record": launches_record[key],
+            **{label: n[key]
                for label, n in launches_fitted.items()},
-            "serve_nocfg": launches_nocfg[row["name"]],
-            "preempt_resume": launches_preempt[row["name"]],
-            "preempt_resume_merge": launches_preempt_merge[row["name"]],
-            "slo_serve": launches_slo[row["name"]],
-            **{label: n[row["name"]]
+            "serve_nocfg": launches_nocfg[key],
+            "preempt_resume": launches_preempt[key],
+            "preempt_resume_merge": launches_preempt_merge[key],
+            "slo_serve": launches_slo[key],
+            **{label: n[key]
                for label, n in launches_sharded.items()},
-            "llm_serve_exact": launches_exact[row["name"]],
-            "llm_serve_fastcache": launches_llm[row["name"]],
-            "train_dit": launches_train_dit[row["name"]],
-            "trained_serve": launches_trained[row["name"]],
-            "train_llm": launches_train_llm[row["name"]],
-            **{label: n.get(row["name"], 0)
+            "llm_serve_exact": launches_exact[key],
+            "llm_serve_fastcache": launches_llm[key],
+            "train_dit": launches_train_dit[key],
+            "trained_serve": launches_trained[key],
+            "train_llm": launches_train_llm[key],
+            **{label: n.get(key, 0)
                for label, n in launches_more.items()}}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

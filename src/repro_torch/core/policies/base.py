@@ -316,9 +316,11 @@ class CachePolicy:
 
     def branch(self, every: torch.Tensor, compute: Callable[[], None],
                skip: Optional[Callable[[], None]] = None,
-               known: Optional[bool] = None) -> None:
-        """``step_graph.branch``, its host reads counted in ``host_syncs``."""
-        self.host_syncs += branch(every, compute, skip, known)
+               known: Optional[bool] = None,
+               cond: Optional[int] = None) -> None:
+        """``step_graph.branch``, its host reads counted in ``host_syncs``
+        (``cond``: the handle the mask's producer set, or None)."""
+        self.host_syncs += branch(every, compute, skip, known, cond=cond)
 
     def stats(self, state: Dict) -> Dict[str, float]:
         return summarize_stats(state)

@@ -12,9 +12,11 @@ skip the block" test in each layer.  Both branches give identical per-row
 results, so either way is exact.  The dispatch reads the host mirror of
 ``have_cache`` (``CachePolicy.step_kind``): nothing crosses.  The
 per-layer skip goes through ``branch``: an IF node of the captured warm
-step on the card (nothing crosses), else one host read per layer on an
-all-warm step, counted in ``host_syncs``.  A mixed step skips the
-per-layer test: its cold rows are never eligible, so the block always runs.
+step on the card (nothing crosses; ``fused_gate`` sets its condition from
+the gate bits it makes, so no kernel reads the mask again), else one host
+read per layer on an all-warm step, counted in ``host_syncs``.  A mixed
+step skips the per-layer test: its cold rows are never eligible, so the
+block always runs.
 
 The state is written in place.  Layer l reads slots l and l + 1 of the
 hidden stack ``prev_hidden`` and writes slot l only after both reads, so no
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.core import chi2, linear_approx, saliency, statcache
 from repro_torch.core.policies.base import F32, CachePolicy, register
+from repro_torch.core.step_graph import producer_condition
 from repro_torch.cuda_kernels.fused_gate import fused_gate
 from repro_torch.cuda_kernels.linear_blend import linear_blend
 from repro_torch.cuda_kernels.saliency_delta import saliency_delta
@@ -160,16 +163,20 @@ class FastCache(CachePolicy):
             prev_m = saliency.gather_motion(prev_in, part)
             prev_om = saliency.gather_motion(hidden[lidx + 1], part)
             eligible = ini[lidx] & bool(fc.use_sc)
+            cond = None
             if self.gate_mode == "global":
                 out, do_cache, diff = self._global_gate(
                     lidx, xm, prev_m, prev_om, sig[lidx], eligible, nd * b,
                     threshold_g)
             else:
+                # in a captured warm step B1 sets the block's IF node's
+                # condition, !all(gate), itself (no condition kernel)
+                cond = producer_condition(xm.device) if can_skip else None
                 out, do_cache, diff, _ = fused_gate(
                     xm, prev_m, prev_om, fcp["W_l"][lidx], fcp["b_l"][lidx],
                     sig[lidx], eligible, threshold=threshold,
                     gamma=fc.blend_gamma, use_blend=fc.use_mb,
-                    w_bf16=self.w_l_bf16[lidx], gemm=self.gemm)
+                    w_bf16=self.w_l_bf16[lidx], gemm=self.gemm, cond=cond)
 
             # ``out`` holds the skip side (every sample caches); otherwise
             # the block runs once for the batch and the cached samples keep
@@ -181,7 +188,7 @@ class FastCache(CachePolicy):
                                       self.model.block_apply(bp, xm, c)))
 
             if can_skip:
-                self.branch(do_cache, compute)
+                self.branch(do_cache, compute, cond=cond)
             else:
                 compute()
             xm_new = constrain(out, "act_batch", "act_seq", "act_embed")

@@ -6,12 +6,15 @@ program and reads nothing.  Eagerly, the port launches every op from the
 host and can only branch on the host, reading the mask.  This module gives
 it the reference's shape on the card:
 
-``branch(every, compute, skip=None, known=None)``
+``branch(every, compute, skip=None, known=None, cond=None)``
     The "every sample caches: skip the block" decision.  ``every`` is the
     (B,) bool mask of the samples that cache.  While a graph is being
     captured on the card, ``compute`` (and ``skip``, where given) become
     IF nodes of the graph (``cuda_kernels/cond_node.py``), so the branch
-    is taken on the device at each replay; otherwise the host decides:
+    is taken on the device at each replay: their conditions set by one
+    condition kernel that reads the mask, or, where the kernel that made
+    the mask set the compute side's condition itself (``cond``, a handle
+    from ``producer_condition``), by none; otherwise the host decides:
     ``known`` where the caller already knows the answer (its host mirror),
     else one read of ``all(every)``, agreed over the model group when the
     block's weights are sharded.  Returns the host reads it made (0 or 1).
@@ -21,6 +24,9 @@ it the reference's shape on the card:
     group takes the same side at each replay and the body's collectives
     run on all of them or on none.  Only nccl collectives can be captured
     (``capture_refusal``).
+    ``producer_condition(device)`` is such a handle, or None where the
+    IF node must read the mask itself (outside a capture, or under a model
+    group, whose agreement it reads).
     Both sides write the same carry: ``compute`` keeps the cached samples'
     values with a ``torch.where``, so either side gives a cached sample the
     same bits, which is what lets the IF node stand in for ``lax.cond``.
@@ -53,7 +59,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.cuda_kernels import add_counts, counts_since, read_counts
-from repro_torch.cuda_kernels.cond_node import if_all, prepare
+from repro_torch.cuda_kernels.cond_node import (condition, if_all_sides,
+                                                if_set, prepare)
 from repro_torch.distributed.sharding import (ShardingCtx, agree_all,
                                               current_ctx)
 
@@ -91,9 +98,24 @@ def agreed_mask(every: torch.Tensor) -> torch.Tensor:
     return agree_all(every.all().reshape(1))
 
 
+def producer_condition(device: torch.device) -> Optional[int]:
+    """A condition handle for the kernel that makes a block's skip mask to
+    set to ``!all(mask)`` (``fused_gate(cond=...)``), which ``branch(...,
+    cond=...)`` then adds its IF node on; None where ``branch`` must read
+    the mask itself: outside a capture on the card, or under a model group
+    (its IF nodes read the group's agreement, ``agreed_mask``)."""
+    if (torch.device(device).type != "cuda"
+            or not torch.cuda.is_current_stream_capturing()):
+        return None
+    ctx = current_ctx()
+    if ctx is not None and ctx.group("model") is not None:
+        return None
+    return condition(device)
+
+
 def branch(every: torch.Tensor, compute: Callable[[], None],
            skip: Optional[Callable[[], None]] = None,
-           known: Optional[bool] = None) -> int:
+           known: Optional[bool] = None, cond: Optional[int] = None) -> int:
     """Run ``compute`` unless every sample caches, else ``skip`` (see the
     module docstring).  Returns the number of host reads made (0 or 1)."""
     if every.is_cuda and torch.cuda.is_current_stream_capturing():
@@ -101,11 +123,15 @@ def branch(every: torch.Tensor, compute: Callable[[], None],
         if why is not None:
             raise RuntimeError(f"a step graph cannot hold this block skip: "
                                f"{why}")
-        mask = agreed_mask(every)
         before = read_counts()
-        if skip is not None:
-            if_all(mask, skip, when_all=True)
-        if_all(mask, compute, when_all=False)
+        if cond is not None:
+            if skip is not None:
+                raise ValueError("a condition set by the mask's producer "
+                                 "holds the compute side only")
+            if_set(cond, compute, every.device)
+        else:
+            sides = [(skip, True)] if skip is not None else []
+            if_all_sides(agreed_mask(every), sides + [(compute, False)])
         inside = [k for k in counts_since(before) if k[0] != "if_all"]
         if inside:
             raise RuntimeError(f"kernel wrappers launched inside an IF node "

@@ -48,6 +48,15 @@
 //        outputs per thread).
 //      Both add the bias and blend in the same operation order and round to
 //      bf16 with __float2bfloat16_rn.
+//   In a captured step graph the GEMM also sets the condition of the IF
+//   node that skips the block (csrc/cond_node.cu) when the caller passes its
+//   handle: warp 1 of block (0, 0, 0) rebuilds every sample's gate bit from
+//   the partials with sample_gate's sums and operation order, so the bits
+//   are those the kernel returns, and sets the handle to !all(gate).  The IF
+//   node then needs no kernel of its own to read the gate back: B loads of
+//   n_parts partials (128 at B = 8), beside the block's own work.  That
+//   code lives only in the GEMM kernels' kSetCond instances, which a launch
+//   with a handle runs; a launch without one runs the GEMM alone.
 //
 // Bound at B=8, C=128, D=1152 with 4 samples gating (the DiT-XL/2 slice with
 // 4 serving slots): X, P and out are 2.36 MB each in bf16, PO is read for
@@ -124,6 +133,24 @@ gate_partials(const T* __restrict__ x, const T* __restrict__ prev,
   }
 }
 
+// Sample b's gate from its diff, in f32 in the reference's operation order.
+__device__ __forceinline__ int gate_of(float diff, float sigma2,
+                                       uint8_t eligible, float thr,
+                                       float nd) {
+  const float stat = __fdiv_rn(diff, __fmul_rn(fmaxf(sigma2, 1e-30f), nd));
+  return (stat <= thr) && (eligible != 0);
+}
+
+// Sample b's diff re-summed from the partials in part order (sample_gate's
+// sum, alone).
+__device__ __forceinline__ float sample_diff(
+    const float* __restrict__ partials, int n_parts, int b) {
+  float diff = 0.f;
+  for (int p = 0; p < n_parts; ++p)
+    diff = __fadd_rn(diff, partials[((long long)b * n_parts + p) * 2]);
+  return diff;
+}
+
 // Sample b's diff and prevsq re-summed from the partials in part order, and
 // its gate rebuilt in f32 in the reference's operation order; the blocks of
 // tile (0, 0) write them out.  By one thread of each block.
@@ -132,13 +159,12 @@ __device__ __forceinline__ int sample_gate(
     const float* __restrict__ partials, int n_parts,
     uint8_t* __restrict__ gate_out, float* __restrict__ diff_out,
     float* __restrict__ prevsq_out, int b, float thr, float nd) {
-  float diff = 0.f, prevsq = 0.f;
+  float diff = 0.f, prevsq = 0.f;  // sample_diff's order, both in one pass
   for (int p = 0; p < n_parts; ++p) {
     diff = __fadd_rn(diff, partials[((long long)b * n_parts + p) * 2]);
     prevsq = __fadd_rn(prevsq, partials[((long long)b * n_parts + p) * 2 + 1]);
   }
-  const float stat = __fdiv_rn(diff, __fmul_rn(fmaxf(sigma2[b], 1e-30f), nd));
-  const int g = (stat <= thr) && (eligible[b] != 0);
+  const int g = gate_of(diff, sigma2[b], eligible[b], thr, nd);
   if (blockIdx.x == 0 && blockIdx.y == 0) {
     gate_out[b] = (uint8_t)g;
     diff_out[b] = diff;
@@ -147,7 +173,29 @@ __device__ __forceinline__ int sample_gate(
   return g;
 }
 
-template <typename T>
+// The block-skip IF node's condition, !all(gate_b) over the B samples, into
+// `cond` when `set_cond`: by warp 1 of block (0, 0, 0), each lane rebuilding
+// its samples' gates as sample_gate does, the warp ANDing them.  Called by
+// every thread before the block's first barrier, and compiled only into the
+// kernels' kSetCond instances: its code slowed the GEMM that holds it even
+// where it set nothing (launch/gate_designs.py).
+__device__ __forceinline__ void set_skip_condition(
+    cudaGraphConditionalHandle cond, int set_cond,
+    const float* __restrict__ sigma2, const uint8_t* __restrict__ eligible,
+    const float* __restrict__ partials, int n_parts, float thr, float nd) {
+  if (!set_cond || threadIdx.x / 32 != 1 || blockIdx.x != 0 ||
+      blockIdx.y != 0 || blockIdx.z != 0)
+    return;
+  const int lane = threadIdx.x % 32;
+  int all = 1;
+  for (int b = lane; b < (int)gridDim.z; b += 32)
+    all &= gate_of(sample_diff(partials, n_parts, b), sigma2[b], eligible[b],
+                   thr, nd);
+  all = __all_sync(0xffffffffu, all);
+  if (lane == 0) cudaGraphSetConditional(cond, all ? 0u : 1u);
+}
+
+template <typename T, bool kSetCond>
 __global__ void __launch_bounds__(kGemmThreads)
 gate_gemm(const T* __restrict__ x, const T* __restrict__ prev_out,
           const float* __restrict__ w, const float* __restrict__ bias,
@@ -156,7 +204,7 @@ gate_gemm(const T* __restrict__ x, const T* __restrict__ prev_out,
           T* __restrict__ out, uint8_t* __restrict__ gate_out,
           float* __restrict__ diff_out, float* __restrict__ prevsq_out,
           int C, int D, float thr, float nd, float gamma, float one_minus_gamma,
-          int use_blend) {
+          int use_blend, cudaGraphConditionalHandle cond, int set_cond) {
   const int b = blockIdx.z;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
@@ -164,6 +212,9 @@ gate_gemm(const T* __restrict__ x, const T* __restrict__ prev_out,
   if (threadIdx.x == 0)
     s_gate = sample_gate(sigma2, eligible, partials, n_parts, gate_out,
                          diff_out, prevsq_out, b, thr, nd);
+  if constexpr (kSetCond)
+    set_skip_condition(cond, set_cond, sigma2, eligible, partials, n_parts,
+                       thr, nd);
   __syncthreads();
   const long long base = (long long)b * C * D;
 
@@ -237,7 +288,8 @@ int launch(const void* x, const void* prev_in, const void* prev_out,
            const void* eligible, void* out, void* gate, void* diff,
            void* prevsq, void* partials, int n_parts, int B, int C, int D,
            float thr, float nd, float gamma, float one_minus_gamma,
-           int use_blend, cudaStream_t stream) {
+           int use_blend, cudaGraphConditionalHandle cond, int set_cond,
+           cudaStream_t stream) {
   const long long n = (long long)C * D;
   gate_partials<T><<<dim3(n_parts, B), kRedThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(prev_in),
@@ -245,14 +297,15 @@ int launch(const void* x, const void* prev_in, const void* prev_out,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((D + BN - 1) / BN, (C + BM - 1) / BM, B);
-  gate_gemm<T><<<grid, kGemmThreads, 0, stream>>>(
+  const auto gemm = set_cond ? gate_gemm<T, true> : gate_gemm<T, false>;
+  gemm<<<grid, kGemmThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(prev_out),
       static_cast<const float*>(w), static_cast<const float*>(bias),
       static_cast<const float*>(sigma2), static_cast<const uint8_t*>(eligible),
       static_cast<const float*>(partials), n_parts, static_cast<T*>(out),
       static_cast<uint8_t*>(gate), static_cast<float*>(diff),
       static_cast<float*>(prevsq), C, D, thr, nd, gamma, one_minus_gamma,
-      use_blend);
+      use_blend, cond, set_cond);
   return (int)cudaGetLastError();
 }
 
@@ -262,6 +315,7 @@ int launch(const void* x, const void* prev_in, const void* prev_out,
 
 using GateGemm = TcGemm<1, 64, 4>;
 
+template <bool kSetCond>
 __global__ void __launch_bounds__(GateGemm::kThreads)
 gate_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
                 const __grid_constant__ CUtensorMap wmap,
@@ -274,7 +328,8 @@ gate_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
                 __nv_bfloat16* __restrict__ out, uint8_t* __restrict__ gate_out,
                 float* __restrict__ diff_out, float* __restrict__ prevsq_out,
                 int C, int D, float thr, float nd, float gamma,
-                float one_minus_gamma, int use_blend, int w_passes) {
+                float one_minus_gamma, int use_blend, int w_passes,
+                cudaGraphConditionalHandle cond, int set_cond) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ int s_gate;
   const TcRing ring = tc_ring<1, 64, 4>(smem_raw);
@@ -286,6 +341,9 @@ gate_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
                          diff_out, prevsq_out, b, thr, nd);
     if (s_gate) tc_init<1, 4>(ring);
   }
+  if constexpr (kSetCond)
+    set_skip_condition(cond, set_cond, sigma2, eligible, partials, n_parts,
+                       thr, nd);
   __syncthreads();
   const long long base = (long long)b * C * D;
 
@@ -321,9 +379,11 @@ int launch_wgmma(const void* x, const void* prev_in, const void* prev_out,
                  void* prevsq, void* partials, int n_parts, int B, int C,
                  int D, float thr, float nd, float gamma,
                  float one_minus_gamma, int use_blend, int w_passes,
+                 cudaGraphConditionalHandle cond, int set_cond,
                  cudaStream_t stream) {
-  static bool opted_in = false;
-  int err = tc_opt_in(gate_gemm_wgmma, GateGemm::kSmem, opted_in);
+  static bool opted_in[2] = {false, false};
+  const auto gemm = set_cond ? gate_gemm_wgmma<true> : gate_gemm_wgmma<false>;
+  int err = tc_opt_in(gemm, GateGemm::kSmem, opted_in[set_cond ? 1 : 0]);
   if (err != 0) return err;
   const int kp = (D + kTcChunk - 1) / kTcChunk * kTcChunk;
   CUtensorMap xmap, wmap;
@@ -338,7 +398,7 @@ int launch_wgmma(const void* x, const void* prev_in, const void* prev_out,
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const dim3 grid((D + 63) / 64, (C + 63) / 64, B);
-  gate_gemm_wgmma<<<grid, GateGemm::kThreads, GateGemm::kSmem, stream>>>(
+  gemm<<<grid, GateGemm::kThreads, GateGemm::kSmem, stream>>>(
       xmap, wmap, static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(prev_out),
       static_cast<const float*>(bias), static_cast<const float*>(sigma2),
@@ -346,7 +406,7 @@ int launch_wgmma(const void* x, const void* prev_in, const void* prev_out,
       static_cast<const float*>(partials), n_parts,
       static_cast<__nv_bfloat16*>(out), static_cast<uint8_t*>(gate),
       static_cast<float*>(diff), static_cast<float*>(prevsq), C, D, thr, nd,
-      gamma, one_minus_gamma, use_blend, w_passes);
+      gamma, one_minus_gamma, use_blend, w_passes, cond, set_cond);
   return (int)cudaGetLastError();
 }
 
@@ -358,7 +418,10 @@ bool wgmma_takes(int B, int C, int D) {
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16 (x, prev_in, prev_out and out).
-// Returns cudaGetLastError() after the launches (0 = success).
+// Every launcher takes, before the stream, the handle of an IF node's
+// condition and whether to set it to !all(gate) (set_cond; a handle of the
+// graph being captured, 0 and 0 outside one).  Returns cudaGetLastError()
+// after the launches (0 = success).
 extern "C" int fused_gate_launch(const void* x, const void* prev_in,
                                  const void* prev_out, const void* w,
                                  const void* bias, const void* sigma2,
@@ -367,17 +430,20 @@ extern "C" int fused_gate_launch(const void* x, const void* prev_in,
                                  int n_parts, int B, int C, int D,
                                  int dtype_code, float thr, float nd,
                                  float gamma, float one_minus_gamma,
-                                 int use_blend, void* stream) {
+                                 int use_blend, unsigned long long cond,
+                                 int set_cond, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == 1)
     return launch<__nv_bfloat16>(x, prev_in, prev_out, w, bias, sigma2,
                                  eligible, out, gate, diff, prevsq, partials,
                                  n_parts, B, C, D, thr, nd, gamma,
-                                 one_minus_gamma, use_blend, s);
+                                 one_minus_gamma, use_blend, cond, set_cond,
+                                 s);
   if (dtype_code == 0)
     return launch<float>(x, prev_in, prev_out, w, bias, sigma2, eligible,
                          out, gate, diff, prevsq, partials, n_parts, B, C, D,
-                         thr, nd, gamma, one_minus_gamma, use_blend, s);
+                         thr, nd, gamma, one_minus_gamma, use_blend, cond,
+                         set_cond, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -395,12 +461,13 @@ extern "C" int fused_gate_wgmma_launch(const void* x, const void* prev_in,
                                        void* partials, int n_parts, int B,
                                        int C, int D, float thr, float nd,
                                        float gamma, float one_minus_gamma,
-                                       int use_blend, void* stream) {
+                                       int use_blend, unsigned long long cond,
+                                       int set_cond, void* stream) {
   if (!wgmma_takes(B, C, D)) return (int)cudaErrorInvalidValue;
   return launch_wgmma(x, prev_in, prev_out, w_bf16, bias, sigma2, eligible,
                       out, gate, diff, prevsq, partials, n_parts, B, C, D,
-                      thr, nd, gamma, one_minus_gamma, use_blend, 1,
-                      static_cast<cudaStream_t>(stream));
+                      thr, nd, gamma, one_minus_gamma, use_blend, 1, cond,
+                      set_cond, static_cast<cudaStream_t>(stream));
 }
 
 // The wgmma_split route: as fused_gate_wgmma_launch, with w_split the
@@ -412,10 +479,10 @@ extern "C" int fused_gate_wgmma_split_launch(
     const void* eligible, void* out, void* gate, void* diff, void* prevsq,
     void* partials, int n_parts, int B, int C, int D, float thr, float nd,
     float gamma, float one_minus_gamma, int use_blend, int terms,
-    void* stream) {
+    unsigned long long cond, int set_cond, void* stream) {
   if (!wgmma_takes(B, C, D) || terms < 2) return (int)cudaErrorInvalidValue;
   return launch_wgmma(x, prev_in, prev_out, w_split, bias, sigma2, eligible,
                       out, gate, diff, prevsq, partials, n_parts, B, C, D,
-                      thr, nd, gamma, one_minus_gamma, use_blend, terms,
-                      static_cast<cudaStream_t>(stream));
+                      thr, nd, gamma, one_minus_gamma, use_blend, terms, cond,
+                      set_cond, static_cast<cudaStream_t>(stream));
 }

@@ -41,6 +41,36 @@
 // copies of W read.  Two terms (2^-16) left the fitted bypass at up to
 // 8.6e-4 rel-L2 on the card, with outputs near 0 past bf16's 2e-2.
 //
+// gemv route (the wgmma route's rule at M <= route.GEMV_MAX_ROWS with a
+// single bf16 copy: the decode gate's M = batch rows).  At such M the wgmma
+// route's 128 x 192 tile is 124 rows of padding and its grid ceil(F / 192)
+// blocks: at F = 1024, six SMs stream all of W, and it lost to one bf16
+// addmm at every decode width (PERF.md).  This kernel spreads W over every
+// SM instead: grid (ceil(F / 256) column tiles, S splits of K, ceil(M / 4)
+// row groups), S from route.gemv_plan so that the tiles times the splits
+// fill the 132 SMs about twice over (two blocks an SM) and no split holds
+// fewer than 64 rows of K.  256 threads: 32 a column group of 8 columns
+// (one 16-byte load of a W row), 8 K lanes (the warps), lane l taking rows
+// k0 + l, k0 + l + 8, ... of the split, ascending, four 16-byte loads in
+// flight and the next four issued before the current ones are used.  The
+// block's first loads of W are issued before it waits for the kernel before
+// it (programmatic stream serialization: W is a weight no kernel of the
+// step writes; X, the workspace, the tickets and out are touched only after
+// the wait).  X's slice of the split, 4 rows, sits in shared memory as f32;
+// each thread keeps 4 x 8 f32 sums (plain fmaf: bf16 times bf16 is exact in
+// f32, so each step is one rounding of the sum).  The tensor cores do not
+// pay at 4 rows: mma.sync would pad the rows to 8 or 16, and the FMAs here
+// (2 M D F, 0.4 GFLOP at M = 4, D = F = 7168) cost a few percent of the
+// time W's bytes take; what the kernel must do is keep enough loads in
+// flight on every SM.  The 8 lanes' sums meet in shared memory, added in
+// lane order; each block writes its split's (4, 256) partial to a workspace
+// and takes an integer ticket for its column tile (an acq_rel atomic, as
+// saliency_delta's onepass route): the block that takes the last one adds
+// the S partials in split order, adds the bias, blends, rounds to bf16
+// with __float2bfloat16_rn and puts the ticket back to 0 for the next call
+// (graph replays too).  No float atomics: results repeat bitwise; at W = I
+// every partial is exact, so the result is the other routes' bits.
+//
 // SIMT route (f32, and bf16 shapes the wgmma route does not take): f32 is
 // held to 1e-4, which neither bf16 nor TF32 operands meet at K = 1152.  One
 // block of 256 threads owns a 128x128 output tile and walks K in steps of 8:
@@ -61,7 +91,10 @@
 // wgmma route is bound by operations.  The split route computes the same
 // function with the f32 W (X, the f32 W and out are 14.7 MB, 4.40 us), so
 // its bound is the same 5.50 us; its own three passes are 16.3 GFLOP,
-// 16.5 us, 3x that bound.
+// 16.5 us, 3x that bound.  The gemv route at M = 4, D = F = 1024 reads the
+// bf16 W (2.10 MB) and writes 8 KB: 0.63 us at 3.35 TB/s, by bytes (the
+// product's 8.4 MFLOP is 8.5 ns on the tensor cores); at D = F = 7168, 102.8
+// MB, 30.7 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -252,6 +285,217 @@ int launch_wgmma(const void* x, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gemv route (bf16, M <= a few rows)
+// ---------------------------------------------------------------------------
+
+constexpr int kGvThreads = 256;
+constexpr int kGvLanes = 8;                           // K lanes: the warps
+constexpr int kGvColThreads = kGvThreads / kGvLanes;  // 32
+constexpr int kGvCols = kGvColThreads * 8;            // 256 columns a tile
+constexpr int kGvRows = 4;                            // rows a row group
+constexpr int kGvMaxK = 2048;                         // K rows a split
+constexpr int kGvUnroll = 4;                          // W loads in flight
+constexpr int kGvMaxTickets = 65536;                  // tiles x row groups
+
+__device__ unsigned int g_gemv_tickets[kGvMaxTickets];
+
+__device__ __forceinline__ uint4 gv_load_w(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));  // read-only path
+}
+
+__device__ __forceinline__ void gv_fma(float (&acc)[kGvRows][8], uint4 wv,
+                                       float4 xv) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&wv);
+  float wf[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    wf[2 * i] = f.x;
+    wf[2 * i + 1] = f.y;
+  }
+  const float xr[kGvRows] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+  for (int r = 0; r < kGvRows; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(xr[r], wf[j], acc[r][j]);
+}
+
+// Grid (tiles, S, row groups); ws holds (row groups, tiles, S, 4, 256) f32.
+__global__ void __launch_bounds__(kGvThreads, 2)
+linear_blend_kernel_gemv(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ w,
+                         const float* __restrict__ bias,
+                         const __nv_bfloat16* __restrict__ prev,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ ws, int M, int D, int F, int kc,
+                         float gamma, float one_minus_gamma, int use_prev) {
+  // X's slice as (k, 4 rows), then the lanes' sums as (lane, row, column)
+  __shared__ float4 smem[kGvMaxK];
+  __shared__ int last;
+  const int tile = blockIdx.x, split = blockIdx.y, group = blockIdx.z;
+  const int splits = gridDim.y;
+  const int k0 = split * kc;
+  const int n_k = min(D - k0, kc);
+  const int r0 = group * kGvRows;
+  const int lane = threadIdx.x / kGvColThreads;
+  const int c = tile * kGvCols + (threadIdx.x % kGvColThreads) * 8;
+  const bool live = c < F;
+  // lane's rows of the split: k0 + lane + 8 i, i < n_i
+  const int n_i = lane < n_k ? (n_k - lane + kGvLanes - 1) / kGvLanes : 0;
+  const __nv_bfloat16* wp = w + (long long)(k0 + lane) * F + c;
+  const long long step = (long long)kGvLanes * F;
+
+  uint4 cur[kGvUnroll];
+#pragma unroll
+  for (int u = 0; u < kGvUnroll; ++u)
+    cur[u] = (live && u < n_i) ? gv_load_w(wp + u * step)
+                               : make_uint4(0, 0, 0, 0);
+  // thread t's outputs if its block is its tile's last: row t / 64, columns
+  // 4 (t % 64) ... + 3 of the tile; their bias, a weight too, read now
+  const int my_r = threadIdx.x / (kGvCols / 4);
+  const int my_c = 4 * (threadIdx.x % (kGvCols / 4));
+  const int gc = tile * kGvCols + my_c;
+  const float4 bias4 =
+      gc < F ? __ldg(reinterpret_cast<const float4*>(bias + gc))
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the next kernel may launch now; X, ws, the tickets and out are touched
+  // only once the kernel before this one has finished
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  const int rows = min(kGvRows, M - r0);
+  for (int i = threadIdx.x; i < n_k; i += kGvThreads) {
+    float v[kGvRows];
+#pragma unroll
+    for (int r = 0; r < kGvRows; ++r)
+      v[r] = r < rows ? __bfloat162float(x[(long long)(r0 + r) * D + k0 + i])
+                      : 0.f;
+    smem[i] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+
+  float acc[kGvRows][8];
+#pragma unroll
+  for (int r = 0; r < kGvRows; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  if (live) {
+    for (int i0 = 0; i0 < n_i; i0 += kGvUnroll) {
+      uint4 nxt[kGvUnroll];
+#pragma unroll
+      for (int u = 0; u < kGvUnroll; ++u) {
+        const int i = i0 + kGvUnroll + u;
+        nxt[u] = i < n_i ? gv_load_w(wp + i * step) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kGvUnroll; ++u)
+        if (i0 + u < n_i)
+          gv_fma(acc, cur[u], smem[lane + kGvLanes * (i0 + u)]);
+#pragma unroll
+      for (int u = 0; u < kGvUnroll; ++u) cur[u] = nxt[u];
+    }
+  }
+  __syncthreads();  // X's slice is no longer read
+
+  // the lanes' sums: sums[(lane * 4 + r) * 256 + column of the tile]
+  float* sums = reinterpret_cast<float*>(smem);
+  const int col = (threadIdx.x % kGvColThreads) * 8;
+#pragma unroll
+  for (int r = 0; r < kGvRows; ++r) {
+    float4* dst = reinterpret_cast<float4*>(
+        sums + (lane * kGvRows + r) * kGvCols + col);
+    dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  }
+  __syncthreads();
+  const float4* s4 = reinterpret_cast<const float4*>(sums);
+  float4 v = s4[(my_r * kGvCols + my_c) / 4];
+  for (int l = 1; l < kGvLanes; ++l) {
+    const float4 o = s4[((l * kGvRows + my_r) * kGvCols + my_c) / 4];
+    v = make_float4(__fadd_rn(v.x, o.x), __fadd_rn(v.y, o.y),
+                    __fadd_rn(v.z, o.z), __fadd_rn(v.w, o.w));
+  }
+  const long long tile_id = (long long)group * gridDim.x + tile;
+  float4* part = reinterpret_cast<float4*>(ws) +
+                 (tile_id * splits * kGvRows * kGvCols) / 4;
+  part[(split * kGvRows * kGvCols + my_r * kGvCols + my_c) / 4] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // releases the block's partials (ordered before it by the barrier),
+    // acquires the other blocks' for the threads after the next barrier
+    unsigned int old;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(g_gemv_tickets + tile_id)
+                 : "memory");
+    last = old == (unsigned int)(splits - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: the S partials in split order, then bias, blend, bf16
+  float4 t = __ldcg(part + (my_r * kGvCols + my_c) / 4);
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 o =
+        __ldcg(part + (sp * kGvRows * kGvCols + my_r * kGvCols + my_c) / 4);
+    t = make_float4(__fadd_rn(t.x, o.x), __fadd_rn(t.y, o.y),
+                    __fadd_rn(t.z, o.z), __fadd_rn(t.w, o.w));
+  }
+  if (my_r < rows && gc < F) {  // F % 8 == 0: the 4 columns are all in
+    const long long o = (long long)(r0 + my_r) * F + gc;
+    float vals[4] = {t.x, t.y, t.z, t.w};
+    const float bs[4] = {bias4.x, bias4.y, bias4.z, bias4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      vals[j] = __fadd_rn(vals[j], bs[j]);
+      if (use_prev)
+        vals[j] = __fadd_rn(__fmul_rn(gamma, vals[j]),
+                            __fmul_rn(one_minus_gamma,
+                                      __bfloat162float(prev[o + j])));
+    }
+    __nv_bfloat162 lo = __floats2bfloat162_rn(vals[0], vals[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(vals[2], vals[3]);
+    uint2 packed;
+    packed.x = *reinterpret_cast<unsigned int*>(&lo);
+    packed.y = *reinterpret_cast<unsigned int*>(&hi);
+    *reinterpret_cast<uint2*>(out + o) = packed;
+  }
+  if (threadIdx.x == 0) g_gemv_tickets[tile_id] = 0;  // for the next call
+}
+
+int launch_gemv(const void* x, const void* w, const void* bias,
+                const void* prev, void* out, void* ws, int M, int D, int F,
+                int kc, float gamma, float one_minus_gamma, int use_prev,
+                cudaStream_t stream) {
+  if (M < 1 || D < 8 || F < 8 || D % 8 != 0 || F % 8 != 0 || kc < 1 ||
+      kc > kGvMaxK)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (F + kGvCols - 1) / kGvCols;
+  const int splits = (D + kc - 1) / kc;
+  const int groups = (M + kGvRows - 1) / kGvRows;
+  if ((long long)tiles * groups > kGvMaxTickets || splits > 65535 ||
+      groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, splits, groups);
+  cfg.blockDim = dim3(kGvThreads, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, linear_blend_kernel_gemv, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(prev),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), M, D, F, kc,
+      gamma, one_minus_gamma, use_prev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16 (x, prev and out).  use_prev = 0
@@ -299,4 +543,32 @@ extern "C" int linear_blend_wgmma_split_launch(
   return launch_wgmma(x, w_split, bias, prev, out, M, D, F, gamma,
                       one_minus_gamma, use_prev, terms,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The gemv route: x (M, D), prev and out (M, F) bf16, w_bf16 (D, F) bf16,
+// bias (F,) f32, D % 8 == 0, F % 8 == 0, every base 16-byte aligned; ws the
+// (ceil(M / 4), ceil(F / 256), ceil(D / kc), 4, 256) f32 workspace, kc the
+// K rows of a split (a multiple of 8, at most 2048; route.gemv_plan).
+// use_prev = 0 leaves prev unread.  Returns cudaGetLastError() after the
+// launch (0 = success).
+extern "C" int linear_blend_gemv_launch(const void* x, const void* w_bf16,
+                                        const void* bias, const void* prev,
+                                        void* out, void* ws, int M, int D,
+                                        int F, int kc, float gamma,
+                                        float one_minus_gamma, int use_prev,
+                                        void* stream) {
+  return launch_gemv(x, w_bf16, bias, prev, out, ws, M, D, F, kc, gamma,
+                     one_minus_gamma, use_prev,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The gemv route's first `count` tickets (at most kGvMaxTickets) of the
+// current device, copied into host memory `out`: every call leaves them at
+// zero.  A synchronizing read, for tests.  Returns the CUDA error (0 =
+// success).
+extern "C" int linear_blend_gemv_tickets(unsigned int* out, int count) {
+  if (count < 0 || count > kGvMaxTickets) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, g_gemv_tickets,
+                                   sizeof(unsigned int) * (size_t)count, 0,
+                                   cudaMemcpyDeviceToHost);
 }

@@ -12,7 +12,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 # a wrapper counts its launches on itself: ``fn.launches``, and per route
-# or mode ``fn.launches_by_route`` / ``fn.launches_by_mode``
+# or mode ``fn.launches_by_route`` / ``fn.launches_by_mode``; ``if_all``
+# also its IF nodes apart from its condition kernels, ``fn.nodes``
+_SCALARS = ("launches", "nodes")
 _PER = ("launches_by_route", "launches_by_mode")
 
 Counts = Dict[Tuple[str, str, str], int]
@@ -40,7 +42,9 @@ def read_counts() -> Counts:
     """Every counter by (wrapper, attribute, key); key "" for the total."""
     out: Counts = {}
     for name, fn in wrappers().items():
-        out[(name, "launches", "")] = fn.launches
+        for attr in _SCALARS:
+            if hasattr(fn, attr):
+                out[(name, attr, "")] = getattr(fn, attr)
         for per in _PER:
             for key, n in getattr(fn, per, {}).items():
                 out[(name, per, key)] = n
@@ -59,8 +63,8 @@ def add_counts(counts: Counts, times: int = 1) -> None:
     fns = wrappers()
     for (name, attr, key), n in counts.items():
         fn = fns[name]
-        if attr == "launches":
-            fn.launches += times * n
+        if attr in _SCALARS:
+            setattr(fn, attr, getattr(fn, attr) + times * n)
         else:
             getattr(fn, attr)[key] += times * n
 
@@ -68,7 +72,9 @@ def add_counts(counts: Counts, times: int = 1) -> None:
 def zero_counts() -> None:
     """Every counter to 0."""
     for fn in wrappers().values():
-        fn.launches = 0
+        for attr in _SCALARS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
         for per in _PER:
             if hasattr(fn, per):
                 setattr(fn, per, dict.fromkeys(getattr(fn, per), 0))

@@ -9,7 +9,10 @@ picks: ``"wgmma"`` (bf16 X against the caller's bf16 copy of W,
 that copy is a split one, W as bf16 terms) or ``"simt"`` (f32 W), unless
 the call names one (``gemm=``).  Each call (the partial sums and the GEMM, two kernels on the
 stream) adds one to ``fused_gate.launches`` and to
-``fused_gate.launches_by_route[route]``.
+``fused_gate.launches_by_route[route]``.  In a captured step graph the
+caller may hand the GEMM the handle of the IF node that skips the block
+(``cond=``, from ``step_graph.producer_condition``): the GEMM sets it to
+!all(gate) from the bits it returns, on every route.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ F32 = torch.float32
 REDUCTION_PARTS = 16          # partial sums per sample in the first launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ull = ctypes.c_ulonglong
 
 
 # the launcher of each route
@@ -34,12 +38,14 @@ _LAUNCHERS = {route.WGMMA: "fused_gate_wgmma_launch",
 
 def _kernel(which: str):
     """The launcher of route ``which``: the SIMT one takes a dtype code
-    after D, the split one the number of W's terms after use_blend."""
+    after D, the split one the number of W's terms after use_blend; each
+    then the IF node's condition handle and whether to set it."""
     fn = getattr(build.load_library("fused_gate").lib, _LAUNCHERS[which])
     if fn.argtypes is None:
         n_int = 5 if which == route.SIMT else 4
         tail = [_int] * (2 if which == route.WGMMA_SPLIT else 1)
-        fn.argtypes = [_vp] * 12 + [_int] * n_int + [_flt] * 4 + tail + [_vp]
+        fn.argtypes = ([_vp] * 12 + [_int] * n_int + [_flt] * 4 + tail
+                       + [_ull, _int, _vp])
         fn.restype = _int
     return fn
 
@@ -80,7 +86,7 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
                sigma2: torch.Tensor, eligible: torch.Tensor, *,
                threshold: float, gamma: float = 0.5, use_blend: bool = True,
                w_bf16: Optional[torch.Tensor] = None,
-               gemm: Optional[str] = None
+               gemm: Optional[str] = None, cond: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """x, prev_in, prev_out: (B, C, D) float32 or bfloat16; w: (D, D) and
@@ -90,7 +96,9 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
     (``route.check_w_split``), which the wgmma_split route multiplies (not
     read on the CPU or on the SIMT route); gemm: the route to launch on
     CUDA (``route.ROUTES``), None for the rule's pick (ignored on the
-    CPU).  Returns
+    CPU); cond: the handle of an IF node's condition in the graph being
+    captured, which the GEMM sets to !all(gate) (ignored on the CPU).
+    Returns
     (out (B,C,D) in x.dtype, gate (B,) bool, diff_sq (B,) f32,
     prev_sq (B,) f32), as ``ref.fused_gate``."""
     _check(x, prev_in, prev_out, w, b, sigma2, eligible)
@@ -104,7 +112,8 @@ def fused_gate(x: torch.Tensor, prev_in: torch.Tensor,
     which = gemm or route.gemm_route(x.dtype, d, d, _aligned(x, prev_out, b),
                                      w_bf16)
     return _launch(which, x, prev_in, prev_out, w, b, sigma2, eligible,
-                   float(threshold), float(gamma), bool(use_blend), w_bf16)
+                   float(threshold), float(gamma), bool(use_blend), w_bf16,
+                   cond)
 
 
 def _aligned(x, prev_out, b):
@@ -115,11 +124,12 @@ def _aligned(x, prev_out, b):
 
 def _launch(which: str, x, prev_in, prev_out, w, b, sigma2, eligible,
             threshold: float, gamma: float, use_blend: bool,
-            copy: Optional[torch.Tensor]):
+            copy: Optional[torch.Tensor], cond: Optional[int] = None):
     """Launch route ``which`` on CUDA tensors that passed ``_check``, with
     ``copy`` the tensor-core copy of W it multiplies (single for wgmma,
-    split for wgmma_split; not read on SIMT); raises if the route does not
-    take them."""
+    split for wgmma_split; not read on SIMT) and ``cond`` the IF node's
+    condition handle to set, if any; raises if the route does not take
+    them."""
     bsz, c, d = x.shape
     if which not in route.ROUTES:
         raise ValueError(f"unknown route {which!r}")
@@ -148,7 +158,7 @@ def _launch(which: str, x, prev_in, prev_out, w, b, sigma2, eligible,
         err = _kernel(which)(
             *ptrs, REDUCTION_PARTS, bsz, c, d, *dtype_code, threshold,
             float(c * d), gamma, 1.0 - gamma, int(use_blend), *terms,
-            stream)
+            cond or 0, int(cond is not None), stream)
     if err != 0:
         raise RuntimeError(f"fused_gate kernel ({which}) launch failed: "
                            f"CUDA error {err}")

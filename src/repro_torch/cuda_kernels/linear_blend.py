@@ -5,15 +5,17 @@ linear_blend``.  CPU tensors go to the plain version
 (``ref.linear_blend``), which ignores the copies of W; CUDA tensors launch
 a kernel or raise — there is no fallback.  The kernel is the one of the
 route ``route.gemm_route`` picks: ``"wgmma"`` (bf16 X against the caller's
-bf16 copy of W, ``w_bf16=``, required there), ``"wgmma_split"`` (the same
-kernel, where that copy is a split one, W as bf16 terms) or ``"simt"`` (f32
-W), unless the call names one (``gemm=``).  Each launch adds one to ``linear_blend.launches``
-and to ``linear_blend.launches_by_route[route]``.
+bf16 copy of W, ``w_bf16=``, required there), ``"gemv"`` (the same
+operands at M <= ``route.GEMV_MAX_ROWS`` rows: a split-K kernel over every
+SM, ``route.gemv_plan``), ``"wgmma_split"`` (the wgmma kernel, where that
+copy is a split one, W as bf16 terms) or ``"simt"`` (f32 W), unless the
+call names one (``gemm=``).  Each launch adds one to
+``linear_blend.launches`` and to ``linear_blend.launches_by_route[route]``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -27,15 +29,21 @@ _vp, _int, _flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def _kernel(which: str):
     """The launcher of route ``which``: the SIMT one takes a dtype code
-    after F, the split one the number of W's terms after use_prev."""
+    after F, the split one the number of W's terms after use_prev, the
+    gemv one a workspace after out and the K rows of a split after F."""
     name = {route.WGMMA: "linear_blend_wgmma_launch",
             route.WGMMA_SPLIT: "linear_blend_wgmma_split_launch",
+            route.GEMV: "linear_blend_gemv_launch",
             route.SIMT: "linear_blend_launch"}[which]
     fn = getattr(build.load_library("linear_blend").lib, name)
     if fn.argtypes is None:
-        n_int = 4 if which == route.SIMT else 3
-        tail = [_int] * (2 if which == route.WGMMA_SPLIT else 1)
-        fn.argtypes = [_vp] * 5 + [_int] * n_int + [_flt] * 2 + tail + [_vp]
+        if which == route.GEMV:
+            fn.argtypes = [_vp] * 6 + [_int] * 4 + [_flt] * 2 + [_int, _vp]
+        else:
+            n_int = 4 if which == route.SIMT else 3
+            tail = [_int] * (2 if which == route.WGMMA_SPLIT else 1)
+            fn.argtypes = ([_vp] * 5 + [_int] * n_int + [_flt] * 2 + tail
+                           + [_vp])
         fn.restype = _int
     return fn
 
@@ -71,11 +79,12 @@ def linear_blend(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  gemm: Optional[str] = None) -> torch.Tensor:
     """x: (M, D) and prev: (M, F) float32 or bfloat16 (one dtype); w: (D, F)
     and b: (F,) float32; w_bf16: the tensor-core copy of w, made once by
-    the caller: w rounded to bfloat16, which the wgmma route multiplies, or
-    w split into bfloat16 terms (``route.check_w_split``), which the
-    wgmma_split route multiplies (not read on the CPU or on the SIMT
-    route); gemm: the route to launch on CUDA (``route.ROUTES``), None for
-    the rule's pick (ignored on the CPU).
+    the caller: w rounded to bfloat16, which the wgmma and gemv routes
+    multiply, or w split into bfloat16 terms (``route.check_w_split``),
+    which the wgmma_split route multiplies (not read on the CPU or on the
+    SIMT route); gemm: the route to launch on CUDA
+    (``route.BLEND_ROUTES``), None for the rule's pick (ignored on the
+    CPU).
     Returns gamma * (x @ w + b) + (1-gamma) * prev,
     (M, F) in x.dtype, as ``ref.linear_blend``; at gamma = 1 the kernel
     does not read prev."""
@@ -86,9 +95,13 @@ def linear_blend(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"linear_blend runs on CPU or CUDA, not {x.device}")
     which = gemm or route.gemm_route(x.dtype, x.shape[1], w.shape[1],
-                                     (t.data_ptr() for t in (x, b, prev)),
-                                     w_bf16)
+                                     _addresses(x, b, prev), w_bf16,
+                                     m=x.shape[0])
     return _launch(which, x, w, b, prev, gamma, w_bf16)
+
+
+def _addresses(x, b, prev):
+    return (t.data_ptr() for t in (x, b, prev))
 
 
 def _launch(which: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -96,19 +109,21 @@ def _launch(which: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             copy: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch the kernel of route ``which`` on CUDA tensors that passed
     ``_check``, with ``copy`` the tensor-core copy of W it multiplies
-    (single for wgmma, split for wgmma_split; not read on SIMT); raises if
-    the route does not take them."""
+    (single for wgmma and gemv, split for wgmma_split; not read on SIMT);
+    raises if the route does not take them."""
     m, d = x.shape
     f = w.shape[1]
-    if which not in route.ROUTES:
+    if which not in route.BLEND_ROUTES:
         raise ValueError(f"unknown route {which!r}")
     if which != route.SIMT:
-        if route.gemm_route(x.dtype, d, f, (t.data_ptr() for t in
-                                            (x, b, prev))) == route.SIMT:
+        if route.gemm_route(x.dtype, d, f, _addresses(x, b, prev)) \
+                == route.SIMT:
             raise ValueError(f"the {which} route does not take {x.dtype} "
                              f"({m}, {d}) x ({d}, {f}) at these addresses")
         (route.check_w_split if which == route.WGMMA_SPLIT
          else route.check_w_bf16)(copy, w)
+    if which == route.GEMV:
+        return _gemv(x, copy, b, prev, gamma, route.gemv_plan(m, d, f))
     if (m + 127) // 128 > MAX_ROW_TILES:
         raise ValueError(f"the linear_blend kernel takes at most "
                          f"{128 * MAX_ROW_TILES} rows, got {m}")
@@ -130,5 +145,49 @@ def _launch(which: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _gemv(x: torch.Tensor, copy: torch.Tensor, b: torch.Tensor,
+          prev: torch.Tensor, gamma: float,
+          plan: route.GemvPlan) -> torch.Tensor:
+    """The gemv route's launch on checked inputs with ``plan``'s split of K
+    (``route.gemv_plan``'s, or another for a measurement)."""
+    m, d = x.shape
+    f = copy.shape[1]
+    if plan.tiles * plan.groups > route.GEMV_MAX_TICKETS:
+        raise ValueError(f"the gemv route takes at most "
+                         f"{route.GEMV_MAX_TICKETS} column tiles x row "
+                         f"groups, got {plan.tiles} x {plan.groups}")
+    out = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    ws = torch.empty((plan.workspace,), dtype=F32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _kernel(route.GEMV)(
+            x.data_ptr(), copy.data_ptr(), b.data_ptr(), prev.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), m, d, f, plan.k_rows, gamma,
+            1.0 - gamma, int(gamma != 1.0), stream)
+    if err != 0:
+        raise RuntimeError(f"linear_blend kernel (gemv) launch failed: CUDA "
+                           f"error {err}")
+    linear_blend.launches += 1
+    linear_blend.launches_by_route[route.GEMV] += 1
+    return out
+
+
+def gemv_tickets(count: int) -> List[int]:
+    """The gemv route's first ``count`` tickets on the current device, read
+    back (a synchronizing copy, for tests): each call leaves every ticket
+    at zero."""
+    if not 0 <= count <= route.GEMV_MAX_TICKETS:
+        raise ValueError(f"count must be in [0, {route.GEMV_MAX_TICKETS}], "
+                         f"got {count}")
+    fn = build.load_library("linear_blend").lib.linear_blend_gemv_tickets
+    fn.argtypes = [ctypes.POINTER(ctypes.c_uint), _int]
+    fn.restype = _int
+    out = (ctypes.c_uint * max(count, 1))()
+    err = fn(out, count)
+    if err != 0:
+        raise RuntimeError(f"reading the tickets failed: CUDA error {err}")
+    return list(out)[:count]
+
+
 linear_blend.launches = 0
-linear_blend.launches_by_route = dict.fromkeys(route.ROUTES, 0)
+linear_blend.launches_by_route = dict.fromkeys(route.BLEND_ROUTES, 0)

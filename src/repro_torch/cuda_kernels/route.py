@@ -23,6 +23,15 @@
   to 1e-4, which bf16 operands do not meet; ragged bf16 shapes), and for a
   call that names it (``gemm="simt"``), which multiplies the f32 W.
 
+``linear_blend`` has a fourth, ``"gemv"``: a call of M <= GEMV_MAX_ROWS
+rows (``gemm_route(..., m=M)``; the decode gate's M = batch) that the
+wgmma rule takes with a single bf16 copy goes to a split-K kernel over
+every SM (``gemv_plan``), where the wgmma route's 128-row tile would be
+nearly all padding and its ceil(F / 192) blocks would leave most SMs idle.
+GEMV_MAX_ROWS is the card's crossover against the wgmma route (PERF.md).
+A split copy stays on ``"wgmma_split"`` at any M: no caller brings one at
+such M on a served path.  ``fused_gate`` does not take the gemv route.
+
 ``knn_density`` and ``merge_assign`` have two routes too
 (``csrc/knn_density.cu``, ``csrc/token_merge.cu``), by ``window_route``:
 
@@ -67,7 +76,9 @@ WGMMA_SPLIT = "wgmma_split"
 SIMT = "simt"
 MMA = "mma"
 ONEPASS = "onepass"
+GEMV = "gemv"
 ROUTES = (WGMMA, WGMMA_SPLIT, SIMT)   # linear_blend, fused_gate
+BLEND_ROUTES = ROUTES + (GEMV,)       # linear_blend
 TC_CHUNK = 64                 # rows of K a wgmma stage holds (tc_gemm.cuh)
 SPLIT_TERMS = 3               # bf16 terms of a split copy: hi, mid, lo
 WINDOW_ROUTES = (MMA, SIMT)   # knn_density, merge_assign
@@ -80,19 +91,71 @@ WINDOW_EXTRA_BYTES = 34_320   # window_mma.cuh kExtraBytes: Gram partials,
 SAL_GROUPS = 32               # saliency_delta.cu kGroups: blocks per sample
 SAL_TOTAL_THREADS = 256       # ... kTotalThreads: the totals' slots
 SAL_MAX_ONEPASS_ROWS = 256    # the longest N the onepass route is picked for
+GEMV_MAX_ROWS = 4             # the most rows the gemv route is picked for
+GEMV_COLS = 256               # linear_blend.cu kGvCols: columns a tile
+GEMV_ROWS = 4                 # ... kGvRows: rows a row group
+GEMV_LANES = 8                # ... kGvLanes: K lanes a block
+GEMV_MAX_K = 2048             # ... kGvMaxK: K rows a split at most
+GEMV_MIN_K = 64               # K rows a split at least (8 a lane)
+GEMV_SMS = 132                # the H100's SMs
+GEMV_BLOCKS = 2 * GEMV_SMS    # blocks the tiles and splits aim at: two an SM
+GEMV_MAX_TICKETS = 65536      # ... kGvMaxTickets: tiles x row groups
 
 
 def gemm_route(dtype: torch.dtype, d: int, f: int,
                addresses: Iterable[int],
-               w_bf16: Optional[torch.Tensor] = None) -> str:
+               w_bf16: Optional[torch.Tensor] = None,
+               m: Optional[int] = None) -> str:
     """The route of a (M, D) x (D, F) call with inputs of ``dtype`` whose
     base addresses are ``addresses``, bringing ``w_bf16``, its tensor-core
-    copy of W: wgmma_split for a split copy, else wgmma, where the tensor
-    cores take the call."""
+    copy of W: wgmma_split for a split copy, else, where the tensor cores
+    take the call, gemv for M <= GEMV_MAX_ROWS (``m`` given: linear_blend's
+    calls) and wgmma above."""
     if (dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
             and all(a % ALIGN == 0 for a in addresses)):
-        return WGMMA_SPLIT if is_split(w_bf16, d) else WGMMA
+        if is_split(w_bf16, d):
+            return WGMMA_SPLIT
+        return GEMV if m is not None and 1 <= m <= GEMV_MAX_ROWS else WGMMA
     return SIMT
+
+
+class GemvPlan(NamedTuple):
+    """The gemv route's grid for a (M, D) x (D, F) call: ``tiles`` column
+    tiles of GEMV_COLS, ``splits`` splits of K of ``k_rows`` rows each (the
+    last one the rest), ``groups`` row groups of GEMV_ROWS; block (tile,
+    split, group) sums lane l's rows k0 + l, k0 + l + GEMV_LANES, ... in
+    order, then the lanes in order, and the last block of a (tile, group)
+    the splits in order."""
+    tiles: int
+    splits: int
+    k_rows: int
+    groups: int
+
+    @property
+    def workspace(self) -> int:
+        """f32 values of the partials' workspace."""
+        return (self.groups * self.tiles * self.splits * GEMV_ROWS
+                * GEMV_COLS)
+
+
+def gemv_plan(m: int, d: int, f: int,
+              blocks: Optional[int] = None) -> GemvPlan:
+    """The gemv route's split of K: as many splits as bring tiles x splits
+    up to GEMV_BLOCKS, none under GEMV_MIN_K rows nor over GEMV_MAX_K, each
+    a whole number of GEMV_LANES rows; where that would put a second block
+    on fewer than half the SMs, one block an SM instead (at D = F = 1536,
+    M = 4, 132 blocks took 0.00574 ms and 144 0.00671 on an NVIDIA H100
+    80GB HBM3 at 700 W: ``chip_smoke.py`` gemv_crossover, PERF.md).
+    ``blocks`` aims tiles x splits at that many blocks instead, with no
+    such correction (the plans ``chip_smoke.py`` times beside this one)."""
+    tiles = -(-f // GEMV_COLS)
+    want = max(1, min((blocks or GEMV_BLOCKS) // tiles, d // GEMV_MIN_K))
+    if blocks is None and GEMV_SMS < tiles * want < GEMV_SMS * 3 // 2:
+        want = max(1, GEMV_SMS // tiles)
+    want = max(want, -(-d // GEMV_MAX_K))
+    k_rows = -(-d // want)
+    k_rows = -(-k_rows // GEMV_LANES) * GEMV_LANES
+    return GemvPlan(tiles, -(-d // k_rows), k_rows, -(-m // GEMV_ROWS))
 
 
 def split_rows(d: int) -> int:

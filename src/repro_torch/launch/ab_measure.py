@@ -13,12 +13,16 @@ in ``<out>/<step>.txt`` and its errors in ``<out>/<step>.err``:
 
 1. ``chip_smoke.py`` of the parent, then of the change (the kernels line
    of each: both trees' kernel times and serve counts from one call);
-2. ``launch/profile_serve.py`` on the DiT fastcache serve: parent, metrics
+2. fused_gate alone (``chip_smoke.py``'s ``phase_fused_gate`` at C = 128
+   and 64, twice each, in a process of its own): parent, change, change,
+   parent;
+3. ``launch/profile_serve.py`` on the DiT fastcache serve: parent, metrics
    plane on, plane off, audit at 1.0, fitted maps, fitted maps, plane off,
    plane on, parent;
-3. ``launch/profile_llm.py --fastcache``: parent, change, change, parent.
+4. ``launch/profile_llm.py --fastcache``: parent, change, change, parent.
 
-Every step runs whatever the steps before it gave.  The last line printed
+``--only`` keeps the steps whose names start with one of its prefixes, in
+this order (``--only gate,smoke_parent``).  Every step runs whatever the steps before it gave.  The last line printed
 is one JSON object: each step's exit code and seconds, and ``failed``, the
 steps that exited non-zero; the module exits 1 if any did.
 """
@@ -33,6 +37,20 @@ import time
 from pathlib import Path
 
 CHANGE = Path(__file__).resolve().parents[3]
+# run from a tree's root: that tree's chip_smoke.py times its fused_gate
+GATE_TIMES = """\
+import torch
+import chip_smoke
+from repro_torch.core import statcache
+from repro_torch.cuda_kernels import build, ref
+from repro_torch.cuda_kernels.fused_gate import fused_gate
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+chip_smoke.emit({"phase": "device", "nvidia_smi": chip_smoke.smi()})
+for c in (128, 64, 128, 64):
+    chip_smoke.phase_fused_gate(torch, torch.device("cuda"), fused_gate, ref,
+                                statcache, c, build)
+"""
 
 
 def steps(parent: Path, out: Path):
@@ -47,8 +65,15 @@ def steps(parent: Path, out: Path):
                 ["-m", "repro_torch.launch.profile_llm", "--fastcache",
                  "--out", str(out / f"profile_llm_{tag}.json")])
 
+    def gate(tag, tree):
+        return (f"gate_{tag}", tree, ["-c", GATE_TIMES])
+
     return [("smoke_parent", parent, ["chip_smoke.py"]),
             ("smoke_change", CHANGE, ["chip_smoke.py"]),
+            gate("parent1", parent),
+            gate("change1", CHANGE),
+            gate("change2", CHANGE),
+            gate("parent2", parent),
             prof("parent1", parent),
             prof("on1", CHANGE),
             prof("off1", CHANGE, "--no-metrics"),
@@ -69,7 +94,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", required=True,
                     help="unpacked checkout of the parent commit")
     ap.add_argument("--out", default="build/ab")
+    ap.add_argument("--only", default="",
+                    help="comma-separated prefixes of the steps to run")
     args = ap.parse_args(argv)
+    only = tuple(p for p in args.only.split(",") if p)
     parent = Path(args.parent).resolve()
     if not (parent / "chip_smoke.py").is_file():
         raise SystemExit(f"{parent} holds no chip_smoke.py")
@@ -77,6 +105,8 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     report = {}
     for name, tree, cmd in steps(parent, out):
+        if only and not name.startswith(only):
+            continue
         env = dict(os.environ, PYTHONPATH=str(tree / "src"))
         t0 = time.perf_counter()
         with open(out / f"{name}.txt", "w") as so, \

@@ -30,9 +30,12 @@ split``: the terms miss W by 2^-24 of |W|, so only the f32 summation order
 and the bf16 output rounding of the values it moved are left; a copy of
 three independent planted terms shows every term is read); the rest, and
 calls that name it
-(``gemm="simt"``), the SIMT route.  Each route is
+(``gemm="simt"``), the SIMT route.  linear_blend's calls of M <=
+``route.GEMV_MAX_ROWS`` rows that would take wgmma take its gemv route
+(split K over every SM, ``-k gemv``), held to the plain version at 2e-2 as
+wgmma is.  Each route is
 also reached through the module's launcher for a named route (``_launch``),
-and at W = I (exact in bf16) wgmma and SIMT agree bitwise.
+and at W = I (exact in bf16) wgmma, gemv and SIMT agree bitwise.
 knn_density and merge_assign have two routes too (``route.window_route``):
 bf16 windows of eligible shape take the mma route (the Gram on the tensor
 cores), the rest the SIMT route; the two differ only in the Gram's summation
@@ -65,9 +68,9 @@ fa_mod = importlib.import_module("repro_torch.cuda_kernels.flash_attention")
 BF16 = torch.bfloat16
 
 
-def _plain_gate(*args, w_bf16=None, gemm=None, **kw):
-    """ref.fused_gate in the wrapper's signature (w_bf16 and gemm are not
-    read)."""
+def _plain_gate(*args, w_bf16=None, gemm=None, cond=None, **kw):
+    """ref.fused_gate in the wrapper's signature (w_bf16, gemm and cond are
+    not read)."""
     return ref.fused_gate(*args, **kw)
 
 
@@ -1499,14 +1502,14 @@ def test_saliency_new_call_sites_onepass_bitwise(cuda_device, shape):
 @pytest.mark.parametrize("m", [1, 4])
 def test_linear_blend_decode_gate_shape_matches_plain(cuda_device, m):
     """The decode gate's approximation: M = batch <= 4 rows, D = F = 1024,
-    bf16, gamma 1, on the route the rule gives (wgmma: one tile row, the
-    rest padding), against the plain version; bitwise at W = I against the
-    SIMT route."""
+    bf16, gamma 1, on the route the rule gives (gemv: split K over every
+    SM), against the plain version; bitwise at W = I against the SIMT
+    route, as the wgmma route is."""
     args = _blend_args(cuda_device, BF16, m, 1024, 1024, seed=m)
     _, by_route = _counts(linear_blend)
     got = linear_blend(*args, gamma=1.0, w_bf16=args[1].to(BF16))
     torch.cuda.synchronize(cuda_device)
-    by_route["wgmma"] += 1
+    by_route["gemv"] += 1
     assert linear_blend.launches_by_route == by_route
     assert got.shape == (m, 1024) and got.dtype == BF16
     want = ref.linear_blend(*args, 1.0)
@@ -1514,9 +1517,124 @@ def test_linear_blend_decode_gate_shape_matches_plain(cuda_device, m):
                                atol=2e-2)
     x, _, b, prev = args
     eye = torch.eye(1024, device=cuda_device)
-    tc = lb_mod._launch("wgmma", x, eye, b, prev, 1.0, eye.to(BF16))
     simt = lb_mod._launch("simt", x, eye, b, prev, 1.0, None)
-    assert torch.equal(tc, simt)
+    for which in ("gemv", "wgmma"):
+        tc = lb_mod._launch(which, x, eye, b, prev, 1.0, eye.to(BF16))
+        assert torch.equal(tc, simt), which
+
+
+# ---------------------------------------------------------------------------
+# linear_blend's gemv route (M <= route.GEMV_MAX_ROWS: the decode gate)
+# ---------------------------------------------------------------------------
+
+# the decode gates' widths (qwen3-0.6b, qwen3-14b, the MoE configs, yi-9b,
+# stablelm-3b, qwen2-vl-2b) and a ragged one (a column tile part full, K
+# not a multiple of a split)
+GEMV_WIDTHS = [1024, 5120, 7168, 4096, 2560, 1536, 1000]
+
+
+def _gemv_ticket_count(m, d, f):
+    from repro_torch.cuda_kernels import route
+    plan = route.gemv_plan(m, d, f)
+    return plan.tiles * plan.groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", GEMV_WIDTHS)
+def test_linear_blend_gemv_route_matches_plain(cuda_device, m, d):
+    """At every decode width and M = 1 ... 4 the wrapper takes the gemv
+    route: within 2e-2 of the plain version (W = I + 0.01 noise rounded to
+    bf16: ~1e-3), a repeat bitwise, the tickets back at 0; at W = I bitwise
+    the SIMT route's."""
+    args = _blend_args(cuda_device, BF16, m, d, d, seed=d + m)
+    _, by_route = _counts(linear_blend)
+    got = linear_blend(*args, gamma=1.0, w_bf16=args[1].to(BF16))
+    torch.cuda.synchronize(cuda_device)
+    by_route["gemv"] += 1
+    assert linear_blend.launches_by_route == by_route
+    want = ref.linear_blend(*args, 1.0)
+    assert got.shape == want.shape and got.dtype == BF16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    again = linear_blend(*args, gamma=1.0, w_bf16=args[1].to(BF16))
+    assert torch.equal(got, again)
+    assert lb_mod.gemv_tickets(_gemv_ticket_count(m, d, d)) == \
+        [0] * _gemv_ticket_count(m, d, d)
+    x, _, b, prev = args
+    eye = torch.eye(d, device=cuda_device)
+    gemv = lb_mod._launch("gemv", x, eye, b, prev, 1.0, eye.to(BF16))
+    simt = lb_mod._launch("simt", x, eye, b, prev, 1.0, None)
+    assert torch.equal(gemv, simt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.5, 0.0])
+@pytest.mark.parametrize("m", [1, 4, 8, 17, 64])
+def test_linear_blend_gemv_blends_and_takes_row_groups(cuda_device, gamma,
+                                                       m):
+    """Named, the gemv route takes any M in row groups of 4 (the crossover
+    measurement's M up to 64) and blends with prev: within 2e-2 of the
+    plain version, a repeat bitwise."""
+    args = _blend_args(cuda_device, BF16, m, 1152, 1000, seed=m)
+    copy = args[1].to(BF16)
+    got = lb_mod._launch("gemv", *args, gamma, copy)
+    torch.testing.assert_close(got.float(),
+                               ref.linear_blend(*args, gamma).float(),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(got, lb_mod._launch("gemv", *args, gamma, copy))
+
+
+@pytest.mark.cuda
+def test_linear_blend_gemv_replays_bitwise_in_a_cuda_graph(cuda_device):
+    """Captured (the decode gate runs in the gated decode step's graph):
+    each replay gives the eager call's bits, also after X is rewritten in
+    place, and leaves the tickets at 0."""
+    x, w, b, prev = _blend_args(cuda_device, BF16, 4, 1024, 1024)
+    copy = w.to(BF16)
+    linear_blend(x, w, b, prev, gamma=1.0, w_bf16=copy)
+    torch.cuda.synchronize(cuda_device)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = linear_blend(x, w, b, prev, gamma=1.0, w_bf16=copy)
+    for scale in (1.0, 0.5, 2.0):
+        x.mul_(scale)
+        g.replay()
+        torch.cuda.synchronize(cuda_device)
+        eager = linear_blend(x, w, b, prev, gamma=1.0, w_bf16=copy)
+        assert torch.equal(captured, eager), scale
+    assert lb_mod.gemv_tickets(4) == [0] * 4
+
+
+@pytest.mark.cuda
+def test_linear_blend_gemv_wrapper_picks_and_refuses(cuda_device):
+    """M = GEMV_MAX_ROWS takes gemv, one row more wgmma; a split copy at M
+    = 4 stays on wgmma_split; f32 and ragged bf16 go to SIMT; without a
+    copy, with a split copy named gemv, or named on a shape the route does
+    not take, gemv raises."""
+    from repro_torch.cuda_kernels import route
+    lim = route.GEMV_MAX_ROWS
+    _, by_route = _counts(linear_blend)
+    for m, which in ((lim, "gemv"), (lim + 1, "wgmma")):
+        x, w, b, prev = _blend_args(cuda_device, BF16, m, 1024, 1024)
+        linear_blend(x, w, b, prev, gamma=1.0, w_bf16=w.to(BF16))
+        by_route[which] += 1
+    x, w, b, prev = _blend_args(cuda_device, BF16, 4, 1024, 1024)
+    linear_blend(x, w, b, prev, gamma=1.0, w_bf16=_split(w))
+    by_route["wgmma_split"] += 1
+    linear_blend(x.float(), w, b, prev.float(), gamma=1.0)
+    ragged = _blend_args(cuda_device, BF16, 4, 257, 129)
+    linear_blend(*ragged, gamma=1.0, w_bf16=ragged[1].to(BF16))
+    by_route["simt"] += 2
+    torch.cuda.synchronize(cuda_device)
+    assert linear_blend.launches_by_route == by_route
+    with pytest.raises(ValueError, match="w_bf16"):
+        linear_blend(x, w, b, prev, gamma=1.0)
+    with pytest.raises(ValueError, match="w_bf16"):
+        linear_blend(x, w, b, prev, gamma=1.0, w_bf16=_split(w),
+                     gemm="gemv")
+    with pytest.raises(ValueError, match="gemv route does not take"):
+        lb_mod._launch("gemv", *ragged, 1.0, ragged[1].to(BF16))
 
 
 @pytest.mark.cuda
@@ -2217,6 +2335,99 @@ def test_cond_node_condition_matches_plain(cuda_device, mask, when_all):
         assert float(flag) == float(want), (mask, when_all, flip)
     with pytest.raises(RuntimeError, match="capture"):
         cond_node.if_all(m, lambda: None, when_all=when_all)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [[True] * 8, [True] * 7 + [False],
+                                  [False] * 8, [False] * 300])
+def test_cond_node_two_sides_one_kernel(cuda_device, mask):
+    """A two-sided branch (the decode gate's): one condition kernel sets
+    both IF nodes' conditions; at each replay exactly the side the plain
+    condition picks runs, for the mask the graph reads then.  Counted: 1
+    condition kernel, 2 IF nodes."""
+    from repro_torch.cuda_kernels import cond_node
+    cond_node.prepare(cuda_device)
+    m = torch.tensor(mask, device=cuda_device)
+    flags = torch.zeros(2, device=cuda_device)
+    launches, nodes = cond_node.if_all.launches, cond_node.if_all.nodes
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        cond_node.if_all_sides(m, [(lambda: flags[0].add_(1.0), True),
+                                   (lambda: flags[1].add_(1.0), False)])
+    assert cond_node.if_all.launches == launches + 1
+    assert cond_node.if_all.nodes == nodes + 2
+    for flip in (False, True, False):
+        if flip:
+            m.logical_not_()
+        flags.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        every = bool(ref.if_all(m, True))
+        assert flags.tolist() == [float(every), float(not every)], flip
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wgmma", "wgmma_split", "simt"])
+@pytest.mark.parametrize("pattern", ["all", "one", "none"])
+def test_fused_gate_sets_the_skip_condition(cuda_device, which, pattern):
+    """A graph of B1 then an IF node on the handle B1 sets: at each replay
+    the body runs exactly when the plain !all(gate) says, for all, one and
+    no samples gating, on every route, and B1's gate bits are the eager
+    call's.  The node costs no condition kernel."""
+    from repro_torch.cuda_kernels import cond_node
+    cond_node.prepare(cuda_device)
+    args, thr, gates = _gate_pattern(cuda_device, 128, pattern)
+    copy = {"wgmma": args[3].to(BF16), "wgmma_split": _split(args[3]),
+            "simt": None}[which]
+    eager = fg_mod._launch(which, *args, thr, 0.5, True, copy)
+    torch.cuda.synchronize(cuda_device)
+    flag = torch.zeros((), device=cuda_device)
+    launches, nodes = cond_node.if_all.launches, cond_node.if_all.nodes
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        handle = cond_node.condition(cuda_device)
+        got = fg_mod._launch(which, *args, thr, 0.5, True, copy, handle)
+        cond_node.if_set(handle, lambda: flag.add_(1.0), cuda_device)
+    assert cond_node.if_all.launches == launches
+    assert cond_node.if_all.nodes == nodes + 1
+    for _ in range(2):
+        flag.zero_()
+        g.replay()
+        torch.cuda.synchronize(cuda_device)
+        assert got[1].tolist() == gates
+        assert torch.equal(got[1], eager[1]) and torch.equal(got[0], eager[0])
+        assert float(flag) == float(not all(gates)), (which, pattern)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fastcache", "decode"])
+def test_step_graph_counts_condition_kernels_apart(cuda_device, kind):
+    """Each replay adds what its capture recorded: a warm fastcache step L
+    IF nodes and no condition kernel (B1 sets them), a gated decode step
+    2L IF nodes and L condition kernels (one a two-sided branch)."""
+    from repro_torch.cuda_kernels.cond_node import if_all
+    if kind == "fastcache":
+        from repro_torch.launch.serve_diffusion import Workload
+        wl = Workload(reduced=True, slots=3, steps=10)
+        model = wl.build_model(cuda_device)
+        before = (if_all.launches, if_all.nodes)
+        runner, eng = wl.build_engine(model)
+        eng.run(wl.build_trace(model))
+        replays, layers = runner.graphs.replays, runner.L
+        want = (0, layers * replays)
+    else:
+        from repro_torch.launch.serve import LLMWorkload
+        wl = LLMWorkload(reduced=True, requests=3, prompt_len=24,
+                         new_tokens=10, max_batch=2, window=64,
+                         fastcache=True)
+        model = wl.build_model(cuda_device)
+        before = (if_all.launches, if_all.nodes)
+        eng = wl.build_engine(model)
+        eng.run(wl.build_requests(model))
+        replays, layers = eng.graphs.replays, model.cfg.num_layers
+        want = (layers * replays, 2 * layers * replays)
+    assert replays > 0
+    assert (if_all.launches - before[0], if_all.nodes - before[1]) == want
 
 
 def _dit_graph_serve(wl, model, step_graph, sync_steps=()):

@@ -199,9 +199,12 @@ def test_is_split_reads_the_row_count(d):
 
 
 def test_routes_and_counters_name_the_split_route():
+    """Both wrappers count the split route; linear_blend also the gemv
+    route, which fused_gate does not take."""
     assert route.ROUTES == ("wgmma", "wgmma_split", "simt")
-    for fn in (fused_gate, linear_blend):
-        assert set(fn.launches_by_route) == set(route.ROUTES)
+    assert route.BLEND_ROUTES == route.ROUTES + ("gemv",)
+    assert set(fused_gate.launches_by_route) == set(route.ROUTES)
+    assert set(linear_blend.launches_by_route) == set(route.BLEND_ROUTES)
 
 
 @pytest.mark.parametrize("bad", ["missing", "float32", "unpadded", "single",

@@ -234,7 +234,7 @@ def test_inplace_steps_match_reference_on_the_same_state(smoke, policy):
 def _forced(seen):
     """A ``step_graph.branch`` that records whether every sample cached and
     always takes the compute side."""
-    def force(every, compute, skip=None, known=None):
+    def force(every, compute, skip=None, known=None, cond=None):
         seen.append(bool(every.all()))
         compute()
         return 0
@@ -244,9 +244,9 @@ def _forced(seen):
 def _recording(seen):
     real = step_graph.branch
 
-    def rec(every, compute, skip=None, known=None):
+    def rec(every, compute, skip=None, known=None, cond=None):
         seen.append(bool(every.all()))
-        return real(every, compute, skip, known)
+        return real(every, compute, skip, known, cond=cond)
     return rec
 
 
